@@ -4,18 +4,27 @@
 #
 #   1. card and setup: the card's name and power limit, TF32 off, the CUDA
 #      kernels built from csrc/*.cu with nvcc;
-#   2. every kernel against its plain PyTorch version on the card, at the
-#      main path's tile (32768 x 3000 rows against k = 1000 centers) and at
+#   2. every kernel against its plain PyTorch version on the card, at its
+#      main path's tile (KMeans: 32768 x 3000 rows against k = 1000 centers;
+#      kNN: 4096 queries against a 16,384-item block, d = 3000) and at
 #      ragged shapes, in every variant (f32, f32 fast, f64): integer-valued
 #      data must agree exactly (ties included), Gaussian data to the stated
 #      tolerances, and the accumulation must be bitwise deterministic; then
 #      each kernel timed against its plain version and one PyTorch call;
-#   3. the main path at full width: KMeans(k=1000) fit on 1,000,000 x 3,000
-#      float32 rows through the public API, transform of every row, save and
-#      load, and a fit with the default k-means|| seeding, with the launch
-#      counters showing that both kernels ran; plus the whole path on a small
-#      input held against the plain PyTorch path on the CPU;
-#   4. a {"kernels": [...]} line, the nvidia-smi line, and as the last line
+#   3. the KMeans path at full width: KMeans(k=1000) fit on 1,000,000 x
+#      3,000 float32 rows through the public API, transform of every row,
+#      save and load, and a fit with the default k-means|| seeding, with the
+#      launch counters showing that both of its kernels ran; plus the whole
+#      path on a small input held against the plain PyTorch path on the CPU;
+#   4. the exact kNN path at full width: NearestNeighbors(k=64) fit on the
+#      same 1,000,000 rows and kneighbors of the first 4096 of them through
+#      the public API, with the launch counter showing that every item block
+#      went through the d2-block kernel; the first neighbor of every query is
+#      itself; the kernel route against the plain route on the same resident
+#      rows; an integer-data run with duplicated rows across an item-block
+#      boundary that must agree exactly (lower index first); and
+#      exactNearestNeighborsJoin;
+#   5. a {"kernels": [...]} line, the nvidia-smi line, and as the last line
 #      {"ok": true, "device": {...}}.
 #
 # Every phase raises on failure; the script prints no result then. It needs
@@ -49,6 +58,8 @@ PEAK_FLOPS = {"f32": 67e12, "f32-fast": 989e12, "f64": 67e12}
 # the main path's shapes (BASELINE.md protocol: 1M x 3k float32, k = 1000)
 N_ROWS, N_COLS, K = 1_000_000, 3000, 1000
 TILE_ROWS = 32768  # KMeans max_samples_per_batch: one Lloyd tile
+# the exact kNN lane of bench.py: 4096 queries against the same rows, k = 64
+KNN_QUERIES, KNN_K = 4096, 64
 
 _log_lines = []
 
@@ -247,6 +258,95 @@ def time_kernels(variant, dev, errs):
     return out
 
 
+def _d2_inputs(B, kt, d, dtype, integer, seed, dev):
+    import torch
+
+    rng = np.random.default_rng(seed)
+    if integer:  # every dot product and norm is exact in f32 and f64
+        q = rng.integers(-4, 5, size=(B, d)).astype(dtype)
+        xt = rng.integers(-4, 5, size=(kt, d)).astype(dtype)
+    else:
+        q = rng.standard_normal(size=(B, d), dtype=np.float64).astype(dtype)
+        xt = rng.standard_normal(size=(kt, d), dtype=np.float64).astype(dtype)
+    return torch.from_numpy(q).to(dev), torch.from_numpy(xt).to(dev)
+
+
+def check_d2_block(B, kt, d, dtype, integer, seed, dev):
+    """d2_block against d2_block_plain at one shape; returns max |err|."""
+    import torch
+
+    from spark_rapids_ml_tpu_torch.ops import _kernels
+    from spark_rapids_ml_tpu_torch.ops import distance as D
+
+    q, xt = _d2_inputs(B, kt, d, dtype, integer, seed, dev)
+    xt_sq = D.row_sq(xt)
+    out = _kernels.d2_block(q, xt, xt_sq)
+    torch.cuda.synchronize()
+    ref = D.d2_block_plain(q, xt, xt_sq)
+    tag = f"d2_block {B}x{kt}x{d} {np.dtype(dtype).name} {'integer' if integer else 'gaussian'}"
+    if out.shape != ref.shape or out.dtype != ref.dtype:
+        fail(f"{tag}: output {tuple(out.shape)} {out.dtype}, plain {tuple(ref.shape)} {ref.dtype}")
+    err = (out - ref).abs().max().item()
+    if integer and not torch.equal(out, ref):
+        fail(f"{tag}: differs on integer data (max {err})")
+    scale = ref.abs().max().item()
+    if err > 1e-5 * scale:  # dot products summed in another order
+        fail(f"{tag}: max |err| {err} > 1e-5 x {scale}")
+    say(f"  ok {tag}: max|err| {err:.3g} (scale {scale:.4g})")
+    return err
+
+
+def time_d2_block(variant, dev, err):
+    """d2_block, its plain version, one torch.addmm computing the same block
+    (the library call) and the bare torch.matmul product, at the kNN tile."""
+    import torch
+
+    from spark_rapids_ml_tpu_torch.ops import _kernels
+    from spark_rapids_ml_tpu_torch.ops import distance as D
+
+    dtype = np.float64 if variant == "f64" else np.float32
+    B, kt, d = KNN_QUERIES, D._DEFAULT_K_TILE, N_COLS
+    q, xt = _d2_inputs(B, kt, d, dtype, False, 9, dev)
+    xt_sq = D.row_sq(xt)
+    s = q.element_size()
+    bnd, by = bound_ms((B * d + kt * d + kt + B * kt) * s, 2.0 * B * kt * d, variant)
+    e = {
+        "name": f"d2_block/{variant}",
+        "route": "cuda",
+        "source": "spark_rapids_ml_tpu_torch/csrc/d2_block.cu",
+        "replaces": "spark_rapids_ml_tpu/ops/distance.py:366",
+        "max_abs_err": err,
+        "ms": cuda_ms(lambda: _kernels.d2_block(q, xt, xt_sq)),
+        "plain_ms": cuda_ms(lambda: D.d2_block_plain(q, xt, xt_sq)),
+        "bound_ms": bnd, "bound_by": by,
+        "library_ms": cuda_ms(lambda: torch.addmm(xt_sq[None, :], q, xt.T, alpha=-2.0)),
+        "matmul_ms": cuda_ms(lambda: torch.matmul(q, xt.T)),
+    }
+    say(f"  {e['name']}: {e['ms']:.3f} ms ({2.0 * B * kt * d / e['ms'] / 1e9:.1f} TFLOP/s; plain "
+        f"{e['plain_ms']:.3f}, torch.addmm {e['library_ms']:.3f}, torch.matmul {e['matmul_ms']:.3f}, "
+        f"bound {e['bound_ms']:.3f} by {e['bound_by']})")
+    return e
+
+
+def phase_d2_block(dev):
+    from spark_rapids_ml_tpu_torch.ops import distance as D
+
+    say("phase 2: d2_block against its plain version on the card")
+    errs = {}
+    kt = D._DEFAULT_K_TILE
+    for variant in ("f32", "f64"):
+        dtype = np.float64 if variant == "f64" else np.float32
+        # the kNN tile, a ragged one (B and kt not multiples of 64), tiny ones
+        for (B, kt_, d) in ((KNN_QUERIES, kt, N_COLS), (KNN_QUERIES - 1, kt - 1, N_COLS),
+                            (37, 5, 3), (1, 1, 1), (65, 63, 17), (200, 1000, 77)):
+            check_d2_block(B, kt_, d, dtype, True, B + kt_ + d, dev)
+            e = check_d2_block(B, kt_, d, dtype, False, B + kt_ + d, dev)
+            if (B, kt_) == (KNN_QUERIES, kt):
+                errs[variant] = e
+    say("phase 2: d2_block timing at the kNN tile (CUDA events, mean of 5 after a warm-up)")
+    return [time_d2_block(variant, dev, errs[variant]) for variant in ("f32", "f64")]
+
+
 def phase_kernels(dev):
     say("phase 2: kernels against their plain versions on the card")
     errs = {}
@@ -328,18 +428,15 @@ def _small_path_reference():
         f"inertia {mg.inertia_} vs {mc.inertia_}")
 
 
-def phase_main_path(dev):
+def phase_main_path(dev, X):
     import torch
 
     from spark_rapids_ml_tpu_torch import KMeans, KMeansModel
     from spark_rapids_ml_tpu_torch.ops import _kernels
     from spark_rapids_ml_tpu_torch.ops import distance as D
 
-    say("phase 3: the main path")
+    say("phase 3: the KMeans path")
     _small_path_reference()
-    t0 = time.perf_counter()
-    X = _protocol_rows()
-    say(f"  data {X.shape} float32 made in {time.perf_counter() - t0:.1f} s")
     data = {"features": X}
     counts = {}
     timings = {}
@@ -491,6 +588,154 @@ def phase_main_path(dev):
     return counts, timings
 
 
+# ------------------------------------------------------------ phase 4 ----
+
+
+def _knn_routes(items, valid, queries, k):
+    """exact_knn on resident tensors through the kernel and through the plain
+    d2-block version (the same merge fed by d2_block_plain), in turns
+    kernel, plain, plain, kernel; returns ({route: (dist, idx)}, {route:
+    [seconds]})."""
+    import torch
+
+    from spark_rapids_ml_tpu_torch.ops import distance as D
+    from spark_rapids_ml_tpu_torch.ops.knn import exact_knn
+
+    kernel_block = D.d2_block
+    results, secs = {}, {"kernel": [], "plain": []}
+    for route in ("kernel", "plain", "plain", "kernel"):
+        D.d2_block = kernel_block if route == "kernel" else D.d2_block_plain
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            results[route] = exact_knn(items, valid, queries, k=k)
+            secs[route].append(time.perf_counter() - t0)
+        finally:
+            D.d2_block = kernel_block
+    return results, secs
+
+
+def phase_knn(dev, X, d2_ms):
+    import torch
+
+    from spark_rapids_ml_tpu_torch import NearestNeighbors
+    from spark_rapids_ml_tpu_torch.ops import _kernels
+    from spark_rapids_ml_tpu_torch.ops import distance as D
+    from spark_rapids_ml_tpu_torch.parallel import place_rows
+
+    say(f"phase 4: exact kNN, {KNN_QUERIES} queries x {N_ROWS} x {N_COLS} float32, k = {KNN_K}")
+    kt = D._DEFAULT_K_TILE
+    blocks = -(-N_ROWS // kt)
+    expected = blocks * -(-KNN_QUERIES // D.tile_rows())
+    timings = {}
+
+    _kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = NearestNeighbors(k=KNN_K).setInputCol("features").fit({"features": X})
+    timings["knn_fit_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _, _, knn_df = model.kneighbors({"features": X[:KNN_QUERIES]})
+    timings["kneighbors_s"] = time.perf_counter() - t0
+    counts = dict(_kernels.launches)  # read just after the path
+    say("  launches in kneighbors: " + ", ".join(f"{k_}={v}" for k_, v in counts.items() if v))
+    if counts["d2_block/f32"] != expected:
+        fail(f"kneighbors: d2_block/f32 launched {counts['d2_block/f32']} times, expected "
+             f"{expected} ({blocks} item blocks of {kt} x 1 query tile): a block took another route")
+    if any(v for k_, v in counts.items() if k_ != "d2_block/f32"):
+        fail(f"kneighbors: other kernels launched: {counts}")
+    say(f"  fit {timings['knn_fit_s']:.2f} s (binds the item frame); kneighbors "
+        f"{timings['kneighbors_s']:.2f} s wall through the API (placement of the items included)")
+
+    idx = np.stack(knn_df["indices"].to_numpy())
+    dist = np.stack(knn_df["distances"].to_numpy())
+    if idx.shape != (KNN_QUERIES, KNN_K) or dist.shape != (KNN_QUERIES, KNN_K) or dist.dtype != np.float64:
+        fail(f"kneighbors: indices {idx.shape}, distances {dist.shape} {dist.dtype}")
+    if not np.isfinite(dist).all() or (np.diff(dist, axis=1) < 0).any():
+        fail("kneighbors: distances not finite or not ascending")
+    if not np.array_equal(knn_df["query_id"].to_numpy(), np.arange(KNN_QUERIES)):
+        fail("kneighbors: query ids are not the row numbers")
+    if not np.array_equal(idx[:, 0], np.arange(KNN_QUERIES)):
+        fail(f"kneighbors: {int((idx[:, 0] != np.arange(KNN_QUERIES)).sum())} queries do not find themselves first")
+    # ||q||^2 - 2 q.q + ||q||^2 in float32 is 0 up to ulps of ||q||^2
+    q_sq = np.sum(X[:KNN_QUERIES].astype(np.float64) ** 2, axis=1)
+    if (dist[:, 0] > np.sqrt(1e-5 * q_sq)).any():
+        fail(f"kneighbors: a self-distance exceeds sqrt(1e-5 ||q||^2): max {dist[:, 0].max()}")
+    say(f"  every query finds itself first (self-distance max {dist[:, 0].max():.4g}, "
+        f"||q|| about {np.sqrt(q_sq.mean()):.4g}); nearest other row at {dist[:, 1].min():.4g}")
+
+    # the kernel route against the plain route, on the same resident rows
+    Xd, wd = place_rows(X, device=dev)
+    Q = Xd[:KNN_QUERIES]
+    valid = wd > 0
+    res, secs = _knn_routes(Xd, valid, Q, KNN_K)
+    (dk, ik), (dp, ip) = res["kernel"], res["plain"]
+    d2k, d2p = dk.astype(np.float64) ** 2, dp.astype(np.float64) ** 2
+    tol = 1e-5 * d2p.max()
+    err = np.abs(d2k - d2p).max()
+    if err > tol:
+        fail(f"exact_knn: kernel and plain squared distances differ by {err} > 1e-5 x {d2p.max()}")
+    swapped = np.argwhere(ik != ip)
+    if len(swapped):
+        # a swapped entry must be a near-tie: the kernel's item lies within
+        # the tolerance of the plain route's distance at that position
+        r, j = swapped[:, 0], swapped[:, 1]
+        qd = Q[torch.from_numpy(r).to(dev)].double()
+        xd = Xd[torch.from_numpy(ik[r, j].astype(np.int64)).to(dev)].double()
+        exact = ((qd - xd) ** 2).sum(1).cpu().numpy()
+        if (np.abs(exact - d2p[r, j]) > tol).any():
+            fail(f"exact_knn: {int((np.abs(exact - d2p[r, j]) > tol).sum())} index swaps are not near-ties")
+    timings["exact_knn_kernel_s"] = secs["kernel"]
+    timings["exact_knn_plain_s"] = secs["plain"]
+    say(f"  kernel route vs plain route: squared distances within {err:.4g} (tol {tol:.4g}); "
+        f"{len(swapped)} of {ik.size} index positions differ, all near-ties")
+    say(f"  exact_knn on resident items: kernel route {', '.join(f'{t:.3f}' for t in secs['kernel'])} s; "
+        f"plain route {', '.join(f'{t:.3f}' for t in secs['plain'])} s")
+
+    # the merge's share: one merge timed alone at the kNN tile, and the
+    # kernel route's time less its blocks at the phase-2 kernel time
+    item_sq = D.row_sq(Xd)
+    block = D.d2_block(Q, Xd[:kt], item_sq[:kt])
+    best_d2 = torch.full((KNN_QUERIES, KNN_K), float("inf"), device=dev)
+    best_i = torch.zeros((KNN_QUERIES, KNN_K), dtype=torch.int32, device=dev)
+    merge_ms = cuda_ms(lambda: D._merge(best_d2, best_i, block, 0, KNN_K))
+    knn_s = min(secs["kernel"])
+    timings["merge_ms"] = merge_ms
+    timings["merge_share_timed"] = blocks * merge_ms / 1e3 / knn_s
+    timings["merge_share_by_difference"] = (knn_s - blocks * d2_ms / 1e3) / knn_s
+    say(f"  one merge at the kNN tile: {merge_ms:.3f} ms; merges {timings['merge_share_timed']:.1%} of "
+        f"exact_knn ({blocks} x {merge_ms:.3f} ms), everything but d2_block "
+        f"{timings['merge_share_by_difference']:.1%} ({blocks} x {d2_ms:.3f} ms of kernel)")
+    del Xd, wd, Q, valid, item_sq, block
+
+    # integer rows: exact in every sum, so the two routes must agree exactly;
+    # rows repeated across item-block boundaries pin lower-index-first
+    n_int = 8 * kt
+    gen = torch.Generator(device=dev).manual_seed(31)
+    items = torch.randint(-4, 5, (n_int, N_COLS), generator=gen, device=dev, dtype=torch.float32)
+    for b in (kt, 4 * kt):
+        items[b:b + 64] = items[b - 64:b]
+    lo = kt - KNN_QUERIES // 2
+    queries = items[lo:lo + KNN_QUERIES]
+    res, _ = _knn_routes(items, None, queries, KNN_K)
+    (dk, ik), (dp, ip) = res["kernel"], res["plain"]
+    if not (np.array_equal(ik, ip) and np.array_equal(dk, dp)):
+        fail(f"integer kNN: kernel and plain routes differ at {int((ik != ip).sum())} indices")
+    orig = np.arange(kt - 64, kt)
+    for rows in (orig - lo, orig + 64 - lo):  # the originals and their copies as queries
+        if not (np.array_equal(ik[rows, 0], orig) and np.array_equal(ik[rows, 1], orig + 64)):
+            fail("integer kNN: a repeated row does not come lower index first across the block boundary")
+    say(f"  integer data, {KNN_QUERIES} x {n_int} x {N_COLS}, rows repeated across item blocks: kernel and "
+        f"plain routes equal exactly; each repeated row ranks (lower copy, upper copy) first")
+    del items, queries
+
+    joined = model.exactNearestNeighborsJoin({"features": X[:5]})
+    if len(joined) != 5 * KNN_K or "distCol" not in joined.columns:
+        fail(f"exactNearestNeighborsJoin: {len(joined)} rows, columns {list(joined.columns)}")
+    say(f"  exactNearestNeighborsJoin of 5 queries: {len(joined)} rows, columns {list(joined.columns)}")
+    return counts, timings
+
+
 # ------------------------------------------------------------------ main --
 
 
@@ -508,15 +753,25 @@ def main():
     t_start = time.perf_counter()
     smi = phase_setup()
     entries = phase_kernels(dev)
-    counts, timings = phase_main_path(dev)
+    d2_entries = phase_d2_block(dev)
+    t0 = time.perf_counter()
+    X = _protocol_rows()
+    say(f"data {X.shape} float32 made in {time.perf_counter() - t0:.1f} s")
+    counts, timings = phase_main_path(dev, X)
+    knn_counts, knn_timings = phase_knn(dev, X, d2_entries[0]["ms"])
     for e in entries:
         e["launches"] = counts["main_path"][e["name"]]
         e["launches_by_run"] = {
             run: c[e["name"]] for run, c in counts.items() if run != "main_path"
         }
-    # the kernels line lists the variants the main path runs (float32 inputs:
+    for e in d2_entries:
+        e["launches"] = knn_counts[e["name"]]
+        e["launches_by_run"] = {"kneighbors": knn_counts[e["name"]]}
+    entries += d2_entries
+    # the kernels line lists the variants the main paths run (float32 inputs:
     # f32 and f32-fast); the f64 variants were checked and timed above
-    say("main path timings: " + json.dumps(timings))
+    say("KMeans path timings: " + json.dumps(timings))
+    say("kNN path timings: " + json.dumps(knn_timings))
     say("f64 variants (not on the float32 main path): " + json.dumps(
         [e for e in entries if e["name"].endswith("/f64")]))
     kernels_line = json.dumps({"kernels": [e for e in entries if not e["name"].endswith("/f64")]})

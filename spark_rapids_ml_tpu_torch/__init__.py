@@ -4,12 +4,16 @@
 #
 # Same PySpark-ML-style API: KMeans().setFeaturesCol("features").fit(data),
 # model.transform(data), model.write().overwrite().save(path),
-# KMeansModel.load(path). Entry points run on the CUDA card; call
+# KMeansModel.load(path); NearestNeighbors(k=...).setInputCol("features")
+# .fit(items).kneighbors(queries). Entry points run on the CUDA card; call
 # set_devices("cpu") to run the plain PyTorch versions on the CPU instead.
 # This package imports neither jax nor anything of spark_rapids_ml_tpu.
 #
 from .linalg import Vectors
 from .models.clustering import KMeans, KMeansModel
+from .models.knn import NearestNeighbors, NearestNeighborsModel
 from .parallel import set_devices
 
-__all__ = ["KMeans", "KMeansModel", "Vectors", "set_devices"]
+__all__ = [
+    "KMeans", "KMeansModel", "NearestNeighbors", "NearestNeighborsModel", "Vectors", "set_devices",
+]

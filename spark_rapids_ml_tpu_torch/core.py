@@ -19,6 +19,7 @@ import json
 import os
 import shutil
 from abc import abstractmethod
+from collections import namedtuple
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
@@ -59,6 +60,11 @@ def resolve_solver_precision(params: Optional[Dict[str, Any]] = None) -> str:
     return value
 
 
+# Internal column aliases (reference core.py:333): `row_number` names the id
+# column kNN adds when the caller set no idCol.
+alias = namedtuple("alias", ("row_number",))("unique_id")
+
+
 @dataclass
 class FitInputs:
     """Device-resident inputs handed to every algorithm's fit function: the
@@ -82,7 +88,8 @@ class _TpuCommon(_TpuParams):
     (transform side)."""
 
     def _pre_process_data(self, dataset: Any, for_fit: bool = True) -> ExtractedData:
-        """Column selection + dense extraction."""
+        """Column selection + dense extraction (features, weights on the fit
+        side, row ids wherever the estimator has an idCol)."""
         input_col, input_cols = self._get_input_columns()
         weight_col = None
         if (
@@ -91,11 +98,15 @@ class _TpuCommon(_TpuParams):
             and self.isDefined("weightCol")
         ):
             weight_col = self.getOrDefault("weightCol")
+        id_col = None
+        if self.hasParam("idCol") and self.isDefined("idCol"):
+            id_col = self.getOrDefault("idCol")
         extracted = extract_dataset(
             dataset,
             input_col=input_col,
             input_cols=input_cols,
             weight_col=weight_col,
+            id_col=id_col,
             float32_inputs=self._float32_inputs,
         )
         if for_fit and extracted.n_rows == 0:

@@ -18,10 +18,11 @@
 //     minimum from step to step; Hopper runs blocks in no order, so the
 //     loop over center tiles moves inside the block and the running
 //     (min, index) lives in registers.
-//   * Each center tile is a BM x BN register-tiled product: BK-deep chunks of
-//     x and c are staged in shared memory (transposed, padded against bank
-//     conflicts) and every thread accumulates a TM x TN tile of dot products
-//     over the whole depth d, then forms c_sq[j] - 2*dot.
+//   * Each center tile is a BM x BN register-tiled product (tile_dot.cuh,
+//     shared with d2_block.cu): BK-deep chunks of x and c are staged in
+//     shared memory (transposed, padded against bank conflicts) and every
+//     thread accumulates a TM x TN tile of dot products over the whole
+//     depth d, then forms c_sq[j] - 2*dot.
 //   * Ragged rows, centers beyond k and a depth that is not a multiple of BK
 //     are masked here; the caller pads nothing.
 //   * Ties: inside a thread the centers are scanned in ascending order with a
@@ -37,35 +38,16 @@
 // C interface, bound with ctypes (spark_rapids_ml_tpu_torch/ops/_kernels.py):
 // each function launches on `stream` and returns cudaGetLastError().
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <climits>
 #include <cmath>
 
+#include "tile_dot.cuh"
+
 namespace {
 
-constexpr int BM = 64;                  // rows per block
-constexpr int BN = 64;                  // centers per tile
-constexpr int BK = 16;                  // depth of one shared-memory chunk
-constexpr int TM = 4;                   // rows per thread
-constexpr int TN = 4;                   // centers per thread
-constexpr int LANES_N = BN / TN;        // 16 threads across the centers
-constexpr int LANES_M = BM / TM;        // 16 threads across the rows
-constexpr int THREADS = LANES_N * LANES_M;
-constexpr int LOADS = (BM * BK) / THREADS;  // elements of each tile a thread stages
-
-static_assert(BM == BN, "the loader stages x and c tiles with one index map");
-static_assert((BM * BK) % THREADS == 0, "tile loads must divide evenly");
-
-template <typename T, bool FAST>
-__device__ __forceinline__ T load_elem(const T* p) {
-  if constexpr (FAST) {
-    return __bfloat162float(__float2bfloat16_rn(*p));
-  } else {
-    return *p;
-  }
-}
+using namespace srml;
 
 // Whether candidate (v, j) replaces the current (bv, bj): the smaller value,
 // NaN before any number, and the lower index on equal values.
@@ -103,43 +85,7 @@ assign_argmin_kernel(const T* __restrict__ x, const T* __restrict__ c,
 
   for (int n0 = 0; n0 < k; n0 += BN) {
     T acc[TM][TN];
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int jj = 0; jj < TN; ++jj) acc[i][jj] = T(0);
-
-    for (int k0 = 0; k0 < d; k0 += BK) {
-#pragma unroll
-      for (int l = 0; l < LOADS; ++l) {
-        const int e = tid + THREADS * l;
-        const int r = e / BK;
-        const int col = e % BK;
-        const int gc = k0 + col;
-        const int gr = m0 + r;
-        const int gn = n0 + r;
-        xs[col][r] = (gr < B && gc < d)
-                         ? load_elem<T, FAST>(x + static_cast<long long>(gr) * d + gc)
-                         : T(0);
-        cs[col][r] = (gn < k && gc < d)
-                         ? load_elem<T, FAST>(c + static_cast<long long>(gn) * d + gc)
-                         : T(0);
-      }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < BK; ++kk) {
-        T a[TM];
-        T b[TN];
-#pragma unroll
-        for (int i = 0; i < TM; ++i) a[i] = xs[kk][ty + LANES_M * i];
-#pragma unroll
-        for (int jj = 0; jj < TN; ++jj) b[jj] = cs[kk][tx + LANES_N * jj];
-#pragma unroll
-        for (int i = 0; i < TM; ++i)
-#pragma unroll
-          for (int jj = 0; jj < TN; ++jj) acc[i][jj] += a[i] * b[jj];
-      }
-      __syncthreads();
-    }
+    tile_dot<T, FAST>(x, m0, B, c, n0, k, d, xs, cs, acc);
 
     // centers of this thread in ascending order: the strict '<' in take()
     // keeps the first index on ties

@@ -30,11 +30,12 @@ _SPARSE_TODO = (
 
 @dataclass
 class ExtractedData:
-    """Columnar view of a dataset after ingest. (Labels and row ids arrive
-    with the supervised estimators that read them.)"""
+    """Columnar view of a dataset after ingest. (Labels arrive with the
+    supervised estimators that read them.)"""
 
     features: np.ndarray  # [n, d]
     weight: Optional[np.ndarray] = None  # [n], None = all ones
+    row_id: Optional[np.ndarray] = None  # [n] int64, None = no id column
 
     @property
     def n_rows(self) -> int:
@@ -107,11 +108,21 @@ def extract_dataset(
     input_col: Optional[str] = None,
     input_cols: Optional[Sequence[str]] = None,
     weight_col: Optional[str] = None,
+    id_col: Optional[str] = None,
     float32_inputs: bool = True,
 ) -> ExtractedData:
     """Extract the features (one column of row cells, several scalar
-    columns, or a dict's 2-D block) and the weights as contiguous blocks."""
+    columns, or a dict's 2-D block), the weights and the int64 row ids as
+    contiguous blocks."""
     dtype = np.float32 if float32_inputs else np.float64
+
+    def _scalar(columns, colname: Optional[str], dt) -> Optional[np.ndarray]:
+        if not colname:
+            return None
+        if colname not in columns:
+            raise ValueError(f"column {colname!r} not in dataset")
+        col = columns[colname]
+        return col.to_numpy(dtype=dt) if hasattr(col, "to_numpy") else np.asarray(col, dtype=dt)
 
     # Fast path for dict datasets whose feature entry is ALREADY a 2-D block:
     # skip the per-row object column entirely (the at-scale ingest).
@@ -120,13 +131,11 @@ def extract_dataset(
         if _is_scipy_sparse(block):
             raise NotImplementedError(_SPARSE_TODO)
         if isinstance(block, np.ndarray) and block.ndim == 2:
-
-            weight = None
-            if weight_col:
-                if weight_col not in dataset:
-                    raise ValueError(f"column {weight_col!r} not in dataset")
-                weight = np.asarray(dataset[weight_col], dtype=dtype)
-            return ExtractedData(np.ascontiguousarray(block, dtype=dtype), weight)
+            return ExtractedData(
+                np.ascontiguousarray(block, dtype=dtype),
+                weight=_scalar(dataset, weight_col, dtype),
+                row_id=_scalar(dataset, id_col, np.int64),
+            )
 
     pdf = as_pandas(dataset)
 
@@ -141,9 +150,8 @@ def extract_dataset(
         if input_col not in pdf.columns:
             raise ValueError(f"feature column {input_col!r} not in dataset")
         features = _column_to_matrix(pdf[input_col], dtype)
-    weight = None
-    if weight_col:
-        if weight_col not in pdf.columns:
-            raise ValueError(f"column {weight_col!r} not in dataset")
-        weight = pdf[weight_col].to_numpy(dtype=dtype)
-    return ExtractedData(features, weight)
+    return ExtractedData(
+        features,
+        weight=_scalar(pdf, weight_col, dtype),
+        row_id=_scalar(pdf, id_col, np.int64),
+    )

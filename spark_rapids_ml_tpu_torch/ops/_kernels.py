@@ -4,22 +4,24 @@
 #
 #   assign_argmin      csrc/assign_argmin.cu      replaces _pl_argmin
 #   assign_accumulate  csrc/assign_accumulate.cu  replaces _pl_accumulate
+#   d2_block           csrc/d2_block.cu           replaces _pl_d2_block
 #
-# (both TPU kernels live in spark_rapids_ml_tpu/ops/distance.py).
+# (the TPU kernels live in spark_rapids_ml_tpu/ops/distance.py).
 #
 # Build: on the first kernel call, each csrc/*.cu is compiled by `nvcc` for
 # sm_90a into a shared library with a plain C interface under `build/` at the
 # repository root (one nvcc per source, all started together). The library
-# name carries a hash of its source, so a rebuilt source never loads a stale
-# library. A missing nvcc or a failed build raises; nothing falls back to the
-# plain PyTorch versions (ops/distance.py).
+# name carries a hash of its source and of every header in csrc/
+# (tile_dot.cuh is shared), so an edited source or header never loads a
+# stale library. A missing nvcc or a failed build raises; nothing falls back
+# to the plain PyTorch versions (ops/distance.py).
 #
 # Wrappers take CUDA tensors only, check device, dtype, shape and
 # contiguity, allocate the outputs with torch.empty, launch on PyTorch's
 # current stream, raise when the launch reports an error, and count their
-# launches in `launches`: a plain integer per kernel and variant
-# ("assign_argmin/f32-fast", ...), so a run shows by reading them that its
-# path went through the kernels.
+# launches in `launches`: a plain integer per kernel and each variant it has
+# (VARIANTS: "assign_argmin/f32-fast", "d2_block/f64", ...), so a run shows
+# by reading them that its path went through the kernels.
 #
 from __future__ import annotations
 
@@ -36,20 +38,27 @@ import torch
 
 __all__ = [
     "launches", "reset_launches", "launch_total", "build", "assign_argmin", "assign_accumulate",
+    "d2_block",
 ]
 
 _PKG_DIR = Path(__file__).resolve().parent.parent
 _CSRC = _PKG_DIR / "csrc"
 BUILD_DIR = _PKG_DIR.parent / "build" / "kernels"
-SOURCES = ("assign_argmin", "assign_accumulate")
+SOURCES = ("assign_argmin", "assign_accumulate", "d2_block")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-VARIANTS = ("f32", "f32-fast", "f64")
+# the variants each kernel has: `fast` (bf16-rounded loads) only where the
+# TPU kernel had it on a path the port runs
+VARIANTS: Dict[str, Tuple[str, ...]] = {
+    "assign_argmin": ("f32", "f32-fast", "f64"),
+    "assign_accumulate": ("f32", "f32-fast", "f64"),
+    "d2_block": ("f32", "f64"),
+}
 
-launches: Dict[str, int] = {f"{name}/{v}": 0 for name in SOURCES for v in VARIANTS}
+launches: Dict[str, int] = {f"{name}/{v}": 0 for name in SOURCES for v in VARIANTS[name]}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _BUILD_LOCK = threading.Lock()
@@ -80,8 +89,12 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    digest = hashlib.sha1((_CSRC / f"{name}.cu").read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """The library built from csrc/<name>.cu, named by a hash of that source
+    and of every header in csrc/, the files nvcc may read for it."""
+    h = hashlib.sha1()
+    for src in [_CSRC / f"{name}.cu", *sorted(_CSRC.glob("*.cuh"))]:
+        h.update(src.name.encode() + b"\0" + src.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -91,6 +104,8 @@ def _bind(lib: ctypes.CDLL) -> None:
         ("srml_assign_argmin_f64", [p, p, p, p, p, i, i, i, p]),
         ("srml_assign_accumulate_f32", [p, p, p, p, p, p, i, i, i, p]),
         ("srml_assign_accumulate_f64", [p, p, p, p, p, p, i, i, p]),
+        ("srml_d2_block_f32", [p, p, p, p, i, i, i, p]),
+        ("srml_d2_block_f64", [p, p, p, p, i, i, i, p]),
     ):
         if hasattr(lib, fn):
             f = getattr(lib, fn)
@@ -163,7 +178,7 @@ def _raise_on(name: str, status: int) -> None:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {status}")
 
 
-def _variant(name: str, dtype: torch.dtype, fast: bool) -> str:
+def _variant(name: str, dtype: torch.dtype, fast: bool = False) -> str:
     if dtype == torch.float32:
         return "f32-fast" if fast else "f32"
     if dtype == torch.float64:
@@ -242,3 +257,31 @@ def assign_accumulate(
     _raise_on(name, status)
     launches[f"{name}/{variant}"] += 1
     return sums, counts
+
+
+def d2_block(q: torch.Tensor, xt: torch.Tensor, xt_sq: torch.Tensor) -> torch.Tensor:
+    """Kernel form of `distance.d2_block_plain`: the [B, kt] block
+    xt_sq[None, :] - 2 q.xt^T in q's dtype (no ||q||^2 term) for q [B, d],
+    xt [kt, d], xt_sq [kt]."""
+    name = "d2_block"
+    _check_cuda(name, q, xt, xt_sq)
+    variant = _variant(name, q.dtype)
+    _check(xt.dtype == q.dtype and xt_sq.dtype == q.dtype, f"{name}: q, xt and xt_sq must share a dtype")
+    _check(q.dim() == 2 and xt.dim() == 2 and xt_sq.dim() == 1, f"{name}: q [B,d], xt [kt,d], xt_sq [kt]")
+    B, d = q.shape
+    kt = xt.shape[0]
+    _check(xt.shape[1] == d and xt_sq.shape[0] == kt, f"{name}: shapes {tuple(q.shape)}, {tuple(xt.shape)}, {tuple(xt_sq.shape)} disagree")
+    _check(kt > 0 and d > 0, f"{name}: needs kt > 0 items and d > 0 features")
+    _check(max(kt, d) < 2**31, f"{name}: dimensions must fit int32")
+    _check(B <= 65535 * 64, f"{name}: at most {65535 * 64} rows per block (the grid's y extent)")
+    out = torch.empty((B, kt), dtype=q.dtype, device=q.device)
+    if B == 0:
+        return out
+    lib = _lib(name)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        fn = lib.srml_d2_block_f32 if variant == "f32" else lib.srml_d2_block_f64
+        status = fn(q.data_ptr(), xt.data_ptr(), xt_sq.data_ptr(), out.data_ptr(), B, kt, d, stream)
+    _raise_on(name, status)
+    launches[f"{name}/{variant}"] += 1
+    return out

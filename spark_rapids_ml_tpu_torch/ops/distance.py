@@ -1,8 +1,8 @@
 #
-# The tiled distance / argmin core of KMeans, in PyTorch: the public
-# functions of spark_rapids_ml_tpu/ops/distance.py that the KMeans fit,
-# transform and k-means|| seeding run, with the same contracts and the same
-# ||x||^2-free results.
+# The tiled distance core in PyTorch: the public functions of
+# spark_rapids_ml_tpu/ops/distance.py that the KMeans fit, transform and
+# k-means|| seeding run, and the running top-k of exact kNN, with the same
+# contracts and the same ||x||^2-free results.
 #
 # Each function that holds a kernel has a plain PyTorch version beside it,
 # the counterpart of the JAX package's jnp branch. Dispatch is on the
@@ -25,6 +25,13 @@ from . import _kernels
 # Outer row-tile default when config["distance_tile_rows"] is missing or
 # invalid (the config default matches this).
 _DEFAULT_TILE_ROWS = 4096
+
+# Items per distance block of the top-k merge (`topk_tile`), on the CPU and
+# the card alike, so the CPU tests run the merge the card runs: at a
+# 4096-row query tile one block is 256 MB in float32, and 1M items take 62
+# merges (the JAX package's VMEM-sized 128-item blocks would take 7,813).
+# Results do not depend on it.
+_DEFAULT_K_TILE = 16384
 
 
 def tile_rows() -> int:
@@ -189,3 +196,98 @@ def min_d2_update(x: torch.Tensor, cand: torch.Tensor, min_d2: torch.Tensor) -> 
     seeding round's incremental matmul (one tile, running min)."""
     d2 = pairwise_d2(x, cand)
     return torch.minimum(min_d2, torch.clamp_min(torch.min(d2, dim=1).values, 0.0))
+
+
+# ----------------------------------------------------------- top-k (kNN) ----
+
+
+def d2_block_plain(q: torch.Tensor, xt: torch.Tensor, xt_sq: torch.Tensor) -> torch.Tensor:
+    """Plain version of the d2-block kernel: the [B, kt] block
+    xt_sq - 2 q.xt^T WITHOUT the ||q||^2 term, in the inputs' dtype."""
+    return xt_sq[None, :] - 2.0 * (q @ xt.T)
+
+
+def d2_block(q: torch.Tensor, xt: torch.Tensor, xt_sq: torch.Tensor) -> torch.Tensor:
+    """One [B, kt] distance block of the top-k merge (no ||q||^2 term)."""
+    if _on_kernel_device("d2_block", q, xt, xt_sq):
+        return _kernels.d2_block(q, xt, xt_sq)
+    return d2_block_plain(q, xt, xt_sq)
+
+
+def _smallest_columns(d2: torch.Tensor, kk: int) -> torch.Tensor:
+    """Columns of the kk smallest entries of each row of d2, the lower column
+    first among equal values, in ascending column order.
+
+    `torch.topk` finds the kk smallest values but may take any of the
+    entries equal to the kk-th one. The rows where it had such a choice (more
+    entries equal to its largest pick than it picked) are selected again
+    with a stable sort, so the result is the lexicographic (value, column)
+    minimum, as `jax.lax.top_k` gives."""
+    B, kt = d2.shape
+    if kk >= kt:
+        return torch.arange(kt, device=d2.device).expand(B, kt)
+    vals, cols = torch.topk(d2, kk, dim=1, largest=False, sorted=False)
+    kth = vals.amax(dim=1, keepdim=True)
+    choice = (d2 == kth).sum(dim=1) > (vals == kth).sum(dim=1)
+    rows = torch.nonzero(choice).squeeze(1)
+    if rows.numel():
+        cols[rows] = torch.sort(d2[rows], dim=1, stable=True).indices[:, :kk]
+    return torch.sort(cols, dim=1).values
+
+
+def _merge(best_d2, best_i, d2, first_id: int, kk: int):
+    """The kk smallest of the concatenation [best | block], lower position
+    first on ties, as `jax.lax.top_k` over it. Blocks are scanned in
+    ascending order, so every finite carried entry has a lower id than the
+    block's finite entries, and ties go to the lower id."""
+    cols = _smallest_columns(d2, kk)
+    cat_d = torch.cat([best_d2, d2.gather(1, cols)], dim=1)
+    cat_i = torch.cat([best_i, (cols + first_id).to(torch.int32)], dim=1)
+    order = torch.sort(cat_d, dim=1, stable=True).indices[:, :kk]
+    return cat_d.gather(1, order), cat_i.gather(1, order)
+
+
+def topk_tile(
+    q: torch.Tensor,  # [B, d] one query tile
+    items: torch.Tensor,  # [n, d]
+    valid: Optional[torch.Tensor],  # [n] bool, or None for all-valid
+    kk: int,
+    *,
+    item_sq: Optional[torch.Tensor] = None,
+    k_tile: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Running top-kk of one query tile against ALL items: (d2 [B, kk]
+    WITHOUT the ||q||^2 term, item index [B, kk] int32), ascending by
+    distance, lower index first on ties (`jax.lax.top_k`'s order).
+
+    The item axis is scanned in blocks of `k_tile` items (default
+    `_DEFAULT_K_TILE`) with the [B, kk] best list carried from block to
+    block, so the [B, n] distance matrix never exists; the last block is
+    clamped back and its overlap columns (already merged) are masked to
+    +inf, as are items with `valid` False. Each block is a view of `items`
+    and its distances come from `d2_block`."""
+    n = items.shape[0]
+    kk = min(kk, n)
+    if item_sq is None:
+        item_sq = row_sq(items)
+    kt = min(k_tile or _DEFAULT_K_TILE, n)
+    B = q.shape[0]
+    if kt >= n:  # one block: the top-kk of it alone, as the reference does
+        best_d2 = q.new_empty((B, 0))
+        best_i = torch.empty((B, 0), dtype=torch.int32, device=q.device)
+    else:
+        best_d2 = torch.full((B, kk), float("inf"), dtype=items.dtype, device=q.device)
+        best_i = torch.zeros((B, kk), dtype=torch.int32, device=q.device)
+    for start in range(0, n, kt):
+        s0 = min(start, n - kt)
+        d2 = d2_block(q, items[s0:s0 + kt], item_sq[s0:s0 + kt])
+        keep = None
+        if s0 < start:  # clamp-back overlap: already merged columns
+            keep = torch.arange(s0, s0 + kt, device=q.device) >= start
+        if valid is not None:
+            vb = valid[s0:s0 + kt]
+            keep = vb if keep is None else keep & vb
+        if keep is not None:
+            d2.masked_fill_(~keep[None, :], float("inf"))
+        best_d2, best_i = _merge(best_d2, best_i, d2, s0, kk)
+    return best_d2, best_i

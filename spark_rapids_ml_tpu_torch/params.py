@@ -1,6 +1,6 @@
 #
 # Parameter system: a Spark-ML-compatible `Param`/`Params` surface, the `Has*`
-# shared-param mixins KMeans uses, and the declarative Spark-param ->
+# shared-param mixins KMeans and NearestNeighbors use, and the declarative Spark-param ->
 # solver-kwarg mapping (`_TpuClass` / `_TpuParams`). A copy of the JAX
 # package's spark_rapids_ml_tpu/params.py, cut to what this package runs.
 # `num_workers` counts devices; this package runs on one.
@@ -15,8 +15,12 @@ __all__ = [
     "Param",
     "Params",
     "P",
+    "HasInputCol",
+    "HasInputCols",
     "HasFeaturesCol",
     "HasFeaturesCols",
+    "HasLabelCol",
+    "HasIDCol",
     "HasPredictionCol",
     "HasWeightCol",
     "HasTol",
@@ -213,7 +217,10 @@ def _mixin(name: str, doc: str, conv, default=None, has_default: bool = True):
     return cls
 
 
+HasInputCol = _mixin("inputCol", "input column name", TypeConverters.toString, has_default=False)
+HasInputCols = _mixin("inputCols", "input column names", TypeConverters.toListString, has_default=False)
 HasFeaturesCol = _mixin("featuresCol", "features column name", TypeConverters.toString, default="features")
+HasLabelCol = _mixin("labelCol", "label column name", TypeConverters.toString, default="label")
 HasPredictionCol = _mixin("predictionCol", "prediction column name", TypeConverters.toString, default="prediction")
 HasWeightCol = _mixin("weightCol", "weight column name", TypeConverters.toString, has_default=False)
 HasTol = _mixin("tol", "convergence tolerance for iterative algorithms", TypeConverters.toFloat, default=1e-6)
@@ -235,6 +242,18 @@ class HasFeaturesCols(Params):
 
     def setFeaturesCols(self: P, value: List[str]) -> P:
         return self._set_params(featuresCols=value)
+
+
+class HasIDCol(Params):
+    """Param for a row-id column used to join results back (reference params.py:90-110)."""
+
+    idCol = Param("idCol", "id column name for joining results back to input rows", TypeConverters.toString)
+
+    def getIdCol(self) -> str:
+        return self.getOrDefault("idCol")
+
+    def setIdCol(self: P, value: str) -> P:
+        return self._set_params(idCol=value)
 
 
 # ---------------------------------------------------------------------------

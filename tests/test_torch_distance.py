@@ -3,17 +3,20 @@
 # against the JAX package's (spark_rapids_ml_tpu/ops/distance.py) on the same
 # inputs, made with numpy from a seed.
 #
-# On the CPU the port runs the plain PyTorch versions of its two kernels; the
+# On the CPU the port runs the plain PyTorch versions of its kernels; the
 # JAX side runs its REAL Pallas kernels through the interpreter (the
 # `interpret_mode` fixture, as tests/test_distance.py does), with blocks of
 # (8 rows, 4 centers) so every shape below crosses a block boundary or a
-# ragged tail. The CUDA kernels themselves are held against the plain
+# ragged tail, or its jnp branch (`jnp_mode`). The top-k merge runs with
+# item blocks of 4 on both sides, so ties and masks straddle block
+# boundaries. The CUDA kernels themselves are held against the plain
 # versions by the `cuda`-marked tests at the end, which need the card.
 #
 import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from spark_rapids_ml_tpu.ops import distance as jdist
@@ -34,6 +37,15 @@ def interpret_mode():
     """The JAX package's real kernels through the Pallas interpreter."""
     saved = jdist._MODE
     jdist._MODE = "interpret"
+    yield
+    jdist._MODE = saved
+
+
+@pytest.fixture
+def jnp_mode():
+    """The JAX package's jnp branch (the bit-compatible fallback)."""
+    saved = jdist._MODE
+    jdist._MODE = "jnp"
     yield
     jdist._MODE = saved
 
@@ -184,6 +196,128 @@ def test_min_d2_update_and_pairwise_match_jax():
     )
 
 
+# ------------------------------------------------------- top-k (kNN) ----
+
+
+def _topk_reference(q, items, valid, kk):
+    """One full-matrix `jax.lax.top_k`: the tie order both merges must give."""
+    q, items = np.asarray(q), np.asarray(items)
+    d2 = np.sum(items * items, 1)[None, :] - 2.0 * (q @ items.T)
+    if valid is not None:
+        d2 = np.where(np.asarray(valid)[None, :], d2, np.inf)
+    neg_d, idx = jax.lax.top_k(jnp.asarray(-d2), kk)
+    return -np.asarray(neg_d), np.asarray(idx)
+
+
+def _dup_integer_items(seed):
+    """Integer rows (every dot product exact) whose copies tie exactly:
+    ids 6, 7, 8 repeat 0, 1, 2, across a 4-item block boundary."""
+    rng = np.random.default_rng(seed)
+    base = rng.integers(-3, 4, size=(6, 5)).astype(np.float64)
+    items = np.concatenate([base, base[:3]])
+    q = rng.integers(-3, 4, size=(4, 5)).astype(np.float64)
+    return q, items
+
+
+@pytest.mark.parametrize("mode_fixture", ["interpret_mode", "jnp_mode"])
+@pytest.mark.parametrize("n", [7, 8, 9, 20])
+def test_topk_tile_boundary_parity(request, mode_fixture, n):
+    request.getfixturevalue(mode_fixture)
+    rng = np.random.default_rng(n)
+    q, items = rng.normal(size=(5, 6)), rng.normal(size=(n, 6))
+    kk = min(4, n)
+    (jq, ji), (tq, ti) = _both(q, items)
+    jd2, jidx = jdist.topk_tile(jq, ji, None, kk, k_tile=4, block_rows=8)
+    td2, tidx = tdist.topk_tile(tq, ti, None, kk, k_tile=4)
+    rd2, ridx = _topk_reference(q, items, None, kk)
+    assert tidx.dtype == torch.int32
+    np.testing.assert_array_equal(_np(tidx), np.asarray(jidx))
+    np.testing.assert_array_equal(_np(tidx), ridx)
+    np.testing.assert_allclose(_np(td2), np.asarray(jd2), rtol=1e-9)
+    np.testing.assert_allclose(_np(td2), rd2, rtol=1e-9)
+
+
+@pytest.mark.parametrize("mode_fixture", ["interpret_mode", "jnp_mode"])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_topk_tie_ordering_matches_lax_top_k(request, mode_fixture, seed):
+    # exactly tied distances straddling a block boundary: lower index first
+    request.getfixturevalue(mode_fixture)
+    q, items = _dup_integer_items(seed)
+    (jq, ji), (tq, ti) = _both(q, items)
+    jd2, jidx = jdist.topk_tile(jq, ji, None, 6, k_tile=4, block_rows=4)
+    td2, tidx = tdist.topk_tile(tq, ti, None, 6, k_tile=4)
+    rd2, ridx = _topk_reference(q, items, None, 6)
+    np.testing.assert_array_equal(_np(td2), np.asarray(jd2))
+    np.testing.assert_array_equal(_np(tidx), np.asarray(jidx))
+    np.testing.assert_array_equal(_np(td2), rd2)
+    np.testing.assert_array_equal(_np(tidx), ridx)
+
+
+def test_topk_invalid_items_masked(interpret_mode):
+    # items with valid=False never appear among finite neighbors
+    rng = np.random.default_rng(2)
+    items, q = rng.normal(size=(9, 4)), rng.normal(size=(3, 4))
+    valid = np.array([True] * 6 + [False] * 3)
+    (jq, ji, jv), (tq, ti, tv) = _both(q, items, valid)
+    jd2, jidx = jdist.topk_tile(jq, ji, jv, 6, k_tile=4, block_rows=4)
+    td2, tidx = tdist.topk_tile(tq, ti, tv, 6, k_tile=4)
+    finite = np.isfinite(_np(td2))
+    assert finite.sum() == 3 * 6  # all six real items found
+    assert (_np(tidx)[finite] < 6).all()
+    np.testing.assert_array_equal(_np(tidx), np.asarray(jidx))
+    np.testing.assert_allclose(_np(td2), np.asarray(jd2), rtol=1e-9)
+
+
+@pytest.mark.parametrize("k_tile", [1, 3, 4, 5, 9, 16, 40, None])
+@pytest.mark.parametrize("kk", [1, 6, 10])
+def test_topk_tile_does_not_depend_on_k_tile(k_tile, kk):
+    # the same answer, ties and masked items included, whatever the block
+    # size: smaller than kk, ragged, one block, and the default
+    q, base = _dup_integer_items(3)
+    items = np.concatenate([base, base, base[:7], base[:4]])  # 29 rows, many ties
+    valid = np.ones(len(items), dtype=bool)
+    valid[[2, 11, 28]] = False
+    _, (tq, ti, tv) = _both(q, items, valid)
+    td2, tidx = tdist.topk_tile(tq, ti, tv, kk, k_tile=k_tile)
+    rd2, ridx = _topk_reference(q, items, valid, kk)
+    np.testing.assert_array_equal(_np(td2), rd2)
+    np.testing.assert_array_equal(_np(tidx), ridx)
+
+
+def test_topk_tile_default_block_is_the_ports_constant(monkeypatch):
+    # the default block is one fixed item count on every device; shrinking
+    # it makes the same call merge several blocks, with the same answer
+    q, items = np.random.default_rng(4).normal(size=(3, 5)), np.random.default_rng(5).normal(size=(50, 5))
+    _, (tq, ti) = _both(q, items)
+    one = tdist.topk_tile(tq, ti, None, 7)
+    calls = []
+    real = tdist.d2_block
+    monkeypatch.setattr(tdist, "d2_block", lambda *a: calls.append(a[1].shape[0]) or real(*a))
+    monkeypatch.setattr(tdist, "_DEFAULT_K_TILE", 16)
+    many = tdist.topk_tile(tq, ti, None, 7)
+    assert calls == [16, 16, 16, 16]  # 50 items: 3 blocks and the clamped-back tail
+    assert torch.equal(one[1], many[1]) and torch.equal(one[0], many[0])
+
+
+@pytest.mark.parametrize("dtype,rtol", [(np.float64, 1e-9), (np.float32, 1e-5)])
+@pytest.mark.parametrize("B,kt,d", [(13, 11, 7), (8, 4, 5), (33, 17, 130), (1, 1, 1)])
+def test_d2_block_plain_matches_pallas_kernel(B, kt, d, dtype, rtol):
+    rng = np.random.default_rng(B * kt + d)
+    q = rng.normal(size=(B, d)).astype(dtype)
+    xt = rng.normal(size=(kt, d)).astype(dtype)
+    xt_sq = np.sum(xt * xt, 1).astype(dtype)
+    qp = np.concatenate([q, np.zeros((-B % 8, d), dtype)])  # the kernel's row blocks of 8
+    jout = np.asarray(jdist._pl_d2_block(
+        jnp.asarray(qp), jnp.asarray(xt), jnp.asarray(xt_sq), block_rows=8, fast=False, interpret=True,
+    ))[:B]
+    _, (tq, txt, tsq) = _both(q, xt, xt_sq)
+    tout = tdist.d2_block(tq, txt, tsq)
+    assert tout.dtype == tq.dtype and tout.shape == (B, kt)
+    # the same formula, dot products summed in another order: rtol of the scale
+    scale = np.abs(jout).max()
+    np.testing.assert_allclose(_np(tout), jout, rtol=rtol, atol=rtol * scale)
+
+
 # ------------------------------------------------ dispatch, no fallbacks ----
 
 
@@ -194,17 +328,42 @@ def test_other_devices_raise_instead_of_falling_back():
         tdist.assign_argmin(x, c)
 
 
-@pytest.mark.parametrize("fn", ["assign_argmin", "assign_accumulate"])
+@pytest.mark.parametrize("fn", ["assign_argmin", "assign_accumulate", "d2_block"])
 def test_kernel_wrappers_refuse_cpu_tensors(fn):
     x = torch.zeros((4, 3))
     args = {
         "assign_argmin": (x, torch.zeros((2, 3)), torch.zeros(2)),
         "assign_accumulate": (x, torch.ones(4), torch.zeros(4, dtype=torch.int32), 2),
+        "d2_block": (x, torch.zeros((2, 3)), torch.zeros(2)),
     }[fn]
     before = _kernels.launch_total(fn)
     with pytest.raises(ValueError, match="CUDA tensor"):
         getattr(_kernels, fn)(*args)
     assert _kernels.launch_total(fn) == before
+
+
+def test_launch_counters_are_per_kernel_variant():
+    # d2_block has no bf16 `fast` form, so no counter that could never move
+    assert set(_kernels.launches) == {
+        "assign_argmin/f32", "assign_argmin/f32-fast", "assign_argmin/f64",
+        "assign_accumulate/f32", "assign_accumulate/f32-fast", "assign_accumulate/f64",
+        "d2_block/f32", "d2_block/f64",
+    }
+
+
+def test_library_name_follows_every_source_it_is_built_from(monkeypatch, tmp_path):
+    # an edited shared header must not load a library built before the edit
+    import shutil
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_kernels._CSRC, csrc)
+    monkeypatch.setattr(_kernels, "_CSRC", csrc)
+    before = {n: _kernels._lib_path(n) for n in _kernels.SOURCES}
+    header = csrc / "tile_dot.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = {n: _kernels._lib_path(n) for n in _kernels.SOURCES}
+    assert after["assign_argmin"] != before["assign_argmin"]
+    assert after["d2_block"] != before["d2_block"]
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
@@ -235,3 +394,28 @@ def test_kernels_match_plain_versions_on_card(card, dtype, fast, n, k, d):
     s0, n0 = tdist.accumulate_plain(x, wt, b0, k, fast)
     assert torch.equal(s1, s2) and torch.equal(n1, n2)  # deterministic
     assert torch.equal(s1, s0) and torch.equal(n1, n0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("B,kt,d", [(4095, 16383, 300), (37, 5, 3), (64, 64, 16), (1, 1, 1)])
+def test_d2_block_kernel_matches_plain_version_on_card(card, dtype, B, kt, d):
+    # integer-valued data: every sum is exact, so the kernel equals the plain version
+    rng = np.random.default_rng(B + kt + d)
+    q = torch.from_numpy(rng.integers(-4, 5, size=(B, d)).astype(dtype)).to(card)
+    xt = torch.from_numpy(rng.integers(-4, 5, size=(kt, d)).astype(dtype)).to(card)
+    xt_sq = tdist.row_sq(xt)
+    before = _kernels.launch_total("d2_block")
+    out = _kernels.d2_block(q, xt, xt_sq)
+    assert _kernels.launch_total("d2_block") == before + 1
+    assert torch.equal(out, tdist.d2_block_plain(q, xt, xt_sq))
+
+
+@pytest.mark.cuda
+def test_topk_tile_on_card_matches_cpu(card):
+    q, base = _dup_integer_items(6)
+    items = np.concatenate([base] * 5)
+    _, (tq, ti) = _both(q, items)
+    cpu = tdist.topk_tile(tq, ti, None, 9, k_tile=4)
+    gpu = tdist.topk_tile(tq.to(card), ti.to(card), None, 9, k_tile=4)
+    assert torch.equal(gpu[0].cpu(), cpu[0]) and torch.equal(gpu[1].cpu(), cpu[1])

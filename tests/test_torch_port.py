@@ -49,12 +49,14 @@ _GUARD = """
 import sys
 sys.modules["jax"] = None  # any import of jax now raises ImportError
 import numpy as np
-from spark_rapids_ml_tpu_torch import KMeans, set_devices
+from spark_rapids_ml_tpu_torch import KMeans, NearestNeighbors, set_devices
 set_devices("cpu")
 x = np.random.default_rng(0).normal(size=(200, 4)).astype(np.float32)
 m = KMeans(k=3, maxIter=4, seed=1).fit({"features": x})
 m.transform({"features": x})
 KMeans(k=64, maxIter=2, seed=1).fit({"features": x})  # k-means|| seeding too
+nn = NearestNeighbors(k=5).setInputCol("features").fit({"features": x})
+nn.exactNearestNeighborsJoin({"features": x[:7]})  # kneighbors inside
 bad = sorted(n for n in sys.modules
              if n == "spark_rapids_ml_tpu" or n.startswith("spark_rapids_ml_tpu."))
 assert not bad, bad
