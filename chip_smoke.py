@@ -7,10 +7,11 @@
 #   2. every kernel against its plain PyTorch version on the card, at its
 #      main path's tile (KMeans: 32768 x 3000 rows against k = 1000 centers;
 #      kNN: 4096 queries against a 16,384-item block, d = 3000) and at
-#      ragged shapes, in every variant (f32, f32 fast, f64): integer-valued
-#      data must agree exactly (ties included), Gaussian data to the stated
-#      tolerances, and the accumulation must be bitwise deterministic; then
-#      each kernel timed against its plain version and one PyTorch call;
+#      ragged shapes, in every variant (f32, f32 fast, f64, f64 fast; fast =
+#      bf16 products with float32 sums): integer-valued data must agree
+#      exactly (ties included), Gaussian data to the stated tolerances, and
+#      the accumulation must be bitwise deterministic; then each kernel timed
+#      against its plain version and one PyTorch call;
 #   3. the KMeans path at full width: KMeans(k=1000) fit on 1,000,000 x
 #      3,000 float32 rows through the public API, transform of every row,
 #      save and load, and a fit with the default k-means|| seeding, with the
@@ -24,7 +25,18 @@
 #      rows; an integer-data run with duplicated rows across an item-block
 #      boundary that must agree exactly (lower index first); and
 #      exactNearestNeighborsJoin;
-#   5. a {"kernels": [...]} line, the nvidia-smi line, and as the last line
+#   5. the serving plane at full width: the phase-3 KMeansModel loaded twice
+#      (float32 and bf16 scoring) and NearestNeighbors(k=64) over the same
+#      1,000,000 rows loaded for bf16 scoring, in one ModelRegistry with the
+#      default config (prewarm on); 4 client threads send each model 6
+#      requests of 1 to 4096 rows through one ScoringEngine. Every response
+#      must equal the same request served alone bit for bit; the float32
+#      KMeans answers must equal KMeansModel.transform; every kNN query must
+#      find itself first; the launch counter must show 62 bf16 d2-block
+#      launches per dispatched kNN bucket and no float32 one; the bf16 top-k
+#      against its plain version on the resident items; an integer-data bf16
+#      run across item blocks must agree exactly;
+#   6. a {"kernels": [...]} line, the nvidia-smi line, and as the last line
 #      {"ok": true, "device": {...}}.
 #
 # Every phase raises on failure; the script prints no result then. It needs
@@ -53,13 +65,21 @@ LOG_DIR = ROOT / "build"
 # its type. float64 uses the FP64 tensor-core peak, the card's fastest rate
 # for that type.
 PEAK_BYTES_S = 3.35e12
-PEAK_FLOPS = {"f32": 67e12, "f32-fast": 989e12, "f64": 67e12}
+PEAK_FLOPS = {"f32": 67e12, "f32-fast": 989e12, "f64": 67e12, "f64-fast": 989e12}
+VARIANTS = ("f32", "f32-fast", "f64", "f64-fast")
 
 # the main path's shapes (BASELINE.md protocol: 1M x 3k float32, k = 1000)
 N_ROWS, N_COLS, K = 1_000_000, 3000, 1000
 TILE_ROWS = 32768  # KMeans max_samples_per_batch: one Lloyd tile
 # the exact kNN lane of bench.py: 4096 queries against the same rows, k = 64
 KNN_QUERIES, KNN_K = 4096, 64
+# the serving traffic: client threads, requests per thread and model, and the
+# request sizes they cycle through
+SERVE_CLIENTS, SERVE_REQUESTS, SERVE_SIZES = 4, 6, (1, 7, 64, 255, 1000, 4096)
+
+
+def _variant_dtype(variant):
+    return (np.float64 if variant.startswith("f64") else np.float32), variant.endswith("fast")
 
 _log_lines = []
 
@@ -209,8 +229,7 @@ def time_kernels(variant, dev, errs):
     from spark_rapids_ml_tpu_torch.ops import _kernels
     from spark_rapids_ml_tpu_torch.ops import distance as D
 
-    dtype = np.float64 if variant == "f64" else np.float32
-    fast = variant == "f32-fast"
+    dtype, fast = _variant_dtype(variant)
     x, c, w = _inputs(TILE_ROWS, K, N_COLS, dtype, False, 7, dev)
     c_sq = D._c_sq(c)
     _, best = _kernels.assign_argmin(x, c, c_sq, fast=fast)
@@ -271,8 +290,10 @@ def _d2_inputs(B, kt, d, dtype, integer, seed, dev):
     return torch.from_numpy(q).to(dev), torch.from_numpy(xt).to(dev)
 
 
-def check_d2_block(B, kt, d, dtype, integer, seed, dev):
-    """d2_block against d2_block_plain at one shape; returns max |err|."""
+def check_d2_block(B, kt, d, dtype, fast, integer, seed, dev):
+    """d2_block against d2_block_plain at one shape; returns max |err|. The
+    tolerance, 1e-5 of the block's scale, covers dot products summed in
+    another order: in the input dtype, or in float32 for `fast`."""
     import torch
 
     from spark_rapids_ml_tpu_torch.ops import _kernels
@@ -280,10 +301,11 @@ def check_d2_block(B, kt, d, dtype, integer, seed, dev):
 
     q, xt = _d2_inputs(B, kt, d, dtype, integer, seed, dev)
     xt_sq = D.row_sq(xt)
-    out = _kernels.d2_block(q, xt, xt_sq)
+    out = _kernels.d2_block(q, xt, xt_sq, fast=fast)
     torch.cuda.synchronize()
-    ref = D.d2_block_plain(q, xt, xt_sq)
-    tag = f"d2_block {B}x{kt}x{d} {np.dtype(dtype).name} {'integer' if integer else 'gaussian'}"
+    ref = D.d2_block_plain(q, xt, xt_sq, fast)
+    tag = (f"d2_block {B}x{kt}x{d} {np.dtype(dtype).name}{' fast' if fast else ''} "
+           f"{'integer' if integer else 'gaussian'}")
     if out.shape != ref.shape or out.dtype != ref.dtype:
         fail(f"{tag}: output {tuple(out.shape)} {out.dtype}, plain {tuple(ref.shape)} {ref.dtype}")
     err = (out - ref).abs().max().item()
@@ -297,14 +319,16 @@ def check_d2_block(B, kt, d, dtype, integer, seed, dev):
 
 
 def time_d2_block(variant, dev, err):
-    """d2_block, its plain version, one torch.addmm computing the same block
-    (the library call) and the bare torch.matmul product, at the kNN tile."""
+    """d2_block, its plain version and one library call at the kNN tile: for
+    f32 and f64 one torch.addmm computing the same block (the bare
+    torch.matmul product is timed beside it); for `fast`, torch.matmul on
+    the two operands cast to bf16 beforehand (the casts not timed)."""
     import torch
 
     from spark_rapids_ml_tpu_torch.ops import _kernels
     from spark_rapids_ml_tpu_torch.ops import distance as D
 
-    dtype = np.float64 if variant == "f64" else np.float32
+    dtype, fast = _variant_dtype(variant)
     B, kt, d = KNN_QUERIES, D._DEFAULT_K_TILE, N_COLS
     q, xt = _d2_inputs(B, kt, d, dtype, False, 9, dev)
     xt_sq = D.row_sq(xt)
@@ -316,15 +340,20 @@ def time_d2_block(variant, dev, err):
         "source": "spark_rapids_ml_tpu_torch/csrc/d2_block.cu",
         "replaces": "spark_rapids_ml_tpu/ops/distance.py:366",
         "max_abs_err": err,
-        "ms": cuda_ms(lambda: _kernels.d2_block(q, xt, xt_sq)),
-        "plain_ms": cuda_ms(lambda: D.d2_block_plain(q, xt, xt_sq)),
+        "ms": cuda_ms(lambda: _kernels.d2_block(q, xt, xt_sq, fast=fast)),
+        "plain_ms": cuda_ms(lambda: D.d2_block_plain(q, xt, xt_sq, fast)),
         "bound_ms": bnd, "bound_by": by,
-        "library_ms": cuda_ms(lambda: torch.addmm(xt_sq[None, :], q, xt.T, alpha=-2.0)),
-        "matmul_ms": cuda_ms(lambda: torch.matmul(q, xt.T)),
     }
+    if fast:
+        qb, xb = q.bfloat16(), xt.bfloat16()
+        e["library_ms"] = cuda_ms(lambda: torch.matmul(qb, xb.T))
+        lib = f"torch.matmul bf16 {e['library_ms']:.3f}"
+    else:
+        e["library_ms"] = cuda_ms(lambda: torch.addmm(xt_sq[None, :], q, xt.T, alpha=-2.0))
+        e["matmul_ms"] = cuda_ms(lambda: torch.matmul(q, xt.T))
+        lib = f"torch.addmm {e['library_ms']:.3f}, torch.matmul {e['matmul_ms']:.3f}"
     say(f"  {e['name']}: {e['ms']:.3f} ms ({2.0 * B * kt * d / e['ms'] / 1e9:.1f} TFLOP/s; plain "
-        f"{e['plain_ms']:.3f}, torch.addmm {e['library_ms']:.3f}, torch.matmul {e['matmul_ms']:.3f}, "
-        f"bound {e['bound_ms']:.3f} by {e['bound_by']})")
+        f"{e['plain_ms']:.3f}, {lib}, bound {e['bound_ms']:.3f} by {e['bound_by']})")
     return e
 
 
@@ -334,25 +363,28 @@ def phase_d2_block(dev):
     say("phase 2: d2_block against its plain version on the card")
     errs = {}
     kt = D._DEFAULT_K_TILE
-    for variant in ("f32", "f64"):
-        dtype = np.float64 if variant == "f64" else np.float32
-        # the kNN tile, a ragged one (B and kt not multiples of 64), tiny ones
-        for (B, kt_, d) in ((KNN_QUERIES, kt, N_COLS), (KNN_QUERIES - 1, kt - 1, N_COLS),
-                            (37, 5, 3), (1, 1, 1), (65, 63, 17), (200, 1000, 77)):
-            check_d2_block(B, kt_, d, dtype, True, B + kt_ + d, dev)
-            e = check_d2_block(B, kt_, d, dtype, False, B + kt_ + d, dev)
+    for variant in VARIANTS:
+        dtype, fast = _variant_dtype(variant)
+        # the kNN tile, a ragged one (B and kt not multiples of 64 or 128),
+        # tiny ones, and the serving ladder's rungs (256 to 8192 rows)
+        shapes = [(KNN_QUERIES, kt, N_COLS), (KNN_QUERIES - 1, kt - 1, N_COLS),
+                  (37, 5, 3), (1, 1, 1), (65, 63, 17), (200, 1000, 77), (129, 130, 16)]
+        if variant == "f32-fast":
+            shapes += [(b, kt, N_COLS) for b in (256, 512, 1024, 2048, 8192)]
+        for (B, kt_, d) in shapes:
+            check_d2_block(B, kt_, d, dtype, fast, True, B + kt_ + d, dev)
+            e = check_d2_block(B, kt_, d, dtype, fast, False, B + kt_ + d, dev)
             if (B, kt_) == (KNN_QUERIES, kt):
                 errs[variant] = e
     say("phase 2: d2_block timing at the kNN tile (CUDA events, mean of 5 after a warm-up)")
-    return [time_d2_block(variant, dev, errs[variant]) for variant in ("f32", "f64")]
+    return [time_d2_block(variant, dev, errs[variant]) for variant in VARIANTS]
 
 
 def phase_kernels(dev):
     say("phase 2: kernels against their plain versions on the card")
     errs = {}
-    for variant in ("f32", "f32-fast", "f64"):
-        dtype = np.float64 if variant == "f64" else np.float32
-        fast = variant == "f32-fast"
+    for variant in VARIANTS:
+        dtype, fast = _variant_dtype(variant)
         for integer in (True, False):
             # ragged shapes, then the main path's other tiles: the transform
             # tile, the ragged tail of a Lloyd iteration (1M = 30 x 32768 +
@@ -368,7 +400,7 @@ def phase_kernels(dev):
                 errs[("assign_accumulate", variant)] = s
     say("phase 2: timing at the main path's tile (CUDA events, mean of 5 after a warm-up)")
     entries = []
-    for variant in ("f32", "f32-fast", "f64"):
+    for variant in VARIANTS:
         entries += time_kernels(variant, dev, errs)
     return entries
 
@@ -585,7 +617,7 @@ def phase_main_path(dev, X):
     timings["predict_resident_s"] = cuda_ms(lambda: kmeans_predict(Xd, cd), reps=2) / 1e3
     say(f"  argmin over all rows already on the card (the transform's kernels): "
         f"{timings['predict_resident_s'] * 1e3:.1f} ms")
-    return counts, timings
+    return counts, timings, model
 
 
 # ------------------------------------------------------------ phase 4 ----
@@ -736,6 +768,304 @@ def phase_knn(dev, X, d2_ms):
     return counts, timings
 
 
+# ------------------------------------------------------------ phase 5 ----
+
+
+def _serve_traffic(seed):
+    """Per client thread, its requests as (first row, rows) of X: the sizes
+    cycle through SERVE_SIZES (each thread starting elsewhere in the cycle,
+    so concurrent requests differ in size), the first rows are seeded."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for t in range(SERVE_CLIENTS):
+        reqs = []
+        for i in range(SERVE_REQUESTS):
+            n = SERVE_SIZES[(t + i) % len(SERVE_SIZES)]
+            reqs.append((int(rng.integers(0, N_ROWS - n)), n))
+        out.append(reqs)
+    return out
+
+
+def _fast_topk_routes(q, items, item_sq, k):
+    """topk_tile(fast=True) through the kernel and through the plain fast
+    d2-block version, on the same resident tensors."""
+    import torch
+
+    from spark_rapids_ml_tpu_torch.ops import distance as D
+
+    kernel_block = D.d2_block
+    out = {}
+    for route in ("kernel", "plain"):
+        D.d2_block = kernel_block if route == "kernel" else D.d2_block_plain
+        try:
+            d2, idx = D.topk_tile(q, items, None, k, item_sq=item_sq, fast=True)
+            torch.cuda.synchronize()
+            out[route] = (d2.cpu().numpy(), idx.cpu().numpy())
+        finally:
+            D.d2_block = kernel_block
+    return out
+
+
+def phase_serving(dev, X, kmeans_model):
+    import threading
+
+    import torch
+
+    from spark_rapids_ml_tpu_torch import ModelRegistry, NearestNeighbors, ScoringEngine, telemetry
+    from spark_rapids_ml_tpu_torch.core import PredictProgram, config
+    from spark_rapids_ml_tpu_torch.ops import _kernels
+    from spark_rapids_ml_tpu_torch.ops import distance as D
+    from spark_rapids_ml_tpu_torch.ops.knn import exact_knn
+
+    say(f"phase 5: serving, {SERVE_CLIENTS} clients x {SERVE_REQUESTS} requests of "
+        f"{SERVE_SIZES} rows to each of kmeans_f32, kmeans_bf16, knn_bf16 (k = {KNN_K} over "
+        f"{N_ROWS} x {N_COLS}); config: bucket ladder from {config['transform_bucket_min_rows']} to "
+        f"{config['serve_max_batch_rows']} rows, prewarm to {config['serve_prewarm_rows']}, coalesce "
+        f"window {config['serve_coalesce_window_ms']} ms (adaptive {config['serve_adaptive_batching']})")
+    torch.cuda.empty_cache()  # the earlier phases' freed blocks back to the card
+    kt = D._DEFAULT_K_TILE
+    blocks = -(-N_ROWS // kt)
+    timings = {}
+    ids = np.random.default_rng(77).permutation(N_ROWS).astype(np.int64) * 3 + 1000
+    t0 = time.perf_counter()
+    knn_model = NearestNeighbors(k=KNN_K).setInputCol("features").setIdCol("id").fit(
+        {"features": X, "id": ids})
+    timings["knn_fit_s"] = time.perf_counter() - t0
+
+    telemetry.registry().reset()
+    telemetry.enable()
+    _kernels.reset_launches()
+    torch.cuda.synchronize()
+    registry = ModelRegistry()
+    loads = (("kmeans_f32", kmeans_model, None), ("kmeans_bf16", kmeans_model, "bf16"),
+             ("knn_bf16", knn_model, "bf16"))
+    dispatches = {}
+    # the prewarm inside each load timed on its own (it ends in a fetch,
+    # which waits for the card); the rest of the load is admission and
+    # placement
+    real_prewarm = PredictProgram.prewarm
+    prewarm_s = []
+
+    def timed_prewarm(self, n_cols, *, max_rows=None):
+        t = time.perf_counter()
+        rungs = real_prewarm(self, n_cols, max_rows=max_rows)
+        prewarm_s.append(time.perf_counter() - t)
+        return rungs
+
+    PredictProgram.prewarm = timed_prewarm
+    try:
+        entries = {}
+        for name, model, serve_dtype in loads:
+            t0 = time.perf_counter()
+            entries[name] = registry.load(name, model, serve_dtype=serve_dtype)
+            torch.cuda.synchronize()
+            timings[f"load_{name}_s"] = time.perf_counter() - t0
+            timings[f"prewarm_{name}_s"] = prewarm_s[-1]
+    finally:
+        PredictProgram.prewarm = real_prewarm
+    for name, model, serve_dtype in loads:
+        entry = entries[name]
+        program = entry.program
+        dispatches[name] = 0
+        real = program.dispatch
+
+        def counted(xb, _real=real, _name=name):
+            dispatches[_name] += 1
+            return _real(xb)
+
+        program.dispatch = counted
+        say(f"  load {name}: {timings[f'load_{name}_s']:.2f} s, of which prewarm of "
+            f"{entry.prewarmed_rungs} rungs {timings[f'prewarm_{name}_s']:.2f} s; "
+            f"{entry.resident_bytes / 1e9:.3f} GB admitted, largest term "
+            f"{model._serve_metrics['admission']['largest_term']}")
+    knn_rungs = registry.get("knn_bf16").prewarmed_rungs
+    load_counts = dict(_kernels.launches)
+
+    traffic = _serve_traffic(2026)
+    futures = [[] for _ in range(SERVE_CLIENTS)]
+    engine = ScoringEngine(registry).start()
+
+    def client(t):
+        for lo, n in traffic[t]:
+            rows = X[lo:lo + n]
+            futures[t].append([engine.submit(name, rows, tenant=name) for name, _, _ in loads])
+
+    threads = [threading.Thread(target=client, args=(t,)) for t in range(SERVE_CLIENTS)]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    results = [[[f.result(timeout=600) for f in per_req] for per_req in fut_t] for fut_t in futures]
+    timings["traffic_s"] = time.perf_counter() - t0
+    stats = engine.stats()
+    engine.stop()
+    counts = dict(_kernels.launches)  # read just after the serving path
+    served_rows = sum(n for reqs in traffic for _, n in reqs)
+    say("  launches in loads and traffic: " + ", ".join(f"{k_}={v}" for k_, v in counts.items() if v))
+    say(f"  dispatches after load: {dispatches}; kNN prewarmed rungs {knn_rungs}")
+    expected = blocks * (knn_rungs + dispatches["knn_bf16"])
+    if counts["d2_block/f32-fast"] != expected:
+        fail(f"serving: d2_block/f32-fast launched {counts['d2_block/f32-fast']} times, expected "
+             f"{expected} ({blocks} item blocks x {knn_rungs + dispatches['knn_bf16']} kNN dispatches)")
+    if counts["d2_block/f32"] or counts["d2_block/f64"] or counts["d2_block/f64-fast"]:
+        fail(f"serving: a d2_block variant other than f32-fast launched: {counts}")
+    for variant in ("f32", "f32-fast"):
+        if not counts[f"assign_argmin/{variant}"] > load_counts[f"assign_argmin/{variant}"]:
+            fail(f"serving: assign_argmin/{variant} did not launch for the KMeans requests")
+    timings.update({
+        "rows_per_model": served_rows,
+        "rows_per_s": 3 * served_rows / timings["traffic_s"],
+        "e2e_p50_s": stats["e2e_p50_s"], "e2e_p99_s": stats["e2e_p99_s"],
+        "batches": stats["batches"], "coalesced_batches": stats["coalesced_batches"],
+        "requests": stats["requests"],
+        "per_model": {name: stats["tenants"][name] for name, _, _ in loads},
+        "dispatches": dict(dispatches),
+    })
+    say(f"  traffic: {3 * SERVE_CLIENTS * SERVE_REQUESTS} requests, {served_rows} rows per model, "
+        f"{timings['traffic_s']:.2f} s wall, {timings['rows_per_s']:.4g} rows/s over the three models; "
+        f"{stats['batches']} batches, {stats['coalesced_batches']} of them coalesced; e2e p50 "
+        f"{stats['e2e_p50_s'] * 1e3:.1f} ms, p99 {stats['e2e_p99_s'] * 1e3:.1f} ms")
+    for name, _, _ in loads:
+        v = stats["tenants"][name]
+        say(f"    {name}: e2e p50 {v['e2e_p50_s'] * 1e3:.1f} ms, p99 {v['e2e_p99_s'] * 1e3:.1f} ms; "
+            f"queue wait p50 {v['queue_wait_p50_s'] * 1e3:.1f} ms, p99 {v['queue_wait_p99_s'] * 1e3:.1f} ms")
+
+    # every response equals the same request served alone, bit for bit
+    solo_engine = ScoringEngine(registry, coalesce_window_s=0.0).start()
+    t0 = time.perf_counter()
+    try:
+        for t in range(SERVE_CLIENTS):
+            for (lo, n), got in zip(traffic[t], results[t]):
+                for (name, _, _), g in zip(loads, got):
+                    ref = solo_engine.score(name, X[lo:lo + n], timeout=600)
+                    pairs = zip(g, ref) if isinstance(g, tuple) else [(g, ref)]
+                    if not all(a.dtype == b.dtype and np.array_equal(a, b) for a, b in pairs):
+                        fail(f"serving: {name} response to rows {lo}..{lo + n} differs from the "
+                             "same request served alone")
+    finally:
+        solo_engine.stop()
+    timings["solo_s"] = time.perf_counter() - t0
+    say(f"  every response equals the same request served alone, bit for bit "
+        f"({timings['solo_s']:.2f} s to serve them one by one)")
+
+    flips = total = 0
+    knn_idx = {}
+    for t in range(SERVE_CLIENTS):
+        for (lo, n), (km32, km16, (kd, ki)) in zip(traffic[t], results[t]):
+            rows = X[lo:lo + n]
+            pred = np.asarray(kmeans_model.transform({"features": rows})["prediction"])
+            if not np.array_equal(km32, pred):
+                fail(f"serving: kmeans_f32 differs from KMeansModel.transform on rows {lo}..{lo + n}")
+            flips += int((km16 != km32).sum())
+            total += n
+            if ki.shape != (n, KNN_K) or not np.array_equal(ki[:, 0], ids[lo:lo + n]):
+                fail(f"serving: a knn_bf16 query among rows {lo}..{lo + n} does not find itself first")
+            if not (np.isfinite(kd).all() and (np.diff(kd, axis=1) >= 0).all()):
+                fail("serving: knn_bf16 distances not finite or not ascending")
+            if t == 0:
+                knn_idx[lo] = ki
+    timings["kmeans_bf16_flips"] = flips
+    say(f"  kmeans_f32 equals KMeansModel.transform on all {total} rows; kmeans_bf16 assigns "
+        f"{flips} of them differently")
+    say("  every knn_bf16 query finds its own id first")
+
+    # the bf16 route's recall@64 against the float32 route on the resident
+    # items, for client 0's query rows
+    items, item_sq, _ = registry.get("knn_bf16").program.state
+    lo_n = traffic[0]
+    Q = torch.cat([items[lo:lo + n] for lo, n in lo_n])
+    t0 = time.perf_counter()
+    _, f32_idx = exact_knn(items, None, Q, k=KNN_K)
+    timings["exact_knn_f32_s"] = time.perf_counter() - t0
+    f32_ids = ids[f32_idx]
+    bf16_ids = np.concatenate([knn_idx[lo] for lo, _ in lo_n])
+    hits = sum(len(np.intersect1d(a, b)) for a, b in zip(bf16_ids, f32_ids))
+    timings["recall_at_64"] = hits / f32_ids.size
+    say(f"  recall@{KNN_K} of knn_bf16 against the float32 route, {len(Q)} queries: "
+        f"{timings['recall_at_64']:.6f}")
+
+    # on one 4096-row bucket, the kernel route of topk_tile(fast=True)
+    # against the plain fast route on the same resident items
+    lo = next(lo for lo, n in lo_n if n == KNN_QUERIES)
+    q = items[lo:lo + KNN_QUERIES]
+    routes = _fast_topk_routes(q, items, item_sq, KNN_K)
+    (d2k, ik), (d2p, ip) = routes["kernel"], routes["plain"]
+    # each route's dot product is a float32 sum of N_COLS exact bf16
+    # products, in another order (tensor-core steps against cuBLAS); the
+    # summation bound puts each within N_COLS * 2^-24 * ||q|| ||x|| of the
+    # exact sum, so the two routes' squared distances (-2 dot) may differ by
+    # up to 4 * N_COLS * 2^-24 * max ||q|| * max ||x||
+    tol = 4 * N_COLS * 2.0 ** -24 * float(D.row_sq(q).max().sqrt() * item_sq.max().sqrt())
+    err = float(np.abs(d2k.astype(np.float64) - d2p).max())
+    if err > tol:
+        fail(f"serving: kernel and plain fast squared distances differ by {err} > {tol} "
+             "(the float32 summation bound)")
+    swapped = np.argwhere(ik != ip)
+    if len(swapped):
+        r, j = swapped[:, 0], swapped[:, 1]
+        qb = D._bf16(q[torch.from_numpy(r).to(dev)]).double()
+        xs = items[torch.from_numpy(ik[r, j].astype(np.int64)).to(dev)]
+        exact = (item_sq[torch.from_numpy(ik[r, j].astype(np.int64)).to(dev)].double()
+                 - 2.0 * (qb * D._bf16(xs).double()).sum(1)).cpu().numpy()
+        if (np.abs(exact - d2p[r, j]) > tol).any():
+            fail(f"serving: {int((np.abs(exact - d2p[r, j]) > tol).sum())} fast index swaps are not near-ties")
+    timings["fast_route_swaps"] = len(swapped)
+    say(f"  fast top-k at a {KNN_QUERIES}-row bucket, kernel vs plain route: squared distances within "
+        f"{err:.4g} (tol {tol:.4g}); {len(swapped)} of {ik.size} index positions differ, all near-ties")
+    # where a kNN dispatch's time goes: the whole dispatch (host clock,
+    # ending in a sync) against its 62 kernels and 62 merges timed alone
+    program = registry.get("knn_bf16").program
+    for B in (KNN_QUERIES, config["serve_max_batch_rows"]):
+        rows = X[:B]
+        program.dispatch(rows)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        program.dispatch(rows)
+        torch.cuda.synchronize()
+        dispatch_ms = (time.perf_counter() - t0) * 1e3
+        qb = items[:B]
+        block = D.d2_block(qb, items[:kt], item_sq[:kt], fast=True)
+        best_d2 = torch.full((B, KNN_K), float("inf"), device=dev)
+        best_i = torch.zeros((B, KNN_K), dtype=torch.int32, device=dev)
+        kernel_ms = cuda_ms(lambda: D.d2_block(qb, items[:kt], item_sq[:kt], fast=True))
+        merge_ms = cuda_ms(lambda: D._merge(best_d2, best_i, block, 0, KNN_K))
+        timings[f"dispatch_{B}"] = {"dispatch_ms": dispatch_ms, "kernel_ms": kernel_ms,
+                                    "merge_ms": merge_ms}
+        say(f"  one knn_bf16 dispatch at the {B}-row rung: {dispatch_ms:.1f} ms wall; {blocks} x "
+            f"d2_block fast {kernel_ms:.3f} ms = {blocks * kernel_ms:.1f} ms, {blocks} x merge "
+            f"{merge_ms:.3f} ms = {blocks * merge_ms:.1f} ms")
+        del block, best_d2, best_i
+    timings["serve_analytic_tflop"] = telemetry.registry().snapshot()["counters"].get("serve.flops", 0) / 1e12
+    say(f"  analytic distance work of the traffic (the models' _serve_flop_estimate): "
+        f"{timings['serve_analytic_tflop']:.2f} TFLOP, {timings['serve_analytic_tflop'] / timings['traffic_s']:.1f} "
+        "TFLOP/s over its wall")
+    del items, item_sq, Q, q, program
+    registry.clear()
+
+    # integer rows (exact in bf16, every sum exact in float32): the fast
+    # kernel and plain routes agree exactly across item blocks, lower copy first
+    n_int = 8 * kt
+    gen = torch.Generator(device=dev).manual_seed(41)
+    it = torch.randint(-4, 5, (n_int, N_COLS), generator=gen, device=dev, dtype=torch.float32)
+    for b in (kt, 4 * kt):
+        it[b:b + 64] = it[b - 64:b]
+    lo = kt - KNN_QUERIES // 2
+    routes = _fast_topk_routes(it[lo:lo + KNN_QUERIES], it, D.row_sq(it), KNN_K)
+    (d2k, ik), (d2p, ip) = routes["kernel"], routes["plain"]
+    if not (np.array_equal(ik, ip) and np.array_equal(d2k, d2p)):
+        fail(f"serving: integer fast top-k differs between kernel and plain at {int((ik != ip).sum())} indices")
+    orig = np.arange(kt - 64, kt)
+    for rows in (orig - lo, orig + 64 - lo):
+        if not (np.array_equal(ik[rows, 0], orig) and np.array_equal(ik[rows, 1], orig + 64)):
+            fail("serving: a repeated row does not come lower index first in the fast top-k")
+    say(f"  integer data, {KNN_QUERIES} x {n_int} x {N_COLS}, fast: kernel and plain routes equal exactly, "
+        "repeated rows lower copy first across item blocks")
+    del it
+    telemetry.disable()
+    return counts, timings
+
+
 # ------------------------------------------------------------------ main --
 
 
@@ -757,24 +1087,28 @@ def main():
     t0 = time.perf_counter()
     X = _protocol_rows()
     say(f"data {X.shape} float32 made in {time.perf_counter() - t0:.1f} s")
-    counts, timings = phase_main_path(dev, X)
+    counts, timings, kmeans_model = phase_main_path(dev, X)
     knn_counts, knn_timings = phase_knn(dev, X, d2_entries[0]["ms"])
+    serve_counts, serve_timings = phase_serving(dev, X, kmeans_model)
     for e in entries:
         e["launches"] = counts["main_path"][e["name"]]
         e["launches_by_run"] = {
             run: c[e["name"]] for run, c in counts.items() if run != "main_path"
         }
+        e["launches_by_run"]["serving"] = serve_counts[e["name"]]
     for e in d2_entries:
-        e["launches"] = knn_counts[e["name"]]
-        e["launches_by_run"] = {"kneighbors": knn_counts[e["name"]]}
+        # each d2_block variant's own path: kneighbors runs f32, serving f32-fast
+        e["launches"] = serve_counts[e["name"]] if e["name"].endswith("-fast") else knn_counts[e["name"]]
+        e["launches_by_run"] = {"kneighbors": knn_counts[e["name"]], "serving": serve_counts[e["name"]]}
     entries += d2_entries
     # the kernels line lists the variants the main paths run (float32 inputs:
     # f32 and f32-fast); the f64 variants were checked and timed above
     say("KMeans path timings: " + json.dumps(timings))
     say("kNN path timings: " + json.dumps(knn_timings))
+    say("serving timings: " + json.dumps(serve_timings))
     say("f64 variants (not on the float32 main path): " + json.dumps(
-        [e for e in entries if e["name"].endswith("/f64")]))
-    kernels_line = json.dumps({"kernels": [e for e in entries if not e["name"].endswith("/f64")]})
+        [e for e in entries if "/f64" in e["name"]]))
+    kernels_line = json.dumps({"kernels": [e for e in entries if "/f64" not in e["name"]]})
     say(f"total {time.perf_counter() - t_start:.1f} s")
     LOG_DIR.mkdir(exist_ok=True)
     (LOG_DIR / "chip_smoke.log").write_text("\n".join(_log_lines + [kernels_line, smi]) + "\n")

@@ -1,8 +1,9 @@
 #
 # Core execution framework on one device: the estimator and model bases, the
-# fit driver, batched transform, and persistence. The PyTorch counterpart of
-# the parts of spark_rapids_ml_tpu/core.py that a KMeans fit, transform and
-# save/load run.
+# fit driver, batched transform, the resident predict handle the serving
+# plane keeps per model (`PredictProgram`), and persistence. The PyTorch
+# counterpart of the parts of spark_rapids_ml_tpu/core.py that a KMeans fit,
+# transform, save/load and the serving plane run.
 #
 # Call stack (the JAX package's, without telemetry, admission, recovery,
 # streaming and the mesh): fit(dataset) -> _fit_internal -> _call_fit_func ->
@@ -41,6 +42,49 @@ config: Dict[str, Any] = {
     # per-estimator `solver_precision` solver param overrides it.
     # Seeded from SRML_SOLVER_PRECISION.
     "solver_precision": os.environ.get("SRML_SOLVER_PRECISION") or "f32",
+    # --- memory admission (memory.py) -------------------------------------
+    # per-device memory override for the admission budgeter; None = the
+    # card's total memory (a CPU device has none: loads go unbudgeted)
+    "hbm_budget_bytes": None,
+    # fraction of the capacity kept out of the budget, for allocator
+    # fragmentation and transient buffers: budget = capacity * (1 - this)
+    "hbm_headroom_fraction": 0.1,
+    # smallest rung of the bucket ladder: serving and transform batches pad
+    # up a geometric (x2) ladder of row counts starting here
+    "transform_bucket_min_rows": 256,
+    # --- serving plane (serving/) -------------------------------------------
+    # how long the ScoringEngine holds a dispatched request open for
+    # same-model coalescing: the latency/throughput knob; 0 disables
+    # coalescing entirely
+    "serve_coalesce_window_ms": 2.0,
+    # row cap of one coalesced serving batch (and of a resident model's
+    # bucket ladder); larger requests split across dispatches
+    "serve_max_batch_rows": 8192,
+    # load-time prewarm: every ladder rung up to this many rows is dispatched
+    # once at load (state placed, every kernel built and launched), so a
+    # resident model's first query pays neither; 0 disables prewarm
+    "serve_prewarm_rows": 4096,
+    # server-side deadline of every submit() that passes none: an expired
+    # request never dispatches (RequestTimeoutError), and admission refuses a
+    # request whose deadline the live queue-wait p99 predicts unmeetable
+    # (ServeOverloadError). Monotonic clock. 0 disables the default deadline.
+    "serve_default_deadline_ms": 30000.0,
+    # bounded request queue: total rows queued in the ScoringEngine at most
+    "serve_max_queue_rows": 262144,
+    # adaptive micro-batching: under congestion (queue-wait p99 above the
+    # static window) the coalesce window and row target follow the arrival
+    # rate, between the floor and the ceiling; uncongested traffic keeps the
+    # static window exactly
+    "serve_adaptive_batching": True,
+    "serve_coalesce_window_floor_ms": 0.5,
+    "serve_coalesce_window_ceiling_ms": 20.0,
+    # the degraded serving rung of the backpressure ladder: not in the port
+    # yet (ROADMAP A13); a value other than None is refused at load
+    "serve_degraded_dtype": None,
+    # rolling-window geometry of the telemetry registry (rates and windowed
+    # quantiles the overload controller reads)
+    "metrics_bucket_seconds": 10.0,
+    "metrics_bucket_count": 18,
 }
 
 
@@ -79,8 +123,9 @@ class FitInputs:
 
 
 FitFunc = Callable[[FitInputs, Dict[str, Any]], Dict[str, Any]]
-# (construct() -> device state, predict(state, host batch) -> host array)
-TransformFuncs = Tuple[Callable[[], Any], Callable[[Any, np.ndarray], Any]]
+# (construct() -> device state, predict(state, device batch) -> device
+# tensor, or a tuple of them)
+TransformFuncs = Tuple[Callable[[], Any], Callable[[Any, torch.Tensor], Any]]
 
 
 class _TpuCommon(_TpuParams):
@@ -218,9 +263,76 @@ class _TpuModel(_TpuCommon):
     def __init__(self, **model_attrs: Any) -> None:
         super().__init__()
         self._model_attributes: Dict[str, Any] = model_attrs
+        # the serving plane's stamps: why the model is (or is no longer)
+        # resident, set by serving.ModelRegistry
+        self._serve_metrics: Dict[str, Any] = {}
 
     def transform(self, dataset: Any):
         raise NotImplementedError
+
+    # serving hooks -------------------------------------------------------
+    # The per-model surface the serving plane composes: a resident
+    # PredictProgram factory, plus the placement / per-bucket workspace byte
+    # terms the admission budgeter (memory.admit_model_load) charges.
+
+    # serving dtypes this model accepts; the distance-core models extend
+    # with "bf16"
+    _serve_dtypes: tuple = (None, "float32", "float64")
+
+    def _serve_program(
+        self, serve_dtype: Optional[str] = None, *, cap: Optional[int] = None
+    ) -> "PredictProgram":
+        """Resident predict handle for the serving plane. Models without a
+        batched predict surface have nothing to keep resident."""
+        raise NotImplementedError(
+            f"{type(self).__name__} has no serving hook (no batched predict "
+            "surface to keep resident)"
+        )
+
+    def _serve_check(self, serve_dtype: Optional[str] = None) -> None:
+        """Cheap serveability preflight: raises exactly what `_serve_program`
+        would, WITHOUT placing anything on the device. The registry runs it
+        before its admission/eviction loop, so a load that can never succeed
+        cannot evict resident models as a side effect."""
+        if type(self)._serve_program is _TpuModel._serve_program:
+            self._serve_program(serve_dtype)  # the standard NotImplementedError
+        if serve_dtype not in self._serve_dtypes:
+            raise ValueError(
+                f"{type(self).__name__} serves at its fit dtype; "
+                f"serve_dtype={serve_dtype!r} is only available on the "
+                "distance-core models"
+            )
+        self._serve_n_cols()
+
+    def _serve_n_cols(self) -> int:
+        """Feature width the serving plane prewarms and validates against."""
+        n = int(getattr(self, "n_cols", 0) or 0)
+        if n <= 0:
+            raise ValueError(
+                f"{type(self).__name__} does not know its feature width; "
+                "cannot prewarm the serving ladder"
+            )
+        return n
+
+    def _serve_placement_terms(self) -> Dict[str, int]:
+        """Per-device bytes of this model's RESIDENT state (what
+        `construct()` places), as named terms for the admission budgeter.
+        Default: every array model attribute at the working dtype."""
+        itemsize = 4 if self._float32_inputs else 8
+        total = 0
+        for v in self._model_attributes.values():
+            if isinstance(v, np.ndarray):
+                total += int(v.size) * itemsize
+            elif isinstance(v, (list, tuple)) and v and isinstance(v[0], np.ndarray):
+                total += sum(int(a.size) for a in v) * itemsize
+        return {"placement.params": total}
+
+    def _serve_workspace_terms(
+        self, bucket_rows_count: int, itemsize: int
+    ) -> Dict[str, int]:
+        """Bytes live during ONE dispatched batch of `bucket_rows_count` rows
+        beyond the model state and the batch itself. {} = none modeled."""
+        return {}
 
     # persistence ---------------------------------------------------------
     def write(self) -> "_TpuWriter":
@@ -238,6 +350,105 @@ class _TpuModel(_TpuCommon):
         return cls.read().load(path)
 
 
+class PredictProgram:
+    """Resident, reusable predict handle: construct the device state once,
+    pad every host batch up the geometric bucket ladder, run `predict` on the
+    device, slice the outputs back.
+
+    Two consumers share it so they cannot drift: `_transform_arrays` builds a
+    short-lived one per transform call, and the serving plane
+    (`serving/`) holds one per RESIDENT model for its registry lifetime.
+
+      * `dispatch(xb)` pads a host batch UP its ladder rung
+        (`parallel.bucket_rows`), copies it to the device and runs `predict`;
+        it fetches nothing back, and returns the device outputs;
+      * `fetch(result, n_valid)` is the one device-to-host copy, slicing
+        every output back to the valid rows;
+      * `prewarm(...)` dispatches zeros through every ladder rung, so every
+        kernel of every rung is built and launched at load time, not at the
+        first query.
+
+    `predict` is row-parallel: padding rows cannot change the valid rows'
+    outputs, so a request's answer does not depend on the rung it lands on.
+    The top-k merge of the kNN models reads a count back from the device
+    once per item block (ops/distance.py `_smallest_columns`), so their
+    `dispatch` returns with the last block's work still in flight, not all
+    of it."""
+
+    def __init__(
+        self,
+        model: "_TpuModel",
+        *,
+        construct: Optional[Callable[[], Any]] = None,
+        predict: Optional[Callable[[Any, torch.Tensor], Any]] = None,
+        cap: Optional[int] = None,
+    ) -> None:
+        from .parallel import default_device
+
+        if construct is None or predict is None:
+            c0, p0 = model._get_transform_func()
+            construct = construct or c0
+            predict = predict or p0
+        self.model = model
+        self.predict_fn = predict
+        self.device = default_device()
+        self.cap = int(cap) if cap else int(config["max_records_per_batch"])
+        self.bucket_min = int(config["transform_bucket_min_rows"])
+        self.dtype = np.float32 if model._float32_inputs else np.float64
+        self.state = construct()
+        # bucketed shapes already dispatched: what the engine's
+        # `serve.bucket_hits` counter reads
+        self._shapes_seen: set = set()
+        self.last_dispatch_new_shape: bool = False
+
+    def ladder(self, max_rows: Optional[int] = None) -> List[int]:
+        """The rungs batches of 1..max_rows pad up to: what `prewarm`
+        dispatches."""
+        from .parallel import bucket_ladder
+
+        return bucket_ladder(
+            min(int(max_rows), self.cap) if max_rows else self.cap,
+            min_rows=self.bucket_min,
+            cap=self.cap,
+        )
+
+    def dispatch(self, xb: np.ndarray) -> Tuple[Any, int]:
+        """Pad one host batch up its rung, place it and run `predict`; no
+        device-to-host copy. Returns (device outputs, valid row count). A
+        zero-row batch still dispatches one rung, so multi-output models
+        yield one correctly shaped empty array per output at `fetch`."""
+        from .parallel import bucket_rows, host_tensor
+
+        xp, n_valid = bucket_rows(
+            np.asarray(xb, dtype=self.dtype), min_rows=self.bucket_min, cap=self.cap
+        )
+        sig = tuple(xp.shape)
+        self.last_dispatch_new_shape = sig not in self._shapes_seen
+        self._shapes_seen.add(sig)
+        return self.predict_fn(self.state, host_tensor(xp).to(self.device)), n_valid
+
+    def fetch(self, result: Any, n_valid: int) -> Any:
+        """THE device-to-host copy: every output sliced to the valid rows,
+        as numpy arrays."""
+        from . import telemetry
+
+        with telemetry.device_wait("predict_fetch", self.device):
+            if isinstance(result, tuple):
+                return tuple(r[:n_valid].cpu().numpy() for r in result)
+            return result[:n_valid].cpu().numpy()
+
+    def prewarm(self, n_cols: int, *, max_rows: Optional[int] = None) -> int:
+        """Dispatch a zeros batch through every ladder rung up to `max_rows`
+        rows and wait for it, so the kernels are built and every rung's
+        buffers have been allocated once before the first query. Returns the
+        rung count."""
+        rungs = self.ladder(max_rows)
+        for r in rungs:
+            result, _ = self.dispatch(np.zeros((r, int(n_cols)), dtype=self.dtype))
+            self.fetch(result, 0)
+        return len(rungs)
+
+
 class _TpuModelWithColumns(_TpuModel):
     """Transform = append prediction column(s), batched over rows.
 
@@ -250,23 +461,35 @@ class _TpuModelWithColumns(_TpuModel):
     def _get_transform_func(self) -> TransformFuncs:
         raise NotImplementedError
 
+    def _serve_program(
+        self, serve_dtype: Optional[str] = None, *, cap: Optional[int] = None
+    ) -> PredictProgram:
+        """Default serving hook: the model's own (construct, predict) pair as
+        a resident PredictProgram."""
+        self._serve_check(serve_dtype)
+        return PredictProgram(self, cap=cap)
+
     @abstractmethod
     def _out_column_names(self) -> List[str]:
         """Names of the appended columns."""
         raise NotImplementedError
 
-    def _transform_arrays(self, features: np.ndarray) -> np.ndarray:
-        """Batched predict over a host feature block; the outputs of the
-        batches are concatenated. A zero-row block still runs one (empty)
-        batch, so the output keeps the type `predict` gives it."""
-        construct, predict = self._get_transform_func()
-        state = construct()
+    def _transform_arrays(self, features: np.ndarray) -> Any:
+        """Batched predict over a host feature block, through a short-lived
+        PredictProgram: each batch is padded up the bucket ladder,
+        dispatched, fetched and sliced back, as the serving plane does. The
+        outputs of the batches are concatenated (per output, for a tuple). A
+        zero-row block still runs one batch, so the output keeps the type
+        and arity `predict` gives it."""
         n = features.shape[0]
         batch = int(config["max_records_per_batch"])
-        outs = [
-            predict(state, np.asarray(features[start:min(start + batch, n)]))
-            for start in (range(0, n, batch) if n else (0,))
-        ]
+        program = PredictProgram(self, cap=batch)
+        outs = []
+        for start in range(0, n, batch) if n else (0,):
+            result, n_valid = program.dispatch(features[start:min(start + batch, n)])
+            outs.append(program.fetch(result, n_valid))
+        if isinstance(outs[0], tuple):
+            return tuple(np.concatenate(parts, axis=0) for parts in zip(*outs))
         return np.concatenate(outs, axis=0)
 
     def transform(self, dataset: Any):

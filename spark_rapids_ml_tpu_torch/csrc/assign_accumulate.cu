@@ -25,9 +25,11 @@
 //   * The loop loads four rows ahead before adding them in order, to keep
 //     loads in flight without changing the order of the sum.
 //   * Rows with zero weight are skipped: they add nothing.
-//   * `fast`: x and w are rounded to bf16 (round to nearest even) before the
-//     product, as the TPU kernel's bf16 one-hot product with float32
-//     accumulation did; counts stay at full precision, as there.
+//   * `fast`: x and w are rounded to bf16 (round to nearest even; a double
+//     through float, as torch's and XLA's casts do) before the product, and
+//     the products are summed in float32, as the TPU kernel's bf16 one-hot
+//     product with float32 accumulation did; a float64 sum is widened back
+//     at the store. Counts stay at full precision, as there.
 //
 // C interface, bound with ctypes (spark_rapids_ml_tpu_torch/ops/_kernels.py):
 // each function launches on `stream` and returns cudaGetLastError().
@@ -35,15 +37,21 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int DT = 256;     // columns per block, one per thread
 constexpr int UNROLL = 4;   // rows loaded ahead of the in-order sum
 
+// the type the products are summed in: float32 for `fast`, else the input's
 template <typename T, bool FAST>
-__device__ __forceinline__ T rounded(T v) {
+using sum_t = std::conditional_t<FAST, float, T>;
+
+template <typename T, bool FAST>
+__device__ __forceinline__ sum_t<T, FAST> rounded(T v) {
   if constexpr (FAST) {
-    return __bfloat162float(__float2bfloat16_rn(v));
+    return __bfloat162float(__float2bfloat16_rn(static_cast<float>(v)));
   } else {
     return v;
   }
@@ -60,11 +68,12 @@ assign_accumulate_kernel(const T* __restrict__ x, const T* __restrict__ w,
   const int hi = offsets[j + 1];
 
   if (col < d) {
-    T s = T(0);
+    using S = sum_t<T, FAST>;
+    S s = S(0);
     int p = lo;
     for (; p + UNROLL <= hi; p += UNROLL) {
-      T wv[UNROLL];
-      T xv[UNROLL];
+      S wv[UNROLL];
+      S xv[UNROLL];
 #pragma unroll
       for (int u = 0; u < UNROLL; ++u) {
         const int r = order[p + u];
@@ -73,15 +82,15 @@ assign_accumulate_kernel(const T* __restrict__ x, const T* __restrict__ w,
       }
 #pragma unroll
       for (int u = 0; u < UNROLL; ++u) {
-        if (wv[u] != T(0)) s += wv[u] * xv[u];
+        if (wv[u] != S(0)) s += wv[u] * xv[u];
       }
     }
     for (; p < hi; ++p) {
       const int r = order[p];
-      const T wr = rounded<T, FAST>(w[r]);
-      if (wr != T(0)) s += wr * rounded<T, FAST>(x[static_cast<long long>(r) * d + col]);
+      const S wr = rounded<T, FAST>(w[r]);
+      if (wr != S(0)) s += wr * rounded<T, FAST>(x[static_cast<long long>(r) * d + col]);
     }
-    sums[static_cast<long long>(j) * d + col] = s;
+    sums[static_cast<long long>(j) * d + col] = static_cast<T>(s);
   }
 
   if (blockIdx.y == 0 && threadIdx.x == 0) {
@@ -112,6 +121,7 @@ extern "C" int srml_assign_accumulate_f32(const void* x, const void* w, const vo
 
 extern "C" int srml_assign_accumulate_f64(const void* x, const void* w, const void* order,
                                           const void* offsets, void* sums, void* counts,
-                                          int k, int d, void* stream) {
-  return launch<double, false>(x, w, order, offsets, sums, counts, k, d, stream);
+                                          int k, int d, int fast, void* stream) {
+  return fast ? launch<double, true>(x, w, order, offsets, sums, counts, k, d, stream)
+              : launch<double, false>(x, w, order, offsets, sums, counts, k, d, stream);
 }

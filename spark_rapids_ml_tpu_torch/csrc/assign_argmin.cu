@@ -33,7 +33,10 @@
 //     __float2bfloat16_rn (round to nearest even, as JAX's astype(bfloat16)),
 //     and the products are summed in float32. Products of two bf16 values
 //     are exact in float32, so this is the arithmetic of a bf16 matrix unit
-//     with float32 accumulation.
+//     with float32 accumulation. For float64 inputs the float32 dot products
+//     are widened back and the epilogue (c_sq - 2*dot, the running minimum)
+//     stays in float64, as the TPU kernel's `fast` body casts its product
+//     back to the input dtype.
 //
 // C interface, bound with ctypes (spark_rapids_ml_tpu_torch/ops/_kernels.py):
 // each function launches on `stream` and returns cudaGetLastError().
@@ -65,8 +68,9 @@ __global__ void __launch_bounds__(THREADS)
 assign_argmin_kernel(const T* __restrict__ x, const T* __restrict__ c,
                      const T* __restrict__ c_sq, T* __restrict__ mind,
                      int* __restrict__ best, int B, int k, int d) {
-  __shared__ T xs[BK][BM + 1];
-  __shared__ T cs[BK][BN + 1];
+  using A = acc_t<T, FAST>;
+  __shared__ A xs[BK][BM + 1];
+  __shared__ A cs[BK][BN + 1];
   __shared__ T red_v[BM][LANES_N + 1];
   __shared__ int red_j[BM][LANES_N + 1];
 
@@ -84,7 +88,7 @@ assign_argmin_kernel(const T* __restrict__ x, const T* __restrict__ c,
   }
 
   for (int n0 = 0; n0 < k; n0 += BN) {
-    T acc[TM][TN];
+    A acc[TM][TN];
     tile_dot<T, FAST>(x, m0, B, c, n0, k, d, xs, cs, acc);
 
     // centers of this thread in ascending order: the strict '<' in take()
@@ -96,7 +100,7 @@ assign_argmin_kernel(const T* __restrict__ x, const T* __restrict__ c,
         const T csq = c_sq[gn];
 #pragma unroll
         for (int i = 0; i < TM; ++i) {
-          const T v = csq - T(2) * acc[i][jj];
+          const T v = csq - T(2) * static_cast<T>(acc[i][jj]);
           if (take(v, gn, run_v[i], run_j[i])) {
             run_v[i] = v;
             run_j[i] = gn;
@@ -150,6 +154,7 @@ extern "C" int srml_assign_argmin_f32(const void* x, const void* c, const void* 
 
 extern "C" int srml_assign_argmin_f64(const void* x, const void* c, const void* c_sq,
                                       void* mind, void* best, int B, int k, int d,
-                                      void* stream) {
-  return launch<double, false>(x, c, c_sq, mind, best, B, k, d, stream);
+                                      int fast, void* stream) {
+  return fast ? launch<double, true>(x, c, c_sq, mind, best, B, k, d, stream)
+              : launch<double, false>(x, c, c_sq, mind, best, B, k, d, stream);
 }

@@ -1,15 +1,22 @@
 #
-# Typed errors raised on the port's path: the base `SrmlError` and
-# `SolverDivergedError`, which `ops.kmeans.kmeans_fit` raises on a non-finite
-# center shift or inertia. Counterparts of spark_rapids_ml_tpu/errors.py,
-# without the flight-recorder hook and the control-plane errors (the port has
-# no rendezvous yet).
+# Typed errors raised on the port's path: the base `SrmlError`,
+# `SolverDivergedError` (`ops.kmeans.kmeans_fit`, on a non-finite center
+# shift or inertia), and the serving plane's: `HbmBudgetError` (a model load
+# the device budget cannot hold), `ServeOverloadError` (a request refused at
+# submit), `RequestTimeoutError` (a request whose server-side deadline passed
+# before dispatch) and `ServingStoppedError` (the engine stopped first).
+# Counterparts of spark_rapids_ml_tpu/errors.py, with the same messages and
+# attributes, without the flight-recorder hook and the control-plane errors
+# (the port has no rendezvous yet).
 #
 from __future__ import annotations
 
 from typing import Any, Dict, Optional
 
-__all__ = ["SrmlError", "SolverDivergedError"]
+__all__ = [
+    "SrmlError", "SolverDivergedError", "HbmBudgetError", "RequestTimeoutError",
+    "ServeOverloadError", "ServingStoppedError",
+]
 
 
 class SrmlError(Exception):
@@ -39,3 +46,168 @@ class SolverDivergedError(SrmlError, ArithmeticError):
         if self.last_good:
             msg += f" (last-good iterate keys: {sorted(self.last_good)})"
         super().__init__(msg)
+
+
+class HbmBudgetError(SrmlError, MemoryError):
+    """A working set does not fit device memory: the serving plane's
+    admission (`memory.admit_model_load`) found a model load over the
+    per-device budget even with every other resident evicted. PERMANENT:
+    retrying the same load on the same device cannot help — shrink the model,
+    raise ``config["hbm_budget_bytes"]``, or add cards.
+
+    Carries the per-device byte accounting so the message (and post-mortems)
+    name WHAT doesn't fit: ``estimate_bytes`` (total working set),
+    ``capacity_bytes`` (per-device budget it was checked against),
+    ``largest_term`` / ``largest_term_bytes`` (the dominant line item, e.g.
+    ``placement.items`` or ``workspace.topk_block``), and the full ``terms``
+    dict."""
+
+    def __init__(
+        self,
+        message: str,
+        *,
+        estimate_bytes: Optional[int] = None,
+        capacity_bytes: Optional[int] = None,
+        largest_term: Optional[str] = None,
+        largest_term_bytes: Optional[int] = None,
+        terms: Optional[Dict[str, int]] = None,
+    ):
+        self.estimate_bytes = None if estimate_bytes is None else int(estimate_bytes)
+        self.capacity_bytes = None if capacity_bytes is None else int(capacity_bytes)
+        self.largest_term = largest_term
+        self.largest_term_bytes = (
+            None if largest_term_bytes is None else int(largest_term_bytes)
+        )
+        self.terms: Dict[str, int] = dict(terms) if terms else {}
+        parts = [message]
+        if estimate_bytes is not None and capacity_bytes is not None:
+            parts.append(
+                f"(estimated {self.estimate_bytes} bytes/device against a "
+                f"{self.capacity_bytes}-byte budget)"
+            )
+        if largest_term is not None:
+            lt = (
+                f"largest term: {largest_term}"
+                if largest_term_bytes is None
+                else f"largest term: {largest_term} = {self.largest_term_bytes} bytes"
+            )
+            parts.append(f"[{lt}]")
+        super().__init__(" ".join(parts))
+
+
+class RequestTimeoutError(SrmlError, TimeoutError):
+    """A scoring request's server-side deadline elapsed before dispatch
+    (``ScoringEngine.submit(deadline_ms=)``, default
+    ``config["serve_default_deadline_ms"]``; monotonic clock only).
+
+    The request NEVER touched the device: expired requests are dropped at
+    the head of the queue or filtered out of a coalesced group before
+    dispatch, so a caller whose client already gave up does not burn device
+    time. PERMANENT for this request — resubmit with a larger deadline or
+    at lower load. Distinguish from the bare ``TimeoutError`` that
+    ``ScoreFuture.result(timeout)`` raises: that is the CLIENT giving up
+    while the request may still dispatch; this is the SERVER refusing to
+    dispatch stale work."""
+
+    def __init__(
+        self,
+        message: str,
+        *,
+        model: Optional[str] = None,
+        deadline_ms: Optional[float] = None,
+        waited_ms: Optional[float] = None,
+        queue_depth: Optional[int] = None,
+        queue_rows: Optional[int] = None,
+    ):
+        self.model = model
+        self.deadline_ms = None if deadline_ms is None else float(deadline_ms)
+        self.waited_ms = None if waited_ms is None else float(waited_ms)
+        self.queue_depth = None if queue_depth is None else int(queue_depth)
+        self.queue_rows = None if queue_rows is None else int(queue_rows)
+        parts = [message]
+        if deadline_ms is not None:
+            w = (
+                f" after waiting {self.waited_ms:.1f}ms"
+                if waited_ms is not None
+                else ""
+            )
+            parts.append(f"(deadline {self.deadline_ms:.1f}ms elapsed{w})")
+        if queue_depth is not None:
+            parts.append(
+                f"[queue: {self.queue_depth} requests"
+                + (
+                    f", {self.queue_rows} rows]"
+                    if queue_rows is not None
+                    else "]"
+                )
+            )
+        super().__init__(" ".join(parts))
+
+
+class ServeOverloadError(SrmlError, RuntimeError):
+    """Serving admission refused this request: the bounded queue is full
+    (``config["serve_max_queue_rows"]``), or the live windowed queue-wait
+    p99 predicts the deadline cannot be met. PERMANENT for this request, by
+    design cheap and synchronous at ``submit()`` — raised BEFORE any
+    queueing so callers can back off while the evidence (queue depth,
+    predicted wait, deadline, ladder level) names why."""
+
+    def __init__(
+        self,
+        message: str,
+        *,
+        model: Optional[str] = None,
+        tenant: Optional[str] = None,
+        level: Optional[str] = None,
+        queue_depth: Optional[int] = None,
+        queue_rows: Optional[int] = None,
+        predicted_wait_ms: Optional[float] = None,
+        deadline_ms: Optional[float] = None,
+    ):
+        self.model = model
+        self.tenant = tenant
+        self.level = level
+        self.queue_depth = None if queue_depth is None else int(queue_depth)
+        self.queue_rows = None if queue_rows is None else int(queue_rows)
+        self.predicted_wait_ms = (
+            None if predicted_wait_ms is None else float(predicted_wait_ms)
+        )
+        self.deadline_ms = None if deadline_ms is None else float(deadline_ms)
+        parts = [message]
+        if predicted_wait_ms is not None and deadline_ms is not None:
+            parts.append(
+                f"(predicted wait {self.predicted_wait_ms:.1f}ms against a "
+                f"{self.deadline_ms:.1f}ms deadline)"
+            )
+        if queue_depth is not None or queue_rows is not None:
+            parts.append(
+                f"[queue: {self.queue_depth or 0} requests, "
+                f"{self.queue_rows or 0} rows]"
+            )
+        if level is not None:
+            parts.append(f"[tenant {tenant!r} at ladder level {level!r}]")
+        super().__init__(" ".join(parts))
+
+
+class ServingStoppedError(SrmlError, RuntimeError):
+    """The scoring engine stopped before this queued request dispatched
+    (``ScoringEngine.stop()`` drain deadline elapsed, or the engine was
+    never going to run it). Carries the model name and the request's
+    position in the queue at shutdown, so a caller distinguishing "my
+    request was slow" from "the service went away under me" has the
+    evidence in the exception, not in a log."""
+
+    def __init__(self, model: str, *, queue_position: Optional[int] = None):
+        self.model = model
+        self.queue_position = (
+            None if queue_position is None else int(queue_position)
+        )
+        at = (
+            f" (queue position {self.queue_position})"
+            if queue_position is not None
+            else ""
+        )
+        super().__init__(
+            f"scoring engine stopped before request for model {model!r} "
+            f"dispatched{at}"
+        )

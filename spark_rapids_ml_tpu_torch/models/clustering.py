@@ -1,9 +1,9 @@
 #
 # KMeans estimator and model, drop-in for `pyspark.ml.clustering.KMeans`: the
 # PyTorch counterpart of spark_rapids_ml_tpu/models/clustering.py (KMeans,
-# KMeansModel), on one device. The serving hooks, the out-of-core streaming
-# fit and the multi-process init gather of the JAX package are later ROADMAP
-# items (A13, A11, A10).
+# KMeansModel, with KMeansModel's serving hooks), on one device. The
+# out-of-core streaming fit and the multi-process init gather of the JAX
+# package are later ROADMAP items (A11, A10).
 #
 from __future__ import annotations
 
@@ -255,17 +255,50 @@ class KMeansModel(_KMeansParams, _TpuModelWithColumns):
     def _out_column_names(self) -> List[str]:
         return [self.getOrDefault("predictionCol")]
 
-    def _get_transform_func(self):
-        from ..ops.kmeans import kmeans_predict
+    def _centers_on_device(self):
         from ..parallel import default_device, host_tensor
 
-        device = default_device()
         dtype = np.float32 if self._float32_inputs else np.float64
+        return host_tensor(self.cluster_centers_.astype(dtype, copy=False)).to(default_device())
 
-        def construct():
-            return host_tensor(self.cluster_centers_.astype(dtype, copy=False)).to(device)
+    def _get_transform_func(self):
+        from ..ops.kmeans import kmeans_predict
 
-        def predict(state, xb):
-            return kmeans_predict(host_tensor(xb.astype(dtype, copy=False)).to(device), state).cpu().numpy()
+        return self._centers_on_device, lambda state, xb: kmeans_predict(xb, state)
 
-        return construct, predict
+    # serving hooks -------------------------------------------------------
+
+    _serve_dtypes = (None, "float32", "float64", "bf16")
+
+    def _serve_program(self, serve_dtype=None, *, cap=None):
+        """KMeans serving hook: `serve_dtype="bf16"` routes assignment
+        through the distance core's fast mode (bf16 products, float32
+        accumulation; assignments flip only for near-tied rows)."""
+        if serve_dtype != "bf16":
+            return super()._serve_program(serve_dtype, cap=cap)
+        self._serve_check(serve_dtype)
+        from ..core import PredictProgram
+        from ..ops.distance import argmin_assign
+
+        return PredictProgram(
+            self,
+            construct=self._centers_on_device,
+            predict=lambda state, xb: argmin_assign(xb, state, fast=True),
+            cap=cap,
+        )
+
+    def _serve_workspace_terms(self, bucket_rows_count, itemsize):
+        # the assignment runs in row tiles of config["distance_tile_rows"]
+        # through the argmin kernel, which keeps no [tile, k] block; the plain
+        # version (the CPU) holds one, so the term prices it
+        from ..ops.distance import tile_rows
+
+        k = int(self.cluster_centers_.shape[0])
+        tile = min(tile_rows(), max(1, int(bucket_rows_count)))
+        return {"predict_tile": tile * k * itemsize}
+
+    def _serve_flop_estimate(self, n_rows, n_cols):
+        # the [n, k] squared-distance block (~3*n*k*d for the expanded
+        # |x|^2 - 2 x.c + |c|^2 form); the argmin epilogue left out
+        k = max(1, int(self.cluster_centers_.shape[0]))
+        return 3.0 * n_rows * k * n_cols

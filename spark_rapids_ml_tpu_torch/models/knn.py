@@ -6,9 +6,14 @@
 # (query_id, indices, distances), and `exactNearestNeighborsJoin` explodes
 # the pairs. Neither supports persistence, as in the reference.
 #
+# The serving hooks keep the item block, its norms and its id map resident
+# on the card and answer each query batch through the running top-k
+# (`topk_tile`), at the items' dtype or, with serve_dtype="bf16", through the
+# d2-block kernel's bf16 tensor-core form.
+#
 # Left out, each a later ROADMAP item: the multi-device and multi-process
-# search (A10; num_workers > 1 is refused), sparse item sets (A11; ingest
-# raises), and the serving hooks (A13).
+# search (A10; num_workers > 1 is refused) and sparse item sets (A11; ingest
+# raises).
 #
 from __future__ import annotations
 
@@ -207,6 +212,88 @@ class NearestNeighborsModel(_KNNParams, _TpuModel):
 
     def transform(self, dataset: Any):
         raise NotImplementedError("use kneighbors()/exactNearestNeighborsJoin() (reference parity)")
+
+    # serving hooks -------------------------------------------------------
+
+    _serve_dtypes = (None, "float32", "float64", "bf16")
+
+    def _n_items(self) -> int:
+        return int(self._item_extracted.n_rows) if self._item_extracted is not None else 0
+
+    def _serve_n_cols(self) -> int:
+        if self._item_extracted is None:
+            raise ValueError(
+                "NearestNeighborsModel is not bound to an item dataframe; "
+                "fit it before loading into the serving plane"
+            )
+        return int(self._item_extracted.n_cols)
+
+    def _serve_placement_terms(self) -> Dict[str, int]:
+        # the resident state is the item block, its row norms and the int64
+        # id map
+        itemsize = 4 if self._float32_inputs else 8
+        n = self._n_items()
+        return {
+            "items": n * self._serve_n_cols() * itemsize,
+            "item_sq": n * itemsize,
+            "item_ids": n * 8,
+        }
+
+    def _serve_workspace_terms(self, bucket_rows_count, itemsize) -> Dict[str, int]:
+        # the running top-k's live blocks per dispatched bucket: one
+        # [bucket, item block] distance block (the port's item block,
+        # ops/distance._DEFAULT_K_TILE, on the CPU and the card alike) plus
+        # the [bucket, k] best list x2 (distances and indices); no
+        # [bucket, n_items] block exists
+        from ..ops.distance import _DEFAULT_K_TILE
+
+        n_items = max(1, self._n_items())
+        k = int(self._solver_params["n_neighbors"])
+        b = max(1, int(bucket_rows_count))
+        return {
+            "topk_block": b * min(_DEFAULT_K_TILE, n_items) * itemsize,
+            "topk_carry": 2 * b * min(k, n_items) * itemsize,
+        }
+
+    def _serve_flop_estimate(self, n_rows, n_cols):
+        # the full [queries, items] squared-distance sweep (~3*n*m*d); the
+        # top-k selection left out
+        return 3.0 * n_rows * max(1, self._n_items()) * n_cols
+
+    def _serve_program(self, serve_dtype=None, *, cap=None):
+        """kNN serving hook: per query row (euclidean distances [B, k], user
+        item ids [B, k]), the values `kneighbors`' knn_df carries. The item
+        block, its norms and its id map are placed once, at `construct`;
+        `serve_dtype="bf16"` scores through the fast (bf16, float32
+        accumulation) d2-block kernel, against the norms of the unrounded
+        items. The query norms are summed in a fixed order
+        (`row_sq_fixed`), so a query's distances do not depend on the batch
+        it is served in."""
+        import torch
+
+        from ..core import PredictProgram
+        from ..ops import distance as dist
+        from ..parallel import default_device, host_tensor
+
+        self._serve_check(serve_dtype)  # dtype surface + bound item set
+        fast = serve_dtype == "bf16"
+        dtype = np.float32 if self._float32_inputs else np.float64
+        items_np = np.ascontiguousarray(np.asarray(self._item_extracted.features, dtype=dtype))
+        ids_np = np.asarray(self._ensure_id(self._item_pdf, self._item_extracted), dtype=np.int64)
+        k = min(int(self._solver_params["n_neighbors"]), items_np.shape[0])
+
+        def construct():
+            dev = default_device()
+            it = host_tensor(items_np).to(dev)
+            return it, dist.row_sq(it), host_tensor(ids_np).to(dev)
+
+        def predict(state, q):
+            it, it_sq, ids = state
+            d2, idx = dist.topk_tile(q, it, None, k, item_sq=it_sq, fast=fast)
+            d = torch.sqrt(torch.clamp_min(d2 + dist.row_sq_fixed(q)[:, None], 0.0))
+            return d, ids[idx.long()]
+
+        return PredictProgram(self, construct=construct, predict=predict, cap=cap)
 
     def write(self):
         raise NotImplementedError("NearestNeighborsModel does not support saving (reference parity)")

@@ -5,6 +5,7 @@
 #   assign_argmin      csrc/assign_argmin.cu      replaces _pl_argmin
 #   assign_accumulate  csrc/assign_accumulate.cu  replaces _pl_accumulate
 #   d2_block           csrc/d2_block.cu           replaces _pl_d2_block
+#                      (+ csrc/mma_bf16.cuh, its bf16 tensor-core `fast` form)
 #
 # (the TPU kernels live in spark_rapids_ml_tpu/ops/distance.py).
 #
@@ -12,16 +13,18 @@
 # sm_90a into a shared library with a plain C interface under `build/` at the
 # repository root (one nvcc per source, all started together). The library
 # name carries a hash of its source and of every header in csrc/
-# (tile_dot.cuh is shared), so an edited source or header never loads a
-# stale library. A missing nvcc or a failed build raises; nothing falls back
-# to the plain PyTorch versions (ops/distance.py).
+# (tile_dot.cuh and mma_bf16.cuh are shared), so an edited source or header
+# never loads a stale library. A missing nvcc or a failed build raises;
+# nothing falls back to the plain PyTorch versions (ops/distance.py).
 #
 # Wrappers take CUDA tensors only, check device, dtype, shape and
 # contiguity, allocate the outputs with torch.empty, launch on PyTorch's
 # current stream, raise when the launch reports an error, and count their
 # launches in `launches`: a plain integer per kernel and each variant it has
 # (VARIANTS: "assign_argmin/f32-fast", "d2_block/f64", ...), so a run shows
-# by reading them that its path went through the kernels.
+# by reading them that its path went through the kernels. Only the thread
+# that launches a kernel writes its counter (the serving engine launches from
+# its one dispatch thread).
 #
 from __future__ import annotations
 
@@ -50,12 +53,11 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-# the variants each kernel has: `fast` (bf16-rounded loads) only where the
-# TPU kernel had it on a path the port runs
+# the variants each kernel has: the input dtype, and `fast` (bf16-rounded
+# loads, float32 sums, the result in the input dtype) for either dtype, as
+# the TPU kernels have it
 VARIANTS: Dict[str, Tuple[str, ...]] = {
-    "assign_argmin": ("f32", "f32-fast", "f64"),
-    "assign_accumulate": ("f32", "f32-fast", "f64"),
-    "d2_block": ("f32", "f64"),
+    name: ("f32", "f32-fast", "f64", "f64-fast") for name in SOURCES
 }
 
 launches: Dict[str, int] = {f"{name}/{v}": 0 for name in SOURCES for v in VARIANTS[name]}
@@ -101,11 +103,13 @@ def _bind(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     for fn, args in (
         ("srml_assign_argmin_f32", [p, p, p, p, p, i, i, i, i, p]),
-        ("srml_assign_argmin_f64", [p, p, p, p, p, i, i, i, p]),
+        ("srml_assign_argmin_f64", [p, p, p, p, p, i, i, i, i, p]),
         ("srml_assign_accumulate_f32", [p, p, p, p, p, p, i, i, i, p]),
-        ("srml_assign_accumulate_f64", [p, p, p, p, p, p, i, i, p]),
+        ("srml_assign_accumulate_f64", [p, p, p, p, p, p, i, i, i, p]),
         ("srml_d2_block_f32", [p, p, p, p, i, i, i, p]),
         ("srml_d2_block_f64", [p, p, p, p, i, i, i, p]),
+        ("srml_d2_block_fast_f32", [p, p, p, p, i, i, i, p]),
+        ("srml_d2_block_fast_f64", [p, p, p, p, i, i, i, p]),
     ):
         if hasattr(lib, fn):
             f = getattr(lib, fn)
@@ -179,12 +183,10 @@ def _raise_on(name: str, status: int) -> None:
 
 
 def _variant(name: str, dtype: torch.dtype, fast: bool = False) -> str:
-    if dtype == torch.float32:
-        return "f32-fast" if fast else "f32"
-    if dtype == torch.float64:
-        _check(not fast, f"{name}: fast (bf16) mode takes float32 inputs only")
-        return "f64"
-    raise ValueError(f"{name}: float32 or float64 inputs only, got {dtype}")
+    bits = {torch.float32: "f32", torch.float64: "f64"}.get(dtype)
+    if bits is None:
+        raise ValueError(f"{name}: float32 or float64 inputs only, got {dtype}")
+    return f"{bits}-fast" if fast else bits
 
 
 def assign_argmin(
@@ -211,10 +213,8 @@ def assign_argmin(
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         args = [x.data_ptr(), c.data_ptr(), c_sq.data_ptr(), mind.data_ptr(), best.data_ptr(), B, k, d]
-        if variant != "f64":
-            status = lib.srml_assign_argmin_f32(*args, int(fast), stream)
-        else:
-            status = lib.srml_assign_argmin_f64(*args, stream)
+        fn = lib.srml_assign_argmin_f64 if x.dtype == torch.float64 else lib.srml_assign_argmin_f32
+        status = fn(*args, int(fast), stream)
     _raise_on(name, status)
     launches[f"{name}/{variant}"] += 1
     return mind, best
@@ -250,22 +250,24 @@ def assign_accumulate(
         stream = torch.cuda.current_stream(x.device).cuda_stream
         args = [x.data_ptr(), w.data_ptr(), order.data_ptr(), offsets.data_ptr(),
                 sums.data_ptr(), counts.data_ptr(), k, d]
-        if variant != "f64":
-            status = lib.srml_assign_accumulate_f32(*args, int(fast), stream)
-        else:
-            status = lib.srml_assign_accumulate_f64(*args, stream)
+        fn = (lib.srml_assign_accumulate_f64 if x.dtype == torch.float64
+              else lib.srml_assign_accumulate_f32)
+        status = fn(*args, int(fast), stream)
     _raise_on(name, status)
     launches[f"{name}/{variant}"] += 1
     return sums, counts
 
 
-def d2_block(q: torch.Tensor, xt: torch.Tensor, xt_sq: torch.Tensor) -> torch.Tensor:
+def d2_block(
+    q: torch.Tensor, xt: torch.Tensor, xt_sq: torch.Tensor, *, fast: bool = False
+) -> torch.Tensor:
     """Kernel form of `distance.d2_block_plain`: the [B, kt] block
     xt_sq[None, :] - 2 q.xt^T in q's dtype (no ||q||^2 term) for q [B, d],
-    xt [kt, d], xt_sq [kt]."""
+    xt [kt, d], xt_sq [kt]; `fast` takes the product on the bf16 tensor
+    cores with float32 accumulation."""
     name = "d2_block"
     _check_cuda(name, q, xt, xt_sq)
-    variant = _variant(name, q.dtype)
+    variant = _variant(name, q.dtype, fast)
     _check(xt.dtype == q.dtype and xt_sq.dtype == q.dtype, f"{name}: q, xt and xt_sq must share a dtype")
     _check(q.dim() == 2 and xt.dim() == 2 and xt_sq.dim() == 1, f"{name}: q [B,d], xt [kt,d], xt_sq [kt]")
     B, d = q.shape
@@ -273,14 +275,17 @@ def d2_block(q: torch.Tensor, xt: torch.Tensor, xt_sq: torch.Tensor) -> torch.Te
     _check(xt.shape[1] == d and xt_sq.shape[0] == kt, f"{name}: shapes {tuple(q.shape)}, {tuple(xt.shape)}, {tuple(xt_sq.shape)} disagree")
     _check(kt > 0 and d > 0, f"{name}: needs kt > 0 items and d > 0 features")
     _check(max(kt, d) < 2**31, f"{name}: dimensions must fit int32")
-    _check(B <= 65535 * 64, f"{name}: at most {65535 * 64} rows per block (the grid's y extent)")
+    if fast:  # 128 x 128 output tiles, item tiles on the grid's y axis
+        _check(kt <= 65535 * 128, f"{name}: at most {65535 * 128} items per block (the grid's y extent)")
+    else:  # 64 x 64 output tiles, row tiles on the grid's y axis
+        _check(B <= 65535 * 64, f"{name}: at most {65535 * 64} rows per block (the grid's y extent)")
     out = torch.empty((B, kt), dtype=q.dtype, device=q.device)
     if B == 0:
         return out
     lib = _lib(name)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        fn = lib.srml_d2_block_f32 if variant == "f32" else lib.srml_d2_block_f64
+        fn = getattr(lib, f"srml_d2_block{'_fast' if fast else ''}_{variant[:3]}")
         status = fn(q.data_ptr(), xt.data_ptr(), xt_sq.data_ptr(), out.data_ptr(), B, kt, d, stream)
     _raise_on(name, status)
     launches[f"{name}/{variant}"] += 1

@@ -9,10 +9,14 @@
 # tensor's device: a CPU tensor takes the plain version; a CUDA tensor takes
 # the hand-written kernel (ops/_kernels.py) or raises. Nothing falls back.
 #
-# `fast` = bf16 inputs with float32 accumulation (distance_precision="fast"):
-# the plain versions round with an explicit cast to bf16 and back and then
-# multiply in float32, which is exactly a bf16 product with float32
-# accumulation (a product of two bf16 values is exact in float32).
+# `fast` = bf16 inputs with float32 accumulation (distance_precision="fast",
+# serve_dtype="bf16"): the plain versions round both operands to bf16, widen
+# them to float32, multiply in float32 and cast the product back to the
+# inputs' dtype, which is exactly a bf16 product with float32 accumulation (a
+# product of two bf16 values is exact in float32), as the JAX package's `_mm`
+# and its Pallas `fast` bodies compute it for float32 and float64 inputs alike.
+# float64 reaches bf16 through float32 (two roundings), as both torch's and
+# XLA's casts do.
 #
 from __future__ import annotations
 
@@ -63,19 +67,38 @@ def row_sq(x: torch.Tensor) -> torch.Tensor:
     return torch.sum(x * x, dim=1)
 
 
+def row_sq_fixed(x: torch.Tensor) -> torch.Tensor:
+    """Row norms summed in an order fixed by the row length alone: a pairwise
+    tree of elementwise adds (column j + column j + half, halving the width).
+    `torch.sum` on the card may pick its reduction split from the number of
+    rows, so a row's norm could change with the batch it arrives in; here it
+    cannot, which keeps a served request's answer independent of the
+    requests it was coalesced with."""
+    s = x * x
+    while s.shape[1] > 1:
+        half = s.shape[1] // 2
+        odd = s[:, 2 * half:]
+        s = s[:, :half] + s[:, half:2 * half]
+        if odd.shape[1]:
+            s = torch.cat([s, odd], dim=1)
+    return s[:, 0] if s.shape[1] else s.new_zeros((s.shape[0],))
+
+
 def _c_sq(c: torch.Tensor) -> torch.Tensor:
     return torch.sum(c * c, dim=1)
 
 
 def _bf16(a: torch.Tensor) -> torch.Tensor:
-    return a.to(torch.bfloat16).to(a.dtype)
+    """`a` rounded to bf16 (round to nearest even) and widened to float32."""
+    return a.to(torch.bfloat16).to(torch.float32)
 
 
 def _mm(a: torch.Tensor, b: torch.Tensor, fast: bool) -> torch.Tensor:
-    """Matmul at the loop precision: `fast` = bf16-rounded inputs with float32
-    accumulation (see the module note), else the inputs' own precision."""
+    """Matmul at the loop precision: `fast` = bf16-rounded inputs, float32
+    accumulation, the product cast back to the inputs' dtype (see the module
+    note); else the inputs' own precision."""
     if fast:
-        return _bf16(a) @ _bf16(b)
+        return (_bf16(a) @ _bf16(b)).to(a.dtype)
     return a @ b
 
 
@@ -201,17 +224,22 @@ def min_d2_update(x: torch.Tensor, cand: torch.Tensor, min_d2: torch.Tensor) -> 
 # ----------------------------------------------------------- top-k (kNN) ----
 
 
-def d2_block_plain(q: torch.Tensor, xt: torch.Tensor, xt_sq: torch.Tensor) -> torch.Tensor:
+def d2_block_plain(
+    q: torch.Tensor, xt: torch.Tensor, xt_sq: torch.Tensor, fast: bool = False
+) -> torch.Tensor:
     """Plain version of the d2-block kernel: the [B, kt] block
-    xt_sq - 2 q.xt^T WITHOUT the ||q||^2 term, in the inputs' dtype."""
-    return xt_sq[None, :] - 2.0 * (q @ xt.T)
+    xt_sq - 2 q.xt^T WITHOUT the ||q||^2 term, in the inputs' dtype; `fast`
+    takes the product at bf16 with float32 accumulation."""
+    return xt_sq[None, :] - 2.0 * _mm(q, xt.T, fast)
 
 
-def d2_block(q: torch.Tensor, xt: torch.Tensor, xt_sq: torch.Tensor) -> torch.Tensor:
+def d2_block(
+    q: torch.Tensor, xt: torch.Tensor, xt_sq: torch.Tensor, *, fast: bool = False
+) -> torch.Tensor:
     """One [B, kt] distance block of the top-k merge (no ||q||^2 term)."""
     if _on_kernel_device("d2_block", q, xt, xt_sq):
-        return _kernels.d2_block(q, xt, xt_sq)
-    return d2_block_plain(q, xt, xt_sq)
+        return _kernels.d2_block(q, xt, xt_sq, fast=fast)
+    return d2_block_plain(q, xt, xt_sq, fast)
 
 
 def _smallest_columns(d2: torch.Tensor, kk: int) -> torch.Tensor:
@@ -254,6 +282,7 @@ def topk_tile(
     kk: int,
     *,
     item_sq: Optional[torch.Tensor] = None,
+    fast: bool = False,
     k_tile: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Running top-kk of one query tile against ALL items: (d2 [B, kk]
@@ -265,7 +294,9 @@ def topk_tile(
     block, so the [B, n] distance matrix never exists; the last block is
     clamped back and its overlap columns (already merged) are masked to
     +inf, as are items with `valid` False. Each block is a view of `items`
-    and its distances come from `d2_block`."""
+    and its distances come from `d2_block` (at bf16 with float32
+    accumulation when `fast`; `item_sq` stays the norms of the unrounded
+    items, as in the JAX package)."""
     n = items.shape[0]
     kk = min(kk, n)
     if item_sq is None:
@@ -280,7 +311,7 @@ def topk_tile(
         best_i = torch.zeros((B, kk), dtype=torch.int32, device=q.device)
     for start in range(0, n, kt):
         s0 = min(start, n - kt)
-        d2 = d2_block(q, items[s0:s0 + kt], item_sq[s0:s0 + kt])
+        d2 = d2_block(q, items[s0:s0 + kt], item_sq[s0:s0 + kt], fast=fast)
         keep = None
         if s0 < start:  # clamp-back overlap: already merged columns
             keep = torch.arange(s0, s0 + kt, device=q.device) >= start

@@ -9,7 +9,10 @@
 # (8 rows, 4 centers) so every shape below crosses a block boundary or a
 # ragged tail, or its jnp branch (`jnp_mode`). The top-k merge runs with
 # item blocks of 4 on both sides, so ties and masks straddle block
-# boundaries. The CUDA kernels themselves are held against the plain
+# boundaries. `fast` (bf16 products, float32 sums, the result in the input
+# dtype) is held against the JAX kernels' `fast` bodies for float32 and
+# float64 inputs: exactly on integer data, to rtol 1e-5 of the scale on
+# Gaussian data. The CUDA kernels themselves are held against the plain
 # versions by the `cuda`-marked tests at the end, which need the card.
 #
 import numpy as np
@@ -292,7 +295,9 @@ def test_topk_tile_default_block_is_the_ports_constant(monkeypatch):
     one = tdist.topk_tile(tq, ti, None, 7)
     calls = []
     real = tdist.d2_block
-    monkeypatch.setattr(tdist, "d2_block", lambda *a: calls.append(a[1].shape[0]) or real(*a))
+    monkeypatch.setattr(
+        tdist, "d2_block", lambda *a, **kw: calls.append(a[1].shape[0]) or real(*a, **kw)
+    )
     monkeypatch.setattr(tdist, "_DEFAULT_K_TILE", 16)
     many = tdist.topk_tile(tq, ti, None, 7)
     assert calls == [16, 16, 16, 16]  # 50 items: 3 blocks and the clamped-back tail
@@ -316,6 +321,127 @@ def test_d2_block_plain_matches_pallas_kernel(B, kt, d, dtype, rtol):
     # the same formula, dot products summed in another order: rtol of the scale
     scale = np.abs(jout).max()
     np.testing.assert_allclose(_np(tout), jout, rtol=rtol, atol=rtol * scale)
+
+
+# ------------------------------------------ fast (bf16) mode, f32 and f64 ----
+
+
+def test_mm_fast_accumulates_in_float32_for_float64_inputs():
+    # bf16 operands, float32 sums, the result cast back: 1 + 2^-25 is exact
+    # in float64 but rounds to 1 in float32, as JAX's _mm gives it
+    a = np.array([[1.0, 2.0 ** -25]])
+    b = np.array([[1.0], [1.0]])
+    (ja, jb), (ta, tb) = _both(a, b)
+    got = tdist._mm(ta, tb, True)
+    assert got.dtype == torch.float64
+    assert float(got[0, 0]) == 1.0
+    np.testing.assert_array_equal(_np(got), np.asarray(jdist._mm(ja, jb, True)))
+    assert float(tdist._mm(ta, tb, False)[0, 0]) == 1.0 + 2.0 ** -25
+
+
+def _d2_fast_inputs(B, kt, d, dtype, integer, seed):
+    rng = np.random.default_rng(seed)
+    if integer:  # |v| <= 4: exact in bf16, every sum exact in float32
+        q = rng.integers(-4, 5, size=(B, d)).astype(dtype)
+        xt = rng.integers(-4, 5, size=(kt, d)).astype(dtype)
+    else:
+        q = rng.normal(size=(B, d)).astype(dtype)
+        xt = rng.normal(size=(kt, d)).astype(dtype)
+    return q, xt, np.sum(xt * xt, 1).astype(dtype)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("integer", [True, False])
+@pytest.mark.parametrize("B,kt,d", [(13, 11, 7), (8, 4, 5), (33, 17, 130), (1, 1, 1)])
+def test_d2_block_fast_matches_pallas_kernel(B, kt, d, dtype, integer):
+    q, xt, xt_sq = _d2_fast_inputs(B, kt, d, dtype, integer, seed=B * kt + d)
+    qp = np.concatenate([q, np.zeros((-B % 8, d), dtype)])  # the kernel's row blocks of 8
+    jout = np.asarray(jdist._pl_d2_block(
+        jnp.asarray(qp), jnp.asarray(xt), jnp.asarray(xt_sq), block_rows=8, fast=True, interpret=True,
+    ))[:B]
+    _, (tq, txt, tsq) = _both(q, xt, xt_sq)
+    tout = tdist.d2_block(tq, txt, tsq, fast=True)
+    assert tout.dtype == tq.dtype and tout.shape == (B, kt)
+    if integer:
+        np.testing.assert_array_equal(_np(tout), jout)
+    else:
+        # the same bf16 operands and exact products, summed in float32 in
+        # another order: rtol 1e-5 of the block's scale, in f32 and f64 alike
+        scale = np.abs(jout).max()
+        np.testing.assert_allclose(_np(tout), jout, rtol=1e-5, atol=1e-5 * scale)
+
+
+@pytest.mark.parametrize("mode_fixture", ["interpret_mode", "jnp_mode"])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_topk_tile_fast_ties_match_jax(request, mode_fixture, dtype, seed):
+    # integer rows repeated across a 4-item block boundary: bf16 is exact on
+    # them, so the fast merge gives lax.top_k's order exactly, lower index first
+    request.getfixturevalue(mode_fixture)
+    q, items = _dup_integer_items(seed)
+    q, items = q.astype(dtype), items.astype(dtype)
+    (jq, ji), (tq, ti) = _both(q, items)
+    jd2, jidx = jdist.topk_tile(jq, ji, None, 6, k_tile=4, block_rows=4, fast=True)
+    td2, tidx = tdist.topk_tile(tq, ti, None, 6, k_tile=4, fast=True)
+    rd2, ridx = _topk_reference(q, items, None, 6)
+    assert td2.dtype == tq.dtype
+    np.testing.assert_array_equal(_np(td2), np.asarray(jd2))
+    np.testing.assert_array_equal(_np(tidx), np.asarray(jidx))
+    np.testing.assert_array_equal(_np(td2), rd2)
+    np.testing.assert_array_equal(_np(tidx), ridx)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("n", [7, 9, 20])
+def test_topk_tile_fast_gaussian_matches_jax_kernel(interpret_mode, dtype, n):
+    rng = np.random.default_rng(40 + n)
+    q, items = rng.normal(size=(5, 6)).astype(dtype), rng.normal(size=(n, 6)).astype(dtype)
+    kk = min(4, n)
+    (jq, ji), (tq, ti) = _both(q, items)
+    jd2, jidx = jdist.topk_tile(jq, ji, None, kk, k_tile=4, block_rows=8, fast=True)
+    td2, tidx = tdist.topk_tile(tq, ti, None, kk, k_tile=4, fast=True)
+    # separated data: the same neighbors; distances summed in float32 in
+    # another order: rtol 1e-5 of their scale
+    np.testing.assert_array_equal(_np(tidx), np.asarray(jidx))
+    scale = np.abs(np.asarray(jd2)).max()
+    np.testing.assert_allclose(_np(td2), np.asarray(jd2), rtol=1e-5, atol=1e-5 * scale)
+
+
+@pytest.mark.parametrize("integer", [True, False])
+@pytest.mark.parametrize("n,k,d", [(33, 5, 8), (17, 9, 13)])
+def test_fast_mode_float64_matches_jax_kernels(interpret_mode, integer, n, k, d):
+    # float64 inputs in `fast` mode: bf16 products summed in float32, the
+    # result in float64, in the argmin and the accumulation alike
+    X, C, w = _data(n, k, d, np.float64, seed=n + k, integer=integer)
+    (jX, jC, jw), (tX, tC, tw) = _both(X, C, w)
+    jm, jb = jdist.assign_argmin(jX, jC, fast=True, block_rows=8, block_k=4)
+    tm, tb = tdist.assign_argmin(tX, tC, fast=True)
+    js, jc, _ = jdist.assign_accumulate(jX, jw, jC, fast=True, block_rows=8, block_k=4)
+    ts, tc, _ = tdist.assign_accumulate(tX, tw, tC, fast=True)
+    assert tm.dtype == torch.float64 and ts.dtype == torch.float64
+    np.testing.assert_array_equal(_np(tb), _np(jb))
+    # counts stay at full precision: float64 sums in another order
+    np.testing.assert_allclose(_np(tc), _np(jc), rtol=1e-12)
+    if integer:
+        np.testing.assert_array_equal(_np(tc), _np(jc))
+        np.testing.assert_array_equal(_np(tm), _np(jm))
+        np.testing.assert_array_equal(_np(ts), _np(js))
+    else:
+        # float32 sums in another order: rtol 1e-5 of the scale
+        np.testing.assert_allclose(_np(tm), _np(jm), rtol=1e-5, atol=1e-5 * np.abs(_np(jm)).max())
+        np.testing.assert_allclose(_np(ts), _np(js), rtol=1e-5, atol=1e-5 * np.abs(_np(js)).max())
+
+
+@pytest.mark.parametrize("d", [1, 2, 3, 5, 8, 130, 3000])
+def test_row_sq_fixed_is_a_row_norm_independent_of_the_batch(d):
+    x = np.random.default_rng(d).normal(size=(37, d)).astype(np.float32)
+    t = torch.from_numpy(x)
+    got = tdist.row_sq_fixed(t)
+    np.testing.assert_allclose(_np(got), np.sum(x.astype(np.float64) ** 2, 1), rtol=1e-6)
+    # each row's norm is the same bits whatever rows it is computed with
+    for lo, hi in ((0, 1), (5, 6), (3, 20), (0, 37)):
+        assert torch.equal(tdist.row_sq_fixed(t[lo:hi]), got[lo:hi])
+    assert tdist.row_sq_fixed(torch.zeros((4, 0))).shape == (4,)
 
 
 # ------------------------------------------------ dispatch, no fallbacks ----
@@ -343,11 +469,12 @@ def test_kernel_wrappers_refuse_cpu_tensors(fn):
 
 
 def test_launch_counters_are_per_kernel_variant():
-    # d2_block has no bf16 `fast` form, so no counter that could never move
+    # every kernel has the JAX kernels' four forms: f32, f64, and `fast`
+    # (bf16 products, float32 sums) on either
     assert set(_kernels.launches) == {
-        "assign_argmin/f32", "assign_argmin/f32-fast", "assign_argmin/f64",
-        "assign_accumulate/f32", "assign_accumulate/f32-fast", "assign_accumulate/f64",
-        "d2_block/f32", "d2_block/f64",
+        f"{name}/{v}"
+        for name in ("assign_argmin", "assign_accumulate", "d2_block")
+        for v in ("f32", "f32-fast", "f64", "f64-fast")
     }
 
 
@@ -379,7 +506,9 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,fast", [(np.float32, False), (np.float32, True), (np.float64, False)])
+@pytest.mark.parametrize(
+    "dtype,fast", [(np.float32, False), (np.float32, True), (np.float64, False), (np.float64, True)]
+)
 @pytest.mark.parametrize("n,k,d", [(1000, 1001, 77), (37, 5, 3), (4096, 64, 300)])
 def test_kernels_match_plain_versions_on_card(card, dtype, fast, n, k, d):
     # integer-valued data: exact, ties included
@@ -398,17 +527,19 @@ def test_kernels_match_plain_versions_on_card(card, dtype, fast, n, k, d):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
-@pytest.mark.parametrize("B,kt,d", [(4095, 16383, 300), (37, 5, 3), (64, 64, 16), (1, 1, 1)])
-def test_d2_block_kernel_matches_plain_version_on_card(card, dtype, B, kt, d):
+@pytest.mark.parametrize("fast", [False, True])
+@pytest.mark.parametrize("B,kt,d", [(4095, 16383, 300), (37, 5, 3), (64, 64, 16), (1, 1, 1), (256, 130, 3000)])
+def test_d2_block_kernel_matches_plain_version_on_card(card, dtype, fast, B, kt, d):
     # integer-valued data: every sum is exact, so the kernel equals the plain version
     rng = np.random.default_rng(B + kt + d)
     q = torch.from_numpy(rng.integers(-4, 5, size=(B, d)).astype(dtype)).to(card)
     xt = torch.from_numpy(rng.integers(-4, 5, size=(kt, d)).astype(dtype)).to(card)
     xt_sq = tdist.row_sq(xt)
-    before = _kernels.launch_total("d2_block")
-    out = _kernels.d2_block(q, xt, xt_sq)
-    assert _kernels.launch_total("d2_block") == before + 1
-    assert torch.equal(out, tdist.d2_block_plain(q, xt, xt_sq))
+    variant = f"d2_block/{'f32' if dtype == np.float32 else 'f64'}{'-fast' if fast else ''}"
+    before = _kernels.launches[variant]
+    out = _kernels.d2_block(q, xt, xt_sq, fast=fast)
+    assert _kernels.launches[variant] == before + 1
+    assert torch.equal(out, tdist.d2_block_plain(q, xt, xt_sq, fast))
 
 
 @pytest.mark.cuda

@@ -57,6 +57,14 @@ m.transform({"features": x})
 KMeans(k=64, maxIter=2, seed=1).fit({"features": x})  # k-means|| seeding too
 nn = NearestNeighbors(k=5).setInputCol("features").fit({"features": x})
 nn.exactNearestNeighborsJoin({"features": x[:7]})  # kneighbors inside
+from spark_rapids_ml_tpu_torch import ModelRegistry, ScoringEngine
+registry = ModelRegistry()
+registry.load("km", m)
+registry.load("nn", nn, serve_dtype="bf16")
+with ScoringEngine(registry) as engine:
+    assert engine.score("km", x[:3]).shape == (3,)
+    d, i = engine.score("nn", x[:2])
+    assert list(i[:, 0]) == [0, 1]
 bad = sorted(n for n in sys.modules
              if n == "spark_rapids_ml_tpu" or n.startswith("spark_rapids_ml_tpu."))
 assert not bad, bad
@@ -109,6 +117,10 @@ def test_entry_points_raise_without_a_card_or_set_devices(monkeypatch):
     model = KMeansModel(cluster_centers_=x[:2], n_cols=5)
     with pytest.raises(RuntimeError, match=r'set_devices\("cpu"\)'):
         model.transform({"features": x})
+    from spark_rapids_ml_tpu_torch import ModelRegistry
+
+    with pytest.raises(RuntimeError, match=r'set_devices\("cpu"\)'):
+        ModelRegistry().load("km", model)
 
 
 def test_more_than_one_worker_is_refused():
