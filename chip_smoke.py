@@ -10,8 +10,14 @@
 #      ragged shapes, in every variant (f32, f32 fast, f64, f64 fast; fast =
 #      bf16 products with float32 sums): integer-valued data must agree
 #      exactly (ties included), Gaussian data to the stated tolerances, and
-#      the accumulation must be bitwise deterministic; then each kernel timed
-#      against its plain version and one PyTorch call;
+#      the accumulation must be bitwise deterministic; for assign_argmin also
+#      a tie across a boundary of its center tiles (the first copy of a
+#      repeated center must win) and batch independence (rows sent in
+#      batches of 1 to 16,960 equal the same rows of the 32768-row tile bit
+#      for bit); then each kernel timed against its plain version and one
+#      PyTorch call, assign_argmin with its build figures (ptxas registers,
+#      spills, shared memory) and its staging, tile and merge passes timed
+#      apart;
 #   3. the KMeans path at full width: KMeans(k=1000) fit on 1,000,000 x
 #      3,000 float32 rows through the public API, transform of every row,
 #      save and load, and a fit with the default k-means|| seeding, with the
@@ -50,6 +56,7 @@
 #
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -76,6 +83,9 @@ KNN_QUERIES, KNN_K = 4096, 64
 # the serving traffic: client threads, requests per thread and model, and the
 # request sizes they cycle through
 SERVE_CLIENTS, SERVE_REQUESTS, SERVE_SIZES = 4, 6, (1, 7, 64, 255, 1000, 4096)
+# assign_argmin's batch independence: (rows, first row) slices of one
+# 32768-row tile, from a single row to the Lloyd loop's ragged tail
+BATCH_SLICES = ((1, 5), (7, 130), (255, 1), (4096, 12345), (16960, 15808))
 
 
 def _variant_dtype(variant):
@@ -134,19 +144,65 @@ def phase_setup():
     from spark_rapids_ml_tpu_torch.ops import _kernels
 
     t0 = time.perf_counter()
-    reports = _kernels.build()
+    _kernels.build()
     say(f"kernels built in {time.perf_counter() - t0:.1f} s into {_kernels.BUILD_DIR}")
-    for name, out in reports.items():
-        for line in out.splitlines():
-            if "registers" in line or "spill" in line:
-                say(f"  {name}: {line.strip()}")
+    for name in _kernels.SOURCES:
+        for fn, info in ptxas_table(_kernels.ptxas_report(name)).items():
+            say(f"  {name}: {fn}: {info}")
     return smi
+
+
+def ptxas_table(report):
+    """{kernel function: {"registers", "spill_stores", "spill_loads",
+    "smem_static"}} from nvcc's -Xptxas -v report (bytes for the last three)."""
+    out, fn = {}, None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            fn = m.group(1)
+            out[fn] = {}
+        elif fn is not None:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m:
+                out[fn].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                smem = re.search(r"(\d+) bytes smem", line)
+                out[fn].update(registers=int(m.group(1)), smem_static=int(smem.group(1)) if smem else 0)
+    return out
+
+
+def argmin_ptxas(variant):
+    """The build figures of assign_argmin's kernels for one variant: its
+    tile pass (both load widths for f32) and its merge pass; the `fast` tile
+    pass adds its dynamic shared memory (the TMA ring)."""
+    from spark_rapids_ml_tpu_torch.ops import _kernels
+
+    dtype_code = "d" if variant.startswith("f64") else "f"
+    pattern = {
+        "f32": r"argmin_f32_tiles", "f64": r"argmin_f64_tiles",
+        "f32-fast": r"argmin_fast_tilesIf", "f64-fast": r"argmin_fast_tilesId",
+    }[variant]
+    out = {}
+    for fn, info in ptxas_table(_kernels.ptxas_report("assign_argmin")).items():
+        if re.search(pattern, fn):
+            key = "tiles" if variant != "f32" else ("tiles_vec" if "ILb1" in fn else "tiles_scalar")
+            out[key] = dict(info)
+            if variant.endswith("fast"):
+                out[key]["smem_dynamic"] = _kernels._lib("assign_argmin").srml_argmin_config(7)
+        elif re.search(r"argmin_mergeI" + dtype_code, fn):
+            out["merge"] = dict(info)
+    return out
 
 
 # ------------------------------------------------------------ phase 2 ----
 
 
-def _inputs(n, k, d, dtype, integer, seed, dev):
+def _inputs(n, k, d, dtype, integer, seed, dev, tie_at=None):
+    """Rows, centers and weights. With `tie_at`, centers tie_at - 9 to
+    tie_at + 6 repeat one row and the first 64 rows lie on it, so the copies
+    straddle the center-tile boundary at tie_at and the first copy,
+    tie_at - 9, must win those rows."""
     import torch
 
     rng = np.random.default_rng(seed)
@@ -162,18 +218,24 @@ def _inputs(n, k, d, dtype, integer, seed, dev):
         w = rng.uniform(0.5, 2.0, size=n).astype(dtype)
     if k >= 64:  # a trailing block repeating one row, as k-means|| pads its candidates
         C[k - k // 8:k - 1] = C[k - k // 8 - 1]
+    if tie_at is not None:
+        C[tie_at - 8:tie_at + 7] = C[tie_at - 9]
+        X[:64] = C[tie_at - 9]
+        if not integer:
+            X[:64] += 0.01 * rng.standard_normal(size=(64, d)).astype(dtype)
     return tuple(torch.from_numpy(a).to(dev) for a in (X, C, w))
 
 
-def check_kernels(n, k, d, dtype, fast, integer, seed, dev):
+def check_kernels(n, k, d, dtype, fast, integer, seed, dev, case="", tie_at=None):
     """One shape and variant, kernel against plain version; returns
-    (max |mind err|, max |sums err|)."""
+    (max |mind err|, max |sums err|). `case` names the shape in the log;
+    `tie_at` builds a tie across that center-tile boundary (_inputs)."""
     import torch
 
     from spark_rapids_ml_tpu_torch.ops import _kernels
     from spark_rapids_ml_tpu_torch.ops import distance as D
 
-    x, c, w = _inputs(n, k, d, dtype, integer, seed, dev)
+    x, c, w = _inputs(n, k, d, dtype, integer, seed, dev, tie_at)
     # first index of each center's value: a repeated center must lose every
     # tie to its first copy, on either kind of data
     _, first, inverse = np.unique(c.cpu().numpy(), axis=0, return_index=True, return_inverse=True)
@@ -187,10 +249,17 @@ def check_kernels(n, k, d, dtype, fast, integer, seed, dev):
     torch.cuda.synchronize()
     s0, n0 = D.accumulate_plain(x, w, b0, k, fast)
     tag = f"{n}x{d} k={k} {np.dtype(dtype).name}{' fast' if fast else ''} {'integer' if integer else 'gaussian'}"
+    if case:
+        tag += f" [{case}]"
     if not (torch.equal(s1, s2) and torch.equal(n1, n2)):
         fail(f"assign_accumulate is not deterministic: {tag}")
     if not torch.equal(first_copy[b1.long()], b1.long()):
         fail(f"assign_argmin picked a later copy of a repeated center: {tag}")
+    if tie_at is not None:
+        for route, b in (("kernel", b1), ("plain", b0)):
+            if not bool((b[:64] == tie_at - 9).all()):
+                fail(f"assign_argmin ({route}) did not give the tied rows the first copy "
+                     f"{tie_at - 9}: {sorted(set(b[:64].tolist()))}: {tag}")
     mind_err = (m1 - m0).abs().max().item()
     sums_err = (s1 - s0).abs().max().item()
     if integer:
@@ -211,8 +280,26 @@ def check_kernels(n, k, d, dtype, fast, integer, seed, dev):
         bad = int(((b1 != b0) & clear).sum())
         if bad:
             fail(f"assign_argmin best differs on {bad} clearly separated rows: {tag}")
-        if mind_err > 1e-5 * scale:
-            fail(f"assign_argmin mind error {mind_err} > 1e-5 x {scale}: {tag}")
+        rows = slice(64 if tie_at is not None else 0, None)
+        err = (m1[rows] - m0[rows]).abs().max().item() if n > rows.start else 0.0
+        if err > 1e-5 * scale:
+            fail(f"assign_argmin mind error {err} > 1e-5 x {scale}: {tag}")
+        if tie_at is not None:
+            # the 64 rows lying on a center: their dot product with it is a
+            # sum of d terms of one sign, as large as the scale itself. Each
+            # route's float32 sum of the same (bf16 for `fast`) products lies
+            # within d * 2^-24 * ||x|| ||c|| of the exact sum (the tensor
+            # cores' float32 accumulation is no chain of round-to-nearest
+            # additions), so c_sq - 2 dot may differ by 4 d 2^-24 ||x|| ||c||
+            xq, cq = (D._bf16(x), D._bf16(c)) if fast else (x, c)
+            tol = 4 * d * 2.0 ** -24 * float(D.row_sq(xq[:64].double()).max().sqrt()
+                                              * D.row_sq(cq.double()).max().sqrt())
+            on = (m1[:64] - m0[:64]).abs().max().item()
+            if on > tol:
+                fail(f"assign_argmin mind error {on} on the rows lying on a center > the float32 "
+                     f"summation bound {tol}: {tag}")
+            say(f"    rows lying on the tied center: max|mind err| {on:.3g} (summation bound {tol:.3g}); "
+                f"other rows {err:.3g} (1e-5 x scale {1e-5 * scale:.3g})")
         if sums_err > 1e-5 * s0.abs().max().item():
             fail(f"assign_accumulate sums error {sums_err}: {tag}")
         if (n1 - n0).abs().max().item() > 1e-5 * n0.abs().max().item():
@@ -238,7 +325,21 @@ def time_kernels(variant, dev, errs):
 
     xm, cm = (x.bfloat16(), c.bfloat16()) if fast else (x, c)
     nbytes = (B * d + k * d + k) * s + B * (s + 4)
-    bnd, by = bound_ms(nbytes, 2.0 * B * k * d, variant)
+    flops = 2.0 * B * k * d
+    bnd, by = bound_ms(nbytes, flops, variant)
+    # the passes apart: the bf16 staging (`fast`), the tile pass, the merge
+    xo, co = _kernels._argmin_operands(x, c, variant)
+    pv, pj = _kernels._argmin_tiles(xo, co, c_sq, B, k, d, variant)
+    split = {
+        "stage_ms": cuda_ms(lambda: _kernels._argmin_operands(x, c, variant)) if fast else 0.0,
+        "tiles_ms": cuda_ms(lambda: _kernels._argmin_tiles(xo, co, c_sq, B, k, d, variant)),
+        "merge_ms": cuda_ms(lambda: _kernels._argmin_merge(pv, pj)),
+    }
+    # staging reads x and c once and writes their padded bf16 copies once
+    stage_bytes = (B * d + k * d) * s + (xo.numel() + co.numel()) * 2 if fast else 0
+    split["stage_bound_ms"] = stage_bytes / PEAK_BYTES_S * 1e3
+    split["tiles_tflops"] = flops / split["tiles_ms"] / 1e9
+    del xo, co, pv, pj
     out.append({
         "name": f"assign_argmin/{variant}",
         "route": "cuda",
@@ -249,6 +350,8 @@ def time_kernels(variant, dev, errs):
         "plain_ms": cuda_ms(lambda: D.assign_argmin_plain(x, c, c_sq, fast)),
         "bound_ms": bnd, "bound_by": by,
         "library_ms": cuda_ms(lambda: torch.matmul(xm, cm.T)),
+        "split_ms": split,
+        "ptxas": argmin_ptxas(variant),
     })
 
     xw = x * w[:, None]
@@ -274,7 +377,35 @@ def time_kernels(variant, dev, errs):
     for e in out:
         say(f"  {e['name']}: {e['ms']:.3f} ms (plain {e['plain_ms']:.3f}, library "
             f"{e['library_ms']:.3f}, bound {e['bound_ms']:.3f} by {e['bound_by']})")
+    a = out[0]
+    say(f"    passes: staging {a['split_ms']['stage_ms']:.3f} ms (its bytes at the memory rate "
+        f"{a['split_ms']['stage_bound_ms']:.3f}), tiles {a['split_ms']['tiles_ms']:.3f} ms "
+        f"({a['split_ms']['tiles_tflops']:.1f} TFLOP/s), merge {a['split_ms']['merge_ms']:.3f} ms; "
+        f"ptxas {a['ptxas']}")
     return out
+
+
+def check_batch_independence(dev):
+    """assign_argmin on rows x[a:a+B] equals its result on the whole
+    32768-row tile at the same rows, bit for bit (f32 and f32-fast, Gaussian
+    data): one tiling and one split serve every batch size."""
+    import torch
+
+    from spark_rapids_ml_tpu_torch.ops import _kernels
+    from spark_rapids_ml_tpu_torch.ops import distance as D
+
+    x, c, _ = _inputs(TILE_ROWS, K, N_COLS, np.float32, False, 5, dev)
+    c_sq = D._c_sq(c)
+    for fast in (False, True):
+        m_full, b_full = _kernels.assign_argmin(x, c, c_sq, fast=fast)
+        for B, a in BATCH_SLICES:
+            m, b = _kernels.assign_argmin(x[a:a + B], c, c_sq, fast=fast)
+            if not (torch.equal(m, m_full[a:a + B]) and torch.equal(b, b_full[a:a + B])):
+                fail(f"assign_argmin{' fast' if fast else ''}: rows {a}..{a + B} sent alone differ "
+                     f"from the same rows of the {TILE_ROWS}-row tile")
+        say(f"  ok batch independence, float32{' fast' if fast else ''}: rows sent as batches of "
+            f"{', '.join(str(B) for B, _ in BATCH_SLICES)} equal the same rows of the {TILE_ROWS}-row "
+            "tile bit for bit")
 
 
 def _d2_inputs(B, kt, d, dtype, integer, seed, dev):
@@ -381,10 +512,13 @@ def phase_d2_block(dev):
 
 
 def phase_kernels(dev):
+    from spark_rapids_ml_tpu_torch.ops import _kernels
+
     say("phase 2: kernels against their plain versions on the card")
     errs = {}
     for variant in VARIANTS:
         dtype, fast = _variant_dtype(variant)
+        nt = _kernels.ARGMIN_TILE[variant][1]  # centers per tile of assign_argmin
         for integer in (True, False):
             # ragged shapes, then the main path's other tiles: the transform
             # tile, the ragged tail of a Lloyd iteration (1M = 30 x 32768 +
@@ -393,11 +527,20 @@ def phase_kernels(dev):
             for (n, k, d) in ((1000, 1001, 77), (37, 5, 3), (333, 64, 1000),
                               (4096, K, N_COLS), (N_ROWS % TILE_ROWS, K, N_COLS),
                               (4096, 12 * K, N_COLS)):
-                check_kernels(n, k, d, dtype, fast, integer, 11 + n + k, dev)
+                case = ""
+                if k < nt:
+                    case = f"k < {nt}: one partial center tile"
+                elif k == 12 * K:
+                    case = f"k-means|| weighting: {-(-k // nt)} center tiles of {nt}"
+                check_kernels(n, k, d, dtype, fast, integer, 11 + n + k, dev, case)
+            # a repeated center straddling the boundary of center tiles 0 and 1
+            check_kernels(4096, 2 * nt + 37, N_COLS, dtype, fast, integer, 17 + nt, dev,
+                          f"tie across the center-tile boundary at {nt}", tie_at=nt)
             m, s = check_kernels(TILE_ROWS, K, N_COLS, dtype, fast, integer, 3, dev)
             if not integer:
                 errs[("assign_argmin", variant)] = m
                 errs[("assign_accumulate", variant)] = s
+    check_batch_independence(dev)
     say("phase 2: timing at the main path's tile (CUDA events, mean of 5 after a warm-up)")
     entries = []
     for variant in VARIANTS:
@@ -614,9 +757,16 @@ def phase_main_path(dev, X):
                 f"{N_ROWS / dt:.4g} rows/s")
     from spark_rapids_ml_tpu_torch.ops.kmeans import kmeans_predict
 
+    snap = dict(_kernels.launches)
     timings["predict_resident_s"] = cuda_ms(lambda: kmeans_predict(Xd, cd), reps=2) / 1e3
-    say(f"  argmin over all rows already on the card (the transform's kernels): "
-        f"{timings['predict_resident_s'] * 1e3:.1f} ms")
+    per_call = (_kernels.launches["assign_argmin/f32"] - snap["assign_argmin/f32"]) // 3
+    say(f"  the transform's argmin over all rows already on the card: "
+        f"{timings['predict_resident_s']:.4f} s ({per_call} assign_argmin/f32 launches of "
+        f"{D.tile_rows()} rows)")
+    for mode in ("fast", "high"):
+        k_s, p_s = timings[f"lloyd_iter_{mode}_s"], timings[f"plain_lloyd_iter_{mode}_s"]
+        say(f"  Lloyd iteration ({mode}): kernels {k_s * 1e3:.1f} ms, plain {p_s * 1e3:.1f} ms: "
+            f"the kernel path is {'faster' if k_s < p_s else 'SLOWER'} ({p_s / k_s:.2f}x)")
     return counts, timings, model
 
 

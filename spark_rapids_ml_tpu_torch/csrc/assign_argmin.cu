@@ -1,4 +1,4 @@
-// Fused distance plus running argmin over all centers, for one tile of rows.
+// Fused distance plus argmin over all centers, for one tile of rows.
 //
 // Replaces the TPU kernel `_pl_argmin` (spark_rapids_ml_tpu/ops/distance.py).
 // For each row x_r of x [B, d] it returns
@@ -12,45 +12,59 @@
 // float32 CUDA-core rate (67 TFLOP/s) or, for `fast`, the bf16 tensor-core
 // rate (989 TFLOP/s) is the floor.
 //
-// Design (the first, simple form; tensor cores are later work):
-//   * A block owns BM rows and loops over ALL center tiles itself. On the
-//     TPU the k blocks were a sequential grid axis carrying the running
-//     minimum from step to step; Hopper runs blocks in no order, so the
-//     loop over center tiles moves inside the block and the running
-//     (min, index) lives in registers.
-//   * Each center tile is a BM x BN register-tiled product (tile_dot.cuh,
-//     shared with d2_block.cu): BK-deep chunks of x and c are staged in
-//     shared memory (transposed, padded against bank conflicts) and every
-//     thread accumulates a TM x TN tile of dot products over the whole
-//     depth d, then forms c_sq[j] - 2*dot.
-//   * Ragged rows, centers beyond k and a depth that is not a multiple of BK
-//     are masked here; the caller pads nothing.
-//   * Ties: inside a thread the centers are scanned in ascending order with a
-//     strict '<', so the first index wins; the reduction ACROSS the threads
-//     that share a row breaks equal minima by the lower index explicitly.
-//     NaN counts as the minimum, as torch.min and jnp.min propagate it.
-//   * `fast`: every loaded element is rounded to bf16 with
-//     __float2bfloat16_rn (round to nearest even, as JAX's astype(bfloat16)),
-//     and the products are summed in float32. Products of two bf16 values
-//     are exact in float32, so this is the arithmetic of a bf16 matrix unit
-//     with float32 accumulation. For float64 inputs the float32 dot products
-//     are widened back and the epilogue (c_sq - 2*dot, the running minimum)
+// Design. On the TPU the center blocks were a sequential grid axis carrying
+// the running minimum from step to step. Hopper runs blocks in no order, so
+// the work is split in two passes:
+//   1. One CTA per (row tile, center tile), center tiles fastest in the
+//      launch order, so the CTAs of one row tile run side by side and read
+//      x from L2 after the first has read it from device memory. Each
+//      computes its tile of dot products and, in registers, the
+//      (value, index) minimum of each row over the tile's centers (the
+//      per-tile epilogue, `tile_min`), written to scratch [n_ct, B].
+//   2. `argmin_merge` reduces each row's n_ct candidates in ascending
+//      center-tile order.
+// The tie rule lives in `take`, used by those two alone: the smaller value,
+// NaN before any number (as torch.min and jnp.min propagate it), the lower
+// index on equal values. The grid and the tiles are the same for every B,
+// and each dot product is one fixed sum, so a row's result does not depend
+// on the batch it comes in.
+//
+// The products of pass 1:
+//   * float32: a CUDA-core tile of 128 rows x 128 centers, 256 threads of
+//     8 x 8 outputs each, read from shared memory as float4 in two 4-wide
+//     groups per axis (no bank conflicts). 8-deep chunks are double-buffered
+//     in shared memory: the next chunk's global loads are in flight during
+//     the current chunk's FMAs, and one __syncthreads closes each chunk.
+//     Loads are float4 where d % 4 == 0 and both bases are 16-byte aligned,
+//     scalar otherwise (the VEC template argument, chosen by the wrapper).
+//     One FMA chain per output in ascending depth order.
+//   * `fast` (float32 or float64 inputs): the wrapper stages both operands
+//     as bf16 (round to nearest even; float64 through float32) into buffers
+//     whose rows are padded to whole tiles and whose depth is padded with
+//     zeros to a multiple of 64; the product is the TMA + wgmma tile of
+//     wgmma_bf16.cuh, 128 rows x 256 centers, float32 sums. For float64 the
+//     sums are widened back and the epilogue (c_sq - 2*dot, the minimum)
 //     stays in float64, as the TPU kernel's `fast` body casts its product
 //     back to the input dtype.
+//   * float64: the 64 x 64 register tile of tile_dot.cuh (shared with
+//     d2_block.cu), one tile per CTA.
+// Centers at or past k are skipped by index in the epilogue, whatever their
+// padded values.
 //
 // C interface, bound with ctypes (spark_rapids_ml_tpu_torch/ops/_kernels.py):
-// each function launches on `stream` and returns cudaGetLastError().
+// each function launches on `stream` and returns cudaGetLastError() (or the
+// first error of its set-up).
 
 #include <cuda_runtime.h>
 
 #include <climits>
 #include <cmath>
+#include <cstddef>
 
 #include "tile_dot.cuh"
+#include "wgmma_bf16.cuh"
 
 namespace {
-
-using namespace srml;
 
 // Whether candidate (v, j) replaces the current (bv, bj): the smaller value,
 // NaN before any number, and the lower index on equal values.
@@ -63,98 +77,343 @@ __device__ __forceinline__ bool take(T v, int j, T bv, int bj) {
   return v < bv || (v == bv && j < bj);
 }
 
-template <typename T, bool FAST>
-__global__ void __launch_bounds__(THREADS)
-assign_argmin_kernel(const T* __restrict__ x, const T* __restrict__ c,
-                     const T* __restrict__ c_sq, T* __restrict__ mind,
-                     int* __restrict__ best, int B, int k, int d) {
-  using A = acc_t<T, FAST>;
-  __shared__ A xs[BK][BM + 1];
-  __shared__ A cs[BK][BN + 1];
-  __shared__ T red_v[BM][LANES_N + 1];
-  __shared__ int red_j[BM][LANES_N + 1];
+// Per-tile epilogue. A thread scans its own centers of one row in ascending
+// order (`scan`), then the LANES neighbouring lanes that share the row
+// exchange their candidates (`lane_min`).
+template <typename T>
+struct tile_min {
+  T v = static_cast<T>(INFINITY);
+  int j = INT_MAX;
 
+  __device__ __forceinline__ void scan(T cand, int jc) {
+    if (take(cand, jc, v, j)) {
+      v = cand;
+      j = jc;
+    }
+  }
+
+  template <int LANES>
+  __device__ __forceinline__ void lane_min() {
+#pragma unroll
+    for (int o = LANES / 2; o > 0; o /= 2) {
+      const T ov = __shfl_xor_sync(0xffffffffu, v, o);
+      const int oj = __shfl_xor_sync(0xffffffffu, j, o);
+      scan(ov, oj);
+    }
+  }
+
+  __device__ __forceinline__ void store(T* pv, int* pj, int ct, int B, int r) const {
+    const size_t i = static_cast<size_t>(ct) * B + r;
+    pv[i] = v;
+    pj[i] = j;
+  }
+};
+
+// ------------------------------------------------ float32: CUDA cores ----
+
+namespace f32core {
+constexpr int BM = 128;       // rows of a tile
+constexpr int BN = 128;       // centers of a tile
+constexpr int BK = 8;         // depth of one shared-memory chunk
+constexpr int THREADS = 256;  // 16 x 16 threads of 8 x 8 outputs
+constexpr int LD = BM + 4;    // row stride of a transposed chunk: float4-aligned, conflict-free stores
+
+// One thread's share of a BM x BK chunk: row `row`, depth col..col+3, as
+// zeros past the last row or past d.
+template <bool VEC>
+__device__ __forceinline__ float4 load4(const float* __restrict__ g, int row, int nrows, int col,
+                                        int d) {
+  float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (row < nrows) {
+    const float* p = g + static_cast<long long>(row) * d + col;
+    if constexpr (VEC) {
+      if (col < d) v = *reinterpret_cast<const float4*>(p);
+    } else {
+      if (col < d) v.x = p[0];
+      if (col + 1 < d) v.y = p[1];
+      if (col + 2 < d) v.z = p[2];
+      if (col + 3 < d) v.w = p[3];
+    }
+  }
+  return v;
+}
+
+// stored transposed: s[depth][row]
+__device__ __forceinline__ void stage4(float (&s)[BK][LD], float4 v, int row, int col) {
+  s[col][row] = v.x;
+  s[col + 1][row] = v.y;
+  s[col + 2][row] = v.z;
+  s[col + 3][row] = v.w;
+}
+}  // namespace f32core
+
+template <bool VEC>
+__global__ void __launch_bounds__(f32core::THREADS, 2)
+argmin_f32_tiles(const float* __restrict__ x, const float* __restrict__ c,
+                 const float* __restrict__ c_sq, float* __restrict__ pv, int* __restrict__ pj,
+                 int B, int k, int d, int n_ct) {
+  using namespace f32core;
+  __shared__ __align__(16) float xs[2][BK][LD];
+  __shared__ __align__(16) float cs[2][BK][LD];
+
+  const int ct = blockIdx.x % n_ct;
+  const int m0 = (blockIdx.x / n_ct) * BM;
+  const int n0 = ct * BN;
   const int tid = threadIdx.x;
-  const int tx = tid % LANES_N;  // center lane: centers tx + LANES_N * jj
-  const int ty = tid / LANES_N;  // row lane: rows ty + LANES_M * i
-  const int m0 = blockIdx.x * BM;
+  const int tx = tid % 16;  // centers 4*tx.. and 64 + 4*tx..
+  const int ty = tid / 16;  // rows 4*ty.. and 64 + 4*ty..
+  const int lr = tid / 2;   // the chunk row this thread loads
+  const int lc = 4 * (tid % 2);
 
-  T run_v[TM];
-  int run_j[TM];
+  float acc[8][8];
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    run_v[i] = static_cast<T>(INFINITY);
-    run_j[i] = INT_MAX;
-  }
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
 
-  for (int n0 = 0; n0 < k; n0 += BN) {
-    A acc[TM][TN];
-    tile_dot<T, FAST>(x, m0, B, c, n0, k, d, xs, cs, acc);
-
-    // centers of this thread in ascending order: the strict '<' in take()
-    // keeps the first index on ties
-#pragma unroll
-    for (int jj = 0; jj < TN; ++jj) {
-      const int gn = n0 + tx + LANES_N * jj;
-      if (gn < k) {
-        const T csq = c_sq[gn];
-#pragma unroll
-        for (int i = 0; i < TM; ++i) {
-          const T v = csq - T(2) * static_cast<T>(acc[i][jj]);
-          if (take(v, gn, run_v[i], run_j[i])) {
-            run_v[i] = v;
-            run_j[i] = gn;
-          }
-        }
-      }
-    }
-  }
-
-  // merge the LANES_N candidates of each row, lower index first on ties
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    red_v[ty + LANES_M * i][tx] = run_v[i];
-    red_j[ty + LANES_M * i][tx] = run_j[i];
-  }
+  float4 ra = load4<VEC>(x, m0 + lr, B, lc, d);
+  float4 rb = load4<VEC>(c, n0 + lr, k, lc, d);
+  stage4(xs[0], ra, lr, lc);
+  stage4(cs[0], rb, lr, lc);
   __syncthreads();
-  if (tid < BM && m0 + tid < B) {
-    T bv = red_v[tid][0];
-    int bj = red_j[tid][0];
-    for (int t = 1; t < LANES_N; ++t) {
-      const T v = red_v[tid][t];
-      const int j = red_j[tid][t];
-      if (take(v, j, bv, bj)) {
-        bv = v;
-        bj = j;
-      }
+
+  int buf = 0;
+  for (int k0 = 0; k0 < d; k0 += BK) {
+    const bool more = k0 + BK < d;
+    if (more) {  // the next chunk's loads overlap this chunk's FMAs
+      ra = load4<VEC>(x, m0 + lr, B, k0 + BK + lc, d);
+      rb = load4<VEC>(c, n0 + lr, k, k0 + BK + lc, d);
     }
-    mind[m0 + tid] = bv;
-    best[m0 + tid] = bj;
+#pragma unroll
+    for (int kk = 0; kk < BK; ++kk) {
+      const float4 a0 = *reinterpret_cast<const float4*>(&xs[buf][kk][4 * ty]);
+      const float4 a1 = *reinterpret_cast<const float4*>(&xs[buf][kk][64 + 4 * ty]);
+      const float4 b0 = *reinterpret_cast<const float4*>(&cs[buf][kk][4 * tx]);
+      const float4 b1 = *reinterpret_cast<const float4*>(&cs[buf][kk][64 + 4 * tx]);
+      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+    if (more) {
+      stage4(xs[buf ^ 1], ra, lr, lc);
+      stage4(cs[buf ^ 1], rb, lr, lc);
+    }
+    __syncthreads();
+    buf ^= 1;
+  }
+
+  float csq[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int gn = n0 + (j < 4 ? 4 * tx + j : 64 + 4 * tx + j - 4);
+    csq[j] = gn < k ? c_sq[gn] : 0.f;
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    tile_min<float> m;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {  // this thread's centers, ascending
+      const int gn = n0 + (j < 4 ? 4 * tx + j : 64 + 4 * tx + j - 4);
+      if (gn < k) m.scan(csq[j] - 2.f * acc[i][j], gn);
+    }
+    m.lane_min<16>();  // the 16 lanes of one ty
+    const int r = m0 + (i < 4 ? 4 * ty + i : 64 + 4 * ty + i - 4);
+    if (tx == 0 && r < B) m.store(pv, pj, ct, B, r);
   }
 }
 
-template <typename T, bool FAST>
-int launch(const void* x, const void* c, const void* c_sq, void* mind,
-           void* best, int B, int k, int d, void* stream) {
-  const dim3 grid((B + BM - 1) / BM);
-  assign_argmin_kernel<T, FAST><<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(x), static_cast<const T*>(c), static_cast<const T*>(c_sq),
-      static_cast<T*>(mind), static_cast<int*>(best), B, k, d);
+// --------------------------------------------------- float64: tile_dot ----
+
+__global__ void __launch_bounds__(srml::THREADS)
+argmin_f64_tiles(const double* __restrict__ x, const double* __restrict__ c,
+                 const double* __restrict__ c_sq, double* __restrict__ pv, int* __restrict__ pj,
+                 int B, int k, int d, int n_ct) {
+  using namespace srml;
+  __shared__ double xs[BK][BM + 1];
+  __shared__ double cs[BK][BN + 1];
+  const int ct = blockIdx.x % n_ct;
+  const int m0 = (blockIdx.x / n_ct) * BM;
+  const int n0 = ct * BN;
+  const int tx = threadIdx.x % LANES_N;  // centers tx + LANES_N * jj
+  const int ty = threadIdx.x / LANES_N;  // rows ty + LANES_M * i
+
+  double acc[TM][TN];
+  tile_dot<double, false>(x, m0, B, c, n0, k, d, xs, cs, acc);
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    tile_min<double> m;
+#pragma unroll
+    for (int jj = 0; jj < TN; ++jj) {  // this thread's centers, ascending
+      const int gn = n0 + tx + LANES_N * jj;
+      if (gn < k) m.scan(c_sq[gn] - 2.0 * acc[i][jj], gn);
+    }
+    m.lane_min<LANES_N>();  // the LANES_N lanes of one ty
+    const int r = m0 + ty + LANES_M * i;
+    if (tx == 0 && r < B) m.store(pv, pj, ct, B, r);
+  }
+}
+
+// ------------------------------------------- fast: bf16 TMA + wgmma -------
+
+namespace wg = srml::wgmma_bf16;
+
+template <typename T>
+__global__ void __launch_bounds__(wg::THREADS, 1)
+argmin_fast_tiles(__grid_constant__ const CUtensorMap map_x, __grid_constant__ const CUtensorMap map_c,
+                  const T* __restrict__ c_sq, T* __restrict__ pv, int* __restrict__ pj, int B,
+                  int k, int nk, int n_ct) {
+  const int ct = blockIdx.x % n_ct;
+  const int m0 = (blockIdx.x / n_ct) * wg::BM;
+  const int n0 = ct * wg::BN;
+  wg::product_tile(map_x, map_c, m0, n0, nk, [&](const float (&acc)[wg::ACC], int w) {
+    const int t = threadIdx.x % 128;
+    tile_min<T> m[2];  // rows r and r + 8
+#pragma unroll
+    for (int n = 0; n < wg::BN / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {  // this thread's centers, ascending
+        const int gn = n0 + 8 * n + 2 * (t % 4) + e;
+        if (gn < k) {
+          const T csq = c_sq[gn];
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            m[h].scan(csq - T(2) * static_cast<T>(acc[4 * n + 2 * h + e]), gn);
+        }
+      }
+    const int r = m0 + 64 * w + 16 * (t / 32) + (t % 32) / 4;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      m[h].template lane_min<4>();  // the quad that shares the row
+      if (t % 4 == 0 && r + 8 * h < B) m[h].store(pv, pj, ct, B, r + 8 * h);
+    }
+  });
+}
+
+// --------------------------------------------------------- second pass ----
+
+template <typename T>
+__global__ void argmin_merge(const T* __restrict__ pv, const int* __restrict__ pj,
+                             T* __restrict__ mind, int* __restrict__ best, int B, int n_ct) {
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= B) return;
+  T bv = pv[r];
+  int bj = pj[r];
+  for (int ct = 1; ct < n_ct; ++ct) {  // ascending center tiles
+    const size_t i = static_cast<size_t>(ct) * B + r;
+    if (take(pv[i], pj[i], bv, bj)) {
+      bv = pv[i];
+      bj = pj[i];
+    }
+  }
+  mind[r] = bv;
+  best[r] = bj;
+}
+
+int grid_of(int B, int rows, int n_ct) { return ((B + rows - 1) / rows) * n_ct; }
+
+template <typename T>
+int launch_fast(const void* xs, const void* cs, const void* c_sq, void* pv, void* pj, int B,
+                int Bp, int k, int kp, int dp, void* stream) {
+  CUtensorMap map_x, map_c;
+  int e = wg::encode_rows(&map_x, xs, Bp, dp, wg::BM);
+  if (e == 0) e = wg::encode_rows(&map_c, cs, kp, dp, wg::BN);
+  if (e != 0) return e;
+  // the ring needs more than the default 48 KB of shared memory; setting it
+  // on every call keeps it right on whichever device is current
+  const cudaError_t a = cudaFuncSetAttribute(
+      argmin_fast_tiles<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, wg::SMEM_BYTES);
+  if (a != cudaSuccess) return static_cast<int>(a);
+  const int n_ct = kp / wg::BN;
+  argmin_fast_tiles<T><<<grid_of(Bp, wg::BM, n_ct), wg::THREADS, wg::SMEM_BYTES,
+                         static_cast<cudaStream_t>(stream)>>>(
+      map_x, map_c, static_cast<const T*>(c_sq), static_cast<T*>(pv), static_cast<int*>(pj), B, k,
+      dp / wg::BK, n_ct);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_merge(const void* pv, const void* pj, void* mind, void* best, int B, int n_ct,
+                 void* stream) {
+  argmin_merge<T><<<(B + 255) / 256, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(pv), static_cast<const int*>(pj), static_cast<T*>(mind),
+      static_cast<int*>(best), B, n_ct);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-extern "C" int srml_assign_argmin_f32(const void* x, const void* c, const void* c_sq,
-                                      void* mind, void* best, int B, int k, int d,
-                                      int fast, void* stream) {
-  return fast ? launch<float, true>(x, c, c_sq, mind, best, B, k, d, stream)
-              : launch<float, false>(x, c, c_sq, mind, best, B, k, d, stream);
+// Pass 1, float32 on the CUDA cores: partials [ceil(k / 128), B]. `vec`
+// selects float4 loads (d % 4 == 0 and 16-byte aligned bases).
+extern "C" int srml_argmin_tiles_f32(const void* x, const void* c, const void* c_sq, void* pv,
+                                     void* pj, int B, int k, int d, int vec, void* stream) {
+  const int n_ct = (k + f32core::BN - 1) / f32core::BN;
+  const dim3 grid(grid_of(B, f32core::BM, n_ct));
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto* xf = static_cast<const float*>(x);
+  const auto* cf = static_cast<const float*>(c);
+  const auto* qf = static_cast<const float*>(c_sq);
+  if (vec)
+    argmin_f32_tiles<true><<<grid, f32core::THREADS, 0, s>>>(
+        xf, cf, qf, static_cast<float*>(pv), static_cast<int*>(pj), B, k, d, n_ct);
+  else
+    argmin_f32_tiles<false><<<grid, f32core::THREADS, 0, s>>>(
+        xf, cf, qf, static_cast<float*>(pv), static_cast<int*>(pj), B, k, d, n_ct);
+  return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int srml_assign_argmin_f64(const void* x, const void* c, const void* c_sq,
-                                      void* mind, void* best, int B, int k, int d,
-                                      int fast, void* stream) {
-  return fast ? launch<double, true>(x, c, c_sq, mind, best, B, k, d, stream)
-              : launch<double, false>(x, c, c_sq, mind, best, B, k, d, stream);
+// Pass 1, float64 on the CUDA cores: partials [ceil(k / 64), B].
+extern "C" int srml_argmin_tiles_f64(const void* x, const void* c, const void* c_sq, void* pv,
+                                     void* pj, int B, int k, int d, void* stream) {
+  const int n_ct = (k + srml::BN - 1) / srml::BN;
+  argmin_f64_tiles<<<grid_of(B, srml::BM, n_ct), srml::THREADS, 0,
+                     static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const double*>(x), static_cast<const double*>(c),
+      static_cast<const double*>(c_sq), static_cast<double*>(pv), static_cast<int*>(pj), B, k, d,
+      n_ct);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Pass 1, `fast`: staged bf16 operands xs [Bp, dp] and cs [kp, dp] (Bp a
+// multiple of 128, kp of 256, dp of 64); partials [kp / 256, B] in the
+// type of c_sq (float32 for float32 inputs, float64 for float64 inputs).
+extern "C" int srml_argmin_tiles_fast_f32(const void* xs, const void* cs, const void* c_sq,
+                                          void* pv, void* pj, int B, int Bp, int k, int kp,
+                                          int dp, void* stream) {
+  return launch_fast<float>(xs, cs, c_sq, pv, pj, B, Bp, k, kp, dp, stream);
+}
+
+extern "C" int srml_argmin_tiles_fast_f64(const void* xs, const void* cs, const void* c_sq,
+                                          void* pv, void* pj, int B, int Bp, int k, int kp,
+                                          int dp, void* stream) {
+  return launch_fast<double>(xs, cs, c_sq, pv, pj, B, Bp, k, kp, dp, stream);
+}
+
+// Pass 2: (mind, best) [B] from the partials [n_ct, B].
+extern "C" int srml_argmin_merge_f32(const void* pv, const void* pj, void* mind, void* best, int B,
+                                     int n_ct, void* stream) {
+  return launch_merge<float>(pv, pj, mind, best, B, n_ct, stream);
+}
+
+extern "C" int srml_argmin_merge_f64(const void* pv, const void* pj, void* mind, void* best, int B,
+                                     int n_ct, void* stream) {
+  return launch_merge<double>(pv, pj, mind, best, B, n_ct, stream);
+}
+
+// The tile sizes and the `fast` kernel's dynamic shared memory, for the
+// wrapper's scratch and the build report.
+extern "C" int srml_argmin_config(int what) {
+  switch (what) {
+    case 0: return f32core::BM;
+    case 1: return f32core::BN;
+    case 2: return srml::BM;
+    case 3: return srml::BN;
+    case 4: return wg::BM;
+    case 5: return wg::BN;
+    case 6: return wg::BK;
+    case 7: return wg::SMEM_BYTES;
+    default: return -1;
+  }
 }

@@ -3,6 +3,7 @@
 # ctypes binding, and their wrappers.
 #
 #   assign_argmin      csrc/assign_argmin.cu      replaces _pl_argmin
+#                      (+ csrc/wgmma_bf16.cuh, its bf16 TMA + wgmma `fast` form)
 #   assign_accumulate  csrc/assign_accumulate.cu  replaces _pl_accumulate
 #   d2_block           csrc/d2_block.cu           replaces _pl_d2_block
 #                      (+ csrc/mma_bf16.cuh, its bf16 tensor-core `fast` form)
@@ -13,16 +14,25 @@
 # sm_90a into a shared library with a plain C interface under `build/` at the
 # repository root (one nvcc per source, all started together). The library
 # name carries a hash of its source and of every header in csrc/
-# (tile_dot.cuh and mma_bf16.cuh are shared), so an edited source or header
-# never loads a stale library. A missing nvcc or a failed build raises;
-# nothing falls back to the plain PyTorch versions (ops/distance.py).
+# (tile_dot.cuh, mma_bf16.cuh and wgmma_bf16.cuh are shared), so an edited
+# source or header never loads a stale library. nvcc's report (-Xptxas -v:
+# registers, spills, shared memory of each kernel) is kept beside the
+# library (`ptxas_report`). A missing nvcc or a failed build raises; nothing
+# falls back to the plain PyTorch versions (ops/distance.py).
+#
+# `fast` assign_argmin reads operands staged as bf16 (`stage_bf16`), so its
+# tensor-core loop meets neither a ragged depth nor a float-to-bf16
+# conversion; the TMA descriptors it needs are encoded per call inside the
+# library, by libcuda's cuTensorMapEncodeTiled found through the CUDA
+# runtime's entry-point query (no link against libcuda).
 #
 # Wrappers take CUDA tensors only, check device, dtype, shape and
 # contiguity, allocate the outputs with torch.empty, launch on PyTorch's
 # current stream, raise when the launch reports an error, and count their
 # launches in `launches`: a plain integer per kernel and each variant it has
 # (VARIANTS: "assign_argmin/f32-fast", "d2_block/f64", ...), so a run shows
-# by reading them that its path went through the kernels. Only the thread
+# by reading them that its path went through the kernels: one count per
+# wrapper call, however many CUDA launches the call makes. Only the thread
 # that launches a kernel writes its counter (the serving engine launches from
 # its one dispatch thread).
 #
@@ -40,8 +50,8 @@ from typing import Dict, Tuple
 import torch
 
 __all__ = [
-    "launches", "reset_launches", "launch_total", "build", "assign_argmin", "assign_accumulate",
-    "d2_block",
+    "launches", "reset_launches", "launch_total", "build", "ptxas_report", "stage_bf16",
+    "assign_argmin", "assign_accumulate", "d2_block",
 ]
 
 _PKG_DIR = Path(__file__).resolve().parent.parent
@@ -61,6 +71,16 @@ VARIANTS: Dict[str, Tuple[str, ...]] = {
 }
 
 launches: Dict[str, int] = {f"{name}/{v}": 0 for name in SOURCES for v in VARIANTS[name]}
+
+# assign_argmin's tiles, (rows, centers), per variant (csrc/assign_argmin.cu):
+# one CTA per (row tile, center tile) writes each row's minimum over its
+# centers, and a second pass merges the center tiles. The same for every
+# batch size, so a row's result never depends on the batch.
+ARGMIN_TILE: Dict[str, Tuple[int, int]] = {
+    "f32": (128, 128), "f32-fast": (128, 256), "f64": (64, 64), "f64-fast": (128, 256),
+}
+# the depth of the `fast` operands is padded with zeros to a multiple of this
+STAGE_DEPTH = 64
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _BUILD_LOCK = threading.Lock()
@@ -99,11 +119,28 @@ def _lib_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
+def _report_path(name: str) -> Path:
+    lib = _lib_path(name)
+    return lib.with_name(lib.name + ".ptxas.txt")
+
+
+def ptxas_report(name: str) -> str:
+    """nvcc's -Xptxas -v report for the library of kernel `name` (the one
+    the current sources build), or "" when it has not been built."""
+    path = _report_path(name)
+    return path.read_text() if path.exists() else ""
+
+
 def _bind(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     for fn, args in (
-        ("srml_assign_argmin_f32", [p, p, p, p, p, i, i, i, i, p]),
-        ("srml_assign_argmin_f64", [p, p, p, p, p, i, i, i, i, p]),
+        ("srml_argmin_tiles_f32", [p, p, p, p, p, i, i, i, i, p]),
+        ("srml_argmin_tiles_f64", [p, p, p, p, p, i, i, i, p]),
+        ("srml_argmin_tiles_fast_f32", [p, p, p, p, p, i, i, i, i, i, p]),
+        ("srml_argmin_tiles_fast_f64", [p, p, p, p, p, i, i, i, i, i, p]),
+        ("srml_argmin_merge_f32", [p, p, p, p, i, i, p]),
+        ("srml_argmin_merge_f64", [p, p, p, p, i, i, p]),
+        ("srml_argmin_config", [i]),
         ("srml_assign_accumulate_f32", [p, p, p, p, p, p, i, i, i, p]),
         ("srml_assign_accumulate_f64", [p, p, p, p, p, p, i, i, i, p]),
         ("srml_d2_block_f32", [p, p, p, p, i, i, i, p]),
@@ -148,14 +185,33 @@ def build() -> Dict[str, str]:
                 if proc.returncode != 0:
                     failed.append(f"{name}.cu (nvcc exit {proc.returncode}):\n{out}")
                 else:
+                    _report_path(name).write_text(out)
                     os.replace(tmp, _lib_path(name))  # atomic: concurrent builds race safely
             if failed:
                 raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
         for name in missing:
             lib = ctypes.CDLL(str(_lib_path(name)))
             _bind(lib)
+            if name == "assign_argmin":
+                _check_argmin_config(lib)
             _LIBS[name] = lib
         return reports
+
+
+def _check_argmin_config(lib: ctypes.CDLL) -> None:
+    """The library's tiles must be the ones the wrapper sizes its scratch
+    and its staging for."""
+    built = {
+        "f32": (lib.srml_argmin_config(0), lib.srml_argmin_config(1)),
+        "f64": (lib.srml_argmin_config(2), lib.srml_argmin_config(3)),
+        "fast": (lib.srml_argmin_config(4), lib.srml_argmin_config(5)),
+    }
+    expected = {"f32": ARGMIN_TILE["f32"], "f64": ARGMIN_TILE["f64"], "fast": ARGMIN_TILE["f32-fast"]}
+    if built != expected or lib.srml_argmin_config(6) != STAGE_DEPTH:
+        raise RuntimeError(
+            f"assign_argmin library tiles {built}, depth {lib.srml_argmin_config(6)} disagree "
+            f"with the wrapper's {expected}, {STAGE_DEPTH}"
+        )
 
 
 def _lib(name: str) -> ctypes.CDLL:
@@ -178,6 +234,8 @@ def _check_cuda(name: str, *tensors: torch.Tensor) -> None:
 
 
 def _raise_on(name: str, status: int) -> None:
+    if status < 0:
+        raise RuntimeError(f"{name}: encoding a TMA descriptor failed: CUresult {-status}")
     if status != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {status}")
 
@@ -189,14 +247,80 @@ def _variant(name: str, dtype: torch.dtype, fast: bool = False) -> str:
     return f"{bits}-fast" if fast else bits
 
 
+def stage_bf16(a: torch.Tensor, row_multiple: int = 1) -> torch.Tensor:
+    """The `fast` operand layout: `a` [n, d] rounded to bf16 (round to
+    nearest even; float64 through float32, as torch's and JAX's casts do)
+    into a new row-major [np, dp] buffer, np = n rounded up to a multiple of
+    `row_multiple` and dp = d rounded up to a multiple of STAGE_DEPTH, zeros
+    past n and past d (they add nothing to a dot product). On the card this
+    reads `a` once and writes the buffer once (at the Lloyd tile, 32768 x
+    3000 float32: 393 MB read, 197 MB written)."""
+    n, d = a.shape
+    np_ = -(-n // row_multiple) * row_multiple
+    dp = -(-d // STAGE_DEPTH) * STAGE_DEPTH
+    out = torch.empty((np_, dp), dtype=torch.bfloat16, device=a.device)
+    out[:n, :d].copy_(a.to(torch.float32) if a.dtype == torch.float64 else a)
+    out[:n, d:].zero_()
+    out[n:].zero_()
+    return out
+
+
+def _argmin_operands(x: torch.Tensor, c: torch.Tensor, variant: str):
+    """What pass 1 of `variant` reads: x and c themselves, or for `fast`
+    their bf16 stagings, rows padded to whole row and center tiles."""
+    if variant.endswith("fast"):
+        rows, cols = ARGMIN_TILE[variant]
+        return stage_bf16(x, rows), stage_bf16(c, cols)
+    return x, c
+
+
+def _argmin_tiles(xo: torch.Tensor, co: torch.Tensor, c_sq: torch.Tensor, B: int, k: int, d: int,
+                  variant: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pass 1 of assign_argmin on the current device and stream: each row's
+    (minimum, first index) over each center tile, as partials [n_ct, B] in
+    c_sq's dtype and int32."""
+    name = "assign_argmin"
+    lib = _lib(name)
+    n_ct = -(-k // ARGMIN_TILE[variant][1])
+    pv = torch.empty((n_ct, B), dtype=c_sq.dtype, device=c_sq.device)
+    pj = torch.empty((n_ct, B), dtype=torch.int32, device=c_sq.device)
+    stream = torch.cuda.current_stream(c_sq.device).cuda_stream
+    ptrs = [xo.data_ptr(), co.data_ptr(), c_sq.data_ptr(), pv.data_ptr(), pj.data_ptr()]
+    if variant == "f32":
+        vec = d % 4 == 0 and xo.data_ptr() % 16 == 0 and co.data_ptr() % 16 == 0
+        status = lib.srml_argmin_tiles_f32(*ptrs, B, k, d, int(vec), stream)
+    elif variant == "f64":
+        status = lib.srml_argmin_tiles_f64(*ptrs, B, k, d, stream)
+    else:
+        fn = lib.srml_argmin_tiles_fast_f64 if variant == "f64-fast" else lib.srml_argmin_tiles_fast_f32
+        status = fn(*ptrs, B, xo.shape[0], k, co.shape[0], xo.shape[1], stream)
+    _raise_on(name, status)
+    return pv, pj
+
+
+def _argmin_merge(pv: torch.Tensor, pj: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pass 2 of assign_argmin: (mind, best) [B] from the partials, the
+    center tiles merged in ascending order."""
+    name = "assign_argmin"
+    lib = _lib(name)
+    n_ct, B = pv.shape
+    mind = torch.empty((B,), dtype=pv.dtype, device=pv.device)
+    best = torch.empty((B,), dtype=torch.int32, device=pv.device)
+    stream = torch.cuda.current_stream(pv.device).cuda_stream
+    fn = lib.srml_argmin_merge_f64 if pv.dtype == torch.float64 else lib.srml_argmin_merge_f32
+    _raise_on(name, fn(pv.data_ptr(), pj.data_ptr(), mind.data_ptr(), best.data_ptr(), B, n_ct, stream))
+    return mind, best
+
+
 def assign_argmin(
     x: torch.Tensor, c: torch.Tensor, c_sq: torch.Tensor, *, fast: bool = False
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel form of `distance.assign_argmin_plain`: (min over centers of
     c_sq - 2 x.c [B] in x's dtype, first argmin [B] int32) for x [B, d],
-    c [k, d], c_sq [k]."""
+    c [k, d], c_sq [k]. `fast` stages x and c as bf16 and takes the product
+    on the tensor cores with float32 sums. One launch count per call: the
+    staging (`fast`), the tile pass and the merge pass."""
     name = "assign_argmin"
-    _check_cuda(name, x, c, c_sq)
     variant = _variant(name, x.dtype, fast)
     _check(c.dtype == x.dtype and c_sq.dtype == x.dtype, f"{name}: x, c and c_sq must share a dtype")
     _check(x.dim() == 2 and c.dim() == 2 and c_sq.dim() == 1, f"{name}: x [B,d], c [k,d], c_sq [k]")
@@ -204,18 +328,18 @@ def assign_argmin(
     k = c.shape[0]
     _check(c.shape[1] == d and c_sq.shape[0] == k, f"{name}: shapes {tuple(x.shape)}, {tuple(c.shape)}, {tuple(c_sq.shape)} disagree")
     _check(k > 0 and d > 0, f"{name}: needs k > 0 centers and d > 0 features")
-    _check(max(B, k, d) < 2**31, f"{name}: dimensions must fit int32")
-    mind = torch.empty((B,), dtype=x.dtype, device=x.device)
-    best = torch.empty((B,), dtype=torch.int32, device=x.device)
+    rows, cols = ARGMIN_TILE[variant]
+    # the padded shapes and the grid (row tiles x center tiles) must fit int32
+    _check(max(B, k, d) < 2**31 - 512 and -(-B // rows) * -(-k // cols) < 2**31,
+           f"{name}: dimensions must fit int32")
+    _check_cuda(name, x, c, c_sq)
     if B == 0:
-        return mind, best
-    lib = _lib(name)
+        return (torch.empty((0,), dtype=x.dtype, device=x.device),
+                torch.empty((0,), dtype=torch.int32, device=x.device))
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        args = [x.data_ptr(), c.data_ptr(), c_sq.data_ptr(), mind.data_ptr(), best.data_ptr(), B, k, d]
-        fn = lib.srml_assign_argmin_f64 if x.dtype == torch.float64 else lib.srml_assign_argmin_f32
-        status = fn(*args, int(fast), stream)
-    _raise_on(name, status)
+        xo, co = _argmin_operands(x, c, variant)
+        pv, pj = _argmin_tiles(xo, co, c_sq, B, k, d, variant)
+        mind, best = _argmin_merge(pv, pj)
     launches[f"{name}/{variant}"] += 1
     return mind, best
 
