@@ -14,10 +14,13 @@
 #      a tie across a boundary of its center tiles (the first copy of a
 #      repeated center must win) and batch independence (rows sent in
 #      batches of 1 to 16,960 equal the same rows of the 32768-row tile bit
-#      for bit); then each kernel timed against its plain version and one
-#      PyTorch call, assign_argmin with its build figures (ptxas registers,
-#      spills, shared memory) and its staging, tile and merge passes timed
-#      apart;
+#      for bit); for d2_block also every rung of the serving ladder (256 to
+#      8192 rows), batch independence (batches of 1 to 8192 rows equal the
+#      same rows of one 8192-row call bit for bit) and a NaN query row in
+#      the top-k merge on the card (the CPU's indices); then each kernel
+#      timed against its plain version and one PyTorch call, with its build
+#      figures (ptxas registers, spills, static and dynamic shared memory)
+#      and its `fast` staging timed apart from its tiles;
 #   3. the KMeans path at full width: KMeans(k=1000) fit on 1,000,000 x
 #      3,000 float32 rows through the public API, transform of every row,
 #      save and load, and a fit with the default k-means|| seeding, with the
@@ -86,6 +89,12 @@ SERVE_CLIENTS, SERVE_REQUESTS, SERVE_SIZES = 4, 6, (1, 7, 64, 255, 1000, 4096)
 # assign_argmin's batch independence: (rows, first row) slices of one
 # 32768-row tile, from a single row to the Lloyd loop's ragged tail
 BATCH_SLICES = ((1, 5), (7, 130), (255, 1), (4096, 12345), (16960, 15808))
+# the serving bucket ladder (transform_bucket_min_rows to serve_max_batch_rows),
+# and d2_block's batch independence: (rows, first row) slices of one call at
+# its top rung
+SERVE_RUNGS = (256, 512, 1024, 2048, 4096, 8192)
+D2_BATCH_SLICES = ((1, 5), (7, 130), (255, 1), (256, 7000), (1000, 333), (2048, 4096), (4096, 2345),
+                   (8192, 0))
 
 
 def _variant_dtype(variant):
@@ -172,25 +181,32 @@ def ptxas_table(report):
     return out
 
 
-def argmin_ptxas(variant):
-    """The build figures of assign_argmin's kernels for one variant: its
-    tile pass (both load widths for f32) and its merge pass; the `fast` tile
-    pass adds its dynamic shared memory (the TMA ring)."""
+# the kernel function of each variant's main pass, per kernel, as its name
+# appears in nvcc's report
+PTXAS_KERNELS = {
+    "assign_argmin": {"f32": r"argmin_f32_tiles", "f64": r"argmin_f64_tiles",
+                      "f32-fast": r"argmin_fast_tilesIf", "f64-fast": r"argmin_fast_tilesId"},
+    "d2_block": {"f32": r"d2_block_f32", "f64": r"d2_block_f64",
+                 "f32-fast": r"d2_block_fastIf", "f64-fast": r"d2_block_fastId"},
+}
+
+
+def kernel_ptxas(name, variant):
+    """The build figures of one variant of kernel `name`: its main pass
+    (both load widths for f32) and, for assign_argmin, its merge pass; a
+    `fast` pass adds its dynamic shared memory (the TMA ring)."""
     from spark_rapids_ml_tpu_torch.ops import _kernels
 
     dtype_code = "d" if variant.startswith("f64") else "f"
-    pattern = {
-        "f32": r"argmin_f32_tiles", "f64": r"argmin_f64_tiles",
-        "f32-fast": r"argmin_fast_tilesIf", "f64-fast": r"argmin_fast_tilesId",
-    }[variant]
+    config = (_kernels._lib(name).srml_argmin_config if name == "assign_argmin"
+              else _kernels._lib(name).srml_d2_config)
     out = {}
-    for fn, info in ptxas_table(_kernels.ptxas_report("assign_argmin")).items():
-        if re.search(pattern, fn):
+    for fn, info in ptxas_table(_kernels.ptxas_report(name)).items():
+        if re.search(PTXAS_KERNELS[name][variant], fn):
             key = "tiles" if variant != "f32" else ("tiles_vec" if "ILb1" in fn else "tiles_scalar")
             out[key] = dict(info)
-            if variant.endswith("fast"):
-                out[key]["smem_dynamic"] = _kernels._lib("assign_argmin").srml_argmin_config(7)
-        elif re.search(r"argmin_mergeI" + dtype_code, fn):
+            out[key]["smem_dynamic"] = config(7) if variant.endswith("fast") else 0
+        elif name == "assign_argmin" and re.search(r"argmin_mergeI" + dtype_code, fn):
             out["merge"] = dict(info)
     return out
 
@@ -351,7 +367,7 @@ def time_kernels(variant, dev, errs):
         "bound_ms": bnd, "bound_by": by,
         "library_ms": cuda_ms(lambda: torch.matmul(xm, cm.T)),
         "split_ms": split,
-        "ptxas": argmin_ptxas(variant),
+        "ptxas": kernel_ptxas("assign_argmin", variant),
     })
 
     xw = x * w[:, None]
@@ -453,7 +469,8 @@ def time_d2_block(variant, dev, err):
     """d2_block, its plain version and one library call at the kNN tile: for
     f32 and f64 one torch.addmm computing the same block (the bare
     torch.matmul product is timed beside it); for `fast`, torch.matmul on
-    the two operands cast to bf16 beforehand (the casts not timed)."""
+    the two operands cast to bf16 beforehand (the casts not timed). The
+    `fast` staging and the kernel are also timed apart."""
     import torch
 
     from spark_rapids_ml_tpu_torch.ops import _kernels
@@ -464,7 +481,18 @@ def time_d2_block(variant, dev, err):
     q, xt = _d2_inputs(B, kt, d, dtype, False, 9, dev)
     xt_sq = D.row_sq(xt)
     s = q.element_size()
-    bnd, by = bound_ms((B * d + kt * d + kt + B * kt) * s, 2.0 * B * kt * d, variant)
+    flops = 2.0 * B * kt * d
+    bnd, by = bound_ms((B * d + kt * d + kt + B * kt) * s, flops, variant)
+    qo, xo = _kernels._d2_operands(q, xt, variant)
+    split = {
+        "stage_ms": cuda_ms(lambda: _kernels._d2_operands(q, xt, variant)) if fast else 0.0,
+        "tiles_ms": cuda_ms(lambda: _kernels._d2_tiles(qo, xo, xt_sq, B, d, variant)),
+    }
+    # staging reads q and xt once and writes their padded bf16 copies once
+    stage_bytes = (B * d + kt * d) * s + (qo.numel() + xo.numel()) * 2 if fast else 0
+    split["stage_bound_ms"] = stage_bytes / PEAK_BYTES_S * 1e3
+    split["tiles_tflops"] = flops / split["tiles_ms"] / 1e9
+    del qo, xo
     e = {
         "name": f"d2_block/{variant}",
         "route": "cuda",
@@ -483,9 +511,83 @@ def time_d2_block(variant, dev, err):
         e["library_ms"] = cuda_ms(lambda: torch.addmm(xt_sq[None, :], q, xt.T, alpha=-2.0))
         e["matmul_ms"] = cuda_ms(lambda: torch.matmul(q, xt.T))
         lib = f"torch.addmm {e['library_ms']:.3f}, torch.matmul {e['matmul_ms']:.3f}"
-    say(f"  {e['name']}: {e['ms']:.3f} ms ({2.0 * B * kt * d / e['ms'] / 1e9:.1f} TFLOP/s; plain "
-        f"{e['plain_ms']:.3f}, {lib}, bound {e['bound_ms']:.3f} by {e['bound_by']})")
+    split["tflops"] = flops / e["ms"] / 1e9
+    split["bound_share"] = bnd / e["ms"]
+    e["split_ms"] = split
+    e["ptxas"] = kernel_ptxas("d2_block", variant)
+    say(f"  {e['name']}: {e['ms']:.3f} ms ({split['tflops']:.1f} TFLOP/s, {split['bound_share']:.1%} of "
+        f"the bound {e['bound_ms']:.3f} by {e['bound_by']}; plain {e['plain_ms']:.3f}, {lib})")
+    say(f"    staging {split['stage_ms']:.3f} ms (its bytes at the memory rate "
+        f"{split['stage_bound_ms']:.3f}), tiles {split['tiles_ms']:.3f} ms "
+        f"({split['tiles_tflops']:.1f} TFLOP/s); ptxas {e['ptxas']}")
     return e
+
+
+def check_d2_batch_independence(dev):
+    """d2_block on rows q[a:a+B] equals its result on one 8192-row call at the
+    same rows, bit for bit (f32 and f32-fast, Gaussian data, the kNN item
+    block): one grid and tile serve every batch of the serving ladder."""
+    import torch
+
+    from spark_rapids_ml_tpu_torch.ops import _kernels
+    from spark_rapids_ml_tpu_torch.ops import distance as D
+
+    rows = max(SERVE_RUNGS)
+    q, xt = _d2_inputs(rows, D._DEFAULT_K_TILE, N_COLS, np.float32, False, 13, dev)
+    xt_sq = D.row_sq(xt)
+    for fast in (False, True):
+        full = _kernels.d2_block(q, xt, xt_sq, fast=fast)
+        for B, a in D2_BATCH_SLICES:
+            if not torch.equal(_kernels.d2_block(q[a:a + B], xt, xt_sq, fast=fast), full[a:a + B]):
+                fail(f"d2_block{' fast' if fast else ''}: rows {a}..{a + B} sent alone differ from the "
+                     f"same rows of the {rows}-row call")
+        del full
+        say(f"  ok d2_block batch independence, float32{' fast' if fast else ''}: rows sent as batches "
+            f"of {', '.join(str(B) for B, _ in D2_BATCH_SLICES)} equal the same rows of one {rows}-row "
+            "call bit for bit")
+
+
+def check_nan_query_rows(dev):
+    """A query row of NaN through topk_tile on the card, in one item block
+    and in several, f32 and f32-fast: the same indices as the plain route on
+    the CPU, and in one block the row's first columns in order at NaN
+    distance, as jax.lax.top_k ranks them; then a NaN row among 64 queries
+    against one 16,384-item block at d = 3000."""
+    import torch
+
+    from spark_rapids_ml_tpu_torch.ops import distance as D
+
+    rng = np.random.default_rng(1)
+    items = rng.standard_normal((300, 8)).astype(np.float32)
+    q = rng.standard_normal((4, 8)).astype(np.float32)
+    q[1] = np.nan
+    tq, ti = torch.from_numpy(q), torch.from_numpy(items)
+    for fast in (False, True):
+        for k_tile in (300, 64):
+            cd, ci = D.topk_tile(tq, ti, None, 10, k_tile=k_tile, fast=fast)
+            gd, gi = D.topk_tile(tq.to(dev), ti.to(dev), None, 10, k_tile=k_tile, fast=fast)
+            gd, gi = gd.cpu(), gi.cpu()
+            tag = f"NaN query row, {-(-300 // k_tile)} item block(s){' fast' if fast else ''}"
+            if not torch.equal(gi, ci):
+                fail(f"{tag}: the card's indices differ from the CPU's at {int((gi != ci).sum())} places")
+            if not torch.equal(torch.isnan(gd), torch.isnan(cd)):
+                fail(f"{tag}: NaN distances differ between the card and the CPU")
+            want = torch.arange(10, dtype=torch.int32) if k_tile == 300 else torch.zeros(10, dtype=torch.int32)
+            if not torch.equal(gi[1], want):
+                fail(f"{tag}: the NaN row got indices {gi[1].tolist()}, expected {want.tolist()}")
+    big_q, big_x = _d2_inputs(64, D._DEFAULT_K_TILE, N_COLS, np.float32, False, 17, dev)
+    big_q[3] = float("nan")
+    for fast in (False, True):
+        d2, idx = D.topk_tile(big_q, big_x, None, KNN_K, fast=fast)
+        if not (torch.equal(idx[3].cpu(), torch.arange(KNN_K, dtype=torch.int32))
+                and bool(torch.isnan(d2[3]).all())):
+            fail(f"NaN query row among {len(big_q)} x {D._DEFAULT_K_TILE} x {N_COLS}"
+                 f"{' fast' if fast else ''}: indices {idx[3, :8].tolist()}...")
+        others = torch.cat([d2[:3], d2[4:]])
+        if not bool(torch.isfinite(others).all()):
+            fail("a finite query row got a non-finite distance beside the NaN row")
+    say("  ok NaN query rows on the card: one item block and five, f32 and f32-fast, the CPU's indices; "
+        f"one block of {D._DEFAULT_K_TILE} x {N_COLS}: the NaN row's neighbours are items 0..{KNN_K - 1}")
 
 
 def phase_d2_block(dev):
@@ -496,17 +598,21 @@ def phase_d2_block(dev):
     kt = D._DEFAULT_K_TILE
     for variant in VARIANTS:
         dtype, fast = _variant_dtype(variant)
-        # the kNN tile, a ragged one (B and kt not multiples of 64 or 128),
-        # tiny ones, and the serving ladder's rungs (256 to 8192 rows)
+        # the kNN tile, a ragged one (B and kt not multiples of the tiles),
+        # tiny ones, and the serving ladder's rungs (256 to 8192 rows) against
+        # the kNN block and an odd one
         shapes = [(KNN_QUERIES, kt, N_COLS), (KNN_QUERIES - 1, kt - 1, N_COLS),
                   (37, 5, 3), (1, 1, 1), (65, 63, 17), (200, 1000, 77), (129, 130, 16)]
         if variant == "f32-fast":
-            shapes += [(b, kt, N_COLS) for b in (256, 512, 1024, 2048, 8192)]
+            shapes += [(b, kt, N_COLS) for b in SERVE_RUNGS if b != KNN_QUERIES]
+            shapes += [(b, 1001, N_COLS) for b in SERVE_RUNGS]
         for (B, kt_, d) in shapes:
             check_d2_block(B, kt_, d, dtype, fast, True, B + kt_ + d, dev)
             e = check_d2_block(B, kt_, d, dtype, fast, False, B + kt_ + d, dev)
             if (B, kt_) == (KNN_QUERIES, kt):
                 errs[variant] = e
+    check_d2_batch_independence(dev)
+    check_nan_query_rows(dev)
     say("phase 2: d2_block timing at the kNN tile (CUDA events, mean of 5 after a warm-up)")
     return [time_d2_block(variant, dev, errs[variant]) for variant in VARIANTS]
 

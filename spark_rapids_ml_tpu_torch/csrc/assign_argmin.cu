@@ -30,14 +30,12 @@
 // on the batch it comes in.
 //
 // The products of pass 1:
-//   * float32: a CUDA-core tile of 128 rows x 128 centers, 256 threads of
-//     8 x 8 outputs each, read from shared memory as float4 in two 4-wide
-//     groups per axis (no bank conflicts). 8-deep chunks are double-buffered
-//     in shared memory: the next chunk's global loads are in flight during
-//     the current chunk's FMAs, and one __syncthreads closes each chunk.
-//     Loads are float4 where d % 4 == 0 and both bases are 16-byte aligned,
-//     scalar otherwise (the VEC template argument, chosen by the wrapper).
-//     One FMA chain per output in ascending depth order.
+//   * float32: the CUDA-core tile of f32_tile.cuh (shared with d2_block.cu),
+//     128 rows x 128 centers, 256 threads of 8 x 8 outputs each, 8-deep
+//     double-buffered chunks. Loads are float4 where d % 4 == 0 and both
+//     bases are 16-byte aligned, scalar otherwise (the VEC template
+//     argument, chosen by the wrapper). One FMA chain per output in
+//     ascending depth order.
 //   * `fast` (float32 or float64 inputs): the wrapper stages both operands
 //     as bf16 (round to nearest even; float64 through float32) into buffers
 //     whose rows are padded to whole tiles and whose depth is padded with
@@ -61,6 +59,7 @@
 #include <cmath>
 #include <cstddef>
 
+#include "f32_tile.cuh"
 #include "tile_dot.cuh"
 #include "wgmma_bf16.cuh"
 
@@ -111,118 +110,36 @@ struct tile_min {
 
 // ------------------------------------------------ float32: CUDA cores ----
 
-namespace f32core {
-constexpr int BM = 128;       // rows of a tile
-constexpr int BN = 128;       // centers of a tile
-constexpr int BK = 8;         // depth of one shared-memory chunk
-constexpr int THREADS = 256;  // 16 x 16 threads of 8 x 8 outputs
-constexpr int LD = BM + 4;    // row stride of a transposed chunk: float4-aligned, conflict-free stores
-
-// One thread's share of a BM x BK chunk: row `row`, depth col..col+3, as
-// zeros past the last row or past d.
-template <bool VEC>
-__device__ __forceinline__ float4 load4(const float* __restrict__ g, int row, int nrows, int col,
-                                        int d) {
-  float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-  if (row < nrows) {
-    const float* p = g + static_cast<long long>(row) * d + col;
-    if constexpr (VEC) {
-      if (col < d) v = *reinterpret_cast<const float4*>(p);
-    } else {
-      if (col < d) v.x = p[0];
-      if (col + 1 < d) v.y = p[1];
-      if (col + 2 < d) v.z = p[2];
-      if (col + 3 < d) v.w = p[3];
-    }
-  }
-  return v;
-}
-
-// stored transposed: s[depth][row]
-__device__ __forceinline__ void stage4(float (&s)[BK][LD], float4 v, int row, int col) {
-  s[col][row] = v.x;
-  s[col + 1][row] = v.y;
-  s[col + 2][row] = v.z;
-  s[col + 3][row] = v.w;
-}
-}  // namespace f32core
+namespace f32core = srml::f32core;
 
 template <bool VEC>
 __global__ void __launch_bounds__(f32core::THREADS, 2)
 argmin_f32_tiles(const float* __restrict__ x, const float* __restrict__ c,
                  const float* __restrict__ c_sq, float* __restrict__ pv, int* __restrict__ pj,
                  int B, int k, int d, int n_ct) {
-  using namespace f32core;
-  __shared__ __align__(16) float xs[2][BK][LD];
-  __shared__ __align__(16) float cs[2][BK][LD];
-
   const int ct = blockIdx.x % n_ct;
-  const int m0 = (blockIdx.x / n_ct) * BM;
-  const int n0 = ct * BN;
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;  // centers 4*tx.. and 64 + 4*tx..
-  const int ty = tid / 16;  // rows 4*ty.. and 64 + 4*ty..
-  const int lr = tid / 2;   // the chunk row this thread loads
-  const int lc = 4 * (tid % 2);
-
-  float acc[8][8];
+  const int m0 = (blockIdx.x / n_ct) * f32core::BM;
+  const int n0 = ct * f32core::BN;
+  f32core::product_tile<VEC>(x, m0, B, c, n0, k, d, [&](const float (&acc)[8][8]) {
+    float csq[8];
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-
-  float4 ra = load4<VEC>(x, m0 + lr, B, lc, d);
-  float4 rb = load4<VEC>(c, n0 + lr, k, lc, d);
-  stage4(xs[0], ra, lr, lc);
-  stage4(cs[0], rb, lr, lc);
-  __syncthreads();
-
-  int buf = 0;
-  for (int k0 = 0; k0 < d; k0 += BK) {
-    const bool more = k0 + BK < d;
-    if (more) {  // the next chunk's loads overlap this chunk's FMAs
-      ra = load4<VEC>(x, m0 + lr, B, k0 + BK + lc, d);
-      rb = load4<VEC>(c, n0 + lr, k, k0 + BK + lc, d);
+    for (int j = 0; j < 8; ++j) {
+      const int gn = n0 + f32core::col_of(j);
+      csq[j] = gn < k ? c_sq[gn] : 0.f;
     }
 #pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&xs[buf][kk][4 * ty]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&xs[buf][kk][64 + 4 * ty]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&cs[buf][kk][4 * tx]);
-      const float4 b1 = *reinterpret_cast<const float4*>(&cs[buf][kk][64 + 4 * tx]);
-      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+    for (int i = 0; i < 8; ++i) {
+      tile_min<float> m;
 #pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+      for (int j = 0; j < 8; ++j) {  // this thread's centers, ascending
+        const int gn = n0 + f32core::col_of(j);
+        if (gn < k) m.scan(csq[j] - 2.f * acc[i][j], gn);
+      }
+      m.lane_min<16>();  // the 16 lanes of one row group
+      const int r = m0 + f32core::row_of(i);
+      if (threadIdx.x % 16 == 0 && r < B) m.store(pv, pj, ct, B, r);
     }
-    if (more) {
-      stage4(xs[buf ^ 1], ra, lr, lc);
-      stage4(cs[buf ^ 1], rb, lr, lc);
-    }
-    __syncthreads();
-    buf ^= 1;
-  }
-
-  float csq[8];
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const int gn = n0 + (j < 4 ? 4 * tx + j : 64 + 4 * tx + j - 4);
-    csq[j] = gn < k ? c_sq[gn] : 0.f;
-  }
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    tile_min<float> m;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {  // this thread's centers, ascending
-      const int gn = n0 + (j < 4 ? 4 * tx + j : 64 + 4 * tx + j - 4);
-      if (gn < k) m.scan(csq[j] - 2.f * acc[i][j], gn);
-    }
-    m.lane_min<16>();  // the 16 lanes of one ty
-    const int r = m0 + (i < 4 ? 4 * ty + i : 64 + 4 * ty + i - 4);
-    if (tx == 0 && r < B) m.store(pv, pj, ct, B, r);
-  }
+  });
 }
 
 // --------------------------------------------------- float64: tile_dot ----
@@ -241,7 +158,7 @@ argmin_f64_tiles(const double* __restrict__ x, const double* __restrict__ c,
   const int ty = threadIdx.x / LANES_N;  // rows ty + LANES_M * i
 
   double acc[TM][TN];
-  tile_dot<double, false>(x, m0, B, c, n0, k, d, xs, cs, acc);
+  tile_dot(x, m0, B, c, n0, k, d, xs, cs, acc);
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
     tile_min<double> m;

@@ -6,174 +6,254 @@
 // writes
 //     out[r, j] = xt_sq[j] - 2 * q_r . xt_j          out [B, kt], row-major
 // in the inputs' dtype. The running top-k merge around it stays in PyTorch
-// (ops/distance.py topk_tile). Two kernels: the exact one (float32, float64)
-// and the `fast` one (serve_dtype="bf16"), which rounds both operands to bf16,
-// sums the products in float32 on the tensor cores and casts the sum back
-// to the inputs' dtype before the epilogue, as the TPU kernel's `fast` body
-// does for float32 and float64 inputs alike.
+// (ops/distance.py topk_tile).
 //
 // What bounds it on an H100: operations. 2*B*kt*d FLOP against
 // (B*d + kt*d + kt + B*kt) elements moved (at the main path's tile, B = 4096,
 // kt = 16384, d = 3000: 4.03e11 FLOP against 0.52 GB in float32, about 780
-// FLOP per byte), so the float32 CUDA-core rate (67 TFLOP/s) is the floor:
-// 6.0 ms per block, against 0.16 ms for its bytes.
+// FLOP per byte): 6.0 ms at the float32 CUDA-core rate (67 TFLOP/s), 0.41 ms
+// for `fast` at the bf16 tensor-core rate (989 TFLOP/s), against 0.16 ms for
+// the bytes.
 //
-// `fast` is bounded by operations too: the same 4.03e11 FLOP at the bf16
-// tensor-core rate (989 TFLOP/s) is 0.41 ms per block at the main path's
-// tile, and its bytes (0.51 GB in float32) 0.15 ms.
+// The TPU kernel held the whole item tile in VMEM and ran its grid over row
+// blocks only. A Hopper CTA has at most 227 KB of shared memory, so here
+// every CTA owns one output tile, and a 1-D grid covers both axes. The grid
+// and the tiles are the same for every B, and each output is one sum in a
+// fixed order, so a query's distances do not depend on the batch it comes
+// in (a served request equals itself served alone, bit for bit). Ragged
+// rows (B, every rung of the serving bucket ladder) and items (kt) are
+// masked at the store. No cuBLAS, and TF32 never enters.
 //
-// Design of the exact kernel (the first, simple form):
-//   * The TPU kernel held the whole item tile in VMEM and ran its grid over
-//     row blocks only. A Hopper block has at most 227 KB of shared memory,
-//     so here every block owns one 64 x 64 tile of the output, and the grid
-//     covers both axes (item blocks on x, row blocks on y): 256 x 64 = 16,384
-//     blocks at the main path's tile, enough to fill 132 SMs many times.
-//   * Each tile is the register-tiled CUDA-core product of tile_dot.cuh,
-//     the same loop as assign_argmin.cu: BK-deep chunks over d in shared
-//     memory, a 4 x 4 sub-tile of dot products per thread, each summed in
-//     one FMA chain in ascending depth order. The product is this kernel's
-//     own work: no cuBLAS, and TF32 never enters.
-//   * The epilogue forms xt_sq[j] - 2*dot and stores it; ragged rows (B) and
-//     items (kt) are masked at the store, and a depth that is not a multiple
-//     of BK is zero-padded in shared memory, so the caller pads nothing.
-//     Sixteen neighbouring threads store sixteen neighbouring columns of a
-//     row.
-//
-// Design of the `fast` kernel (the first, simple form of a tensor-core
-// kernel; no wgmma, TMA or cp.async pipeline yet):
-//   * Every block owns one 128 x 128 output tile; its 8 warps run the
-//     bf16 mma.sync tile of mma_bf16.cuh over 32-deep chunks of the depth,
-//     the operands rounded to bf16 as they are staged in shared memory, the
-//     next chunk loaded into registers while the current one is multiplied.
-//   * The grid runs query tiles on x and item tiles on y, so the blocks in
-//     flight share a few item tiles and walk over the query rows (4096 x
-//     3000 float32 is 49 MB, about the L2): each item row is read from device
-//     memory about once per call.
-//   * A depth that is not a multiple of 16 (d = 3000) is zero-filled in
-//     shared memory; ragged rows (B, every rung of the serving bucket ladder)
-//     and items (kt) are masked at the store.
+// The three forms:
+//   * float32: the CUDA-core tile of f32_tile.cuh (shared with
+//     assign_argmin.cu), 128 queries x 128 items, 256 threads of 8 x 8
+//     outputs, 8-deep double-buffered chunks, float4 loads where d % 4 == 0
+//     and both bases are 16-byte aligned (VEC, chosen by the wrapper). Each
+//     output is one fmaf chain in ascending depth, as the 64 x 64 tile it
+//     replaces summed it. Two CTAs per SM. Item tiles run fastest in the
+//     launch order, as measured fastest at the kNN tile (PERF.md).
+//   * `fast` (float32 or float64 inputs, serve_dtype="bf16"): the wrapper
+//     stages q and xt as bf16 (round to nearest even; float64 through
+//     float32, as JAX's astype does) into buffers whose rows are padded to
+//     whole tiles (128 queries, 256 items) and whose depth is padded with
+//     zeros to a multiple of 64; the product is the TMA + wgmma tile of
+//     wgmma_bf16.cuh (shared with assign_argmin.cu), 128 x 256, float32
+//     sums. The epilogue forms xt_sq - 2*dot in float32, or for float64
+//     inputs widens the sum first and stays in float64, as the TPU kernel's
+//     `fast` body casts its product back to the input dtype. Query tiles run
+//     fastest, so the CTAs in flight share one item tile and the staged q
+//     (24.6 MB at 4096 x 3008) stays in the 50 MB L2: each item row is read
+//     from device memory about once. One CTA per SM.
+//   * float64: the 64 x 64 register tile of tile_dot.cuh (shared with
+//     assign_argmin.cu), item tiles fastest.
 //
 // C interface, bound with ctypes (spark_rapids_ml_tpu_torch/ops/_kernels.py):
-// each function launches on `stream` and returns cudaGetLastError().
+// each function launches on `stream` and returns cudaGetLastError() (or the
+// first error of its set-up).
 
 #include <cuda_runtime.h>
 
-#include "mma_bf16.cuh"
+#include "f32_tile.cuh"
 #include "tile_dot.cuh"
+#include "wgmma_bf16.cuh"
 
 namespace {
 
-using namespace srml;
+// ------------------------------------------------ float32: CUDA cores ----
 
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-d2_block_kernel(const T* __restrict__ q, const T* __restrict__ xt,
-                const T* __restrict__ xt_sq, T* __restrict__ out, int B, int kt,
-                int d) {
-  __shared__ T qs[BK][BM + 1];
-  __shared__ T xs[BK][BN + 1];
+namespace f32core = srml::f32core;
 
-  const int tid = threadIdx.x;
-  const int tx = tid % LANES_N;  // item lane: items tx + LANES_N * jj
-  const int ty = tid / LANES_N;  // row lane: rows ty + LANES_M * i
-  const int n0 = blockIdx.x * BN;
-  const int m0 = blockIdx.y * BM;
+template <bool VEC>
+__global__ void __launch_bounds__(f32core::THREADS, 2)
+d2_block_f32(const float* __restrict__ q, const float* __restrict__ xt,
+             const float* __restrict__ xt_sq, float* __restrict__ out, int B, int kt, int d,
+             int n_it) {
+  const int n0 = (blockIdx.x % n_it) * f32core::BN;  // items: the fastest
+  const int m0 = (blockIdx.x / n_it) * f32core::BM;  // queries
+  f32core::product_tile<VEC>(q, m0, B, xt, n0, kt, d, [&](const float (&acc)[8][8]) {
+    // a thread's columns are two runs of 4 neighbours: one float4 each
+    // where the row stride keeps them 16-byte aligned and all 4 lie inside
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int gn = n0 + f32core::col_of(4 * h);
+      float sq[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) sq[j] = gn + j < kt ? xt_sq[gn + j] : 0.f;
+      const bool whole = kt % 4 == 0 && gn + 3 < kt;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int gm = m0 + f32core::row_of(i);
+        if (gm >= B) continue;
+        float v[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) v[j] = sq[j] - 2.f * acc[i][4 * h + j];
+        float* o = out + static_cast<long long>(gm) * kt + gn;
+        if (whole) {
+          *reinterpret_cast<float4*>(o) = make_float4(v[0], v[1], v[2], v[3]);
+        } else {
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            if (gn + j < kt) o[j] = v[j];
+        }
+      }
+    }
+  });
+}
 
-  T acc[TM][TN];
-  tile_dot<T, false>(q, m0, B, xt, n0, kt, d, qs, xs, acc);
+// --------------------------------------------------- float64: tile_dot ----
 
+__global__ void __launch_bounds__(srml::THREADS)
+d2_block_f64(const double* __restrict__ q, const double* __restrict__ xt,
+             const double* __restrict__ xt_sq, double* __restrict__ out, int B, int kt, int d,
+             int n_it) {
+  using namespace srml;
+  __shared__ double qs[BK][BM + 1];
+  __shared__ double xs[BK][BN + 1];
+  const int tx = threadIdx.x % LANES_N;  // items tx + LANES_N * jj
+  const int ty = threadIdx.x / LANES_N;  // rows ty + LANES_M * i
+  const int n0 = (blockIdx.x % n_it) * BN;
+  const int m0 = (blockIdx.x / n_it) * BM;
+
+  double acc[TM][TN];
+  tile_dot(q, m0, B, xt, n0, kt, d, qs, xs, acc);
 #pragma unroll
   for (int jj = 0; jj < TN; ++jj) {
     const int gn = n0 + tx + LANES_N * jj;
     if (gn < kt) {
-      const T sq = xt_sq[gn];
+      const double sq = xt_sq[gn];
 #pragma unroll
       for (int i = 0; i < TM; ++i) {
         const int gm = m0 + ty + LANES_M * i;
-        if (gm < B) out[static_cast<long long>(gm) * kt + gn] = sq - T(2) * acc[i][jj];
+        if (gm < B) out[static_cast<long long>(gm) * kt + gn] = sq - 2.0 * acc[i][jj];
       }
     }
   }
 }
 
+// ------------------------------------------- fast: bf16 TMA + wgmma -------
+
+namespace wg = srml::wgmma_bf16;
+
+// two neighbouring outputs of one row: one 8- or 16-byte store where the
+// row stride keeps the pair aligned and both lie inside
 template <typename T>
-int launch(const void* q, const void* xt, const void* xt_sq, void* out, int B,
-           int kt, int d, void* stream) {
-  const dim3 grid((kt + BN - 1) / BN, (B + BM - 1) / BM);
-  d2_block_kernel<T><<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(q), static_cast<const T*>(xt), static_cast<const T*>(xt_sq),
-      static_cast<T*>(out), B, kt, d);
-  return static_cast<int>(cudaGetLastError());
+__device__ __forceinline__ void store_pair(T* o, T v0, T v1, bool pair, bool second) {
+  if (pair) {
+    if constexpr (sizeof(T) == 4) {
+      *reinterpret_cast<float2*>(o) = make_float2(v0, v1);
+    } else {
+      *reinterpret_cast<double2*>(o) = make_double2(v0, v1);
+    }
+  } else {
+    o[0] = v0;
+    if (second) o[1] = v1;
+  }
 }
 
-namespace mm = srml::bf16mma;
-
 template <typename T>
-__global__ void __launch_bounds__(mm::THREADS)
-d2_block_fast_kernel(const T* __restrict__ q, const T* __restrict__ xt,
-                     const T* __restrict__ xt_sq, T* __restrict__ out, int B, int kt,
-                     int d) {
-  __shared__ __align__(16) mm::Tile qs;
-  __shared__ __align__(16) mm::Tile xs;
-
-  const int m0 = blockIdx.x * mm::BM;  // query rows
-  const int n0 = blockIdx.y * mm::BN;  // items
-  float acc[mm::MT][mm::NT][4];
-  mm::tile_mma<T>(q, m0, B, xt, n0, kt, d, qs, xs, acc);
-
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int wm0 = (warp / mm::WARPS_N) * mm::WM;
-  const int wn0 = (warp % mm::WARPS_N) * mm::WN;
+__global__ void __launch_bounds__(wg::THREADS, 1)
+d2_block_fast(__grid_constant__ const CUtensorMap map_q, __grid_constant__ const CUtensorMap map_x,
+              const T* __restrict__ xt_sq, T* __restrict__ out, int B, int kt, int nk, int n_qt) {
+  const int m0 = (blockIdx.x % n_qt) * wg::BM;  // queries: the fastest
+  const int n0 = (blockIdx.x / n_qt) * wg::BN;  // items
+  wg::product_tile(map_q, map_x, m0, n0, nk, [&](const float (&acc)[wg::ACC], int w) {
+    const int t = threadIdx.x % 128;
+    const int r = m0 + 64 * w + 16 * (t / 32) + (t % 32) / 4;  // rows r and r + 8
 #pragma unroll
-  for (int nt = 0; nt < mm::NT; ++nt) {
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int gn = n0 + wn0 + 8 * nt + 2 * (lane % 4) + e;
+    for (int n = 0; n < wg::BN / 8; ++n) {
+      const int gn = n0 + 8 * n + 2 * (t % 4);  // columns gn and gn + 1
       if (gn >= kt) continue;
-      const T sq = xt_sq[gn];
+      const bool second = gn + 1 < kt;
+      const bool pair = second && kt % 2 == 0;
+      const T sq0 = xt_sq[gn];
+      const T sq1 = second ? xt_sq[gn + 1] : T(0);
 #pragma unroll
-      for (int mt = 0; mt < mm::MT; ++mt) {
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int gm = m0 + wm0 + 16 * mt + lane / 4 + 8 * h;
-          if (gm < B)
-            out[static_cast<long long>(gm) * kt + gn] =
-                sq - T(2) * static_cast<T>(acc[mt][nt][2 * h + e]);
-        }
+      for (int h = 0; h < 2; ++h) {
+        const int gm = r + 8 * h;
+        if (gm >= B) continue;
+        const T v0 = sq0 - T(2) * static_cast<T>(acc[4 * n + 2 * h]);
+        const T v1 = sq1 - T(2) * static_cast<T>(acc[4 * n + 2 * h + 1]);
+        store_pair(out + static_cast<long long>(gm) * kt + gn, v0, v1, pair, second);
       }
     }
-  }
+  });
 }
 
 template <typename T>
-int launch_fast(const void* q, const void* xt, const void* xt_sq, void* out, int B,
-                int kt, int d, void* stream) {
-  const dim3 grid((B + mm::BM - 1) / mm::BM, (kt + mm::BN - 1) / mm::BN);
-  d2_block_fast_kernel<T><<<grid, mm::THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(q), static_cast<const T*>(xt), static_cast<const T*>(xt_sq),
-      static_cast<T*>(out), B, kt, d);
+int launch_fast(const void* qs, const void* xs, const void* xt_sq, void* out, int B, int Bp,
+                int kt, int ktp, int dp, void* stream) {
+  CUtensorMap map_q, map_x;
+  int e = wg::encode_rows(&map_q, qs, Bp, dp, wg::BM);
+  if (e == 0) e = wg::encode_rows(&map_x, xs, ktp, dp, wg::BN);
+  if (e != 0) return e;
+  // the ring needs more than the default 48 KB of shared memory; setting it
+  // on every call keeps it right on whichever device is current
+  const cudaError_t a = cudaFuncSetAttribute(
+      d2_block_fast<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, wg::SMEM_BYTES);
+  if (a != cudaSuccess) return static_cast<int>(a);
+  const int n_qt = Bp / wg::BM;
+  d2_block_fast<T><<<n_qt * (ktp / wg::BN), wg::THREADS, wg::SMEM_BYTES,
+                     static_cast<cudaStream_t>(stream)>>>(
+      map_q, map_x, static_cast<const T*>(xt_sq), static_cast<T*>(out), B, kt, dp / wg::BK, n_qt);
   return static_cast<int>(cudaGetLastError());
 }
+
+int tiles(int n, int per) { return (n + per - 1) / per; }
 
 }  // namespace
 
-extern "C" int srml_d2_block_f32(const void* q, const void* xt, const void* xt_sq,
-                                 void* out, int B, int kt, int d, void* stream) {
-  return launch<float>(q, xt, xt_sq, out, B, kt, d, stream);
+// float32 on the CUDA cores; `vec` selects float4 loads (d % 4 == 0 and
+// 16-byte aligned bases).
+extern "C" int srml_d2_block_f32(const void* q, const void* xt, const void* xt_sq, void* out,
+                                 int B, int kt, int d, int vec, void* stream) {
+  const int n_it = tiles(kt, f32core::BN);
+  const dim3 grid(tiles(B, f32core::BM) * n_it);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto* qf = static_cast<const float*>(q);
+  const auto* xf = static_cast<const float*>(xt);
+  const auto* sf = static_cast<const float*>(xt_sq);
+  auto* of = static_cast<float*>(out);
+  if (vec)
+    d2_block_f32<true><<<grid, f32core::THREADS, 0, s>>>(qf, xf, sf, of, B, kt, d, n_it);
+  else
+    d2_block_f32<false><<<grid, f32core::THREADS, 0, s>>>(qf, xf, sf, of, B, kt, d, n_it);
+  return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int srml_d2_block_f64(const void* q, const void* xt, const void* xt_sq,
-                                 void* out, int B, int kt, int d, void* stream) {
-  return launch<double>(q, xt, xt_sq, out, B, kt, d, stream);
+extern "C" int srml_d2_block_f64(const void* q, const void* xt, const void* xt_sq, void* out,
+                                 int B, int kt, int d, void* stream) {
+  const int n_it = tiles(kt, srml::BN);
+  d2_block_f64<<<tiles(B, srml::BM) * n_it, srml::THREADS, 0,
+                 static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const double*>(q), static_cast<const double*>(xt),
+      static_cast<const double*>(xt_sq), static_cast<double*>(out), B, kt, d, n_it);
+  return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int srml_d2_block_fast_f32(const void* q, const void* xt, const void* xt_sq,
-                                      void* out, int B, int kt, int d, void* stream) {
-  return launch_fast<float>(q, xt, xt_sq, out, B, kt, d, stream);
+// `fast`: staged bf16 operands qs [Bp, dp] and xs [ktp, dp] (Bp a multiple
+// of 128, ktp of 256, dp of 64); xt_sq and out in the inputs' dtype.
+extern "C" int srml_d2_block_fast_f32(const void* qs, const void* xs, const void* xt_sq, void* out,
+                                      int B, int Bp, int kt, int ktp, int dp, void* stream) {
+  return launch_fast<float>(qs, xs, xt_sq, out, B, Bp, kt, ktp, dp, stream);
 }
 
-extern "C" int srml_d2_block_fast_f64(const void* q, const void* xt, const void* xt_sq,
-                                      void* out, int B, int kt, int d, void* stream) {
-  return launch_fast<double>(q, xt, xt_sq, out, B, kt, d, stream);
+extern "C" int srml_d2_block_fast_f64(const void* qs, const void* xs, const void* xt_sq, void* out,
+                                      int B, int Bp, int kt, int ktp, int dp, void* stream) {
+  return launch_fast<double>(qs, xs, xt_sq, out, B, Bp, kt, ktp, dp, stream);
+}
+
+// The tile sizes and the `fast` kernel's dynamic shared memory, for the
+// wrapper's staging and the build report.
+extern "C" int srml_d2_config(int what) {
+  switch (what) {
+    case 0: return f32core::BM;
+    case 1: return f32core::BN;
+    case 2: return srml::BM;
+    case 3: return srml::BN;
+    case 4: return wg::BM;
+    case 5: return wg::BN;
+    case 6: return wg::BK;
+    case 7: return wg::SMEM_BYTES;
+    default: return -1;
+  }
 }

@@ -1,4 +1,4 @@
-// The register-tiled dot-product tile shared by the distance kernels
+// The register-tiled dot-product tile of the float64 distance kernels
 // (assign_argmin.cu, d2_block.cu).
 //
 // One block of THREADS threads computes the BM x BN tile of dot products
@@ -13,17 +13,10 @@
 //
 // Thread (ty, tx) = (tid / LANES_N, tid % LANES_N) owns tile rows
 // ty + LANES_M * i and tile columns tx + LANES_N * jj.
-//
-// `FAST` stages and sums in float32 whatever the operands' type (acc_t): the
-// loads are rounded to bf16, so the products are exact in float32, and a
-// float64 operand keeps float64 only in its caller's epilogue.
 
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
-
-#include <type_traits>
 
 namespace srml {
 
@@ -40,37 +33,18 @@ constexpr int LOADS = (BM * BK) / THREADS;  // elements of each chunk a thread s
 static_assert(BM == BN, "the loader stages a and b chunks with one index map");
 static_assert((BM * BK) % THREADS == 0, "chunk loads must divide evenly");
 
-// The type a tile is staged and summed in: float32 for `FAST`, else the
-// operands' own.
-template <typename T, bool FAST>
-using acc_t = std::conditional_t<FAST, float, T>;
-
-// `FAST` rounds every loaded element to bf16 (round to nearest even, as JAX's
-// astype(bfloat16); a double goes through float first, as both torch's and
-// XLA's casts do); the products are then exact in float32.
-template <typename T, bool FAST>
-__device__ __forceinline__ acc_t<T, FAST> load_elem(const T* p) {
-  if constexpr (FAST) {
-    return __bfloat162float(__float2bfloat16_rn(static_cast<float>(*p)));
-  } else {
-    return *p;
-  }
-}
-
-template <typename T, bool FAST>
+template <typename T>
 __device__ __forceinline__ void tile_dot(const T* __restrict__ a, int m0, int na,
                                          const T* __restrict__ b, int n0, int nb, int d,
-                                         acc_t<T, FAST> (&as)[BK][BM + 1],
-                                         acc_t<T, FAST> (&bs)[BK][BN + 1],
-                                         acc_t<T, FAST> (&acc)[TM][TN]) {
-  using A = acc_t<T, FAST>;
+                                         T (&as)[BK][BM + 1], T (&bs)[BK][BN + 1],
+                                         T (&acc)[TM][TN]) {
   const int tid = threadIdx.x;
   const int tx = tid % LANES_N;
   const int ty = tid / LANES_N;
 #pragma unroll
   for (int i = 0; i < TM; ++i)
 #pragma unroll
-    for (int jj = 0; jj < TN; ++jj) acc[i][jj] = A(0);
+    for (int jj = 0; jj < TN; ++jj) acc[i][jj] = T(0);
 
   for (int k0 = 0; k0 < d; k0 += BK) {
 #pragma unroll
@@ -81,18 +55,14 @@ __device__ __forceinline__ void tile_dot(const T* __restrict__ a, int m0, int na
       const int gc = k0 + col;
       const int ga = m0 + r;
       const int gb = n0 + r;
-      as[col][r] = (ga < na && gc < d)
-                       ? load_elem<T, FAST>(a + static_cast<long long>(ga) * d + gc)
-                       : A(0);
-      bs[col][r] = (gb < nb && gc < d)
-                       ? load_elem<T, FAST>(b + static_cast<long long>(gb) * d + gc)
-                       : A(0);
+      as[col][r] = (ga < na && gc < d) ? a[static_cast<long long>(ga) * d + gc] : T(0);
+      bs[col][r] = (gb < nb && gc < d) ? b[static_cast<long long>(gb) * d + gc] : T(0);
     }
     __syncthreads();
 #pragma unroll
     for (int kk = 0; kk < BK; ++kk) {
-      A x[TM];
-      A y[TN];
+      T x[TM];
+      T y[TN];
 #pragma unroll
       for (int i = 0; i < TM; ++i) x[i] = as[kk][ty + LANES_M * i];
 #pragma unroll

@@ -1,6 +1,6 @@
 // The bf16 tensor-core product tile of Hopper: TMA loads into a ring of
 // shared-memory stages, `wgmma` on two consumer warpgroups, float32 sums in
-// registers. Used by assign_argmin.cu (its `fast` forms).
+// registers. Used by the `fast` forms of assign_argmin.cu and d2_block.cu.
 //
 // One CTA of THREADS threads computes the BM x BN tile of dot products
 //     acc[r][j] = a_row(m0 + r) . b_row(n0 + j)

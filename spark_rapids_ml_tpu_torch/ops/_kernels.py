@@ -3,28 +3,32 @@
 # ctypes binding, and their wrappers.
 #
 #   assign_argmin      csrc/assign_argmin.cu      replaces _pl_argmin
-#                      (+ csrc/wgmma_bf16.cuh, its bf16 TMA + wgmma `fast` form)
 #   assign_accumulate  csrc/assign_accumulate.cu  replaces _pl_accumulate
 #   d2_block           csrc/d2_block.cu           replaces _pl_d2_block
-#                      (+ csrc/mma_bf16.cuh, its bf16 tensor-core `fast` form)
 #
-# (the TPU kernels live in spark_rapids_ml_tpu/ops/distance.py).
+# (the TPU kernels live in spark_rapids_ml_tpu/ops/distance.py). The float32
+# forms of assign_argmin and d2_block share the CUDA-core tile of
+# csrc/f32_tile.cuh, their `fast` forms the bf16 TMA + wgmma tile of
+# csrc/wgmma_bf16.cuh, and their float64 forms the tile of csrc/tile_dot.cuh.
 #
 # Build: on the first kernel call, each csrc/*.cu is compiled by `nvcc` for
 # sm_90a into a shared library with a plain C interface under `build/` at the
 # repository root (one nvcc per source, all started together). The library
-# name carries a hash of its source and of every header in csrc/
-# (tile_dot.cuh, mma_bf16.cuh and wgmma_bf16.cuh are shared), so an edited
-# source or header never loads a stale library. nvcc's report (-Xptxas -v:
+# name carries a hash of its source and of every header in csrc/ (the
+# shared tiles above), so an edited source or header never loads a stale
+# library. nvcc's report (-Xptxas -v:
 # registers, spills, shared memory of each kernel) is kept beside the
 # library (`ptxas_report`). A missing nvcc or a failed build raises; nothing
-# falls back to the plain PyTorch versions (ops/distance.py).
+# falls back to the plain PyTorch versions (ops/distance.py). At load, the
+# tiles each library was built with are checked against the ones its wrapper
+# sizes scratch and staging for.
 #
-# `fast` assign_argmin reads operands staged as bf16 (`stage_bf16`), so its
-# tensor-core loop meets neither a ragged depth nor a float-to-bf16
-# conversion; the TMA descriptors it needs are encoded per call inside the
-# library, by libcuda's cuTensorMapEncodeTiled found through the CUDA
-# runtime's entry-point query (no link against libcuda).
+# `fast` assign_argmin and d2_block read operands staged as bf16
+# (`stage_bf16`), rows padded to whole tiles, so their tensor-core loop
+# meets neither a ragged edge nor a float-to-bf16 conversion; the TMA
+# descriptors they need are encoded per call inside the library, by
+# libcuda's cuTensorMapEncodeTiled found through the CUDA runtime's
+# entry-point query (no link against libcuda).
 #
 # Wrappers take CUDA tensors only, check device, dtype, shape and
 # contiguity, allocate the outputs with torch.empty, launch on PyTorch's
@@ -77,6 +81,11 @@ launches: Dict[str, int] = {f"{name}/{v}": 0 for name in SOURCES for v in VARIAN
 # centers, and a second pass merges the center tiles. The same for every
 # batch size, so a row's result never depends on the batch.
 ARGMIN_TILE: Dict[str, Tuple[int, int]] = {
+    "f32": (128, 128), "f32-fast": (128, 256), "f64": (64, 64), "f64-fast": (128, 256),
+}
+# d2_block's output tiles, (queries, items), per variant (csrc/d2_block.cu):
+# one CTA each, the same for every batch size
+D2_TILE: Dict[str, Tuple[int, int]] = {
     "f32": (128, 128), "f32-fast": (128, 256), "f64": (64, 64), "f64-fast": (128, 256),
 }
 # the depth of the `fast` operands is padded with zeros to a multiple of this
@@ -143,10 +152,11 @@ def _bind(lib: ctypes.CDLL) -> None:
         ("srml_argmin_config", [i]),
         ("srml_assign_accumulate_f32", [p, p, p, p, p, p, i, i, i, p]),
         ("srml_assign_accumulate_f64", [p, p, p, p, p, p, i, i, i, p]),
-        ("srml_d2_block_f32", [p, p, p, p, i, i, i, p]),
+        ("srml_d2_block_f32", [p, p, p, p, i, i, i, i, p]),
         ("srml_d2_block_f64", [p, p, p, p, i, i, i, p]),
-        ("srml_d2_block_fast_f32", [p, p, p, p, i, i, i, p]),
-        ("srml_d2_block_fast_f64", [p, p, p, p, i, i, i, p]),
+        ("srml_d2_block_fast_f32", [p, p, p, p, i, i, i, i, i, p]),
+        ("srml_d2_block_fast_f64", [p, p, p, p, i, i, i, i, i, p]),
+        ("srml_d2_config", [i]),
     ):
         if hasattr(lib, fn):
             f = getattr(lib, fn)
@@ -193,24 +203,29 @@ def build() -> Dict[str, str]:
             lib = ctypes.CDLL(str(_lib_path(name)))
             _bind(lib)
             if name == "assign_argmin":
-                _check_argmin_config(lib)
+                _check_config(name, lib.srml_argmin_config, ARGMIN_TILE)
+            elif name == "d2_block":
+                _check_config(name, lib.srml_d2_config, D2_TILE)
             _LIBS[name] = lib
         return reports
 
 
-def _check_argmin_config(lib: ctypes.CDLL) -> None:
+def library_tiles(config) -> Tuple[Dict[str, Tuple[int, int]], int]:
+    """The tiles a library was built with, per variant, and the depth its
+    `fast` operands must be padded to, from its config function (codes 0-6:
+    the float32, float64 and `fast` tile shapes, then the `fast` depth)."""
+    f32, f64, fast = ((config(2 * v), config(2 * v + 1)) for v in range(3))
+    return {"f32": f32, "f32-fast": fast, "f64": f64, "f64-fast": fast}, config(6)
+
+
+def _check_config(name: str, config, expected: Dict[str, Tuple[int, int]]) -> None:
     """The library's tiles must be the ones the wrapper sizes its scratch
     and its staging for."""
-    built = {
-        "f32": (lib.srml_argmin_config(0), lib.srml_argmin_config(1)),
-        "f64": (lib.srml_argmin_config(2), lib.srml_argmin_config(3)),
-        "fast": (lib.srml_argmin_config(4), lib.srml_argmin_config(5)),
-    }
-    expected = {"f32": ARGMIN_TILE["f32"], "f64": ARGMIN_TILE["f64"], "fast": ARGMIN_TILE["f32-fast"]}
-    if built != expected or lib.srml_argmin_config(6) != STAGE_DEPTH:
+    built, depth = library_tiles(config)
+    if built != expected or depth != STAGE_DEPTH:
         raise RuntimeError(
-            f"assign_argmin library tiles {built}, depth {lib.srml_argmin_config(6)} disagree "
-            f"with the wrapper's {expected}, {STAGE_DEPTH}"
+            f"{name} library tiles {built}, depth {depth} disagree with the wrapper's "
+            f"{expected}, {STAGE_DEPTH}"
         )
 
 
@@ -382,15 +397,48 @@ def assign_accumulate(
     return sums, counts
 
 
+def _d2_operands(q: torch.Tensor, xt: torch.Tensor, variant: str):
+    """What the d2_block kernel of `variant` reads: q and xt themselves, or
+    for `fast` their bf16 stagings, rows padded to whole query and item
+    tiles."""
+    if variant.endswith("fast"):
+        rows, cols = D2_TILE[variant]
+        return stage_bf16(q, rows), stage_bf16(xt, cols)
+    return q, xt
+
+
+def _d2_tiles(qo: torch.Tensor, xo: torch.Tensor, xt_sq: torch.Tensor, B: int, d: int,
+              variant: str) -> torch.Tensor:
+    """The d2_block kernel of `variant` on the current device and stream,
+    on the operands `_d2_operands` gives: the [B, kt] block in xt_sq's
+    dtype."""
+    name = "d2_block"
+    lib = _lib(name)
+    kt = xt_sq.shape[0]
+    out = torch.empty((B, kt), dtype=xt_sq.dtype, device=xt_sq.device)
+    stream = torch.cuda.current_stream(xt_sq.device).cuda_stream
+    ptrs = [qo.data_ptr(), xo.data_ptr(), xt_sq.data_ptr(), out.data_ptr()]
+    if variant == "f32":
+        vec = d % 4 == 0 and qo.data_ptr() % 16 == 0 and xo.data_ptr() % 16 == 0
+        status = lib.srml_d2_block_f32(*ptrs, B, kt, d, int(vec), stream)
+    elif variant == "f64":
+        status = lib.srml_d2_block_f64(*ptrs, B, kt, d, stream)
+    else:
+        fn = lib.srml_d2_block_fast_f64 if variant == "f64-fast" else lib.srml_d2_block_fast_f32
+        status = fn(*ptrs, B, qo.shape[0], kt, xo.shape[0], qo.shape[1], stream)
+    _raise_on(name, status)
+    return out
+
+
 def d2_block(
     q: torch.Tensor, xt: torch.Tensor, xt_sq: torch.Tensor, *, fast: bool = False
 ) -> torch.Tensor:
     """Kernel form of `distance.d2_block_plain`: the [B, kt] block
     xt_sq[None, :] - 2 q.xt^T in q's dtype (no ||q||^2 term) for q [B, d],
-    xt [kt, d], xt_sq [kt]; `fast` takes the product on the bf16 tensor
-    cores with float32 accumulation."""
+    xt [kt, d], xt_sq [kt]; `fast` stages q and xt as bf16 and takes the
+    product on the tensor cores with float32 sums. One launch count per
+    call: the staging (`fast`) and the kernel."""
     name = "d2_block"
-    _check_cuda(name, q, xt, xt_sq)
     variant = _variant(name, q.dtype, fast)
     _check(xt.dtype == q.dtype and xt_sq.dtype == q.dtype, f"{name}: q, xt and xt_sq must share a dtype")
     _check(q.dim() == 2 and xt.dim() == 2 and xt_sq.dim() == 1, f"{name}: q [B,d], xt [kt,d], xt_sq [kt]")
@@ -398,19 +446,15 @@ def d2_block(
     kt = xt.shape[0]
     _check(xt.shape[1] == d and xt_sq.shape[0] == kt, f"{name}: shapes {tuple(q.shape)}, {tuple(xt.shape)}, {tuple(xt_sq.shape)} disagree")
     _check(kt > 0 and d > 0, f"{name}: needs kt > 0 items and d > 0 features")
-    _check(max(kt, d) < 2**31, f"{name}: dimensions must fit int32")
-    if fast:  # 128 x 128 output tiles, item tiles on the grid's y axis
-        _check(kt <= 65535 * 128, f"{name}: at most {65535 * 128} items per block (the grid's y extent)")
-    else:  # 64 x 64 output tiles, row tiles on the grid's y axis
-        _check(B <= 65535 * 64, f"{name}: at most {65535 * 64} rows per block (the grid's y extent)")
-    out = torch.empty((B, kt), dtype=q.dtype, device=q.device)
+    rows, cols = D2_TILE[variant]
+    # the padded shapes and the grid (query tiles x item tiles) must fit int32
+    _check(max(B, kt, d) < 2**31 - 512 and -(-B // rows) * -(-kt // cols) < 2**31,
+           f"{name}: dimensions must fit int32")
+    _check_cuda(name, q, xt, xt_sq)
     if B == 0:
-        return out
-    lib = _lib(name)
+        return torch.empty((0, kt), dtype=q.dtype, device=q.device)
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        fn = getattr(lib, f"srml_d2_block{'_fast' if fast else ''}_{variant[:3]}")
-        status = fn(q.data_ptr(), xt.data_ptr(), xt_sq.data_ptr(), out.data_ptr(), B, kt, d, stream)
-    _raise_on(name, status)
+        qo, xo = _d2_operands(q, xt, variant)
+        out = _d2_tiles(qo, xo, xt_sq, B, d, variant)
     launches[f"{name}/{variant}"] += 1
     return out

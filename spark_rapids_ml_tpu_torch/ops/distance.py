@@ -250,13 +250,15 @@ def _smallest_columns(d2: torch.Tensor, kk: int) -> torch.Tensor:
     entries equal to the kk-th one. The rows where it had such a choice (more
     entries equal to its largest pick than it picked) are selected again
     with a stable sort, so the result is the lexicographic (value, column)
-    minimum, as `jax.lax.top_k` gives."""
+    minimum, as `jax.lax.top_k` gives. NaN ranks after +inf in both sorts;
+    a row whose kk-th pick is NaN chose among NaNs, which `==` cannot count,
+    so it is selected again too."""
     B, kt = d2.shape
     if kk >= kt:
         return torch.arange(kt, device=d2.device).expand(B, kt)
     vals, cols = torch.topk(d2, kk, dim=1, largest=False, sorted=False)
     kth = vals.amax(dim=1, keepdim=True)
-    choice = (d2 == kth).sum(dim=1) > (vals == kth).sum(dim=1)
+    choice = ((d2 == kth).sum(dim=1) > (vals == kth).sum(dim=1)) | kth.isnan().squeeze(1)
     rows = torch.nonzero(choice).squeeze(1)
     if rows.numel():
         cols[rows] = torch.sort(d2[rows], dim=1, stable=True).indices[:, :kk]

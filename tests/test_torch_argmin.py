@@ -163,14 +163,18 @@ def _fake_lib(values):
     return types.SimpleNamespace(srml_argmin_config=lambda i: values[i])
 
 
+def _check_argmin_config(lib):
+    _kernels._check_config("assign_argmin", lib.srml_argmin_config, _kernels.ARGMIN_TILE)
+
+
 def test_library_tiles_must_match_the_wrapper():
     good = [128, 128, 64, 64, 128, 256, 64, 197696]
-    _kernels._check_argmin_config(_fake_lib(good))
+    _check_argmin_config(_fake_lib(good))
     for i in range(7):
         bad = list(good)
         bad[i] *= 2
         with pytest.raises(RuntimeError, match="disagree"):
-            _kernels._check_argmin_config(_fake_lib(bad))
+            _check_argmin_config(_fake_lib(bad))
 
 
 # ------------------------------------------- the CUDA kernel, on the card ----

@@ -304,6 +304,44 @@ def test_topk_tile_default_block_is_the_ports_constant(monkeypatch):
     assert torch.equal(one[1], many[1]) and torch.equal(one[0], many[0])
 
 
+def _nan_query_rows(dtype):
+    """300 Gaussian items and 4 queries, query 1 all NaN: every distance of
+    that row is NaN, and the merge must still rank it as `jax.lax.top_k`
+    does (NaN after +inf, the lower column first)."""
+    rng = np.random.default_rng(1)
+    items = rng.normal(size=(300, 8)).astype(dtype)
+    q = rng.normal(size=(4, 8)).astype(dtype)
+    q[1] = np.nan
+    return q, items
+
+
+def _assert_nan_aware_close(got, want, rtol):
+    got, want = np.asarray(got), np.asarray(want)
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    finite = ~np.isnan(want)
+    scale = np.abs(want[finite]).max()
+    np.testing.assert_allclose(got[finite], want[finite], rtol=rtol, atol=rtol * scale)
+
+
+@pytest.mark.parametrize("mode_fixture", ["interpret_mode", "jnp_mode"])
+@pytest.mark.parametrize("dtype,rtol", [(np.float64, 1e-9), (np.float32, 1e-5)])
+@pytest.mark.parametrize("k_tile", [300, 64])  # one block of all items; five blocks
+@pytest.mark.parametrize("fast", [False, True])
+def test_topk_tile_nan_query_row_matches_jax(request, mode_fixture, dtype, rtol, k_tile, fast):
+    request.getfixturevalue(mode_fixture)
+    q, items = _nan_query_rows(dtype)
+    (jq, ji), (tq, ti) = _both(q, items)
+    jd2, jidx = jdist.topk_tile(jq, ji, None, 10, k_tile=k_tile, block_rows=8, fast=fast)
+    td2, tidx = tdist.topk_tile(tq, ti, None, 10, k_tile=k_tile, fast=fast)
+    np.testing.assert_array_equal(_np(tidx), np.asarray(jidx))
+    if k_tile == 300:  # one block: the NaN row's first columns, in order
+        np.testing.assert_array_equal(_np(tidx)[1], np.arange(10))
+        assert np.isnan(_np(td2)[1]).all()
+    else:  # the carried +inf entries are never displaced by NaN
+        assert (_np(tidx)[1] == 0).all() and np.isposinf(_np(td2)[1]).all()
+    _assert_nan_aware_close(_np(td2), np.asarray(jd2), 1e-5 if fast else rtol)
+
+
 @pytest.mark.parametrize("dtype,rtol", [(np.float64, 1e-9), (np.float32, 1e-5)])
 @pytest.mark.parametrize("B,kt,d", [(13, 11, 7), (8, 4, 5), (33, 17, 130), (1, 1, 1)])
 def test_d2_block_plain_matches_pallas_kernel(B, kt, d, dtype, rtol):
@@ -528,7 +566,12 @@ def test_kernels_match_plain_versions_on_card(card, dtype, fast, n, k, d):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
 @pytest.mark.parametrize("fast", [False, True])
-@pytest.mark.parametrize("B,kt,d", [(4095, 16383, 300), (37, 5, 3), (64, 64, 16), (1, 1, 1), (256, 130, 3000)])
+@pytest.mark.parametrize(
+    "B,kt,d",
+    [(4095, 16383, 300), (37, 5, 3), (64, 64, 16), (1, 1, 1), (256, 130, 3000)]
+    # the serving ladder's rungs against an odd item block at d = 3000
+    + [(b, 1001, 3000) for b in (512, 1024, 2048, 4096, 8192)],
+)
 def test_d2_block_kernel_matches_plain_version_on_card(card, dtype, fast, B, kt, d):
     # integer-valued data: every sum is exact, so the kernel equals the plain version
     rng = np.random.default_rng(B + kt + d)

@@ -155,6 +155,28 @@ def test_kneighbors_matches_jax(float32_inputs, rtol, with_ids):
     np.testing.assert_array_equal(tq[id_col].to_numpy(), jq[id_col].to_numpy())
 
 
+@pytest.mark.parametrize("float32_inputs,rtol", [(True, 1e-5), (False, 1e-9)])
+def test_kneighbors_nan_query_row_matches_jax(float32_inputs, rtol):
+    # one all-NaN query among finite ones, the items in one block: its
+    # neighbors are the first k items at NaN distance, as in the reference
+    rng = np.random.default_rng(1)
+    x = rng.normal(size=(120, 8))
+    q = rng.normal(size=(5, 8))
+    q[1] = np.nan
+    outs = []
+    for cls, extra in ((NearestNeighbors, {}), (JaxNearestNeighbors, {"num_workers": 1})):
+        est = cls(k=6, float32_inputs=float32_inputs, **extra).setInputCol("features")
+        outs.append(est.fit(_frame(x)).kneighbors(_frame(q))[2])
+    tk, jk = outs
+    np.testing.assert_array_equal(_stack(tk, "indices"), _stack(jk, "indices"))
+    np.testing.assert_array_equal(_stack(tk, "indices")[1], np.arange(6))
+    td, jd = _stack(tk, "distances"), _stack(jk, "distances")
+    np.testing.assert_array_equal(np.isnan(td), np.isnan(jd))
+    assert np.isnan(td[1]).all() and not np.isnan(np.delete(td, 1, axis=0)).any()
+    finite = ~np.isnan(jd)
+    np.testing.assert_allclose(td[finite], jd[finite], rtol=rtol, atol=rtol)
+
+
 def test_kneighbors_multi_column_and_dict_inputs_match_jax():
     x, q = _rows(60, 4, seed=12), _rows(9, 4, seed=13)
     cols = [f"c{i}" for i in range(4)]
