@@ -17,10 +17,16 @@
 #      for bit); for d2_block also every rung of the serving ladder (256 to
 #      8192 rows), batch independence (batches of 1 to 8192 rows equal the
 #      same rows of one 8192-row call bit for bit) and a NaN query row in
-#      the top-k merge on the card (the CPU's indices); then each kernel
-#      timed against its plain version and one PyTorch call, with its build
-#      figures (ptxas registers, spills, static and dynamic shared memory)
-#      and its `fast` staging timed apart from its tiles;
+#      the top-k merge on the card (the CPU's indices); for
+#      assign_accumulate also skewed assignments (every row on one center,
+#      a Zipf(1.1) law over the centers, and edges: empty centers, zero
+#      weights, assignments outside [0, k)), past the counting sort's
+#      centers too; then each kernel timed against its plain version and
+#      one PyTorch call, with its build figures (ptxas registers, spills,
+#      static and dynamic shared memory), its `fast` staging timed apart
+#      from its tiles, and assign_accumulate's passes (preparation, sums
+#      with their rate, fold) timed apart, on the card alone too
+#      (device_ms), on the nearest-center and the skewed assignments;
 #   3. the KMeans path at full width: KMeans(k=1000) fit on 1,000,000 x
 #      3,000 float32 rows through the public API, transform of every row,
 #      save and load, and a fit with the default k-means|| seeding, with the
@@ -130,6 +136,46 @@ def cuda_ms(fn, reps=5):
     return start.elapsed_time(end) / reps
 
 
+_spin = {"cycles": 20_000_000}
+
+
+def device_ms(fn, reps=20):
+    """Mean ms of one call of `fn` on the card alone: the calls are queued
+    behind a spin of the card (torch.cuda._sleep) that lasts longer than the
+    host takes to enqueue them, so the events time the card's work back to
+    back without the host's launch time between calls (which cuda_ms
+    includes where a call's launches take the host longer than the card
+    takes to run them). The reps' launches must fit the card's launch queue
+    (a few hundred): past it the host waits for the spin, which no spin
+    outlasts, and this raises."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    spin_end = torch.cuda.Event(enable_timing=True)
+    while True:
+        spin_start = torch.cuda.Event(enable_timing=True)
+        spin_start.record()
+        torch.cuda._sleep(_spin["cycles"])
+        spin_end.record()
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        end.synchronize()
+        spin_ms = spin_start.elapsed_time(spin_end)
+        if spin_ms > host_ms:
+            return start.elapsed_time(end) / reps
+        if spin_ms > 2000:
+            fail(f"device_ms: the host took {host_ms:.0f} ms to enqueue {reps} calls behind a "
+                 f"{spin_ms:.0f} ms spin: too many launches to queue")
+        _spin["cycles"] *= 2
+
+
 def bound_ms(nbytes, flops, variant):
     t_bytes = nbytes / PEAK_BYTES_S
     t_ops = flops / PEAK_FLOPS[variant]
@@ -188,19 +234,37 @@ PTXAS_KERNELS = {
                       "f32-fast": r"argmin_fast_tilesIf", "f64-fast": r"argmin_fast_tilesId"},
     "d2_block": {"f32": r"d2_block_f32", "f64": r"d2_block_f64",
                  "f32-fast": r"d2_block_fastIf", "f64-fast": r"d2_block_fastId"},
+    "assign_accumulate": {"f32": r"accumulate_sumsIfLb0E", "f64": r"accumulate_sumsIdLb0E",
+                          "f32-fast": r"accumulate_sumsIfLb1E", "f64-fast": r"accumulate_sumsIdLb1E"},
 }
 
 
 def kernel_ptxas(name, variant):
     """The build figures of one variant of kernel `name`: its main pass
-    (both load widths for f32) and, for assign_argmin, its merge pass; a
-    `fast` pass adds its dynamic shared memory (the TMA ring)."""
+    (both load widths for f32; for assign_accumulate, the sum and fold
+    passes in both load widths and the counting sort's passes) and, for
+    assign_argmin, its
+    merge pass; a `fast` pass of assign_argmin or d2_block adds its dynamic
+    shared memory (the TMA ring)."""
     from spark_rapids_ml_tpu_torch.ops import _kernels
 
     dtype_code = "d" if variant.startswith("f64") else "f"
+    out = {}
+    if name == "assign_accumulate":
+        fold = PTXAS_KERNELS[name][variant].replace("sums", "fold")
+        for fn, info in ptxas_table(_kernels.ptxas_report(name)).items():
+            width = "scalar" if "ELi1E" in fn else "vec"
+            if re.search(PTXAS_KERNELS[name][variant], fn):
+                out[f"sums_{width}"] = dict(info)
+            elif re.search(fold, fn):
+                out[f"fold_{width}"] = dict(info)
+            else:
+                m = re.search(r"accumulate_(plan|count|scatter)E", fn)
+                if m:
+                    out[m.group(1)] = dict(info)
+        return out
     config = (_kernels._lib(name).srml_argmin_config if name == "assign_argmin"
               else _kernels._lib(name).srml_d2_config)
-    out = {}
     for fn, info in ptxas_table(_kernels.ptxas_report(name)).items():
         if re.search(PTXAS_KERNELS[name][variant], fn):
             key = "tiles" if variant != "f32" else ("tiles_vec" if "ILb1" in fn else "tiles_scalar")
@@ -325,6 +389,67 @@ def check_kernels(n, k, d, dtype, fast, integer, seed, dev, case="", tie_at=None
     return mind_err, sums_err
 
 
+# assign_accumulate's assignments besides the nearest-center one: every
+# row on one center (a center of many pieces), a Zipf(1.1) law over the
+# centers (the early Lloyd iterations of a random init, a dominant cluster),
+# and edges: empty centers, zero weights, assignments outside [0, k)
+SKEWS = ("one center", "zipf", "edges")
+
+
+def _skewed(n, k, kind, seed):
+    """(assignment int32 [n], rows whose weight is set to 0) for one SKEWS kind."""
+    rng = np.random.default_rng(seed)
+    zero = np.zeros(n, dtype=bool)
+    if kind == "one center":
+        a = np.full(n, 17 % k)
+    elif kind == "zipf":
+        p = np.arange(1, k + 1, dtype=np.float64) ** -1.1
+        a = rng.permutation(k)[rng.choice(k, size=n, p=p / p.sum())]
+    else:
+        a = rng.integers(0, k, size=n)
+        a[(a >= k // 3) & (a < k // 2)] = 0  # empty centers
+        out = rng.random(n) < 0.125
+        a[out] = rng.choice([-7, -1, k, k + 3], size=int(out.sum()))
+        zero = rng.random(n) < 0.125
+    return a.astype(np.int32), zero
+
+
+def check_accumulate(n, k, d, dtype, fast, integer, seed, dev, kind):
+    """assign_accumulate on a SKEWS assignment against accumulate_plain on
+    the rows inside [0, k); two launches bitwise equal; returns max
+    |sums err|."""
+    import torch
+
+    from spark_rapids_ml_tpu_torch.ops import _kernels
+    from spark_rapids_ml_tpu_torch.ops import distance as D
+
+    x, _, w = _inputs(n, k, d, dtype, integer, seed, dev)
+    a, zero = _skewed(n, k, kind, seed)
+    w[torch.from_numpy(zero).to(dev)] = 0
+    assign = torch.from_numpy(a).to(dev)
+    s1, n1 = _kernels.assign_accumulate(x, w, assign, k, fast=fast)
+    s2, n2 = _kernels.assign_accumulate(x, w, assign, k, fast=fast)
+    torch.cuda.synchronize()
+    valid = (assign >= 0) & (assign < k)
+    s0, n0 = D.accumulate_plain(x[valid], w[valid], assign[valid], k, fast)
+    tag = (f"assign_accumulate {n}x{d} k={k} {np.dtype(dtype).name}{' fast' if fast else ''} "
+           f"{'integer' if integer else 'gaussian'} [{kind}: most rows on one center "
+           f"{int(np.bincount(a[(a >= 0) & (a < k)], minlength=k).max())}]")
+    if not (torch.equal(s1, s2) and torch.equal(n1, n2)):
+        fail(f"not deterministic: {tag}")
+    err = (s1 - s0).abs().max().item()
+    if integer:
+        if not (torch.equal(s1, s0) and torch.equal(n1, n0)):
+            fail(f"differs on integer data (max {err}): {tag}")
+    else:
+        if err > 1e-5 * s0.abs().max().item():
+            fail(f"sums error {err} > 1e-5 x {s0.abs().max().item()}: {tag}")
+        if (n1 - n0).abs().max().item() > 1e-5 * n0.abs().max().item():
+            fail(f"counts differ: {tag}")
+    say(f"  ok {tag}: max|sums err| {err:.3g}")
+    return err
+
+
 def time_kernels(variant, dev, errs):
     """Kernel, plain-version and library times at the main path's tile."""
     import torch
@@ -379,7 +504,7 @@ def time_kernels(variant, dev, errs):
 
     nbytes = (B * d + B + k * d + k) * s + B * 4
     bnd, by = bound_ms(nbytes, 2.0 * B * d, variant)
-    out.append({
+    e = {
         "name": f"assign_accumulate/{variant}",
         "route": "cuda",
         "source": "spark_rapids_ml_tpu_torch/csrc/assign_accumulate.cu",
@@ -389,7 +514,18 @@ def time_kernels(variant, dev, errs):
         "plain_ms": cuda_ms(lambda: D.accumulate_plain(x, w, best, k, fast)),
         "bound_ms": bnd, "bound_by": by,
         "library_ms": cuda_ms(library_accumulate),
-    })
+        "split_ms": accumulate_split(x, w, best, k, fast),
+        "ptxas": kernel_ptxas("assign_accumulate", variant),
+    }
+    # the skewed assignments at the same tile: the whole call, and its passes
+    for kind in ("one center", "zipf"):
+        a, _ = _skewed(B, k, kind, 7)
+        skew = torch.from_numpy(a).to(dev)
+        e["split_ms"][kind] = dict(
+            ms=cuda_ms(lambda: _kernels.assign_accumulate(x, w, skew, k, fast=fast)),
+            **accumulate_split(x, w, skew, k, fast))
+    e["device_ms"] = e["split_ms"]["device_ms"]["call"]
+    out.append(e)
     for e in out:
         say(f"  {e['name']}: {e['ms']:.3f} ms (plain {e['plain_ms']:.3f}, library "
             f"{e['library_ms']:.3f}, bound {e['bound_ms']:.3f} by {e['bound_by']})")
@@ -398,6 +534,42 @@ def time_kernels(variant, dev, errs):
         f"{a['split_ms']['stage_bound_ms']:.3f}), tiles {a['split_ms']['tiles_ms']:.3f} ms "
         f"({a['split_ms']['tiles_tflops']:.1f} TFLOP/s), merge {a['split_ms']['merge_ms']:.3f} ms; "
         f"ptxas {a['ptxas']}")
+    sp = out[1]["split_ms"]
+    dv = sp["device_ms"]
+    say(f"    accumulate passes: preparation {sp['prep_ms']:.3f} ms, sums {sp['sums_ms']:.3f} ms, fold "
+        f"{sp['fold_ms']:.3f} ms; on the card alone: call {dv['call']:.3f}, preparation "
+        f"{dv['prep']:.3f}, sums {dv['sums']:.3f} ({sp['sums_tbs']:.2f} TB/s of 3.35), fold "
+        f"{dv['fold']:.3f}; one center {sp['one center']['ms']:.3f} ms (alone "
+        f"{sp['one center']['device_ms']['call']:.3f}), zipf {sp['zipf']['ms']:.3f} ms (alone "
+        f"{sp['zipf']['device_ms']['call']:.3f}); ptxas {out[1]['ptxas']}")
+    return out
+
+
+def accumulate_split(x, w, assign, k, fast):
+    """assign_accumulate's passes timed apart on one assignment: index
+    preparation (counting sort and plan), the sum pass with its rate on the
+    card (the bytes it must move: x, w and the row order read once, sums,
+    counts and partials written once), and the fold; each with cuda_ms and,
+    with the whole call, with device_ms."""
+    from spark_rapids_ml_tpu_torch.ops import _kernels
+
+    B, d = x.shape
+    s = x.element_size()
+    plan = _kernels._accumulate_prep(assign, k)
+    sums, counts, part, part_counts = _kernels._accumulate_sums(x, w, plan, fast)
+    passes = {
+        "prep": lambda: _kernels._accumulate_prep(assign, k),
+        "sums": lambda: _kernels._accumulate_sums(x, w, plan, fast),
+        "fold": lambda: _kernels._accumulate_fold(sums, counts, part, part_counts, plan, fast),
+    }
+    out = {f"{name}_ms": cuda_ms(fn) for name, fn in passes.items()}
+    out["device_ms"] = {name: device_ms(fn) for name, fn in passes.items()}
+    out["device_ms"]["call"] = device_ms(lambda: _kernels.assign_accumulate(x, w, assign, k, fast=fast))
+    n_pieces, n_multi = plan.totals.tolist()
+    part_rows = int((plan.pieces[:n_pieces, 3] == 0).sum())
+    out["pieces"], out["centers_of_several_pieces"] = n_pieces, n_multi
+    sums_bytes = (B * d + B) * s + B * 4 + (k * d + k) * s + part_rows * (d * part.element_size() + s)
+    out["sums_tbs"] = sums_bytes / out["device_ms"]["sums"] / 1e9
     return out
 
 
@@ -646,6 +818,13 @@ def phase_kernels(dev):
             if not integer:
                 errs[("assign_argmin", variant)] = m
                 errs[("assign_accumulate", variant)] = s
+            # assign_accumulate on skewed assignments: at the main tile,
+            # small and ragged (several pieces, d not a multiple of 4), and
+            # past the counting sort's centers (torch.sort prepares)
+            for kind in SKEWS:
+                for (n, k, d) in ((TILE_ROWS, K, N_COLS), (1000, 7, 77), (5000, 3, 130),
+                                  (5000, 20000, 64)):
+                    check_accumulate(n, k, d, dtype, fast, integer, 23 + n + k, dev, kind)
     check_batch_independence(dev)
     say("phase 2: timing at the main path's tile (CUDA events, mean of 5 after a warm-up)")
     entries = []

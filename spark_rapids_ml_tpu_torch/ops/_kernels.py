@@ -49,7 +49,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Tuple
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 
@@ -90,6 +90,17 @@ D2_TILE: Dict[str, Tuple[int, int]] = {
 }
 # the depth of the `fast` operands is padded with zeros to a multiple of this
 STAGE_DEPTH = 64
+# assign_accumulate's pieces (csrc/assign_accumulate.cu): each center's
+# segment of the rows sorted by assignment is cut into pieces of at most this
+# many rows, one CTA per (piece, column slice), so B rows against k centers
+# make at most k + ceil(B / PIECE_ROWS) pieces, and at most
+# B // (PIECE_ROWS + 1) centers have more than one
+PIECE_ROWS = 128
+# its index preparation: a counting sort in the library for up to
+# COUNT_CENTERS centers (one 48 KB shared-memory counter each), counting
+# chunks of COUNT_ROWS rows; past that, torch.sort
+COUNT_CENTERS = 12288
+COUNT_ROWS = 512
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _BUILD_LOCK = threading.Lock()
@@ -150,8 +161,13 @@ def _bind(lib: ctypes.CDLL) -> None:
         ("srml_argmin_merge_f32", [p, p, p, p, i, i, p]),
         ("srml_argmin_merge_f64", [p, p, p, p, i, i, p]),
         ("srml_argmin_config", [i]),
-        ("srml_assign_accumulate_f32", [p, p, p, p, p, p, i, i, i, p]),
-        ("srml_assign_accumulate_f64", [p, p, p, p, p, p, i, i, i, p]),
+        ("srml_accumulate_config", [i]),
+        ("srml_accumulate_prep", [p, i, i, p, p, p, p, p, p, p]),
+        ("srml_accumulate_plan_sorted", [p, i, i, p, p, p, p, p]),
+        ("srml_accumulate_sums_f32", [p, p, p, p, p, p, p, p, p, i, i, i, i, i, p]),
+        ("srml_accumulate_sums_f64", [p, p, p, p, p, p, p, p, p, i, i, i, i, i, p]),
+        ("srml_accumulate_fold_f32", [p, p, p, p, p, p, p, i, i, i, i, p]),
+        ("srml_accumulate_fold_f64", [p, p, p, p, p, p, p, i, i, i, i, p]),
         ("srml_d2_block_f32", [p, p, p, p, i, i, i, i, p]),
         ("srml_d2_block_f64", [p, p, p, p, i, i, i, p]),
         ("srml_d2_block_fast_f32", [p, p, p, p, i, i, i, i, i, p]),
@@ -206,6 +222,8 @@ def build() -> Dict[str, str]:
                 _check_config(name, lib.srml_argmin_config, ARGMIN_TILE)
             elif name == "d2_block":
                 _check_config(name, lib.srml_d2_config, D2_TILE)
+            else:
+                _check_accumulate_config(lib.srml_accumulate_config)
             _LIBS[name] = lib
         return reports
 
@@ -226,6 +244,18 @@ def _check_config(name: str, config, expected: Dict[str, Tuple[int, int]]) -> No
         raise RuntimeError(
             f"{name} library tiles {built}, depth {depth} disagree with the wrapper's "
             f"{expected}, {STAGE_DEPTH}"
+        )
+
+
+def _check_accumulate_config(config) -> None:
+    """assign_accumulate's library must cut segments into the pieces, and
+    count in the chunks and up to the centers, that the wrapper sizes its
+    plan and scratch for and picks the index preparation by."""
+    built = (config(0), config(1), config(2))
+    if built != (PIECE_ROWS, COUNT_CENTERS, COUNT_ROWS):
+        raise RuntimeError(
+            f"assign_accumulate library (piece rows, counting-sort centers, chunk rows) "
+            f"{built} disagree with the wrapper's {(PIECE_ROWS, COUNT_CENTERS, COUNT_ROWS)}"
         )
 
 
@@ -359,14 +389,112 @@ def assign_argmin(
     return mind, best
 
 
+class AccumulatePlan(NamedTuple):
+    """assign_accumulate's index preparation for one assignment, views of
+    one int32 buffer: the rows of [0, k) stable-sorted by center `order`
+    [B], the piece table `pieces` [n_pieces, 4] (center, first, end, alone),
+    each center's first piece `first` [k + 1], the centers of several
+    pieces `multi` [n_multi] and `totals` [2] (pieces, centers of several
+    pieces), sized by their bounds (`plan_bounds`)."""
+
+    order: torch.Tensor
+    pieces: torch.Tensor
+    first: torch.Tensor
+    multi: torch.Tensor
+    totals: torch.Tensor
+
+
+def plan_bounds(B: int, k: int) -> Tuple[int, int]:
+    """(pieces, centers of several pieces) at most, for B rows and k centers."""
+    return k + -(-B // PIECE_ROWS), B // (PIECE_ROWS + 1)
+
+
+def _plan_buffer(B: int, k: int, device, counting: bool) -> Tuple[AccumulatePlan, torch.Tensor]:
+    """An AccumulatePlan of views of one new buffer (the piece table first,
+    16-byte aligned), and the counting sort's chunk counts [chunks, k]
+    (empty when not `counting`)."""
+    n_pieces, n_multi = plan_bounds(B, k)
+    chunks = -(-B // COUNT_ROWS) if counting else 0
+    sizes = [4 * n_pieces, k + 1, n_multi, 2, B, chunks * k]
+    buf = torch.empty((sum(sizes),), dtype=torch.int32, device=device)
+    pieces, first, multi, totals, order, hist = torch.split(buf, sizes)
+    return AccumulatePlan(order, pieces.view(n_pieces, 4), first, multi, totals), hist
+
+
+def _accumulate_prep(assign: torch.Tensor, k: int) -> AccumulatePlan:
+    """Index preparation of assign_accumulate on the current device and
+    stream: the rows stable-sorted by center (so in ascending row order
+    inside each center) and each center's segment cut into pieces. Up to
+    COUNT_CENTERS centers, the library's counting sort (count, plan,
+    scatter); past that, torch.sort and the library's plan."""
+    name = "assign_accumulate"
+    lib = _lib(name)
+    B = assign.shape[0]
+    counting = k <= COUNT_CENTERS
+    plan, hist = _plan_buffer(B, k, assign.device, counting)
+    stream = torch.cuda.current_stream(assign.device).cuda_stream
+    tail = [plan.pieces.data_ptr(), plan.first.data_ptr(), plan.multi.data_ptr(),
+            plan.totals.data_ptr(), stream]
+    if counting:
+        status = lib.srml_accumulate_prep(assign.data_ptr(), B, k, plan.order.data_ptr(),
+                                          hist.data_ptr(), *tail)
+    else:
+        sorted_assign, order = torch.sort(assign, stable=True)
+        plan.order.copy_(order)
+        status = lib.srml_accumulate_plan_sorted(sorted_assign.data_ptr(), B, k, *tail)
+    _raise_on(name, status)
+    return plan
+
+
+def _accumulate_vec(x: torch.Tensor) -> bool:
+    """Whether x's rows can be read 16 bytes at a time."""
+    return (x.shape[1] * x.element_size()) % 16 == 0 and x.data_ptr() % 16 == 0
+
+
+def _accumulate_sums(x: torch.Tensor, w: torch.Tensor, plan: AccumulatePlan, fast: bool):
+    """The sum pass: (sums [k, d], counts [k], partials [n_pieces, d],
+    partial counts [n_pieces]); the rows of sums and counts of centers of
+    several pieces are left for the fold."""
+    name = "assign_accumulate"
+    lib = _lib(name)
+    B, d = x.shape
+    k = plan.first.shape[0] - 1
+    n_pieces = plan.pieces.shape[0]
+    sums = torch.empty((k, d), dtype=x.dtype, device=x.device)
+    counts = torch.empty((k,), dtype=x.dtype, device=x.device)
+    part = torch.empty((n_pieces, d), dtype=torch.float32 if fast else x.dtype, device=x.device)
+    part_counts = torch.empty((n_pieces,), dtype=x.dtype, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    fn = lib.srml_accumulate_sums_f64 if x.dtype == torch.float64 else lib.srml_accumulate_sums_f32
+    _raise_on(name, fn(x.data_ptr(), w.data_ptr(), plan.order.data_ptr(), plan.pieces.data_ptr(),
+                       plan.totals.data_ptr(), sums.data_ptr(), counts.data_ptr(), part.data_ptr(),
+                       part_counts.data_ptr(), B, k, d, int(fast), int(_accumulate_vec(x)), stream))
+    return sums, counts, part, part_counts
+
+
+def _accumulate_fold(sums: torch.Tensor, counts: torch.Tensor, part: torch.Tensor,
+                     part_counts: torch.Tensor, plan: AccumulatePlan, fast: bool) -> None:
+    """The fold pass, in place: each center of several pieces gets the sum
+    of its partials (and partial counts) in piece order. Its rows are new
+    allocations, so their width alone picks the load width."""
+    name = "assign_accumulate"
+    lib = _lib(name)
+    stream = torch.cuda.current_stream(sums.device).cuda_stream
+    fn = lib.srml_accumulate_fold_f64 if sums.dtype == torch.float64 else lib.srml_accumulate_fold_f32
+    _raise_on(name, fn(part.data_ptr(), part_counts.data_ptr(), plan.first.data_ptr(),
+                       plan.multi.data_ptr(), plan.totals.data_ptr(), sums.data_ptr(),
+                       counts.data_ptr(), plan.order.shape[0], sums.shape[1], int(fast),
+                       int(_accumulate_vec(sums)), stream))
+
+
 def assign_accumulate(
     x: torch.Tensor, w: torch.Tensor, assign: torch.Tensor, k: int, *, fast: bool = False
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel form of `distance.accumulate_plain`: (sums [k, d], counts [k]) in
     x's dtype for x [B, d], w [B], assign [B] int32. Rows whose assignment
-    lies outside [0, k) add nothing."""
+    lies outside [0, k) add nothing. One launch count per call: the index
+    preparation (counting sort and plan), the sum pass and the fold pass."""
     name = "assign_accumulate"
-    _check_cuda(name, x, w, assign)
     variant = _variant(name, x.dtype, fast)
     _check(w.dtype == x.dtype, f"{name}: w must have x's dtype")
     _check(assign.dtype == torch.int32, f"{name}: assign must be int32")
@@ -374,25 +502,15 @@ def assign_accumulate(
     B, d = x.shape
     _check(w.shape[0] == B and assign.shape[0] == B, f"{name}: x, w and assign disagree on rows")
     _check(k > 0 and d > 0, f"{name}: needs k > 0 centers and d > 0 features")
-    _check(max(B, k, d) < 2**31, f"{name}: dimensions must fit int32")
-    # index preparation: rows ordered by assignment (stable, so ascending row
-    # order inside each center) and each center's segment of that order
-    sorted_assign, order = torch.sort(assign, stable=True)
-    order = order.to(torch.int32)
-    offsets = torch.searchsorted(
-        sorted_assign, torch.arange(k + 1, dtype=torch.int32, device=x.device)
-    ).to(torch.int32)
-    sums = torch.empty((k, d), dtype=x.dtype, device=x.device)
-    counts = torch.empty((k,), dtype=x.dtype, device=x.device)
-    lib = _lib(name)
+    # the pieces' row bounds, and the grid (pieces x column slices of 256
+    # elements at the narrowest) must fit int32
+    _check(max(B, d) < 2**31 - PIECE_ROWS and (k + -(-B // PIECE_ROWS)) * -(-d // 256) < 2**31,
+           f"{name}: dimensions must fit int32")
+    _check_cuda(name, x, w, assign)
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        args = [x.data_ptr(), w.data_ptr(), order.data_ptr(), offsets.data_ptr(),
-                sums.data_ptr(), counts.data_ptr(), k, d]
-        fn = (lib.srml_assign_accumulate_f64 if x.dtype == torch.float64
-              else lib.srml_assign_accumulate_f32)
-        status = fn(*args, int(fast), stream)
-    _raise_on(name, status)
+        plan = _accumulate_prep(assign, k)
+        sums, counts, part, part_counts = _accumulate_sums(x, w, plan, fast)
+        _accumulate_fold(sums, counts, part, part_counts, plan, fast)
     launches[f"{name}/{variant}"] += 1
     return sums, counts
 
