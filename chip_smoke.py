@@ -17,7 +17,9 @@
 #      for bit); for d2_block also every rung of the serving ladder (256 to
 #      8192 rows), batch independence (batches of 1 to 8192 rows equal the
 #      same rows of one 8192-row call bit for bit) and a NaN query row in
-#      the top-k merge on the card (the CPU's indices); for
+#      the top-k merge on the card (the CPU's indices); the float64 forms
+#      (not fast) held to the float64 summation bound (f64_bound) on
+#      Gaussian data, and their SASS checked for DMMA instructions; for
 #      assign_accumulate also skewed assignments (every row on one center,
 #      a Zipf(1.1) law over the centers, and edges: empty centers, zero
 #      weights, assignments outside [0, k)), past the counting sort's
@@ -51,8 +53,19 @@
 #      launches per dispatched kNN bucket and no float32 one; the bf16 top-k
 #      against its plain version on the resident items; an integer-data bf16
 #      run across item blocks must agree exactly;
-#   6. a {"kernels": [...]} line, the nvidia-smi line, and as the last line
-#      {"ok": true, "device": {...}}.
+#   6. the float64 route (float32_inputs=False) at full width, on the same
+#      rows as float64 (24 GB): KMeans(k=1000) fit, transform and save/load,
+#      held against the same fit through the plain versions on the card
+#      (same n_iter_, centers and inertia to 1e-9), with only the f64 forms
+#      of assign_argmin and assign_accumulate launched; one Lloyd iteration
+#      timed through the kernels and plain; NearestNeighbors(k=64)
+#      kneighbors of 4096 queries (62 d2_block/f64 launches), the kernel
+#      route against the plain one within the float64 bound; and one
+#      ModelRegistry serving the float64 KMeansModel as float64 and as bf16
+#      (assign_argmin/f64-fast) and the kNN model as float64, gated on
+#      coalesced = solo bit for bit;
+#   7. a {"kernels": [...]} line with all twelve kernel forms, the
+#      nvidia-smi line, and as the last line {"ok": true, "device": {...}}.
 #
 # Every phase raises on failure; the script prints no result then. It needs
 # the repository around it and one CUDA card, and exits non-zero without
@@ -63,6 +76,7 @@
 # The kernels are built into build/ (listed in .gitignore), and a copy of
 # everything printed goes to build/chip_smoke.log.
 #
+import contextlib
 import json
 import os
 import re
@@ -182,6 +196,20 @@ def bound_ms(nbytes, flops, variant):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def f64_bound(d, a, b, scale):
+    """How far two float64 computations of c_sq - 2 a.b (or of any sum of
+    the same d products, in any order) may lie apart: each dot product is
+    within d 2^-53 ||a|| ||b|| of the exact sum (the summation bound, for
+    any order of the additions), so the two -2 a.b within
+    4 d 2^-53 max||a|| max||b||; and each result, up to `scale` in size,
+    is rounded once more (2^-53 scale each)."""
+    import torch
+
+    norms = float(torch.linalg.vector_norm(a.double(), dim=1).max()
+                  * torch.linalg.vector_norm(b.double(), dim=1).max())
+    return 4 * d * 2.0 ** -53 * norms + 2.0 ** -52 * scale
+
+
 # ------------------------------------------------------------ phase 1 ----
 
 
@@ -204,7 +232,34 @@ def phase_setup():
     for name in _kernels.SOURCES:
         for fn, info in ptxas_table(_kernels.ptxas_report(name)).items():
             say(f"  {name}: {fn}: {info}")
+    # the float64 forms must reach the FP64 tensor cores: DMMA in their SASS
+    for name in ("assign_argmin", "d2_block"):
+        n = sass_count(_kernels._lib_path(name), "DMMA", PTXAS_KERNELS[name]["f64"])
+        if not n:
+            fail(f"{name}: no DMMA instruction in the SASS of its float64 kernel")
+        say(f"  {name}: {n} DMMA instructions in the SASS of its float64 kernel ({PTXAS_KERNELS[name]['f64']})")
     return smi
+
+
+def sass_count(lib_path, opcode, function=None):
+    """How many `opcode` instructions `cuobjdump -sass` finds in a built
+    library, in the functions whose name matches `function` (all where it
+    is None). Raises where the toolkit has no cuobjdump."""
+    from spark_rapids_ml_tpu_torch.ops import _kernels
+
+    tool = Path(_kernels._nvcc()).with_name("cuobjdump")
+    if not tool.exists():
+        fail(f"no cuobjdump beside {_kernels._nvcc()}: the SASS cannot be checked")
+    sass = subprocess.run([str(tool), "-sass", str(lib_path)], capture_output=True, text=True,
+                          timeout=300, check=True).stdout
+    count, inside = 0, function is None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            inside = function is None or re.search(function, m.group(1)) is not None
+        elif inside and re.search(rf"\b{opcode}\b", line):
+            count += 1
+    return count
 
 
 def ptxas_table(report):
@@ -241,11 +296,10 @@ PTXAS_KERNELS = {
 
 def kernel_ptxas(name, variant):
     """The build figures of one variant of kernel `name`: its main pass
-    (both load widths for f32; for assign_accumulate, the sum and fold
-    passes in both load widths and the counting sort's passes) and, for
-    assign_argmin, its
-    merge pass; a `fast` pass of assign_argmin or d2_block adds its dynamic
-    shared memory (the TMA ring)."""
+    (both load widths for f32 and f64; for assign_accumulate, the sum and
+    fold passes in both load widths and the counting sort's passes) and, for
+    assign_argmin, its merge pass; a `fast` or f64 pass of assign_argmin or
+    d2_block adds its dynamic shared memory (the TMA or cp.async ring)."""
     from spark_rapids_ml_tpu_torch.ops import _kernels
 
     dtype_code = "d" if variant.startswith("f64") else "f"
@@ -267,9 +321,9 @@ def kernel_ptxas(name, variant):
               else _kernels._lib(name).srml_d2_config)
     for fn, info in ptxas_table(_kernels.ptxas_report(name)).items():
         if re.search(PTXAS_KERNELS[name][variant], fn):
-            key = "tiles" if variant != "f32" else ("tiles_vec" if "ILb1" in fn else "tiles_scalar")
+            key = "tiles" if variant.endswith("fast") else ("tiles_vec" if "ILb1" in fn else "tiles_scalar")
             out[key] = dict(info)
-            out[key]["smem_dynamic"] = config(7) if variant.endswith("fast") else 0
+            out[key]["smem_dynamic"] = {"f32": 0, "f64": config(8)}.get(variant, config(7))
         elif name == "assign_argmin" and re.search(r"argmin_mergeI" + dtype_code, fn):
             out["merge"] = dict(info)
     return out
@@ -352,19 +406,27 @@ def check_kernels(n, k, d, dtype, fast, integer, seed, dev, case="", tie_at=None
     else:
         # best must agree wherever the two smallest plain distances are more
         # than 1e-4 of the distance scale apart (summation order moves d2 by
-        # far less); mind, sums and counts to rtol 1e-5 of their scale
+        # far less); mind, sums and counts to rtol 1e-5 of their scale.
+        # float64 (not fast): mind on every row within the float64 bound
+        # (f64_bound), and best wherever the two smallest plain distances lie
+        # further apart than twice that bound
         d2 = c_sq[None, :] - 2.0 * D._mm(x, c.T, fast)
         two = torch.topk(d2, 2, dim=1, largest=False).values
         scale = d2.abs().max().item()
-        clear = (two[:, 1] - two[:, 0]) > 1e-4 * scale
+        exact64 = dtype == np.float64 and not fast
+        tol = f64_bound(d, x, c, scale) if exact64 else 1e-5 * scale
+        clear = (two[:, 1] - two[:, 0]) > (2 * tol if exact64 else 1e-4 * scale)
         bad = int(((b1 != b0) & clear).sum())
         if bad:
             fail(f"assign_argmin best differs on {bad} clearly separated rows: {tag}")
-        rows = slice(64 if tie_at is not None else 0, None)
+        rows = slice(64 if tie_at is not None and not exact64 else 0, None)
         err = (m1[rows] - m0[rows]).abs().max().item() if n > rows.start else 0.0
-        if err > 1e-5 * scale:
-            fail(f"assign_argmin mind error {err} > 1e-5 x {scale}: {tag}")
-        if tie_at is not None:
+        if err > tol:
+            fail(f"assign_argmin mind error {err} > {tol} ({'the float64 bound' if exact64 else '1e-5 x scale'}): "
+                 f"{tag}")
+        if exact64:
+            say(f"    max|mind err| {err:.3g} on every row (float64 bound {tol:.3g})")
+        elif tie_at is not None:
             # the 64 rows lying on a center: their dot product with it is a
             # sum of d terms of one sign, as large as the scale itself. Each
             # route's float32 sum of the same (bf16 for `fast`) products lies
@@ -575,25 +637,27 @@ def accumulate_split(x, w, assign, k, fast):
 
 def check_batch_independence(dev):
     """assign_argmin on rows x[a:a+B] equals its result on the whole
-    32768-row tile at the same rows, bit for bit (f32 and f32-fast, Gaussian
+    32768-row tile at the same rows, bit for bit (every variant, Gaussian
     data): one tiling and one split serve every batch size."""
     import torch
 
     from spark_rapids_ml_tpu_torch.ops import _kernels
     from spark_rapids_ml_tpu_torch.ops import distance as D
 
-    x, c, _ = _inputs(TILE_ROWS, K, N_COLS, np.float32, False, 5, dev)
-    c_sq = D._c_sq(c)
-    for fast in (False, True):
+    for variant in VARIANTS:
+        dtype, fast = _variant_dtype(variant)
+        x, c, _ = _inputs(TILE_ROWS, K, N_COLS, dtype, False, 5, dev)
+        c_sq = D._c_sq(c)
         m_full, b_full = _kernels.assign_argmin(x, c, c_sq, fast=fast)
         for B, a in BATCH_SLICES:
             m, b = _kernels.assign_argmin(x[a:a + B], c, c_sq, fast=fast)
             if not (torch.equal(m, m_full[a:a + B]) and torch.equal(b, b_full[a:a + B])):
-                fail(f"assign_argmin{' fast' if fast else ''}: rows {a}..{a + B} sent alone differ "
+                fail(f"assign_argmin/{variant}: rows {a}..{a + B} sent alone differ "
                      f"from the same rows of the {TILE_ROWS}-row tile")
-        say(f"  ok batch independence, float32{' fast' if fast else ''}: rows sent as batches of "
+        say(f"  ok batch independence, assign_argmin/{variant}: rows sent as batches of "
             f"{', '.join(str(B) for B, _ in BATCH_SLICES)} equal the same rows of the {TILE_ROWS}-row "
             "tile bit for bit")
+        del x, c, c_sq, m_full, b_full
 
 
 def _d2_inputs(B, kt, d, dtype, integer, seed, dev):
@@ -612,7 +676,8 @@ def _d2_inputs(B, kt, d, dtype, integer, seed, dev):
 def check_d2_block(B, kt, d, dtype, fast, integer, seed, dev):
     """d2_block against d2_block_plain at one shape; returns max |err|. The
     tolerance, 1e-5 of the block's scale, covers dot products summed in
-    another order: in the input dtype, or in float32 for `fast`."""
+    another order: in float32, or in float32 for `fast`; for float64 (not
+    fast) it is the float64 bound (f64_bound)."""
     import torch
 
     from spark_rapids_ml_tpu_torch.ops import _kernels
@@ -631,9 +696,11 @@ def check_d2_block(B, kt, d, dtype, fast, integer, seed, dev):
     if integer and not torch.equal(out, ref):
         fail(f"{tag}: differs on integer data (max {err})")
     scale = ref.abs().max().item()
-    if err > 1e-5 * scale:  # dot products summed in another order
-        fail(f"{tag}: max |err| {err} > 1e-5 x {scale}")
-    say(f"  ok {tag}: max|err| {err:.3g} (scale {scale:.4g})")
+    exact64 = dtype == np.float64 and not fast
+    tol = f64_bound(d, q, xt, scale) if exact64 else 1e-5 * scale
+    if err > tol:  # dot products summed in another order
+        fail(f"{tag}: max |err| {err} > {tol} ({'the float64 bound' if exact64 else f'1e-5 x {scale}'})")
+    say(f"  ok {tag}: max|err| {err:.3g} (scale {scale:.4g}, tolerance {tol:.3g})")
     return err
 
 
@@ -697,7 +764,7 @@ def time_d2_block(variant, dev, err):
 
 def check_d2_batch_independence(dev):
     """d2_block on rows q[a:a+B] equals its result on one 8192-row call at the
-    same rows, bit for bit (f32 and f32-fast, Gaussian data, the kNN item
+    same rows, bit for bit (every variant, Gaussian data, the kNN item
     block): one grid and tile serve every batch of the serving ladder."""
     import torch
 
@@ -705,16 +772,17 @@ def check_d2_batch_independence(dev):
     from spark_rapids_ml_tpu_torch.ops import distance as D
 
     rows = max(SERVE_RUNGS)
-    q, xt = _d2_inputs(rows, D._DEFAULT_K_TILE, N_COLS, np.float32, False, 13, dev)
-    xt_sq = D.row_sq(xt)
-    for fast in (False, True):
+    for variant in VARIANTS:
+        dtype, fast = _variant_dtype(variant)
+        q, xt = _d2_inputs(rows, D._DEFAULT_K_TILE, N_COLS, dtype, False, 13, dev)
+        xt_sq = D.row_sq(xt)
         full = _kernels.d2_block(q, xt, xt_sq, fast=fast)
         for B, a in D2_BATCH_SLICES:
             if not torch.equal(_kernels.d2_block(q[a:a + B], xt, xt_sq, fast=fast), full[a:a + B]):
-                fail(f"d2_block{' fast' if fast else ''}: rows {a}..{a + B} sent alone differ from the "
+                fail(f"d2_block/{variant}: rows {a}..{a + B} sent alone differ from the "
                      f"same rows of the {rows}-row call")
-        del full
-        say(f"  ok d2_block batch independence, float32{' fast' if fast else ''}: rows sent as batches "
+        del full, q, xt, xt_sq
+        say(f"  ok d2_block batch independence, {variant}: rows sent as batches "
             f"of {', '.join(str(B) for B, _ in D2_BATCH_SLICES)} equal the same rows of one {rows}-row "
             "call bit for bit")
 
@@ -861,31 +929,52 @@ def _protocol_rows():
     return X
 
 
-def _small_path_reference():
+def _small_path_reference(float32_inputs=True):
     """The whole KMeans path on a small input, on the card and on the CPU
-    (the plain PyTorch versions): same n_iter_, centers to rtol 1e-5,
+    (the plain PyTorch versions): same n_iter_, centers to rtol 1e-5
+    (float64: 1e-9, the same assignments summed in another order),
     identical predictions."""
     from spark_rapids_ml_tpu_torch import KMeans, set_devices
 
+    dtype = np.float32 if float32_inputs else np.float64
+    tol = 1e-5 if float32_inputs else 1e-9
     rng = np.random.default_rng(5)
-    centers = rng.standard_normal((8, 40)).astype(np.float32) * 5.0
-    x = (centers[rng.integers(0, 8, 5000)] + rng.standard_normal((5000, 40))).astype(np.float32)
+    centers = rng.standard_normal((8, 40)).astype(dtype) * 5.0
+    x = (centers[rng.integers(0, 8, 5000)] + rng.standard_normal((5000, 40))).astype(dtype)
     results = {}
     for device in ("cpu", "cuda"):
         set_devices(device)
-        m = KMeans(k=8, maxIter=20, tol=1e-10, initMode="random", seed=3,
-                   distance_precision="high").fit({"features": x})
+        m = KMeans(k=8, maxIter=20, tol=1e-10, initMode="random", seed=3, distance_precision="high",
+                   float32_inputs=float32_inputs).fit({"features": x})
         results[device] = (m, np.asarray(m.transform({"features": x})["prediction"]))
     set_devices(None)
     (mc, pc), (mg, pg) = results["cpu"], results["cuda"]
+    tag = f"small path ({np.dtype(dtype).name})"
     if mc.n_iter_ != mg.n_iter_:
-        fail(f"small path: n_iter_ {mg.n_iter_} on the card, {mc.n_iter_} on the CPU")
-    if not np.allclose(mg.cluster_centers_, mc.cluster_centers_, rtol=1e-5, atol=1e-5):
-        fail("small path: centers differ between the card and the CPU")
+        fail(f"{tag}: n_iter_ {mg.n_iter_} on the card, {mc.n_iter_} on the CPU")
+    if not np.allclose(mg.cluster_centers_, mc.cluster_centers_, rtol=tol, atol=tol):
+        fail(f"{tag}: centers differ between the card and the CPU beyond rtol {tol}")
     if not np.array_equal(pg, pc):
-        fail("small path: predictions differ between the card and the CPU")
-    say(f"  small path (5000 x 40, k=8): card and CPU agree, n_iter_ {mg.n_iter_}, "
+        fail(f"{tag}: predictions differ between the card and the CPU")
+    say(f"  {tag}, 5000 x 40, k=8: card and CPU agree (centers to rtol {tol}), n_iter_ {mg.n_iter_}, "
         f"inertia {mg.inertia_} vs {mc.inertia_}")
+
+
+@contextlib.contextmanager
+def _plain_kernels():
+    """A context in which the argmin and accumulation kernels' wrappers are
+    their plain versions (on the card, through cuBLAS) and count nothing:
+    the path a port without its kernels would take."""
+    from spark_rapids_ml_tpu_torch.ops import _kernels
+    from spark_rapids_ml_tpu_torch.ops import distance as D
+
+    real = _kernels.assign_argmin, _kernels.assign_accumulate
+    _kernels.assign_argmin = lambda x, c, c_sq, fast=False: D.assign_argmin_plain(x, c, c_sq, fast)
+    _kernels.assign_accumulate = lambda x, w, a, k, fast=False: D.accumulate_plain(x, w, a, k, fast)
+    try:
+        yield
+    finally:
+        _kernels.assign_argmin, _kernels.assign_accumulate = real
 
 
 def phase_main_path(dev, X):
@@ -1008,34 +1097,20 @@ def phase_main_path(dev, X):
         fail(f"fit: inertia {model.inertia_} disagrees with the plain reference {ref}")
     say(f"  inertia matches the plain reference {ref:.6e} (rtol 1e-4)")
 
-    from spark_rapids_ml_tpu_torch.ops.kmeans import _finish_centers, _lloyd_step
+    from spark_rapids_ml_tpu_torch.ops.kmeans import _lloyd_step
 
     wd = torch.ones(N_ROWS, device=dev)
-
-    def plain_lloyd_step(X, w, centers, batch_rows, fast):
-        # the same iteration through the plain versions: the path a port
-        # without its kernels would take on the card
-        cs = D._c_sq(centers)
-        sums = torch.zeros_like(centers)
-        counts = torch.zeros((K,), dtype=X.dtype, device=dev)
-        inertia = torch.zeros((), dtype=X.dtype, device=dev)
-        for lo in range(0, N_ROWS, batch_rows):
-            xb, wb = X[lo:lo + batch_rows], w[lo:lo + batch_rows]
-            mind, best = D.assign_argmin_plain(xb, centers, cs, fast)
-            s, c = D.accumulate_plain(xb, wb, best, K, fast)
-            sums += s
-            counts += c
-            inertia += torch.sum(torch.clamp_min(mind + D.row_sq(xb), 0.0) * wb)
-        return _finish_centers(sums, counts, inertia, centers)
-
-    for route, step in (("kernels", _lloyd_step), ("plain", plain_lloyd_step)):
+    for route in ("kernels", "plain"):
         for fast in (True, False):
-            step(Xd, wd, cd, TILE_ROWS, fast)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            _, _, shift = step(Xd, wd, cd, TILE_ROWS, fast)
-            float(shift)
-            dt = time.perf_counter() - t0
+            # the plain route: the same iteration through the plain versions,
+            # the path a port without its kernels would take on the card
+            with _plain_kernels() if route == "plain" else contextlib.nullcontext():
+                _lloyd_step(Xd, wd, cd, TILE_ROWS, fast)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                _, _, shift = _lloyd_step(Xd, wd, cd, TILE_ROWS, fast)
+                float(shift)
+                dt = time.perf_counter() - t0
             mode = "fast" if fast else "high"
             timings[f"lloyd_iter_{mode}_s" if route == "kernels" else f"plain_lloyd_iter_{mode}_s"] = dt
             say(f"  one Lloyd iteration ({mode}, {route}): {dt * 1e3:.1f} ms, "
@@ -1206,15 +1281,15 @@ def phase_knn(dev, X, d2_ms):
 # ------------------------------------------------------------ phase 5 ----
 
 
-def _serve_traffic(seed):
+def _serve_traffic(seed, clients=SERVE_CLIENTS, requests=SERVE_REQUESTS):
     """Per client thread, its requests as (first row, rows) of X: the sizes
     cycle through SERVE_SIZES (each thread starting elsewhere in the cycle,
     so concurrent requests differ in size), the first rows are seeded."""
     rng = np.random.default_rng(seed)
     out = []
-    for t in range(SERVE_CLIENTS):
+    for t in range(clients):
         reqs = []
-        for i in range(SERVE_REQUESTS):
+        for i in range(requests):
             n = SERVE_SIZES[(t + i) % len(SERVE_SIZES)]
             reqs.append((int(rng.integers(0, N_ROWS - n)), n))
         out.append(reqs)
@@ -1501,6 +1576,283 @@ def phase_serving(dev, X, kmeans_model):
     return counts, timings
 
 
+# ------------------------------------------------------------ phase 6 ----
+
+# the float64 route: Lloyd iterations of its fit, and its serving traffic
+F64_MAX_ITER, F64_SERVE_CLIENTS, F64_SERVE_REQUESTS = 3, 2, 4
+
+
+def _f64_rows(X):
+    """The protocol rows as a new float64 block, converted by row chunks in
+    threads."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    X64 = np.empty(X.shape, dtype=np.float64)
+    step = 65536
+
+    def fill(lo):
+        X64[lo:lo + step] = X[lo:lo + step]
+
+    with ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1)) as pool:
+        list(pool.map(fill, range(0, X.shape[0], step)))
+    return X64
+
+
+def _host_memory_gb():
+    """(total, available) host memory in GB, from /proc/meminfo."""
+    info = {}
+    for line in Path("/proc/meminfo").read_text().splitlines():
+        key, _, val = line.partition(":")
+        info[key] = int(val.split()[0]) * 1024
+    return info["MemTotal"] / 1e9, info["MemAvailable"] / 1e9
+
+
+def phase_f64(dev, X):
+    """The float64 route (float32_inputs=False) through the public API at
+    the protocol width: KMeans fit, transform and save/load, exact kNN, and
+    the serving plane with the f64 and f64-fast forms. Returns ({run:
+    launches}, timings); the run "route" sums the counted runs."""
+    import threading
+
+    import torch
+
+    from spark_rapids_ml_tpu_torch import (KMeans, KMeansModel, ModelRegistry, NearestNeighbors, ScoringEngine,
+                                           telemetry)
+    from spark_rapids_ml_tpu_torch.ops import _kernels
+    from spark_rapids_ml_tpu_torch.ops import distance as D
+    from spark_rapids_ml_tpu_torch.ops.kmeans import _lloyd_step
+    from spark_rapids_ml_tpu_torch.parallel import place_rows
+
+    say(f"phase 6: the float64 route (float32_inputs=False), {N_ROWS} x {N_COLS} float64, "
+        f"{X.nbytes / 1e9:.1f} GB")
+    torch.cuda.empty_cache()
+    total, avail = _host_memory_gb()
+    say(f"  host memory {total:.1f} GB, {avail:.1f} GB available with the float64 rows held")
+    _small_path_reference(float32_inputs=False)
+    data = {"features": X}
+    kt = D._DEFAULT_K_TILE
+    blocks = -(-N_ROWS // kt)
+    timings, counts = {}, {}
+
+    def counted(run, fn):
+        """fn() with the counters set to 0 just before and read just after."""
+        _kernels.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        timings[f"{run}_s"] = time.perf_counter() - t0
+        counts[run] = dict(_kernels.launches)
+        return out
+
+    def only(run, allowed):
+        """The run launched each form in `allowed` and no other form."""
+        got = {k_: v for k_, v in counts[run].items() if v}
+        if set(got) != set(allowed):
+            fail(f"{run}: launched {got}, expected exactly {sorted(allowed)}")
+
+    # KMeans: fit, transform, save / load
+    def fit():
+        return KMeans(k=K, maxIter=F64_MAX_ITER, tol=1e-20, initMode="random", seed=1,
+                      float32_inputs=False).setFeaturesCol("features").fit(data)
+
+    model = counted("fit", fit)
+    only("fit", {"assign_argmin/f64", "assign_accumulate/f64"})
+    if (model.cluster_centers_.shape != (K, N_COLS) or model.cluster_centers_.dtype != np.float64
+            or not np.isfinite(model.cluster_centers_).all() or not np.isfinite(model.inertia_)):
+        fail("float64 fit: centers or inertia not finite float64 of shape (1000, 3000)")
+    pred = counted("transform", lambda: np.asarray(model.transform(data)["prediction"]))
+    only("transform", {"assign_argmin/f64"})
+    if pred.shape != (N_ROWS,) or pred.min() < 0 or pred.max() >= K:
+        fail("float64 transform: predictions out of range")
+    path = ROOT / "build" / "chip_smoke_model_f64"
+    model.write().overwrite().save(str(path))
+    loaded = KMeansModel.load(str(path))
+    if loaded.float32_inputs:
+        fail("float64 save/load: the loaded model lost float32_inputs=False")
+    pred2 = counted("loaded_transform", lambda: np.asarray(loaded.transform(data)["prediction"]))
+    only("loaded_transform", {"assign_argmin/f64"})
+    if not np.array_equal(pred, pred2):
+        fail("float64 save/load: the loaded model predicts differently")
+    say(f"  fit (random init, {F64_MAX_ITER} iterations, high): {timings['fit_s']:.2f} s wall, n_iter_ "
+        f"{model.n_iter_}, inertia {model.inertia_:.9e}; transform of {N_ROWS} rows {timings['transform_s']:.2f} "
+        f"s wall; save/load keeps float32_inputs=False and the predictions")
+
+    # the same fit through the plain versions on the card: the same
+    # assignments, so the same n_iter_, and centers and inertia that differ
+    # only by float64 summation order (sums of up to ~10^4 rows: relative
+    # error below 10^4 x 2^-53, about 1e-12); held to 1e-9, 10^4 times
+    # tighter than phase 3's float32 1e-5 and 1e-4
+    with _plain_kernels():
+        t0 = time.perf_counter()
+        plain = fit()
+        timings["plain_fit_s"] = time.perf_counter() - t0
+    if plain.n_iter_ != model.n_iter_:
+        fail(f"float64 fit: n_iter_ {model.n_iter_} through the kernels, {plain.n_iter_} plain")
+    c_err = float(np.abs(model.cluster_centers_ - plain.cluster_centers_).max())
+    c_scale = float(np.abs(plain.cluster_centers_).max())
+    if c_err > 1e-9 * c_scale:
+        fail(f"float64 fit: centers differ from the plain fit's by {c_err} > 1e-9 x {c_scale}")
+    if abs(model.inertia_ - plain.inertia_) > 1e-9 * abs(plain.inertia_):
+        fail(f"float64 fit: inertia {model.inertia_} against the plain fit's {plain.inertia_}")
+    say(f"  the same fit through the plain versions on the card ({timings['plain_fit_s']:.2f} s): n_iter_ "
+        f"equal, centers within {c_err:.3g} (1e-9 x {c_scale:.4g}), inertia {plain.inertia_:.9e}")
+    del plain
+
+    # exact kNN
+    knn = NearestNeighbors(k=KNN_K, float32_inputs=False).setInputCol("features").fit(data)
+    _, _, knn_df = counted("kneighbors", lambda: knn.kneighbors({"features": X[:KNN_QUERIES]}))
+    only("kneighbors", {"d2_block/f64"})
+    expected = blocks * -(-KNN_QUERIES // D.tile_rows())
+    if counts["kneighbors"]["d2_block/f64"] != expected:
+        fail(f"float64 kneighbors: d2_block/f64 launched {counts['kneighbors']['d2_block/f64']} times, "
+             f"expected {expected}")
+    idx = np.stack(knn_df["indices"].to_numpy())
+    dist = np.stack(knn_df["distances"].to_numpy())
+    if idx.shape != (KNN_QUERIES, KNN_K) or not np.isfinite(dist).all() or (np.diff(dist, axis=1) < 0).any():
+        fail("float64 kneighbors: indices or distances malformed, not finite or not ascending")
+    if not np.array_equal(idx[:, 0], np.arange(KNN_QUERIES)):
+        fail(f"float64 kneighbors: {int((idx[:, 0] != np.arange(KNN_QUERIES)).sum())} queries do not find "
+             "themselves first")
+    # ||q||^2 - 2 q.q + ||q||^2: three float64 sums of d terms, each within
+    # d 2^-53 ||q||^2 of the exact one, so about (4 d + 4) 2^-53 ||q||^2
+    q_sq = np.sum(X[:KNN_QUERIES] ** 2, axis=1)
+    self_tol = np.sqrt((4 * N_COLS + 4) * 2.0 ** -53 * q_sq)
+    if (dist[:, 0] > self_tol).any():
+        fail(f"float64 kneighbors: a self-distance exceeds the float64 bound: max {dist[:, 0].max()}")
+    say(f"  kneighbors of {KNN_QUERIES} queries, k = {KNN_K}: {timings['kneighbors_s']:.2f} s wall, "
+        f"{expected} d2_block/f64 launches; every query finds itself first (self-distance max "
+        f"{dist[:, 0].max():.3g}, bound {self_tol.min():.3g} or more)")
+
+    # one Lloyd iteration (high) on the resident rows, kernels and plain
+    # (placed after kneighbors: its copy of the items and their norms'
+    # temporary are gone by now)
+    Xd, wd = place_rows(X, device=dev)
+    cd = torch.from_numpy(model.cluster_centers_).to(dev)
+    for route in ("kernels", "plain"):
+        for _ in range(2):  # a warm-up, then the timed one
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with _plain_kernels() if route == "plain" else contextlib.nullcontext():
+                float(_lloyd_step(Xd, wd, cd, TILE_ROWS, False)[2])
+            dt = time.perf_counter() - t0
+        timings[f"lloyd_iter_{route}_ms"] = dt * 1e3
+    say(f"  one Lloyd iteration (high, float64) on resident rows: kernels {timings['lloyd_iter_kernels_ms']:.1f} "
+        f"ms, plain {timings['lloyd_iter_plain_ms']:.1f} ms")
+    del cd
+
+    # the kernel route against the plain route on the same resident rows
+    Q = Xd[:KNN_QUERIES]
+    res, secs = _knn_routes(Xd, wd > 0, Q, KNN_K)
+    (dk, ik), (dp, ip) = res["kernel"], res["plain"]
+    d2k, d2p = dk ** 2, dp ** 2
+    tol = f64_bound(N_COLS, Q, Xd, float(d2p.max()))
+    err = float(np.abs(d2k - d2p).max())
+    if err > tol:
+        fail(f"float64 exact_knn: kernel and plain squared distances differ by {err} > the float64 bound {tol}")
+    swapped = np.argwhere(ik != ip)
+    if len(swapped):
+        r, j = swapped[:, 0], swapped[:, 1]
+        qd = Q[torch.from_numpy(r).to(dev)]
+        xd = Xd[torch.from_numpy(ik[r, j].astype(np.int64)).to(dev)]
+        exact = ((qd - xd) ** 2).sum(1).cpu().numpy()
+        if (np.abs(exact - d2p[r, j]) > tol).any():
+            fail(f"float64 exact_knn: {int((np.abs(exact - d2p[r, j]) > tol).sum())} index swaps are not "
+                 "near-ties within the float64 bound")
+    timings["exact_knn_kernel_s"], timings["exact_knn_plain_s"] = secs["kernel"], secs["plain"]
+    say(f"  exact_knn on resident items: kernel route {', '.join(f'{t:.3f}' for t in secs['kernel'])} s, plain "
+        f"route {', '.join(f'{t:.3f}' for t in secs['plain'])} s; squared distances within {err:.3g} "
+        f"(float64 bound {tol:.3g}), {len(swapped)} of {ik.size} index positions differ, all near-ties")
+    del Xd, wd, Q, res
+    torch.cuda.empty_cache()  # only the served copy of the items stays
+
+    # serving: the float64 KMeansModel as float64 and as bf16, the float64
+    # kNN model as float64
+    loads = (("kmeans_f64", model, "float64"), ("kmeans_f64_bf16", model, "bf16"),
+             ("knn_f64", knn, "float64"))
+    registry = ModelRegistry()
+    dispatches = {}
+
+    def serve():
+        for name, m, serve_dtype in loads:
+            t0 = time.perf_counter()
+            entry = registry.load(name, m, serve_dtype=serve_dtype)
+            torch.cuda.synchronize()
+            timings[f"load_{name}_s"] = time.perf_counter() - t0
+            real = entry.program.dispatch
+            dispatches[name] = 0
+
+            def dispatch(xb, _real=real, _name=name):
+                dispatches[_name] += 1
+                return _real(xb)
+
+            entry.program.dispatch = dispatch
+        rungs = registry.get("knn_f64").prewarmed_rungs
+        engine = ScoringEngine(registry).start()
+        futures = [[] for _ in traffic]
+
+        def client(t):
+            for lo, n in traffic[t]:
+                futures[t].append([engine.submit(name, X[lo:lo + n], tenant=name) for name, _, _ in loads])
+
+        threads = [threading.Thread(target=client, args=(t,)) for t in range(len(traffic))]
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        results = [[[f.result(timeout=600) for f in per_req] for per_req in fut] for fut in futures]
+        timings["traffic_s"] = time.perf_counter() - t0
+        timings["serve_stats"] = engine.stats()
+        engine.stop()
+        return rungs, results
+
+    traffic = _serve_traffic(2027, F64_SERVE_CLIENTS, F64_SERVE_REQUESTS)
+    telemetry.registry().reset()  # the engine's latency and batch figures
+    telemetry.enable()
+    rungs, results = counted("serving", serve)
+    telemetry.disable()
+    only("serving", {"assign_argmin/f64", "assign_argmin/f64-fast", "d2_block/f64"})
+    want = blocks * (rungs + dispatches["knn_f64"])
+    if counts["serving"]["d2_block/f64"] != want:
+        fail(f"float64 serving: d2_block/f64 launched {counts['serving']['d2_block/f64']} times, expected "
+             f"{want} ({blocks} item blocks x {rungs + dispatches['knn_f64']} kNN dispatches)")
+    stats = timings["serve_stats"]
+    say(f"  serving loads: " + ", ".join(f"{name} {timings[f'load_{name}_s']:.2f} s" for name, _, _ in loads)
+        + f"; traffic {F64_SERVE_CLIENTS} clients x {F64_SERVE_REQUESTS} requests to each: "
+        f"{timings['traffic_s']:.2f} s wall, {stats['batches']} batches, {stats['coalesced_batches']} coalesced, "
+        f"e2e p50 {stats['e2e_p50_s'] * 1e3:.1f} ms, p99 {stats['e2e_p99_s'] * 1e3:.1f} ms; dispatches {dispatches}")
+    solo_engine = ScoringEngine(registry, coalesce_window_s=0.0).start()
+    flips = 0
+    try:
+        for t, reqs in enumerate(traffic):
+            for (lo, n), got in zip(reqs, results[t]):
+                for (name, _, _), g in zip(loads, got):
+                    ref = solo_engine.score(name, X[lo:lo + n], timeout=600)
+                    pairs = zip(g, ref) if isinstance(g, tuple) else [(g, ref)]
+                    if not all(a.dtype == b.dtype and np.array_equal(a, b) for a, b in pairs):
+                        fail(f"float64 serving: {name} response to rows {lo}..{lo + n} differs from the same "
+                             "request served alone")
+                km64, km16, (kd, ki) = got
+                if not np.array_equal(km64, pred[lo:lo + n]):
+                    fail(f"float64 serving: kmeans_f64 differs from KMeansModel.transform on rows {lo}..{lo + n}")
+                flips += int((km16 != km64).sum())
+                if ki.shape != (n, KNN_K) or not np.array_equal(ki[:, 0], np.arange(lo, lo + n)):
+                    fail(f"float64 serving: a knn_f64 query among rows {lo}..{lo + n} does not find itself first")
+    finally:
+        solo_engine.stop()
+    timings["kmeans_f64_bf16_flips"] = flips
+    say(f"  every response equals the same request served alone, bit for bit; kmeans_f64 equals "
+        f"KMeansModel.transform; kmeans_f64_bf16 assigns {flips} of "
+        f"{sum(n for reqs in traffic for _, n in reqs)} rows differently; every knn_f64 query finds itself first")
+    registry.clear()
+    del knn
+    counts["route"] = {key: sum(counts[run][key] for run in ("fit", "transform", "loaded_transform",
+                                                             "kneighbors", "serving"))
+                       for key in _kernels.launches}
+    return counts, timings
+
+
 # ------------------------------------------------------------------ main --
 
 
@@ -1525,25 +1877,37 @@ def main():
     counts, timings, kmeans_model = phase_main_path(dev, X)
     knn_counts, knn_timings = phase_knn(dev, X, d2_entries[0]["ms"])
     serve_counts, serve_timings = phase_serving(dev, X, kmeans_model)
-    for e in entries:
-        e["launches"] = counts["main_path"][e["name"]]
-        e["launches_by_run"] = {
-            run: c[e["name"]] for run, c in counts.items() if run != "main_path"
-        }
-        e["launches_by_run"]["serving"] = serve_counts[e["name"]]
-    for e in d2_entries:
-        # each d2_block variant's own path: kneighbors runs f32, serving f32-fast
-        e["launches"] = serve_counts[e["name"]] if e["name"].endswith("-fast") else knn_counts[e["name"]]
-        e["launches_by_run"] = {"kneighbors": knn_counts[e["name"]], "serving": serve_counts[e["name"]]}
+    t0 = time.perf_counter()
+    X = _f64_rows(X)  # the float32 rows are dropped here
+    say(f"data as float64 {X.shape} made in {time.perf_counter() - t0:.1f} s")
+    f64_counts, f64_timings = phase_f64(dev, X)
+    del X
+    for e in entries + d2_entries:
+        name = e["name"]
+        if "/f64" in name:
+            # the float64 route (phase 6) runs every f64 form but
+            # assign_accumulate/f64-fast and d2_block/f64-fast, which no path
+            # runs (a float64 fit keeps `fast` off; a float64 kNN model
+            # served as bf16 is not in its mix)
+            e["launches"] = f64_counts["route"][name]
+            e["launches_by_run"] = {run: c[name] for run, c in f64_counts.items() if run != "route"}
+        elif name.startswith("d2_block"):
+            # kneighbors runs f32, serving f32-fast
+            e["launches"] = serve_counts[name] if name.endswith("-fast") else knn_counts[name]
+            e["launches_by_run"] = {"kneighbors": knn_counts[name], "serving": serve_counts[name]}
+        else:
+            e["launches"] = counts["main_path"][name]
+            e["launches_by_run"] = {run: c[name] for run, c in counts.items() if run != "main_path"}
+            e["launches_by_run"]["serving"] = serve_counts[name]
     entries += d2_entries
-    # the kernels line lists the variants the main paths run (float32 inputs:
-    # f32 and f32-fast); the f64 variants were checked and timed above
+    for name in ("assign_argmin/f64", "assign_accumulate/f64", "d2_block/f64", "assign_argmin/f64-fast"):
+        if not f64_counts["route"][name]:
+            fail(f"the float64 route never launched {name}")
     say("KMeans path timings: " + json.dumps(timings))
     say("kNN path timings: " + json.dumps(knn_timings))
     say("serving timings: " + json.dumps(serve_timings))
-    say("f64 variants (not on the float32 main path): " + json.dumps(
-        [e for e in entries if "/f64" in e["name"]]))
-    kernels_line = json.dumps({"kernels": [e for e in entries if "/f64" not in e["name"]]})
+    say("float64 route timings: " + json.dumps(f64_timings))
+    kernels_line = json.dumps({"kernels": entries})
     say(f"total {time.perf_counter() - t_start:.1f} s")
     LOG_DIR.mkdir(exist_ok=True)
     (LOG_DIR / "chip_smoke.log").write_text("\n".join(_log_lines + [kernels_line, smi]) + "\n")

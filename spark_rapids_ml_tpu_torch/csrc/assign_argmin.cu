@@ -9,8 +9,9 @@
 // What bounds it on an H100: operations. 2*B*k*d multiply-adds against
 // B*d + k*d elements read (at the main path's tile, B = 32768, d = 3000,
 // k = 1000: 1.97e11 FLOP against 0.4 GB, about 490 FLOP per byte), so the
-// float32 CUDA-core rate (67 TFLOP/s) or, for `fast`, the bf16 tensor-core
-// rate (989 TFLOP/s) is the floor.
+// float32 CUDA-core rate (67 TFLOP/s), for float64 the FP64 tensor-core
+// rate (67 TFLOP/s) or, for `fast`, the bf16 tensor-core rate (989 TFLOP/s)
+// is the floor.
 //
 // Design. On the TPU the center blocks were a sequential grid axis carrying
 // the running minimum from step to step. Hopper runs blocks in no order, so
@@ -44,8 +45,13 @@
 //     sums are widened back and the epilogue (c_sq - 2*dot, the minimum)
 //     stays in float64, as the TPU kernel's `fast` body casts its product
 //     back to the input dtype.
-//   * float64: the 64 x 64 register tile of tile_dot.cuh (shared with
-//     d2_block.cu), one tile per CTA.
+//   * float64: the FP64 tensor-core (DMMA) tile of f64_tile.cuh (shared
+//     with d2_block.cu), 128 rows x 128 centers, 8 warps of 32 x 64
+//     outputs, a 3-stage cp.async ring of 32-deep chunks read straight from
+//     x and c (16-byte copies where d is even and both bases are 16-byte
+//     aligned, the VEC template argument chosen by the wrapper; 8-byte
+//     copies otherwise). The two warps that share a row each reduce their
+//     64 centers, then exchange their candidates through shared memory.
 // Centers at or past k are skipped by index in the epilogue, whatever their
 // padded values.
 //
@@ -60,7 +66,7 @@
 #include <cstddef>
 
 #include "f32_tile.cuh"
-#include "tile_dot.cuh"
+#include "f64_tile.cuh"
 #include "wgmma_bf16.cuh"
 
 namespace {
@@ -142,35 +148,63 @@ argmin_f32_tiles(const float* __restrict__ x, const float* __restrict__ c,
   });
 }
 
-// --------------------------------------------------- float64: tile_dot ----
+// ------------------------------------------------ float64: DMMA tile ----
 
-__global__ void __launch_bounds__(srml::THREADS)
+namespace f64tc = srml::f64tc;
+
+template <bool VEC>
+__global__ void __launch_bounds__(f64tc::THREADS, 1)
 argmin_f64_tiles(const double* __restrict__ x, const double* __restrict__ c,
                  const double* __restrict__ c_sq, double* __restrict__ pv, int* __restrict__ pj,
                  int B, int k, int d, int n_ct) {
-  using namespace srml;
-  __shared__ double xs[BK][BM + 1];
-  __shared__ double cs[BK][BN + 1];
+  using f64tc::MT;
+  using f64tc::NT;
   const int ct = blockIdx.x % n_ct;
-  const int m0 = (blockIdx.x / n_ct) * BM;
-  const int n0 = ct * BN;
-  const int tx = threadIdx.x % LANES_N;  // centers tx + LANES_N * jj
-  const int ty = threadIdx.x / LANES_N;  // rows ty + LANES_M * i
-
-  double acc[TM][TN];
-  tile_dot(x, m0, B, c, n0, k, d, xs, cs, acc);
+  const int m0 = (blockIdx.x / n_ct) * f64tc::BM;
+  const int n0 = ct * f64tc::BN;
+  f64tc::product_tile<VEC>(x, m0, B, c, n0, k, d,
+                           [&](const double (&acc)[MT][NT][4], double* smem) {
+    double csq[NT][2];
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    tile_min<double> m;
+    for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-    for (int jj = 0; jj < TN; ++jj) {  // this thread's centers, ascending
-      const int gn = n0 + tx + LANES_N * jj;
-      if (gn < k) m.scan(c_sq[gn] - 2.0 * acc[i][jj], gn);
+      for (int e = 0; e < 2; ++e) {
+        const int gn = n0 + f64tc::col_of(nt, e);
+        csq[nt][e] = gn < k ? c_sq[gn] : 0.0;
+      }
+    // each row's candidate from each of the WARPS_N warps across the columns
+    double* cv = smem;                                           // [WARPS_N][BM]
+    int* cj = reinterpret_cast<int*>(smem + f64tc::WARPS_N * f64tc::BM);  // [WARPS_N][BM]
+    const int wn = threadIdx.x / 32 % f64tc::WARPS_N;
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        tile_min<double> m;
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)  // this thread's centers, ascending
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int gn = n0 + f64tc::col_of(nt, e);
+            if (gn < k) m.scan(csq[nt][e] - 2.0 * acc[mt][nt][2 * h + e], gn);
+          }
+        m.lane_min<4>();  // the quad that shares the row
+        if (threadIdx.x % 4 == 0) {
+          const int i = wn * f64tc::BM + f64tc::row_of(mt, h);
+          cv[i] = m.v;
+          cj[i] = m.j;
+        }
+      }
+    __syncthreads();
+    if (threadIdx.x < f64tc::BM) {
+      tile_min<double> m;
+#pragma unroll
+      for (int w = 0; w < f64tc::WARPS_N; ++w)
+        m.scan(cv[w * f64tc::BM + threadIdx.x], cj[w * f64tc::BM + threadIdx.x]);
+      const int r = m0 + threadIdx.x;
+      if (r < B) m.store(pv, pj, ct, B, r);
     }
-    m.lane_min<LANES_N>();  // the LANES_N lanes of one ty
-    const int r = m0 + ty + LANES_M * i;
-    if (tx == 0 && r < B) m.store(pv, pj, ct, B, r);
-  }
+  });
 }
 
 // ------------------------------------------- fast: bf16 TMA + wgmma -------
@@ -281,12 +315,19 @@ extern "C" int srml_argmin_tiles_f32(const void* x, const void* c, const void* c
   return static_cast<int>(cudaGetLastError());
 }
 
-// Pass 1, float64 on the CUDA cores: partials [ceil(k / 64), B].
+// Pass 1, float64 on the FP64 tensor cores: partials [ceil(k / 128), B].
+// `vec` selects 16-byte copies (d even and 16-byte aligned bases).
 extern "C" int srml_argmin_tiles_f64(const void* x, const void* c, const void* c_sq, void* pv,
-                                     void* pj, int B, int k, int d, void* stream) {
-  const int n_ct = (k + srml::BN - 1) / srml::BN;
-  argmin_f64_tiles<<<grid_of(B, srml::BM, n_ct), srml::THREADS, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
+                                     void* pj, int B, int k, int d, int vec, void* stream) {
+  // the ring needs more than the default 48 KB of shared memory; setting it
+  // on every call keeps it right on whichever device is current
+  const auto kernel = vec ? &argmin_f64_tiles<true> : &argmin_f64_tiles<false>;
+  const cudaError_t a =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, f64tc::SMEM_BYTES);
+  if (a != cudaSuccess) return static_cast<int>(a);
+  const int n_ct = (k + f64tc::BN - 1) / f64tc::BN;
+  kernel<<<grid_of(B, f64tc::BM, n_ct), f64tc::THREADS, f64tc::SMEM_BYTES,
+           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const double*>(x), static_cast<const double*>(c),
       static_cast<const double*>(c_sq), static_cast<double*>(pv), static_cast<int*>(pj), B, k, d,
       n_ct);
@@ -319,18 +360,21 @@ extern "C" int srml_argmin_merge_f64(const void* pv, const void* pj, void* mind,
   return launch_merge<double>(pv, pj, mind, best, B, n_ct, stream);
 }
 
-// The tile sizes and the `fast` kernel's dynamic shared memory, for the
-// wrapper's scratch and the build report.
+// The tile sizes, the `fast` and float64 kernels' dynamic shared memory and
+// the float64 kernel's DMMA depth step, for the wrapper's scratch and the
+// build report.
 extern "C" int srml_argmin_config(int what) {
   switch (what) {
     case 0: return f32core::BM;
     case 1: return f32core::BN;
-    case 2: return srml::BM;
-    case 3: return srml::BN;
+    case 2: return f64tc::BM;
+    case 3: return f64tc::BN;
     case 4: return wg::BM;
     case 5: return wg::BN;
     case 6: return wg::BK;
     case 7: return wg::SMEM_BYTES;
+    case 8: return f64tc::SMEM_BYTES;
+    case 9: return f64tc::MMA_K;
     default: return -1;
   }
 }

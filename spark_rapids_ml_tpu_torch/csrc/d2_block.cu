@@ -11,9 +11,10 @@
 // What bounds it on an H100: operations. 2*B*kt*d FLOP against
 // (B*d + kt*d + kt + B*kt) elements moved (at the main path's tile, B = 4096,
 // kt = 16384, d = 3000: 4.03e11 FLOP against 0.52 GB in float32, about 780
-// FLOP per byte): 6.0 ms at the float32 CUDA-core rate (67 TFLOP/s), 0.41 ms
-// for `fast` at the bf16 tensor-core rate (989 TFLOP/s), against 0.16 ms for
-// the bytes.
+// FLOP per byte): 6.0 ms at the float32 CUDA-core rate (67 TFLOP/s) and, for
+// float64, at the FP64 tensor-core rate (67 TFLOP/s), 0.41 ms for `fast` at
+// the bf16 tensor-core rate (989 TFLOP/s), against 0.16 ms for the bytes
+// (0.31 ms in float64).
 //
 // The TPU kernel held the whole item tile in VMEM and ran its grid over row
 // blocks only. A Hopper CTA has at most 227 KB of shared memory, so here
@@ -44,8 +45,15 @@
 //     fastest, so the CTAs in flight share one item tile and the staged q
 //     (24.6 MB at 4096 x 3008) stays in the 50 MB L2: each item row is read
 //     from device memory about once. One CTA per SM.
-//   * float64: the 64 x 64 register tile of tile_dot.cuh (shared with
-//     assign_argmin.cu), item tiles fastest.
+//   * float64: the FP64 tensor-core (DMMA) tile of f64_tile.cuh (shared
+//     with assign_argmin.cu), 128 queries x 128 items, 8 warps of 32 x 64
+//     outputs, a 3-stage cp.async ring of 32-deep chunks read straight from
+//     q and xt (16-byte copies where d is even and both bases are 16-byte
+//     aligned, VEC, chosen by the wrapper; 8-byte copies otherwise). One
+//     CTA per SM, query tiles fastest, as in `fast`: the CTAs in flight
+//     share a few item tiles, and each wave re-reads the queries (98 MB at
+//     4096 x 3000), not the items (393 MB at kt = 16,384). The epilogue
+//     stores xt_sq - 2*dot in aligned pairs where whole (`store_pair`).
 //
 // C interface, bound with ctypes (spark_rapids_ml_tpu_torch/ops/_kernels.py):
 // each function launches on `stream` and returns cudaGetLastError() (or the
@@ -54,7 +62,7 @@
 #include <cuda_runtime.h>
 
 #include "f32_tile.cuh"
-#include "tile_dot.cuh"
+#include "f64_tile.cuh"
 #include "wgmma_bf16.cuh"
 
 namespace {
@@ -100,40 +108,6 @@ d2_block_f32(const float* __restrict__ q, const float* __restrict__ xt,
   });
 }
 
-// --------------------------------------------------- float64: tile_dot ----
-
-__global__ void __launch_bounds__(srml::THREADS)
-d2_block_f64(const double* __restrict__ q, const double* __restrict__ xt,
-             const double* __restrict__ xt_sq, double* __restrict__ out, int B, int kt, int d,
-             int n_it) {
-  using namespace srml;
-  __shared__ double qs[BK][BM + 1];
-  __shared__ double xs[BK][BN + 1];
-  const int tx = threadIdx.x % LANES_N;  // items tx + LANES_N * jj
-  const int ty = threadIdx.x / LANES_N;  // rows ty + LANES_M * i
-  const int n0 = (blockIdx.x % n_it) * BN;
-  const int m0 = (blockIdx.x / n_it) * BM;
-
-  double acc[TM][TN];
-  tile_dot(q, m0, B, xt, n0, kt, d, qs, xs, acc);
-#pragma unroll
-  for (int jj = 0; jj < TN; ++jj) {
-    const int gn = n0 + tx + LANES_N * jj;
-    if (gn < kt) {
-      const double sq = xt_sq[gn];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) {
-        const int gm = m0 + ty + LANES_M * i;
-        if (gm < B) out[static_cast<long long>(gm) * kt + gn] = sq - 2.0 * acc[i][jj];
-      }
-    }
-  }
-}
-
-// ------------------------------------------- fast: bf16 TMA + wgmma -------
-
-namespace wg = srml::wgmma_bf16;
-
 // two neighbouring outputs of one row: one 8- or 16-byte store where the
 // row stride keeps the pair aligned and both lie inside
 template <typename T>
@@ -149,6 +123,46 @@ __device__ __forceinline__ void store_pair(T* o, T v0, T v1, bool pair, bool sec
     if (second) o[1] = v1;
   }
 }
+
+// ------------------------------------------------ float64: DMMA tile ----
+
+namespace f64tc = srml::f64tc;
+
+template <bool VEC>
+__global__ void __launch_bounds__(f64tc::THREADS, 1)
+d2_block_f64(const double* __restrict__ q, const double* __restrict__ xt,
+             const double* __restrict__ xt_sq, double* __restrict__ out, int B, int kt, int d,
+             int n_qt) {
+  using f64tc::MT;
+  using f64tc::NT;
+  const int m0 = (blockIdx.x % n_qt) * f64tc::BM;  // queries: the fastest
+  const int n0 = (blockIdx.x / n_qt) * f64tc::BN;  // items
+  f64tc::product_tile<VEC>(q, m0, B, xt, n0, kt, d,
+                           [&](const double (&acc)[MT][NT][4], double*) {
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const int gn = n0 + f64tc::col_of(nt, 0);  // columns gn and gn + 1
+      if (gn >= kt) continue;
+      const bool second = gn + 1 < kt;
+      const bool pair = second && kt % 2 == 0;
+      const double sq0 = xt_sq[gn];
+      const double sq1 = second ? xt_sq[gn + 1] : 0.0;
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int gm = m0 + f64tc::row_of(mt, h);
+          if (gm >= B) continue;
+          store_pair(out + static_cast<long long>(gm) * kt + gn, sq0 - 2.0 * acc[mt][nt][2 * h],
+                     sq1 - 2.0 * acc[mt][nt][2 * h + 1], pair, second);
+        }
+    }
+  });
+}
+
+// ------------------------------------------- fast: bf16 TMA + wgmma -------
+
+namespace wg = srml::wgmma_bf16;
 
 template <typename T>
 __global__ void __launch_bounds__(wg::THREADS, 1)
@@ -220,13 +234,21 @@ extern "C" int srml_d2_block_f32(const void* q, const void* xt, const void* xt_s
   return static_cast<int>(cudaGetLastError());
 }
 
+// float64 on the FP64 tensor cores; `vec` selects 16-byte copies (d even
+// and 16-byte aligned bases).
 extern "C" int srml_d2_block_f64(const void* q, const void* xt, const void* xt_sq, void* out,
-                                 int B, int kt, int d, void* stream) {
-  const int n_it = tiles(kt, srml::BN);
-  d2_block_f64<<<tiles(B, srml::BM) * n_it, srml::THREADS, 0,
-                 static_cast<cudaStream_t>(stream)>>>(
+                                 int B, int kt, int d, int vec, void* stream) {
+  // the ring needs more than the default 48 KB of shared memory; setting it
+  // on every call keeps it right on whichever device is current
+  const auto kernel = vec ? &d2_block_f64<true> : &d2_block_f64<false>;
+  const cudaError_t a =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, f64tc::SMEM_BYTES);
+  if (a != cudaSuccess) return static_cast<int>(a);
+  const int n_qt = tiles(B, f64tc::BM);
+  kernel<<<n_qt * tiles(kt, f64tc::BN), f64tc::THREADS, f64tc::SMEM_BYTES,
+           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const double*>(q), static_cast<const double*>(xt),
-      static_cast<const double*>(xt_sq), static_cast<double*>(out), B, kt, d, n_it);
+      static_cast<const double*>(xt_sq), static_cast<double*>(out), B, kt, d, n_qt);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -242,18 +264,21 @@ extern "C" int srml_d2_block_fast_f64(const void* qs, const void* xs, const void
   return launch_fast<double>(qs, xs, xt_sq, out, B, Bp, kt, ktp, dp, stream);
 }
 
-// The tile sizes and the `fast` kernel's dynamic shared memory, for the
-// wrapper's staging and the build report.
+// The tile sizes, the `fast` and float64 kernels' dynamic shared memory and
+// the float64 kernel's DMMA depth step, for the wrapper's staging and the
+// build report.
 extern "C" int srml_d2_config(int what) {
   switch (what) {
     case 0: return f32core::BM;
     case 1: return f32core::BN;
-    case 2: return srml::BM;
-    case 3: return srml::BN;
+    case 2: return f64tc::BM;
+    case 3: return f64tc::BN;
     case 4: return wg::BM;
     case 5: return wg::BN;
     case 6: return wg::BK;
     case 7: return wg::SMEM_BYTES;
+    case 8: return f64tc::SMEM_BYTES;
+    case 9: return f64tc::MMA_K;
     default: return -1;
   }
 }

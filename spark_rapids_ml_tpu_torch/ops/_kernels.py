@@ -9,7 +9,8 @@
 # (the TPU kernels live in spark_rapids_ml_tpu/ops/distance.py). The float32
 # forms of assign_argmin and d2_block share the CUDA-core tile of
 # csrc/f32_tile.cuh, their `fast` forms the bf16 TMA + wgmma tile of
-# csrc/wgmma_bf16.cuh, and their float64 forms the tile of csrc/tile_dot.cuh.
+# csrc/wgmma_bf16.cuh, and their float64 forms the FP64 tensor-core (DMMA)
+# tile of csrc/f64_tile.cuh.
 #
 # Build: on the first kernel call, each csrc/*.cu is compiled by `nvcc` for
 # sm_90a into a shared library with a plain C interface under `build/` at the
@@ -81,13 +82,16 @@ launches: Dict[str, int] = {f"{name}/{v}": 0 for name in SOURCES for v in VARIAN
 # centers, and a second pass merges the center tiles. The same for every
 # batch size, so a row's result never depends on the batch.
 ARGMIN_TILE: Dict[str, Tuple[int, int]] = {
-    "f32": (128, 128), "f32-fast": (128, 256), "f64": (64, 64), "f64-fast": (128, 256),
+    "f32": (128, 128), "f32-fast": (128, 256), "f64": (128, 128), "f64-fast": (128, 256),
 }
 # d2_block's output tiles, (queries, items), per variant (csrc/d2_block.cu):
 # one CTA each, the same for every batch size
 D2_TILE: Dict[str, Tuple[int, int]] = {
-    "f32": (128, 128), "f32-fast": (128, 256), "f64": (64, 64), "f64-fast": (128, 256),
+    "f32": (128, 128), "f32-fast": (128, 256), "f64": (128, 128), "f64-fast": (128, 256),
 }
+# the depth of one DMMA step of the float64 forms of both (csrc/f64_tile.cuh):
+# each output is summed in ascending steps of this many products
+F64_STEP = 4
 # the depth of the `fast` operands is padded with zeros to a multiple of this
 STAGE_DEPTH = 64
 # assign_accumulate's pieces (csrc/assign_accumulate.cu): each center's
@@ -155,7 +159,7 @@ def _bind(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     for fn, args in (
         ("srml_argmin_tiles_f32", [p, p, p, p, p, i, i, i, i, p]),
-        ("srml_argmin_tiles_f64", [p, p, p, p, p, i, i, i, p]),
+        ("srml_argmin_tiles_f64", [p, p, p, p, p, i, i, i, i, p]),
         ("srml_argmin_tiles_fast_f32", [p, p, p, p, p, i, i, i, i, i, p]),
         ("srml_argmin_tiles_fast_f64", [p, p, p, p, p, i, i, i, i, i, p]),
         ("srml_argmin_merge_f32", [p, p, p, p, i, i, p]),
@@ -169,7 +173,7 @@ def _bind(lib: ctypes.CDLL) -> None:
         ("srml_accumulate_fold_f32", [p, p, p, p, p, p, p, i, i, i, i, p]),
         ("srml_accumulate_fold_f64", [p, p, p, p, p, p, p, i, i, i, i, p]),
         ("srml_d2_block_f32", [p, p, p, p, i, i, i, i, p]),
-        ("srml_d2_block_f64", [p, p, p, p, i, i, i, p]),
+        ("srml_d2_block_f64", [p, p, p, p, i, i, i, i, p]),
         ("srml_d2_block_fast_f32", [p, p, p, p, i, i, i, i, i, p]),
         ("srml_d2_block_fast_f64", [p, p, p, p, i, i, i, i, i, p]),
         ("srml_d2_config", [i]),
@@ -238,12 +242,13 @@ def library_tiles(config) -> Tuple[Dict[str, Tuple[int, int]], int]:
 
 def _check_config(name: str, config, expected: Dict[str, Tuple[int, int]]) -> None:
     """The library's tiles must be the ones the wrapper sizes its scratch
-    and its staging for."""
+    and its staging for, and its float64 DMMA step (code 9) F64_STEP."""
     built, depth = library_tiles(config)
-    if built != expected or depth != STAGE_DEPTH:
+    step = config(9)
+    if built != expected or depth != STAGE_DEPTH or step != F64_STEP:
         raise RuntimeError(
-            f"{name} library tiles {built}, depth {depth} disagree with the wrapper's "
-            f"{expected}, {STAGE_DEPTH}"
+            f"{name} library tiles {built}, depth {depth}, float64 step {step} disagree with "
+            f"the wrapper's {expected}, {STAGE_DEPTH}, {F64_STEP}"
         )
 
 
@@ -310,6 +315,12 @@ def stage_bf16(a: torch.Tensor, row_multiple: int = 1) -> torch.Tensor:
     return out
 
 
+def _vec16(d: int, a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Whether the float64 tile may copy rows of a and b 16 bytes at a time:
+    an even depth and 16-byte aligned bases keep every pair aligned."""
+    return d % 2 == 0 and a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0
+
+
 def _argmin_operands(x: torch.Tensor, c: torch.Tensor, variant: str):
     """What pass 1 of `variant` reads: x and c themselves, or for `fast`
     their bf16 stagings, rows padded to whole row and center tiles."""
@@ -335,7 +346,7 @@ def _argmin_tiles(xo: torch.Tensor, co: torch.Tensor, c_sq: torch.Tensor, B: int
         vec = d % 4 == 0 and xo.data_ptr() % 16 == 0 and co.data_ptr() % 16 == 0
         status = lib.srml_argmin_tiles_f32(*ptrs, B, k, d, int(vec), stream)
     elif variant == "f64":
-        status = lib.srml_argmin_tiles_f64(*ptrs, B, k, d, stream)
+        status = lib.srml_argmin_tiles_f64(*ptrs, B, k, d, int(_vec16(d, xo, co)), stream)
     else:
         fn = lib.srml_argmin_tiles_fast_f64 if variant == "f64-fast" else lib.srml_argmin_tiles_fast_f32
         status = fn(*ptrs, B, xo.shape[0], k, co.shape[0], xo.shape[1], stream)
@@ -540,7 +551,7 @@ def _d2_tiles(qo: torch.Tensor, xo: torch.Tensor, xt_sq: torch.Tensor, B: int, d
         vec = d % 4 == 0 and qo.data_ptr() % 16 == 0 and xo.data_ptr() % 16 == 0
         status = lib.srml_d2_block_f32(*ptrs, B, kt, d, int(vec), stream)
     elif variant == "f64":
-        status = lib.srml_d2_block_f64(*ptrs, B, kt, d, stream)
+        status = lib.srml_d2_block_f64(*ptrs, B, kt, d, int(_vec16(d, qo, xo)), stream)
     else:
         fn = lib.srml_d2_block_fast_f64 if variant == "f64-fast" else lib.srml_d2_block_fast_f32
         status = fn(*ptrs, B, qo.shape[0], kt, xo.shape[0], qo.shape[1], stream)

@@ -103,7 +103,8 @@ def _tie_data(n, tile, d, dtype, seed):
     return X, C
 
 
-@pytest.mark.parametrize("tile", sorted({4} | {t for _, t in _kernels.ARGMIN_TILE.values()}))
+# 64: the float64 tile width before the DMMA tile, kept as a case
+@pytest.mark.parametrize("tile", sorted({4, 64} | {t for _, t in _kernels.ARGMIN_TILE.values()}))
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
 @pytest.mark.parametrize("fast", [False, True])
 def test_split_decomposition_matches_pallas_kernel(tile, dtype, fast):
@@ -151,11 +152,11 @@ def test_wrapper_refuses_mixed_dtypes_and_other_types():
         _kernels.assign_argmin(x.half(), c.half(), torch.zeros(2).half())
     with pytest.raises(ValueError, match="CUDA tensor"):
         _kernels.assign_argmin(x, c.float(), torch.zeros(2), fast=True)
-    # 2^24 row tiles x 188 center tiles of 64: a grid past int32
+    # 2^23 row tiles x 313 center tiles of 128: a grid past int32
     xb = torch.empty((2**30, 1), dtype=torch.float64, device="meta")
-    cb = torch.empty((12000, 1), dtype=torch.float64, device="meta")
+    cb = torch.empty((40000, 1), dtype=torch.float64, device="meta")
     with pytest.raises(ValueError, match="fit int32"):
-        _kernels.assign_argmin(xb, cb, torch.empty(12000, dtype=torch.float64, device="meta"))
+        _kernels.assign_argmin(xb, cb, torch.empty(40000, dtype=torch.float64, device="meta"))
     assert _kernels.launch_total("assign_argmin") == before
 
 
@@ -168,9 +169,9 @@ def _check_argmin_config(lib):
 
 
 def test_library_tiles_must_match_the_wrapper():
-    good = [128, 128, 64, 64, 128, 256, 64, 197696]
+    good = [128, 128, 128, 128, 128, 256, 64, 197696, 221184, 4]
     _check_argmin_config(_fake_lib(good))
-    for i in range(7):
+    for i in (*range(7), 9):  # the tiles, the `fast` depth, the float64 DMMA step
         bad = list(good)
         bad[i] *= 2
         with pytest.raises(RuntimeError, match="disagree"):

@@ -141,11 +141,11 @@ def test_wrapper_refuses_mixed_dtypes_cpu_tensors_and_wrong_ranks():
 
 
 def test_library_tiles_must_match_the_d2_wrapper():
-    good = [128, 128, 64, 64, 128, 256, 64, 197696]
+    good = [128, 128, 128, 128, 128, 256, 64, 197696, 221184, 4]
     lib = types.SimpleNamespace(srml_d2_config=lambda i: good[i])
     _kernels._check_config("d2_block", lib.srml_d2_config, _kernels.D2_TILE)
     assert _kernels.library_tiles(lib.srml_d2_config) == (_kernels.D2_TILE, _kernels.STAGE_DEPTH)
-    for i in range(7):
+    for i in (*range(7), 9):  # the tiles, the `fast` depth, the float64 DMMA step
         bad = list(good)
         bad[i] *= 2
         with pytest.raises(RuntimeError, match="d2_block library tiles"):

@@ -524,7 +524,7 @@ def test_library_name_follows_every_source_it_is_built_from(monkeypatch, tmp_pat
     shutil.copytree(_kernels._CSRC, csrc)
     monkeypatch.setattr(_kernels, "_CSRC", csrc)
     before = {n: _kernels._lib_path(n) for n in _kernels.SOURCES}
-    header = csrc / "tile_dot.cuh"
+    header = csrc / "f64_tile.cuh"
     header.write_text(header.read_text() + "\n// edited\n")
     after = {n: _kernels._lib_path(n) for n in _kernels.SOURCES}
     assert after["assign_argmin"] != before["assign_argmin"]

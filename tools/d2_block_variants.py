@@ -30,12 +30,22 @@
 #      chip_smoke.SKEWS, with the earlier kernel's index preparation
 #      (stable sort and searchsorted) timed apart from its sum.
 #
+# With --kernel f64 it holds the float64 forms of assign_argmin and d2_block
+# (csrc/f64_tile.cuh, the FP64 tensor-core tile) against an earlier tree's,
+# whose float64 C functions took no load-width argument: on Gaussian data
+# within the float64 summation bound (chip_smoke.f64_bound), not bit for
+# bit, the nearest center equal wherever the plain version's two nearest are
+# further apart than twice that bound; then both timed in turns (earlier,
+# current, current, earlier) at the main path's tiles (assign_argmin 32768 x
+# 1000 x 3000, d2_block 4096 x 16,384 x 3000).
+#
 # Everything is built with the flags of ops/_kernels.py into
 # build/variants/. Run from the repository root, on a machine with the card
 # and nvcc:
 #
 #     python3 tools/d2_block_variants.py --earlier build/earlier/spark_rapids_ml_tpu_torch/csrc
 #     python3 tools/d2_block_variants.py --kernel assign_accumulate --earlier <the same>
+#     python3 tools/d2_block_variants.py --kernel f64 --earlier <the same>
 #
 # It prints each result and, last, one JSON object of all of them.
 #
@@ -206,19 +216,108 @@ def accumulate_against_earlier(earlier_dir, dev, smi):
     return 0 if all(r["equal"] and r["several_close"] for r in result["bit_for_bit"]) else 1
 
 
+def f64_against_earlier(earlier_dir, dev, smi):
+    """The float64 forms of assign_argmin and d2_block against the earlier
+    tree's: within the float64 bound, then timed in turns (module note)."""
+    import torch
+
+    from spark_rapids_ml_tpu_torch.ops import _kernels
+    from spark_rapids_ml_tpu_torch.ops import distance as D
+
+    argmin_lib = nvcc_build(earlier_dir / "assign_argmin.cu", earlier_dir, "assign_argmin_earlier")
+    d2_lib = nvcc_build(earlier_dir / "d2_block.cu", earlier_dir, "d2_block_earlier")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    argmin_lib.srml_argmin_tiles_f64.argtypes = [p, p, p, p, p, i, i, i, p]
+    argmin_lib.srml_argmin_merge_f64.argtypes = [p, p, p, p, i, i, p]
+    argmin_lib.srml_argmin_config.argtypes = [i]
+    d2_lib.srml_d2_block_f64.argtypes = [p, p, p, p, i, i, i, p]
+    for f in (argmin_lib.srml_argmin_tiles_f64, argmin_lib.srml_argmin_merge_f64, argmin_lib.srml_argmin_config,
+              d2_lib.srml_d2_block_f64):
+        f.restype = i
+    stream = lambda: torch.cuda.current_stream(dev).cuda_stream  # noqa: E731
+
+    def earlier_argmin(x, c, c_sq):
+        B, d = x.shape
+        k = c.shape[0]
+        n_ct = -(-k // argmin_lib.srml_argmin_config(3))
+        pv = torch.empty((n_ct, B), dtype=torch.float64, device=dev)
+        pj = torch.empty((n_ct, B), dtype=torch.int32, device=dev)
+        _kernels._raise_on("earlier assign_argmin", argmin_lib.srml_argmin_tiles_f64(
+            x.data_ptr(), c.data_ptr(), c_sq.data_ptr(), pv.data_ptr(), pj.data_ptr(), B, k, d, stream()))
+        mind = torch.empty((B,), dtype=torch.float64, device=dev)
+        best = torch.empty((B,), dtype=torch.int32, device=dev)
+        _kernels._raise_on("earlier assign_argmin", argmin_lib.srml_argmin_merge_f64(
+            pv.data_ptr(), pj.data_ptr(), mind.data_ptr(), best.data_ptr(), B, n_ct, stream()))
+        return mind, best
+
+    def earlier_d2(q, xt, xt_sq):
+        B, d = q.shape
+        kt = xt.shape[0]
+        out = torch.empty((B, kt), dtype=torch.float64, device=dev)
+        _kernels._raise_on("earlier d2_block", d2_lib.srml_d2_block_f64(
+            q.data_ptr(), xt.data_ptr(), xt_sq.data_ptr(), out.data_ptr(), B, kt, d, stream()))
+        return out
+
+    result = {"card": smi, "kernel": "f64", "earlier": [], "timed": {}}
+    for n, k, d in ((cs.TILE_ROWS, cs.K, cs.N_COLS), (1000, 1001, 77), (333, 64, 1000), (37, 5, 3)):
+        xs, cs_, _ = cs._inputs(n, k, d, np.float64, False, 3 + n + k, dev)
+        csq = D._c_sq(cs_)
+        m1, b1 = _kernels.assign_argmin(xs, cs_, csq)
+        m0, b0 = earlier_argmin(xs, cs_, csq)
+        d2p = csq[None, :] - 2.0 * (xs @ cs_.T)
+        two = torch.topk(d2p, 2, dim=1, largest=False).values
+        tol = cs.f64_bound(d, xs, cs_, d2p.abs().max().item())
+        err = (m1 - m0).abs().max().item()
+        clear = (two[:, 1] - two[:, 0]) > 2 * tol
+        same_best = not bool(((b1 != b0) & clear).any())
+        qs, xts = cs._d2_inputs(n, k, d, np.float64, False, 5 + n + k, dev)
+        xts_sq = D.row_sq(xts)
+        o1 = _kernels.d2_block(qs, xts, xts_sq)
+        o0 = earlier_d2(qs, xts, xts_sq)
+        dtol = cs.f64_bound(d, qs, xts, o0.abs().max().item())
+        derr = (o1 - o0).abs().max().item()
+        row = {"shape": [n, k, d], "argmin_err": err, "argmin_tol": tol, "best_equal_where_clear": same_best,
+               "argmin_bitwise": bool(torch.equal(m1, m0)), "d2_err": derr, "d2_tol": dtol,
+               "d2_bitwise": bool(torch.equal(o1, o0)), "within": err <= tol and derr <= dtol and same_best}
+        result["earlier"].append(row)
+        cs.say(f"  f64 {n}x{k}x{d} Gaussian, current vs earlier: argmin mind within {err:.3g} (bound "
+               f"{tol:.3g}), best equal where clear {same_best}; d2_block within {derr:.3g} (bound {dtol:.3g})")
+        del xs, cs_, csq, m1, b1, m0, b0, d2p, two, qs, xts, xts_sq, o1, o0
+    x, c, _ = cs._inputs(cs.TILE_ROWS, cs.K, cs.N_COLS, np.float64, False, 7, dev)
+    c_sq = D._c_sq(c)
+    q, xt = cs._d2_inputs(cs.KNN_QUERIES, D._DEFAULT_K_TILE, cs.N_COLS, np.float64, False, 9, dev)
+    xt_sq = D.row_sq(xt)
+    flops = {"assign_argmin": 2.0 * cs.TILE_ROWS * cs.K * cs.N_COLS,
+             "d2_block": 2.0 * cs.KNN_QUERIES * D._DEFAULT_K_TILE * cs.N_COLS}
+    calls = {"assign_argmin": (lambda: earlier_argmin(x, c, c_sq), lambda: _kernels.assign_argmin(x, c, c_sq)),
+             "d2_block": (lambda: earlier_d2(q, xt, xt_sq), lambda: _kernels.d2_block(q, xt, xt_sq))}
+    for name, (earlier, current) in calls.items():
+        ms = {"earlier": [], "current": []}
+        for who in ("earlier", "current", "current", "earlier"):
+            ms[who].append(cs.cuda_ms(earlier if who == "earlier" else current))
+        result["timed"][name] = {k: {"ms": v, "tflops": [flops[name] / t / 1e9 for t in v]}
+                                 for k, v in ms.items()}
+        cs.say(f"  {name} f64 at its main-path tile, in turns: earlier "
+               f"{', '.join(f'{t:.3f}' for t in ms['earlier'])} ms; current "
+               f"{', '.join(f'{t:.3f}' for t in ms['current'])} ms")
+    print(json.dumps(result))
+    return 0 if all(r["within"] for r in result["earlier"]) else 1
+
+
 def main():
     import torch
 
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--earlier", required=True, help="directory holding the earlier kernel source and its headers")
-    ap.add_argument("--kernel", default="d2_block", choices=("d2_block", "assign_accumulate"))
+    ap.add_argument("--kernel", default="d2_block", choices=("d2_block", "assign_accumulate", "f64"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("d2_block_variants: no CUDA device is visible", file=sys.stderr)
         return 2
-    if args.kernel == "assign_accumulate":
+    if args.kernel in ("assign_accumulate", "f64"):
         dev = torch.device("cuda", 0)
-        return accumulate_against_earlier(Path(args.earlier).resolve(), dev, cs.phase_setup())
+        against = accumulate_against_earlier if args.kernel == "assign_accumulate" else f64_against_earlier
+        return against(Path(args.earlier).resolve(), dev, cs.phase_setup())
     from spark_rapids_ml_tpu_torch.ops import _kernels
     from spark_rapids_ml_tpu_torch.ops import distance as D
 
