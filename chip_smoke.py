@@ -64,7 +64,25 @@
 #      ModelRegistry serving the float64 KMeansModel as float64 and as bf16
 #      (assign_argmin/f64-fast) and the kNN model as float64, gated on
 #      coalesced = solo bit for bit;
-#   7. a {"kernels": [...]} line with all twelve kernel forms, the
+#   7. PCA and LinearRegression, which reach no kernel of their own (cuBLAS
+#      and cuSOLVER through torch): 7a on the float32 rows, before they are
+#      dropped, with labels y = X·β + ε from a seed: PCA(k=3) and
+#      BASELINE.md's three LinearRegression configurations (OLS; CD with
+#      regParam 1e-5, elasticNetParam 0.5, tol 1e-30, maxIter 10, n_iter_
+#      10; ridge with regParam 1e-5) through the public API: fit, transform
+#      of every row (the first 4096 within the float32 bound of X @ W), save
+#      and load (bit for bit), bf16 fits of PCA and OLS held to the float32
+#      fits at tests/test_precision.py's bounds, the fit's parts timed on
+#      resident rows (placement, statistics pass, eigh, solves, ms per CD
+#      sweep) with each solve held against the CPU's on the same
+#      statistics, the whole slice on a small input against the CPU (a NaN
+#      row raises SolverDivergedError, all-constant features give NaN
+#      coefficients), and one ModelRegistry serving the PCA and the OLS model
+#      (coalesced = solo = transform, bit for bit); 7b on the float64 rows,
+#      after phase 6: PCA(k=3) and OLS with float32_inputs=False, 7a's
+#      float32 results held to them within Weyl, Davis-Kahan and normwise
+#      solve bounds (PERF.md section 4), and a NaN row in float64;
+#   8. a {"kernels": [...]} line with all twelve kernel forms, the
 #      nvidia-smi line, and as the last line {"ok": true, "device": {...}}.
 #
 # Every phase raises on failure; the script prints no result then. It needs
@@ -1853,6 +1871,380 @@ def phase_f64(dev, X):
     return counts, timings
 
 
+# ------------------------------------------------------------ phase 7 ----
+
+# PCA and LinearRegression (BASELINE.md's protocol rows): the PCA row, the
+# three LinearRegression rows, the serving traffic of 7a, and the labels'
+# seed and noise
+PCA_K = 3
+LINREG_CONFIGS = (
+    ("ols", {"regParam": 0.0}),
+    ("cd", {"regParam": 1e-5, "elasticNetParam": 0.5, "tol": 1e-30, "maxIter": 10}),
+    ("ridge", {"regParam": 1e-5}),
+)
+LINREG_SERVE_CLIENTS, LINREG_SERVE_REQUESTS = 2, 4
+LABEL_SEED, LABEL_NOISE = 2025, 0.1
+# phase 7b's bounds on the float32 results against the float64 ones (PERF.md
+# section 4): float32 eigh and LU backward errors of at most d 2^-24 of the
+# matrix's norm, 2e-4 at d = 3000 (the float32 statistics' own error,
+# about 1e-6 of the norm, is inside it)
+F32_EIGH_REL = 2e-4
+F32_SOLVE_REL = 2e-4
+
+
+def _labels(X):
+    """y = X·β + ε with β ~ N(0, 1/d) and ε ~ N(0, 0.1²), from a seed;
+    returned with β."""
+    rng = np.random.default_rng(LABEL_SEED)
+    beta = (rng.standard_normal(X.shape[1]) / np.sqrt(X.shape[1])).astype(np.float32)
+    y = X @ beta
+    y += (rng.standard_normal(X.shape[0]) * LABEL_NOISE).astype(np.float32)
+    return y, beta
+
+
+def _dot_bound(x, m):
+    """How far `rows_dot_fixed` (a pairwise tree of float32 adds, depth
+    ceil(log2 d), after one float32 rounding of each product) may lie from
+    the exact x·m: (ceil(log2 d) + 1) 2^-24 Σ|x_i m_i| per entry."""
+    d = x.shape[1]
+    depth = int(np.ceil(np.log2(d))) + 1
+    return depth * 2.0 ** -24 * (np.abs(x).astype(np.float64) @ np.abs(m).astype(np.float64).T)
+
+
+def _small_slice_reference():
+    """PCA and LinearRegression on a small input, on the card and on the CPU
+    (the same torch calls): the attributes, the solves' coefficients and the
+    transforms agree to float32 rounding (components to 1e-4 on data with
+    eigengaps of 4% of the largest eigenvalue); n_iter_ equal; on the card,
+    a NaN row makes PCA raise SolverDivergedError and all-constant features
+    give NaN coefficients, as on the CPU and in the JAX package."""
+    from spark_rapids_ml_tpu_torch import PCA, LinearRegression, set_devices
+    from spark_rapids_ml_tpu_torch.errors import SolverDivergedError
+
+    rng = np.random.default_rng(11)
+    q, _ = np.linalg.qr(rng.standard_normal((40, 40)))
+    x = ((rng.standard_normal((5000, 40)) * np.linspace(8.0, 1.0, 40)) @ q.T + 1.5).astype(np.float32)
+    y = (x @ rng.standard_normal(40) + 0.3 + 0.05 * rng.standard_normal(5000)).astype(np.float32)
+    data = {"features": x, "label": y}
+    fits = {"pca": {}, "pca_bf16": {"solver_precision": "bf16"}, "ols": {}, "ridge": {"regParam": 0.01},
+            "cd": {"regParam": 1e-3, "elasticNetParam": 0.5, "maxIter": 10, "tol": 1e-30},
+            "ols_bf16": {"solver_precision": "bf16"}}
+    results = {}
+    for device in ("cpu", "cuda"):
+        set_devices(device)
+        out = {}
+        for name, params in fits.items():
+            if name.startswith("pca"):
+                m = PCA(k=PCA_K, **params).setInputCol("features").setOutputCol("o").fit(data)
+                out[name] = (m, np.stack(m.transform(data)["o"].to_numpy()))
+            else:
+                m = LinearRegression(**params).fit(data)
+                out[name] = (m, np.asarray(m.transform(data)["prediction"]))
+        bad = x[:500].copy()
+        bad[7, 3] = np.nan
+        try:
+            PCA(k=PCA_K).setInputCol("features").fit({"features": bad})
+            fail(f"small slice ({device}): a NaN row did not raise SolverDivergedError")
+        except SolverDivergedError:
+            pass
+        const = np.tile(np.array([1.0, -2.0, 3.5], np.float32), (64, 1))
+        out["constant"] = LinearRegression().fit({"features": const, "label": y[:64]})
+        results[device] = out
+    set_devices(None)
+    cpu, gpu = results["cpu"], results["cuda"]
+    for name in fits:
+        (mc, tc), (mg, tg) = cpu[name], gpu[name]
+        if name.startswith("pca"):
+            scale = float(mc.explained_variance_[0])
+            if np.abs(mg.explained_variance_ - mc.explained_variance_).max() > 1e-5 * scale:
+                fail(f"small slice: {name} explained variance differs between the card and the CPU")
+            if np.abs(mg.components_ - mc.components_).max() > 1e-4:
+                fail(f"small slice: {name} components differ between the card and the CPU beyond 1e-4")
+        else:
+            scale = float(np.abs(mc.coef_).max())
+            if np.abs(mg.coef_ - mc.coef_).max() > 1e-4 * scale or abs(mg.intercept_ - mc.intercept_) > 1e-4 * scale:
+                fail(f"small slice: {name} coefficients differ between the card and the CPU beyond rtol 1e-4")
+            if mg.n_iter_ != mc.n_iter_:
+                fail(f"small slice: {name} n_iter_ {mg.n_iter_} on the card, {mc.n_iter_} on the CPU")
+        if np.abs(tg - tc).max() > 1e-4 * float(np.abs(tc).max()):
+            fail(f"small slice: {name} transform differs between the card and the CPU")
+    if not (np.isnan(gpu["constant"].coef_).all() and np.isnan(cpu["constant"].coef_).all()):
+        fail("small slice: all-constant features did not give NaN coefficients on the card and the CPU")
+    say(f"  small slice, 5000 x 40 ({', '.join(fits)}): card and CPU agree; cd n_iter_ {gpu['cd'][0].n_iter_}; "
+        "a NaN row raises SolverDivergedError and all-constant features give NaN coefficients on the card")
+
+
+def _timed(fn):
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_pca_linear(dev, X):
+    """Phase 7a: PCA(k=3) and BASELINE.md's three LinearRegression
+    configurations through the public API on the protocol rows (float32),
+    with their bf16 fits, save/load, the fit's parts timed on resident rows,
+    and one ModelRegistry serving the PCA and the OLS model. Returns
+    (what 7b compares with, timings)."""
+    import threading
+
+    import torch
+
+    from spark_rapids_ml_tpu_torch import (LinearRegression, LinearRegressionModel, ModelRegistry, PCA, PCAModel,
+                                           ScoringEngine, telemetry)
+    from spark_rapids_ml_tpu_torch.ops import _kernels
+    from spark_rapids_ml_tpu_torch.ops import linalg as L
+    from spark_rapids_ml_tpu_torch.ops import linear as LR
+    from spark_rapids_ml_tpu_torch.ops import pca as P
+    from spark_rapids_ml_tpu_torch.parallel import host_tensor, place_rows
+
+    say(f"phase 7a: PCA(k={PCA_K}) and LinearRegression, {N_ROWS} x {N_COLS} float32")
+    _small_slice_reference()
+    timings = {}
+    (y, beta), timings["labels_s"] = _timed(lambda: _labels(X))
+    data = {"features": X, "label": y}
+    ref_rows = X[:KNN_QUERIES]
+    _kernels.reset_launches()
+
+    def transform_pca(model):
+        return np.stack(model.transform(data)["pcs"].to_numpy())
+
+    # PCA: fit, transform, save / load, bf16
+    pca, timings["pca_fit_s"] = _timed(lambda: PCA(k=PCA_K).setInputCol("features").setOutputCol("pcs").fit(data))
+    comps, ev = pca.components_, pca.explained_variance_
+    if comps.shape != (PCA_K, N_COLS) or not np.isfinite(comps).all() or not np.isfinite(ev).all():
+        fail("PCA fit: components or variances not finite of shape (3, 3000)")
+    gram_err = float(np.abs(comps.astype(np.float64) @ comps.T.astype(np.float64) - np.eye(PCA_K)).max())
+    if gram_err > 1e-5 or (np.diff(ev) > 0).any() or not (0 < pca.explained_variance_ratio_.sum() < 1):
+        fail(f"PCA fit: components not orthonormal ({gram_err}) or variances not descending ratios")
+    proj, timings["pca_transform_s"] = _timed(lambda: transform_pca(pca))
+    if proj.shape != (N_ROWS, PCA_K) or not np.isfinite(proj).all():
+        fail("PCA transform: not finite of shape (1000000, 3)")
+    exact = ref_rows.astype(np.float64) @ comps.T.astype(np.float64)
+    err = np.abs(proj[:KNN_QUERIES] - exact)
+    bound = _dot_bound(ref_rows, comps)
+    if (err > bound).any():
+        fail(f"PCA transform: {int((err > bound).sum())} entries of the first {KNN_QUERIES} rows lie beyond the "
+             f"float32 bound from X @ components.T (max {err.max()})")
+    path = ROOT / "build" / "chip_smoke_pca"
+    pca.write().overwrite().save(str(path))
+    if not np.array_equal(transform_pca(PCAModel.load(str(path))), proj):
+        fail("PCA save/load: the loaded model's transform differs from the fitted model's")
+    pca16, timings["pca_bf16_fit_s"] = _timed(
+        lambda: PCA(k=PCA_K, solver_precision="bf16").setInputCol("features").setOutputCol("pcs").fit(data))
+    ev_err = float(np.abs(pca16.explained_variance_ / ev - 1).max())
+    c_err = float(np.abs(np.abs(pca16.components_) - np.abs(comps)).max())
+    if ev_err > 2e-3 or c_err > 5e-3:
+        fail(f"PCA bf16 fit: explained variance off by rtol {ev_err} (bound 2e-3) or |components| by {c_err} "
+             "(bound 5e-3)")
+    say(f"  PCA fit {timings['pca_fit_s']:.2f} s wall, explained variance {ev.tolist()}, ratio "
+        f"{pca.explained_variance_ratio_.tolist()}; transform of {N_ROWS} rows {timings['pca_transform_s']:.2f} s "
+        f"wall, the first {KNN_QUERIES} within the float32 bound of X @ components.T (max {err.max():.3g}); "
+        f"save/load bit for bit; bf16 fit {timings['pca_bf16_fit_s']:.2f} s, explained variance within rtol "
+        f"{ev_err:.3g}, |components| within {c_err:.3g}")
+
+    # LinearRegression: BASELINE.md's three configurations, then bf16 OLS
+    models, preds = {}, {}
+    for name, params in LINREG_CONFIGS:
+        m, timings[f"{name}_fit_s"] = _timed(lambda: LinearRegression(**params).fit(data))
+        if m.coef_.shape != (N_COLS,) or not np.isfinite(m.coef_).all() or not np.isfinite(m.intercept_):
+            fail(f"{name} fit: coefficients not finite of shape (3000,)")
+        if name == "cd" and m.n_iter_ != params["maxIter"]:
+            fail(f"cd fit: n_iter_ {m.n_iter_}, expected {params['maxIter']} sweeps at tol 1e-30")
+        pred, timings[f"{name}_transform_s"] = _timed(lambda: np.asarray(m.transform(data)["prediction"]))
+        exact = ref_rows.astype(np.float64) @ m.coef_.astype(np.float64) + m.intercept_
+        bound = _dot_bound(ref_rows, m.coef_[None, :])[:, 0] + 2.0 ** -23 * (np.abs(exact) + abs(m.intercept_))
+        if pred.shape != (N_ROWS,) or (np.abs(pred[:KNN_QUERIES] - exact) > bound).any():
+            fail(f"{name} transform: beyond the float32 bound from X @ coef + intercept")
+        path = ROOT / "build" / f"chip_smoke_linreg_{name}"
+        m.write().overwrite().save(str(path))
+        if not np.array_equal(np.asarray(LinearRegressionModel.load(str(path)).transform(data)["prediction"]), pred):
+            fail(f"{name} save/load: the loaded model's transform differs from the fitted model's")
+        rmse = float(np.sqrt(np.mean((pred[:KNN_QUERIES] - y[:KNN_QUERIES]) ** 2)))
+        coef_err = float(np.abs(m.coef_ - beta).max())
+        if name == "cd":
+            # 10 sweeps of coordinate descent stop far from the optimum on
+            # these correlated columns: the fit must only beat the mean
+            if not rmse < 0.5 * float(np.std(y[:KNN_QUERIES])):
+                fail(f"cd fit: residual RMS {rmse} not below half the labels' spread")
+        elif not (0.9 * LABEL_NOISE < rmse < 1.1 * LABEL_NOISE) or coef_err > 5e-3:
+            # converged solves recover beta: the residual is the noise
+            fail(f"{name} fit: residual RMS {rmse} on the first rows (noise {LABEL_NOISE}) or max |coef - beta| "
+                 f"{coef_err} out of range")
+        models[name], preds[name] = m, pred
+        say(f"  {name} {params}: fit {timings[f'{name}_fit_s']:.2f} s wall, n_iter_ {m.n_iter_}, intercept "
+            f"{m.intercept_:.6g}, max |coef - beta| {coef_err:.3g}, residual RMS {rmse:.5f}; transform "
+            f"{timings[f'{name}_transform_s']:.2f} s wall, within the float32 bound; save/load bit for bit")
+    ols16, timings["ols_bf16_fit_s"] = _timed(lambda: LinearRegression(solver_precision="bf16").fit(data))
+    ols = models["ols"]
+    if not (np.allclose(ols16.coef_, ols.coef_, rtol=5e-3, atol=5e-4)
+            and abs(ols16.intercept_ - ols.intercept_) <= 5e-3):
+        fail(f"ols bf16 fit: coefficients beyond rtol 5e-3 / atol 5e-4 of the float32 fit (max "
+             f"{np.abs(ols16.coef_ - ols.coef_).max()}) or intercept beyond 5e-3")
+    say(f"  ols bf16 fit {timings['ols_bf16_fit_s']:.2f} s wall: coefficients within "
+        f"{np.abs(ols16.coef_ - ols.coef_).max():.3g} of the float32 fit, intercept within "
+        f"{abs(ols16.intercept_ - ols.intercept_):.3g}")
+    launches = {k_: v for k_, v in _kernels.launches.items() if v}
+    say(f"  kernel launches in phase 7a's fits and transforms: {launches or 'none'} (no kernel on this path)")
+
+    # the fit's parts on resident rows: placement, statistics, eigh / solve
+    (Xd, wd), timings["place_rows_s"] = _timed(lambda: place_rows(X, device=dev))
+    yd = host_tensor(y).to(dev)
+    for fast in (False, True):
+        tag = "_bf16" if fast else ""
+        (tw, mean, cov), timings[f"pca_stats{tag}_s"] = _timed(lambda: L.weighted_cov(Xd, wd, fast=fast))
+        stats, timings[f"linear_stats{tag}_s"] = _timed(lambda: LR._sufficient_stats(Xd, yd, wd, fast))
+    (evals, _), timings["eigh_s"] = _timed(lambda: torch.linalg.eigh(cov))
+    _, timings["pca_finish_s"] = _timed(lambda: P._pca_finish(tw, mean, cov, k=PCA_K))
+    spectrum = evals.double().flip(0).cpu().numpy()
+    # each solve on the card, and from the same statistics on the CPU: the
+    # same arithmetic but for the LU's and the reductions' rounding, held to
+    # the normwise bound of phase 7b (condition number x backward error)
+    kappa = float(spectrum[0] / spectrum[-1])
+    rel = kappa * F32_SOLVE_REL / (1 - kappa * F32_SOLVE_REL)
+    stats, _ = _timed(lambda: LR._sufficient_stats(Xd, yd, wd, False))
+    stats_cpu = tuple(t.cpu() for t in stats)
+    same = {}
+    for name, params in LINREG_CONFIGS:
+        kw = dict(alpha=params["regParam"], l1_ratio=params.get("elasticNetParam", 0.0), fit_intercept=True,
+                  standardize=True, max_iter=params.get("maxIter", 100), tol=params.get("tol", 1e-6))
+        kw["use_cd"] = kw["alpha"] > 0 and kw["l1_ratio"] > 0
+        state, timings[f"{name}_solve_s"] = _timed(lambda: LR._solve_from_stats(stats, Xd.dtype, **kw))
+        host = LR._solve_from_stats(stats_cpu, Xd.dtype, **kw)
+        card_coef, host_coef = state["coef_"].cpu().numpy(), host["coef_"].numpy()
+        err = float(np.linalg.norm(card_coef - host_coef) / np.linalg.norm(host_coef))
+        if err > rel or int(state["n_iter_"]) != int(host["n_iter_"]):
+            fail(f"{name} solve: the card's coefficients lie {err} (relative) from the CPU's on the same "
+                 f"statistics (bound {rel}), or n_iter_ differs")
+        same[name] = "bit for bit" if np.array_equal(card_coef, host_coef) else f"within {err:.3g}"
+        if kw["use_cd"]:
+            timings["cd_sweep_ms"] = timings[f"{name}_solve_s"] * 1e3 / int(state["n_iter_"])
+    del Xd, wd, yd, stats, cov
+    torch.cuda.empty_cache()
+    say(f"  fit parts on resident rows: placing X {timings['place_rows_s']:.3f} s; statistics pass PCA "
+        f"{timings['pca_stats_s']:.3f} s (bf16 {timings['pca_stats_bf16_s']:.3f}), linear "
+        f"{timings['linear_stats_s']:.3f} s (bf16 {timings['linear_stats_bf16_s']:.3f}; bf16 products through "
+        f"torch.mm(bf16, bf16, out_dtype=torch.float32)); eigh of {N_COLS} x {N_COLS} {timings['eigh_s']:.3f} s, "
+        f"the whole PCA finish {timings['pca_finish_s']:.3f} s; solves ols {timings['ols_solve_s']:.3f} s, ridge "
+        f"{timings['ridge_solve_s']:.3f} s, cd {timings['cd_solve_s']:.3f} s = {timings['cd_sweep_ms']:.1f} ms "
+        f"per sweep; covariance spectrum top {spectrum[:5].tolist()}, smallest {spectrum[-1]:.6g}; each solve "
+        f"equals the CPU's on the same statistics: {same} (bound {rel:.3g})")
+
+    # serving: PCA and OLS in one registry, coalesced = solo = transform
+    registry = ModelRegistry()
+    loads = (("pca", pca, proj), ("ols", ols, preds["ols"]))
+    for name, m, _ in loads:
+        _, timings[f"load_{name}_s"] = _timed(lambda: registry.load(name, m))
+    traffic = _serve_traffic(2029, LINREG_SERVE_CLIENTS, LINREG_SERVE_REQUESTS)
+    telemetry.registry().reset()
+    telemetry.enable()
+    engine = ScoringEngine(registry).start()
+    futures = [[] for _ in traffic]
+
+    def client(t):
+        for lo, n in traffic[t]:
+            futures[t].append([engine.submit(name, X[lo:lo + n], tenant=name) for name, _, _ in loads])
+
+    threads = [threading.Thread(target=client, args=(t,)) for t in range(len(traffic))]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    results = [[[f.result(timeout=600) for f in per_req] for per_req in fut] for fut in futures]
+    timings["traffic_s"] = time.perf_counter() - t0
+    stats = engine.stats()
+    engine.stop()
+    telemetry.disable()
+    solo_engine = ScoringEngine(registry, coalesce_window_s=0.0).start()
+    try:
+        for t, reqs in enumerate(traffic):
+            for (lo, n), got in zip(reqs, results[t]):
+                for (name, _, whole), g in zip(loads, got):
+                    ref = solo_engine.score(name, X[lo:lo + n], timeout=600)
+                    if not (g.dtype == ref.dtype and np.array_equal(g, ref)):
+                        fail(f"serving: {name} response to rows {lo}..{lo + n} differs from the same request "
+                             "served alone")
+                    if not np.array_equal(g, whole[lo:lo + n]):
+                        fail(f"serving: {name} response to rows {lo}..{lo + n} differs from its model's transform")
+    finally:
+        solo_engine.stop()
+    registry.clear()
+    say(f"  serving loads pca {timings['load_pca_s']:.2f} s, ols {timings['load_ols_s']:.2f} s; traffic "
+        f"{LINREG_SERVE_CLIENTS} clients x {LINREG_SERVE_REQUESTS} requests to each: {timings['traffic_s']:.2f} s "
+        f"wall, {stats['batches']} batches, {stats['coalesced_batches']} coalesced, e2e p50 "
+        f"{stats['e2e_p50_s'] * 1e3:.1f} ms, p99 {stats['e2e_p99_s'] * 1e3:.1f} ms; every response equals the "
+        "same request served alone and the model's transform, bit for bit")
+    timings["serve_stats"] = stats
+    torch.cuda.empty_cache()
+    return {"pca": pca, "ols": ols, "y": y, "spectrum": spectrum}, timings
+
+
+def phase_pca_linear_f64(dev, X64, ref):
+    """Phase 7b: PCA(k=3) and OLS with float32_inputs=False on the float64
+    rows, and 7a's float32 results held to them within the bounds of
+    PERF.md section 4 (F32_EIGH_REL, F32_SOLVE_REL); a NaN row raises
+    SolverDivergedError on the card in float64 too."""
+    from spark_rapids_ml_tpu_torch import PCA, LinearRegression
+    from spark_rapids_ml_tpu_torch.errors import SolverDivergedError
+
+    say("phase 7b: PCA and OLS with float32_inputs=False, held to phase 7a's float32 results")
+    timings = {}
+    pca32, ols32, spectrum = ref["pca"], ref["ols"], ref["spectrum"]
+    pca64, timings["pca_fit_s"] = _timed(
+        lambda: PCA(k=PCA_K, float32_inputs=False).setInputCol("features").fit({"features": X64}))
+    if pca64.components_.dtype != np.float64:
+        fail("float64 PCA fit: components are not float64")
+    # Weyl: each eigenvalue moves by at most the perturbation's norm,
+    # bounded by F32_EIGH_REL of the largest eigenvalue
+    lam1 = float(pca64.explained_variance_[0])
+    pert = F32_EIGH_REL * lam1
+    ev_err = float(np.abs(pca32.explained_variance_ - pca64.explained_variance_).max())
+    ratio_err = float(np.abs(pca32.explained_variance_ratio_ - pca64.explained_variance_ratio_).max())
+    if ev_err > pert or ratio_err > 2 * F32_EIGH_REL * float(pca64.explained_variance_ratio_[0]):
+        fail(f"7b: float32 explained variance off by {ev_err} (bound {pert}) or ratio by {ratio_err}")
+    # Davis-Kahan: sin(angle) <= perturbation / gap, the gap from 7a's
+    # float32 spectrum less twice the perturbation
+    cosines, checked = [], []
+    for i in range(PCA_K):
+        gap = min(abs(spectrum[i] - spectrum[j]) for j in range(PCA_K + 1) if j != i) - 2 * pert
+        cos = abs(float(pca32.components_[i].astype(np.float64) @ pca64.components_[i]))
+        cosines.append(cos)
+        if gap > 0 and pert / gap < 1:
+            checked.append(i)
+            if cos < np.sqrt(1 - (pert / gap) ** 2):
+                fail(f"7b: component {i}: |cos| {cos} against the float64 one, below the Davis-Kahan bound "
+                     f"{np.sqrt(1 - (pert / gap) ** 2)} (gap {gap})")
+    ols64, timings["ols_fit_s"] = _timed(
+        lambda: LinearRegression(float32_inputs=False).fit({"features": X64, "label": ref["y"].astype(np.float64)}))
+    # the normwise forward error of a solve: condition number x backward
+    # error, the condition number that of the covariance (7a's spectrum)
+    kappa = float(spectrum[0] / spectrum[-1])
+    rel = kappa * F32_SOLVE_REL / (1 - kappa * F32_SOLVE_REL)
+    c_err = float(np.linalg.norm(ols32.coef_ - ols64.coef_) / np.linalg.norm(ols64.coef_))
+    i_bound = float(np.linalg.norm(pca64.mean_)) * rel * float(np.linalg.norm(ols64.coef_)) + 1e-6
+    i_err = abs(ols32.intercept_ - ols64.intercept_)
+    if c_err > rel or i_err > i_bound:
+        fail(f"7b: float32 OLS coefficients off by {c_err} (bound {rel}) or intercept by {i_err} (bound {i_bound})")
+    bad = X64[:4096].copy()
+    bad[5, 9] = np.nan
+    try:
+        PCA(k=PCA_K, float32_inputs=False).setInputCol("features").fit({"features": bad})
+        fail("7b: a NaN row did not raise SolverDivergedError in a float64 PCA fit on the card")
+    except SolverDivergedError:
+        pass
+    say(f"  PCA fit {timings['pca_fit_s']:.2f} s, OLS fit {timings['ols_fit_s']:.2f} s wall (float64); float32 "
+        f"against float64: explained variance within {ev_err:.3g} (bound {pert:.3g}), ratio within {ratio_err:.3g}; "
+        f"|cos| {[round(c, 9) for c in cosines]} (held to the bound for components {checked}); OLS coefficients "
+        f"within {c_err:.3g} relative (bound {rel:.3g}, condition {kappa:.4g}), intercept within {i_err:.3g} "
+        f"(bound {i_bound:.3g}); a NaN row raises SolverDivergedError")
+    return timings
+
+
 # ------------------------------------------------------------------ main --
 
 
@@ -1877,10 +2269,12 @@ def main():
     counts, timings, kmeans_model = phase_main_path(dev, X)
     knn_counts, knn_timings = phase_knn(dev, X, d2_entries[0]["ms"])
     serve_counts, serve_timings = phase_serving(dev, X, kmeans_model)
+    linear_ref, linear_timings = phase_pca_linear(dev, X)
     t0 = time.perf_counter()
     X = _f64_rows(X)  # the float32 rows are dropped here
     say(f"data as float64 {X.shape} made in {time.perf_counter() - t0:.1f} s")
     f64_counts, f64_timings = phase_f64(dev, X)
+    linear_f64_timings = phase_pca_linear_f64(dev, X, linear_ref)
     del X
     for e in entries + d2_entries:
         name = e["name"]
@@ -1907,6 +2301,8 @@ def main():
     say("kNN path timings: " + json.dumps(knn_timings))
     say("serving timings: " + json.dumps(serve_timings))
     say("float64 route timings: " + json.dumps(f64_timings))
+    say("PCA and LinearRegression timings: " + json.dumps(linear_timings))
+    say("PCA and LinearRegression float64 timings: " + json.dumps(linear_f64_timings))
     kernels_line = json.dumps({"kernels": entries})
     say(f"total {time.perf_counter() - t_start:.1f} s")
     LOG_DIR.mkdir(exist_ok=True)

@@ -5,7 +5,9 @@
 # Same PySpark-ML-style API: KMeans().setFeaturesCol("features").fit(data),
 # model.transform(data), model.write().overwrite().save(path),
 # KMeansModel.load(path); NearestNeighbors(k=...).setInputCol("features")
-# .fit(items).kneighbors(queries); ModelRegistry().load("name", model) and
+# .fit(items).kneighbors(queries); PCA(k=...).setInputCol("features");
+# LinearRegression(regParam=...).fit({"features": X, "label": y});
+# ModelRegistry().load("name", model) and
 # ScoringEngine(registry).score("name", rows) to serve fitted models. Entry
 # points run on the CUDA card; call
 # set_devices("cpu") to run the plain PyTorch versions on the CPU instead.
@@ -13,11 +15,14 @@
 #
 from .linalg import Vectors
 from .models.clustering import KMeans, KMeansModel
+from .models.feature import PCA, PCAModel
 from .models.knn import NearestNeighbors, NearestNeighborsModel
+from .models.regression import LinearRegression, LinearRegressionModel
 from .parallel import set_devices
 from .serving import ModelRegistry, OverloadController, ResidentModel, ScoreFuture, ScoringEngine
 
 __all__ = [
-    "KMeans", "KMeansModel", "NearestNeighbors", "NearestNeighborsModel", "Vectors", "set_devices",
+    "KMeans", "KMeansModel", "NearestNeighbors", "NearestNeighborsModel", "PCA", "PCAModel",
+    "LinearRegression", "LinearRegressionModel", "Vectors", "set_devices",
     "ModelRegistry", "OverloadController", "ResidentModel", "ScoreFuture", "ScoringEngine",
 ]

@@ -1,36 +1,66 @@
 #
 # Carrying fitted state across from the JAX package: its model attributes,
 # as numpy arrays and scalars, become this package's models. (A directory
-# the JAX package saved also loads directly with `KMeansModel.load`: both
-# packages write the same layout.)
+# the JAX package saved also loads directly with `KMeansModel.load`,
+# `PCAModel.load` or `LinearRegressionModel.load`: both packages write the
+# same layout.)
 #
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Tuple
 
 import numpy as np
 
 from .models.clustering import KMeansModel
+from .models.feature import PCAModel
+from .models.regression import LinearRegressionModel
 
-__all__ = ["kmeans_model_from_jax"]
+__all__ = ["kmeans_model_from_jax", "pca_model_from_jax", "linear_regression_model_from_jax"]
 
 _KMEANS_KEYS = ("cluster_centers_", "inertia_", "n_iter_", "n_cols", "dtype")
+_PCA_KEYS = (
+    "mean_", "components_", "explained_variance_", "explained_variance_ratio_", "singular_values_",
+    "n_cols", "dtype",
+)
+_LINREG_KEYS = ("coef_", "intercept_", "n_iter_", "n_cols", "dtype")
+
+
+def _model_from_jax(cls, name: str, attrs: Dict[str, Any], keys: Tuple[str, ...], arrays: Dict[str, int]):
+    """`cls` built from the JAX model's attribute dict (the dict its writer
+    saves): every key present, each array of its rank. A float64 `dtype`
+    keeps the model at float64 on transform (``float32_inputs=False``), as
+    a model of the JAX package fitted on float64 inputs would be."""
+    missing = [key for key in keys if key not in attrs]
+    if missing:
+        raise ValueError(f"JAX {name} attributes lack {missing}")
+    values = {key: attrs[key] for key in keys}
+    for key, ndim in arrays.items():
+        values[key] = np.asarray(values[key])
+        if values[key].ndim != ndim:
+            raise ValueError(f"{key} must be {ndim}-D, got shape {values[key].shape}")
+    model = cls(**values)
+    model._float32_inputs = np.dtype(str(attrs["dtype"])) != np.float64
+    return model
 
 
 def kmeans_model_from_jax(attrs: Dict[str, Any]) -> KMeansModel:
-    """A KMeansModel from the JAX KMeansModel's attributes: the dict its
-    writer saves (`cluster_centers_` [k, d], `inertia_`, `n_iter_`,
-    `n_cols`, `dtype`). A float64 `dtype` keeps the model at float64 on
-    transform (``float32_inputs=False``), as a model of the JAX package
-    fitted on float64 inputs would be."""
-    missing = [key for key in _KMEANS_KEYS if key not in attrs]
-    if missing:
-        raise ValueError(f"JAX KMeans attributes lack {missing}")
-    centers = np.asarray(attrs["cluster_centers_"])
-    if centers.ndim != 2:
-        raise ValueError(f"cluster_centers_ must be 2-D, got shape {centers.shape}")
-    values = {key: attrs[key] for key in _KMEANS_KEYS}
-    values["cluster_centers_"] = centers
-    model = KMeansModel(**values)
-    model._float32_inputs = np.dtype(str(attrs["dtype"])) != np.float64
-    return model
+    """A KMeansModel from the JAX KMeansModel's attributes
+    (`cluster_centers_` [k, d], `inertia_`, `n_iter_`, `n_cols`, `dtype`)."""
+    return _model_from_jax(KMeansModel, "KMeans", attrs, _KMEANS_KEYS, {"cluster_centers_": 2})
+
+
+def pca_model_from_jax(attrs: Dict[str, Any]) -> PCAModel:
+    """A PCAModel from the JAX PCAModel's attributes (`mean_` [d],
+    `components_` [k, d], `explained_variance_`, `explained_variance_ratio_`,
+    `singular_values_` [k], `n_cols`, `dtype`)."""
+    return _model_from_jax(
+        PCAModel, "PCA", attrs, _PCA_KEYS,
+        {"mean_": 1, "components_": 2, "explained_variance_": 1, "explained_variance_ratio_": 1,
+         "singular_values_": 1},
+    )
+
+
+def linear_regression_model_from_jax(attrs: Dict[str, Any]) -> LinearRegressionModel:
+    """A LinearRegressionModel from the JAX LinearRegressionModel's
+    attributes (`coef_` [d], `intercept_`, `n_iter_`, `n_cols`, `dtype`)."""
+    return _model_from_jax(LinearRegressionModel, "LinearRegression", attrs, _LINREG_KEYS, {"coef_": 1})

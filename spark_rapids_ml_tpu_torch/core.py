@@ -2,8 +2,9 @@
 # Core execution framework on one device: the estimator and model bases, the
 # fit driver, batched transform, the resident predict handle the serving
 # plane keeps per model (`PredictProgram`), and persistence. The PyTorch
-# counterpart of the parts of spark_rapids_ml_tpu/core.py that a KMeans fit,
-# transform, save/load and the serving plane run.
+# counterpart of the parts of spark_rapids_ml_tpu/core.py that the KMeans,
+# kNN, PCA and LinearRegression fits, their transforms, save/load and the
+# serving plane run.
 #
 # Call stack (the JAX package's, without telemetry, admission, recovery,
 # streaming and the mesh): fit(dataset) -> _fit_internal -> _call_fit_func ->
@@ -28,6 +29,7 @@ import numpy as np
 import torch
 
 from .data import ExtractedData, as_pandas, extract_dataset
+from .linalg import DenseVector
 from .params import _TpuParams
 
 # Framework configuration: the keys this package reads (the JAX package's
@@ -112,7 +114,8 @@ alias = namedtuple("alias", ("row_number",))("unique_id")
 @dataclass
 class FitInputs:
     """Device-resident inputs handed to every algorithm's fit function: the
-    rows as one tensor on one device, and their weights."""
+    rows as one tensor on one device, their weights, and their labels for
+    a supervised estimator."""
 
     X: torch.Tensor  # [n, d]
     w: torch.Tensor  # [n]
@@ -120,6 +123,7 @@ class FitInputs:
     n_cols: int
     dtype: Any  # numpy dtype of X
     device: torch.device
+    y: Optional[torch.Tensor] = None  # [n] at X's dtype; None = unsupervised
 
 
 FitFunc = Callable[[FitInputs, Dict[str, Any]], Dict[str, Any]]
@@ -132,10 +136,16 @@ class _TpuCommon(_TpuParams):
     """Input pre-processing shared by estimators (fit side) and models
     (transform side)."""
 
+    # a supervised estimator's fit reads its labelCol
+    _supervised: bool = False
+
     def _pre_process_data(self, dataset: Any, for_fit: bool = True) -> ExtractedData:
-        """Column selection + dense extraction (features, weights on the fit
-        side, row ids wherever the estimator has an idCol)."""
+        """Column selection + dense extraction (features; labels and weights
+        on the fit side; row ids wherever the estimator has an idCol)."""
         input_col, input_cols = self._get_input_columns()
+        label_col = None
+        if for_fit and self._supervised:
+            label_col = self.getOrDefault("labelCol")
         weight_col = None
         if (
             for_fit
@@ -150,6 +160,7 @@ class _TpuCommon(_TpuParams):
             dataset,
             input_col=input_col,
             input_cols=input_cols,
+            label_col=label_col,
             weight_col=weight_col,
             id_col=id_col,
             float32_inputs=self._float32_inputs,
@@ -168,16 +179,20 @@ class _TpuCaller(_TpuCommon):
     _warm_start: Any = None
 
     def _build_fit_inputs(self, extracted: ExtractedData, device: torch.device) -> FitInputs:
-        """Place the host rows and their weights on `device` as one tensor each."""
-        from .parallel import place_rows
+        """Place the host rows, their weights and their labels on `device` as
+        one tensor each."""
+        from .parallel import host_tensor, place_rows
 
         dtype = np.float32 if self._float32_inputs else np.float64
         X, w = place_rows(
             extracted.features.astype(dtype, copy=False), extracted.weight, device=device
         )
+        y = None
+        if extracted.label is not None:
+            y = host_tensor(extracted.label.astype(dtype, copy=False)).to(device)
         return FitInputs(
             X=X, w=w, n_valid=extracted.n_rows, n_cols=extracted.n_cols,
-            dtype=dtype, device=device,
+            dtype=dtype, device=device, y=y,
         )
 
     @abstractmethod
@@ -255,6 +270,13 @@ class _TpuEstimator(_TpuCaller):
     @classmethod
     def load(cls, path: str):
         return cls.read().load(path)
+
+
+class _TpuEstimatorSupervised(_TpuEstimator):
+    """Estimator base of the supervised estimators: the fit extracts the
+    labelCol beside the features and places it as `FitInputs.y`."""
+
+    _supervised = True
 
 
 class _TpuModel(_TpuCommon):
@@ -497,14 +519,23 @@ class _TpuModelWithColumns(_TpuModel):
         extracted = self._pre_process_data(dataset, for_fit=False)
         result = self._transform_arrays(extracted.features)
         out = pdf.copy(deep=False)
-        for name, vals in self._split_output(result, self._out_column_names()).items():
+        names = self._out_column_names()
+        for name, vals in self._split_output(result, names, extracted).items():
             out[name] = vals
         return out
 
-    def _split_output(self, result: np.ndarray, names: List[str]) -> Dict[str, Any]:
-        """Map raw predict output to output columns: one 1-D column here (the
-        models with 2-D or several outputs bring their mapping with them)."""
-        return {names[0]: result}
+    def _split_output(
+        self, result: np.ndarray, names: List[str], extracted: ExtractedData
+    ) -> Dict[str, Any]:
+        """Map raw predict output to output columns: a 1-D result is one
+        scalar column; a 2-D result is one vector column, of DenseVectors
+        when the input features were vectors, else of per-row arrays."""
+        name = names[0]
+        if result.ndim > 1:
+            if extracted.feature_kind == "vector":
+                return {name: [DenseVector(row) for row in result]}
+            return {name: list(result)}
+        return {name: result}
 
 
 # ---------------------------------------------------------------------------

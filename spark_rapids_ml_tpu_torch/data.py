@@ -5,13 +5,14 @@
 # The dense half of the JAX package's spark_rapids_ml_tpu/data.py: a dict
 # holding a 2-D ndarray (the at-scale path), and pandas / pyarrow / dict
 # inputs whose feature column holds arrays, lists or DenseVectors, or whose
-# features are several scalar columns. Sparse input (SparseVector cells, scipy
+# features are several scalar columns; a label column beside them for the
+# supervised estimators. Sparse input (SparseVector cells, scipy
 # CSR) raises NotImplementedError: the CSR path is ROADMAP item A11.
 #
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Optional, Sequence
+from typing import Any, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -30,12 +31,16 @@ _SPARSE_TODO = (
 
 @dataclass
 class ExtractedData:
-    """Columnar view of a dataset after ingest. (Labels arrive with the
-    supervised estimators that read them.)"""
+    """Columnar view of a dataset after ingest."""
 
     features: np.ndarray  # [n, d]
+    label: Optional[np.ndarray] = None  # [n] at the features' dtype, None = unsupervised
     weight: Optional[np.ndarray] = None  # [n], None = all ones
     row_id: Optional[np.ndarray] = None  # [n] int64, None = no id column
+    # how the features arrived: "vector" (DenseVector cells), "array" (array
+    # or list cells, or a dict's 2-D block) or "multi_cols" (scalar columns);
+    # a 2-D transform result goes back as DenseVectors only for "vector"
+    feature_kind: str = "array"
 
     @property
     def n_rows(self) -> int:
@@ -83,8 +88,9 @@ def _fill_dense_chunked(values, n_cols: int, dtype, to_row) -> np.ndarray:
     return out
 
 
-def _column_to_matrix(col, dtype) -> np.ndarray:
-    """One feature column of DenseVectors / arrays / lists -> 2-D block."""
+def _column_to_matrix(col, dtype) -> Tuple[np.ndarray, str]:
+    """One feature column of DenseVectors / arrays / lists -> (2-D block,
+    feature kind)."""
     values = col.to_numpy() if hasattr(col, "to_numpy") else np.asarray(col, dtype=object)
     if len(values) == 0:
         raise ValueError("empty feature column")
@@ -94,11 +100,11 @@ def _column_to_matrix(col, dtype) -> np.ndarray:
     if isinstance(first, DenseVector):
         if any(isinstance(v, SparseVector) for v in values):
             raise NotImplementedError(_SPARSE_TODO)
-        return _fill_dense_chunked(values, first.size, dtype, lambda v: v.toArray())
+        return _fill_dense_chunked(values, first.size, dtype, lambda v: v.toArray()), "vector"
     if isinstance(first, np.ndarray) and first.ndim == 1:
-        return _fill_dense_chunked(values, len(first), dtype, lambda v: v)
+        return _fill_dense_chunked(values, len(first), dtype, lambda v: v), "array"
     if isinstance(first, (list, tuple)):
-        return _fill_dense_chunked(values, len(first), dtype, np.asarray)
+        return _fill_dense_chunked(values, len(first), dtype, np.asarray), "array"
     raise TypeError(f"Unsupported feature cell type {type(first)} in feature column")
 
 
@@ -107,13 +113,15 @@ def extract_dataset(
     *,
     input_col: Optional[str] = None,
     input_cols: Optional[Sequence[str]] = None,
+    label_col: Optional[str] = None,
     weight_col: Optional[str] = None,
     id_col: Optional[str] = None,
     float32_inputs: bool = True,
 ) -> ExtractedData:
     """Extract the features (one column of row cells, several scalar
-    columns, or a dict's 2-D block), the weights and the int64 row ids as
-    contiguous blocks."""
+    columns, or a dict's 2-D block), the labels and weights at the features'
+    dtype, and the int64 row ids, as contiguous blocks. A named column the
+    dataset lacks raises ValueError."""
     dtype = np.float32 if float32_inputs else np.float64
 
     def _scalar(columns, colname: Optional[str], dt) -> Optional[np.ndarray]:
@@ -122,7 +130,7 @@ def extract_dataset(
         if colname not in columns:
             raise ValueError(f"column {colname!r} not in dataset")
         col = columns[colname]
-        return col.to_numpy(dtype=dt) if hasattr(col, "to_numpy") else np.asarray(col, dtype=dt)
+        return np.ascontiguousarray(col.to_numpy(dtype=dt) if hasattr(col, "to_numpy") else np.asarray(col, dtype=dt))
 
     # Fast path for dict datasets whose feature entry is ALREADY a 2-D block:
     # skip the per-row object column entirely (the at-scale ingest).
@@ -133,6 +141,7 @@ def extract_dataset(
         if isinstance(block, np.ndarray) and block.ndim == 2:
             return ExtractedData(
                 np.ascontiguousarray(block, dtype=dtype),
+                label=_scalar(dataset, label_col, dtype),
                 weight=_scalar(dataset, weight_col, dtype),
                 row_id=_scalar(dataset, id_col, np.int64),
             )
@@ -144,14 +153,17 @@ def extract_dataset(
         if missing:
             raise ValueError(f"feature columns not in dataset: {missing}")
         features = np.ascontiguousarray(pdf[list(input_cols)].to_numpy(dtype=dtype))
+        kind = "multi_cols"
     else:
         if input_col is None:
             raise ValueError("an input column is required")
         if input_col not in pdf.columns:
             raise ValueError(f"feature column {input_col!r} not in dataset")
-        features = _column_to_matrix(pdf[input_col], dtype)
+        features, kind = _column_to_matrix(pdf[input_col], dtype)
     return ExtractedData(
         features,
+        label=_scalar(pdf, label_col, dtype),
         weight=_scalar(pdf, weight_col, dtype),
         row_id=_scalar(pdf, id_col, np.int64),
+        feature_kind=kind,
     )

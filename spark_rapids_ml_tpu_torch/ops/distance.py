@@ -67,21 +67,26 @@ def row_sq(x: torch.Tensor) -> torch.Tensor:
     return torch.sum(x * x, dim=1)
 
 
+def fixed_sum(s: torch.Tensor) -> torch.Tensor:
+    """Sum over the last dim in an order fixed by its length alone: a
+    pairwise tree of elementwise adds (entry j + entry j + half, halving the
+    width). `torch.sum` or a matmul on the card may pick its reduction split
+    from the number of rows, so a row's sum could change with the batch it
+    arrives in; here it cannot, which keeps a served request's answer
+    independent of the requests it was coalesced with."""
+    while s.shape[-1] > 1:
+        half = s.shape[-1] // 2
+        odd = s[..., 2 * half:]
+        s = s[..., :half] + s[..., half:2 * half]
+        if odd.shape[-1]:
+            s = torch.cat([s, odd], dim=-1)
+    return s[..., 0] if s.shape[-1] else s.new_zeros(s.shape[:-1])
+
+
 def row_sq_fixed(x: torch.Tensor) -> torch.Tensor:
-    """Row norms summed in an order fixed by the row length alone: a pairwise
-    tree of elementwise adds (column j + column j + half, halving the width).
-    `torch.sum` on the card may pick its reduction split from the number of
-    rows, so a row's norm could change with the batch it arrives in; here it
-    cannot, which keeps a served request's answer independent of the
-    requests it was coalesced with."""
-    s = x * x
-    while s.shape[1] > 1:
-        half = s.shape[1] // 2
-        odd = s[:, 2 * half:]
-        s = s[:, :half] + s[:, half:2 * half]
-        if odd.shape[1]:
-            s = torch.cat([s, odd], dim=1)
-    return s[:, 0] if s.shape[1] else s.new_zeros((s.shape[0],))
+    """Row norms summed in an order fixed by the row length alone
+    (`fixed_sum`)."""
+    return fixed_sum(x * x)
 
 
 def _c_sq(c: torch.Tensor) -> torch.Tensor:

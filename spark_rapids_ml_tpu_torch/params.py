@@ -1,6 +1,7 @@
 #
 # Parameter system: a Spark-ML-compatible `Param`/`Params` surface, the `Has*`
-# shared-param mixins KMeans and NearestNeighbors use, and the declarative Spark-param ->
+# shared-param mixins KMeans, NearestNeighbors, PCA and LinearRegression use,
+# and the declarative Spark-param ->
 # solver-kwarg mapping (`_TpuClass` / `_TpuParams`). A copy of the JAX
 # package's spark_rapids_ml_tpu/params.py, cut to what this package runs.
 # `num_workers` counts devices; this package runs on one.
@@ -17,6 +18,7 @@ __all__ = [
     "P",
     "HasInputCol",
     "HasInputCols",
+    "HasOutputCol",
     "HasFeaturesCol",
     "HasFeaturesCols",
     "HasLabelCol",
@@ -25,6 +27,10 @@ __all__ = [
     "HasWeightCol",
     "HasTol",
     "HasMaxIter",
+    "HasRegParam",
+    "HasElasticNetParam",
+    "HasFitIntercept",
+    "HasStandardization",
     "HasSeed",
     "_TpuClass",
     "_TpuParams",
@@ -66,6 +72,12 @@ class TypeConverters:
     @staticmethod
     def toFloat(v) -> float:
         return float(v)
+
+    @staticmethod
+    def toBoolean(v) -> bool:
+        if isinstance(v, bool):
+            return v
+        raise TypeError(f"Boolean Param requires value of type bool, got {type(v)}")
 
     @staticmethod
     def toString(v) -> str:
@@ -219,12 +231,22 @@ def _mixin(name: str, doc: str, conv, default=None, has_default: bool = True):
 
 HasInputCol = _mixin("inputCol", "input column name", TypeConverters.toString, has_default=False)
 HasInputCols = _mixin("inputCols", "input column names", TypeConverters.toListString, has_default=False)
+HasOutputCol = _mixin("outputCol", "output column name", TypeConverters.toString, has_default=False)
 HasFeaturesCol = _mixin("featuresCol", "features column name", TypeConverters.toString, default="features")
 HasLabelCol = _mixin("labelCol", "label column name", TypeConverters.toString, default="label")
 HasPredictionCol = _mixin("predictionCol", "prediction column name", TypeConverters.toString, default="prediction")
 HasWeightCol = _mixin("weightCol", "weight column name", TypeConverters.toString, has_default=False)
 HasTol = _mixin("tol", "convergence tolerance for iterative algorithms", TypeConverters.toFloat, default=1e-6)
 HasMaxIter = _mixin("maxIter", "max number of iterations (>= 0)", TypeConverters.toInt, default=100)
+HasRegParam = _mixin("regParam", "regularization parameter (>= 0)", TypeConverters.toFloat, default=0.0)
+HasElasticNetParam = _mixin(
+    "elasticNetParam", "ElasticNet mixing parameter in [0, 1]; 0=L2, 1=L1", TypeConverters.toFloat, default=0.0
+)
+HasFitIntercept = _mixin("fitIntercept", "whether to fit an intercept term", TypeConverters.toBoolean, default=True)
+HasStandardization = _mixin(
+    "standardization", "whether to standardize the training features before fitting", TypeConverters.toBoolean,
+    default=True,
+)
 HasSeed = _mixin("seed", "random seed", TypeConverters.toInt, default=0)
 
 
