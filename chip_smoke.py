@@ -82,7 +82,27 @@
 #      after phase 6: PCA(k=3) and OLS with float32_inputs=False, 7a's
 #      float32 results held to them within Weyl, Davis-Kahan and normwise
 #      solve bounds (PERF.md section 4), and a NaN row in float64;
-#   8. a {"kernels": [...]} line with all twelve kernel forms, the
+#   8. LogisticRegression, which reaches no kernel of its own (cuBLAS
+#      products through torch; the GLM quasi-Newton and OWL-QN loops on the
+#      host): 8a on the float32 rows, before they are dropped, with labels
+#      argmax([0, X·β + 0.5·ε]) from a seed: BASELINE.md's row
+#      (maxIter=200, tol=1e-30, regParam=1e-5), the same fit with bf16
+#      products, an elastic net (elasticNetParam=0.5, OWL-QN) and a
+#      multinomial fit (k = 4), the last two at maxIter=50, through the
+#      public API: the four solver branches on a small float64 input
+#      against the CPU, a NaN row raising SolverDivergedError, transform of
+#      every row (the first 4096 probabilities within the float32 bound of
+#      float64, the prediction column their threshold / argmax, rows summing
+#      to 1), save and load (bit for bit), the bf16 objective and
+#      coefficients against float32, the elastic net's exact zeros, centered
+#      multinomial intercepts, no kernel launched; the loops on resident rows
+#      (ms per iteration, host reads per iteration equal to the card's sync
+#      count, one X·b + Xᵀ·r pair against its bound); one ModelRegistry
+#      serving the binomial and the multinomial model (coalesced = solo =
+#      transform, bit for bit); 8b on the float64 rows, after 7b: the
+#      BASELINE fit with float32_inputs=False, 8a's float32 objective and
+#      coefficients held to it within the bounds of PERF.md section 4;
+#   9. a {"kernels": [...]} line with all twelve kernel forms, the
 #      nvidia-smi line, and as the last line {"ok": true, "device": {...}}.
 #
 # Every phase raises on failure; the script prints no result then. It needs
@@ -2245,6 +2265,442 @@ def phase_pca_linear_f64(dev, X64, ref):
     return timings
 
 
+# LogisticRegression (BASELINE.md's LogisticRegression row: maxIter=200,
+# tol=1e-30, regParam=1e-5 on 1M x 3000): that row, its bf16 fit, two
+# elastic nets (OWL-QN) and a multinomial fit (k = 4), the last three cut to
+# 50 iterations for time; the labels' seed and noise; the serving traffic.
+# The first elastic net is that row's regParam with elasticNetParam 0.5: its
+# L1 weight, 5e-6, lies far below the gradient's sampling noise at 1M rows
+# (~1e-3), so its optimum need have no exact zero; the second, at regParam
+# 1e-2 (L1 weight 5e-3), is the one held to having exact zeros
+LOGREG_ROW = {"maxIter": 200, "tol": 1e-30, "regParam": 1e-5}
+LOGREG_CONFIGS = (
+    ("baseline", LOGREG_ROW, 2),
+    ("bf16", dict(LOGREG_ROW, solver_precision="bf16"), 2),
+    ("enet", dict(LOGREG_ROW, elasticNetParam=0.5, maxIter=50), 2),
+    ("enet_sparse", dict(LOGREG_ROW, regParam=1e-2, elasticNetParam=0.5, maxIter=50), 2),
+    ("multinomial", dict(LOGREG_ROW, maxIter=50), 4),
+)
+LOGREG_LABEL_SEED, LOGREG_NOISE = 2026, 0.5
+LOGREG_SERVE_CLIENTS, LOGREG_SERVE_REQUESTS = 2, 4
+# unit roundoffs: bf16 (8 significant bits) and float32
+BF16_U, F32_U = 2.0 ** -9, 2.0 ** -24
+
+
+def _class_labels(X, k):
+    """y = argmax([0, X·β + 0.5·ε]) with β ~ N(0, 1/d) of k − 1 columns and
+    ε ~ N(0, 1), from a seed (benchmark/gen_data.py's classification
+    labels), as float32 class indices."""
+    rng = np.random.default_rng(LOGREG_LABEL_SEED + k)
+    beta = (rng.standard_normal((X.shape[1], k - 1)) / np.sqrt(X.shape[1])).astype(np.float32)
+    s = X @ beta
+    s += LOGREG_NOISE * rng.standard_normal(s.shape, dtype=np.float32)
+    return np.argmax(np.concatenate([np.zeros((len(X), 1), np.float32), s], axis=1), axis=1).astype(np.float32)
+
+
+@contextlib.contextmanager
+def _counting_syncs():
+    """Counts the calls that make the host wait for the card while the body
+    runs (torch.cuda.set_sync_debug_mode's warnings): {"n": count}."""
+    import warnings
+
+    import torch
+
+    box = {"n": 0}
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            yield box
+        box["n"] = sum("synchroniz" in str(w.message) for w in caught)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def _small_logreg_reference():
+    """The four solver branches (binomial and multinomial, L2 and elastic
+    net) through the public API on a small float64 input, on the card and
+    on the CPU: 10 iterations each (tol = 0, so maxIter alone stops them);
+    n_iter_ equal, coefficients within 1e-9 of the largest, objectives to
+    rtol 1e-12 (the same float64 arithmetic summed in another order, its
+    rounding carried through 10 iterations)."""
+    from spark_rapids_ml_tpu_torch import LogisticRegression, set_devices
+
+    rng = np.random.default_rng(13)
+    x = rng.standard_normal((4000, 30)) * rng.uniform(0.5, 3.0, 30) + rng.uniform(-2.0, 2.0, 30)
+    scores = x @ (rng.standard_normal((30, 2)) / np.sqrt(30.0)) + 0.5 * rng.standard_normal((4000, 2))
+    labels = {2: (scores[:, 0] > 0).astype(np.float64),
+              3: np.argmax(np.concatenate([np.zeros((4000, 1)), scores], axis=1), axis=1).astype(np.float64)}
+    fits = {"binomial_l2": ({"regParam": 0.01}, 2), "binomial_enet": ({"regParam": 0.01, "elasticNetParam": 0.5}, 2),
+            "multinomial_l2": ({"regParam": 0.01}, 3),
+            "multinomial_enet": ({"regParam": 0.01, "elasticNetParam": 0.5}, 3)}
+    results = {}
+    for device in ("cpu", "cuda"):
+        set_devices(device)
+        results[device] = {
+            name: LogisticRegression(maxIter=10, tol=0.0, float32_inputs=False, **params).fit(
+                {"features": x, "label": labels[k]})
+            for name, (params, k) in fits.items()
+        }
+    set_devices(None)
+    for name in fits:
+        mc, mg = results["cpu"][name], results["cuda"][name]
+        scale = float(np.abs(mc.coef_).max())
+        if mg.n_iter_ != mc.n_iter_ or mg.n_iter_ != 10:
+            fail(f"small LogReg slice: {name} n_iter_ {mg.n_iter_} on the card, {mc.n_iter_} on the CPU (want 10)")
+        if (np.abs(mg.coef_ - mc.coef_).max() > 1e-9 * scale
+                or np.abs(mg.intercept_ - mc.intercept_).max() > 1e-9 * max(scale, 1.0)
+                or abs(mg.objective_ - mc.objective_) > 1e-12 * abs(mc.objective_)):
+            fail(f"small LogReg slice: {name} differs between the card and the CPU (coef max diff "
+                 f"{np.abs(mg.coef_ - mc.coef_).max()}, objective {mg.objective_} vs {mc.objective_})")
+    worst = max(float(np.abs(results["cuda"][n].coef_ - results["cpu"][n].coef_).max()) for n in fits)
+    say(f"  small slice, 4000 x 30 float64 ({', '.join(fits)}; 10 iterations each): card and CPU agree "
+        f"(coefficients within {worst:.3g})")
+
+
+def _flat_iterate(model, mu, d_scale, dtype):
+    """A binomial model's (coef, intercept) as the solver's flat
+    standardized iterate [B; b0] on the device (ops/logistic._warm_x0)."""
+    from spark_rapids_ml_tpu_torch.ops import logistic as LG
+
+    return LG._warm_x0((model.coef_, model.intercept_), model.n_cols, 1, mu, d_scale, True, dtype)
+
+
+def _pair_ms(matvec, rmat, b, r, itemsize):
+    """One X·b + Xᵀ·r pair of a GLM iteration timed on the card, each
+    product apart too, beside the pair's bound: X read twice over the
+    memory rate."""
+    return {"pair_ms": cuda_ms(lambda: (matvec(b), rmat(r))), "matvec_ms": cuda_ms(lambda: matvec(b)),
+            "rmat_ms": cuda_ms(lambda: rmat(r)), "pair_bound_ms": 2 * N_ROWS * N_COLS * itemsize / PEAK_BYTES_S * 1e3}
+
+
+def _glm_eigs(Xd, wd, xf, mu, d_scale, total_w, lam_l2):
+    """Smallest and largest eigenvalue of the binomial objective's Hessian in
+    the solver's flat coordinates [B; b0] at the flat iterate xf:
+    (1/Σw) Σ wᵢ pᵢ(1 − pᵢ) [x̃ᵢ; 1][x̃ᵢ; 1]ᵀ + λ2 on the B block, with
+    x̃ = (x − μ)·d_scale; summed over row tiles at X's dtype."""
+    import torch
+
+    from spark_rapids_ml_tpu_torch.ops import linalg as L
+
+    d = Xd.shape[1]
+    B, b0 = xf[:d], xf[d:]
+    acc = torch.zeros((d + 1, d + 1), dtype=Xd.dtype, device=Xd.device)
+    for rows in L.row_tiles(Xd.shape[0]):
+        xa = torch.cat([(Xd[rows] - mu) * d_scale, torch.ones_like(Xd[rows, :1])], dim=1)
+        p = torch.sigmoid(xa[:, :d] @ B + b0)
+        acc.addmm_((xa * (wd[rows] * p * (1 - p))[:, None]).T, xa)
+    H = acc / total_w
+    H[:d, :d] += lam_l2 * torch.eye(d, dtype=Xd.dtype, device=Xd.device)
+    ev = torch.linalg.eigvalsh(H)
+    return float(ev[0]), float(ev[-1])
+
+
+def phase_logreg(dev, X):
+    """Phase 8a: BASELINE.md's LogisticRegression row, its bf16 fit, an
+    elastic net and a multinomial fit (k = 4) through the public API on the
+    protocol rows (float32), with transform, save/load, the gates of
+    PERF.md section 4, one ModelRegistry serving the binomial and the
+    multinomial model, and the loops timed on resident rows. Returns (what
+    8b compares with, timings)."""
+    import threading
+
+    import torch
+
+    from spark_rapids_ml_tpu_torch import (LogisticRegression, LogisticRegressionModel, ModelRegistry, ScoringEngine,
+                                           telemetry)
+    from spark_rapids_ml_tpu_torch.errors import SolverDivergedError
+    from spark_rapids_ml_tpu_torch.ops import _kernels
+    from spark_rapids_ml_tpu_torch.ops import logistic as LG
+    from spark_rapids_ml_tpu_torch.parallel import host_tensor, place_rows
+
+    say(f"phase 8a: LogisticRegression, {N_ROWS} x {N_COLS} float32")
+    _small_logreg_reference()
+    _kernels.reset_launches()
+    timings = {}
+    labels = {}
+    for k in (2, 4):
+        labels[k], timings[f"labels_k{k}_s"] = _timed(lambda: _class_labels(X, k))
+    bad = X[:KNN_QUERIES].copy()
+    bad[7, 3] = np.nan
+    try:
+        LogisticRegression().fit({"features": bad, "label": labels[2][:KNN_QUERIES]})
+        fail("LogisticRegression: a NaN row did not raise SolverDivergedError on the card")
+    except SolverDivergedError:
+        pass
+    ref_rows = X[:KNN_QUERIES].astype(np.float64)
+    models, outs = {}, {}
+    for name, params, k in LOGREG_CONFIGS:
+        data = {"features": X, "label": labels[k]}
+        m, timings[f"{name}_fit_s"] = _timed(lambda: LogisticRegression(**params).fit(data))
+        k_out = 1 if k == 2 else k
+        if (m.coef_.shape != (k_out, N_COLS) or not np.isfinite(m.coef_).all()
+                or not np.isfinite(m.intercept_).all() or m.numClasses != k):
+            fail(f"LogReg {name}: coefficients not finite of shape ({k_out}, {N_COLS})")
+        models[name] = m
+        if name in ("baseline", "multinomial"):
+            out, timings[f"{name}_transform_s"] = _timed(lambda: m.transform(data))
+            raw = np.stack(out["rawPrediction"].to_numpy())
+            prob = np.stack(out["probability"].to_numpy())
+            pred = np.asarray(out["prediction"])
+            if raw.shape != (N_ROWS, k) or prob.shape != (N_ROWS, k) or not np.isfinite(prob).all():
+                fail(f"LogReg {name} transform: not finite of shape ({N_ROWS}, {k})")
+            # the first rows' probabilities against float64 on the host: the
+            # margins within the fixed-order dot's float32 bound, the link
+            # moving a probability by at most half the margins' error
+            z = ref_rows @ m.coef_.T + m.intercept_
+            z_err = _dot_bound(X[:KNN_QUERIES], m.coef_) + 2.0 ** -23 * (np.abs(z) + np.abs(m.intercept_))
+            if k == 2:
+                z = np.concatenate([np.zeros_like(z), z], axis=1)
+                z_err = np.concatenate([np.zeros_like(z_err), z_err], axis=1)
+            e = np.exp(z - z.max(axis=1, keepdims=True))
+            exact = e / e.sum(axis=1, keepdims=True)
+            err = np.abs(prob[:KNN_QUERIES] - exact)
+            bound = 0.5 * z_err.max(axis=1, keepdims=True) + 8 * F32_U
+            if (err > bound).any():
+                fail(f"LogReg {name} transform: {int((err > bound).sum())} probabilities of the first "
+                     f"{KNN_QUERIES} rows beyond the float32 bound of the float64 computation (max {err.max()})")
+            want = (prob[:, 1] > m.getThreshold()).astype(np.float64) if k == 2 else np.argmax(prob, axis=1)
+            if not np.array_equal(pred, m.classes_[want.astype(int)]):
+                fail(f"LogReg {name}: the prediction column is not the threshold / argmax of the probabilities")
+            row_sums = np.abs(prob.sum(axis=1, dtype=np.float64) - 1.0).max()
+            if row_sums > 8 * F32_U:
+                fail(f"LogReg {name}: a row of probabilities sums to 1 ± {row_sums}")
+            acc = float(np.mean(pred == labels[k]))
+            outs[name] = (raw, prob)
+            say(f"  {name} {params}: fit {timings[f'{name}_fit_s']:.2f} s wall, n_iter_ {m.n_iter_}, objective "
+                f"{m.objective_:.9g}; transform {timings[f'{name}_transform_s']:.2f} s wall, the first {KNN_QUERIES} "
+                f"rows within the float32 bound (max {err.max():.3g}), rows sum to 1 within {row_sums:.3g}, "
+                f"training accuracy {acc:.4f}")
+        else:
+            say(f"  {name} {params}: fit {timings[f'{name}_fit_s']:.2f} s wall, n_iter_ {m.n_iter_}, objective "
+                f"{m.objective_:.9g}")
+        path = ROOT / "build" / f"chip_smoke_logreg_{name}"
+        m.write().overwrite().save(str(path))
+        loaded = LogisticRegressionModel.load(str(path))
+        if not (np.array_equal(loaded.coef_, m.coef_) and np.array_equal(loaded.intercept_, m.intercept_)
+                and all(np.array_equal(a, b) for a, b in zip(loaded._raw_prob(X[:KNN_QUERIES]),
+                                                            m._raw_prob(X[:KNN_QUERIES])))):
+            fail(f"LogReg {name} save/load: the loaded model differs from the fitted one")
+    base, fast, multi = (models[n] for n in ("baseline", "bf16", "multinomial"))
+    # elastic nets: at most the objective at 0 (ln 2: every logit 0, no
+    # penalty); the one with the larger L1 weight has exact zeros
+    zeros = {n: int((models[n].coef_ == 0).sum()) for n in ("enet", "enet_sparse")}
+    for n in zeros:
+        if not models[n].objective_ <= np.log(2.0):
+            fail(f"LogReg {n}: objective {models[n].objective_} above its value at 0, {np.log(2.0)}")
+    if zeros["enet_sparse"] == 0:
+        fail("LogReg enet_sparse: no exact zero in the coefficients")
+    # multinomial: centered intercepts
+    i_sum = abs(float(multi.intercept_.sum()))
+    if i_sum > 8 * F32_U * float(np.abs(multi.intercept_).sum()):
+        fail(f"LogReg multinomial: intercepts sum to {i_sum}, not 0 within float32 rounding")
+    launches = {k_: v for k_, v in _kernels.launches.items() if v}
+    if launches:
+        fail(f"LogReg: kernels launched on a path that has none: {launches}")
+    say(f"  save/load bit for bit ({len(models)} models); exact zeros of {N_COLS}: {zeros}, objectives <= ln 2; "
+        f"multinomial intercepts sum to {i_sum:.3g}; a NaN row raises "
+        "SolverDivergedError; kernel launches: none")
+
+    # the loops on resident rows: placement, the standardization pass, the
+    # bf16 staging, ms per iteration, host reads, one X·b + Xᵀ·r pair
+    (Xd, wd), timings["place_rows_s"] = _timed(lambda: place_rows(X, device=dev))
+    y_idx = {k: host_tensor(labels[k].astype(np.int64)).to(dev) for k in (2, 4)}
+    (mu, d_scale, total_w), timings["scaling_s"] = _timed(lambda: LG._make_scaling(Xd, wd, True, True))
+    loops = {}
+    for name, params, k in LOGREG_CONFIGS:
+        fast_ = params.get("solver_precision") == "bf16"
+        (matvec, rmat), timings[f"{name}_staging_s"] = _timed(lambda: LG._dense_ops(Xd, fast_))
+        kw = dict(k=k, multinomial=k > 2, lam_l2=params["regParam"] * (1 - params.get("elasticNetParam", 0.0)),
+                  lam_l1=params["regParam"] * params.get("elasticNetParam", 0.0),
+                  use_l1=params.get("elasticNetParam", 0.0) > 0, fit_intercept=True,
+                  max_iter=params["maxIter"], tol=params["tol"], lbfgs_memory=10)
+        with _counting_syncs() as syncs:
+            state, loop_s = _timed(lambda: LG._fit_common(matvec, rmat, N_ROWS, Xd.dtype, N_COLS, y_idx[k], wd, mu,
+                                                          d_scale, total_w, **kw))
+        n_iter, reads = state["n_iter_"], state["host_reads_"]
+        if syncs["n"] != reads:
+            fail(f"LogReg {name} loop: {syncs['n']} host waits for the card, the solver counted {reads} reads")
+        public = models[name]
+        if n_iter != public.n_iter_:
+            fail(f"LogReg {name} loop on resident rows: n_iter_ {n_iter}, the public fit's {public.n_iter_}")
+        k_out = kw["k"] if kw["multinomial"] else 1
+        b = torch.randn((N_COLS, k_out), dtype=Xd.dtype, device=dev)
+        r = torch.randn((N_ROWS, k_out), dtype=Xd.dtype, device=dev)
+        itemsize = 2 if fast_ else 4
+        loops[name] = {"n_iter": n_iter, "stalled": bool(state["stalled_"]), "loop_s": loop_s,
+                       "ms_per_iter": loop_s * 1e3 / max(n_iter, 1), "host_reads": reads,
+                       "reads_per_iter": reads / max(n_iter, 1), **_pair_ms(matvec, rmat, b, r, itemsize)}
+        del matvec, rmat, state
+        torch.cuda.empty_cache()
+    timings["loops"] = loops
+
+    # bf16 against float32: the objective at tests/test_precision.py's rtol
+    # 1e-3; the coefficients (the flat standardized iterate) within
+    # 4·2⁻⁹·κ(H), κ of the Hessian at the float32 solution (PERF.md §4)
+    x32 = _flat_iterate(base, mu, d_scale, Xd.dtype)
+    x16 = _flat_iterate(fast, mu, d_scale, Xd.dtype)
+    (lo, hi), timings["hessian_s"] = _timed(lambda: _glm_eigs(Xd, wd, x32, mu, d_scale, total_w,
+                                                              LOGREG_ROW["regParam"]))
+    kappa = hi / lo
+    c_rel = float(torch.linalg.vector_norm(x16 - x32) / torch.linalg.vector_norm(x32))
+    f_rel = abs(fast.objective_ / base.objective_ - 1)
+    if f_rel > 1e-3 or c_rel > 4 * BF16_U * kappa:
+        fail(f"LogReg bf16 against float32: objective off by rtol {f_rel} (bound 1e-3) or coefficients by {c_rel} "
+             f"relative (bound 4·2^-9·κ = {4 * BF16_U * kappa}, κ = {kappa})")
+    del Xd, wd, y_idx, x32, x16
+    torch.cuda.empty_cache()
+    say(f"  loops on resident rows (placing X {timings['place_rows_s']:.3f} s, standardization pass "
+        f"{timings['scaling_s']:.4f} s, bf16 staging {timings['bf16_staging_s']:.4f} s): "
+        + "; ".join(f"{n} {v['n_iter']} iterations (stalled {v['stalled']}) {v['ms_per_iter']:.2f} ms each, "
+                    f"{v['reads_per_iter']:.2f} host reads each (= the card's sync count), X·b + Xᵀ·r "
+                    f"{v['pair_ms']:.3f} ms (bound {v['pair_bound_ms']:.2f}; X·b {v['matvec_ms']:.3f}, Xᵀ·r "
+                    f"{v['rmat_ms']:.3f})" for n, v in loops.items())
+        + f"; bf16 products through torch.mm(bf16, bf16, out_dtype=torch.float32); bf16 objective within rtol "
+        f"{f_rel:.3g} of float32, coefficients {c_rel:.3g} relative (bound {4 * BF16_U * kappa:.3g}, Hessian "
+        f"eigenvalues {lo:.4g}..{hi:.4g}, κ {kappa:.4g}, {timings['hessian_s']:.2f} s)")
+
+    # serving: the binomial and the multinomial model in one registry,
+    # coalesced = solo = transform, bit for bit
+    registry = ModelRegistry()
+    loads = (("logreg_bin", base, outs["baseline"]), ("logreg_multi", multi, outs["multinomial"]))
+    for name, m, _ in loads:
+        _, timings[f"load_{name}_s"] = _timed(lambda: registry.load(name, m))
+    traffic = _serve_traffic(2031, LOGREG_SERVE_CLIENTS, LOGREG_SERVE_REQUESTS)
+    telemetry.registry().reset()
+    telemetry.enable()
+    engine = ScoringEngine(registry).start()
+    futures = [[] for _ in traffic]
+
+    def client(t):
+        for lo_, n in traffic[t]:
+            futures[t].append([engine.submit(name, X[lo_:lo_ + n]) for name, _, _ in loads])
+
+    threads = [threading.Thread(target=client, args=(t,)) for t in range(len(traffic))]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    results = [[[f.result(timeout=600) for f in per_req] for per_req in fut] for fut in futures]
+    timings["traffic_s"] = time.perf_counter() - t0
+    stats = engine.stats()
+    engine.stop()
+    telemetry.disable()
+    solo_engine = ScoringEngine(registry, coalesce_window_s=0.0).start()
+    try:
+        for t, reqs in enumerate(traffic):
+            for (lo_, n), got in zip(reqs, results[t]):
+                for (name, _, whole), g in zip(loads, got):
+                    ref = solo_engine.score(name, X[lo_:lo_ + n], timeout=600)
+                    for part, alone, all_rows in zip(g, ref, whole):
+                        if not (part.dtype == alone.dtype and np.array_equal(part, alone)):
+                            fail(f"serving: {name} response to rows {lo_}..{lo_ + n} differs from the same request "
+                                 "served alone")
+                        if not np.array_equal(part.astype(np.float64), all_rows[lo_:lo_ + n]):
+                            fail(f"serving: {name} response to rows {lo_}..{lo_ + n} differs from the transform")
+    finally:
+        solo_engine.stop()
+    registry.clear()
+    say(f"  serving loads logreg_bin {timings['load_logreg_bin_s']:.2f} s, logreg_multi "
+        f"{timings['load_logreg_multi_s']:.2f} s; traffic {LOGREG_SERVE_CLIENTS} clients x {LOGREG_SERVE_REQUESTS} "
+        f"requests to each: {timings['traffic_s']:.2f} s wall, {stats['batches']} batches, "
+        f"{stats['coalesced_batches']} coalesced, e2e p50 {stats['e2e_p50_s'] * 1e3:.1f} ms, p99 "
+        f"{stats['e2e_p99_s'] * 1e3:.1f} ms; every (raw, prob) equals the same request served alone and the "
+        "transform, bit for bit")
+    timings["serve_stats"] = stats
+    torch.cuda.empty_cache()
+    return {"baseline": base, "y": labels[2]}, timings
+
+
+def phase_logreg_f64(dev, X64, ref):
+    """Phase 8b: BASELINE.md's LogisticRegression row with
+    float32_inputs=False on the float64 rows, and 8a's float32 fit held to
+    it within the bounds of PERF.md section 4, computed here in float64 from
+    the float64 fit: the objective within 3·ε_f + ‖g64‖²/(2μ), the flat
+    standardized coefficients within √(2·max(F(β32) − F(β64) + ‖g64‖²/(2μ),
+    0)/μ) + ‖g64‖/μ (μ the Hessian's smallest eigenvalue at β64)."""
+    import torch
+
+    from spark_rapids_ml_tpu_torch import LogisticRegression
+    from spark_rapids_ml_tpu_torch.ops import linalg as L
+    from spark_rapids_ml_tpu_torch.ops import logistic as LG
+    from spark_rapids_ml_tpu_torch.parallel import host_tensor, place_rows
+
+    say("phase 8b: LogisticRegression with float32_inputs=False, held to phase 8a's float32 fit")
+    timings = {}
+    base32 = ref["baseline"]
+    y = ref["y"].astype(np.float64)
+    m64, timings["fit_s"] = _timed(
+        lambda: LogisticRegression(float32_inputs=False, **LOGREG_ROW).fit({"features": X64, "label": y}))
+    if m64.dtype != "float64" or not np.isfinite(m64.coef_).all():
+        fail("float64 LogReg fit: coefficients not finite float64")
+    (Xd, wd), timings["place_rows_s"] = _timed(lambda: place_rows(X64, device=dev))
+    y_idx = host_tensor(ref["y"].astype(np.int64)).to(dev)
+    (mu, d_scale, total_w), timings["scaling_s"] = _timed(lambda: LG._make_scaling(Xd, wd, True, True))
+    matvec, rmat = LG._dense_ops(Xd)
+    kw = dict(k=2, multinomial=False, lam_l2=LOGREG_ROW["regParam"], fit_intercept=True)
+    prob = LG._build_glm_problem(matvec, rmat, Xd.dtype, N_COLS, y_idx, wd, mu, d_scale, total_w, **kw)
+    with _counting_syncs() as syncs:
+        state, loop_s = _timed(lambda: LG._fit_common(
+            matvec, rmat, N_ROWS, Xd.dtype, N_COLS, y_idx, wd, mu, d_scale, total_w, lam_l1=0.0, use_l1=False,
+            max_iter=LOGREG_ROW["maxIter"], tol=LOGREG_ROW["tol"], lbfgs_memory=10, **kw))
+    if syncs["n"] != state["host_reads_"] or state["n_iter_"] != m64.n_iter_:
+        fail(f"float64 LogReg loop: {syncs['n']} host waits, {state['host_reads_']} reads counted, n_iter_ "
+             f"{state['n_iter_']} against the public fit's {m64.n_iter_}")
+    b = torch.randn((N_COLS, 1), dtype=Xd.dtype, device=dev)
+    r = torch.randn((N_ROWS, 1), dtype=Xd.dtype, device=dev)
+    timings["loop"] = {"n_iter": state["n_iter_"], "stalled": bool(state["stalled_"]), "loop_s": loop_s,
+                       "ms_per_iter": loop_s * 1e3 / max(state["n_iter_"], 1),
+                       "reads_per_iter": state["host_reads_"] / max(state["n_iter_"], 1),
+                       **_pair_ms(matvec, rmat, b, r, 8)}
+    del state
+    # the bounds' ingredients, in float64 at the float64 fit
+    x64 = _flat_iterate(m64, mu, d_scale, Xd.dtype)
+    x32 = _flat_iterate(base32, mu, d_scale, Xd.dtype)
+    z64 = prob["z_of"](x64)
+    f64 = float(prob["rowloss"](z64) + prob["penalty_terms"](x64, torch.zeros_like(x64))[0])
+    g64 = float(torch.linalg.vector_norm(prob["grad_from_z"](x64, z64)))
+    f_at32 = float(prob["rowloss"](prob["z_of"](x32)) + prob["penalty_terms"](x32, torch.zeros_like(x32))[0])
+    (lo, hi), timings["hessian_s"] = _timed(lambda: _glm_eigs(Xd, wd, x64, mu, d_scale, total_w,
+                                                              LOGREG_ROW["regParam"]))
+    # ε_f: float32's rounding of the objective at the fit, from the rows'
+    # losses and the margins' absolute sums Σ_j |x_ij·Beff_j|
+    beff = (x64[:N_COLS] * d_scale).abs()
+    y64 = y_idx.to(Xd.dtype)
+    s_sum = torch.zeros((), dtype=Xd.dtype, device=dev)
+    for rows in L.row_tiles(N_ROWS):
+        zt = z64[rows, 0]
+        loss = LG.softplus(zt) - y64[rows] * zt
+        s_sum += torch.sum(wd[rows] * (loss.abs() + (torch.sigmoid(zt) - y64[rows]).abs()
+                                       * (Xd[rows].abs() @ beff + (x64[N_COLS:] - mu @ (x64[:N_COLS] * d_scale)).abs())))
+    S = float(s_sum / total_w)
+    eps_f = (int(np.ceil(np.log2(N_ROWS))) + int(np.ceil(np.log2(N_COLS))) + 4) * F32_U * S
+    tail = g64 ** 2 / (2 * lo)
+    f_err = abs(base32.objective_ - f64)
+    # the reported value's own rounding (ε_f), and the float32 loop stopping
+    # where its Armijo test, a difference of two such values, sees no more
+    # decrease (2·ε_f); the float64 fit's distance from the optimum (tail)
+    f_bound = 3 * eps_f + tail
+    c_err = float(torch.linalg.vector_norm(x32 - x64))
+    c_bound = float(np.sqrt(2 * max(f_at32 - f64 + tail, 0.0) / lo) + g64 / lo)
+    del Xd, wd, y_idx, z64, matvec, rmat, prob
+    torch.cuda.empty_cache()
+    if f_err > f_bound or c_err > c_bound:
+        fail(f"8b: float32 objective off by {f_err} (bound {f_bound}) or flat coefficients by {c_err} "
+             f"(bound {c_bound})")
+    lp = timings["loop"]
+    say(f"  float64 fit {timings['fit_s']:.2f} s wall, n_iter_ {m64.n_iter_}, objective {m64.objective_:.12g}; "
+        f"on resident rows (placing {timings['place_rows_s']:.3f} s, standardization {timings['scaling_s']:.4f} s): "
+        f"{lp['n_iter']} iterations (stalled {lp['stalled']}) {lp['ms_per_iter']:.2f} ms each, "
+        f"{lp['reads_per_iter']:.2f} host reads each, X·b + Xᵀ·r {lp['pair_ms']:.3f} ms (bound "
+        f"{lp['pair_bound_ms']:.2f}; X·b {lp['matvec_ms']:.3f}, Xᵀ·r {lp['rmat_ms']:.3f}); float32 against float64: objective within {f_err:.3g} (bound {f_bound:.3g}: "
+        f"ε_f {eps_f:.3g}, ‖g64‖ {g64:.3g}, μ {lo:.4g}), flat coefficients within {c_err:.3g} (bound "
+        f"{c_bound:.3g}; F(β32) − F(β64) = {f_at32 - f64:.3g}; Hessian {lo:.4g}..{hi:.4g}, "
+        f"{timings['hessian_s']:.2f} s)")
+    return timings
+
+
 # ------------------------------------------------------------------ main --
 
 
@@ -2270,11 +2726,13 @@ def main():
     knn_counts, knn_timings = phase_knn(dev, X, d2_entries[0]["ms"])
     serve_counts, serve_timings = phase_serving(dev, X, kmeans_model)
     linear_ref, linear_timings = phase_pca_linear(dev, X)
+    logreg_ref, logreg_timings = phase_logreg(dev, X)
     t0 = time.perf_counter()
     X = _f64_rows(X)  # the float32 rows are dropped here
     say(f"data as float64 {X.shape} made in {time.perf_counter() - t0:.1f} s")
     f64_counts, f64_timings = phase_f64(dev, X)
     linear_f64_timings = phase_pca_linear_f64(dev, X, linear_ref)
+    logreg_f64_timings = phase_logreg_f64(dev, X, logreg_ref)
     del X
     for e in entries + d2_entries:
         name = e["name"]
@@ -2303,6 +2761,8 @@ def main():
     say("float64 route timings: " + json.dumps(f64_timings))
     say("PCA and LinearRegression timings: " + json.dumps(linear_timings))
     say("PCA and LinearRegression float64 timings: " + json.dumps(linear_f64_timings))
+    say("LogisticRegression timings: " + json.dumps(logreg_timings))
+    say("LogisticRegression float64 timings: " + json.dumps(logreg_f64_timings))
     kernels_line = json.dumps({"kernels": entries})
     say(f"total {time.perf_counter() - t_start:.1f} s")
     LOG_DIR.mkdir(exist_ok=True)

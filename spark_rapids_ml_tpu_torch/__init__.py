@@ -7,6 +7,7 @@
 # KMeansModel.load(path); NearestNeighbors(k=...).setInputCol("features")
 # .fit(items).kneighbors(queries); PCA(k=...).setInputCol("features");
 # LinearRegression(regParam=...).fit({"features": X, "label": y});
+# LogisticRegression(regParam=...).fit({"features": X, "label": y});
 # ModelRegistry().load("name", model) and
 # ScoringEngine(registry).score("name", rows) to serve fitted models. Entry
 # points run on the CUDA card; call
@@ -14,6 +15,7 @@
 # This package imports neither jax nor anything of spark_rapids_ml_tpu.
 #
 from .linalg import Vectors
+from .models.classification import LogisticRegression, LogisticRegressionModel
 from .models.clustering import KMeans, KMeansModel
 from .models.feature import PCA, PCAModel
 from .models.knn import NearestNeighbors, NearestNeighborsModel
@@ -23,6 +25,7 @@ from .serving import ModelRegistry, OverloadController, ResidentModel, ScoreFutu
 
 __all__ = [
     "KMeans", "KMeansModel", "NearestNeighbors", "NearestNeighborsModel", "PCA", "PCAModel",
-    "LinearRegression", "LinearRegressionModel", "Vectors", "set_devices",
+    "LinearRegression", "LinearRegressionModel", "LogisticRegression", "LogisticRegressionModel",
+    "Vectors", "set_devices",
     "ModelRegistry", "OverloadController", "ResidentModel", "ScoreFuture", "ScoringEngine",
 ]

@@ -2,8 +2,8 @@
 # Carrying fitted state across from the JAX package: its model attributes,
 # as numpy arrays and scalars, become this package's models. (A directory
 # the JAX package saved also loads directly with `KMeansModel.load`,
-# `PCAModel.load` or `LinearRegressionModel.load`: both packages write the
-# same layout.)
+# `PCAModel.load`, `LinearRegressionModel.load` or
+# `LogisticRegressionModel.load`: both packages write the same layout.)
 #
 from __future__ import annotations
 
@@ -11,11 +11,15 @@ from typing import Any, Dict, Tuple
 
 import numpy as np
 
+from .models.classification import LogisticRegressionModel
 from .models.clustering import KMeansModel
 from .models.feature import PCAModel
 from .models.regression import LinearRegressionModel
 
-__all__ = ["kmeans_model_from_jax", "pca_model_from_jax", "linear_regression_model_from_jax"]
+__all__ = [
+    "kmeans_model_from_jax", "pca_model_from_jax", "linear_regression_model_from_jax",
+    "logistic_regression_model_from_jax",
+]
 
 _KMEANS_KEYS = ("cluster_centers_", "inertia_", "n_iter_", "n_cols", "dtype")
 _PCA_KEYS = (
@@ -23,6 +27,7 @@ _PCA_KEYS = (
     "n_cols", "dtype",
 )
 _LINREG_KEYS = ("coef_", "intercept_", "n_iter_", "n_cols", "dtype")
+_LOGREG_KEYS = ("coef_", "intercept_", "classes_", "n_iter_", "objective_", "n_cols", "dtype")
 
 
 def _model_from_jax(cls, name: str, attrs: Dict[str, Any], keys: Tuple[str, ...], arrays: Dict[str, int]):
@@ -64,3 +69,13 @@ def linear_regression_model_from_jax(attrs: Dict[str, Any]) -> LinearRegressionM
     """A LinearRegressionModel from the JAX LinearRegressionModel's
     attributes (`coef_` [d], `intercept_`, `n_iter_`, `n_cols`, `dtype`)."""
     return _model_from_jax(LinearRegressionModel, "LinearRegression", attrs, _LINREG_KEYS, {"coef_": 1})
+
+
+def logistic_regression_model_from_jax(attrs: Dict[str, Any]) -> LogisticRegressionModel:
+    """A LogisticRegressionModel from the JAX LogisticRegressionModel's
+    attributes (`coef_` [k_out, d], `intercept_` [k_out], `classes_`,
+    `n_iter_`, `objective_`, `n_cols`, `dtype`)."""
+    return _model_from_jax(
+        LogisticRegressionModel, "LogisticRegression", attrs, _LOGREG_KEYS,
+        {"coef_": 2, "intercept_": 1, "classes_": 1},
+    )

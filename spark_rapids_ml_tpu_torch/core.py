@@ -3,8 +3,8 @@
 # fit driver, batched transform, the resident predict handle the serving
 # plane keeps per model (`PredictProgram`), and persistence. The PyTorch
 # counterpart of the parts of spark_rapids_ml_tpu/core.py that the KMeans,
-# kNN, PCA and LinearRegression fits, their transforms, save/load and the
-# serving plane run.
+# kNN, PCA, LinearRegression and LogisticRegression fits, their transforms,
+# save/load and the serving plane run.
 #
 # Call stack (the JAX package's, without telemetry, admission, recovery,
 # streaming and the mesh): fit(dataset) -> _fit_internal -> _call_fit_func ->
@@ -142,6 +142,11 @@ class _TpuCommon(_TpuParams):
     def _pre_process_data(self, dataset: Any, for_fit: bool = True) -> ExtractedData:
         """Column selection + dense extraction (features; labels and weights
         on the fit side; row ids wherever the estimator has an idCol)."""
+        if self.hasParam("enable_sparse_data_optim") and self.getOrDefault("enable_sparse_data_optim") is True:
+            raise NotImplementedError(
+                "enable_sparse_data_optim=True (the CSR ingest path) is not in the "
+                "PyTorch port yet (ROADMAP item A11: memory admission, out-of-core, sparse)"
+            )
         input_col, input_cols = self._get_input_columns()
         label_col = None
         if for_fit and self._supervised:

@@ -1,0 +1,379 @@
+#
+# Logistic regression on one device: the PyTorch counterpart of the dense
+# path of spark_rapids_ml_tpu/ops/logistic.py (`_make_scaling`,
+# `_glm_qn_setup` + `_glm_qn_minimize`, `_dense_ops`, `_build_glm_problem`,
+# `_finish_glm`, `_warm_x0`, `_fit_common`, `logistic_fit`,
+# `logistic_predict`, `check_glm_result`, `warn_if_early_stall`).
+#
+# Objective (Spark semantics): (Σ wᵢ·loglossᵢ)/Σw + λ·[(1−α)/2·‖B_std‖² +
+# α·‖B_std‖₁], the penalty in standardized space when standardization is
+# on, never on the intercepts. The scaling is folded into the coefficients
+# (logits = X·(D·B) + (b0 − μᵀD·B)), so no standardized copy of X is made.
+# Binomial: sigmoid, coef [1, d]; multinomial: softmax, coef [k, d], the
+# intercepts centered.
+#
+# Solvers, as in the JAX package: the GLM quasi-Newton below when the L1
+# term is off, OWL-QN (ops/owlqn.py) when it is on. Both walk the flat
+# (B, b0) vector with an L-BFGS memory of 10 pairs. Their loops run on the
+# host; an iteration reads the device once (ops/owlqn.py's note), and the
+# GLM iteration passes over X twice: z_D = X·(D·d) scores all 12 step
+# candidates, and the gradient Xᵀ·r comes from the logits z_p + a·z_D at
+# the accepted step. Xᵀ·r runs on the transposed view of X: no copy of Xᵀ.
+#
+# `fast` (solver_precision="bf16") rounds X to bf16 once per fit and runs
+# both products with bf16 operands and float32 sums (`linalg.mm_bf16`),
+# cast back to X's dtype; everything else stays at X's dtype.
+#
+# Waiting, each named in ROADMAP: the ELL and streaming forms (A11), the
+# batched grid `logistic_fit_batched` (A9), the checkpointed forms (A12),
+# the per-iteration convergence trace (A15). The JAX package's optax
+# `_lbfgs_minimize` is reached by no entry point there and is not ported.
+#
+from __future__ import annotations
+
+import logging
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from .linalg import mm_bf16, rows_dot_fixed, weighted_moments
+from .owlqn import LbfgsMemory, check_solver_state, owlqn_minimize, read_flags, relative_change_exceeds
+
+_LOG = logging.getLogger(__name__)
+
+# the GLM line search's step candidates, 2, 1, 1/2, ..., 2^-10: one growth
+# step, the unit step, then geometric backtracking (sorted descending: the
+# first that passes is the largest)
+N_ALPHAS = 12
+
+
+def _make_scaling(X, w, standardize: bool, fit_intercept: bool):
+    """Returns (mu [d], d_scale [d], total_w): logits use Beff = d_scale·B,
+    offset −μ·Beff. The standard deviation is the unbiased one (Spark's
+    summarizer); a constant column gets d_scale = 0."""
+    total_w, mean, var = weighted_moments(X, w)
+    if not standardize:
+        return torch.zeros_like(mean), torch.ones_like(mean), total_w
+    sigma = torch.sqrt(var * (total_w / torch.clamp_min(total_w - 1.0, 1.0)))
+    d_scale = torch.where(sigma > 0, 1.0 / torch.clamp_min(sigma, 1e-30), torch.zeros_like(sigma))
+    mu = mean if fit_intercept else torch.zeros_like(mean)
+    return mu, d_scale, total_w
+
+
+def softplus(z: torch.Tensor) -> torch.Tensor:
+    """log(1 + eᶻ) as `jax.nn.softplus` computes it (logaddexp(z, 0));
+    `F.softplus` returns z itself above its threshold of 20."""
+    return torch.logaddexp(z, z.new_zeros(()))
+
+
+def _dense_ops(X: torch.Tensor, fast: bool = False):
+    """(matvec, rmat) closures over dense X: B ↦ X·B and r ↦ Xᵀ·r. `fast`
+    stages X to bf16 here, once per fit."""
+    if not fast:
+        return (lambda Beff: X @ Beff), (lambda r: X.T @ r)
+    bX = X.to(torch.bfloat16)
+    return (lambda Beff: mm_bf16(bX, Beff).to(X.dtype)), (lambda r: mm_bf16(bX.T, r).to(X.dtype))
+
+
+def _build_glm_problem(
+    matvec, rmat, dtype, d, y_idx, w, mu, d_scale, total_w, *, k, multinomial, lam_l2, fit_intercept,
+) -> Dict[str, Any]:
+    """The GLM objective closures over the flat parameters xf = (B [d, k_out]
+    row-major, b0 [k_out]):
+
+      z_of(xf) -> logits [n, k_out]                (linear in xf)
+      rowloss(z) -> data term
+      rowloss_alphas(z_p, z_d, a [S]) -> [S]      (data term at p + a·d)
+      penalty_terms(xf, df) -> (p0, p1, p2)       (penalty(x + a·d) =
+                                                   p0 + a·p1 + a²·p2)
+      grad_from_z(xf, z) -> flat gradient          (penalty included)"""
+    k_out = k if multinomial else 1
+    n_flat = d * k_out + k_out
+
+    def unflatten(xf):
+        return xf[: d * k_out].reshape(d, k_out), xf[d * k_out:]
+
+    def z_of(xf):
+        B, b0 = unflatten(xf)
+        Beff = B * d_scale[:, None]
+        offset = (b0 - mu @ Beff) if fit_intercept else -(mu @ Beff)
+        return matvec(Beff) + offset[None, :]
+
+    if multinomial:
+        def rowloss(z):
+            z_true = torch.gather(z, 1, y_idx[:, None])[:, 0]
+            return torch.sum(w * (torch.logsumexp(z, dim=1) - z_true)) / total_w
+
+        def rowloss_alphas(z_p, z_d, a):
+            z = z_p[:, None, :] + a[None, :, None] * z_d[:, None, :]  # [n, S, k]
+            idx = y_idx[:, None, None].expand(z.shape[0], a.shape[0], 1)
+            z_true = torch.gather(z, 2, idx)[..., 0]  # [n, S]
+            return (w @ (torch.logsumexp(z, dim=2) - z_true)) / total_w
+    else:
+        y = y_idx.to(dtype)
+
+        def rowloss(z):
+            z0 = z[:, 0]
+            return torch.sum(w * (softplus(z0) - y * z0)) / total_w
+
+        def rowloss_alphas(z_p, z_d, a):
+            z = z_p[:, :1] + a[None, :] * z_d[:, :1]  # [n, S]
+            return (w @ (softplus(z) - y[:, None] * z)) / total_w
+
+    def penalty_terms(xf, df):
+        Bx, Bd = xf[: d * k_out], df[: d * k_out]
+        return (
+            0.5 * lam_l2 * torch.sum(Bx * Bx),
+            lam_l2 * torch.dot(Bx, Bd),
+            0.5 * lam_l2 * torch.sum(Bd * Bd),
+        )
+
+    def grad_from_z(xf, z):
+        """∂loss/∂z is the GLM residual; the chain through z = X·(B·D) +
+        (b0 − μ·Beff) is one transposed pass over the rows plus vector
+        algebra."""
+        B, _ = unflatten(xf)
+        if multinomial:
+            p = torch.softmax(z, dim=1)
+            r = w[:, None] * (p - F.one_hot(y_idx, k).to(dtype)) / total_w
+        else:
+            p = torch.sigmoid(z[:, 0])
+            r = ((w * (p - y)) / total_w)[:, None]  # [n, 1]
+        r_sum = torch.sum(r, dim=0)
+        g_beff = rmat(r) - mu[:, None] * r_sum[None, :]  # [d, k_out]
+        dB = g_beff * d_scale[:, None] + lam_l2 * B
+        db0 = r_sum if fit_intercept else torch.zeros((k_out,), dtype=dtype, device=r.device)
+        return torch.cat([dB.reshape(-1), db0])
+
+    return dict(
+        k_out=k_out, n_flat=n_flat, unflatten=unflatten, z_of=z_of, rowloss=rowloss,
+        rowloss_alphas=rowloss_alphas, penalty_terms=penalty_terms, grad_from_z=grad_from_z,
+    )
+
+
+def armijo_pick(f_cand, f_cur, a, gd, c1: float = 1e-4):
+    """The batched Armijo check: (step, its objective, whether any passed).
+    The candidates `a` are sorted descending, so the first that passes is
+    the largest; `torch.argmax` refuses a bool tensor, so the mask is cast.
+    With none passing, the first candidate is returned beside ok = False."""
+    ok_mask = f_cand <= f_cur + c1 * a * gd
+    first_ok = torch.argmax(ok_mask.to(torch.int32)).reshape(1)
+    return a.index_select(0, first_ok)[0], f_cand.index_select(0, first_ok)[0], torch.any(ok_mask)
+
+
+def _glm_qn_minimize(
+    z_of, rowloss, rowloss_alphas, grad_from_z, z_shape, n_flat: int, dtype, device,
+    penalty_terms, max_iter: int, tol: float, memory: int = 10, c1: float = 1e-4, x0=None,
+) -> Tuple[torch.Tensor, torch.Tensor, int, bool, int]:
+    """L-BFGS specialized to GLM objectives loss(p) = rowloss(z_of(p)) +
+    penalty(p) with z linear in p. Each iteration: the two-loop direction
+    (steepest descent when it is not a descent one), one new logit pass
+    z_d = z_of(d) scoring all step candidates, the largest passing step,
+    the gradient from the logits z_p + a·z_d. Stops at `max_iter`, when the
+    relative objective change is at most `tol`, or when no candidate passes
+    (stalled). Returns (flat params, objective, n_iter, stalled, host
+    reads)."""
+    # the step candidates made on the device, exactly (products of powers of
+    # 2), so the fit copies nothing from the host
+    alphas = 4.0 * torch.full((N_ALPHAS,), 0.5, dtype=dtype, device=device).cumprod(0)
+    if x0 is None:
+        x = torch.zeros((n_flat,), dtype=dtype, device=device)
+        z_p = torch.zeros(z_shape, dtype=dtype, device=device)  # z_of(0) == 0: z has no constant
+    else:
+        x = x0
+        z_p = z_of(x0)
+    g = grad_from_z(x, z_p)
+    f_cur = rowloss(z_p) + penalty_terms(x, torch.zeros_like(x))[0]
+    hist = LbfgsMemory(memory, n_flat, x)
+    # the loop's test before its first iteration (f_prev = +inf): it holds
+    # exactly when f0 is finite; read with the first iteration's flags
+    go_first = relative_change_exceeds(torch.full_like(f_cur, float("inf")), f_cur, tol)
+    it, reads, stalled = 0, 0, False
+    while it < max_iter:
+        d = hist.direction(g)
+        gd = torch.dot(g, d)
+        descent = gd < 0
+        d = torch.where(descent, d, -g)
+        gd = torch.where(descent, gd, -torch.dot(g, g))
+        z_d = z_of(d)  # [X read 1]
+        p0, p1, p2 = penalty_terms(x, d)
+        f_cand = rowloss_alphas(z_p, z_d, alphas) + p0 + alphas * p1 + alphas * alphas * p2
+        a_sel, f_new, ok = armijo_pick(f_cand, f_cur, alphas, gd, c1)
+        xn = x + a_sel * d
+        z_n = z_p + a_sel * z_d  # the logits at the accepted point, no X pass
+        gn = grad_from_z(xn, z_n)  # [X read 2]
+        s, yv = xn - x, gn - g
+        sy = torch.dot(s, yv)
+        flags = [ok, ok & (sy > 1e-10), relative_change_exceeds(f_cur, torch.where(ok, f_new, f_cur), tol)]
+        if it == 0:
+            flags.append(go_first)
+        ok, keep, go, *first = read_flags(*flags)
+        reads += 1
+        if first and not first[0]:
+            return x, f_cur, 0, False, reads  # JAX's loop would not have run
+        if keep:
+            hist.push(s, yv, sy)
+        if ok:
+            x, z_p, g, f_cur = xn, z_n, gn, f_new
+        it += 1
+        stalled = not ok
+        if stalled or not go:
+            break
+    return x, f_cur, it, stalled, reads
+
+
+def _finish_glm(xf, obj, n_iter, stalled, unflatten, d_scale, mu, *, fit_intercept, multinomial) -> Dict[str, Any]:
+    """Flat iterate -> model-attribute dict in ORIGINAL feature space
+    (standardization folded out, the multinomial intercepts centered)."""
+    B, b0 = unflatten(xf)
+    coef = (B * d_scale[:, None]).T  # [k_out, d]
+    intercept = b0 - coef @ mu if fit_intercept else torch.zeros_like(b0)
+    if multinomial:
+        intercept = intercept - torch.mean(intercept)  # softmax shift invariance (Spark)
+    return {"coef_": coef, "intercept_": intercept, "objective_": obj, "n_iter_": n_iter, "stalled_": stalled}
+
+
+def _warm_x0(warm_start, d, k_out, mu, d_scale, fit_intercept, dtype):
+    """ORIGINAL-space (coef [k_out, d], intercept [k_out]) -> the flat
+    standardized iterate: the exact inverse of `_finish_glm`'s fold-out.
+    Columns whose d_scale is 0 (constant features) get 0."""
+    coef, intercept = warm_start
+    dev = mu.device
+    coef = torch.as_tensor(np.asarray(coef), dtype=dtype, device=dev).reshape(k_out, d)
+    intercept = torch.as_tensor(np.asarray(intercept), dtype=dtype, device=dev).reshape(k_out)
+    scale = d_scale[:, None]
+    B = torch.where(scale != 0, coef.T / torch.where(scale == 0, torch.ones_like(scale), scale),
+                    torch.zeros_like(coef.T))
+    b0 = (intercept + coef @ mu) if fit_intercept else torch.zeros((k_out,), dtype=dtype, device=dev)
+    return torch.cat([B.reshape(-1), b0])
+
+
+def _fit_common(
+    matvec, rmat, n_rows, dtype, d, y_idx, w, mu, d_scale, total_w,
+    *, k, multinomial, lam_l2, lam_l1, use_l1, fit_intercept, max_iter, tol, lbfgs_memory,
+    warm_start=None,
+) -> Dict[str, Any]:
+    prob = _build_glm_problem(
+        matvec, rmat, dtype, d, y_idx, w, mu, d_scale, total_w,
+        k=k, multinomial=multinomial, lam_l2=lam_l2, fit_intercept=fit_intercept,
+    )
+    k_out, n_flat, unflatten = prob["k_out"], prob["n_flat"], prob["unflatten"]
+    z_of, rowloss, penalty_terms, grad_from_z = prob["z_of"], prob["rowloss"], prob["penalty_terms"], prob["grad_from_z"]
+    device = w.device
+    x_warm = _warm_x0(warm_start, d, k_out, mu, d_scale, fit_intercept, dtype) if warm_start is not None else None
+    if use_l1:
+        # L1 / elastic net: OWL-QN over (B, b0), the L1 mask on the
+        # coefficients only; its gradient from the accepted trial's logits
+        def value_fn(xf):
+            z = z_of(xf)
+            return rowloss(z) + penalty_terms(xf, torch.zeros_like(xf))[0], z
+
+        l1_mask = torch.cat([torch.ones((d * k_out,), dtype=dtype, device=device),
+                             torch.zeros((k_out,), dtype=dtype, device=device)])
+        x0 = x_warm if x_warm is not None else torch.zeros((n_flat,), dtype=dtype, device=device)
+        xf, obj, n_iter, reads = owlqn_minimize(
+            value_fn, grad_from_z, x0, l1_mask, lam_l1, max_iter=max_iter, tol=tol, memory=lbfgs_memory,
+        )
+        stalled = False
+    else:
+        xf, obj, n_iter, stalled, reads = _glm_qn_minimize(
+            z_of, rowloss, prob["rowloss_alphas"], grad_from_z, (n_rows, k_out), n_flat, dtype, device,
+            penalty_terms, max_iter=max_iter, tol=tol, memory=lbfgs_memory, x0=x_warm,
+        )
+    out = _finish_glm(xf, obj, n_iter, stalled, unflatten, d_scale, mu,
+                      fit_intercept=fit_intercept, multinomial=multinomial)
+    out["host_reads_"] = reads
+    return out
+
+
+def logistic_fit(
+    X: torch.Tensor,
+    y_idx: torch.Tensor,  # int64 class indices in [0, k)
+    w: torch.Tensor,
+    *,
+    k: int,
+    multinomial: bool,
+    lam_l2: float,
+    lam_l1: float = 0.0,
+    use_l1: bool = False,
+    fit_intercept: bool = True,
+    standardize: bool = True,
+    max_iter: int = 100,
+    tol: float = 1e-6,
+    lbfgs_memory: int = 10,
+    fast: bool = False,
+    warm_start=None,  # (coef [k_out, d], intercept [k_out]) original-space seed
+) -> Dict[str, Any]:
+    """Weighted logistic regression on rows X [n, d] on X's device. Returns
+    coef_ [k_out, d], intercept_ [k_out] (ORIGINAL feature space) and
+    objective_ as device tensors, and n_iter_, stalled_ and host_reads_ (the
+    solver's reads of the device) as host values."""
+    d = X.shape[1]
+    mu, d_scale, total_w = _make_scaling(X, w, standardize, fit_intercept)
+    matvec, rmat = _dense_ops(X, fast)
+    return _fit_common(
+        matvec, rmat, X.shape[0], X.dtype, d, y_idx, w, mu, d_scale, total_w,
+        k=k, multinomial=multinomial, lam_l2=lam_l2, lam_l1=lam_l1, use_l1=use_l1,
+        fit_intercept=fit_intercept, max_iter=max_iter, tol=tol, lbfgs_memory=lbfgs_memory,
+        warm_start=warm_start,
+    )
+
+
+def fetch_state(state: Dict[str, Any]) -> Dict[str, Any]:
+    """`logistic_fit`'s state on the host in ONE device-to-host copy: the
+    coefficients, the intercepts and the objective travel as one tensor."""
+    coef, intercept, obj = state["coef_"], state["intercept_"], state["objective_"]
+    flat = torch.cat([coef.reshape(-1), intercept.reshape(-1), obj.reshape(1)]).cpu().numpy()
+    n_coef, n_int = coef.numel(), intercept.numel()
+    out = {k: v for k, v in state.items() if k not in ("coef_", "intercept_", "objective_")}
+    out["coef_"] = flat[:n_coef].reshape(tuple(coef.shape))
+    out["intercept_"] = flat[n_coef:n_coef + n_int]
+    out["objective_"] = flat[-1]
+    return out
+
+
+def check_glm_result(state: Dict, *, solver: str = "logistic") -> Dict:
+    """Divergence guard for a fetched GLM fit state: NaN/Inf in the
+    objective or the coefficients raises `SolverDivergedError`; returns
+    `state` otherwise."""
+    return check_solver_state(solver, state)
+
+
+def warn_if_early_stall(state: Dict, *, standardize: bool, max_iter: int, logger=None) -> bool:
+    """Warn when the Armijo stall check ended an UNSTANDARDIZED fit before
+    maxIter: badly scaled features shrink the per-step objective
+    improvements below float32 noise, and the model may be
+    under-converged. Returns whether the warning fired."""
+    stalled = bool(np.asarray(state.get("stalled_", False)))
+    n_iter = int(np.asarray(state.get("n_iter_", 0)))
+    if not stalled or standardize or n_iter >= max_iter:
+        return False
+    (logger or _LOG).warning(
+        "L-BFGS line search stalled after %d/%d iterations on an "
+        "unstandardized fit — the model may be under-converged. Badly scaled "
+        "features shrink per-step objective improvements below f32 noise; "
+        "set standardization=True.",
+        n_iter, max_iter,
+    )
+    return True
+
+
+def logistic_predict(
+    X: torch.Tensor, coef: torch.Tensor, intercept: torch.Tensor, *, multinomial: bool
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (raw [n, k], prob [n, k]), Spark's rawPrediction and
+    probability; binary raw = [−m, m] with m the margin, prob = [1 − σ(m),
+    σ(m)]. A row's answer does not depend on its batch: its margins are
+    summed in a fixed order (`linalg.rows_dot_fixed`), and the link is a
+    softmax, which works row by row (binary: softmax([0, m])). An
+    elementwise `torch.sigmoid` would not do: on the CPU it runs vector code
+    on the body of a tensor and scalar code on its tail, so an element's
+    last bit depends on where it sits in the batch."""
+    if multinomial:
+        raw = rows_dot_fixed(X, coef) + intercept[None, :]
+        return raw, torch.softmax(raw, dim=1)
+    m = rows_dot_fixed(X, coef[:1])
+    m = m + intercept[0]
+    return torch.cat([-m, m], dim=1), torch.softmax(torch.cat([torch.zeros_like(m), m], dim=1), dim=1)

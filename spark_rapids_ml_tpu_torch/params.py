@@ -1,8 +1,8 @@
 #
 # Parameter system: a Spark-ML-compatible `Param`/`Params` surface, the `Has*`
-# shared-param mixins KMeans, NearestNeighbors, PCA and LinearRegression use,
-# and the declarative Spark-param ->
-# solver-kwarg mapping (`_TpuClass` / `_TpuParams`). A copy of the JAX
+# shared-param mixins KMeans, NearestNeighbors, PCA, LinearRegression and
+# LogisticRegression use, and the declarative Spark-param -> solver-kwarg
+# mapping (`_TpuClass` / `_TpuParams`). A copy of the JAX
 # package's spark_rapids_ml_tpu/params.py, cut to what this package runs.
 # `num_workers` counts devices; this package runs on one.
 #
@@ -24,6 +24,8 @@ __all__ = [
     "HasLabelCol",
     "HasIDCol",
     "HasPredictionCol",
+    "HasProbabilityCol",
+    "HasRawPredictionCol",
     "HasWeightCol",
     "HasTol",
     "HasMaxIter",
@@ -32,6 +34,7 @@ __all__ = [
     "HasFitIntercept",
     "HasStandardization",
     "HasSeed",
+    "HasEnableSparseDataOptim",
     "_TpuClass",
     "_TpuParams",
 ]
@@ -86,6 +89,14 @@ class TypeConverters:
     @staticmethod
     def toListString(v) -> List[str]:
         return [str(x) for x in v]
+
+    @staticmethod
+    def toListFloat(v) -> List[float]:
+        return [float(x) for x in v]
+
+    @staticmethod
+    def identity(v):
+        return v
 
 
 class Params:
@@ -235,6 +246,14 @@ HasOutputCol = _mixin("outputCol", "output column name", TypeConverters.toString
 HasFeaturesCol = _mixin("featuresCol", "features column name", TypeConverters.toString, default="features")
 HasLabelCol = _mixin("labelCol", "label column name", TypeConverters.toString, default="label")
 HasPredictionCol = _mixin("predictionCol", "prediction column name", TypeConverters.toString, default="prediction")
+HasProbabilityCol = _mixin(
+    "probabilityCol", "column for predicted class conditional probabilities", TypeConverters.toString,
+    default="probability",
+)
+HasRawPredictionCol = _mixin(
+    "rawPredictionCol", "raw prediction (confidence) column name", TypeConverters.toString,
+    default="rawPrediction",
+)
 HasWeightCol = _mixin("weightCol", "weight column name", TypeConverters.toString, has_default=False)
 HasTol = _mixin("tol", "convergence tolerance for iterative algorithms", TypeConverters.toFloat, default=1e-6)
 HasMaxIter = _mixin("maxIter", "max number of iterations (>= 0)", TypeConverters.toInt, default=100)
@@ -264,6 +283,22 @@ class HasFeaturesCols(Params):
 
     def setFeaturesCols(self: P, value: List[str]) -> P:
         return self._set_params(featuresCols=value)
+
+
+class HasEnableSparseDataOptim(Params):
+    """The opt-in CSR ingest switch (reference params.py:44-65). The port
+    has no sparse path yet: a fit or transform with it set to True raises
+    NotImplementedError naming ROADMAP A11, as sparse input does."""
+
+    enable_sparse_data_optim = Param(
+        "enable_sparse_data_optim",
+        "If None (default) autodetect sparse input; True forces CSR ingest; False forces dense.",
+        TypeConverters.identity,
+    )
+
+    def __init__(self, *args, **kwargs) -> None:
+        super().__init__(*args, **kwargs)
+        self._setDefault(enable_sparse_data_optim=None)
 
 
 class HasIDCol(Params):

@@ -15,11 +15,16 @@
 #   device_wait.<stage>_s, host_section.<stage>_s   histograms of the timing
 #                                              contexts below
 #
+# and what a finished solve records (`record_solver_result`, called by
+# LogisticRegression's fit): <solver>.fits, <solver>.iterations and
+# <solver>.line_search_stalls counters, the <solver>.objective gauge.
+#
 # `device_wait(stage, device)` closes on `torch.cuda.synchronize(device)`
 # for a CUDA device, so the time it records is the wait for the card's
 # queued work; `host_section(stage)` times host work. Left out of this copy
-# (ROADMAP A15): the JSONL sinks, spans, the fleet merge and the efficiency
-# attribution plane.
+# (ROADMAP A15): the JSONL sinks, spans, the fleet merge, the efficiency
+# attribution plane, and the solvers' diagnostics events and convergence
+# ring.
 #
 from __future__ import annotations
 
@@ -42,6 +47,7 @@ __all__ = [
     "tenant_metric",
     "device_wait",
     "host_section",
+    "record_solver_result",
 ]
 
 # Most-recent observations retained per histogram for quantile() (serving
@@ -312,3 +318,22 @@ def host_section(stage: str) -> Iterator[None]:
     yield
     if _ON:
         _REGISTRY.observe(f"host_section.{stage}_s", time.monotonic() - t0)
+
+
+def record_solver_result(
+    solver: str,
+    *,
+    n_iter: int,
+    objective: Optional[float] = None,
+    stalled: bool = False,
+) -> None:
+    """Host-side record of a completed iterative solve: the fit and
+    iteration counters, a stall counter, and the final objective gauge."""
+    if not _ON:
+        return
+    _REGISTRY.inc(f"{solver}.fits")
+    _REGISTRY.inc(f"{solver}.iterations", float(n_iter))
+    if stalled:
+        _REGISTRY.inc(f"{solver}.line_search_stalls")
+    if objective is not None:
+        _REGISTRY.gauge(f"{solver}.objective", float(objective))
