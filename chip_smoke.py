@@ -102,7 +102,28 @@
 #      transform, bit for bit); 8b on the float64 rows, after 7b: the
 #      BASELINE fit with float32_inputs=False, 8a's float32 objective and
 #      coefficients held to it within the bounds of PERF.md section 4;
-#   9. a {"kernels": [...]} line with all twelve kernel forms, the
+#   9. RandomForestClassifier and RandomForestRegressor, which reach no
+#      kernel of their own (plain torch ops: binning, int64 histograms, the
+#      gather descent), on the float32 rows after 8a, before they are
+#      dropped: 9a on a small input (20000 x 40, 4 trees of depth 6, 32
+#      bins, bootstrap on, featureSubsetStrategy auto, float32 and float64):
+#      a 3-class classifier under gini and entropy and a regressor on
+#      integer labels, the card's gini and variance forests equal to the
+#      CPU's bit for bit, an entropy forest parting only at near-tied gains,
+#      every fit twice on the card bit for bit, binning of edge values, ±inf
+#      and NaN equal, fault C3's row at probability [0, 1]; 9b and 9c,
+#      BASELINE.md's rows at full width, nothing cut: the classifier
+#      {numTrees=50, maxDepth=13, maxBins=128} on labels argmax([0, X·β +
+#      0.5·ε]) and the regressor {numTrees=30, maxDepth=6, maxBins=128} on
+#      phase 7's labels, each fit (quantile sketch, binning, s per tree),
+#      transform of every row, save and load, a 2-tree refit equal to trees
+#      0-1 bit for bit (ms per level and per histogram pass by depth), the
+#      first 4096 rows equal to the CPU's descent bit for bit, probabilities
+#      summing to 1 within 1e-6 with the prediction their argmax, training
+#      accuracy above the majority rate and R² above 0 on the first 100k
+#      rows; 9d, one ModelRegistry serving both forests (coalesced = solo =
+#      transform, bit for bit); the launch counters unmoved;
+#  10. a {"kernels": [...]} line with all twelve kernel forms, the
 #      nvidia-smi line, and as the last line {"ok": true, "device": {...}}.
 #
 # Every phase raises on failure; the script prints no result then. It needs
@@ -2701,6 +2722,358 @@ def phase_logreg_f64(dev, X64, ref):
     return timings
 
 
+# ------------------------------------------------------------ phase 9 ----
+
+# BASELINE.md's two RandomForest rows, nothing cut; the numTrees of the
+# refit that must repeat the first trees; the rows held against the CPU's
+# descent and the rows of the training-quality gates; 9a's small input
+# (rows, columns; trees, depth, bins); the serving traffic
+RF_CONFIGS = (
+    ("classifier", {"numTrees": 50, "maxDepth": 13, "maxBins": 128}),
+    ("regressor", {"numTrees": 30, "maxDepth": 6, "maxBins": 128}),
+)
+RF_REFIT_TREES = 2
+RF_DESCENT_ROWS, RF_QUALITY_ROWS = 4096, 100_000
+RF_SMALL, RF_SMALL_FOREST = (20000, 40), {"numTrees": 4, "maxDepth": 6, "maxBins": 32, "seed": 11}
+RF_SERVE_CLIENTS, RF_SERVE_REQUESTS = 2, 4
+# 9a's entropy gate: a node may split elsewhere on the card only where its
+# two best gains lie within this relative distance (log2 differs in its last
+# bits between the CPU and the card)
+RF_TIE_RTOL = 1e-6
+
+
+@contextlib.contextmanager
+def _forest_timers(levels=False):
+    """Times the forest fit's parts while the body runs, each call waited
+    for on the card: the quantile sketch, the binning and forest_fit, and
+    with `levels` every level and its histogram pass by depth (ms lists)."""
+    import torch
+
+    from spark_rapids_ml_tpu_torch.ops import trees as TR
+
+    box = {"sketch_s": 0.0, "bin_s": 0.0, "forest_s": 0.0, "level_ms": {}, "hist_ms": {}}
+    names = ("quantile_bins", "bin_features", "forest_fit", "_tree_level", "_histogram")
+    real = {k: getattr(TR, k) for k in names}
+    depth = {"now": 0}
+
+    def timed(fn, add):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            add(time.perf_counter() - t0, a)
+            return out
+        return run
+
+    def put(key):
+        def add(s, a):
+            box[key] += s
+        return add
+
+    def level(s, a):
+        box["level_ms"].setdefault(a[-1], []).append(s * 1e3)
+
+    def hist(s, a):
+        lst = box["hist_ms"].setdefault(depth["now"], [])
+        lst.append(s * 1e3)
+
+    def level_fn(*a, **kw):
+        depth["now"] = a[-1]
+        return timed(real["_tree_level"], level)(*a, **kw)
+
+    TR.quantile_bins = timed(real["quantile_bins"], put("sketch_s"))
+    TR.bin_features = timed(real["bin_features"], put("bin_s"))
+    TR.forest_fit = timed(real["forest_fit"], put("forest_s"))
+    if levels:
+        TR._tree_level = level_fn
+        TR._histogram = timed(real["_histogram"], hist)
+    try:
+        yield box
+    finally:
+        for k, fn in real.items():
+            setattr(TR, k, fn)
+
+
+def _forest_arrays(m):
+    return m.feature, m.threshold, m.node_stats
+
+
+def _same_forest(a, b, trees=None):
+    """Whether two forests' (or their first `trees` trees') arrays are equal
+    bit for bit."""
+    t = slice(None) if trees is None else slice(0, trees)
+    return all(x[t].dtype == y.dtype and np.array_equal(x[t], y, equal_nan=True)
+               for x, y in zip(_forest_arrays(a), (v[t] for v in _forest_arrays(b))))
+
+
+def _cpu_descent(m, x):
+    """The plain CPU descent of a fitted forest over host rows x: the mean
+    of the trees' leaf values at the model's dtype (what its transform
+    computes on the card)."""
+    import torch
+
+    from spark_rapids_ml_tpu_torch.ops.trees import forest_raw_predict
+
+    dtype = np.float32 if m._float32_inputs else np.float64
+    return forest_raw_predict(torch.from_numpy(np.ascontiguousarray(x, dtype=dtype)),
+                              torch.from_numpy(m.feature.astype(np.int64)),
+                              torch.from_numpy(m.threshold.astype(dtype)),
+                              torch.from_numpy(m._leaf_values().astype(dtype)), max_depth=m.max_depth).numpy()
+
+
+def _first_splits_apart(a, b):
+    """(tree, node) of the nodes where two forests first part: a node whose
+    split or statistics differ while its parent's agree."""
+    same = ((a.feature == b.feature) & (a.threshold == b.threshold)
+            & (a.node_stats == b.node_stats).all(axis=-1))
+    out = []
+    for t, i in np.argwhere(~same):
+        if i == 0 or same[t, (i - 1) // 2]:
+            out.append((int(t), int(i)))
+    return out
+
+
+def _small_forest_reference():
+    """9a: the forests through the public API on a small input, on the card
+    and on the CPU, bootstrap on, featureSubsetStrategy "auto", float32 and
+    float64: a 3-class classifier under gini and entropy and a regressor on
+    integer labels. Gini and variance forests equal bit for bit; an entropy
+    forest may part only at a node whose two best gains lie within
+    RF_TIE_RTOL (printed); each fit twice on the card, bit for bit; the
+    binning of values equal to an edge, of ±inf and NaN equal; fault C3's
+    row gives probability [0, 1] on the card."""
+    import torch
+
+    from spark_rapids_ml_tpu_torch import (LogisticRegression, RandomForestClassifier, RandomForestRegressor,
+                                           set_devices)
+    from spark_rapids_ml_tpu_torch.ops import trees as TR
+
+    rng = np.random.default_rng(17)
+    n, d = RF_SMALL
+    x = rng.standard_normal((n, d)).astype(np.float32)
+    y3 = np.argmax(x[:, :3] + 0.7 * rng.standard_normal((n, 3)), axis=1).astype(np.float32)
+    yi = np.round(2 * x[:, 0] + x[:, 1] ** 2 + rng.standard_normal(n)).astype(np.float32)
+    fits = {"gini": (RandomForestClassifier, {"impurity": "gini"}, y3),
+            "entropy": (RandomForestClassifier, {"impurity": "entropy"}, y3),
+            "variance": (RandomForestRegressor, {}, yi)}
+    real_gains = TR._gains_from_sides
+    ties = []
+    for f32 in (True, False):
+        xs = x if f32 else x.astype(np.float64)
+        models, gains = {}, {}
+        for device in ("cpu", "cuda", "cuda"):
+            set_devices(device)
+            for name, (cls, params, labels) in fits.items():
+                seen = []
+
+                def record(*a, **kw):
+                    g = real_gains(*a, **kw)
+                    seen.append(g.reshape(g.shape[0], -1).cpu().numpy())
+                    return g
+
+                TR._gains_from_sides = record
+                try:
+                    m = cls(float32_inputs=f32, **RF_SMALL_FOREST, **params).fit({"features": xs, "label": labels})
+                finally:
+                    TR._gains_from_sides = real_gains
+                if device in models.get(name, {}):
+                    if not _same_forest(models[name][device], m):
+                        fail(f"9a: {name} forest (float32_inputs={f32}) fitted twice on the card differs")
+                    continue
+                models.setdefault(name, {})[device] = m
+                gains.setdefault(name, {})[device] = seen
+        set_devices(None)
+        for name in fits:
+            mc, mg = models[name]["cpu"], models[name]["cuda"]
+            if name != "entropy":
+                if not _same_forest(mc, mg):
+                    fail(f"9a: {name} forest (float32_inputs={f32}) differs between the card and the CPU")
+                continue
+            depth = RF_SMALL_FOREST["maxDepth"]
+            for t, i in _first_splits_apart(mc, mg):
+                level = int(np.log2(i + 1))
+                g = np.sort(gains[name]["cpu"][t * depth + level][i - (2 ** level - 1)])[::-1]
+                if not (np.isfinite(g[1]) and g[0] - g[1] <= RF_TIE_RTOL * abs(g[0])):
+                    fail(f"9a: entropy forest (float32_inputs={f32}) tree {t} node {i} splits apart on the card "
+                         f"and the CPU, its two best gains {g[0]!r} and {g[1]!r} not within {RF_TIE_RTOL}")
+                ties.append((f32, t, i, float(g[0]), float(g[1])))
+    # binning: values equal to each edge, one float32 step either side, ±inf, NaN
+    edges = TR.quantile_bins(x, 32).astype(np.float32)
+    probe = np.concatenate([edges.T, np.nextafter(edges.T, np.float32(np.inf)),
+                            np.nextafter(edges.T, np.float32(-np.inf)),
+                            np.full((3, d), [[np.inf], [-np.inf], [np.nan]], np.float32)])
+    bins = [TR.bin_features(torch.from_numpy(probe).to(dev), torch.from_numpy(edges)).cpu().numpy()
+            for dev in ("cpu", "cuda")]
+    if not np.array_equal(bins[0], bins[1]):
+        fail("9a: binning on the card differs from the CPU's on edges, ±inf or NaN")
+    # C3: a binomial margin of +inf gives probability [0, 1] on the card
+    rng1 = np.random.default_rng(1)
+    xc = rng1.normal(size=(300, 6))
+    yc = (xc @ rng1.normal(size=6) + 0.5 * rng1.normal(size=300) > 0).astype(np.float64)
+    lr = LogisticRegression(regParam=0.01).fit({"features": xc.astype(np.float32), "label": yc})
+    q = (3e38 * np.sign(lr.coef_[0])).astype(np.float32)[None, :]
+    out = lr.transform({"features": q})
+    if not (np.array_equal(out["probability"][0], [0.0, 1.0]) and out["prediction"][0] == 1.0):
+        fail(f"9a: C3's row gives probability {out['probability'][0]} and prediction {out['prediction'][0]} on "
+             "the card, not [0, 1] and 1.0")
+    say(f"  9a, {n} x {d}, {RF_SMALL_FOREST}, bootstrap on, featureSubsetStrategy auto, float32 and float64: gini "
+        f"and variance forests equal on the card and the CPU bit for bit, each fit twice on the card bit for bit; "
+        f"entropy nodes parted at near-ties: {ties or 'none'}; binning of {len(probe)} x {d} edge, ±inf and NaN "
+        "values equal; C3's row gives probability [0, 1], prediction 1.0 on the card")
+
+
+def phase_forests(dev, X):
+    """Phase 9: BASELINE.md's RandomForestClassifier {numTrees=50,
+    maxDepth=13, maxBins=128} and RandomForestRegressor {numTrees=30,
+    maxDepth=6, maxBins=128} through the public API on the protocol rows
+    (float32): 9a on a small input against the CPU, then for each forest
+    fit (its parts timed), transform of every row, save/load bit for bit, a
+    refit of RF_REFIT_TREES trees repeating the first trees bit for bit
+    (levels timed), the first rows against the CPU's descent bit for bit and
+    the training-quality gates; 9d, one ModelRegistry serving both,
+    coalesced = solo = transform bit for bit. No kernel is launched."""
+    import threading
+
+    import torch
+
+    from spark_rapids_ml_tpu_torch import (ModelRegistry, RandomForestClassificationModel, RandomForestClassifier,
+                                           RandomForestRegressionModel, RandomForestRegressor, ScoringEngine,
+                                           telemetry)
+    from spark_rapids_ml_tpu_torch.ops import _kernels
+
+    say(f"phase 9: RandomForestClassifier and RandomForestRegressor, {N_ROWS} x {N_COLS} float32")
+    timings = {}
+    before = dict(_kernels.launches)
+    _, timings["small_s"] = _timed(_small_forest_reference)
+    labels = {"classifier": _class_labels(X, 2), "regressor": _labels(X)[0]}
+    classes = {"classifier": (RandomForestClassifier, RandomForestClassificationModel),
+               "regressor": (RandomForestRegressor, RandomForestRegressionModel)}
+    models, outs = {}, {}
+    head = X[:RF_DESCENT_ROWS]
+    for name, params in RF_CONFIGS:
+        est_cls, model_cls = classes[name]
+        data = {"features": X, "label": labels[name]}
+        with _forest_timers() as tm:
+            m, fit_s = _timed(lambda: est_cls(**params).fit(data))
+        T, depth = params["numTrees"], params["maxDepth"]
+        M = 2 ** (depth + 1) - 1
+        if m.feature.shape != (T, M) or not np.isfinite(m.node_stats).all() or not (m.feature[:, 0] >= 0).all():
+            fail(f"RF {name}: feature {m.feature.shape} (want ({T}, {M})), non-finite statistics or an unsplit root")
+        out, transform_s = _timed(lambda: m.transform(data))
+        mean = _cpu_descent(m, head).astype(np.float64)
+        q = slice(0, RF_QUALITY_ROWS)
+        if name == "classifier":
+            raw = np.stack(out["rawPrediction"].to_numpy())
+            prob = np.stack(out["probability"].to_numpy())
+            pred = np.asarray(out["prediction"])
+            if raw.shape != (N_ROWS, 2) or not np.isfinite(prob).all():
+                fail(f"RF {name} transform: not finite of shape ({N_ROWS}, 2)")
+            if not np.array_equal(raw[:RF_DESCENT_ROWS], mean * T):
+                fail(f"RF {name}: the first {RF_DESCENT_ROWS} rows of the transform differ from the CPU's descent")
+            row_sums = float(np.abs(prob.sum(axis=1) - 1.0).max())
+            if row_sums > 1e-6:
+                fail(f"RF {name}: a row of probabilities sums to 1 ± {row_sums}")
+            if not np.array_equal(pred, m.classes_[np.argmax(prob, axis=1)]):
+                fail(f"RF {name}: the prediction column is not the argmax of the probabilities")
+            acc = float(np.mean(pred[q] == labels[name][q]))
+            majority = float(np.bincount(labels[name][q].astype(np.int64)).max() / len(labels[name][q]))
+            if not acc > majority:
+                fail(f"RF {name}: training accuracy {acc} on the first {RF_QUALITY_ROWS} rows, not above the "
+                     f"majority-class rate {majority}")
+            quality = f"training accuracy {acc:.4f} (majority {majority:.4f}), rows sum to 1 within {row_sums:.3g}"
+        else:
+            pred = np.asarray(out["prediction"])
+            if pred.shape != (N_ROWS,) or not np.isfinite(pred).all():
+                fail(f"RF {name} transform: not finite of shape ({N_ROWS},)")
+            if not np.array_equal(pred[:RF_DESCENT_ROWS].astype(np.float64), mean[:, 0]):
+                fail(f"RF {name}: the first {RF_DESCENT_ROWS} rows of the transform differ from the CPU's descent")
+            yq = labels[name][q].astype(np.float64)
+            r2 = 1.0 - float(np.sum((pred[q] - yq) ** 2) / np.sum((yq - yq.mean()) ** 2))
+            if not r2 > 0:
+                fail(f"RF {name}: training R² {r2} on the first {RF_QUALITY_ROWS} rows, not above 0")
+            quality = f"training R² {r2:.4f}"
+        path = ROOT / "build" / f"chip_smoke_rf_{name}"
+        m.write().overwrite().save(str(path))
+        loaded = model_cls.load(str(path))
+        if not (_same_forest(loaded, m) and np.array_equal(loaded._transform_arrays(head), m._transform_arrays(head))):
+            fail(f"RF {name} save/load: the loaded model differs from the fitted one")
+        with _forest_timers(levels=True) as lv:
+            refit = est_cls(**dict(params, numTrees=RF_REFIT_TREES)).fit(data)
+        if not _same_forest(m, refit, trees=RF_REFIT_TREES):
+            fail(f"RF {name}: a refit of {RF_REFIT_TREES} trees differs from trees 0-{RF_REFIT_TREES - 1} of the first")
+        t = {"fit_s": fit_s, "transform_s": transform_s, "sketch_s": tm["sketch_s"], "bin_s": tm["bin_s"],
+             "forest_s": tm["forest_s"], "s_per_tree": tm["forest_s"] / T,
+             "bin_GB_s": N_ROWS * N_COLS / tm["bin_s"] / 1e9,
+             "level_ms": {k: float(np.mean(v)) for k, v in sorted(lv["level_ms"].items())},
+             "hist_ms": {k: float(np.mean(v)) for k, v in sorted(lv["hist_ms"].items())},
+             "nodes_split": int((m.feature >= 0).sum()), "total_nodes": m.totalNumNodes}
+        timings[name] = t
+        models[name], outs[name] = m, (raw if name == "classifier" else pred)
+        say(f"  {name} {params}: fit {fit_s:.2f} s wall = quantile sketch {t['sketch_s']:.2f} s + binning "
+            f"{t['bin_s']:.3f} s ({N_ROWS * N_COLS / 1e9:.0f} GB of bin ids written, {t['bin_GB_s']:.1f} GB/s) + "
+            f"forest {t['forest_s']:.2f} s ({t['s_per_tree']:.3f} s per tree) + the rest (placing X, labels); "
+            f"{t['nodes_split']} split nodes; level ms at depth 0 / {depth - 1}: {t['level_ms'][0]:.2f} / "
+            f"{t['level_ms'][depth - 1]:.2f} (histogram pass {t['hist_ms'][0]:.2f} / {t['hist_ms'][depth - 1]:.2f}); "
+            f"transform {transform_s:.2f} s wall; {quality}; the first {RF_DESCENT_ROWS} rows equal the CPU's "
+            f"descent, save/load and the {RF_REFIT_TREES}-tree refit bit for bit")
+        del out
+    after = dict(_kernels.launches)
+    if after != before:
+        fail(f"RF: kernel launch counters moved in phase 9: {before} -> {after}")
+
+    # 9d: both forests in one registry, coalesced = solo = transform
+    registry = ModelRegistry()
+    for name in models:
+        _, timings[f"load_{name}_s"] = _timed(lambda: registry.load(f"rf_{name}", models[name]))
+    traffic = _serve_traffic(2033, RF_SERVE_CLIENTS, RF_SERVE_REQUESTS)
+    telemetry.registry().reset()
+    telemetry.enable()
+    engine = ScoringEngine(registry).start()
+    futures = [[] for _ in traffic]
+
+    def client(t_):
+        for lo_, n in traffic[t_]:
+            futures[t_].append([engine.submit(f"rf_{name}", X[lo_:lo_ + n]) for name in models])
+
+    threads = [threading.Thread(target=client, args=(t_,)) for t_ in range(len(traffic))]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    results = [[[f.result(timeout=600) for f in per_req] for per_req in fut] for fut in futures]
+    timings["traffic_s"] = time.perf_counter() - t0
+    stats = engine.stats()
+    engine.stop()
+    telemetry.disable()
+    solo_engine = ScoringEngine(registry, coalesce_window_s=0.0).start()
+    try:
+        for t_, reqs in enumerate(traffic):
+            for (lo_, n), got in zip(reqs, results[t_]):
+                for name, g in zip(models, got):
+                    alone = solo_engine.score(f"rf_{name}", X[lo_:lo_ + n], timeout=600)
+                    if not (g.dtype == alone.dtype and np.array_equal(g, alone)):
+                        fail(f"serving: rf_{name} response to rows {lo_}..{lo_ + n} differs from the same request "
+                             "served alone")
+                    whole = outs[name][lo_:lo_ + n]
+                    as_col = (g.astype(np.float64) * models[name].num_trees if name == "classifier"
+                              else g[:, 0])
+                    if not np.array_equal(as_col, whole):
+                        fail(f"serving: rf_{name} response to rows {lo_}..{lo_ + n} differs from the transform")
+    finally:
+        solo_engine.stop()
+    registry.clear()
+    timings["serve_stats"] = stats
+    say(f"  serving loads rf_classifier {timings['load_classifier_s']:.2f} s, rf_regressor "
+        f"{timings['load_regressor_s']:.2f} s; traffic {RF_SERVE_CLIENTS} clients x {RF_SERVE_REQUESTS} requests to "
+        f"each: {timings['traffic_s']:.2f} s wall, {stats['batches']} batches, {stats['coalesced_batches']} "
+        f"coalesced, e2e p50 {stats['e2e_p50_s'] * 1e3:.1f} ms, p99 {stats['e2e_p99_s'] * 1e3:.1f} ms; every "
+        "response equals the same request served alone and the transform, bit for bit; kernel launches: none")
+    torch.cuda.empty_cache()
+    return timings
+
+
 # ------------------------------------------------------------------ main --
 
 
@@ -2727,6 +3100,7 @@ def main():
     serve_counts, serve_timings = phase_serving(dev, X, kmeans_model)
     linear_ref, linear_timings = phase_pca_linear(dev, X)
     logreg_ref, logreg_timings = phase_logreg(dev, X)
+    forest_timings = phase_forests(dev, X)
     t0 = time.perf_counter()
     X = _f64_rows(X)  # the float32 rows are dropped here
     say(f"data as float64 {X.shape} made in {time.perf_counter() - t0:.1f} s")
@@ -2763,6 +3137,7 @@ def main():
     say("PCA and LinearRegression float64 timings: " + json.dumps(linear_f64_timings))
     say("LogisticRegression timings: " + json.dumps(logreg_timings))
     say("LogisticRegression float64 timings: " + json.dumps(logreg_f64_timings))
+    say("RandomForest timings: " + json.dumps(forest_timings))
     kernels_line = json.dumps({"kernels": entries})
     say(f"total {time.perf_counter() - t_start:.1f} s")
     LOG_DIR.mkdir(exist_ok=True)

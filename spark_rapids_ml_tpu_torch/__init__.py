@@ -8,6 +8,8 @@
 # .fit(items).kneighbors(queries); PCA(k=...).setInputCol("features");
 # LinearRegression(regParam=...).fit({"features": X, "label": y});
 # LogisticRegression(regParam=...).fit({"features": X, "label": y});
+# RandomForestClassifier(numTrees=..., maxDepth=...) and
+# RandomForestRegressor(...).fit({"features": X, "label": y});
 # ModelRegistry().load("name", model) and
 # ScoringEngine(registry).score("name", rows) to serve fitted models. Entry
 # points run on the CUDA card; call
@@ -15,17 +17,29 @@
 # This package imports neither jax nor anything of spark_rapids_ml_tpu.
 #
 from .linalg import Vectors
-from .models.classification import LogisticRegression, LogisticRegressionModel
+from .models.classification import (
+    LogisticRegression,
+    LogisticRegressionModel,
+    RandomForestClassificationModel,
+    RandomForestClassifier,
+)
 from .models.clustering import KMeans, KMeansModel
 from .models.feature import PCA, PCAModel
 from .models.knn import NearestNeighbors, NearestNeighborsModel
-from .models.regression import LinearRegression, LinearRegressionModel
+from .models.regression import (
+    LinearRegression,
+    LinearRegressionModel,
+    RandomForestRegressionModel,
+    RandomForestRegressor,
+)
 from .parallel import set_devices
 from .serving import ModelRegistry, OverloadController, ResidentModel, ScoreFuture, ScoringEngine
 
 __all__ = [
     "KMeans", "KMeansModel", "NearestNeighbors", "NearestNeighborsModel", "PCA", "PCAModel",
     "LinearRegression", "LinearRegressionModel", "LogisticRegression", "LogisticRegressionModel",
+    "RandomForestClassifier", "RandomForestClassificationModel", "RandomForestRegressor",
+    "RandomForestRegressionModel",
     "Vectors", "set_devices",
     "ModelRegistry", "OverloadController", "ResidentModel", "ScoreFuture", "ScoringEngine",
 ]

@@ -2,8 +2,9 @@
 # Carrying fitted state across from the JAX package: its model attributes,
 # as numpy arrays and scalars, become this package's models. (A directory
 # the JAX package saved also loads directly with `KMeansModel.load`,
-# `PCAModel.load`, `LinearRegressionModel.load` or
-# `LogisticRegressionModel.load`: both packages write the same layout.)
+# `PCAModel.load`, `LinearRegressionModel.load`,
+# `LogisticRegressionModel.load`, `RandomForestClassificationModel.load` or
+# `RandomForestRegressionModel.load`: both packages write the same layout.)
 #
 from __future__ import annotations
 
@@ -11,14 +12,15 @@ from typing import Any, Dict, Tuple
 
 import numpy as np
 
-from .models.classification import LogisticRegressionModel
+from .models.classification import LogisticRegressionModel, RandomForestClassificationModel
 from .models.clustering import KMeansModel
 from .models.feature import PCAModel
-from .models.regression import LinearRegressionModel
+from .models.regression import LinearRegressionModel, RandomForestRegressionModel
 
 __all__ = [
     "kmeans_model_from_jax", "pca_model_from_jax", "linear_regression_model_from_jax",
-    "logistic_regression_model_from_jax",
+    "logistic_regression_model_from_jax", "random_forest_classification_model_from_jax",
+    "random_forest_regression_model_from_jax",
 ]
 
 _KMEANS_KEYS = ("cluster_centers_", "inertia_", "n_iter_", "n_cols", "dtype")
@@ -28,6 +30,8 @@ _PCA_KEYS = (
 )
 _LINREG_KEYS = ("coef_", "intercept_", "n_iter_", "n_cols", "dtype")
 _LOGREG_KEYS = ("coef_", "intercept_", "classes_", "n_iter_", "objective_", "n_cols", "dtype")
+_FOREST_KEYS = ("feature", "threshold", "node_stats", "classes_", "num_trees", "max_depth", "n_cols", "dtype")
+_FOREST_ARRAYS = {"feature": 2, "threshold": 2, "node_stats": 3, "classes_": 1}
 
 
 def _model_from_jax(cls, name: str, attrs: Dict[str, Any], keys: Tuple[str, ...], arrays: Dict[str, int]):
@@ -78,4 +82,22 @@ def logistic_regression_model_from_jax(attrs: Dict[str, Any]) -> LogisticRegress
     return _model_from_jax(
         LogisticRegressionModel, "LogisticRegression", attrs, _LOGREG_KEYS,
         {"coef_": 2, "intercept_": 1, "classes_": 1},
+    )
+
+
+def random_forest_classification_model_from_jax(attrs: Dict[str, Any]) -> RandomForestClassificationModel:
+    """A RandomForestClassificationModel from the JAX model's attributes
+    (`feature`, `threshold` [T, M], `node_stats` [T, M, k], `classes_` [k],
+    `num_trees`, `max_depth`, `n_cols`, `dtype`)."""
+    return _model_from_jax(
+        RandomForestClassificationModel, "RandomForestClassificationModel", attrs, _FOREST_KEYS, _FOREST_ARRAYS
+    )
+
+
+def random_forest_regression_model_from_jax(attrs: Dict[str, Any]) -> RandomForestRegressionModel:
+    """A RandomForestRegressionModel from the JAX model's attributes
+    (`feature`, `threshold` [T, M], `node_stats` [T, M, 3], `classes_`
+    (empty), `num_trees`, `max_depth`, `n_cols`, `dtype`)."""
+    return _model_from_jax(
+        RandomForestRegressionModel, "RandomForestRegressionModel", attrs, _FOREST_KEYS, _FOREST_ARRAYS
     )

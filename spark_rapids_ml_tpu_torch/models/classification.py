@@ -1,18 +1,19 @@
 #
-# LogisticRegression estimator and model, drop-in for
-# `pyspark.ml.classification.LogisticRegression`: the PyTorch counterpart
-# of the logistic part of spark_rapids_ml_tpu/models/classification.py, on
-# one device. Binomial and multinomial, standardization, the multinomial
-# intercepts centered, the single-class degenerate model,
+# RandomForestClassifier and LogisticRegression, estimators and models,
+# drop-in for their `pyspark.ml.classification` namesakes: the PyTorch
+# counterpart of spark_rapids_ml_tpu/models/classification.py, on one
+# device. The forest's shared machinery (fit, model base, what it leaves
+# out) is in tree.py.
+#
+# LogisticRegression: binomial and multinomial, standardization, the
+# multinomial intercepts centered, the single-class degenerate model,
 # rawPrediction / probability / prediction columns, threshold(s), warm
 # start from a fitted model. Solver choice as there: the GLM quasi-Newton
 # when regParam·elasticNetParam = 0, OWL-QN otherwise (ops/logistic.py).
-#
 # Left out, each raising NotImplementedError naming its ROADMAP item:
 # `evaluate` and `.cpu()` (Spark interop, A16), the fused cross-validation
 # path `_combine` / `_transform_evaluate` (A9), a `SolverCheckpoint` warm
-# start (A12), and sparse input or enable_sparse_data_optim=True (A11). The
-# forests (RandomForestClassifier) are A14.
+# start (A12), and sparse input or enable_sparse_data_optim=True (A11).
 #
 from __future__ import annotations
 
@@ -41,6 +42,93 @@ from ..params import (
     Param,
     TypeConverters,
 )
+from .tree import _as_row, _RandomForestEstimator, _RandomForestModel
+
+
+class RandomForestClassifier(HasProbabilityCol, HasRawPredictionCol, _RandomForestEstimator):
+    """RandomForestClassifier, drop-in for
+    ``pyspark.ml.classification.RandomForestClassifier``: level-wise
+    histogram tree growth on the device (ops/trees.py). Impurity: gini
+    (default) or entropy."""
+
+    _is_classification = True
+
+    def __init__(self, **kwargs: Any) -> None:
+        super().__init__(**kwargs)
+        self._setDefault(impurity="gini")
+        if self._solver_params.get("split_criterion") is None:
+            self._solver_params["split_criterion"] = "gini"
+
+    def _set_params(self, **kwargs):
+        if "impurity" in kwargs and kwargs["impurity"] not in ("gini", "entropy"):
+            raise ValueError("impurity must be 'gini' or 'entropy' for classification")
+        return super()._set_params(**kwargs)
+
+    def setProbabilityCol(self, value: str) -> "RandomForestClassifier":
+        return self._set_params(probabilityCol=value)
+
+    def setRawPredictionCol(self, value: str) -> "RandomForestClassifier":
+        return self._set_params(rawPredictionCol=value)
+
+    def _create_model(self, attrs: Dict[str, Any]) -> "RandomForestClassificationModel":
+        return RandomForestClassificationModel(**attrs)
+
+
+class RandomForestClassificationModel(HasProbabilityCol, HasRawPredictionCol, _RandomForestModel):
+    """Fitted random-forest classification model: rawPrediction is the
+    mean of the trees' leaf class distributions times numTrees,
+    probability that mean normalized, prediction its argmax class."""
+
+    _is_classification = True
+
+    @property
+    def numClasses(self) -> int:
+        return len(self.classes_)
+
+    def _leaf_values(self) -> np.ndarray:
+        # normalized per-node class distribution (Spark averages leaf distributions)
+        totals = self.node_stats.sum(axis=2, keepdims=True)
+        return self.node_stats / np.maximum(totals, 1e-30)
+
+    def setProbabilityCol(self, value: str) -> "RandomForestClassificationModel":
+        return self._set_params(probabilityCol=value)
+
+    def setRawPredictionCol(self, value: str) -> "RandomForestClassificationModel":
+        return self._set_params(rawPredictionCol=value)
+
+    def _out_column_names(self) -> List[str]:
+        return [
+            self.getOrDefault("rawPredictionCol"),
+            self.getOrDefault("probabilityCol"),
+            self.getOrDefault("predictionCol"),
+        ]
+
+    def _split_output(self, result, names, extracted) -> Dict[str, Any]:
+        mean_dist = np.asarray(result, dtype=np.float64)
+        prob = mean_dist / np.maximum(mean_dist.sum(axis=1, keepdims=True), 1e-30)
+        raw = mean_dist * self.num_trees  # Spark raw = summed tree votes
+        prediction = self.classes_[np.argmax(prob, axis=1)].astype(np.float64)
+        as_vec = extracted.feature_kind == "vector"
+        return {
+            names[0]: [DenseVector(r) for r in raw] if as_vec else list(raw),
+            names[1]: [DenseVector(p) for p in prob] if as_vec else list(prob),
+            names[2]: prediction,
+        }
+
+    def _one_dist(self, value) -> np.ndarray:
+        return np.asarray(self._raw_forest_output(_as_row(value)), dtype=np.float64)[0]
+
+    def predict(self, value) -> float:
+        return float(self.classes_[int(np.argmax(self._one_dist(value)))])
+
+    def predictRaw(self, value) -> DenseVector:
+        """Summed per-tree normalized votes (Spark's RF raw prediction)."""
+        return DenseVector(self._one_dist(value) * self.num_trees)
+
+    def predictProbability(self, value) -> DenseVector:
+        dist = self._one_dist(value)
+        return DenseVector(dist / max(dist.sum(), 1e-30))
+
 
 # Spark's defaults of the estimator's params (the model gets them too, so a
 # model built from attributes alone predicts with threshold 0.5)

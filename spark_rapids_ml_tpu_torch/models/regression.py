@@ -1,14 +1,15 @@
 #
-# LinearRegression estimator and model (ridge, lasso and elastic net through
-# its params), drop-in for `pyspark.ml.regression.LinearRegression`: the
-# PyTorch counterpart of the linear part of
-# spark_rapids_ml_tpu/models/regression.py, on one device. Solver choice by
-# the reg params as there: OLS / ridge(alpha·Σw) / coordinate descent.
+# RandomForestRegressor and LinearRegression (ridge, lasso and elastic net
+# through its params), estimators and models, drop-in for their
+# `pyspark.ml.regression` namesakes: the PyTorch counterpart of
+# spark_rapids_ml_tpu/models/regression.py, on one device. The forest's
+# shared machinery (fit, model base, what it leaves out) is in tree.py.
 #
-# Left out, each raising NotImplementedError naming its ROADMAP item:
-# `evaluate` and `.cpu()` (Spark interop, A16), and the fused
-# cross-validation path `_combine` / `_transform_evaluate` (A9). The
-# forests (RandomForestRegressor) are A14.
+# LinearRegression: solver choice by the reg params as in the JAX package,
+# OLS / ridge(alpha·Σw) / coordinate descent. Left out, each raising
+# NotImplementedError naming its ROADMAP item: `evaluate` and `.cpu()`
+# (Spark interop, A16), and the fused cross-validation path `_combine` /
+# `_transform_evaluate` (A9).
 #
 from __future__ import annotations
 
@@ -33,6 +34,52 @@ from ..params import (
     Param,
     TypeConverters,
 )
+from .tree import _as_row, _RandomForestEstimator, _RandomForestModel
+
+
+class RandomForestRegressor(_RandomForestEstimator):
+    """RandomForestRegressor, drop-in for
+    ``pyspark.ml.regression.RandomForestRegressor``: the classifier's
+    level-wise growth with the variance split criterion."""
+
+    _is_classification = False
+
+    def __init__(self, **kwargs: Any) -> None:
+        super().__init__(**kwargs)
+        self._setDefault(impurity="variance")
+        if self._solver_params.get("split_criterion") is None:
+            self._solver_params["split_criterion"] = "variance"
+
+    def _set_params(self, **kwargs):
+        if "impurity" in kwargs and kwargs["impurity"] != "variance":
+            raise ValueError("impurity must be 'variance' for regression")
+        return super()._set_params(**kwargs)
+
+    def _create_model(self, attrs: Dict[str, Any]) -> "RandomForestRegressionModel":
+        return RandomForestRegressionModel(**attrs)
+
+
+class RandomForestRegressionModel(_RandomForestModel):
+    """Fitted random-forest regression model: the prediction is the mean
+    of the trees' leaf means."""
+
+    _is_classification = False
+
+    def _leaf_values(self) -> np.ndarray:
+        # node mean: Σwy / Σw, kept as [M, 1]
+        w = self.node_stats[..., 0]
+        wy = self.node_stats[..., 1]
+        return (wy / np.maximum(w, 1e-30))[..., None]
+
+    def _out_column_names(self) -> List[str]:
+        return [self.getOrDefault("predictionCol")]
+
+    def _split_output(self, result, names, extracted):
+        return {names[0]: np.asarray(result)[:, 0]}
+
+    def predict(self, value) -> float:
+        return float(np.asarray(self._raw_forest_output(_as_row(value)))[0, 0])
+
 
 
 class _LinearRegressionParams(

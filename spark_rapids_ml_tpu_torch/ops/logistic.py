@@ -370,10 +370,14 @@ def logistic_predict(
     softmax, which works row by row (binary: softmax([0, m])). An
     elementwise `torch.sigmoid` would not do: on the CPU it runs vector code
     on the body of a tensor and scalar code on its tail, so an element's
-    last bit depends on where it sits in the batch."""
+    last bit depends on where it sits in the batch. At m = +inf the softmax
+    is NaN (inf − inf); that row gets the limit [0, 1], as 1 − σ(m), σ(m)
+    gives it."""
     if multinomial:
         raw = rows_dot_fixed(X, coef) + intercept[None, :]
         return raw, torch.softmax(raw, dim=1)
     m = rows_dot_fixed(X, coef[:1])
     m = m + intercept[0]
-    return torch.cat([-m, m], dim=1), torch.softmax(torch.cat([torch.zeros_like(m), m], dim=1), dim=1)
+    prob = torch.softmax(torch.cat([torch.zeros_like(m), m], dim=1), dim=1)
+    prob = torch.where(torch.isposinf(m), torch.tensor([0.0, 1.0], dtype=prob.dtype, device=prob.device), prob)
+    return torch.cat([-m, m], dim=1), prob

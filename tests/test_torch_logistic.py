@@ -46,7 +46,12 @@
 #     coefficients' bound (absolute), predictions equal on rows whose
 #     probability is not within 1e-2 of the threshold;
 #   * serving: a coalesced response equals the same request served alone,
-#     and the transform, bit for bit.
+#     and the transform, bit for bit;
+#   * fault C3, a binomial margin of +inf (ROADMAP §C's inputs): the
+#     port's rawPrediction, probability [0, 1] and prediction 1.0 equal
+#     JAX's exactly, from transform, predict, predictProbability and a
+#     served response; finite and −inf margins keep the bits of
+#     softmax([0, m]).
 #
 import os
 import threading
@@ -790,6 +795,50 @@ def test_logistic_serving_coalesced_equals_solo_and_transform(small_ladder, floa
                 np.testing.assert_array_equal(got, alone)
                 np.testing.assert_array_equal(got.astype(np.float64), whole[lo:lo + n])
     registry.clear()
+
+
+def test_binomial_margin_of_plus_inf_matches_jax(small_ladder):
+    # fault C3 (ROADMAP §C): a query row 3e38·sign(coef) is finite in float32
+    # but its margin overflows to +inf; JAX gives probability [0, 1] and
+    # prediction 1.0, and so must the port from every surface; beside it a
+    # row at −inf. Tolerance: equality. (A row of the training data rides
+    # along for the served response, held to the port's own transform.)
+    rng = np.random.default_rng(1)
+    x = rng.normal(size=(300, 6))
+    y = (x @ rng.normal(size=6) + 0.5 * rng.normal(size=300) > 0).astype(np.float64)
+    data = {"features": x.astype(np.float32), "label": y}
+    tm = LogisticRegression(regParam=0.01).fit(data)
+    jm = JaxLogisticRegression(num_workers=1, regParam=0.01).fit(data)
+    s = np.sign(tm.coef_[0])
+    q = np.stack([3e38 * s, -3e38 * s, x[0]]).astype(np.float32)
+    got, want = _cols(tm, {"features": q}), _cols(jm, {"features": q[:2]})
+    for g, w_ in zip(got, want):
+        np.testing.assert_array_equal(g[:2], w_)
+    np.testing.assert_array_equal(got[1][0], [0.0, 1.0])
+    assert got[2][0] == 1.0 and got[2][1] == 0.0
+    for i in range(2):
+        assert tm.predict(q[i]) == jm.predict(q[i])
+        np.testing.assert_array_equal(tm.predictProbability(q[i]).toArray(), jm.predictProbability(q[i]).toArray())
+    registry = ModelRegistry()
+    registry.load("lr", tm)
+    with ScoringEngine(registry) as engine:
+        raw, prob = engine.score("lr", q)
+    registry.clear()
+    np.testing.assert_array_equal(prob[:2].astype(np.float64), want[1])
+    np.testing.assert_array_equal(raw[:2].astype(np.float64), want[0])
+    np.testing.assert_array_equal(prob.astype(np.float64), got[1])
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_binomial_link_is_unchanged_away_from_plus_inf(dtype):
+    # the C3 repair touches m = +inf only: finite margins and −inf keep the
+    # bits of softmax([0, m])
+    m = np.concatenate([np.random.default_rng(2).normal(size=50) * 30, [-np.inf, 0.0, 88.0, -700.0]]).astype(dtype)
+    x = _t(m[:, None])
+    raw, prob = tlog.logistic_predict(x, _t(np.ones((1, 1), dtype)), _t(np.zeros(1, dtype)), multinomial=False)
+    want = torch.softmax(torch.cat([torch.zeros_like(x), x], dim=1), dim=1)
+    np.testing.assert_array_equal(prob.numpy(), want.numpy())
+    np.testing.assert_array_equal(prob.numpy()[-4], [1.0, 0.0])
 
 
 def test_serving_workspace_terms_price_the_margins():

@@ -57,14 +57,17 @@ m.transform({"features": x})
 KMeans(k=64, maxIter=2, seed=1).fit({"features": x})  # k-means|| seeding too
 nn = NearestNeighbors(k=5).setInputCol("features").fit({"features": x})
 nn.exactNearestNeighborsJoin({"features": x[:7]})  # kneighbors inside
-from spark_rapids_ml_tpu_torch import ModelRegistry, ScoringEngine
+from spark_rapids_ml_tpu_torch import ModelRegistry, RandomForestClassifier, ScoringEngine
+rf = RandomForestClassifier(numTrees=2, maxDepth=3).fit({"features": x, "label": (x[:, 0] > 0).astype(float)})
 registry = ModelRegistry()
 registry.load("km", m)
 registry.load("nn", nn, serve_dtype="bf16")
+registry.load("rf", rf)
 with ScoringEngine(registry) as engine:
     assert engine.score("km", x[:3]).shape == (3,)
     d, i = engine.score("nn", x[:2])
     assert list(i[:, 0]) == [0, 1]
+    assert engine.score("rf", x[:3]).shape == (3, 2)
 bad = sorted(n for n in sys.modules
              if n == "spark_rapids_ml_tpu" or n.startswith("spark_rapids_ml_tpu."))
 assert not bad, bad
