@@ -123,7 +123,27 @@
 #      accuracy above the majority rate and R² above 0 on the first 100k
 #      rows; 9d, one ModelRegistry serving both forests (coalesced = solo =
 #      transform, bit for bit); the launch counters unmoved;
-#  10. a {"kernels": [...]} line with all twelve kernel forms, the
+#  10. the multi-fit engine (tuning.py, core.py's fitMultiple half), on the
+#      float32 rows after phase 9, before they are dropped: 10a
+#      CrossValidator over LogisticRegression(maxIter=30, tol=1e-12),
+#      regParam = logspace(-6, -3, 4), 3 folds, accuracy, on phase 8's
+#      labels: 1 ingest, 1 placement, 12 batched solves and 1 refit by the
+#      counters, fold 0's batched models equal the single fits with the fold
+#      mask as a weight column bit for bit, the grid's host reads on
+#      resident rows equal the longest single fit's and the card's sync
+#      count; 10b CrossValidator over LinearRegression(tol=1e-30,
+#      maxIter=10), regParam {1e-5, 1e-3} x elasticNetParam {0, 0.5}, on
+#      phase 7's y: a normal-equation and a CD group per fold, batched CD
+#      equal to sequential CD bit for bit; 10c TrainValidationSplit over an
+#      OWL-QN pair (regParam 1e-2, elasticNetParam {0.5, 1.0}): the single
+#      fits' zeros; 10d KMeans(maxIter=3).fitMultiple over k {500, 1000}:
+#      one placement, models and transforms equal to the single fits, B1 and
+#      B2 counted in the run fit_multiple; 10e on 9a's input, a
+#      CrossValidator over the forest (the per-model fallback) equal on the
+#      card and the CPU, and a Pipeline saved and loaded; the timings (CV
+#      wall, placement, s per fold, ms per batched GLM iteration against S x
+#      the single fit's, ms per batched CD sweep against one);
+#  11. a {"kernels": [...]} line with all twelve kernel forms, the
 #      nvidia-smi line, and as the last line {"ok": true, "device": {...}}.
 #
 # Every phase raises on failure; the script prints no result then. It needs
@@ -2646,6 +2666,7 @@ def phase_logreg_f64(dev, X64, ref):
     from spark_rapids_ml_tpu_torch import LogisticRegression
     from spark_rapids_ml_tpu_torch.ops import linalg as L
     from spark_rapids_ml_tpu_torch.ops import logistic as LG
+    from spark_rapids_ml_tpu_torch.ops.owlqn import run_lockstep
     from spark_rapids_ml_tpu_torch.parallel import host_tensor, place_rows
 
     say("phase 8b: LogisticRegression with float32_inputs=False, held to phase 8a's float32 fit")
@@ -2661,7 +2682,12 @@ def phase_logreg_f64(dev, X64, ref):
     (mu, d_scale, total_w), timings["scaling_s"] = _timed(lambda: LG._make_scaling(Xd, wd, True, True))
     matvec, rmat = LG._dense_ops(Xd)
     kw = dict(k=2, multinomial=False, lam_l2=LOGREG_ROW["regParam"], fit_intercept=True)
-    prob = LG._build_glm_problem(matvec, rmat, Xd.dtype, N_COLS, y_idx, wd, mu, d_scale, total_w, **kw)
+    prob = LG._build_glm_problem(Xd.dtype, N_COLS, y_idx, wd, mu, d_scale, total_w, **kw)
+
+    def served(solve):
+        (out,), _ = run_lockstep([solve], matvec, rmat)
+        return out
+
     with _counting_syncs() as syncs:
         state, loop_s = _timed(lambda: LG._fit_common(
             matvec, rmat, N_ROWS, Xd.dtype, N_COLS, y_idx, wd, mu, d_scale, total_w, lam_l1=0.0, use_l1=False,
@@ -2679,10 +2705,10 @@ def phase_logreg_f64(dev, X64, ref):
     # the bounds' ingredients, in float64 at the float64 fit
     x64 = _flat_iterate(m64, mu, d_scale, Xd.dtype)
     x32 = _flat_iterate(base32, mu, d_scale, Xd.dtype)
-    z64 = prob["z_of"](x64)
+    z64 = served(prob["z_solve"](x64))
     f64 = float(prob["rowloss"](z64) + prob["penalty_terms"](x64, torch.zeros_like(x64))[0])
-    g64 = float(torch.linalg.vector_norm(prob["grad_from_z"](x64, z64)))
-    f_at32 = float(prob["rowloss"](prob["z_of"](x32)) + prob["penalty_terms"](x32, torch.zeros_like(x32))[0])
+    g64 = float(torch.linalg.vector_norm(served(prob["grad_solve"](x64, z64))))
+    f_at32 = float(prob["rowloss"](served(prob["z_solve"](x32))) + prob["penalty_terms"](x32, torch.zeros_like(x32))[0])
     (lo, hi), timings["hessian_s"] = _timed(lambda: _glm_eigs(Xd, wd, x64, mu, d_scale, total_w,
                                                               LOGREG_ROW["regParam"]))
     # ε_f: float32's rounding of the objective at the fit, from the rows'
@@ -3077,6 +3103,412 @@ def phase_forests(dev, X):
 # ------------------------------------------------------------------ main --
 
 
+# ------------------------------------------------------------ phase 10 ----
+
+# 10a: benchmark/bench_cv.py's run_cv_fit at BASELINE.md's width; 10b: the
+# CD row's tol and maxIter over a 2 x 2 grid; 10c: an OWL-QN group of two;
+# 10d: KMeans fitMultiple over two k; 10e: 9a's small input
+CV_LOGREG = {"maxIter": 30, "tol": 1e-12}
+CV_REGS = tuple(float(v) for v in np.logspace(-6, -3, 4))
+CV_FOLDS, CV_SEED = 3, 0
+CV_LINEAR = {"tol": 1e-30, "maxIter": 10}
+CV_LINEAR_REGS, CV_LINEAR_ENETS = (1e-5, 1e-3), (0.0, 0.5)
+TVS_OWLQN = {"regParam": 1e-2, "maxIter": 30}
+TVS_ENETS, TVS_RATIO, TVS_SEED = (0.5, 1.0), 0.75, 0
+KMEANS_MULTI_K, KMEANS_MULTI = (500, 1000), {"maxIter": 3, "tol": 1e-20, "initMode": "random", "seed": 1}
+SMALL_CV_GRID = {"maxDepth": (4, 6)}
+
+
+@contextlib.contextmanager
+def _fit_internal_timer(cls):
+    """Times each `_fit_internal` call of `cls` (a fold's masked grid fit,
+    or a single fit), waited for on the card: a list of (masked, s)."""
+    import torch
+
+    real = cls._fit_internal
+    box = []
+
+    def timed(self, dataset, maps, row_mask=None):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real(self, dataset, maps, row_mask)
+        torch.cuda.synchronize()
+        box.append((row_mask is not None, time.perf_counter() - t0))
+        return out
+
+    cls._fit_internal = timed
+    try:
+        yield box
+    finally:
+        cls._fit_internal = real
+
+
+def _engine_counters():
+    from spark_rapids_ml_tpu_torch import telemetry
+
+    snap = telemetry.registry().snapshot()
+    c = snap["counters"]
+    layout = snap["histograms"].get("device_wait.layout_s", {})
+    return {k: int(c.get(k, 0)) for k in ("ingest.datasets", "fit.device_dataset_builds", "fit.device_dataset_reuses",
+                                          "fit.solves_batched", "fit.solves_sequential")}, layout
+
+
+def _check_counters(tag, got, want):
+    for key, n in want.items():
+        if got[key] != n:
+            fail(f"{tag}: counter {key} is {got[key]}, expected {n} ({got})")
+
+
+def _masked_models(est, data, grid, mask):
+    """The single fits of `grid` on the rows of `mask`, the mask written as
+    a weight column, over one placement: (models, the placed rows, which
+    the caller scores held-out rows from as the engine does)."""
+    from spark_rapids_ml_tpu_torch import core
+
+    data_w = dict(data, w_fold=mask.astype(np.float32))
+    est_w = est.copy()._set_params(weightCol="w_fold")
+    with core.device_dataset_scope() as scope:
+        models = [est_w.copy(pm).fit(data_w) for pm in grid]
+        X = scope.last.inputs.X
+    return models, X
+
+
+def phase_multifit(dev, X, y_lin, y_cls):
+    """Phase 10: the multi-fit engine at full width, on the float32 protocol
+    rows after phase 9, through the public API (CrossValidator,
+    TrainValidationSplit, fitMultiple), then on 9a's small input against
+    the CPU. Gates, fixed before the first run on the card:
+
+    - 10a, CrossValidator(LogisticRegression(maxIter=30, tol=1e-12), grid
+      regParam = logspace(-6, -3, 4), numFolds=3, seed=0, accuracy) on
+      phase 8's binomial labels: the counters read exactly 1 ingest, 1
+      placement (fit.device_dataset_builds), 3 reuses, 12 batched solves
+      and 1 sequential refit. Fold 0's four batched models against the
+      four single fits with the fold mask as a weight column: the same
+      n_iter_, and coefficients, intercepts and fold accuracy EQUAL (bound
+      0): the grid's products run in fixed column blocks, so a column's
+      product is the single fit's bit for bit, and every other operation
+      of a solve is the single fit's own. On resident rows, the batched
+      grid reads the card once per iteration for the whole grid: its reads
+      equal the longest single fit's, reads per iteration equal the single
+      fit's, and the card's sync count equals the reads.
+    - 10b, CrossValidator(LinearRegression(tol=1e-30, maxIter=10), grid
+      regParam {1e-5, 1e-3} x elasticNetParam {0, 0.5}, numFolds=3, rmse)
+      on phase 7's y: two batched groups per fold (normal equations, CD:
+      6 calls of linear_fit_batched, 3 of each), 12 batched solves, 1
+      sequential refit; on fold 0's statistics the batched CD equals the
+      sequential CD of each point, n_iter_ 10 and coefficients bit for bit
+      (bound 0: each coordinate update is the same elementwise operations).
+    - 10c, TrainValidationSplit(LogisticRegression(regParam=1e-2,
+      maxIter=30), elasticNetParam {0.5, 1.0}, trainRatio 0.75): one
+      batched OWL-QN group (2 batched solves, 1 refit); its models have
+      their exact zeros where the single fits on the train rows have them,
+      and the same n_iter_.
+    - 10d, KMeans(maxIter=3, random init, seed 1).fitMultiple over k in
+      {500, 1000}: one placement (1 ingest); each model's centers and
+      transform equal to its single fit bit for bit (the kernels are
+      deterministic, phase 2), centers finite and inertia finite; B1 and B2
+      launched in the run named fit_multiple.
+    - 10e, on 20000 x 40: CrossValidator over RandomForestClassifier
+      (9a's forest, maxDepth {4, 6}, 2 folds) through the per-model
+      fallback gives the same avgMetrics and the same best forest bit for
+      bit on the card and the CPU; a Pipeline(PCA(k=3), LogisticRegression)
+      fit, transform, save and load, the loaded pipeline's output equal to
+      the fitted one's bit for bit.
+
+    Returns (the fit_multiple launch counts, timings)."""
+    import torch
+
+    from spark_rapids_ml_tpu_torch import (KMeans, LinearRegression, LogisticRegression, MulticlassClassificationEvaluator,
+                                           ParamGridBuilder, CrossValidator, RegressionEvaluator, TrainValidationSplit,
+                                           telemetry)
+    from spark_rapids_ml_tpu_torch.ops import _kernels
+    from spark_rapids_ml_tpu_torch.ops import linear as LR
+    from spark_rapids_ml_tpu_torch.ops import logistic as LG
+    from spark_rapids_ml_tpu_torch.parallel import host_tensor, place_rows
+
+    say(f"phase 10: the multi-fit engine, {N_ROWS} x {N_COLS} float32")
+    timings = {}
+    telemetry.registry().reset()
+    telemetry.enable()
+
+    # 10a: CrossValidator over LogisticRegression --------------------------
+    data = {"features": X, "label": y_cls}
+    est = LogisticRegression(**CV_LOGREG)
+    grid = ParamGridBuilder().addGrid(est.getParam("regParam"), list(CV_REGS)).build()
+    acc = MulticlassClassificationEvaluator(metricName="accuracy")
+    cv = CrossValidator(estimator=est, estimatorParamMaps=grid, evaluator=acc, numFolds=CV_FOLDS, seed=CV_SEED,
+                        collectSubModels=True)
+    with _fit_internal_timer(LogisticRegression) as fits:
+        cvm, timings["cv_logreg_s"] = _timed(lambda: cv.fit(data))
+    counts, layout = _engine_counters()
+    _check_counters("10a", counts, {"ingest.datasets": 1, "fit.device_dataset_builds": 1,
+                                    "fit.device_dataset_reuses": CV_FOLDS, "fit.solves_batched": CV_FOLDS * len(grid),
+                                    "fit.solves_sequential": 1})
+    timings["cv_logreg_placement_s"] = layout.get("sum")
+    fold_s = [s for masked, s in fits if masked]
+    timings["cv_logreg_fold_fit_s"] = fold_s
+    timings["cv_logreg_refit_s"] = [s for masked, s in fits if not masked][0]
+    if not np.isfinite(cvm.avgMetrics).all():
+        fail(f"10a: avgMetrics {cvm.avgMetrics} not finite")
+    folds = cv._kfold_indices(N_ROWS, data)
+    train0, valid0 = folds[0]
+    mask0 = np.zeros(N_ROWS, np.float32)
+    mask0[train0] = 1.0
+    seq, Xd = _masked_models(est, data, grid, mask0)
+    batched = cvm.subModels[0]
+    for j, (b, s) in enumerate(zip(batched, seq)):
+        if b.n_iter_ != s.n_iter_:
+            fail(f"10a: fold 0, map {j}: batched n_iter_ {b.n_iter_}, single fit {s.n_iter_}")
+        if not (np.array_equal(b.coef_, s.coef_) and np.array_equal(b.intercept_, s.intercept_)):
+            fail(f"10a: fold 0, map {j}: batched coefficients differ from the single fit's (max "
+                 f"{np.abs(b.coef_ - s.coef_).max()}); the bound is 0")
+    held = Xd.index_select(0, torch.from_numpy(valid0).to(dev))
+    acc_b = batched[0]._combine(batched)._transform_evaluate_arrays(held, y_cls[valid0].astype(np.float64), acc)
+    acc_s = seq[0]._combine(seq)._transform_evaluate_arrays(held, y_cls[valid0].astype(np.float64), acc)
+    if acc_b != acc_s:
+        fail(f"10a: fold 0 accuracies {acc_b} (batched) and {acc_s} (single fits) differ")
+    del held, seq, Xd
+    torch.cuda.empty_cache()
+
+    # the grid on resident rows: ms per batched iteration against the single
+    # fits', host reads against the card's syncs
+    (Xr, _), timings["place_rows_s"] = _timed(lambda: place_rows(X, device=dev))
+    w0 = host_tensor(mask0).to(dev)
+    y_idx = host_tensor(y_cls.astype(np.int64)).to(dev)
+    l2s = [float(r) for r in CV_REGS]
+    kw = dict(k=2, multinomial=False, max_iter=CV_LOGREG["maxIter"], tol=CV_LOGREG["tol"])
+    with _counting_syncs() as syncs:
+        states, grid_s = _timed(lambda: LG.logistic_fit_batched(Xr, y_idx, w0, l2s, [0.0] * len(l2s), **kw))
+    singles = []
+    for l2, st in zip(l2s, states):
+        with _counting_syncs() as syncs1:
+            one, one_s = _timed(lambda: LG.logistic_fit(Xr, y_idx, w0, lam_l2=l2, **kw))
+        if not (one["n_iter_"] == st["n_iter_"] and torch.equal(one["coef_"], st["coef_"])
+                and torch.equal(one["intercept_"], st["intercept_"])):
+            fail(f"10a on resident rows: regParam {l2}: the grid's state differs from logistic_fit's")
+        if syncs1["n"] != one["host_reads_"]:
+            fail(f"10a: a single fit waited for the card {syncs1['n']} times, it counted {one['host_reads_']} reads")
+        singles.append((one["n_iter_"], one["host_reads_"], one_s))
+    grid_reads = states[0]["grid_host_reads_"]
+    if syncs["n"] != grid_reads:
+        fail(f"10a: the grid waited for the card {syncs['n']} times, it counted {grid_reads} reads")
+    iters, most_reads = max(n for n, _, _ in singles), max(r for _, r, _ in singles)
+    if grid_reads != most_reads:
+        fail(f"10a: the grid read the card {grid_reads} times in {iters} iterations, the longest single fit "
+             f"{most_reads} times")
+    seq_ms = float(np.mean([s * 1e3 / max(n, 1) for n, _, s in singles]))
+    timings["glm_grid_ms_per_iter"] = grid_s * 1e3 / iters
+    timings["glm_single_ms_per_iter"] = seq_ms
+    timings["glm_grid_host_reads"] = grid_reads
+    timings["glm_grid_n_iter"] = [st["n_iter_"] for st in states]
+    # the products in column blocks (one column, the grid's S) against the
+    # GEMV pair of a single fit before the blocks
+    matvec, rmat = LG._dense_ops(Xr)
+    b1, r1 = torch.randn((N_COLS, 1), device=dev), torch.randn((N_ROWS, 1), device=dev)
+    bS, rS = torch.randn((N_COLS, len(l2s)), device=dev), torch.randn((N_ROWS, len(l2s)), device=dev)
+    timings["pair_block_1"] = _pair_ms(matvec, rmat, b1, r1, 4)
+    timings["pair_block_S"] = _pair_ms(matvec, rmat, bS, rS, 4)
+    timings["pair_gemv"] = _pair_ms(lambda B: Xr @ B, lambda R: Xr.T @ R, b1, r1, 4)
+    del Xr, w0, states, matvec, rmat, b1, r1, bS, rS
+    torch.cuda.empty_cache()
+    say(f"  10a CrossValidator(LogisticRegression({CV_LOGREG}), regParam {['%.0e' % r for r in CV_REGS]}, "
+        f"{CV_FOLDS} folds, accuracy): {timings['cv_logreg_s']:.2f} s wall, placement "
+        f"{timings['cv_logreg_placement_s']:.2f} s, fold fits {', '.join(f'{s:.2f}' for s in fold_s)} s, refit "
+        f"{timings['cv_logreg_refit_s']:.2f} s, {13 / timings['cv_logreg_s']:.3g} solves/s; avgMetrics "
+        f"{[round(float(v), 6) for v in cvm.avgMetrics]}; counters {counts}; fold 0's batched models equal the single "
+        f"fits with the mask as a weight column (n_iter_ {[m.n_iter_ for m in batched]}, coefficients and "
+        f"accuracies {acc_b} bit for bit); on resident rows one batched GLM iteration "
+        f"{timings['glm_grid_ms_per_iter']:.2f} ms against {len(l2s)} x {seq_ms:.2f} = {len(l2s) * seq_ms:.2f} ms "
+        f"sequential, {grid_reads} host reads for the grid in {iters} iterations (= the card's syncs, = the "
+        f"longest single fit's); X·B + Xᵀ·R in column blocks of {LG.COL_BLOCK}: "
+        + ", ".join(f"{name} {timings[key]['pair_ms']:.3f} ms (X·B {timings[key]['matvec_ms']:.3f}, Xᵀ·R "
+                    f"{timings[key]['rmat_ms']:.3f})" for name, key in (("1 column", "pair_block_1"),
+                                                                       (f"{len(l2s)} columns", "pair_block_S")))
+        + f", against the GEMV pair {timings['pair_gemv']['pair_ms']:.3f} ms (X·b {timings['pair_gemv']['matvec_ms']:.3f}, "
+        f"Xᵀ·r {timings['pair_gemv']['rmat_ms']:.3f}; bound {timings['pair_gemv']['pair_bound_ms']:.2f})")
+
+    # 10b: CrossValidator over LinearRegression ---------------------------
+    telemetry.registry().reset()
+    data_lin = {"features": X, "label": y_lin}
+    lin = LinearRegression(**CV_LINEAR)
+    lgrid = (ParamGridBuilder().addGrid(lin.getParam("regParam"), list(CV_LINEAR_REGS))
+             .addGrid(lin.getParam("elasticNetParam"), list(CV_LINEAR_ENETS)).build())
+    calls = []
+    real_batched = LR.linear_fit_batched
+
+    def counted(*a, **kw_):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_batched(*a, **kw_)
+        torch.cuda.synchronize()
+        calls.append((bool(kw_["use_cd"]), time.perf_counter() - t0))
+        return out
+
+    LR.linear_fit_batched = counted
+    try:
+        lcv = CrossValidator(estimator=lin, estimatorParamMaps=lgrid, evaluator=RegressionEvaluator(metricName="rmse"),
+                             numFolds=CV_FOLDS, seed=CV_SEED)
+        lcvm, timings["cv_linear_s"] = _timed(lambda: lcv.fit(data_lin))
+    finally:
+        LR.linear_fit_batched = real_batched
+    counts, layout = _engine_counters()
+    _check_counters("10b", counts, {"ingest.datasets": 1, "fit.device_dataset_builds": 1,
+                                    "fit.device_dataset_reuses": CV_FOLDS,
+                                    "fit.solves_batched": CV_FOLDS * len(lgrid), "fit.solves_sequential": 1})
+    if sorted(cd for cd, _ in calls) != [False] * CV_FOLDS + [True] * CV_FOLDS:
+        fail(f"10b: the grid did not split into a normal-equation and a CD group per fold: {calls}")
+    timings["cv_linear_placement_s"] = layout.get("sum")
+    timings["cv_linear_group_s"] = calls
+    # fold 0's statistics: the batched CD against each point's sequential CD
+    (Xr, _), _ = _timed(lambda: place_rows(X, device=dev))
+    w0 = host_tensor(mask0).to(dev)
+    yl = host_tensor(y_lin.astype(np.float32)).to(dev)
+    stats, timings["linear_stats_s"] = _timed(lambda: LR._sufficient_stats(Xr, yl, w0))
+    cd = dict(fit_intercept=True, standardize=True, use_cd=True, max_iter=CV_LINEAR["maxIter"], tol=CV_LINEAR["tol"])
+    enet = [e for e in CV_LINEAR_ENETS if e > 0][0]
+    grid_cd, grid_cd_s = _timed(lambda: LR._solve_grid_from_stats(stats, Xr.dtype, list(CV_LINEAR_REGS),
+                                                                    [enet] * len(CV_LINEAR_REGS), **cd))
+    seq_cd_s = []
+    for a, st in zip(CV_LINEAR_REGS, grid_cd):
+        one, s = _timed(lambda: LR._solve_from_stats(stats, Xr.dtype, alpha=a, l1_ratio=enet, **cd))
+        seq_cd_s.append(s)
+        if int(one["n_iter_"]) != int(st["n_iter_"]) or int(st["n_iter_"]) != CV_LINEAR["maxIter"]:
+            fail(f"10b: regParam {a}: batched CD ran {int(st['n_iter_'])} sweeps, sequential {int(one['n_iter_'])}")
+        if not (torch.equal(one["coef_"], st["coef_"]) and torch.equal(one["intercept_"], st["intercept_"])):
+            fail(f"10b: regParam {a}: batched CD coefficients differ from the sequential CD's; the bound is 0")
+    timings["cd_grid_sweep_ms"] = grid_cd_s * 1e3 / CV_LINEAR["maxIter"]
+    timings["cd_single_sweep_ms"] = float(np.mean(seq_cd_s)) * 1e3 / CV_LINEAR["maxIter"]
+    del Xr, w0, yl, stats, grid_cd
+    torch.cuda.empty_cache()
+    say(f"  10b CrossValidator(LinearRegression({CV_LINEAR}), regParam {list(CV_LINEAR_REGS)} x elasticNetParam "
+        f"{list(CV_LINEAR_ENETS)}, rmse): {timings['cv_linear_s']:.2f} s wall, placement "
+        f"{timings['cv_linear_placement_s']:.2f} s, batched groups (cd, s) "
+        f"{[(c, round(s, 2)) for c, s in calls]}; avgMetrics {[round(float(v), 6) for v in lcvm.avgMetrics]}; counters "
+        f"{counts}; on fold 0's statistics (pass {timings['linear_stats_s']:.3f} s) one batched CD sweep of "
+        f"{len(CV_LINEAR_REGS)} points {timings['cd_grid_sweep_ms']:.1f} ms against "
+        f"{timings['cd_single_sweep_ms']:.1f} ms for one point alone, n_iter_ and coefficients equal bit for bit")
+
+    # 10c: TrainValidationSplit, one OWL-QN group ---------------------------
+    telemetry.registry().reset()
+    tvs_est = LogisticRegression(**TVS_OWLQN)
+    tgrid = ParamGridBuilder().addGrid(tvs_est.getParam("elasticNetParam"), list(TVS_ENETS)).build()
+    tvs = TrainValidationSplit(estimator=tvs_est, estimatorParamMaps=tgrid, evaluator=acc, trainRatio=TVS_RATIO,
+                               seed=TVS_SEED, collectSubModels=True)
+    tvsm, timings["tvs_owlqn_s"] = _timed(lambda: tvs.fit(data))
+    counts, _ = _engine_counters()
+    _check_counters("10c", counts, {"ingest.datasets": 1, "fit.device_dataset_builds": 1,
+                                    "fit.device_dataset_reuses": 1, "fit.solves_batched": len(tgrid),
+                                    "fit.solves_sequential": 1})
+    perm = np.random.default_rng(TVS_SEED).permutation(N_ROWS)
+    tmask = np.zeros(N_ROWS, np.float32)
+    tmask[perm[:int(round(TVS_RATIO * N_ROWS))]] = 1.0
+    tseq, _ = _masked_models(tvs_est, data, tgrid, tmask)
+    zeros = []
+    for e, b, s in zip(TVS_ENETS, tvsm.subModels, tseq):
+        if b.n_iter_ != s.n_iter_ or not np.array_equal(b.coef_ == 0.0, s.coef_ == 0.0):
+            fail(f"10c: elasticNetParam {e}: n_iter_ {b.n_iter_} / {s.n_iter_} or the zero pattern differs "
+                 "from the single fit's")
+        zeros.append(int((b.coef_ == 0.0).sum()))
+    if not any(zeros):
+        fail("10c: no exact zero in the OWL-QN models")
+    diff = max(float(np.abs(b.coef_ - s.coef_).max()) for b, s in zip(tvsm.subModels, tseq))
+    torch.cuda.empty_cache()
+    say(f"  10c TrainValidationSplit(LogisticRegression({TVS_OWLQN}), elasticNetParam {list(TVS_ENETS)}, "
+        f"trainRatio {TVS_RATIO}): {timings['tvs_owlqn_s']:.2f} s wall, validation accuracy "
+        f"{[round(float(v), 6) for v in tvsm.validationMetrics]}; counters {counts}; exact zeros {zeros} of {N_COLS} in the "
+        f"same places as the single fits', n_iter_ {[m.n_iter_ for m in tvsm.subModels]}; coefficients apart by "
+        f"{diff}")
+    telemetry.disable()
+    telemetry.registry().reset()
+
+    # 10d: KMeans.fitMultiple over k ----------------------------------------
+    telemetry.enable()
+    km = KMeans(**KMEANS_MULTI)
+    kmaps = [{km.getParam("k"): k} for k in KMEANS_MULTI_K]
+    kdata = {"features": X}
+    _kernels.reset_launches()
+    torch.cuda.synchronize()
+    multi, timings["kmeans_fit_multiple_s"] = _timed(
+        lambda: [m for _, m in sorted(km.fitMultiple(kdata, kmaps), key=lambda im: im[0])])
+    launch_counts = dict(_kernels.launches)  # read just after the fit_multiple run
+    counts, _ = _engine_counters()
+    telemetry.disable()
+    telemetry.registry().reset()
+    if counts["ingest.datasets"] != 1 or counts["fit.solves_sequential"] != len(kmaps):
+        fail(f"10d: fitMultiple made {counts['ingest.datasets']} ingests and {counts['fit.solves_sequential']} "
+             "solves, expected 1 and 2")
+    for kernel in ("assign_argmin/f32", "assign_accumulate/f32"):
+        if not launch_counts[kernel]:
+            fail(f"10d: fit_multiple never launched {kernel}")
+    single_s = []
+    for k, m in zip(KMEANS_MULTI_K, multi):
+        one, s = _timed(lambda: km.copy({km.getParam("k"): k}).fit(kdata))
+        single_s.append(s)
+        if m.cluster_centers_.shape != (k, N_COLS) or not np.isfinite(m.cluster_centers_).all() \
+                or not np.isfinite(m.inertia_):
+            fail(f"10d: k={k}: centers or inertia not finite of shape ({k}, {N_COLS})")
+        if not (np.array_equal(m.cluster_centers_, one.cluster_centers_) and m.n_iter_ == one.n_iter_):
+            fail(f"10d: k={k}: the fitMultiple model differs from the single fit")
+        if not np.array_equal(np.asarray(m.transform(kdata)["prediction"]),
+                              np.asarray(one.transform(kdata)["prediction"])):
+            fail(f"10d: k={k}: the fitMultiple model's transform differs from the single fit's")
+    timings["kmeans_single_fit_s"] = single_s
+    say(f"  10d KMeans({KMEANS_MULTI}).fitMultiple over k {list(KMEANS_MULTI_K)}: "
+        f"{timings['kmeans_fit_multiple_s']:.2f} s wall for both (one placement) against single fits "
+        f"{', '.join(f'{s:.2f}' for s in single_s)} s; centers and transforms equal the single fits' bit for bit; "
+        "launches in fit_multiple: " + ", ".join(f"{k_}={v}" for k_, v in launch_counts.items() if v))
+
+    # 10e: the small input against the CPU ---------------------------------
+    _small_tuning_reference()
+    torch.cuda.empty_cache()
+    return launch_counts, timings
+
+
+def _small_tuning_reference():
+    """10e: on 9a's 20000 x 40 input, CrossValidator over
+    RandomForestClassifier through the per-model fallback on the card and
+    on the CPU (the same avgMetrics, the same best forest bit for bit), and
+    a Pipeline(PCA(k=3), LogisticRegression) fit, transform, save and load
+    on the card (the loaded pipeline's output equal bit for bit)."""
+    from spark_rapids_ml_tpu_torch import (PCA, CrossValidator, LogisticRegression, MulticlassClassificationEvaluator,
+                                           ParamGridBuilder, Pipeline, PipelineModel, RandomForestClassifier,
+                                           set_devices)
+
+    rng = np.random.default_rng(17)
+    n, d = RF_SMALL
+    x = rng.standard_normal((n, d)).astype(np.float32)
+    y3 = np.argmax(x[:, :3] + 0.7 * rng.standard_normal((n, 3)), axis=1).astype(np.float32)
+    data = {"features": x, "label": y3}
+    rf = RandomForestClassifier(**RF_SMALL_FOREST)
+    grid = ParamGridBuilder().addGrid(rf.getParam("maxDepth"), list(SMALL_CV_GRID["maxDepth"])).build()
+    out = {}
+    for device in ("cpu", "cuda"):
+        set_devices(device)
+        out[device] = CrossValidator(estimator=rf, estimatorParamMaps=grid, numFolds=2, seed=CV_SEED,
+                                     evaluator=MulticlassClassificationEvaluator(metricName="accuracy")).fit(data)
+    set_devices(None)
+    if out["cpu"].avgMetrics != out["cuda"].avgMetrics or not _same_forest(out["cpu"].bestModel,
+                                                                           out["cuda"].bestModel):
+        fail(f"10e: CrossValidator over the forest: avgMetrics {out['cuda'].avgMetrics} on the card, "
+             f"{out['cpu'].avgMetrics} on the CPU, or the best forests differ")
+    pipe = Pipeline(stages=[PCA(k=3, inputCol="features", outputCol="pcs"),
+                            LogisticRegression(maxIter=50, featuresCol="pcs")])
+    model = pipe.fit(data)
+    got = model.transform(data)
+    path = ROOT / "build" / "chip_smoke_pipeline"
+    model.write().overwrite().save(str(path))
+    again = PipelineModel.load(str(path)).transform(data)
+    for col in ("pcs", "probability", "prediction"):
+        if not np.array_equal(np.stack(got[col].to_numpy()), np.stack(again[col].to_numpy())):
+            fail(f"10e: the loaded pipeline's {col} differs from the fitted one's")
+    say(f"  10e, {n} x {d}: CrossValidator over RandomForestClassifier({RF_SMALL_FOREST}, maxDepth "
+        f"{list(SMALL_CV_GRID['maxDepth'])}, 2 folds, the per-model fallback): avgMetrics "
+        f"{[round(float(v), 6) for v in out['cuda'].avgMetrics]} on the card and the CPU, the best forest equal bit for "
+        "bit; Pipeline(PCA(k=3), LogisticRegression) fit, transform, save and load: the loaded pipeline's output "
+        "equals the fitted one's bit for bit")
+
+
 def main():
     import torch
 
@@ -3101,6 +3533,7 @@ def main():
     linear_ref, linear_timings = phase_pca_linear(dev, X)
     logreg_ref, logreg_timings = phase_logreg(dev, X)
     forest_timings = phase_forests(dev, X)
+    multi_counts, multi_timings = phase_multifit(dev, X, linear_ref["y"], logreg_ref["y"])
     t0 = time.perf_counter()
     X = _f64_rows(X)  # the float32 rows are dropped here
     say(f"data as float64 {X.shape} made in {time.perf_counter() - t0:.1f} s")
@@ -3125,6 +3558,7 @@ def main():
             e["launches"] = counts["main_path"][name]
             e["launches_by_run"] = {run: c[name] for run, c in counts.items() if run != "main_path"}
             e["launches_by_run"]["serving"] = serve_counts[name]
+            e["launches_by_run"]["fit_multiple"] = multi_counts[name]
     entries += d2_entries
     for name in ("assign_argmin/f64", "assign_accumulate/f64", "d2_block/f64", "assign_argmin/f64-fast"):
         if not f64_counts["route"][name]:
@@ -3138,6 +3572,7 @@ def main():
     say("LogisticRegression timings: " + json.dumps(logreg_timings))
     say("LogisticRegression float64 timings: " + json.dumps(logreg_f64_timings))
     say("RandomForest timings: " + json.dumps(forest_timings))
+    say("multi-fit engine timings: " + json.dumps(multi_timings))
     kernels_line = json.dumps({"kernels": entries})
     say(f"total {time.perf_counter() - t_start:.1f} s")
     LOG_DIR.mkdir(exist_ok=True)

@@ -11,11 +11,16 @@
 # RandomForestClassifier(numTrees=..., maxDepth=...) and
 # RandomForestRegressor(...).fit({"features": X, "label": y});
 # ModelRegistry().load("name", model) and
-# ScoringEngine(registry).score("name", rows) to serve fitted models. Entry
+# ScoringEngine(registry).score("name", rows) to serve fitted models;
+# est.fitMultiple(data, maps), CrossValidator(estimator=..., estimatorParamMaps=
+# ParamGridBuilder()...build(), evaluator=RegressionEvaluator()).fit(data),
+# TrainValidationSplit(...) and Pipeline(stages=[...]) to tune and chain
+# them. Entry
 # points run on the CUDA card; call
 # set_devices("cpu") to run the plain PyTorch versions on the CPU instead.
 # This package imports neither jax nor anything of spark_rapids_ml_tpu.
 #
+from .evaluation import BinaryClassificationEvaluator, MulticlassClassificationEvaluator, RegressionEvaluator
 from .linalg import Vectors
 from .models.classification import (
     LogisticRegression,
@@ -33,7 +38,15 @@ from .models.regression import (
     RandomForestRegressor,
 )
 from .parallel import set_devices
+from .pipeline import Pipeline, PipelineModel
 from .serving import ModelRegistry, OverloadController, ResidentModel, ScoreFuture, ScoringEngine
+from .tuning import (
+    CrossValidator,
+    CrossValidatorModel,
+    ParamGridBuilder,
+    TrainValidationSplit,
+    TrainValidationSplitModel,
+)
 
 __all__ = [
     "KMeans", "KMeansModel", "NearestNeighbors", "NearestNeighborsModel", "PCA", "PCAModel",
@@ -42,4 +55,7 @@ __all__ = [
     "RandomForestRegressionModel",
     "Vectors", "set_devices",
     "ModelRegistry", "OverloadController", "ResidentModel", "ScoreFuture", "ScoringEngine",
+    "CrossValidator", "CrossValidatorModel", "ParamGridBuilder", "TrainValidationSplit",
+    "TrainValidationSplitModel", "RegressionEvaluator", "MulticlassClassificationEvaluator",
+    "BinaryClassificationEvaluator", "Pipeline", "PipelineModel",
 ]

@@ -1,36 +1,47 @@
 #
 # Core execution framework on one device: the estimator and model bases, the
-# fit driver, batched transform, the resident predict handle the serving
-# plane keeps per model (`PredictProgram`), and persistence. The PyTorch
-# counterpart of the parts of spark_rapids_ml_tpu/core.py that the KMeans,
-# kNN, PCA, LinearRegression and LogisticRegression fits, their transforms,
-# save/load and the serving plane run.
+# fit driver with its multi-fit half, batched transform, the resident
+# predict handle the serving plane keeps per model (`PredictProgram`), and
+# persistence. The PyTorch counterpart of the parts of
+# spark_rapids_ml_tpu/core.py that the estimators' fits, fitMultiple and
+# the tuning layer (tuning.py), their transforms, save/load and the serving
+# plane run.
 #
-# Call stack (the JAX package's, without telemetry, admission, recovery,
-# streaming and the mesh): fit(dataset) -> _fit_internal -> _call_fit_func ->
-# [extract columns (data.py) -> place rows on the device (parallel) ->
-# per-algorithm fit closure] -> _create_model.
+# Call stack (the JAX package's, without the per-fit telemetry scope, fit
+# admission, retry and recovery, streaming and the mesh):
+# fit(dataset[, maps]) / fitMultiple -> _fit_internal -> _call_fit_func ->
+# [_device_dataset: extract columns (data.py) and place the rows on the
+# device (parallel), or reuse a placement cached by an enclosing
+# `device_dataset_scope` -> an optional fold mask (w -> w·mask) ->
+# _dispatch_solves: param sets with one `_batch_group_key` solve as one
+# batched grid, the others one by one] -> _create_model per param map.
 #
 # Persistence keeps the JAX package's on-disk layout exactly:
 # metadata.json + arrays.npz + attributes.json, so a directory saved by
-# either package loads in the other.
+# either package loads in the other; `load_instance` dispatches on the
+# class a directory names (either package's), `CompositeWriter` saves the
+# models made of models (CrossValidatorModel, PipelineModel).
 #
 from __future__ import annotations
 
+import contextlib
+import contextvars
+import dataclasses
 import json
 import os
 import shutil
+import threading
 from abc import abstractmethod
-from collections import namedtuple
+from collections import OrderedDict, namedtuple
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, List, Optional, Tuple, Union
+from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from .data import ExtractedData, as_pandas, extract_dataset
 from .linalg import DenseVector
-from .params import _TpuParams
+from .params import Param, _TpuParams
 
 # Framework configuration: the keys this package reads (the JAX package's
 # `config` holds many more; they arrive with the layers that read them).
@@ -87,6 +98,12 @@ config: Dict[str, Any] = {
     # quantiles the overload controller reads)
     "metrics_bucket_seconds": 10.0,
     "metrics_bucket_count": 18,
+    # --- multi-fit engine -------------------------------------------------
+    # placements (rows on the device + the host blocks they came from) a
+    # device_dataset_scope keeps at once; the least recently used go beyond
+    # this, so a scope around a loop over FRESH dataset objects cannot stack
+    # placements until the card runs out of memory
+    "device_dataset_cache_entries": 2,
 }
 
 
@@ -104,6 +121,16 @@ def resolve_solver_precision(params: Optional[Dict[str, Any]] = None) -> str:
             f"solver_precision must be 'f32' or 'bf16', got {value!r}"
         )
     return value
+
+
+def evaluator_label_column(params_obj: Any, evaluator: Any) -> str:
+    """The label column an evaluator scores against: its own ``labelCol``
+    when it defines one, else the estimator's or model's. The one
+    resolution the fused transform-evaluate paths and the tuning layer's
+    held-out scoring share."""
+    if hasattr(evaluator, "hasParam") and evaluator.hasParam("labelCol"):
+        return evaluator.getOrDefault("labelCol")
+    return params_obj.getOrDefault("labelCol")
 
 
 # Internal column aliases (reference core.py:333): `row_number` names the id
@@ -124,6 +151,85 @@ class FitInputs:
     dtype: Any  # numpy dtype of X
     device: torch.device
     y: Optional[torch.Tensor] = None  # [n] at X's dtype; None = unsupervised
+    # host boolean row mask of the rows this fit trains on (None = all); set
+    # by `with_row_mask`. Fit functions that derive host statistics from the
+    # raw columns (a classifier's class set) must respect it.
+    host_mask: Optional[np.ndarray] = None
+
+    def with_row_mask(self, mask: np.ndarray) -> "FitInputs":
+        """These inputs with the rows where ``mask == 0`` neutralized:
+        ``w -> w · mask`` on the device. The solvers treat ``w == 0`` rows as
+        absent, so a masked fit over the whole placed dataset is the fit over
+        the mask's rows: this is how CrossValidator realizes a fold without
+        another ingest or placement. X and y are shared untouched."""
+        from .parallel import host_tensor
+
+        m = np.ascontiguousarray(np.asarray(mask), dtype=self.dtype)
+        if m.shape[0] != self.n_valid:
+            raise ValueError(f"row mask has {m.shape[0]} entries for {self.n_valid} rows")
+        w_masked = self.w * host_tensor(m).to(self.device)
+        return dataclasses.replace(self, w=w_masked, host_mask=m > 0)
+
+
+@dataclass
+class DeviceDataset:
+    """A dataset after ingest and placement, reusable across fits. `key`
+    is the cache key (`_TpuCaller._device_dataset_key`); `extracted` keeps
+    the host blocks; `source` pins the ORIGINAL dataset object for the
+    entry's lifetime: the key is `id()`-based, and without a strong
+    reference CPython could give a collected dataset's id to a new object
+    of the same shape, a silent false hit training on the wrong data."""
+
+    key: Optional[tuple]
+    extracted: ExtractedData
+    inputs: FitInputs
+    source: Any = None
+
+
+class DeviceDatasetScope:
+    """The cache of one `device_dataset_scope`: placements keyed by
+    `_device_dataset_key`, least recently used first. `last` is the
+    placement most recently built or reused: the tuning layer scores
+    held-out rows from it."""
+
+    __slots__ = ("cache", "lock", "last")
+
+    def __init__(self) -> None:
+        self.cache: "OrderedDict[tuple, DeviceDataset]" = OrderedDict()  # guarded-by: lock
+        self.lock = threading.Lock()
+        self.last: Optional[DeviceDataset] = None
+
+
+# Context-local, not process-global: scopes on different threads neither
+# share a cache nor clobber each other's enter/exit bookkeeping. Threads
+# spawned inside a scope start from a fresh context and do not see it.
+_DDS_SCOPE: "contextvars.ContextVar[Optional[DeviceDatasetScope]]" = contextvars.ContextVar(
+    "srml_torch_device_dataset_scope", default=None
+)
+
+
+@contextlib.contextmanager
+def device_dataset_scope() -> Iterator[DeviceDatasetScope]:
+    """Placement reuse for the dynamic extent of the scope.
+
+    >>> with core.device_dataset_scope():
+    ...     est.fit(df)            # ingest + placement + solve
+    ...     est.copy(pm).fit(df)   # the SAME placement, one more solve
+
+    Nested scopes share the outermost cache, whose exit drops it (releasing
+    the device tensors). The key is the dataset object's identity, never a
+    hash of its data, so mutating one dataset object in place between fits
+    inside one scope is not detected: pass a new object instead."""
+    outer = _DDS_SCOPE.get()
+    scope = outer if outer is not None else DeviceDatasetScope()
+    token = _DDS_SCOPE.set(scope)
+    try:
+        yield scope
+    finally:
+        _DDS_SCOPE.reset(token)
+        if outer is None:
+            with scope.lock:
+                scope.cache.clear()
 
 
 FitFunc = Callable[[FitInputs, Dict[str, Any]], Dict[str, Any]]
@@ -205,8 +311,99 @@ class _TpuCaller(_TpuCommon):
         """Per-algorithm fit closure factory."""
         raise NotImplementedError
 
-    def _call_fit_func(self, dataset: Any) -> Dict[str, Any]:
-        """Extract, place, solve: returns the model-attribute dict."""
+    def _get_tpu_batched_fit_func(self, extracted: ExtractedData):
+        """Per-algorithm factory of the batched grid fit: a function
+        (inputs, [solver param sets]) -> [attrs], or None when this
+        estimator never batches (the default: sequential solves)."""
+        return None
+
+    def _batch_group_key(self, sp: Dict[str, Any]):
+        """Hashable signature of everything in a solver param set that
+        changes the solve's structure: param sets with equal keys solve as
+        one batched grid over the rest. None = this estimator never
+        batches."""
+        return None
+
+    def _ingest(self, dataset: Any) -> ExtractedData:
+        """The fit-side column extraction, timed as host_section.ingest_s
+        and counted (ingest.datasets, ingest.rows)."""
+        from . import telemetry
+
+        with telemetry.host_section("ingest"):
+            extracted = self._pre_process_data(dataset)
+        reg = telemetry.registry()
+        reg.inc("ingest.datasets")
+        reg.inc("ingest.rows", extracted.n_rows)
+        return extracted
+
+    def _layout(self, extracted: ExtractedData, device: torch.device) -> FitInputs:
+        """The placement of the host blocks on `device`, timed as
+        device_wait.layout_s."""
+        from . import telemetry
+
+        with telemetry.device_wait("layout", device):
+            return self._build_fit_inputs(extracted, device)
+
+    def _device_dataset_key(self, dataset: Any, device: torch.device) -> tuple:
+        """(dataset identity fingerprint, columns, dtype, device): what must
+        match for a cached placement to serve this fit."""
+        from .data import dataset_fingerprint
+
+        input_col, input_cols = self._get_input_columns()
+        label_col = self.getOrDefault("labelCol") if self._supervised else None
+        weight_col = (
+            self.getOrDefault("weightCol")
+            if self.hasParam("weightCol") and self.isDefined("weightCol")
+            else None
+        )
+        id_col = self.getOrDefault("idCol") if self.hasParam("idCol") and self.isDefined("idCol") else None
+        return (
+            dataset_fingerprint(dataset),
+            (input_col, tuple(input_cols) if input_cols else None, label_col, weight_col, id_col),
+            np.dtype(np.float32 if self._float32_inputs else np.float64).name,
+            str(device),
+        )
+
+    def _device_dataset(self, dataset: Any, device: torch.device) -> DeviceDataset:
+        """Ingest and placement, or a cache hit inside an active
+        `device_dataset_scope`: the ingest and the placement happen only on
+        a miss, which is how a numFolds x paramMaps CrossValidator fit
+        places its rows once."""
+        from . import telemetry
+
+        scope = _DDS_SCOPE.get()
+        if scope is None:
+            extracted = self._ingest(dataset)
+            return DeviceDataset(None, extracted, self._layout(extracted, device))
+        key = self._device_dataset_key(dataset, device)
+        reg = telemetry.registry()
+        with scope.lock:
+            dds = scope.cache.get(key)
+            if dds is not None:
+                scope.cache.move_to_end(key)
+                reg.inc("fit.device_dataset_reuses")
+            else:
+                extracted = self._ingest(dataset)
+                # `source=dataset` pins the object whose id() keys the entry
+                dds = DeviceDataset(key, extracted, self._layout(extracted, device), source=dataset)
+                reg.inc("fit.device_dataset_builds")
+                scope.cache[key] = dds
+                cap = max(1, int(config.get("device_dataset_cache_entries", 2)))
+                while len(scope.cache) > cap:
+                    scope.cache.popitem(last=False)
+                    reg.inc("fit.device_dataset_evictions")
+            scope.last = dds
+        return dds
+
+    def _call_fit_func(
+        self,
+        dataset: Any,
+        param_maps: Optional[List[Dict[Any, Any]]] = None,
+        row_mask: Optional[np.ndarray] = None,
+    ) -> List[Dict[str, Any]]:
+        """One placement, one solve per param map (one for None): returns
+        the model-attribute dicts. `row_mask` trains on its rows only
+        (`FitInputs.with_row_mask`)."""
         from .parallel import default_device
 
         if self.num_workers > 1:
@@ -215,33 +412,95 @@ class _TpuCaller(_TpuCommon):
                 "device (multi-GPU is ROADMAP item A10)"
             )
         device = default_device()
-        extracted = self._pre_process_data(dataset)
-        inputs = self._build_fit_inputs(extracted, device)
+        dds = self._device_dataset(dataset, device)
+        extracted, inputs = dds.extracted, dds.inputs
         fit_func = self._get_tpu_fit_func(extracted)
-        return fit_func(inputs, dict(self._solver_params))
+        if row_mask is not None:
+            inputs = inputs.with_row_mask(row_mask)
+        if param_maps is None:
+            solver_param_sets = [dict(self._solver_params)]
+        else:
+            solver_param_sets = []
+            for pm in param_maps:
+                est = self.copy(pm)
+                mapping = est._param_mapping()
+                for p, v in pm.items():
+                    mapped = mapping.get(p.name if isinstance(p, Param) else p)
+                    if mapped:
+                        est._set_solver_param(mapped, v, silent=True)
+                solver_param_sets.append(dict(est._solver_params))
+        return self._dispatch_solves(inputs, extracted, fit_func, solver_param_sets)
+
+    def _dispatch_solves(
+        self,
+        inputs: FitInputs,
+        extracted: ExtractedData,
+        fit_func: FitFunc,
+        solver_param_sets: List[Dict[str, Any]],
+    ) -> List[Dict[str, Any]]:
+        """Every solver param set's solve. Sets whose `_batch_group_key`s
+        match, two or more of them, solve as one batched grid
+        (`_get_tpu_batched_fit_func`); the others one by one. The counters
+        fit.solves_batched and fit.solves_sequential say which way each
+        went."""
+        from . import telemetry
+
+        n_sets = len(solver_param_sets)
+        rows: List[Optional[Dict[str, Any]]] = [None] * n_sets
+        batched_fn = self._get_tpu_batched_fit_func(extracted) if n_sets > 1 else None
+        groups: Dict[Any, List[int]] = {}
+        for i, sp in enumerate(solver_param_sets):
+            key = self._batch_group_key(sp) if batched_fn is not None else None
+            groups.setdefault(("seq", i) if key is None else ("batch", key), []).append(i)
+        reg = telemetry.registry()
+        for gid, idxs in groups.items():
+            if gid[0] == "batch" and len(idxs) > 1:
+                out = batched_fn(inputs, [solver_param_sets[i] for i in idxs])
+                if len(out) != len(idxs):
+                    raise RuntimeError(
+                        f"{type(self).__name__} batched fit returned {len(out)} results "
+                        f"for {len(idxs)} param sets"
+                    )
+                reg.inc("fit.solves_batched", len(idxs))
+                for i, attrs in zip(idxs, out):
+                    rows[i] = attrs
+                continue
+            for i in idxs:
+                rows[i] = fit_func(inputs, solver_param_sets[i])
+                reg.inc("fit.solves_sequential")
+        return rows
 
 
 class _TpuEstimator(_TpuCaller):
     """Estimator base."""
 
-    def fit(self, dataset: Any, params: Optional[Dict] = None, warm_start_from: Any = None):
+    def fit(
+        self,
+        dataset: Any,
+        params: Optional[Union[Dict, List[Dict]]] = None,
+        warm_start_from: Any = None,
+    ):
         """Fit on `dataset`. `params` is one param map applied to a copy of
-        this estimator. `warm_start_from` seeds the solver from a previous
-        result's iterate (a fitted model of the same family) instead of a
-        cold init."""
+        this estimator, or a list of them: then the list of their models,
+        fitted over one placement (`fitMultiple`). `warm_start_from` seeds
+        the solver from a previous result's iterate (a fitted model of the
+        same family) instead of a cold init."""
         if isinstance(params, (list, tuple)):
-            raise NotImplementedError(
-                "fit with a list of param maps (fitMultiple) is not in the "
-                "PyTorch port yet (ROADMAP item A9)"
-            )
+            if warm_start_from is not None:
+                raise ValueError(
+                    "warm_start_from is a single-fit seed; combine it with "
+                    "one param dict, not a param-map list"
+                )
+            return [m for _, m in sorted(self.fitMultiple(dataset, list(params)), key=lambda im: im[0])]
         if isinstance(params, dict) and params:
             return self.copy(params).fit(dataset, warm_start_from=warm_start_from)
         if warm_start_from is not None:
             self._warm_start = self._resolve_warm_start(warm_start_from)
         try:
-            return self._fit_internal(dataset)
+            models = self._fit_internal(dataset, None)
         finally:
             self._warm_start = None
+        return models[0]
 
     def _resolve_warm_start(self, source: Any) -> Dict[str, Any]:
         """Per-estimator hook: the portable warm-start payload of `source`."""
@@ -249,17 +508,39 @@ class _TpuEstimator(_TpuCaller):
             f"{type(self).__name__} does not support warm_start_from"
         )
 
-    def _fit_internal(self, dataset: Any) -> "_TpuModel":
-        attrs = self._call_fit_func(dataset)
-        model = self._create_model(attrs)
-        model._model_attributes = attrs
-        self._copyValues(model)
-        self._copy_solver_params(model)
-        return model
+    def fitMultiple(self, dataset: Any, paramMaps: Sequence[Dict[Any, Any]]) -> "_FitMultipleIterator":
+        """Fit every param map over ONE placement of the data: an iterator
+        of (index, model), all models made by the first `next`."""
+        maps = list(paramMaps)
+        return _FitMultipleIterator(lambda: self._fit_internal(dataset, maps), len(maps))
+
+    def _fit_internal(
+        self,
+        dataset: Any,
+        paramMaps: Optional[List[Dict[Any, Any]]],
+        row_mask: Optional[np.ndarray] = None,
+    ) -> List["_TpuModel"]:
+        attr_rows = self._call_fit_func(dataset, paramMaps, row_mask)
+        models = []
+        for i, attrs in enumerate(attr_rows):
+            model = self._create_model(attrs)
+            model._model_attributes = attrs
+            self._copyValues(model, paramMaps[i] if paramMaps else None)
+            if paramMaps:
+                self.copy(paramMaps[i])._copy_solver_params(model)
+            else:
+                self._copy_solver_params(model)
+            models.append(model)
+        return models
 
     @abstractmethod
     def _create_model(self, attrs: Dict[str, Any]) -> "_TpuModel":
         raise NotImplementedError
+
+    def _supportsTransformEvaluate(self, evaluator: Any) -> bool:
+        """Whether CrossValidator can score this estimator's models through
+        the fused `_combine` + `_transform_evaluate` path."""
+        return False
 
     # persistence ---------------------------------------------------------
     def write(self) -> "_TpuWriter":
@@ -284,6 +565,49 @@ class _TpuEstimatorSupervised(_TpuEstimator):
     _supervised = True
 
 
+class _FitMultipleIterator:
+    """Thread-safe (index, model) iterator; every model comes from ONE fit
+    pass, run by whoever claims index 0."""
+
+    def __init__(self, fitMultipleModels: Callable[[], List["_TpuModel"]], numModels: int):
+        self.fitMultipleModels = fitMultipleModels
+        self.numModels = numModels
+        self.counter = 0  # guarded-by: lock
+        self.lock = threading.Lock()
+        # written once by the index-0 claimant, then published through
+        # `_materialized`; readers wait on the event, not on the lock
+        self.models: Optional[List["_TpuModel"]] = None
+        self._materialized = threading.Event()
+        self._fit_error: Optional[BaseException] = None
+
+    def __iter__(self) -> Iterator[Tuple[int, "_TpuModel"]]:
+        return self
+
+    def __next__(self) -> Tuple[int, "_TpuModel"]:
+        with self.lock:
+            index = self.counter
+            if index >= self.numModels:
+                raise StopIteration()
+            self.counter += 1
+        if index == 0:
+            try:
+                self.models = self.fitMultipleModels()
+            except BaseException as e:
+                self._fit_error = e
+                raise
+            finally:
+                self._materialized.set()
+        else:
+            self._materialized.wait()
+            if self._fit_error is not None:
+                raise RuntimeError(
+                    "the fit pass materializing this iterator's models failed"
+                ) from self._fit_error
+        return index, self.models[index]
+
+    next = __next__
+
+
 class _TpuModel(_TpuCommon):
     """Model base."""
 
@@ -296,6 +620,18 @@ class _TpuModel(_TpuCommon):
 
     def transform(self, dataset: Any):
         raise NotImplementedError
+
+    # the fused cross-validation path: models that support it pack a fold's
+    # models into one (`_combine`) and score them all in one pass
+    def _combine(self, models: List["_TpuModel"]) -> "_TpuModel":
+        raise NotImplementedError(f"{type(self).__name__} does not support the fused CV path (_combine)")
+
+    def _transform_evaluate(self, dataset: Any, evaluator: Any) -> List[float]:
+        raise NotImplementedError(f"{type(self).__name__} does not support transform-evaluate")
+
+    @classmethod
+    def _transformEvaluate_supported(cls, evaluator: Any) -> bool:
+        return False
 
     # serving hooks -------------------------------------------------------
     # The per-model surface the serving plane composes: a resident
@@ -519,6 +855,27 @@ class _TpuModelWithColumns(_TpuModel):
             return tuple(np.concatenate(parts, axis=0) for parts in zip(*outs))
         return np.concatenate(outs, axis=0)
 
+    def _transform_resident(self, X: torch.Tensor) -> Any:
+        """`_transform_arrays` over rows already on the device (the tuning
+        layer's held-out rows, taken from the fit's placement): the same
+        predict in batches of ``config["max_records_per_batch"]`` rows,
+        fetched as numpy. `predict` is row-parallel, so a row's outputs are
+        the bits `_transform_arrays` gives it."""
+        construct, predict = self._get_transform_func()
+        state = construct()
+        n = X.shape[0]
+        batch = int(config["max_records_per_batch"])
+        outs = []
+        for start in range(0, n, batch) if n else (0,):
+            result = predict(state, X[start:start + batch])
+            if isinstance(result, tuple):
+                outs.append(tuple(r.cpu().numpy() for r in result))
+            else:
+                outs.append(result.cpu().numpy())
+        if isinstance(outs[0], tuple):
+            return tuple(np.concatenate(parts, axis=0) for parts in zip(*outs))
+        return np.concatenate(outs, axis=0)
+
     def transform(self, dataset: Any):
         pdf = as_pandas(dataset)
         extracted = self._pre_process_data(dataset, for_fit=False)
@@ -554,6 +911,56 @@ def _prepare_save_path(path: str, overwrite: bool) -> None:
             raise FileExistsError(f"Path {path} already exists; use write().overwrite().save()")
         shutil.rmtree(path)
     os.makedirs(path)
+
+
+class CompositeWriter:
+    """Writer for models made of other models (CrossValidatorModel,
+    TrainValidationSplitModel, PipelineModel): one metadata.json with the
+    class and the caller's fields, then one sub-save per child in the
+    child's own format.
+
+    build_meta(instance) -> dict of extra metadata fields;
+    iter_children(instance) -> iterable of (relative_subdir, child)."""
+
+    def __init__(self, instance: Any, build_meta, iter_children) -> None:
+        self.instance = instance
+        self._build_meta = build_meta
+        self._iter_children = iter_children
+        self._overwrite = False
+
+    def overwrite(self) -> "CompositeWriter":
+        self._overwrite = True
+        return self
+
+    def save(self, path: str) -> None:
+        inst = self.instance
+        _prepare_save_path(path, self._overwrite)
+        meta = {"class": f"{type(inst).__module__}.{type(inst).__qualname__}", **self._build_meta(inst)}
+        with open(os.path.join(path, "metadata.json"), "w") as f:
+            json.dump(meta, f, indent=2)
+        for rel, child in self._iter_children(inst):
+            child.write().overwrite().save(os.path.join(path, rel))
+
+
+_JAX_PACKAGE = "spark_rapids_ml_tpu"
+
+
+def load_instance(path: str):
+    """Load any saved estimator or model by the class its metadata names.
+    A class of the JAX package is loaded as this package's class of the same
+    module path and name (the on-disk layout is shared)."""
+    import importlib
+
+    with open(os.path.join(path, "metadata.json")) as f:
+        qualname = json.load(f)["class"]
+    module, _, name = qualname.rpartition(".")
+    head, _, rest = module.partition(".")
+    if head == _JAX_PACKAGE:
+        module = f"{__package__}.{rest}" if rest else __package__
+    obj: Any = importlib.import_module(module)
+    for part in name.split("."):
+        obj = getattr(obj, part)
+    return obj.load(path)
 
 
 class _TpuWriter:

@@ -76,6 +76,30 @@ def as_pandas(dataset: Any):
     raise TypeError(f"Unsupported dataset type {type(dataset)}; expected pandas/pyarrow/dict")
 
 
+def dataset_fingerprint(dataset: Any) -> tuple:
+    """Identity fingerprint of a dataset object, for the placement cache's
+    keys (core.device_dataset_scope).
+
+    Identity-based by design: hashing the data would cost a host pass per
+    fit, more than the ingest it is meant to skip. The id() is only stable
+    while the object lives, so every cache entry pins its source object
+    (`core.DeviceDataset.source`); shape and columns ride along as defense
+    in depth. An in-place mutation of the same object between fits inside
+    one scope is not detected."""
+    if isinstance(dataset, dict):
+        shapes = tuple(
+            (str(k), tuple(getattr(v, "shape", ())) or (len(v) if hasattr(v, "__len__") else None))
+            for k, v in dataset.items()
+        )
+        return (id(dataset), type(dataset).__name__, shapes)
+    cols = getattr(dataset, "columns", None)
+    cols_t = tuple(map(str, cols)) if cols is not None else None
+    shape = getattr(dataset, "shape", None)
+    if shape is None and hasattr(dataset, "__len__"):
+        shape = (len(dataset),)
+    return (id(dataset), type(dataset).__name__, cols_t, tuple(shape) if shape else None)
+
+
 def _fill_dense_chunked(values, n_cols: int, dtype, to_row) -> np.ndarray:
     """Object column of per-row cells -> preallocated [n, n_cols] block,
     converted one row chunk at a time (see _INGEST_CHUNK_BYTES)."""

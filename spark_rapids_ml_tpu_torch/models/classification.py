@@ -9,10 +9,12 @@
 # multinomial intercepts centered, the single-class degenerate model,
 # rawPrediction / probability / prediction columns, threshold(s), warm
 # start from a fitted model. Solver choice as there: the GLM quasi-Newton
-# when regParam·elasticNetParam = 0, OWL-QN otherwise (ops/logistic.py).
+# when regParam·elasticNetParam = 0, OWL-QN otherwise (ops/logistic.py). A
+# (regParam, elasticNetParam) grid of one solver solves in lockstep
+# (`logistic_fit_batched`), and the fused cross-validation path
+# (`_combine`, `_transform_evaluate`) scores every model of a fold at once.
 # Left out, each raising NotImplementedError naming its ROADMAP item:
-# `evaluate` and `.cpu()` (Spark interop, A16), the fused cross-validation
-# path `_combine` / `_transform_evaluate` (A9), a `SolverCheckpoint` warm
+# `evaluate` and `.cpu()` (Spark interop, A16), a `SolverCheckpoint` warm
 # start (A12), and sparse input or enable_sparse_data_optim=True (A11).
 #
 from __future__ import annotations
@@ -268,9 +270,12 @@ class LogisticRegression(_LogisticRegressionParams, _TpuEstimatorSupervised):
         return self._set_params(weightCol=value)
 
     @staticmethod
-    def _resolve_classes(labels_host: np.ndarray) -> np.ndarray:
-        """Sorted class values of this fit's labels."""
-        return np.unique(labels_host).astype(np.float64)
+    def _resolve_classes(labels_host: np.ndarray, inputs: FitInputs) -> np.ndarray:
+        """Sorted class values of this fit's labels. A fold's row mask is
+        honored: a weight-masked CV fold finds its classes among its train
+        rows only, as the physical split would."""
+        lbl = labels_host if inputs.host_mask is None else labels_host[inputs.host_mask]
+        return np.unique(lbl).astype(np.float64)
 
     @staticmethod
     def _degenerate_single_class(classes: np.ndarray, inputs: FitInputs) -> Dict[str, Any]:
@@ -385,7 +390,7 @@ class LogisticRegression(_LogisticRegressionParams, _TpuEstimatorSupervised):
         def _fit(inputs: FitInputs, params: Dict[str, Any]) -> Dict[str, Any]:
             alpha = float(params["alpha"])
             l1_ratio = float(params["l1_ratio"])
-            classes = self._resolve_classes(labels_host)
+            classes = self._resolve_classes(labels_host, inputs)
             if len(classes) == 1:
                 return self._degenerate_single_class(classes, inputs)
             multinomial, y_idx_host = self._fit_geometry_host(classes, labels_host)
@@ -403,6 +408,53 @@ class LogisticRegression(_LogisticRegressionParams, _TpuEstimatorSupervised):
             return self._finalize_state(fetch_state(state), classes, inputs, common)
 
         return _fit
+
+    def _batch_group_key(self, sp: Dict[str, Any]):
+        # regParam (alpha) and elasticNetParam (l1_ratio) vary inside a
+        # batched grid; the solver choice use_l1 derived from them splits a
+        # grid mixing L1-on and L1-off points into one group per solver;
+        # everything else in the param set must be equal
+        use_l1 = float(sp["alpha"]) * float(sp["l1_ratio"]) > 0
+        rest = tuple(sorted((k, repr(v)) for k, v in sp.items() if k not in ("alpha", "l1_ratio")))
+        return (use_l1, rest)
+
+    def _get_tpu_batched_fit_func(self, extracted: ExtractedData):
+        from ..ops.logistic import fetch_states, logistic_fit_batched
+        from ..parallel import host_tensor
+
+        labels_host = extracted.label
+
+        def _fit_batch(inputs: FitInputs, param_sets) -> List[Dict[str, Any]]:
+            classes = self._resolve_classes(labels_host, inputs)
+            if len(classes) == 1:
+                return [self._degenerate_single_class(classes, inputs) for _ in param_sets]
+            multinomial, y_idx_host = self._fit_geometry_host(classes, labels_host)
+            alphas = [float(sp["alpha"]) for sp in param_sets]
+            l1rs = [float(sp["l1_ratio"]) for sp in param_sets]
+            common = dict(
+                k=len(classes),
+                multinomial=multinomial,
+                use_l1=alphas[0] * l1rs[0] > 0,  # uniform per group key
+                **self._solver_statics(param_sets[0]),
+            )
+            y_idx = host_tensor(y_idx_host).to(inputs.device)
+            states = logistic_fit_batched(
+                inputs.X, y_idx, inputs.w,
+                [a * (1.0 - r) for a, r in zip(alphas, l1rs)], [a * r for a, r in zip(alphas, l1rs)],
+                **common,
+            )
+            return [self._finalize_state(st, classes, inputs, common) for st in fetch_states(states)]
+
+        return _fit_batch
+
+    def _supportsTransformEvaluate(self, evaluator: Any) -> bool:
+        if not hasattr(evaluator, "getMetricName"):
+            return False
+        from ..metrics import MulticlassMetrics
+
+        if evaluator.getMetricName() not in MulticlassMetrics.SUPPORTED_MULTI_CLASS_METRIC_NAMES:
+            return False
+        return not (evaluator.hasParam("weightCol") and evaluator.isDefined("weightCol"))
 
     def _create_model(self, attrs: Dict[str, Any]) -> "LogisticRegressionModel":
         return LogisticRegressionModel(**attrs)
@@ -539,12 +591,18 @@ class LogisticRegressionModel(_LogisticRegressionParams, _TpuModelWithColumns):
         return 2.0 * n_rows * n_cols * max(1, int(self.coef_.shape[0]))
 
     def _raw_prob(self, features) -> tuple:
-        """Batched (raw, prob) float64 arrays for a host feature block; the
+        """Batched (raw, prob) float64 arrays for a host feature block, or
+        for rows already on the device (`_transform_resident`); the
         single-class model tiles its ±inf intercept without the device."""
+        import torch
+
         if np.isinf(self.intercept_).any():
             n = features.shape[0]
             return np.tile(self.intercept_, (n, 1)), np.ones((n, 1))
-        raw, prob = self._transform_arrays(features)
+        if isinstance(features, torch.Tensor):
+            raw, prob = self._transform_resident(features)
+        else:
+            raw, prob = self._transform_arrays(features)
         return raw.astype(np.float64), prob.astype(np.float64)
 
     def _predict_from_prob(self, prob: np.ndarray) -> np.ndarray:
@@ -606,14 +664,57 @@ class LogisticRegressionModel(_LogisticRegressionParams, _TpuModelWithColumns):
             "not in the PyTorch port yet (ROADMAP item A16)"
         )
 
+    # -- fused CV path ----------------------------------------------------
     def _combine(self, models: List["LogisticRegressionModel"]) -> "LogisticRegressionModel":
-        raise NotImplementedError(
-            "the fused cross-validation path (_combine) is not in the PyTorch "
-            "port yet (ROADMAP item A9)"
+        combined = LogisticRegressionModel(
+            coef_=self.coef_, intercept_=self.intercept_, classes_=self.classes_,
+            n_iter_=self.n_iter_, objective_=self.objective_, n_cols=self.n_cols, dtype=self.dtype,
         )
+        combined._sub_models = list(models)
+        self._copyValues(combined)
+        self._copy_solver_params(combined)
+        return combined
 
     def _transform_evaluate(self, dataset: Any, evaluator: Any) -> List[float]:
-        raise NotImplementedError(
-            "the fused cross-validation path (_transform_evaluate) is not in "
-            "the PyTorch port yet (ROADMAP item A9)"
-        )
+        """Score every packed model over a dataset: the feature block
+        extracted once, then one pass over it per model
+        (`_transform_evaluate_arrays`)."""
+        from ..core import evaluator_label_column
+
+        pdf = as_pandas(dataset)
+        label = pdf[evaluator_label_column(self, evaluator)].to_numpy(dtype=np.float64)
+        extracted = self._pre_process_data(dataset, for_fit=False)
+        return self._transform_evaluate_arrays(extracted.features, label, evaluator)
+
+    def _transform_evaluate_arrays(self, features: Any, label: np.ndarray, evaluator: Any) -> List[float]:
+        """Score every packed model over an extracted block (host, or rows
+        already on the device), one pass over the block per model, as the
+        JAX package does: each model's predictions (its transform's own
+        fixed-order row products), their confusion counts, and for logLoss
+        the clipped log-probability of the true class."""
+        from ..metrics import MulticlassMetrics
+
+        assert hasattr(self, "_sub_models"), "call _combine first"
+        want_logloss = evaluator.getMetricName() == "logLoss"
+        eps = evaluator.getOrDefault("eps") if evaluator.hasParam("eps") else 1e-15
+        scores = []
+        for m in self._sub_models:
+            _, prob = m._raw_prob(features)
+            prediction = m._predict_from_prob(prob)
+            pairs = np.stack([label, prediction], axis=1)
+            uniq, inverse = np.unique(pairs, axis=0, return_inverse=True)
+            counts = np.bincount(inverse.reshape(-1), minlength=len(uniq)).astype(np.float64)
+            confusion = {
+                (float(uniq[i, 0]), float(uniq[i, 1])): float(counts[i]) for i in range(len(uniq))
+            }
+            log_loss = None
+            if want_logloss:
+                # exact class membership: a label this fold's model never saw
+                # gets probability eps (the model gives it ~0 mass)
+                cls_idx = np.clip(np.searchsorted(m.classes_, label), 0, len(m.classes_) - 1)
+                known = m.classes_[cls_idx] == label
+                p_raw = prob[np.arange(len(label)), cls_idx]
+                p_true = np.clip(np.where(known, p_raw, 0.0), eps, 1 - eps)
+                log_loss = float(np.sum(-np.log(p_true)))
+            scores.append(MulticlassMetrics.from_confusion(confusion, log_loss).evaluate(evaluator))
+        return scores

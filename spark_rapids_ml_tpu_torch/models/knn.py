@@ -17,7 +17,7 @@
 #
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -75,7 +75,7 @@ class NearestNeighbors(_KNNParams, _TpuEstimator):
     def setIdCol(self, value: str) -> "NearestNeighbors":
         return self._set_params(idCol=value)
 
-    def _fit_internal(self, dataset: Any) -> "NearestNeighborsModel":
+    def _fit_internal(self, dataset: Any, paramMaps=None, row_mask=None) -> List["NearestNeighborsModel"]:
         # kNN fits no parameters: the model is the item set, bound here; the
         # search runs in kneighbors
         if self.num_workers > 1:
@@ -92,7 +92,7 @@ class NearestNeighbors(_KNNParams, _TpuEstimator):
         self._copy_solver_params(model)
         model._item_pdf = pdf
         model._item_extracted = extracted
-        return model
+        return [model]
 
     # _TpuCaller's solver hooks: never reached, _fit_internal binds the items
     def _get_tpu_fit_func(self, extracted: ExtractedData):

@@ -6,10 +6,12 @@
 # shared machinery (fit, model base, what it leaves out) is in tree.py.
 #
 # LinearRegression: solver choice by the reg params as in the JAX package,
-# OLS / ridge(alpha·Σw) / coordinate descent. Left out, each raising
-# NotImplementedError naming its ROADMAP item: `evaluate` and `.cpu()`
-# (Spark interop, A16), and the fused cross-validation path `_combine` /
-# `_transform_evaluate` (A9).
+# OLS / ridge(alpha·Σw) / coordinate descent; a (regParam,
+# elasticNetParam) grid of one solver solves as one batched grid over one
+# statistics pass (ops/linear.py `linear_fit_batched`), and the fused
+# cross-validation path (`_combine`, `_transform_evaluate`) scores every
+# model of a fold at once. Left out, each raising NotImplementedError
+# naming its ROADMAP item: `evaluate` and `.cpu()` (Spark interop, A16).
 #
 from __future__ import annotations
 
@@ -210,15 +212,58 @@ class LinearRegression(_LinearRegressionParams, _TpuEstimatorSupervised):
                 tol=float(params["tol"]),
                 fast=resolve_solver_precision(params) == "bf16",
             )
-            return {
-                "coef_": state["coef_"].cpu().numpy(),
-                "intercept_": float(state["intercept_"]),
-                "n_iter_": int(state["n_iter_"]),
-                "n_cols": inputs.n_cols,
-                "dtype": np.dtype(inputs.dtype).name,
-            }
+            return self._attrs(state, inputs)
 
         return _fit
+
+    def _batch_group_key(self, sp: Dict[str, Any]):
+        # regParam (alpha) and elasticNetParam (l1_ratio) vary inside a
+        # batched grid; the solver choice use_cd derived from them splits a
+        # grid mixing elastic-net and ridge/OLS points into one group per
+        # solver; everything else in the param set must be equal
+        use_cd = float(sp["alpha"]) > 0 and float(sp["l1_ratio"]) > 0
+        rest = tuple(sorted((k, repr(v)) for k, v in sp.items() if k not in ("alpha", "l1_ratio")))
+        return (use_cd, rest)
+
+    def _get_tpu_batched_fit_func(self, extracted: ExtractedData):
+        from ..core import resolve_solver_precision
+        from ..ops.linear import linear_fit_batched
+
+        def _fit_batch(inputs: FitInputs, param_sets) -> List[Dict[str, Any]]:
+            alphas = [float(sp["alpha"]) for sp in param_sets]
+            l1rs = [float(sp["l1_ratio"]) for sp in param_sets]
+            p0 = param_sets[0]  # uniform per group key
+            states = linear_fit_batched(
+                inputs.X, inputs.y, inputs.w, alphas, l1rs,
+                fit_intercept=bool(p0["fit_intercept"]),
+                standardize=bool(p0.get("normalize", False)),
+                use_cd=bool(alphas[0] > 0 and l1rs[0] > 0),
+                max_iter=int(p0["max_iter"]),
+                tol=float(p0["tol"]),
+                fast=resolve_solver_precision(p0) == "bf16",
+            )
+            return [self._attrs(state, inputs) for state in states]
+
+        return _fit_batch
+
+    @staticmethod
+    def _attrs(state: Dict[str, Any], inputs: FitInputs) -> Dict[str, Any]:
+        return {
+            "coef_": state["coef_"].cpu().numpy(),
+            "intercept_": float(state["intercept_"]),
+            "n_iter_": int(state["n_iter_"]),
+            "n_cols": inputs.n_cols,
+            "dtype": np.dtype(inputs.dtype).name,
+        }
+
+    def _supportsTransformEvaluate(self, evaluator: Any) -> bool:
+        if not hasattr(evaluator, "getMetricName"):
+            return False
+        if evaluator.getMetricName() not in ("rmse", "mse", "r2", "mae", "var"):
+            return False
+        # a weighted evaluator takes the fallback path: the fused pass makes
+        # unweighted statistics
+        return not (evaluator.hasParam("weightCol") and evaluator.isDefined("weightCol"))
 
     def _create_model(self, attrs: Dict[str, Any]) -> "LinearRegressionModel":
         return LinearRegressionModel(**attrs)
@@ -282,17 +327,56 @@ class LinearRegressionModel(_LinearRegressionParams, _TpuModelWithColumns):
             "not in the PyTorch port yet (ROADMAP item A16)"
         )
 
+    # -- fused CV path ----------------------------------------------------
     def _combine(self, models: List["LinearRegressionModel"]) -> "LinearRegressionModel":
-        raise NotImplementedError(
-            "the fused cross-validation path (_combine) is not in the PyTorch "
-            "port yet (ROADMAP item A9)"
+        """Pack N fitted models into one multi-model (coef_ stacked [m, d])."""
+        combined = LinearRegressionModel(
+            coef_=np.stack([m.coef_ for m in models]),
+            intercept_=0.0,
+            n_iter_=self.n_iter_,
+            n_cols=self.n_cols,
+            dtype=self.dtype,
         )
+        combined._intercepts = np.asarray([m.intercept_ for m in models])
+        self._copyValues(combined)
+        self._copy_solver_params(combined)
+        return combined
 
     def _transform_evaluate(self, dataset: Any, evaluator: Any) -> List[float]:
-        raise NotImplementedError(
-            "the fused cross-validation path (_transform_evaluate) is not in "
-            "the PyTorch port yet (ROADMAP item A9)"
-        )
+        """Score every packed model in one pass over a dataset (the feature
+        block extracted, then `_transform_evaluate_arrays`)."""
+        from ..core import evaluator_label_column
+        from ..data import as_pandas
+
+        extracted = self._pre_process_data(dataset, for_fit=False)
+        # the evaluator's labelCol governs scoring (it may differ from the model's)
+        label = as_pandas(dataset)[evaluator_label_column(self, evaluator)].to_numpy(dtype=np.float64)
+        return self._transform_evaluate_arrays(extracted.features, label, evaluator)
+
+    def _transform_evaluate_arrays(self, features: Any, label: np.ndarray, evaluator: Any) -> List[float]:
+        """Score every packed model over an extracted block: predictions
+        [n, m] in float64 (features @ coefᵀ + intercepts), then each
+        model's regression statistics. `features` is a host block, or rows
+        already on the device (the tuning layer's held-out rows, taken from
+        the fit's placement), multiplied there in float64 in row tiles."""
+        import torch
+
+        from ..metrics import RegressionMetrics
+        from ..ops.linalg import row_tiles
+
+        assert self.coef_.ndim == 2 and hasattr(self, "_intercepts"), "call _combine first"
+        if isinstance(features, torch.Tensor):
+            coef_t = torch.from_numpy(np.ascontiguousarray(self.coef_.T, dtype=np.float64)).to(features.device)
+            preds = np.concatenate(
+                [(features[rows].to(torch.float64) @ coef_t).cpu().numpy() for rows in row_tiles(features.shape[0])]
+                or [np.zeros((0, self.coef_.shape[0]))]
+            ) + self._intercepts[None, :]
+        else:
+            preds = np.asarray(features, dtype=np.float64) @ self.coef_.T + self._intercepts[None, :]
+        return [
+            RegressionMetrics.from_values(label, preds[:, j]).evaluate(evaluator)
+            for j in range(preds.shape[1])
+        ]
 
     def setFeaturesCol(self, value) -> "LinearRegressionModel":
         return self._set_params(featuresCol=value) if isinstance(value, str) else self._set_params(featuresCols=value)

@@ -17,16 +17,25 @@
 # The solve is `torch.linalg.solve_ex`, which returns where
 # `torch.linalg.solve` would raise: a singular system (every feature
 # constant, standardized, no penalty: Gs = 0) gives NaN coefficients, as
-# `jnp.linalg.solve` does. The ELL, batched-grid and checkpointed forms
-# wait for ROADMAP A11, A9 and A12.
+# `jnp.linalg.solve` does.
+#
+# A (regParam, elasticNetParam) grid (`linear_fit_batched`) takes ONE
+# statistics pass whatever its size; its normal-equation points solve one
+# by one on the shared statistics, its CD points in one batched
+# coordinate descent that updates coordinate j of every point at once, so
+# a sweep costs one point's launches. A single fit is the grid of one, so
+# each grid point equals its `linear_fit` bit for bit. The ELL forms,
+# batched ones included, and the checkpointed forms wait for ROADMAP A11
+# and A12.
 #
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import torch
 
 from .linalg import mm_bf16, row_tiles, rows_dot_fixed
+from .owlqn import freeze_when_done
 
 
 def _sufficient_stats(X, y, w, fast: bool = False):
@@ -56,40 +65,60 @@ def _sufficient_stats(X, y, w, fast: bool = False):
     return sw, sx, sy, G.to(X.dtype), c.to(X.dtype), syy
 
 
-def _cd_elastic_net(A, r, lam, l1_ratio, max_iter: int, tol: float) -> Tuple[torch.Tensor, int]:
-    """Coordinate descent on the normalized gram A = G/n, r = c/n.
+def _cd_elastic_net(A, r, lams, l1_ratios, max_iter: int, tol: float) -> Tuple[torch.Tensor, List[int]]:
+    """Coordinate descent on the normalized gram A = G/n, r = c/n, for S
+    points (lams [S], l1_ratios [S]) at once.
 
-    Soft-threshold updates with incremental q = A·b; stops when the largest
-    coefficient change of a sweep is <= tol, or after max_iter sweeps. The
-    coordinates run on the device; the host reads that one change per
-    sweep, never one per coordinate. Returns (b, sweeps run)."""
+    Soft-threshold updates with incremental q = A·b; a point stops when the
+    largest coefficient change of its sweep is <= tol, or after max_iter
+    sweeps. Every point updates coordinate j in the same launch, in the
+    same order as a point alone would; a stopped point is frozen
+    (`freeze_when_done`): its b and q stay exactly. The host reads the S
+    changes once per sweep, never once per coordinate. b and q are held
+    [d, S], so a coordinate is one row of each (the sweep is launch-bound:
+    the host's work per coordinate is its time). Returns (b [S, d], sweeps
+    run by each point)."""
     d = A.shape[0]
-    l1 = lam * l1_ratio
-    l2 = lam * (1.0 - l1_ratio)
+    S = lams.shape[0]
+    l1 = lams * l1_ratios
+    l2 = lams * (1.0 - l1_ratios)
     diag = torch.diagonal(A)
-    denom = torch.clamp_min(diag + l2, 1e-30)
-    cols = A.T.contiguous()  # cols[j] = A[:, j]
-    b = torch.zeros((d,), dtype=A.dtype, device=A.device)
-    q = torch.zeros((d,), dtype=A.dtype, device=A.device)
-    n_iter = 0
-    while n_iter < max_iter:
-        max_delta = torch.zeros((), dtype=A.dtype, device=A.device)
+    denom = torch.clamp_min(diag[:, None] + l2[None, :], 1e-30)  # [d, S]
+    cols = A.T.contiguous()[:, :, None]  # cols[j] = A[:, j] as [d, 1]
+    b = torch.zeros((d, S), dtype=A.dtype, device=A.device)
+    q = torch.zeros((d, S), dtype=A.dtype, device=A.device)
+    n_iter = [0] * S
+    live = [max_iter > 0] * S
+    frozen = None  # the stopped points' mask, once one has stopped
+    while any(live):
+        max_delta = torch.zeros((S,), dtype=A.dtype, device=A.device)
         for j in range(d):
-            rho = r[j] - q[j] + diag[j] * b[j]
+            b_j = b[j]
+            rho = r[j] - q[j] + diag[j] * b_j
             bj = torch.sign(rho) * torch.clamp_min(torch.abs(rho) - l1, 0.0) / denom[j]
-            delta = bj - b[j]
+            if frozen is not None:
+                bj = freeze_when_done(frozen, b_j, bj)
+            delta = bj - b_j
             q += cols[j] * delta
             b[j] = bj
             max_delta = torch.maximum(max_delta, torch.abs(delta))
-        n_iter += 1
-        if not float(max_delta) > tol:
-            break
-    return b, n_iter
+        changes = max_delta.tolist()  # the one read of the sweep
+        for i in range(S):
+            if live[i]:
+                n_iter[i] += 1
+                live[i] = n_iter[i] < max_iter and changes[i] > tol
+        if not all(live):
+            frozen = torch.tensor([not v for v in live], dtype=torch.bool, device=A.device)
+    return b.T, n_iter
 
 
-def _solve_from_stats(
-    stats, dtype, *, alpha, l1_ratio, fit_intercept, standardize, use_cd, max_iter, tol
-) -> Dict[str, torch.Tensor]:
+def _solve_grid_from_stats(
+    stats, dtype, alphas: Sequence[float], l1_ratios: Sequence[float], *,
+    fit_intercept, standardize, use_cd, max_iter, tol,
+) -> List[Dict[str, torch.Tensor]]:
+    """The (alpha, l1_ratio) grid's solves on one set of sufficient
+    statistics: one state dict per point. `use_cd` is uniform over the
+    grid (the model layer groups by it)."""
     sw, sx, sy, G, c, syy = stats
     device = G.device
 
@@ -116,27 +145,42 @@ def _solve_from_stats(
     Gs = Gc * d_scale[:, None] * d_scale[None, :]
     cs = cc * d_scale
 
-    lam = scalar(alpha)
     if use_cd:
-        b_s, n_iter = _cd_elastic_net(Gs / sw, cs / sw, lam, scalar(l1_ratio), int(max_iter), float(tol))
+        b_all, iters = _cd_elastic_net(
+            Gs / sw, cs / sw, scalar(list(map(float, alphas))), scalar(list(map(float, l1_ratios))),
+            int(max_iter), float(tol),
+        )
+        solved = [(b_all[i], iters[i]) for i in range(len(iters))]
     else:
         # ridge normal equations; alpha == 0 is OLS with a tiny jitter for
         # singular grams
         eye = torch.eye(Gs.shape[0], dtype=dtype, device=device)
-        ridge_term = lam * sw + scalar(1e-10) * torch.trace(Gs) / Gs.shape[0]
-        b_s = torch.linalg.solve_ex(Gs + ridge_term * eye, cs, check_errors=False).result
-        n_iter = 1
+        solved = []
+        for alpha in alphas:
+            ridge_term = scalar(float(alpha)) * sw + scalar(1e-10) * torch.trace(Gs) / Gs.shape[0]
+            solved.append((torch.linalg.solve_ex(Gs + ridge_term * eye, cs, check_errors=False).result, 1))
 
-    coef = b_s * d_scale
-    intercept = ym - torch.dot(xm, coef) if fit_intercept else scalar(0.0)
+    out = []
+    for b_s, n_iter in solved:
+        coef = b_s * d_scale
+        intercept = ym - torch.dot(xm, coef) if fit_intercept else scalar(0.0)
+        # training summary (RegressionMetrics inputs)
+        rss = syy - 2.0 * torch.dot(coef, c) - 2.0 * intercept * sy + torch.dot(coef, G @ coef) \
+            + 2.0 * intercept * torch.dot(sx, coef) + intercept * intercept * sw
+        out.append({
+            "coef_": coef, "intercept_": intercept, "n_iter_": torch.tensor(n_iter, dtype=torch.int32),
+            "rss_": torch.clamp_min(rss, 0.0), "sw_": sw,
+        })
+    return out
 
-    # training summary (RegressionMetrics inputs)
-    rss = syy - 2.0 * torch.dot(coef, c) - 2.0 * intercept * sy + torch.dot(coef, G @ coef) \
-        + 2.0 * intercept * torch.dot(sx, coef) + intercept * intercept * sw
-    return {
-        "coef_": coef, "intercept_": intercept, "n_iter_": torch.tensor(n_iter, dtype=torch.int32),
-        "rss_": torch.clamp_min(rss, 0.0), "sw_": sw,
-    }
+
+def _solve_from_stats(
+    stats, dtype, *, alpha, l1_ratio, fit_intercept, standardize, use_cd, max_iter, tol
+) -> Dict[str, torch.Tensor]:
+    return _solve_grid_from_stats(
+        stats, dtype, [alpha], [l1_ratio], fit_intercept=fit_intercept, standardize=standardize,
+        use_cd=use_cd, max_iter=max_iter, tol=tol,
+    )[0]
 
 
 def linear_fit(
@@ -161,6 +205,31 @@ def linear_fit(
         _sufficient_stats(X, y, w, fast), X.dtype,
         alpha=alpha, l1_ratio=l1_ratio, fit_intercept=fit_intercept,
         standardize=standardize, use_cd=use_cd, max_iter=max_iter, tol=tol,
+    )
+
+
+def linear_fit_batched(
+    X: torch.Tensor,
+    y: torch.Tensor,
+    w: torch.Tensor,
+    alphas: Sequence[float],  # [S] Spark regParam grid
+    l1_ratios: Sequence[float],  # [S] elasticNetParam grid
+    *,
+    fit_intercept: bool = True,
+    standardize: bool = True,
+    use_cd: bool = False,
+    max_iter: int = 1000,
+    tol: float = 1e-6,
+    fast: bool = False,
+) -> List[Dict[str, torch.Tensor]]:
+    """A whole (alpha, l1_ratio) grid: ONE sufficient-statistics pass over
+    the rows, then every point's solve on the shared d x d statistics
+    (`_solve_grid_from_stats`). `use_cd` is uniform over the grid. Returns
+    one `linear_fit` state per point."""
+    return _solve_grid_from_stats(
+        _sufficient_stats(X, y, w, fast), X.dtype, alphas, l1_ratios,
+        fit_intercept=fit_intercept, standardize=standardize, use_cd=use_cd,
+        max_iter=max_iter, tol=tol,
     )
 
 

@@ -24,9 +24,20 @@
 # both products with bf16 operands and float32 sums (`linalg.mm_bf16`),
 # cast back to X's dtype; everything else stays at X's dtype.
 #
-# Waiting, each named in ROADMAP: the ELL and streaming forms (A11), the
-# batched grid `logistic_fit_batched` (A9), the checkpointed forms (A12),
-# the per-iteration convergence trace (A15). The JAX package's optax
+# Both products run in blocks of `COL_BLOCK` columns, each zero-padded to
+# the block (`_col_blocks`): a GEMM's kernel, and so its sums, change with
+# its column count, and a fixed block makes a column's product depend on X
+# and that column alone. That is what lets `logistic_fit_batched` solve a
+# (regParam, elasticNetParam) grid in lockstep (ops/owlqn.py
+# `run_lockstep`): the S solves share one [d, S·k] product per pass over X
+# and one flag read per iteration, and each returns the iterates of its
+# `logistic_fit` bit for bit (with GEMVs for a single fit, a float32 fit
+# that stops on a stall or on `tol` may stop at another iteration than its
+# grid's point).
+#
+# Waiting, each named in ROADMAP: the ELL and streaming forms, batched ones
+# included (A11), the checkpointed forms (A12), the per-iteration
+# convergence trace (A15). The JAX package's optax
 # `_lbfgs_minimize` is reached by no entry point there and is not ported.
 #
 from __future__ import annotations
@@ -39,7 +50,7 @@ import torch
 import torch.nn.functional as F
 
 from .linalg import mm_bf16, rows_dot_fixed, weighted_moments
-from .owlqn import LbfgsMemory, check_solver_state, owlqn_minimize, read_flags, relative_change_exceeds
+from .owlqn import LbfgsMemory, check_solver_state, owlqn_steps, relative_change_exceeds, run_lockstep
 
 _LOG = logging.getLogger(__name__)
 
@@ -47,6 +58,9 @@ _LOG = logging.getLogger(__name__)
 # step, the unit step, then geometric backtracking (sorted descending: the
 # first that passes is the largest)
 N_ALPHAS = 12
+
+# Columns of one block of the solvers' products (`_col_blocks`).
+COL_BLOCK = 8
 
 
 def _make_scaling(X, w, standardize: bool, fit_intercept: bool):
@@ -68,38 +82,68 @@ def softplus(z: torch.Tensor) -> torch.Tensor:
     return torch.logaddexp(z, z.new_zeros(()))
 
 
+def _col_blocks(mm, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a·b in blocks of `COL_BLOCK` columns of b, each zero-padded to the
+    block and contiguous, so a column's product is the same bits whatever
+    columns ride beside it. Each block runs as the transposed product
+    (blkᵀ·aᵀ)ᵀ: on the H100, cuBLAS picks a faster kernel for it than for
+    a·blk, faster than a one-column GEMV too (tools/col_block_widths.py)."""
+    c = b.shape[1]
+    outs = []
+    for lo in range(0, c, COL_BLOCK):
+        blk = b.new_zeros((b.shape[0], COL_BLOCK))
+        blk[:, :min(COL_BLOCK, c - lo)] = b[:, lo:lo + COL_BLOCK]
+        outs.append(mm(blk.T, a.T).T)
+    return torch.cat(outs, dim=1)[:, :c]
+
+
 def _dense_ops(X: torch.Tensor, fast: bool = False):
-    """(matvec, rmat) closures over dense X: B ↦ X·B and r ↦ Xᵀ·r. `fast`
-    stages X to bf16 here, once per fit."""
+    """(matvec, rmat) closures over dense X: B ↦ X·B and R ↦ Xᵀ·R, in
+    column blocks (`_col_blocks`), the latter on the transposed view.
+    `fast` stages X to bf16 here, once per fit."""
     if not fast:
-        return (lambda Beff: X @ Beff), (lambda r: X.T @ r)
+        return (
+            lambda Beff: _col_blocks(torch.mm, X, Beff),
+            lambda r: _col_blocks(torch.mm, X.T, r),
+        )
     bX = X.to(torch.bfloat16)
-    return (lambda Beff: mm_bf16(bX, Beff).to(X.dtype)), (lambda r: mm_bf16(bX.T, r).to(X.dtype))
+    return (
+        lambda Beff: _col_blocks(mm_bf16, bX, Beff).to(X.dtype),
+        lambda r: _col_blocks(mm_bf16, bX.T, r).to(X.dtype),
+    )
 
 
 def _build_glm_problem(
-    matvec, rmat, dtype, d, y_idx, w, mu, d_scale, total_w, *, k, multinomial, lam_l2, fit_intercept,
+    dtype, d, y_idx, w, mu, d_scale, total_w, *, k, multinomial, lam_l2, fit_intercept,
 ) -> Dict[str, Any]:
     """The GLM objective closures over the flat parameters xf = (B [d, k_out]
     row-major, b0 [k_out]):
 
-      z_of(xf) -> logits [n, k_out]                (linear in xf)
+      z_solve(xf) -> logits [n, k_out]             (linear in xf)
       rowloss(z) -> data term
       rowloss_alphas(z_p, z_d, a [S]) -> [S]      (data term at p + a·d)
       penalty_terms(xf, df) -> (p0, p1, p2)       (penalty(x + a·d) =
                                                    p0 + a·p1 + a²·p2)
-      grad_from_z(xf, z) -> flat gradient          (penalty included)"""
+      grad_solve(xf, z) -> flat gradient           (penalty included)
+
+    The two passes over the rows, z_solve and grad_solve, are solves of
+    `run_lockstep`: they request their products (X·B, Xᵀ·R) from it."""
     k_out = k if multinomial else 1
     n_flat = d * k_out + k_out
 
     def unflatten(xf):
         return xf[: d * k_out].reshape(d, k_out), xf[d * k_out:]
 
-    def z_of(xf):
+    def z_in(xf):
+        """(Beff, offset): z = X·Beff + offset."""
         B, b0 = unflatten(xf)
         Beff = B * d_scale[:, None]
         offset = (b0 - mu @ Beff) if fit_intercept else -(mu @ Beff)
-        return matvec(Beff) + offset[None, :]
+        return Beff, offset
+
+    def z_solve(xf):
+        Beff, offset = z_in(xf)
+        return (yield ("mm", Beff)) + offset[None, :]
 
     if multinomial:
         def rowloss(z):
@@ -130,26 +174,32 @@ def _build_glm_problem(
             0.5 * lam_l2 * torch.sum(Bd * Bd),
         )
 
-    def grad_from_z(xf, z):
-        """∂loss/∂z is the GLM residual; the chain through z = X·(B·D) +
-        (b0 − μ·Beff) is one transposed pass over the rows plus vector
-        algebra."""
-        B, _ = unflatten(xf)
+    def residual(z):
+        """∂loss/∂z, the GLM residual [n, k_out]."""
         if multinomial:
             p = torch.softmax(z, dim=1)
-            r = w[:, None] * (p - F.one_hot(y_idx, k).to(dtype)) / total_w
-        else:
-            p = torch.sigmoid(z[:, 0])
-            r = ((w * (p - y)) / total_w)[:, None]  # [n, 1]
+            return w[:, None] * (p - F.one_hot(y_idx, k).to(dtype)) / total_w
+        p = torch.sigmoid(z[:, 0])
+        return ((w * (p - y)) / total_w)[:, None]  # [n, 1]
+
+    def grad_out(xf, r, xr):
+        """The flat gradient from the residual r and its product xr = Xᵀ·r:
+        the chain through z = X·(B·D) + (b0 − μ·Beff) is vector algebra."""
+        B, _ = unflatten(xf)
         r_sum = torch.sum(r, dim=0)
-        g_beff = rmat(r) - mu[:, None] * r_sum[None, :]  # [d, k_out]
+        g_beff = xr - mu[:, None] * r_sum[None, :]  # [d, k_out]
         dB = g_beff * d_scale[:, None] + lam_l2 * B
         db0 = r_sum if fit_intercept else torch.zeros((k_out,), dtype=dtype, device=r.device)
         return torch.cat([dB.reshape(-1), db0])
 
+    def grad_solve(xf, z):
+        """One transposed pass over the rows plus vector algebra."""
+        r = residual(z)
+        return grad_out(xf, r, (yield ("rmat", r)))
+
     return dict(
-        k_out=k_out, n_flat=n_flat, unflatten=unflatten, z_of=z_of, rowloss=rowloss,
-        rowloss_alphas=rowloss_alphas, penalty_terms=penalty_terms, grad_from_z=grad_from_z,
+        k_out=k_out, n_flat=n_flat, unflatten=unflatten, z_solve=z_solve, rowloss=rowloss,
+        rowloss_alphas=rowloss_alphas, penalty_terms=penalty_terms, grad_solve=grad_solve,
     )
 
 
@@ -163,28 +213,30 @@ def armijo_pick(f_cand, f_cur, a, gd, c1: float = 1e-4):
     return a.index_select(0, first_ok)[0], f_cand.index_select(0, first_ok)[0], torch.any(ok_mask)
 
 
-def _glm_qn_minimize(
-    z_of, rowloss, rowloss_alphas, grad_from_z, z_shape, n_flat: int, dtype, device,
-    penalty_terms, max_iter: int, tol: float, memory: int = 10, c1: float = 1e-4, x0=None,
-) -> Tuple[torch.Tensor, torch.Tensor, int, bool, int]:
-    """L-BFGS specialized to GLM objectives loss(p) = rowloss(z_of(p)) +
-    penalty(p) with z linear in p. Each iteration: the two-loop direction
-    (steepest descent when it is not a descent one), one new logit pass
-    z_d = z_of(d) scoring all step candidates, the largest passing step,
-    the gradient from the logits z_p + a·z_d. Stops at `max_iter`, when the
-    relative objective change is at most `tol`, or when no candidate passes
-    (stalled). Returns (flat params, objective, n_iter, stalled, host
-    reads)."""
+def _glm_qn_steps(
+    prob: Dict[str, Any], z_shape, dtype, device, max_iter: int, tol: float, memory: int = 10,
+    c1: float = 1e-4, x0=None,
+):
+    """L-BFGS specialized to GLM objectives loss(p) = rowloss(z(p)) +
+    penalty(p) with z linear in p, as a solve of `run_lockstep`. Each
+    iteration: the two-loop direction (steepest descent when it is not a
+    descent one), one new logit pass z_d = z(d) scoring all step
+    candidates, the largest passing step, the gradient from the logits z_p
+    + a·z_d, one flag read. Stops at `max_iter`, when the relative objective
+    change is at most `tol`, or when no candidate passes (stalled). Returns
+    (flat params, objective, n_iter, stalled, its flag reads)."""
+    rowloss, rowloss_alphas, penalty_terms = prob["rowloss"], prob["rowloss_alphas"], prob["penalty_terms"]
+    z_solve, grad_solve, n_flat = prob["z_solve"], prob["grad_solve"], prob["n_flat"]
     # the step candidates made on the device, exactly (products of powers of
     # 2), so the fit copies nothing from the host
     alphas = 4.0 * torch.full((N_ALPHAS,), 0.5, dtype=dtype, device=device).cumprod(0)
     if x0 is None:
         x = torch.zeros((n_flat,), dtype=dtype, device=device)
-        z_p = torch.zeros(z_shape, dtype=dtype, device=device)  # z_of(0) == 0: z has no constant
+        z_p = torch.zeros(z_shape, dtype=dtype, device=device)  # z(0) == 0: z has no constant
     else:
         x = x0
-        z_p = z_of(x0)
-    g = grad_from_z(x, z_p)
+        z_p = yield from z_solve(x0)
+    g = yield from grad_solve(x, z_p)
     f_cur = rowloss(z_p) + penalty_terms(x, torch.zeros_like(x))[0]
     hist = LbfgsMemory(memory, n_flat, x)
     # the loop's test before its first iteration (f_prev = +inf): it holds
@@ -197,19 +249,19 @@ def _glm_qn_minimize(
         descent = gd < 0
         d = torch.where(descent, d, -g)
         gd = torch.where(descent, gd, -torch.dot(g, g))
-        z_d = z_of(d)  # [X read 1]
+        z_d = yield from z_solve(d)  # [X read 1]
         p0, p1, p2 = penalty_terms(x, d)
         f_cand = rowloss_alphas(z_p, z_d, alphas) + p0 + alphas * p1 + alphas * alphas * p2
         a_sel, f_new, ok = armijo_pick(f_cand, f_cur, alphas, gd, c1)
         xn = x + a_sel * d
         z_n = z_p + a_sel * z_d  # the logits at the accepted point, no X pass
-        gn = grad_from_z(xn, z_n)  # [X read 2]
+        gn = yield from grad_solve(xn, z_n)  # [X read 2]
         s, yv = xn - x, gn - g
         sy = torch.dot(s, yv)
         flags = [ok, ok & (sy > 1e-10), relative_change_exceeds(f_cur, torch.where(ok, f_new, f_cur), tol)]
         if it == 0:
             flags.append(go_first)
-        ok, keep, go, *first = read_flags(*flags)
+        ok, keep, go, *first = yield ("read", flags)
         reads += 1
         if first and not first[0]:
             return x, f_cur, 0, False, reads  # JAX's loop would not have run
@@ -250,41 +302,79 @@ def _warm_x0(warm_start, d, k_out, mu, d_scale, fit_intercept, dtype):
     return torch.cat([B.reshape(-1), b0])
 
 
+def _glm_solve(prob, n_rows, dtype, device, d, *, lam_l1, use_l1, max_iter, tol, lbfgs_memory, x_warm):
+    """One GLM fit as a solve of `run_lockstep`, returning (flat params,
+    objective, n_iter, stalled, its flag reads): OWL-QN when the L1 term is
+    on, the GLM quasi-Newton otherwise."""
+    k_out, n_flat = prob["k_out"], prob["n_flat"]
+    if not use_l1:
+        return (yield from _glm_qn_steps(
+            prob, (n_rows, k_out), dtype, device, max_iter=max_iter, tol=tol, memory=lbfgs_memory, x0=x_warm,
+        ))
+    # L1 / elastic net: OWL-QN over (B, b0), the L1 mask on the coefficients
+    # only; its gradient from the accepted trial's logits
+    rowloss, penalty_terms = prob["rowloss"], prob["penalty_terms"]
+
+    def value_fn(xf):
+        z = yield from prob["z_solve"](xf)
+        return rowloss(z) + penalty_terms(xf, torch.zeros_like(xf))[0], z
+
+    l1_mask = torch.cat([torch.ones((d * k_out,), dtype=dtype, device=device),
+                         torch.zeros((k_out,), dtype=dtype, device=device)])
+    x0 = x_warm if x_warm is not None else torch.zeros((n_flat,), dtype=dtype, device=device)
+    xf, obj, n_iter, reads = yield from owlqn_steps(
+        value_fn, prob["grad_solve"], x0, l1_mask, lam_l1, max_iter=max_iter, tol=tol, memory=lbfgs_memory,
+    )
+    return xf, obj, n_iter, False, reads
+
+
+def _fit_common_grid(
+    matvec, rmat, n_rows, dtype, d, y_idx, w, mu, d_scale, total_w,
+    *, k, multinomial, lam_l2s, lam_l1s, use_l1, fit_intercept, max_iter, tol, lbfgs_memory,
+    warm_start=None,
+) -> list:
+    """The fits of a (lam_l2, lam_l1) grid over one placement, in lockstep
+    (`run_lockstep`): one list of `_fit_common` states, each with its own
+    `host_reads_` and the reads the whole grid made, `grid_host_reads_`."""
+    device = w.device
+    solves, probs = [], []
+    for lam_l2, lam_l1 in zip(lam_l2s, lam_l1s):
+        prob = _build_glm_problem(
+            dtype, d, y_idx, w, mu, d_scale, total_w,
+            k=k, multinomial=multinomial, lam_l2=lam_l2, fit_intercept=fit_intercept,
+        )
+        x_warm = (
+            _warm_x0(warm_start, d, prob["k_out"], mu, d_scale, fit_intercept, dtype)
+            if warm_start is not None else None
+        )
+        probs.append(prob)
+        solves.append(_glm_solve(
+            prob, n_rows, dtype, device, d, lam_l1=lam_l1, use_l1=use_l1, max_iter=max_iter, tol=tol,
+            lbfgs_memory=lbfgs_memory, x_warm=x_warm,
+        ))
+    results, grid_reads = run_lockstep(solves, matvec, rmat)
+    states = []
+    for prob, (xf, obj, n_iter, stalled, reads) in zip(probs, results):
+        out = _finish_glm(xf, obj, n_iter, stalled, prob["unflatten"], d_scale, mu,
+                          fit_intercept=fit_intercept, multinomial=multinomial)
+        out["host_reads_"] = reads
+        out["grid_host_reads_"] = grid_reads
+        states.append(out)
+    return states
+
+
 def _fit_common(
     matvec, rmat, n_rows, dtype, d, y_idx, w, mu, d_scale, total_w,
     *, k, multinomial, lam_l2, lam_l1, use_l1, fit_intercept, max_iter, tol, lbfgs_memory,
     warm_start=None,
 ) -> Dict[str, Any]:
-    prob = _build_glm_problem(
-        matvec, rmat, dtype, d, y_idx, w, mu, d_scale, total_w,
-        k=k, multinomial=multinomial, lam_l2=lam_l2, fit_intercept=fit_intercept,
+    (out,) = _fit_common_grid(
+        matvec, rmat, n_rows, dtype, d, y_idx, w, mu, d_scale, total_w,
+        k=k, multinomial=multinomial, lam_l2s=[lam_l2], lam_l1s=[lam_l1], use_l1=use_l1,
+        fit_intercept=fit_intercept, max_iter=max_iter, tol=tol, lbfgs_memory=lbfgs_memory,
+        warm_start=warm_start,
     )
-    k_out, n_flat, unflatten = prob["k_out"], prob["n_flat"], prob["unflatten"]
-    z_of, rowloss, penalty_terms, grad_from_z = prob["z_of"], prob["rowloss"], prob["penalty_terms"], prob["grad_from_z"]
-    device = w.device
-    x_warm = _warm_x0(warm_start, d, k_out, mu, d_scale, fit_intercept, dtype) if warm_start is not None else None
-    if use_l1:
-        # L1 / elastic net: OWL-QN over (B, b0), the L1 mask on the
-        # coefficients only; its gradient from the accepted trial's logits
-        def value_fn(xf):
-            z = z_of(xf)
-            return rowloss(z) + penalty_terms(xf, torch.zeros_like(xf))[0], z
-
-        l1_mask = torch.cat([torch.ones((d * k_out,), dtype=dtype, device=device),
-                             torch.zeros((k_out,), dtype=dtype, device=device)])
-        x0 = x_warm if x_warm is not None else torch.zeros((n_flat,), dtype=dtype, device=device)
-        xf, obj, n_iter, reads = owlqn_minimize(
-            value_fn, grad_from_z, x0, l1_mask, lam_l1, max_iter=max_iter, tol=tol, memory=lbfgs_memory,
-        )
-        stalled = False
-    else:
-        xf, obj, n_iter, stalled, reads = _glm_qn_minimize(
-            z_of, rowloss, prob["rowloss_alphas"], grad_from_z, (n_rows, k_out), n_flat, dtype, device,
-            penalty_terms, max_iter=max_iter, tol=tol, memory=lbfgs_memory, x0=x_warm,
-        )
-    out = _finish_glm(xf, obj, n_iter, stalled, unflatten, d_scale, mu,
-                      fit_intercept=fit_intercept, multinomial=multinomial)
-    out["host_reads_"] = reads
+    del out["grid_host_reads_"]
     return out
 
 
@@ -321,16 +411,61 @@ def logistic_fit(
     )
 
 
+def logistic_fit_batched(
+    X: torch.Tensor,
+    y_idx: torch.Tensor,
+    w: torch.Tensor,
+    lam_l2s,  # [S] per-grid-point L2 strengths
+    lam_l1s,  # [S] per-grid-point L1 strengths
+    *,
+    k: int,
+    multinomial: bool,
+    use_l1: bool = False,
+    fit_intercept: bool = True,
+    standardize: bool = True,
+    max_iter: int = 100,
+    tol: float = 1e-6,
+    lbfgs_memory: int = 10,
+    fast: bool = False,
+) -> list:
+    """A whole (lam_l2, lam_l1) grid over one placement of X: the scaling
+    once, then the S solves in lockstep, so X is read twice per iteration
+    for the whole grid (one [d, S·k_out] product each way) and the host
+    reads the card once per iteration for the whole grid. A solve that
+    stops issues nothing more, so its state stays exactly where it stopped,
+    and each returned state equals its `logistic_fit` bit for bit (same
+    n_iter_). Statics (use_l1, max_iter, ...) are uniform over the grid.
+    Returns one `logistic_fit` state per grid point."""
+    d = X.shape[1]
+    mu, d_scale, total_w = _make_scaling(X, w, standardize, fit_intercept)
+    matvec, rmat = _dense_ops(X, fast)
+    return _fit_common_grid(
+        matvec, rmat, X.shape[0], X.dtype, d, y_idx, w, mu, d_scale, total_w,
+        k=k, multinomial=multinomial, lam_l2s=[float(v) for v in lam_l2s],
+        lam_l1s=[float(v) for v in lam_l1s], use_l1=use_l1, fit_intercept=fit_intercept,
+        max_iter=max_iter, tol=tol, lbfgs_memory=lbfgs_memory,
+    )
+
+
 def fetch_state(state: Dict[str, Any]) -> Dict[str, Any]:
     """`logistic_fit`'s state on the host in ONE device-to-host copy: the
     coefficients, the intercepts and the objective travel as one tensor."""
-    coef, intercept, obj = state["coef_"], state["intercept_"], state["objective_"]
-    flat = torch.cat([coef.reshape(-1), intercept.reshape(-1), obj.reshape(1)]).cpu().numpy()
-    n_coef, n_int = coef.numel(), intercept.numel()
-    out = {k: v for k, v in state.items() if k not in ("coef_", "intercept_", "objective_")}
-    out["coef_"] = flat[:n_coef].reshape(tuple(coef.shape))
-    out["intercept_"] = flat[n_coef:n_coef + n_int]
-    out["objective_"] = flat[-1]
+    return fetch_states([state])[0]
+
+
+def fetch_states(states) -> list:
+    """The states of a grid (`logistic_fit_batched`) on the host in ONE
+    device-to-host copy."""
+    keys = ("coef_", "intercept_", "objective_")
+    flat = torch.cat([st[k].reshape(-1) for st in states for k in keys]).cpu().numpy()
+    out, lo = [], 0
+    for st in states:
+        host = {k: v for k, v in st.items() if k not in keys}
+        for k in keys:
+            n = st[k].numel()
+            host[k] = flat[lo:lo + n].reshape(tuple(st[k].shape))
+            lo += n
+        out.append(host)
     return out
 
 

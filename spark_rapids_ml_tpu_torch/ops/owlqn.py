@@ -4,7 +4,7 @@
 # OWL-QN (Andrew & Gao 2007), the L1-capable solver behind
 # LogisticRegression's elastic net. The PyTorch counterpart of
 # spark_rapids_ml_tpu/ops/owlqn.py (`check_solver_state`,
-# `lbfgs_two_loop`, `_owlqn_setup` + `owlqn_minimize`).
+# `lbfgs_two_loop`, `_owlqn_setup` + `owlqn_minimize` as `owlqn_steps`).
 #
 # The JAX package runs each minimization as ONE `lax.while_loop` on the
 # device. Here the loop is Python on the host, and the device work of an
@@ -21,12 +21,22 @@
 #     the logits, so the gradient costs one transposed pass over the rows
 #     instead of autodiff's forward and backward).
 #
-# `freeze_when_done` (vmap-safe loops) waits for the batched grid (ROADMAP
-# A9), and the segmented, checkpointed forms for A12.
+# A hyperparameter grid (ROADMAP A9) runs its S solves in lockstep on the
+# host: each solve is a generator that yields its device requests (a
+# product over the rows, a transposed product, a flag read), and
+# `run_lockstep` serves the requests of every live solve together: one
+# product of [d, S·k] columns instead of S of [d, k], one flag read for the
+# whole grid. A solve that stops issues no more requests, so its state is
+# frozen exactly (the host-loop form of the JAX package's
+# `freeze_when_done`, which the batched coordinate descent of
+# ops/linear.py uses as a select). Each solve keeps its own `LbfgsMemory`,
+# with its own push count and position, so every dot product of its
+# two-loop has the shape of the sequential one. The segmented, checkpointed
+# forms wait for A12.
 #
 from __future__ import annotations
 
-from typing import Callable, List, Optional, Tuple
+from typing import Any, Callable, Generator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -138,9 +148,76 @@ def read_flags(*flags: torch.Tensor) -> List[bool]:
     return [bool(v) for v in torch.stack(flags).tolist()]
 
 
-def owlqn_minimize(
-    value_fn: Callable[[torch.Tensor], Tuple[torch.Tensor, object]],
-    grad_fn: Callable[[torch.Tensor, object], torch.Tensor],
+def freeze_when_done(done: torch.Tensor, old: torch.Tensor, new: torch.Tensor) -> torch.Tensor:
+    """Per-element select of a batched update: elements whose `done` flag is
+    set keep `old` exactly, the others take `new` (the JAX package's
+    `freeze_when_done`, for the batched loops whose elements share one
+    launch: `done` broadcasts over the trailing axes)."""
+    return torch.where(done.reshape(done.shape + (1,) * (new.dim() - done.dim())), old, new)
+
+
+# A solve of the lockstep driver: a generator that yields requests and is
+# sent their answers; it returns its result.
+#   ("mm", B [d, c])      -> matvec(B): X·B, [n, c]
+#   ("rmat", R [n, c])    -> rmat(R): Xᵀ·R, [d, c]
+#   ("read", [flags])     -> the flags (0-dim bool tensors) as host bools
+Solve = Generator[Tuple[str, Any], Any, Any]
+_REQUEST_ORDER = ("mm", "rmat", "read")
+
+
+def _split_cols(out: torch.Tensor, widths: Sequence[int]) -> List[torch.Tensor]:
+    """Columns of `out` back to their requesters, each contiguous (as a
+    solve run alone receives it)."""
+    parts, lo = [], 0
+    for c in widths:
+        parts.append(out[:, lo:lo + c].contiguous())
+        lo += c
+    return parts
+
+
+def run_lockstep(solves: Sequence[Solve], matvec=None, rmat=None) -> Tuple[List[Any], int]:
+    """Drive `solves` together until each has returned: every round serves
+    the pending requests of one kind for all the solves that made it, the
+    products first and the flag reads last, so solves that run in step
+    share one product and one read. Returns (their results, the host reads
+    made). A solve alone gets exactly the products and reads it would get
+    in any grid where `matvec` and `rmat` are column-independent (those of
+    ops/logistic.py `_dense_ops` work in fixed column blocks)."""
+    results: List[Any] = [None] * len(solves)
+    pending = {}
+
+    def advance(i, answer):
+        try:
+            pending[i] = solves[i].send(answer)
+        except StopIteration as stop:
+            pending.pop(i, None)
+            results[i] = stop.value
+
+    for i in range(len(solves)):
+        advance(i, None)
+    reads = 0
+    while pending:
+        kind = next(k for k in _REQUEST_ORDER if any(r[0] == k for r in pending.values()))
+        ids = [i for i in sorted(pending) if pending[i][0] == kind]
+        payloads = [pending[i][1] for i in ids]
+        if kind == "read":
+            flat = read_flags(*[f for p in payloads for f in p])
+            reads += 1
+            answers, lo = [], 0
+            for p in payloads:
+                answers.append(flat[lo:lo + len(p)])
+                lo += len(p)
+        else:
+            fn = matvec if kind == "mm" else rmat
+            answers = _split_cols(fn(torch.cat(payloads, dim=1)), [p.shape[1] for p in payloads])
+        for i, answer in zip(ids, answers):
+            advance(i, answer)
+    return results, reads
+
+
+def owlqn_steps(
+    value_fn: Callable[[torch.Tensor], Solve],
+    grad_fn: Callable[[torch.Tensor, object], Solve],
     x0: torch.Tensor,  # flat [n]
     l1_mask: torch.Tensor,  # [n]: per-coordinate L1 weight multiplier (0 = unpenalized)
     lam1: float,
@@ -150,20 +227,22 @@ def owlqn_minimize(
     memory: int = 10,
     ls_max: int = 25,
     c1: float = 1e-4,
-) -> Tuple[torch.Tensor, torch.Tensor, int, int]:
-    """Minimize smooth(x) + lam1 · Σ l1_mask·|x| by OWL-QN.
+) -> Solve:
+    """OWL-QN as a solve of `run_lockstep`: minimize smooth(x) + lam1 ·
+    Σ l1_mask·|x|.
 
-    `value_fn(x)` returns (smooth(x), aux); `grad_fn(x, aux)` the gradient
-    of smooth at x from that aux. The line search backtracks from a = 1,
-    halving at most `ls_max` times, on the projection of x + a·d onto x's
-    orthant, with Armijo against the pseudo-gradient; an iteration whose
-    search finds no step ends the loop (stalled). Returns (x, objective,
-    n_iter, host reads); with lam1 = 0 it is plain two-loop L-BFGS."""
+    `value_fn(x)` is a solve returning (smooth(x), aux); `grad_fn(x, aux)`
+    a solve returning the gradient of smooth at x from that aux. The line
+    search backtracks from a = 1, halving at most `ls_max` times, on the
+    projection of x + a·d onto x's orthant, with Armijo against the
+    pseudo-gradient; an iteration whose search finds no step ends the loop
+    (stalled). Returns (x, objective, n_iter, its own flag reads); with
+    lam1 = 0 it is plain two-loop L-BFGS."""
     lam = lam1 * l1_mask
     hist = LbfgsMemory(memory, x0.shape[0], x0)
 
     def f_total(x):
-        f, aux = value_fn(x)
+        f, aux = yield from value_fn(x)
         return f + torch.sum(lam * torch.abs(x)), aux
 
     def pseudo_grad(x, g):
@@ -172,8 +251,8 @@ def owlqn_minimize(
         return torch.where(x > 0, g + lam, torch.where(x < 0, g - lam, at0))
 
     x = x0
-    f_cur, aux = f_total(x0)
-    g = grad_fn(x0, aux).to(x0.dtype)
+    f_cur, aux = yield from f_total(x0)
+    g = (yield from grad_fn(x0, aux)).to(x0.dtype)
     # the loop's test before its first iteration: f_prev = +inf, so it holds
     # exactly when f0 is finite; read with the first trial's flag
     go_first = relative_change_exceeds(torch.full_like(f_cur, float("inf")), f_cur, tol)
@@ -188,14 +267,14 @@ def owlqn_minimize(
         for _ in range(ls_max):
             xn = x + a * d
             xn = torch.where(xn * xi < 0, torch.zeros_like(xn), xn)
-            fn, aux = f_total(xn)
+            fn, aux = yield from f_total(xn)
             passed = fn <= f_cur + c1 * torch.dot(pg, xn - x)
             if it == 0:
-                passed, go = read_flags(passed, go_first)
+                passed, go = yield ("read", [passed, go_first])
                 if not go:
                     return x0, f_cur, 0, reads + 1
             else:
-                (passed,) = read_flags(passed)
+                (passed,) = yield ("read", [passed])
             reads += 1
             if passed:
                 ok = True
@@ -204,10 +283,10 @@ def owlqn_minimize(
         it += 1
         if not ok:
             break  # stalled: the iterate and objective stay
-        gn = grad_fn(xn, aux).to(x0.dtype)
+        gn = (yield from grad_fn(xn, aux)).to(x0.dtype)
         s, y = xn - x, gn - g
         sy = torch.dot(s, y)
-        keep, go = read_flags(sy > 1e-10, relative_change_exceeds(f_cur, fn, tol))
+        keep, go = yield ("read", [sy > 1e-10, relative_change_exceeds(f_cur, fn, tol)])
         reads += 1
         if keep:
             hist.push(s, y, sy)

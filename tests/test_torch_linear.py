@@ -358,14 +358,39 @@ def test_model_surface_and_single_vector_predict():
 @pytest.mark.parametrize("call,item", [
     (lambda m: m.evaluate({"features": np.zeros((1, 6), np.float32)}), "A16"),
     (lambda m: m.cpu(), "A16"),
-    (lambda m: m._combine([m]), "A9"),
-    (lambda m: m._transform_evaluate({"features": np.zeros((1, 6), np.float32)}, None), "A9"),
 ])
 def test_left_out_surface_names_its_roadmap_item(call, item):
     x, y = _data(seed=16)
     tm = LinearRegression().fit({"features": x, "label": y})
     with pytest.raises(NotImplementedError, match=item):
         call(tm)
+
+
+@pytest.mark.parametrize("entry", ["arrays", "dataset"])
+def test_combine_and_transform_evaluate_score_like_jax(entry):
+    # the fused CV path: the JAX models packed by `_combine` and scored by
+    # `_transform_evaluate(_arrays)` in both packages give the same metrics
+    # (the same float64 numpy products: exactly equal); the port's packed
+    # coefficients are the stack of its models'
+    from spark_rapids_ml_tpu.evaluation import RegressionEvaluator as JaxRegressionEvaluator
+    from spark_rapids_ml_tpu_torch import RegressionEvaluator
+
+    x, y = _data(seed=16, dtype=np.float64)
+    data = {"features": x, "label": y}
+    jms = [JaxLinearRegression(num_workers=1, float32_inputs=False, regParam=r).fit(data) for r in (0.0, 0.1, 1.0)]
+    tms = [linear_regression_model_from_jax(dict(m._model_attributes)) for m in jms]
+    tc, jc = tms[0]._combine(tms), jms[0]._combine(jms)
+    np.testing.assert_array_equal(tc.coef_, np.stack([m.coef_ for m in tms]))
+    np.testing.assert_array_equal(tc._intercepts, jc._intercepts)
+    for metric in ("rmse", "mse", "r2", "mae", "var"):
+        tev, jev = RegressionEvaluator(metricName=metric), JaxRegressionEvaluator(metricName=metric)
+        if entry == "arrays":
+            got, want = tc._transform_evaluate_arrays(x[:200], y[:200], tev), jc._transform_evaluate_arrays(x[:200], y[:200], jev)
+            # and from rows on the device: float64 products there, rtol 1e-12
+            np.testing.assert_allclose(tc._transform_evaluate_arrays(torch.from_numpy(x[:200]), y[:200], tev), want, rtol=1e-12)
+        else:
+            got, want = tc._transform_evaluate(data, tev), jc._transform_evaluate(data, jev)
+        np.testing.assert_array_equal(got, want)
 
 
 def test_fast_estimator_matches_jax_fast():

@@ -177,8 +177,19 @@ def _problems(multinomial, fit_intercept, standardize, seed=3, dtype=np.float64,
     jmu, jds, jtw = jlog._make_scaling(jx, jw, standardize, fit_intercept)
     tmu, tds, ttw = tlog._make_scaling(tx, tw, standardize, fit_intercept)
     jp = jlog._build_glm_problem(*jlog._dense_ops(jx, fast), jx.dtype, x.shape[1], jy, jw, jmu, jds, jtw, **common)
-    tp = tlog._build_glm_problem(*tlog._dense_ops(tx, fast), tx.dtype, x.shape[1], ty, tw, tmu, tds, ttw, **common)
+    tp = tlog._build_glm_problem(tx.dtype, x.shape[1], ty, tw, tmu, tds, ttw, **common)
+    # the port's passes over the rows are solves of run_lockstep: served here
+    # one at a time, under the names of JAX's closures
+    ops = tlog._dense_ops(tx, fast)
+    tp["z_of"] = lambda xf: _served(tp["z_solve"](xf), ops)
+    tp["grad_from_z"] = lambda xf, z: _served(tp["grad_solve"](xf, z), ops)
     return jp, tp, tp["n_flat"], (x, y, w)
+
+
+def _served(solve, ops):
+    """What `solve` returns, its product requests served by `ops`."""
+    (out,), _ = towl.run_lockstep([solve], *ops)
+    return out
 
 
 @pytest.mark.parametrize("multinomial", [False, True], ids=["binomial", "multinomial"])
@@ -416,13 +427,15 @@ def test_owlqn_lasso_zero_pattern_matches_jax():
     At, bt = _t(A), _t(b)
 
     def value_fn(x):
-        r = At @ x - bt
+        r = (yield ("mm", x[:, None]))[:, 0] - bt
         return 0.5 * torch.sum(r * r) / n, r
 
-    got, f_got, it_got, _ = towl.owlqn_minimize(
-        value_fn, lambda x, r: At.T @ r / n, torch.zeros(d, dtype=torch.float64),
-        torch.ones(d, dtype=torch.float64), lam, max_iter=300, tol=1e-14,
-    )
+    def grad_fn(x, r):
+        return (yield ("rmat", r[:, None]))[:, 0] / n
+
+    solve = towl.owlqn_steps(value_fn, grad_fn, torch.zeros(d, dtype=torch.float64),
+                             torch.ones(d, dtype=torch.float64), lam, max_iter=300, tol=1e-14)
+    ((got, f_got, it_got, _),), _ = towl.run_lockstep([solve], lambda B: At @ B, lambda R: At.T @ R)
     np.testing.assert_array_equal(got.numpy() == 0.0, np.asarray(want) == 0.0)
     assert (got.numpy() == 0.0).sum() >= 5
     _close(got.numpy(), np.asarray(want), 1e-6)
@@ -670,14 +683,44 @@ def test_model_surface_and_single_vector_predict():
 @pytest.mark.parametrize("call,item", [
     (lambda m: m.evaluate({"features": np.zeros((1, 6), np.float32)}), "A16"),
     (lambda m: m.cpu(), "A16"),
-    (lambda m: m._combine([m]), "A9"),
-    (lambda m: m._transform_evaluate({"features": np.zeros((1, 6), np.float32)}, None), "A9"),
 ])
 def test_left_out_surface_names_its_roadmap_item(call, item):
     x, y = _cls(n=100, seed=28, dtype=np.float32)
     tm = LogisticRegression(maxIter=5).fit({"features": x, "label": y.astype(np.float32)})
     with pytest.raises(NotImplementedError, match=item):
         call(tm)
+
+
+@pytest.mark.parametrize("entry", ["arrays", "dataset"])
+def test_combine_and_transform_evaluate_score_like_jax(entry):
+    # the fused CV path: the JAX models packed by `_combine` and scored by
+    # `_transform_evaluate(_arrays)` in both packages give the same metrics
+    # (accuracy and f1 exactly; logLoss to the float64 bound, with a label
+    # the models never saw getting probability eps)
+    from spark_rapids_ml_tpu.evaluation import MulticlassClassificationEvaluator as JaxEvaluator
+    from spark_rapids_ml_tpu_torch import MulticlassClassificationEvaluator
+
+    x, y = _cls(n=200, k=3, seed=28)
+    data = {"features": x, "label": y.astype(np.float64)}
+    jms = [JaxLogisticRegression(num_workers=1, float32_inputs=False, maxIter=30, regParam=r).fit(data)
+           for r in (1e-3, 0.1)]
+    tms = [logistic_regression_model_from_jax(dict(m._model_attributes)) for m in jms]
+    tc, jc = tms[0]._combine(tms), jms[0]._combine(jms)
+    assert tc._sub_models == tms
+    label = y.astype(np.float64).copy()
+    label[:3] = 7.0  # a class no model saw
+    for metric in ("accuracy", "f1", "logLoss"):
+        tev, jev = MulticlassClassificationEvaluator(metricName=metric), JaxEvaluator(metricName=metric)
+        if entry == "arrays":
+            got, want = tc._transform_evaluate_arrays(x, label, tev), jc._transform_evaluate_arrays(x, label, jev)
+            # and from rows on the device
+            np.testing.assert_array_equal(tc._transform_evaluate_arrays(torch.from_numpy(x), label, tev), got)
+        else:
+            got, want = tc._transform_evaluate(data, tev), jc._transform_evaluate(data, jev)
+        if metric == "logLoss":
+            np.testing.assert_allclose(got, want, rtol=F64)
+        else:
+            np.testing.assert_array_equal(got, want)
 
 
 def test_unstandardized_stall_warns(caplog):

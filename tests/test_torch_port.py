@@ -68,6 +68,19 @@ with ScoringEngine(registry) as engine:
     d, i = engine.score("nn", x[:2])
     assert list(i[:, 0]) == [0, 1]
     assert engine.score("rf", x[:3]).shape == (3, 2)
+from spark_rapids_ml_tpu_torch import (
+    CrossValidator, LinearRegression, ParamGridBuilder, Pipeline, PipelineModel, PCA, RegressionEvaluator,
+)
+data = {"features": x, "label": x[:, 0] - 2.0 * x[:, 1]}
+lr = LinearRegression()
+grid = ParamGridBuilder().addGrid(lr.getParam("regParam"), [0.0, 0.1]).build()
+cvm = CrossValidator(estimator=lr, estimatorParamMaps=grid, evaluator=RegressionEvaluator(), numFolds=2).fit(data)
+assert len(cvm.avgMetrics) == 2
+pm = Pipeline(stages=[PCA(k=2, inputCol="features", outputCol="p"), LinearRegression(featuresCol="p")]).fit(data)
+import tempfile, os
+with tempfile.TemporaryDirectory() as tmp:
+    pm.save(os.path.join(tmp, "pipe"))
+    PipelineModel.load(os.path.join(tmp, "pipe")).transform(data)
 bad = sorted(n for n in sys.modules
              if n == "spark_rapids_ml_tpu" or n.startswith("spark_rapids_ml_tpu."))
 assert not bad, bad
@@ -131,10 +144,20 @@ def test_more_than_one_worker_is_refused():
         KMeans(k=2, num_workers=2).fit({"features": _x()})
 
 
-def test_param_map_lists_are_refused():
-    est = KMeans(k=2)
-    with pytest.raises(NotImplementedError, match="A9"):
-        est.fit({"features": _x()}, [{est.getParam("k"): 3}])
+def test_param_map_lists_return_the_single_fits():
+    # a list of param maps fits each over one placement: the models equal
+    # the single fits of the same maps, in the list's order
+    est = KMeans(k=2, maxIter=5, seed=1)
+    data = {"features": _x()}
+    maps = [{est.getParam("k"): 3}, {est.getParam("k"): 2, est.getParam("maxIter"): 2}]
+    models = est.fit(data, maps)
+    assert [m.cluster_centers_.shape[0] for m in models] == [3, 2]
+    for pm, m in zip(maps, models):
+        single = est.copy(pm).fit(data)
+        np.testing.assert_array_equal(m.cluster_centers_, single.cluster_centers_)
+        assert m.n_iter_ == single.n_iter_ and m.getOrDefault("k") == single.getOrDefault("k")
+    with pytest.raises(ValueError, match="warm_start_from"):
+        est.fit(data, maps, warm_start_from=models[0])
 
 
 # --------------------------------------------------------- persistence ----
