@@ -7,7 +7,8 @@
 #   2. every kernel against its plain PyTorch version on the card, at its
 #      main path's tile (KMeans: 32768 x 3000 rows against k = 1000 centers;
 #      kNN: 4096 queries against a 16,384-item block, d = 3000) and at
-#      ragged shapes, in every variant (f32, f32 fast, f64, f64 fast; fast =
+#      ragged shapes (among them IVFPQ's codebook tile, d = 375 and k = 256),
+#      in every variant (f32, f32 fast, f64, f64 fast; fast =
 #      bf16 products with float32 sums): integer-valued data must agree
 #      exactly (ties included), Gaussian data to the stated tolerances, and
 #      the accumulation must be bitwise deterministic; for assign_argmin also
@@ -143,7 +144,20 @@
 #      card and the CPU, and a Pipeline saved and loaded; the timings (CV
 #      wall, placement, s per fold, ms per batched GLM iteration against S x
 #      the single fit's, ms per batched CD sweep against one);
-#  11. a {"kernels": [...]} line with all twelve kernel forms, the
+#  11. ApproximateNearestNeighbors on the float32 rows after phase 10:
+#      IVFFlat {nlist 256, nprobe 16}, IVFPQ {the same, M = 8, n_bits = 8,
+#      refine_ratio 4} and CAGRA {graph degree 64, intermediate 128,
+#      build_algo ivf_pq, itopk 64} (benchmark/bench_approximate_nearest_
+#      neighbors.py's values, nothing cut), k = 64 for the first 4096 rows
+#      through the public API: each build's seconds split into its parts
+#      (seeding, Lloyd, layout, PQ training, encoding; CAGRA's seeding reps
+#      and each descent round with its n_new), peak memory, search seconds
+#      and queries/s, recall@64 against phase 4's exact ids and the found
+#      k-th neighbour's true distance over the exact k-th; IVFFlat must find
+#      every query itself first at recall >= 0.85; every id a row or -1,
+#      distances finite and ascending; B1 f32 and f32-fast, B2 f32-fast and
+#      B3 f32 counted, no float64 form;
+#  12. a {"kernels": [...]} line with all twelve kernel forms, the
 #      nvidia-smi line, and as the last line {"ok": true, "device": {...}}.
 #
 # Every phase raises on failure; the script prints no result then. It needs
@@ -182,6 +196,8 @@ N_ROWS, N_COLS, K = 1_000_000, 3000, 1000
 TILE_ROWS = 32768  # KMeans max_samples_per_batch: one Lloyd tile
 # the exact kNN lane of bench.py: 4096 queries against the same rows, k = 64
 KNN_QUERIES, KNN_K = 4096, 64
+# phase 11's IVFPQ codebooks: the depth of one subspace at M = 8 (375, odd)
+ANN_PQ_DSUB = N_COLS // 8
 # the serving traffic: client threads, requests per thread and model, and the
 # request sizes they cycle through
 SERVE_CLIENTS, SERVE_REQUESTS, SERVE_SIZES = 4, 6, (1, 7, 64, 255, 1000, 4096)
@@ -951,9 +967,11 @@ def phase_kernels(dev):
             # candidates, padded with repeated rows)
             for (n, k, d) in ((1000, 1001, 77), (37, 5, 3), (333, 64, 1000),
                               (4096, K, N_COLS), (N_ROWS % TILE_ROWS, K, N_COLS),
-                              (4096, 12 * K, N_COLS)):
+                              (4096, 12 * K, N_COLS), (TILE_ROWS, 256, ANN_PQ_DSUB)):
                 case = ""
-                if k < nt:
+                if d == ANN_PQ_DSUB:
+                    case = f"IVFPQ codebook tile: d = {d} (odd: the scalar path), k = {k}"
+                elif k < nt:
                     case = f"k < {nt}: one partial center tile"
                 elif k == 12 * K:
                     case = f"k-means|| weighting: {-(-k // nt)} center tiles of {nt}"
@@ -1354,7 +1372,7 @@ def phase_knn(dev, X, d2_ms):
     if len(joined) != 5 * KNN_K or "distCol" not in joined.columns:
         fail(f"exactNearestNeighborsJoin: {len(joined)} rows, columns {list(joined.columns)}")
     say(f"  exactNearestNeighborsJoin of 5 queries: {len(joined)} rows, columns {list(joined.columns)}")
-    return counts, timings
+    return counts, timings, (idx, dist)
 
 
 # ------------------------------------------------------------ phase 5 ----
@@ -3509,6 +3527,180 @@ def _small_tuning_reference():
         "equals the fitted one's bit for bit")
 
 
+# ----------------------------------------------------------- phase 11 ----
+
+
+# benchmark/bench_approximate_nearest_neighbors.py:17-26: k = 64, 4096
+# queries, nlist 256, nprobe 16, CAGRA degree 64/128 from ivf_pq, itopk 64;
+# IVFPQ at M = 8, n_bits = 8 and the estimator's refine_ratio 4
+ANN_CONFIGS = (
+    ("ivfflat", {"nlist": 256, "nprobe": 16}),
+    ("ivfpq", {"nlist": 256, "nprobe": 16, "M": 8, "n_bits": 8, "refine_ratio": 4}),
+    ("cagra", {"graph_degree": 64, "intermediate_graph_degree": 128, "build_algo": "ivf_pq", "itopk_size": 64}),
+)
+ANN_PQ_TRAIN_ROWS = 65536  # build_ivfpq's train_cap
+ANN_RECALL_FLOOR = {"ivfflat": 0.85}  # IVFPQ's and CAGRA's are printed, held on the CPU and card = CPU
+
+
+@contextlib.contextmanager
+def _call_timer(module, name, box, info=None):
+    """Times each call of `module.name`, waited for on the card: appends
+    (name, s, info(args, out)) to `box`."""
+    import torch
+
+    real = getattr(module, name)
+
+    def timed(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real(*a, **kw)
+        torch.cuda.synchronize()
+        box.append((name, time.perf_counter() - t0, info(a, out) if info else None))
+        return out
+
+    setattr(module, name, timed)
+    try:
+        yield box
+    finally:
+        setattr(module, name, real)
+
+
+def _ann_build_split(algo, box, build_s):
+    """The build's parts from the timed calls: IVF seeding, Lloyd (the coarse
+    fit), PQ training (codebook seeding and fits), encoding, layout (the
+    rest: placement, assignment, lists); CAGRA seeding reps, merge, reverse
+    edges, each descent round with its n_new, the rest."""
+    split = {}
+    for name, s, info in box:
+        if name == "kmeans_fit":
+            key = "lloyd_s" if info["rows"] == N_ROWS else "pq_train_s"
+        elif name == "_kmeanspp_device":
+            # the PQ codebooks' seeding on the training sample; the coarse
+            # seeding's own reduce is inside scalable_kmeans_init_device
+            key = "pq_train_s" if info["rows"] == ANN_PQ_TRAIN_ROWS else None
+        else:
+            key = {"scalable_kmeans_init_device": "seeding_s", "_encode_residuals": "encode_s",
+                   "_cluster_seed_rep": "seed_reps_s", "_merge_dedup_topk": "merge_s",
+                   "_reverse_edges": "reverse_edges_s"}.get(name)
+        if key:
+            split[key] = split.get(key, 0.0) + s
+    if algo == "cagra":
+        split["rounds"] = [{"s": s, "n_new": info} for name, s, info in box if name == "_descent_round"]
+        split["seed_rep_s"] = [s for name, s, _ in box if name == "_cluster_seed_rep"]
+        split["rest_s"] = build_s - sum(v for k_, v in split.items() if k_.endswith("_s") and k_ != "seed_rep_s") \
+            - sum(r["s"] for r in split["rounds"])
+    else:
+        split["layout_s"] = build_s - sum(split.values())
+    return split
+
+
+def phase_ann(dev, X, exact_ids, exact_dist):
+    """Phase 11: ApproximateNearestNeighbors at full width through the public
+    API, on the float32 protocol rows after phase 10: IVFFlat, IVFPQ and
+    CAGRA as ANN_CONFIGS gives them, nothing cut; the first 4096 rows as
+    queries, k = 64, phase 4's exact ids and distances the reference. Gates,
+    fixed before the first run on the card: every returned id a row or -1
+    where short, distances finite and ascending per row where an id is
+    found; IVFFlat finds every query itself first with recall@64 >= 0.85;
+    the launch counters show B1 f32, B1 f32-fast, B2 f32-fast and B3 f32
+    moving and no float64 form. Returns (launch counts of the phase, its
+    timings)."""
+    import torch
+
+    from spark_rapids_ml_tpu_torch import ApproximateNearestNeighbors
+    from spark_rapids_ml_tpu_torch.ops import _kernels
+    from spark_rapids_ml_tpu_torch.ops import cagra as CG
+    from spark_rapids_ml_tpu_torch.ops import kmeans as KM
+    from spark_rapids_ml_tpu_torch.ops import knn as KN
+
+    say(f"phase 11: ApproximateNearestNeighbors, {KNN_QUERIES} queries x {N_ROWS} x {N_COLS} float32, k = {KNN_K}")
+    timings = {}
+    totals = {key: 0 for key in _kernels.launches}
+    queries = {"features": X[:KNN_QUERIES]}
+    q64 = X[:KNN_QUERIES].astype(np.float64)
+    rows_info = lambda a, out: {"rows": int(a[0].shape[0])}  # noqa: E731
+    for algo, ap in ANN_CONFIGS:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        box = []
+        with contextlib.ExitStack() as stack:
+            for module, name, info in (
+                (KM, "scalable_kmeans_init_device", None), (KM, "kmeans_fit", rows_info),
+                (KM, "_kmeanspp_device", rows_info), (KN, "_encode_residuals", None),
+                (CG, "_cluster_seed_rep", None), (CG, "_merge_dedup_topk", None), (CG, "_reverse_edges", None),
+                (CG, "_descent_round", lambda a, out: int(out[2])),
+            ):
+                stack.enter_context(_call_timer(module, name, box, info))
+            _kernels.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model = ApproximateNearestNeighbors(k=KNN_K, algorithm=algo, algoParams=ap) \
+                .setInputCol("features").fit({"features": X})
+            torch.cuda.synchronize()
+            build_s = time.perf_counter() - t0
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+        t0 = time.perf_counter()
+        _, _, knn_df = model.kneighbors(queries)
+        search_s = time.perf_counter() - t0
+        counts = dict(_kernels.launches)  # read just after the path
+        for key, v in counts.items():
+            totals[key] += v
+        t = {"build_s": build_s, "search_s": search_s, "queries_per_s": KNN_QUERIES / search_s,
+             "peak_memory_gb": peak_gb, **_ann_build_split(algo, box, build_s)}
+        say(f"  {algo} {ap}: build {build_s:.2f} s, peak memory {peak_gb:.2f} GB; search {search_s:.3f} s "
+            f"({t['queries_per_s']:.0f} queries/s)")
+        say("    build split: " + json.dumps({k_: v for k_, v in t.items()
+                                                if k_ not in ("build_s", "search_s", "queries_per_s")}))
+        say("    launches: " + ", ".join(f"{k_}={v}" for k_, v in counts.items() if v))
+        if algo != "cagra":
+            if algo == "ivfflat":
+                lens = np.diff(model._index["offsets"].numpy())
+            else:
+                lens = (model._index["bucket_ids"] >= 0).sum(1).cpu().numpy()
+            L = int(lens.max())
+            t.update(L=L, fill=N_ROWS / (len(lens) * L),
+                     padded_lists_gb=len(lens) * L * N_COLS * 4 / 1e9)
+            say(f"    lists: L = {L} (largest), smallest {int(lens.min())}, fill n/(n_lists L) = {t['fill']:.4f}; "
+                f"padded [{len(lens)}, {L}, {N_COLS}] float32 buckets would take {t['padded_lists_gb']:.2f} GB "
+                f"(the port stores the IVFFlat lists unpadded: {N_ROWS * N_COLS * 4 / 1e9:.2f} GB)")
+
+        ids = np.stack(knn_df["indices"].to_numpy())
+        dist = np.stack(knn_df["distances"].to_numpy())
+        if ids.shape != (KNN_QUERIES, KNN_K) or dist.shape != ids.shape:
+            fail(f"{algo}: indices {ids.shape}, distances {dist.shape}")
+        found = ids >= 0
+        if ((ids < -1) | (ids >= N_ROWS)).any():
+            fail(f"{algo}: ids outside [-1, {N_ROWS})")
+        if not np.isfinite(dist[found]).all() or np.isfinite(dist[~found]).any():
+            fail(f"{algo}: a found id without a finite distance, or a pad with one")
+        if (np.diff(np.where(found, dist, np.inf), axis=1) < 0).any():
+            fail(f"{algo}: distances not ascending")
+        recall = float(np.mean([len(set(a[a >= 0]) & set(b)) / KNN_K for a, b in zip(ids, exact_ids)]))
+        kth = ids[:, -1]
+        ok = kth >= 0
+        true_kth = np.sqrt(((X[kth[ok]].astype(np.float64) - q64[ok]) ** 2).sum(1))
+        ratio = float(np.mean(true_kth / exact_dist[ok, -1]))
+        t.update(recall_at_64=recall, kth_distance_ratio=ratio, short_rows=int((~found).any(1).sum()),
+                 self_first=float(np.mean(ids[:, 0] == np.arange(KNN_QUERIES))))
+        say(f"    recall@{KNN_K} {recall:.4f}; found k-th neighbour's true distance / exact k-th distance "
+            f"{ratio:.6f} (mean over {int(ok.sum())} queries); {t['short_rows']} queries short of k; "
+            f"self first {t['self_first']:.4f}")
+        if algo == "ivfflat" and t["self_first"] != 1.0:
+            fail(f"ivfflat: {int((ids[:, 0] != np.arange(KNN_QUERIES)).sum())} queries do not find themselves first")
+        if recall < ANN_RECALL_FLOOR.get(algo, 0.0):
+            fail(f"{algo}: recall@{KNN_K} {recall:.4f} below {ANN_RECALL_FLOOR[algo]}")
+        if any(v for k_, v in counts.items() if "/f64" in k_):
+            fail(f"{algo}: a float64 form launched: {counts}")
+        timings[algo] = t
+        del model, knn_df
+        torch.cuda.empty_cache()
+    for name in ("assign_argmin/f32", "assign_argmin/f32-fast", "assign_accumulate/f32-fast", "d2_block/f32"):
+        if not totals[name]:
+            fail(f"phase 11 never launched {name}")
+    say("  launches in phase 11: " + ", ".join(f"{k_}={v}" for k_, v in totals.items() if v))
+    return totals, timings
+
+
 def main():
     import torch
 
@@ -3528,12 +3720,13 @@ def main():
     X = _protocol_rows()
     say(f"data {X.shape} float32 made in {time.perf_counter() - t0:.1f} s")
     counts, timings, kmeans_model = phase_main_path(dev, X)
-    knn_counts, knn_timings = phase_knn(dev, X, d2_entries[0]["ms"])
+    knn_counts, knn_timings, (exact_ids, exact_dist) = phase_knn(dev, X, d2_entries[0]["ms"])
     serve_counts, serve_timings = phase_serving(dev, X, kmeans_model)
     linear_ref, linear_timings = phase_pca_linear(dev, X)
     logreg_ref, logreg_timings = phase_logreg(dev, X)
     forest_timings = phase_forests(dev, X)
     multi_counts, multi_timings = phase_multifit(dev, X, linear_ref["y"], logreg_ref["y"])
+    ann_counts, ann_timings = phase_ann(dev, X, exact_ids, exact_dist)
     t0 = time.perf_counter()
     X = _f64_rows(X)  # the float32 rows are dropped here
     say(f"data as float64 {X.shape} made in {time.perf_counter() - t0:.1f} s")
@@ -3553,12 +3746,14 @@ def main():
         elif name.startswith("d2_block"):
             # kneighbors runs f32, serving f32-fast
             e["launches"] = serve_counts[name] if name.endswith("-fast") else knn_counts[name]
-            e["launches_by_run"] = {"kneighbors": knn_counts[name], "serving": serve_counts[name]}
+            e["launches_by_run"] = {"kneighbors": knn_counts[name], "serving": serve_counts[name],
+                                    "ann": ann_counts[name]}
         else:
             e["launches"] = counts["main_path"][name]
             e["launches_by_run"] = {run: c[name] for run, c in counts.items() if run != "main_path"}
             e["launches_by_run"]["serving"] = serve_counts[name]
             e["launches_by_run"]["fit_multiple"] = multi_counts[name]
+            e["launches_by_run"]["ann"] = ann_counts[name]
     entries += d2_entries
     for name in ("assign_argmin/f64", "assign_accumulate/f64", "d2_block/f64", "assign_argmin/f64-fast"):
         if not f64_counts["route"][name]:
@@ -3573,6 +3768,7 @@ def main():
     say("LogisticRegression float64 timings: " + json.dumps(logreg_f64_timings))
     say("RandomForest timings: " + json.dumps(forest_timings))
     say("multi-fit engine timings: " + json.dumps(multi_timings))
+    say("ApproximateNearestNeighbors timings: " + json.dumps(ann_timings))
     kernels_line = json.dumps({"kernels": entries})
     say(f"total {time.perf_counter() - t_start:.1f} s")
     LOG_DIR.mkdir(exist_ok=True)

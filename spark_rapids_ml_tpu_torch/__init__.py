@@ -5,7 +5,10 @@
 # Same PySpark-ML-style API: KMeans().setFeaturesCol("features").fit(data),
 # model.transform(data), model.write().overwrite().save(path),
 # KMeansModel.load(path); NearestNeighbors(k=...).setInputCol("features")
-# .fit(items).kneighbors(queries); PCA(k=...).setInputCol("features");
+# .fit(items).kneighbors(queries);
+# ApproximateNearestNeighbors(k=..., algorithm="ivfflat" | "ivfpq" | "cagra",
+# algoParams={...}).setInputCol("features").fit(items).kneighbors(queries);
+# PCA(k=...).setInputCol("features");
 # LinearRegression(regParam=...).fit({"features": X, "label": y});
 # LogisticRegression(regParam=...).fit({"features": X, "label": y});
 # RandomForestClassifier(numTrees=..., maxDepth=...) and
@@ -30,7 +33,12 @@ from .models.classification import (
 )
 from .models.clustering import KMeans, KMeansModel
 from .models.feature import PCA, PCAModel
-from .models.knn import NearestNeighbors, NearestNeighborsModel
+from .models.knn import (
+    ApproximateNearestNeighbors,
+    ApproximateNearestNeighborsModel,
+    NearestNeighbors,
+    NearestNeighborsModel,
+)
 from .models.regression import (
     LinearRegression,
     LinearRegressionModel,
@@ -49,7 +57,8 @@ from .tuning import (
 )
 
 __all__ = [
-    "KMeans", "KMeansModel", "NearestNeighbors", "NearestNeighborsModel", "PCA", "PCAModel",
+    "KMeans", "KMeansModel", "NearestNeighbors", "NearestNeighborsModel", "ApproximateNearestNeighbors",
+    "ApproximateNearestNeighborsModel", "PCA", "PCAModel",
     "LinearRegression", "LinearRegressionModel", "LogisticRegression", "LogisticRegressionModel",
     "RandomForestClassifier", "RandomForestClassificationModel", "RandomForestRegressor",
     "RandomForestRegressionModel",

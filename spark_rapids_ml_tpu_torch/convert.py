@@ -5,6 +5,8 @@
 # `PCAModel.load`, `LinearRegressionModel.load`,
 # `LogisticRegressionModel.load`, `RandomForestClassificationModel.load` or
 # `RandomForestRegressionModel.load`: both packages write the same layout.)
+# An ANN model of the JAX package, which cannot be saved, carries its index
+# across in memory (`approximate_nearest_neighbors_model_from_jax`).
 #
 from __future__ import annotations
 
@@ -15,12 +17,13 @@ import numpy as np
 from .models.classification import LogisticRegressionModel, RandomForestClassificationModel
 from .models.clustering import KMeansModel
 from .models.feature import PCAModel
+from .models.knn import ApproximateNearestNeighborsModel
 from .models.regression import LinearRegressionModel, RandomForestRegressionModel
 
 __all__ = [
     "kmeans_model_from_jax", "pca_model_from_jax", "linear_regression_model_from_jax",
     "logistic_regression_model_from_jax", "random_forest_classification_model_from_jax",
-    "random_forest_regression_model_from_jax",
+    "random_forest_regression_model_from_jax", "approximate_nearest_neighbors_model_from_jax",
 ]
 
 _KMEANS_KEYS = ("cluster_centers_", "inertia_", "n_iter_", "n_cols", "dtype")
@@ -101,3 +104,58 @@ def random_forest_regression_model_from_jax(attrs: Dict[str, Any]) -> RandomFore
     return _model_from_jax(
         RandomForestRegressionModel, "RandomForestRegressionModel", attrs, _FOREST_KEYS, _FOREST_ARRAYS
     )
+
+
+# the arrays of each ANN index, by algorithm, and their dtypes on the device
+_ANN_INDEX = {
+    "ivfflat": {"centroids": "float32", "buckets": "float32", "bucket_ids": "int64"},
+    "ivfpq": {"centroids": "float32", "codebooks": "float32", "code_buckets": None, "bucket_ids": "int64"},
+    "cagra": {"x": "float32", "graph": "int32"},
+}
+
+
+def approximate_nearest_neighbors_model_from_jax(attrs: Dict[str, Any], index: Dict[str, Any], items: Any):
+    """An ApproximateNearestNeighborsModel searching the index a JAX
+    ApproximateNearestNeighborsModel built. `attrs` holds its `algorithm`
+    ("ivfflat", "ivfpq" or "cagra"), `solver_params` (the JAX model's
+    `_solver_params`), and optionally `n_cols`, `dtype`, `inputCol`,
+    `idCol`; `index` its `_index` (`centroids`, `buckets`, `bucket_ids`,
+    stored unpadded as `ops/knn.build_ivfflat` stores them; `centroids`,
+    `codebooks`, `code_buckets`, `bucket_ids`; or `x`, `graph`), each
+    array copied to the device `set_devices` chose; `items`
+    the item dataset it was fitted on, bound as the model's items. For
+    ivfpq the refine scores the item rows (unit rows under cosine) at
+    float32, as the index was built from."""
+    from .data import as_pandas
+    from .ops.knn import ivfflat_from_padded
+    from .parallel import default_device, host_tensor
+    from .utils import unit_rows
+
+    algo = str(attrs.get("algorithm", ""))
+    if algo not in _ANN_INDEX:
+        raise ValueError(f"algorithm must be one of {sorted(_ANN_INDEX)}, got {algo!r}")
+    missing = [key for key in _ANN_INDEX[algo] if key not in index]
+    if missing:
+        raise ValueError(f"JAX {algo} index lacks {missing}")
+    device = default_device()
+    model = ApproximateNearestNeighborsModel(n_cols=int(attrs.get("n_cols", 0)), dtype=str(attrs.get("dtype", "float32")))
+    model._solver_params.update(dict(attrs["solver_params"]))
+    model._float32_inputs = np.dtype(str(attrs.get("dtype", "float32"))) != np.float64
+    for name in ("inputCol", "idCol"):
+        if attrs.get(name) is not None:
+            model.set(name, attrs[name])
+    arrays = {key: host_tensor(np.asarray(index[key], dtype=dt) if dt else np.asarray(index[key]))
+              for key, dt in _ANN_INDEX[algo].items()}
+    if algo == "ivfflat":  # the JAX package's padded lists, unpadded
+        arrays = ivfflat_from_padded(arrays["centroids"], arrays["buckets"], arrays["bucket_ids"])
+    model._index = {key: v if key == "offsets" else v.to(device) for key, v in arrays.items()}
+    model._algorithm = algo
+    model._item_pdf = as_pandas(items)
+    model._item_extracted = model._pre_process_data(items, for_fit=False)
+    model.n_cols = model._item_extracted.n_cols
+    if algo == "ivfpq":
+        feats = model._item_extracted.features
+        if str(model._solver_params["metric"]) == "cosine":
+            feats = unit_rows(feats)
+        model._refine_x = host_tensor(np.asarray(feats)).to(device)
+    return model

@@ -1,25 +1,34 @@
 #
-# Exact nearest-neighbor estimator and model, drop-in for the JAX package's
-# spark_rapids_ml_tpu/models/knn.py (NearestNeighbors,
-# NearestNeighborsModel), on one device: fit binds the item set,
-# `kneighbors(query_df)` returns (item_df, query_df, knn_df) with knn_df =
-# (query_id, indices, distances), and `exactNearestNeighborsJoin` explodes
-# the pairs. Neither supports persistence, as in the reference.
+# Exact and approximate nearest-neighbor estimators and models, drop-in for
+# the JAX package's spark_rapids_ml_tpu/models/knn.py (NearestNeighbors,
+# NearestNeighborsModel, ApproximateNearestNeighbors,
+# ApproximateNearestNeighborsModel), on one device: fit binds the item set
+# (and for ANN builds an IVFFlat, IVFPQ or CAGRA index over it, on the
+# card), `kneighbors(query_df)` returns (item_df, query_df, knn_df) with
+# knn_df = (query_id, indices, distances), and `exactNearestNeighborsJoin` /
+# `approxSimilarityJoin` explode the pairs. None supports persistence, as
+# in the reference.
 #
 # The serving hooks keep the item block, its norms and its id map resident
 # on the card and answer each query batch through the running top-k
 # (`topk_tile`), at the items' dtype or, with serve_dtype="bf16", through the
 # d2-block kernel's bf16 tensor-core form.
 #
+# An ANN model serves as the JAX package's does: it inherits the exact
+# model's serving hooks, so the serving plane answers it by exact kNN over
+# its item set, not through its index.
+#
 # Left out, each a later ROADMAP item: the multi-device and multi-process
-# search (A10; num_workers > 1 is refused) and sparse item sets (A11; ingest
-# raises).
+# search (A10; num_workers > 1 is refused), with ANN's per-rank index and
+# top-k merge, and sparse item sets (A11; ingest raises), which ANN
+# densifies in the JAX package.
 #
 from __future__ import annotations
 
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from ..core import _TpuEstimator, _TpuModel, alias
 from ..data import ExtractedData, as_pandas
@@ -297,3 +306,285 @@ class NearestNeighborsModel(_KNNParams, _TpuModel):
 
     def write(self):
         raise NotImplementedError("NearestNeighborsModel does not support saving (reference parity)")
+
+
+# ------------------------------------------------------------------- ANN ----
+
+
+class _ANNParams(_KNNParams):
+    algorithm = Param("algorithm", "ANN algorithm: 'ivfflat', 'ivfpq' or 'cagra'", TypeConverters.toString)
+    algoParams = Param("algoParams", "algorithm-specific parameters dict", TypeConverters.identity)
+    metric = Param("metric", "distance metric: euclidean | sqeuclidean | cosine", TypeConverters.toString)
+
+    @classmethod
+    def _param_mapping(cls) -> Dict[str, Optional[str]]:
+        return {"k": "n_neighbors", "metric": "metric"}
+
+    def _get_solver_params_default(self) -> Dict[str, Any]:
+        return {
+            "metric": "euclidean",
+            "n_neighbors": 5,
+            "batch_queries": 1024,
+            "n_lists": 64,
+            "n_probes": 8,
+            "pq_m": 8,  # cuML algoParams key "M": subquantizer count
+            "pq_n_bits": 8,  # cuML algoParams key "n_bits": bits per PQ code
+            # ivfpq takes k * refine_ratio ADC candidates and re-ranks them by
+            # exact distance (the cuVS refine)
+            "refine_ratio": 4,
+            # cagra index params (cuVS IndexParams)
+            "build_algo": "ivf_pq",
+            "graph_degree": 64,
+            "intermediate_graph_degree": 128,
+            # cagra build knobs (ops/cagra.py build_cagra): seeding reps, max
+            # descent rounds, update-rate termination, bf16 candidate scoring
+            "cluster_reps": 8,
+            "nn_descent_niter": 0,
+            "termination_threshold": 0.003,
+            "fast_score": True,
+            # cagra search params (cuVS SearchParams)
+            "itopk_size": 64,
+            "search_width": 1,
+            "max_iterations": 0,
+            "min_iterations": 0,
+            "num_random_samplings": 1,
+            "verbose": False,
+        }
+
+
+class ApproximateNearestNeighbors(_ANNParams, _TpuEstimator):
+    """Approximate kNN by IVFFlat, IVFPQ or CAGRA.
+
+    >>> ann = ApproximateNearestNeighbors(k=64, algoParams={"nlist": 256, "nprobe": 16})
+    >>> model = ann.setInputCol("features").fit(item_df)
+    >>> item_out, query_out, knn_df = model.kneighbors(query_df)
+
+    `algoParams` takes the cuML/cuVS keys {"nlist", "nprobe", "M",
+    "n_bits", "refine_ratio"}, the cagra keys {"build_algo",
+    "graph_degree", "intermediate_graph_degree", "itopk_size",
+    "search_width", "max_iterations", "min_iterations",
+    "num_random_samplings"} and the build knobs {"cluster_reps",
+    "nn_descent_niter", "termination_threshold", "fast_score"}; each call
+    replaces the keys of the one before. Fit places the rows on the card
+    once (unit rows for metric="cosine") and builds the index there with
+    seed 0 (ops/knn.py, ops/cagra.py)."""
+
+    def __init__(self, **kwargs: Any) -> None:
+        super().__init__()
+        self._setDefault(k=5, algorithm="ivfflat")
+        self._set_params(**kwargs)
+
+    def _set_params(self, **kwargs):
+        if "algorithm" in kwargs and kwargs["algorithm"] not in ("ivfflat", "ivfpq", "cagra"):
+            raise ValueError(f"algorithm {kwargs['algorithm']!r} not supported (ivfflat | ivfpq | cagra)")
+        if "metric" in kwargs and kwargs["metric"] not in ("euclidean", "sqeuclidean", "cosine"):
+            raise ValueError(f"metric {kwargs['metric']!r} not supported (euclidean | sqeuclidean | cosine)")
+        if "algoParams" in kwargs:
+            ap = kwargs.pop("algoParams") or {}
+            if "compression" in ap:
+                raise ValueError("cagra 'compression' is not supported by the PyTorch port, as by the JAX package")
+            mapped = {"nlist": "n_lists", "nprobe": "n_probes", "M": "pq_m", "n_bits": "pq_n_bits",
+                      "refine_ratio": "refine_ratio"}
+            # REPLACE semantics: keys an earlier algoParams set go back to
+            # their defaults first
+            defaults = self._get_solver_params_default()
+            for prev in getattr(self, "_algo_params_keys", ()):
+                if prev in defaults:
+                    self._solver_params[prev] = defaults[prev]
+                else:
+                    self._solver_params.pop(prev, None)
+            applied = set()
+            for key, v in ap.items():
+                solver_key = mapped.get(key, key)
+                self._solver_params[solver_key] = v
+                applied.add(solver_key)
+            self._algo_params_keys = applied
+        return super()._set_params(**kwargs)
+
+    def setK(self, value: int) -> "ApproximateNearestNeighbors":
+        return self._set_params(k=value)
+
+    def setInputCol(self, value) -> "ApproximateNearestNeighbors":
+        return self._set_params(inputCol=value) if isinstance(value, str) else self._set_params(inputCols=value)
+
+    def setIdCol(self, value: str) -> "ApproximateNearestNeighbors":
+        return self._set_params(idCol=value)
+
+    def setAlgorithm(self, value: str) -> "ApproximateNearestNeighbors":
+        return self._set_params(algorithm=value)
+
+    def getAlgorithm(self) -> str:
+        return self.getOrDefault("algorithm")
+
+    def setAlgoParams(self, value: Dict[str, Any]) -> "ApproximateNearestNeighbors":
+        return self._set_params(algoParams=value)
+
+    def setMetric(self, value: str) -> "ApproximateNearestNeighbors":
+        return self._set_params(metric=value)
+
+    def getMetric(self) -> str:
+        return str(self._solver_params["metric"])
+
+    def _fit_internal(self, dataset: Any, paramMaps=None, row_mask=None) -> List["ApproximateNearestNeighborsModel"]:
+        from ..ops.cagra import build_cagra
+        from ..ops.knn import build_ivfflat, build_ivfpq
+        from ..parallel import default_device, host_tensor
+        from ..utils import unit_rows
+
+        if self.num_workers > 1:
+            raise NotImplementedError(
+                f"num_workers={self.num_workers}: the PyTorch port builds its ANN index on one "
+                "device (the per-rank index and top-k merge are ROADMAP item A10)"
+            )
+        sp = self._solver_params
+        pdf = as_pandas(dataset)
+        extracted = self._pre_process_data(dataset, for_fit=True)
+        feats = extracted.features
+        cosine = str(sp["metric"]) == "cosine"
+        if cosine:
+            # cosine rides the euclidean index on unit vectors (the same
+            # ranking); queries are normalized the same way in kneighbors
+            feats = unit_rows(feats)
+        algo = self.getOrDefault("algorithm")
+        if algo == "cagra":
+            # cuVS checks itopk_size >= k at first use; fail at fit, as the
+            # JAX package does
+            internal = -(-int(sp.get("itopk_size", 64)) // 32) * 32
+            if internal < int(sp["n_neighbors"]):
+                raise ValueError(
+                    f"cagra rounds itopk_size up to a multiple of 32 ({internal}) and requires it"
+                    f" >= k ({int(sp['n_neighbors'])})"
+                )
+        device = default_device()
+        xd = host_tensor(np.asarray(feats, dtype=np.float32)).to(device)  # the rows, placed once
+        refine_x = None
+        if algo == "ivfpq":
+            index = build_ivfpq(xd, int(sp["n_lists"]), M=int(sp["pq_m"]), n_bits=int(sp["pq_n_bits"]), seed=0)
+            # the refine scores the rows the JAX package scores: the build's
+            # float32 rows, or the float64 items themselves
+            refine_x = xd if feats.dtype == np.float32 else host_tensor(feats).to(device)
+        elif algo == "cagra":
+            index = build_cagra(
+                xd,
+                graph_degree=int(sp["graph_degree"]),
+                intermediate_graph_degree=int(sp["intermediate_graph_degree"]),
+                build_algo=str(sp["build_algo"]),
+                nn_descent_niter=int(sp["nn_descent_niter"]),
+                cluster_reps=int(sp["cluster_reps"]),
+                termination_threshold=float(sp["termination_threshold"]),
+                fast_score=bool(sp["fast_score"]),
+                seed=0,
+            )
+        else:
+            index = build_ivfflat(xd, int(sp["n_lists"]), seed=0)
+        model = ApproximateNearestNeighborsModel(
+            n_cols=extracted.n_cols, dtype="float32" if self._float32_inputs else "float64"
+        )
+        self._copyValues(model)
+        self._copy_solver_params(model)
+        model._item_pdf = pdf
+        model._item_extracted = extracted
+        model._index = index
+        model._algorithm = algo
+        model._refine_x = refine_x
+        return [model]
+
+    # _TpuCaller's solver hooks: never reached, _fit_internal builds the index
+    def _get_tpu_fit_func(self, extracted: ExtractedData):
+        raise NotImplementedError("ApproximateNearestNeighbors builds its index in _fit_internal")
+
+    def _create_model(self, attrs: Dict[str, Any]) -> "ApproximateNearestNeighborsModel":
+        raise NotImplementedError("ApproximateNearestNeighbors builds its index in _fit_internal")
+
+    def write(self):
+        raise NotImplementedError("ApproximateNearestNeighbors does not support saving")
+
+
+class ApproximateNearestNeighborsModel(NearestNeighborsModel):
+    """The ANN index bound to its item set. `kneighbors` searches the index
+    on the card; distances are euclidean, squared for
+    metric="sqeuclidean", and 1 - cos (d²/2 on unit rows) for "cosine";
+    a query short of k candidates gets id -1 at +inf."""
+
+    def __init__(self, **kwargs: Any) -> None:
+        super().__init__(**kwargs)
+        self._index: Optional[Dict[str, Any]] = None
+        self._algorithm = "ivfflat"
+        self._refine_x = None  # ivfpq: the rows the refine scores, on the device
+
+    def _get_solver_params_default(self) -> Dict[str, Any]:
+        return _ANNParams._get_solver_params_default(self)
+
+    def getAlgorithm(self) -> str:
+        return self._algorithm
+
+    def getMetric(self) -> str:
+        return str(self._solver_params["metric"])
+
+    def kneighbors(self, query_df: Any) -> Tuple[Any, Any, Any]:
+        """Returns (item_df, query_df, knn_df) as `NearestNeighborsModel`
+        does, searched through the index: IVFFlat's probed lists; IVFPQ's
+        k·refine_ratio ADC candidates re-ranked exactly in float64
+        (`ops/knn.refine_exact`); CAGRA's greedy graph search."""
+        import pandas as pd
+
+        from ..ops.cagra import cagra_search
+        from ..ops.knn import ivfflat_search, ivfpq_search, refine_exact
+        from ..parallel import default_device, host_tensor
+        from ..utils import unit_rows
+
+        if self._index is None or self._item_pdf is None:
+            raise ValueError("ApproximateNearestNeighborsModel has no index; fit it first")
+        sp = self._solver_params
+        k = int(sp["n_neighbors"])
+        item_ex = self._item_extracted
+        item_ids = self._ensure_id(self._item_pdf, item_ex)
+        query_pdf = as_pandas(query_df)
+        if len(query_pdf) == 0:
+            knn_df = pd.DataFrame({"query_id": np.zeros(0, dtype=np.int64), "indices": [], "distances": []})
+            return (self._with_ids(self._item_pdf, item_ids),
+                    self._with_ids(query_pdf, np.zeros(0, dtype=np.int64)), knn_df)
+        query_ex = self._pre_process_data(query_df, for_fit=False)
+        query_ids = self._ensure_id(query_pdf, query_ex)
+        metric = str(sp["metric"])
+        queries = query_ex.features
+        if metric == "cosine":
+            queries = unit_rows(queries)
+        device = default_device()
+        q = host_tensor(np.asarray(queries, dtype=np.float32)).to(device)
+        n_items = item_ex.n_rows
+        batch = int(sp["batch_queries"])
+        if self._algorithm == "ivfpq":
+            k_adc = min(k * max(1, int(sp.get("refine_ratio", 4))), n_items)
+            dist, idx = ivfpq_search(q, self._index, k=k_adc, n_probes=int(sp["n_probes"]), batch_queries=batch)
+            if k_adc > k:
+                q_ref = q if queries.dtype == np.float32 else host_tensor(queries).to(device)
+                dist, idx = refine_exact(self._refine_x, q_ref, torch.from_numpy(idx).to(device), k)
+        elif self._algorithm == "cagra":
+            idx, d2 = cagra_search(
+                q, self._index, k=min(k, n_items), itopk_size=int(sp["itopk_size"]),
+                search_width=int(sp["search_width"]), max_iterations=int(sp["max_iterations"]),
+                min_iterations=int(sp["min_iterations"]), num_random_samplings=int(sp["num_random_samplings"]),
+                batch_queries=batch,
+            )
+            # euclidean, as every path of the package reports (cuVS gives d²)
+            dist = np.sqrt(np.maximum(d2, 0.0))
+            if k > n_items:  # pad as the IVF paths do
+                padw = k - n_items
+                idx = np.concatenate([idx, np.full((len(idx), padw), -1, idx.dtype)], axis=1)
+                dist = np.concatenate([dist, np.full((len(dist), padw), np.inf, dist.dtype)], axis=1)
+        else:
+            dist, idx = ivfflat_search(q, self._index, k=k, n_probes=int(sp["n_probes"]), batch_queries=batch)
+        dist = np.asarray(dist, dtype=np.float64)
+        if metric == "sqeuclidean":
+            dist = dist * dist
+        elif metric == "cosine":
+            dist = (dist * dist) / 2.0  # unit rows: 1 - cos; +inf pads stay +inf
+        indices = np.where(idx >= 0, item_ids[np.maximum(idx, 0)], -1)
+        knn_df = pd.DataFrame({"query_id": query_ids, "indices": list(indices), "distances": list(dist)})
+        return self._with_ids(self._item_pdf, item_ids), self._with_ids(query_pdf, query_ids), knn_df
+
+    def approxSimilarityJoin(self, query_df: Any, distCol: str = "distCol") -> Any:
+        """The exploded join of `exactNearestNeighborsJoin` over the ANN
+        result; padded ids (-1, at +inf) are dropped."""
+        return self.exactNearestNeighborsJoin(query_df, distCol)

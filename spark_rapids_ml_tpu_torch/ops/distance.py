@@ -64,6 +64,16 @@ def _on_kernel_device(name: str, *tensors: torch.Tensor) -> bool:
 
 
 def row_sq(x: torch.Tensor) -> torch.Tensor:
+    """Squared row norms, equal bit for bit for equal rows wherever they lie
+    in x. torch's CUDA reduction reads the unaligned head of a row apart, so
+    at a depth that is not a multiple of 4 two equal rows at different
+    offsets could sum in different orders, and a tie between repeated
+    centers or items go to the later copy; such rows are summed from a copy
+    padded with zero columns to a multiple of 4, where every row starts
+    16-byte aligned."""
+    d = x.shape[1]
+    if d % 4:
+        x = torch.nn.functional.pad(x, (0, 4 - d % 4))
     return torch.sum(x * x, dim=1)
 
 
@@ -90,7 +100,7 @@ def row_sq_fixed(x: torch.Tensor) -> torch.Tensor:
 
 
 def _c_sq(c: torch.Tensor) -> torch.Tensor:
-    return torch.sum(c * c, dim=1)
+    return row_sq(c)
 
 
 def _bf16(a: torch.Tensor) -> torch.Tensor:
@@ -270,6 +280,17 @@ def _smallest_columns(d2: torch.Tensor, kk: int) -> torch.Tensor:
     return torch.sort(cols, dim=1).values
 
 
+def _topk_lex(d2: torch.Tensor, kk: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(values, columns) [B, kk] of the kk smallest entries of each row,
+    ascending, the lower column first among equal values: the order of
+    `jax.lax.top_k(-d2, kk)`, and of an exact `jax.lax.approx_min_k`
+    (whose CPU form breaks ties in an order of its own)."""
+    cols = _smallest_columns(d2, kk)
+    vals = d2.gather(1, cols)
+    order = torch.sort(vals, dim=1, stable=True).indices
+    return vals.gather(1, order), cols.gather(1, order)
+
+
 def _merge(best_d2, best_i, d2, first_id: int, kk: int):
     """The kk smallest of the concatenation [best | block], lower position
     first on ties, as `jax.lax.top_k` over it. Blocks are scanned in
@@ -329,3 +350,47 @@ def topk_tile(
             d2.masked_fill_(~keep[None, :], float("inf"))
         best_d2, best_i = _merge(best_d2, best_i, d2, s0, kk)
     return best_d2, best_i
+
+
+# ------------------------------------------- gathered candidates (ANN) ----
+
+
+def score_candidates(
+    q_rows: torch.Tensor, cand: torch.Tensor, x: torch.Tensor, x_sq: torch.Tensor, fast: bool = False
+) -> torch.Tensor:
+    """d2[t, c] = ||q_rows[t] - x[cand[t, c]]||^2, clamped at 0: the
+    [T, C, d] gather of the candidates and one batched product (cuBLAS; no
+    kernel of the JAX package carries it). `fast` rounds both sides to bf16
+    and sums their products in float32 (the rule of `_mm`), as CAGRA's
+    descent ranks candidate edges; the search scores at float32."""
+    xc = x[cand]  # [T, C, d]
+    if fast:
+        dots = torch.bmm(_bf16(xc), _bf16(q_rows)[:, :, None])[:, :, 0]
+    else:
+        dots = torch.bmm(xc, q_rows[:, :, None])[:, :, 0]
+    d2 = row_sq(q_rows)[:, None] + x_sq[cand] - 2.0 * dots
+    return torch.clamp_min(d2, 0.0)
+
+
+def batched_self_topk(xb: torch.Tensor, ids_b: torch.Tensor, *, kk: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact kNN inside padded buckets: xb [Cb, L, d], ids_b [Cb, L]
+    global ids (-1 pad). One batched [Cb, L, L] product and a top-kk per
+    row, the lower column first on ties; a row's own column and the pad
+    columns are +inf. Returns (d2 [Cb, L, kk], neighbor ids [Cb, L, kk]).
+    A pad row is all +inf, so its result is its first kk columns, filled
+    here without sorting the row."""
+    Cb, L, _ = xb.shape
+    sq = torch.sum(xb * xb, dim=2)
+    d2 = sq[:, :, None] + sq[:, None, :] - 2.0 * torch.bmm(xb, xb.transpose(1, 2))
+    valid = ids_b >= 0
+    mask = valid[:, None, :] & valid[:, :, None]
+    mask &= ~torch.eye(L, dtype=torch.bool, device=xb.device)[None]
+    d2 = torch.where(mask, torch.clamp_min(d2, 0.0), float("inf")).reshape(Cb * L, L)
+    rows = torch.nonzero(valid.reshape(-1)).squeeze(1)
+    nd2 = torch.full((Cb * L, kk), float("inf"), dtype=d2.dtype, device=d2.device)
+    pos = torch.arange(kk, device=d2.device).repeat(Cb * L, 1)
+    if rows.numel():
+        nd2[rows], pos[rows] = _topk_lex(d2[rows], kk)
+    pos = pos.reshape(Cb, L, kk)
+    nid = torch.gather(ids_b[:, None, :].expand(Cb, L, L), 2, pos)
+    return nd2.reshape(Cb, L, kk), nid

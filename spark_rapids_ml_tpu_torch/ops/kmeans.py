@@ -18,7 +18,8 @@ from typing import Dict
 import numpy as np
 import torch
 
-from .distance import argmin_assign, min_d2_update, tile_assign_accumulate
+from . import prng
+from .distance import _topk_lex, argmin_assign, min_d2_update, row_sq, tile_assign_accumulate
 
 
 def _finish_centers(sums, counts, inertia, centers):
@@ -59,6 +60,7 @@ def kmeans_fit(
     tol: float = 1e-4,
     batch_rows: int = 32768,
     precision_mode: str = "fast",
+    final_inertia: bool = True,
 ) -> Dict[str, torch.Tensor]:
     """Lloyd's algorithm on rows X [n, d] with weights w [n], on X's device.
     Returns cluster_centers_ [k, d], inertia_, n_iter_.
@@ -73,8 +75,14 @@ def kmeans_fit(
     precision_mode: "fast" (float32 only) runs the in-loop distance and
     center-update products in bf16 with float32 accumulation; "high" keeps
     the input precision. The reported inertia is recomputed with the final
-    centers at high precision in both modes."""
-    centers = torch.as_tensor(np.asarray(init_centers), dtype=X.dtype).to(X.device)
+    centers at high precision in both modes; with ``final_inertia=False``
+    (the IVF coarse quantizer and the PQ codebooks, which read no inertia)
+    that pass is skipped and `inertia_` is NaN. `init_centers` is a host
+    array or a tensor on X's device."""
+    if isinstance(init_centers, torch.Tensor):
+        centers = init_centers.to(device=X.device, dtype=X.dtype)
+    else:
+        centers = torch.as_tensor(np.asarray(init_centers), dtype=X.dtype).to(X.device)
     fast = precision_mode == "fast" and X.dtype == torch.float32
     n_iter = 0
     prev_shift = None
@@ -91,12 +99,15 @@ def kmeans_fit(
                 break
         prev_shift = shift
         last_good = step_in
-    _, inertia, _ = _lloyd_step(X, w, centers, batch_rows, False)
-    inertia_host = float(inertia)
-    if not math.isfinite(inertia_host):
-        # the deferred check trails by one fetch: a divergence on the
-        # FINAL step (or a 1-iteration fit) is caught here
-        _raise_diverged(n_iter, last_good, f"final inertia = {inertia_host}")
+    if not final_inertia:
+        inertia = torch.full((), float("nan"), dtype=X.dtype, device=X.device)
+    else:
+        _, inertia, _ = _lloyd_step(X, w, centers, batch_rows, False)
+        inertia_host = float(inertia)
+        if not math.isfinite(inertia_host):
+            # the deferred check trails by one fetch: a divergence on the
+            # FINAL step (or a 1-iteration fit) is caught here
+            _raise_diverged(n_iter, last_good, f"final inertia = {inertia_host}")
     return {
         "cluster_centers_": centers,
         "inertia_": inertia,
@@ -130,30 +141,33 @@ def _init_subsample(x_host, sample_weight, rng):
 
 
 def _kmeanspp_device(x: torch.Tensor, sw: torch.Tensor, seed: int, *, k: int) -> torch.Tensor:
-    """Classic k-means++ on the device: k sequential draws, each by inverse
-    CDF over d^2 * weight, with a `torch.Generator` seeded from `seed`. The
-    draws stay on the device, so the loop never waits for the host."""
+    """Classic k-means++ on the device, draw for draw the JAX package's
+    `_kmeanspp_device`: from PRNGKey(seed), `key, sub = split(key)` before
+    each of the k draws, and each draw one float32 uniform of `sub` scaled
+    by the last element of the cumulative sum of d^2 * weight (the weights
+    alone for the first), then `searchsorted`. The key chain and its
+    uniforms are hashed on the host up front (ops/prng.py) and sent to the
+    device once, so the loop never waits for the host."""
     n, d = x.shape
-    gen = torch.Generator(device=x.device)
-    gen.manual_seed(int(seed))
-    x_sq = torch.sum(x * x, dim=1)
+    x_sq = row_sq(x)
+    u = prng.uniform_f32_of(prng.key_chain(seed, k))
+    u = torch.from_numpy(u).to(x.device)  # float32, as the weights are
 
-    def sample(probs):
+    def sample(probs, i):
         c = torch.cumsum(probs, dim=0)
-        u = torch.rand((1,), generator=gen, dtype=c.dtype, device=x.device) * c[-1]
-        return torch.clamp(torch.searchsorted(c, u), 0, n - 1)
+        return torch.clamp(torch.searchsorted(c, u[i:i + 1] * c[-1]), 0, n - 1)
 
-    centers = torch.zeros((k, d), dtype=x.dtype, device=x.device)
-    centers[0] = x[sample(sw)][0]
+    idx = torch.empty((k,), dtype=torch.int64, device=x.device)
+    idx[0:1] = sample(sw, 0)
     closest = torch.full((n,), float("inf"), dtype=x.dtype, device=x.device)
     for i in range(1, k):
-        prev = centers[i - 1]
+        prev = x.index_select(0, idx[i - 1:i])[0]
         d2 = x_sq - 2.0 * (x @ prev) + torch.sum(prev * prev)
         closest = torch.minimum(closest, torch.clamp_min(d2, 0.0))
         probs = closest * sw
         probs = torch.where(torch.sum(probs) > 0, probs, sw)  # degenerate: all points covered
-        centers[i] = x[sample(probs)][0]
-    return centers
+        idx[i:i + 1] = sample(probs, i)
+    return x.index_select(0, idx)
 
 
 def scalable_kmeans_init(
@@ -203,6 +217,62 @@ def scalable_kmeans_init(
         cand_d, torch.from_numpy(np.maximum(weights, 1e-12)).to(device), seed + 1, k=k
     )
     return centers.cpu().numpy().astype(np.float64)
+
+
+def _kmeanspar_round(xd, cand_prev, min_d2, sw, key, *, l: int):
+    """One k-means|| round on the device (the JAX package's
+    `_kmeanspar_round`): the running min-d² against the previous candidate
+    block, then `l` new candidates drawn without replacement with
+    probability ∝ d²·w by Gumbel-top-l (keys log p + Gumbel(0, 1), the
+    uniform on [1e-20, 1) at JAX's default float dtype, float64 as the JAX
+    package's tests run it). Returns (candidate block [l, d], min_d2)."""
+    min_d2 = min_d2_update(xd, cand_prev, min_d2)
+    probs = min_d2 * sw
+    # degenerate (all points covered): uniform by weight
+    probs = torch.where(torch.sum(probs) > 0, probs, sw)
+    u = prng.uniform(key, (xd.shape[0],), torch.float64, minval=1e-20, maxval=1.0)
+    gumbel = -torch.log(-torch.log(u))
+    keys = torch.where(probs > 0, prng.log_f32(probs) + gumbel, float("-inf"))
+    _, idx = _topk_lex(-keys[None, :], l)  # jax.lax.top_k(keys, l): the lower row first on ties
+    return xd.index_select(0, idx[0]), min_d2
+
+
+def scalable_kmeans_init_device(
+    xd: torch.Tensor, k: int, seed: int, sample_weight=None, rounds: int = 5
+) -> torch.Tensor:
+    """k-means|| seeding with every step on the device, for rows already
+    placed there (the ANN index builds): the JAX package's
+    `scalable_kmeans_init_device`, draw for draw. The first candidate is
+    `categorical` over log-weights, repeated to a block of l = min(2k, n)
+    rows; each of `rounds` rounds is `_kmeanspar_round`; the candidates are
+    weighted by the rows they own (the argmin kernel through
+    `argmin_assign`, then a scatter-add of the row weights) and reduced to
+    k by `_kmeanspp_device(seed + 1)`. Returns [k, d] float32 centers on
+    the device; no row, distance or weight goes to the host."""
+    n, d = xd.shape
+    l = max(1, min(2 * k, n))
+    if sample_weight is None:
+        sw = torch.ones((n,), dtype=torch.float32, device=xd.device)
+    else:
+        sw = torch.as_tensor(sample_weight, dtype=torch.float32).to(xd.device)
+    key = prng.prng_key(seed, xd.device)
+    k0, key = prng.split(key)
+    i0 = prng.categorical(k0, prng.log_f32(torch.clamp_min(sw, 1e-30)))
+    blocks = [xd.index_select(0, i0.reshape(1)).expand(l, d)]
+    min_d2 = torch.full((n,), float("inf"), dtype=torch.float32, device=xd.device)
+    for _ in range(rounds):
+        key, kr = prng.split(key)
+        cand, min_d2 = _kmeanspar_round(xd, blocks[-1], min_d2, sw, kr, l=l)
+        blocks.append(cand)
+    cand_all = torch.cat(blocks, dim=0)
+    # duplicate rows (the first block) lose every argmin tie to the first
+    # copy, so they own nothing
+    assign = argmin_assign(xd, cand_all)
+    weights = torch.zeros((cand_all.shape[0],), dtype=torch.float32, device=xd.device)
+    weights.index_add_(0, assign.long(), sw)
+    return _kmeanspp_device(
+        cand_all, torch.clamp_min(weights, 1e-12), seed + 1, k=min(k, cand_all.shape[0])
+    )
 
 
 def kmeans_plus_plus_init(x_host, k: int, seed: int, sample_weight=None):

@@ -126,8 +126,8 @@ def test_fit_weighted_matches_jax():
 
 
 def test_warm_start_from_the_same_centers_matches_jax():
-    # identical init through warm_start_from, here from the k-means|| seeding
-    # whose random draws differ between the frameworks
+    # identical init through warm_start_from, here from the JAX package's
+    # k-means|| seeding
     x = _blobs(2000, 6, 70, 1.0, seed=3)
     donor = JaxKMeans(k=64, maxIter=1, seed=4, num_workers=1).fit({"features": x})
     params = dict(k=64, maxIter=8, tol=1e-12, seed=4, distance_precision="high")
@@ -139,18 +139,18 @@ def test_warm_start_from_the_same_centers_matches_jax():
 
 
 def test_scalable_init_inertia_ratio_to_jax_over_seeds():
-    # k >= 64 takes k-means|| seeding. The last reduce-to-k draws with
-    # jax.random on one side and a torch.Generator on the other, so the
-    # inits differ: hold the resulting inertia to a ratio of JAX's, per seed
-    # within [0.75, 1.33] and over the six seeds' total within 10%
+    # k >= 64 takes k-means|| seeding, whose last reduce-to-k draws from
+    # JAX's threefry stream on both sides (fault C4, fixed): on Gaussian
+    # blobs the inits agree, and the inertia per seed to float32 noise
+    # (tests/test_torch_ann.py pins the inits bit for bit on integer rows)
     x = _blobs(3000, 8, 80, 1.0, seed=3)
     jax_total = port_total = 0.0
     for seed in range(1, 7):
         jm, tm = _fit_both(x, k=64, maxIter=5, seed=seed)
-        assert 0.75 <= tm.inertia_ / jm.inertia_ <= 1.33, (seed, tm.inertia_, jm.inertia_)
+        assert abs(tm.inertia_ / jm.inertia_ - 1.0) <= 1e-5, (seed, tm.inertia_, jm.inertia_)
         jax_total += jm.inertia_
         port_total += tm.inertia_
-    assert 0.9 <= port_total / jax_total <= 1.1
+    assert abs(port_total / jax_total - 1.0) <= 1e-5
 
 
 def test_empty_cluster_keeps_its_center():

@@ -57,6 +57,10 @@ m.transform({"features": x})
 KMeans(k=64, maxIter=2, seed=1).fit({"features": x})  # k-means|| seeding too
 nn = NearestNeighbors(k=5).setInputCol("features").fit({"features": x})
 nn.exactNearestNeighborsJoin({"features": x[:7]})  # kneighbors inside
+from spark_rapids_ml_tpu_torch import ApproximateNearestNeighbors
+for algo, ap in (("ivfflat", {"nlist": 64}), ("ivfpq", {"nlist": 4, "M": 2}), ("cagra", {})):
+    ann = ApproximateNearestNeighbors(k=5, algorithm=algo, algoParams=ap).setInputCol("features")
+    ann.fit({"features": x}).approxSimilarityJoin({"features": x[:7]})
 from spark_rapids_ml_tpu_torch import ModelRegistry, RandomForestClassifier, ScoringEngine
 rf = RandomForestClassifier(numTrees=2, maxDepth=3).fit({"features": x, "label": (x[:, 0] > 0).astype(float)})
 registry = ModelRegistry()
