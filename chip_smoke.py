@@ -157,7 +157,25 @@
 #      every query itself first at recall >= 0.85; every id a row or -1,
 #      distances finite and ascending; B1 f32 and f32-fast, B2 f32-fast and
 #      B3 f32 counted, no float64 form;
-#  12. a {"kernels": [...]} line with all twelve kernel forms, the
+#  12. DBSCAN and UMAP at benchmark/benchmark_runner.py's protocol sizes,
+#      nothing cut, on blobs made from a seed as make_blobs makes them:
+#      12a DBSCAN on 40000 x 64 rows (20 centres, eps 12, min_samples 5,
+#      max_mbytes_per_batch 512) through the public API, each pass timed
+#      (core mask, components with their rounds, border), ARI against the
+#      generating labels >= 0.99, no kernel launched, and on 4000 integer
+#      rows the card's labels and core indices equal to the CPU's exactly
+#      for euclidean, cosine and precomputed at two tile budgets; 12b UMAP
+#      at 20000 and 100000 x 64 rows (10 centres, n_neighbors 15, n_epochs
+#      200, random_state 42): fit (kNN graph, smooth kNN, fuzzy set,
+#      spectral init, SGD with its ms an epoch) and the transform of every
+#      row timed, trustworthiness of the first 2000 rows >= 0.90, a second
+#      fit equal bit for bit, d2_block/f32 launched by the fit and the
+#      transform as the tiles say and no other form, the graph through B3
+#      against the plain route on the same resident rows, and at 20000 rows
+#      the graph, the fuzzy weights and a 5-epoch layout against the CPU;
+#      phase 2 also checks d2_block/f32 at d = 64 (exact on integers) and
+#      times it against torch.addmm;
+#  13. a {"kernels": [...]} line with all twelve kernel forms, the
 #      nvidia-smi line, and as the last line {"ok": true, "device": {...}}.
 #
 # Every phase raises on failure; the script prints no result then. It needs
@@ -799,19 +817,19 @@ def check_d2_block(B, kt, d, dtype, fast, integer, seed, dev):
     return err
 
 
-def time_d2_block(variant, dev, err):
-    """d2_block, its plain version and one library call at the kNN tile: for
-    f32 and f64 one torch.addmm computing the same block (the bare
-    torch.matmul product is timed beside it); for `fast`, torch.matmul on
-    the two operands cast to bf16 beforehand (the casts not timed). The
-    `fast` staging and the kernel are also timed apart."""
+def time_d2_block(variant, dev, err, d=N_COLS):
+    """d2_block, its plain version and one library call at the kNN tile
+    (depth `d`): for f32 and f64 one torch.addmm computing the same block
+    (the bare torch.matmul product is timed beside it); for `fast`,
+    torch.matmul on the two operands cast to bf16 beforehand (the casts not
+    timed). The `fast` staging and the kernel are also timed apart."""
     import torch
 
     from spark_rapids_ml_tpu_torch.ops import _kernels
     from spark_rapids_ml_tpu_torch.ops import distance as D
 
     dtype, fast = _variant_dtype(variant)
-    B, kt, d = KNN_QUERIES, D._DEFAULT_K_TILE, N_COLS
+    B, kt = KNN_QUERIES, D._DEFAULT_K_TILE
     q, xt = _d2_inputs(B, kt, d, dtype, False, 9, dev)
     xt_sq = D.row_sq(xt)
     s = q.element_size()
@@ -941,15 +959,24 @@ def phase_d2_block(dev):
         if variant == "f32-fast":
             shapes += [(b, kt, N_COLS) for b in SERVE_RUNGS if b != KNN_QUERIES]
             shapes += [(b, 1001, N_COLS) for b in SERVE_RUNGS]
+        if variant == "f32":  # UMAP's graph and transform tile (phase 12): d = 64
+            shapes += [(KNN_QUERIES, kt, UMAP_COLS), (UMAP_ROWS[0] % KNN_QUERIES, UMAP_ROWS[0] % kt, UMAP_COLS)]
         for (B, kt_, d) in shapes:
             check_d2_block(B, kt_, d, dtype, fast, True, B + kt_ + d, dev)
             e = check_d2_block(B, kt_, d, dtype, fast, False, B + kt_ + d, dev)
-            if (B, kt_) == (KNN_QUERIES, kt):
+            if (B, kt_, d) == (KNN_QUERIES, kt, N_COLS):
                 errs[variant] = e
+            elif (B, kt_, d) == (KNN_QUERIES, kt, UMAP_COLS):
+                errs["f32/d64"] = e
     check_d2_batch_independence(dev)
     check_nan_query_rows(dev)
     say("phase 2: d2_block timing at the kNN tile (CUDA events, mean of 5 after a warm-up)")
-    return [time_d2_block(variant, dev, errs[variant]) for variant in VARIANTS]
+    entries = [time_d2_block(variant, dev, errs[variant]) for variant in VARIANTS]
+    say(f"phase 2: d2_block/f32 at UMAP's depth, {KNN_QUERIES} x {kt} x {UMAP_COLS}")
+    e64 = time_d2_block("f32", dev, errs["f32/d64"], d=UMAP_COLS)
+    entries[0]["at_d64"] = {k_: e64[k_] for k_ in ("ms", "plain_ms", "library_ms", "matmul_ms", "bound_ms",
+                                                  "bound_by", "max_abs_err", "split_ms")}
+    return entries
 
 
 def phase_kernels(dev):
@@ -3701,6 +3728,352 @@ def phase_ann(dev, X, exact_ids, exact_dist):
     return totals, timings
 
 
+# ----------------------------------------------------------- phase 12 ----
+
+# benchmark/benchmark_runner.py's protocol for DBSCAN and UMAP, nothing cut:
+# bench_dbscan.py (20 blob centres, eps 1.5 sqrt(d), min_samples 5,
+# max_mbytes_per_batch 512) and bench_umap.py (10 centres, n_neighbors 15,
+# n_epochs 200, random_state 42; fit, then transform of every row)
+DBSCAN_ROWS, DBSCAN_COLS, DBSCAN_CENTERS = 40_000, 64, 20
+DBSCAN_EPS, DBSCAN_MIN_SAMPLES, DBSCAN_MBYTES = 1.5 * float(np.sqrt(64)), 5, 512
+DBSCAN_ARI_FLOOR = 0.99
+DBSCAN_INT_ROWS = 4000  # the card against the CPU, exactly
+UMAP_ROWS, UMAP_COLS, UMAP_CENTERS = (20_000, 100_000), 64, 10
+UMAP_K, UMAP_EPOCHS, UMAP_SEED = 15, 200, 42
+UMAP_TW_ROWS, UMAP_TW_FLOOR = 2000, 0.90  # bench_umap.py's quality: the first 2000 rows
+UMAP_LAYOUT_ATOL = 1e-3  # tests/test_torch_umap.py's layout tolerance (coordinates of scale 10)
+
+
+def make_blobs(n, d, centers, seed):
+    """sklearn's make_blobs law without sklearn (not on the card's
+    machine): centres uniform in [-10, 10]^d, unit standard deviation,
+    groups of n // centers rows (the first n % centers one row more), rows
+    shuffled. Returns (float32 rows, int64 labels)."""
+    rng = np.random.default_rng(seed)
+    c = rng.uniform(-10.0, 10.0, size=(centers, d))
+    labels = np.repeat(np.arange(centers), [n // centers + (i < n % centers) for i in range(centers)])
+    x = c[labels] + rng.standard_normal((n, d))
+    perm = rng.permutation(n)
+    return x[perm].astype(np.float32), labels[perm].astype(np.int64)
+
+
+def adjusted_rand_index(truth, pred):
+    """sklearn.metrics.adjusted_rand_score in numpy (its pair confusion
+    form; -1 is a label like any other)."""
+    _, ti = np.unique(truth, return_inverse=True)
+    _, pi = np.unique(pred, return_inverse=True)
+    C = np.zeros((ti.max() + 1, pi.max() + 1), np.int64)
+    np.add.at(C, (ti, pi), 1)
+    n = int(len(truth))
+    sum_squares = int((C * C).sum())
+    n_c, n_k = C.sum(1), C.sum(0)
+    c01 = int((C.T @ n_c).sum()) - sum_squares
+    c10 = int((C @ n_k).sum()) - sum_squares
+    tp, fp, fn = sum_squares - n, c01, c10
+    tn = n * n - c01 - c10 - sum_squares
+    if fn == 0 and fp == 0:
+        return 1.0
+    return 2.0 * (tp * tn - fn * fp) / ((tp + fn) * (fn + tn) + (tp + fp) * (fp + tn))
+
+
+def trustworthiness(x, emb, k):
+    """sklearn.manifold.trustworthiness (euclidean) in numpy: 1 - 2/(n k (2n
+    - 3k - 1)) times the sum over every row's k nearest in the embedding,
+    not among its k nearest in x, of (rank in x) - k."""
+    def order(a):
+        a = a.astype(np.float64)
+        sq = (a * a).sum(1)
+        d = sq[:, None] + sq[None, :] - 2.0 * (a @ a.T)
+        np.fill_diagonal(d, np.inf)
+        return np.argsort(d, axis=1, kind="stable")
+
+    n = len(x)
+    rank = np.empty((n, n), np.int64)
+    rank[np.arange(n)[:, None], order(x)] = np.arange(1, n + 1)[None, :]
+    ranks = rank[np.arange(n)[:, None], order(emb)[:, :k]] - k
+    return 1.0 - float(ranks[ranks > 0].sum()) * (2.0 / (n * k * (2.0 * n - 3.0 * k - 1.0)))
+
+
+def _dbscan_int_rows(n, d, seed):
+    """Integer-valued rows: blobs of {-1, 0, 1} offsets around integer
+    centres, and 5% uniform integer rows as noise. Every squared distance
+    is an exact integer in float32."""
+    rng = np.random.default_rng(seed)
+    c = rng.integers(-6, 7, size=(8, d))
+    x = c[rng.integers(0, 8, n)] + rng.integers(-1, 2, size=(n, d))
+    noise = rng.random(n) < 0.05
+    x[noise] = rng.integers(-12, 13, size=(int(noise.sum()), d))
+    return x.astype(np.float32)
+
+
+def _eps_in_a_gap(dist, target, margin):
+    """The eps nearest `target` with no pairwise distance within `margin`
+    of it, so no pair can flip at eps in any float32 summation order."""
+    v = np.unique(dist[np.triu_indices(len(dist), 1)])
+    for step in range(1, 100000):
+        for eps in (target + step * margin, target - step * margin):
+            i = np.searchsorted(v, eps)
+            near = min(abs(v[max(i - 1, 0)] - eps), abs(v[min(i, len(v) - 1)] - eps))
+            if near > margin:
+                return float(eps)
+    fail("no gap in the pairwise distances")
+
+
+def _dbscan_card_vs_cpu(dev):
+    """12a's exact check: on DBSCAN_INT_ROWS integer rows, euclidean (eps^2
+    a half-integer), cosine (eps in a gap of the float64 distances 1e-4
+    wide) and precomputed (the squared-distance matrix, eps a
+    half-integer), at the default tile and at a 1 MB budget, labels and
+    core indices of the card equal to the CPU's exactly."""
+    from spark_rapids_ml_tpu_torch import DBSCAN, set_devices
+    from spark_rapids_ml_tpu_torch.utils import unit_rows
+
+    x = _dbscan_int_rows(DBSCAN_INT_ROWS, DBSCAN_COLS, 5)
+    x64 = x.astype(np.float64)
+    sq = (x64 * x64).sum(1)
+    d2 = sq[:, None] + sq[None, :] - 2.0 * (x64 @ x64.T)  # exact integers
+    u = unit_rows(x).astype(np.float64)
+    cases = (
+        ("euclidean", x, float(np.sqrt(60.5)), 5),
+        ("cosine", x, _eps_in_a_gap(1.0 - u @ u.T, 0.05, 1e-4), 5),
+        ("precomputed", d2.astype(np.float32), 60.5, 5),
+    )
+    out = {}
+    for metric, rows, eps, ms in cases:
+        for budget in (None, 1):
+            labels = {}
+            for device in ("cpu", dev):
+                set_devices(device)
+                try:
+                    m = DBSCAN(eps=eps, min_samples=ms, metric=metric, max_mbytes_per_batch=budget) \
+                        .setFeaturesCol("features").fit({"features": rows})
+                    labels[str(device)] = (m.transform({"features": rows})["prediction"].to_numpy(),
+                                           m.core_sample_indices_)
+                finally:
+                    set_devices(None)
+            (lc, cc), (lg, cg) = labels["cpu"], labels[str(dev)]
+            tag = f"DBSCAN {metric}, eps {eps:.6g}, budget {budget} MB"
+            if not (np.array_equal(lc, lg) and np.array_equal(cc, cg)):
+                fail(f"{tag}: the card's labels or core indices differ from the CPU's at "
+                     f"{int((lc != lg).sum())} rows")
+            out[f"{metric}/{budget}"] = {"clusters": int(lg.max()) + 1, "noise": float(np.mean(lg == -1)),
+                                         "core": int(len(cg))}
+    say(f"  {DBSCAN_INT_ROWS} x {DBSCAN_COLS} integer rows, euclidean / cosine / precomputed at the default "
+        f"tile and 1 MB: the card's labels and core indices equal the CPU's exactly: {json.dumps(out)}")
+    return out
+
+
+def _umap_card_vs_cpu(dev, x, layout_epochs=5):
+    """12b's stage checks at the smaller size, on the same rows: the kNN
+    graph through B3 against the CPU's plain route (ids equal but where two
+    distances tie within the float32 bound; distances within it), the
+    smooth kNN and fuzzy weights of the CPU's graph on the card against the
+    CPU (rtol 1e-5, atol 1e-6: tests/test_torch_umap.py's), and
+    `layout_epochs` SGD epochs from the same Y0 and weights within
+    UMAP_LAYOUT_ATOL."""
+    import torch
+
+    from spark_rapids_ml_tpu_torch.ops import umap as UM
+
+    cpu = torch.device("cpu")
+    xc = torch.from_numpy(x)
+    ci, cd = UM.build_knn_graph(xc, UMAP_K)
+    gi, gd = UM.build_knn_graph(xc.to(dev), UMAP_K)
+    bound = 8 * x.shape[1] * 2.0 ** -24 * float((x.astype(np.float64) ** 2).sum(1).max())
+    err = np.abs(gd.astype(np.float64) ** 2 - cd.astype(np.float64) ** 2).max()
+    if err > bound:
+        fail(f"UMAP graph: the card's squared distances differ from the CPU's by {err} > {bound}")
+    swapped = np.argwhere(gi != ci)
+    for r, j in swapped:
+        exact = float(((x[r].astype(np.float64) - x[gi[r, j]]) ** 2).sum())
+        if abs(exact - float(cd[r, j]) ** 2) > bound:
+            fail(f"UMAP graph: row {r} column {j}: the card's id {gi[r, j]} is not a near-tie of the CPU's {ci[r, j]}")
+    out = {"graph_d2_err": float(err), "graph_d2_bound": bound, "graph_ids_swapped": int(len(swapped))}
+
+    def stages(device):
+        d, i = torch.from_numpy(cd).to(device), torch.from_numpy(ci.astype(np.int64)).to(device)
+        rho, sigma = UM.smooth_knn(d)
+        return rho.cpu().numpy(), sigma.cpu().numpy(), UM.fuzzy_simplicial_set(i, d, rho, sigma).cpu().numpy()
+
+    for name, a, b in zip(("rho", "sigma", "fuzzy"), stages(cpu), stages(dev)):
+        if not np.allclose(b, a, rtol=1e-5, atol=1e-6):
+            fail(f"UMAP {name}: the card differs from the CPU beyond rtol 1e-5, atol 1e-6")
+        out[f"{name}_bitwise"] = bool(np.array_equal(a, b))
+        out[f"{name}_max_abs_diff"] = float(np.abs(a - b).max())
+    w = stages(cpu)[2]
+    a, b = UM.find_ab_params(1.0, 0.1)
+    n = len(x)
+    Y0 = np.random.default_rng(0).uniform(-10, 10, (n, 2)).astype(np.float32)
+    w_opt = np.where(w >= w.max() / float(UMAP_EPOCHS), w, 0.0).astype(np.float32)
+    inv, ov = UM._inverse_adjacency(ci, n)
+    hubs, table = UM._overflow_gather(ci.reshape(-1).astype(np.int64), ov)
+
+    def layout(device):
+        t = lambda v: torch.from_numpy(np.ascontiguousarray(v)).to(device)  # noqa: E731
+        y0 = t(Y0)
+        return UM.optimize_embedding(
+            y0, y0, t(ci.astype(np.int64)), t(w_opt), t(inv), (t(hubs.astype(np.int64)), t(table)),
+            n_epochs=layout_epochs, a=a, b=b, seed=UMAP_SEED,
+        ).cpu().numpy()
+
+    err = float(np.abs(layout(dev) - layout(cpu)).max())
+    if err > UMAP_LAYOUT_ATOL:
+        fail(f"UMAP {layout_epochs}-epoch layout: the card differs from the CPU by {err} > {UMAP_LAYOUT_ATOL}")
+    out["layout_max_abs_diff"] = err
+    say(f"  UMAP stages at {n} rows, the card against the CPU: " + json.dumps(out))
+    return out
+
+
+def phase_dbscan_umap(dev):
+    """Phase 12: DBSCAN and UMAP at benchmark/benchmark_runner.py's protocol
+    sizes through the public API, on rows this phase makes from a seed
+    (`make_blobs`). Gates, fixed before the first run on the card: 12a
+    DBSCAN on 40000 x 64 rows finds the generating blobs with ARI >= 0.99
+    and launches no kernel, and on integer rows the card equals the CPU
+    exactly (`_dbscan_card_vs_cpu`); 12b UMAP at 20000 and 100000 x 64
+    rows: an embedding of finite values of shape [n, 2] and the transform
+    of every row the same, trustworthiness of the first 2000 rows >= 0.90,
+    the fit repeated equal bit for bit, B3 f32 launched by the fit and the
+    transform exactly as the row and item tiles say and no other kernel
+    form; the graph through B3 against the plain route on the same
+    resident rows (ids equal on integer rows; squared distances within
+    the float32 bound on the blobs) and, at 20000 rows, the stages against
+    the CPU (`_umap_card_vs_cpu`). Returns (launch counts by run, timings)."""
+    import torch
+
+    from spark_rapids_ml_tpu_torch import DBSCAN, UMAP
+    from spark_rapids_ml_tpu_torch.ops import _kernels
+    from spark_rapids_ml_tpu_torch.ops import dbscan as DB
+    from spark_rapids_ml_tpu_torch.ops import distance as D
+    from spark_rapids_ml_tpu_torch.ops import umap as UM
+
+    say(f"phase 12: DBSCAN ({DBSCAN_ROWS} x {DBSCAN_COLS}) and UMAP ({' and '.join(map(str, UMAP_ROWS))} x "
+        f"{UMAP_COLS}) at the benchmark protocol's sizes")
+    timings, counts = {}, {}
+
+    # 12a: DBSCAN
+    x, y = make_blobs(DBSCAN_ROWS, DBSCAN_COLS, DBSCAN_CENTERS, 0)
+    box = []
+    with contextlib.ExitStack() as stack:
+        for name, info in (("core_mask", None), ("core_components", lambda a, out: int(out[1])),
+                           ("border_assign", None)):
+            stack.enter_context(_call_timer(DB, name, box, info))
+        _kernels.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model = DBSCAN(eps=DBSCAN_EPS, min_samples=DBSCAN_MIN_SAMPLES, max_mbytes_per_batch=DBSCAN_MBYTES) \
+            .setFeaturesCol("features").fit({"features": x})
+        labels = model.transform({"features": x})["prediction"].to_numpy()
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+    counts["dbscan"] = dict(_kernels.launches)  # read just after the path
+    if any(counts["dbscan"].values()):
+        fail(f"DBSCAN launched a kernel: {counts['dbscan']}")
+    ari = adjusted_rand_index(y, labels)
+    t = {"transform_s": total, "ari": ari, "noise_share": float(np.mean(labels == -1)),
+         "clusters": int(labels.max()) + 1, "core_rows": int(len(model.core_sample_indices_)),
+         "tile_rows": DB._tile_rows_for_budget(DBSCAN_ROWS, DBSCAN_MBYTES)}
+    for name, s, info in box:
+        t[f"{name}_s"] = s
+        if info is not None:
+            t["rounds"] = info
+    t["host_s"] = total - sum(s for _, s, _ in box)
+    say(f"  12a DBSCAN eps {DBSCAN_EPS} min_samples {DBSCAN_MIN_SAMPLES}, {DBSCAN_MBYTES} MB tiles of "
+        f"{t['tile_rows']} rows: {total:.3f} s (core pass {t['core_mask_s']:.3f}, components "
+        f"{t['core_components_s']:.3f} in {t['rounds']} rounds, border {t['border_assign_s']:.3f}, host "
+        f"{t['host_s']:.3f}); {t['clusters']} clusters, {t['core_rows']} core rows, noise share "
+        f"{t['noise_share']:.5f}; ARI {ari:.6f}; no kernel launched")
+    if ari < DBSCAN_ARI_FLOOR:
+        fail(f"DBSCAN: ARI {ari} against the generating blobs below {DBSCAN_ARI_FLOOR}")
+    t["card_vs_cpu"] = _dbscan_card_vs_cpu(dev)
+    timings["dbscan"] = t
+    del model
+
+    # 12b: UMAP
+    stage_names = ("build_knn_graph", "smooth_knn", "fuzzy_simplicial_set", "spectral_init", "optimize_embedding")
+    counts["umap_fit"] = {key: 0 for key in _kernels.launches}
+    counts["umap_transform"] = {key: 0 for key in _kernels.launches}
+    for n in UMAP_ROWS:
+        x, y = make_blobs(n, UMAP_COLS, UMAP_CENTERS, 0)
+        est = UMAP(n_neighbors=UMAP_K, n_epochs=UMAP_EPOCHS, random_state=UMAP_SEED).setFeaturesCol("features")
+        box = []
+        with contextlib.ExitStack() as stack:
+            for name in stage_names:
+                stack.enter_context(_call_timer(UM, name, box))
+            _kernels.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model = est.fit({"features": x})
+            fit_s = time.perf_counter() - t0
+            fit_counts = dict(_kernels.launches)  # read just after the fit
+        _kernels.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = model.transform({"features": x})
+        torch.cuda.synchronize()
+        tr_s = time.perf_counter() - t0
+        tr_counts = dict(_kernels.launches)  # read just after the transform
+        # query tiles x item blocks: every row is a query and an item
+        expected = -(-n // D.tile_rows()) * -(-n // D._DEFAULT_K_TILE)
+        for run, c in (("fit", fit_counts), ("transform", tr_counts)):
+            if c["d2_block/f32"] != expected or any(v for k_, v in c.items() if k_ != "d2_block/f32"):
+                fail(f"UMAP {run} at {n} rows: launches {c}, expected d2_block/f32 = {expected} and nothing else")
+            for key, v in c.items():
+                counts[f"umap_{run}"][key] += v
+        emb = model.embedding_
+        emb_t = np.stack(out["embedding"].to_list())
+        if emb.shape != (n, 2) or emb_t.shape != (n, 2) or not (np.isfinite(emb).all() and np.isfinite(emb_t).all()):
+            fail(f"UMAP at {n} rows: embedding {emb.shape}, transform {emb_t.shape}, or a non-finite value")
+        tw = trustworthiness(x[:UMAP_TW_ROWS], emb[:UMAP_TW_ROWS], UMAP_K)
+        if tw < UMAP_TW_FLOOR:
+            fail(f"UMAP at {n} rows: trustworthiness {tw} below {UMAP_TW_FLOOR}")
+        split = {name: sum(s for nm, s, _ in box if nm == name) for name in stage_names}
+        t = {"fit_s": fit_s, "transform_s": tr_s, "trustworthiness": tw, "b3_launches": expected,
+             **{f"{k_}_s": v for k_, v in split.items()},
+             "sgd_ms_per_epoch": split["optimize_embedding"] / UMAP_EPOCHS * 1e3,
+             "transform_epochs": UMAP_EPOCHS // 3}
+        t["fit_host_s"] = fit_s - sum(split.values())
+        say(f"  12b UMAP {n} x {UMAP_COLS}: fit {fit_s:.3f} s = kNN graph {split['build_knn_graph']:.3f} "
+            f"({expected} B3 f32 launches) + smooth kNN {split['smooth_knn']:.3f} + fuzzy set "
+            f"{split['fuzzy_simplicial_set']:.3f} + spectral init {split['spectral_init']:.3f} + SGD "
+            f"{split['optimize_embedding']:.3f} ({t['sgd_ms_per_epoch']:.2f} ms an epoch x {UMAP_EPOCHS}) + "
+            f"host {t['fit_host_s']:.3f}; transform of {n} rows {tr_s:.3f} s ({t['transform_epochs']} epochs); "
+            f"trustworthiness of the first {UMAP_TW_ROWS} rows {tw:.5f}")
+        again = est.fit({"features": x})
+        if not np.array_equal(again.embedding_, emb):
+            fail(f"UMAP at {n} rows: a second fit on the card differs from the first "
+                 f"(max {np.abs(again.embedding_ - emb).max()})")
+        say("    a second fit equals the first bit for bit")
+        del again, model, out
+        # B3 against the plain route on the same resident rows
+        Xd = torch.from_numpy(x).to(dev)
+        res, secs = _knn_routes(Xd, None, Xd, UMAP_K)
+        (dk, ik), (dp, ip) = res["kernel"], res["plain"]
+        bound = 8 * UMAP_COLS * 2.0 ** -24 * float((x.astype(np.float64) ** 2).sum(1).max())
+        err = float(np.abs(dk.astype(np.float64) ** 2 - dp.astype(np.float64) ** 2).max())
+        if err > bound:
+            fail(f"UMAP graph at {n} rows: B3 and the plain route differ by {err} > {bound} in squared distance")
+        Xi = torch.round(Xd)  # integer rows: every sum exact, so the routes agree exactly
+        res_i, _ = _knn_routes(Xi, None, Xi, UMAP_K)
+        if not (np.array_equal(res_i["kernel"][1], res_i["plain"][1])
+                and np.array_equal(res_i["kernel"][0], res_i["plain"][0])):
+            fail(f"UMAP graph at {n} rows, integer rows: B3 and the plain route differ")
+        t.update(graph_kernel_s=secs["kernel"], graph_plain_s=secs["plain"], graph_d2_err=err,
+                 graph_d2_bound=bound, graph_ids_differing=int((ik != ip).sum()))
+        say(f"    the graph on resident rows: B3 route {', '.join(f'{s:.3f}' for s in secs['kernel'])} s, plain "
+            f"{', '.join(f'{s:.3f}' for s in secs['plain'])} s; squared distances within {err:.4g} (bound "
+            f"{bound:.4g}), {t['graph_ids_differing']} ids differ (near-ties); integer rows: equal exactly")
+        del Xd, Xi, res, res_i
+        if n == UMAP_ROWS[0]:
+            t["card_vs_cpu"] = _umap_card_vs_cpu(dev, x)
+        timings[f"umap_{n}"] = t
+        torch.cuda.empty_cache()
+    say("  launches in phase 12: DBSCAN none; UMAP fits " + ", ".join(
+        f"{k_}={v}" for k_, v in counts["umap_fit"].items() if v) + "; transforms " + ", ".join(
+        f"{k_}={v}" for k_, v in counts["umap_transform"].items() if v))
+    return counts, timings
+
+
 def main():
     import torch
 
@@ -3734,6 +4107,7 @@ def main():
     linear_f64_timings = phase_pca_linear_f64(dev, X, linear_ref)
     logreg_f64_timings = phase_logreg_f64(dev, X, logreg_ref)
     del X
+    du_counts, du_timings = phase_dbscan_umap(dev)
     for e in entries + d2_entries:
         name = e["name"]
         if "/f64" in name:
@@ -3755,6 +4129,8 @@ def main():
             e["launches_by_run"]["fit_multiple"] = multi_counts[name]
             e["launches_by_run"]["ann"] = ann_counts[name]
     entries += d2_entries
+    for e in entries:  # phase 12: DBSCAN launches nothing, UMAP only d2_block/f32
+        e.setdefault("launches_by_run", {}).update({run: c[e["name"]] for run, c in du_counts.items()})
     for name in ("assign_argmin/f64", "assign_accumulate/f64", "d2_block/f64", "assign_argmin/f64-fast"):
         if not f64_counts["route"][name]:
             fail(f"the float64 route never launched {name}")
@@ -3769,6 +4145,7 @@ def main():
     say("RandomForest timings: " + json.dumps(forest_timings))
     say("multi-fit engine timings: " + json.dumps(multi_timings))
     say("ApproximateNearestNeighbors timings: " + json.dumps(ann_timings))
+    say("DBSCAN and UMAP timings: " + json.dumps(du_timings))
     kernels_line = json.dumps({"kernels": entries})
     say(f"total {time.perf_counter() - t_start:.1f} s")
     LOG_DIR.mkdir(exist_ok=True)

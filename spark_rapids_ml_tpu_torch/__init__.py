@@ -13,6 +13,10 @@
 # LogisticRegression(regParam=...).fit({"features": X, "label": y});
 # RandomForestClassifier(numTrees=..., maxDepth=...) and
 # RandomForestRegressor(...).fit({"features": X, "label": y});
+# DBSCAN(eps=..., min_samples=...).setFeaturesCol("features").fit(data)
+# .transform(data) (the label column, noise -1);
+# UMAP(n_neighbors=..., n_components=...).setFeaturesCol("features").fit(data)
+# and model.transform(rows) (the embedding column);
 # ModelRegistry().load("name", model) and
 # ScoringEngine(registry).score("name", rows) to serve fitted models;
 # est.fitMultiple(data, maps), CrossValidator(estimator=..., estimatorParamMaps=
@@ -31,7 +35,7 @@ from .models.classification import (
     RandomForestClassificationModel,
     RandomForestClassifier,
 )
-from .models.clustering import KMeans, KMeansModel
+from .models.clustering import DBSCAN, DBSCANModel, KMeans, KMeansModel
 from .models.feature import PCA, PCAModel
 from .models.knn import (
     ApproximateNearestNeighbors,
@@ -45,6 +49,7 @@ from .models.regression import (
     RandomForestRegressionModel,
     RandomForestRegressor,
 )
+from .models.umap import UMAP, UMAPModel
 from .parallel import set_devices
 from .pipeline import Pipeline, PipelineModel
 from .serving import ModelRegistry, OverloadController, ResidentModel, ScoreFuture, ScoringEngine
@@ -61,7 +66,7 @@ __all__ = [
     "ApproximateNearestNeighborsModel", "PCA", "PCAModel",
     "LinearRegression", "LinearRegressionModel", "LogisticRegression", "LogisticRegressionModel",
     "RandomForestClassifier", "RandomForestClassificationModel", "RandomForestRegressor",
-    "RandomForestRegressionModel",
+    "RandomForestRegressionModel", "DBSCAN", "DBSCANModel", "UMAP", "UMAPModel",
     "Vectors", "set_devices",
     "ModelRegistry", "OverloadController", "ResidentModel", "ScoreFuture", "ScoringEngine",
     "CrossValidator", "CrossValidatorModel", "ParamGridBuilder", "TrainValidationSplit",

@@ -15,15 +15,17 @@ from typing import Any, Dict, Tuple
 import numpy as np
 
 from .models.classification import LogisticRegressionModel, RandomForestClassificationModel
-from .models.clustering import KMeansModel
+from .models.clustering import DBSCANModel, KMeansModel
 from .models.feature import PCAModel
 from .models.knn import ApproximateNearestNeighborsModel
 from .models.regression import LinearRegressionModel, RandomForestRegressionModel
+from .models.umap import UMAPModel
 
 __all__ = [
     "kmeans_model_from_jax", "pca_model_from_jax", "linear_regression_model_from_jax",
     "logistic_regression_model_from_jax", "random_forest_classification_model_from_jax",
     "random_forest_regression_model_from_jax", "approximate_nearest_neighbors_model_from_jax",
+    "dbscan_model_from_jax", "umap_model_from_jax",
 ]
 
 _KMEANS_KEYS = ("cluster_centers_", "inertia_", "n_iter_", "n_cols", "dtype")
@@ -35,6 +37,7 @@ _LINREG_KEYS = ("coef_", "intercept_", "n_iter_", "n_cols", "dtype")
 _LOGREG_KEYS = ("coef_", "intercept_", "classes_", "n_iter_", "objective_", "n_cols", "dtype")
 _FOREST_KEYS = ("feature", "threshold", "node_stats", "classes_", "num_trees", "max_depth", "n_cols", "dtype")
 _FOREST_ARRAYS = {"feature": 2, "threshold": 2, "node_stats": 3, "classes_": 1}
+_UMAP_KEYS = ("embedding_", "raw_data_", "a_", "b_", "n_cols", "dtype")
 
 
 def _model_from_jax(cls, name: str, attrs: Dict[str, Any], keys: Tuple[str, ...], arrays: Dict[str, int]):
@@ -159,3 +162,26 @@ def approximate_nearest_neighbors_model_from_jax(attrs: Dict[str, Any], index: D
             feats = unit_rows(feats)
         model._refine_x = host_tensor(np.asarray(feats)).to(device)
     return model
+
+
+def _set_jax_params(model, params: Dict[str, Any]):
+    """`model` with the JAX model's Spark params (name -> value) that it
+    has set; None values keep the model's defaults."""
+    model._set_params(**{k: v for k, v in params.items() if v is not None and model.hasParam(k)})
+    return model
+
+
+def dbscan_model_from_jax(params: Dict[str, Any]) -> DBSCANModel:
+    """A DBSCANModel from the JAX DBSCANModel's params (`eps`,
+    `min_samples`, `metric`, `max_mbytes_per_batch`,
+    `calc_core_sample_indices`, the column names; name -> value)."""
+    return _set_jax_params(DBSCANModel(), params)
+
+
+def umap_model_from_jax(attrs: Dict[str, Any], params: Dict[str, Any]) -> UMAPModel:
+    """A UMAPModel from the JAX UMAPModel's attributes (`embedding_` [n, c],
+    `raw_data_` [n, d], `a_`, `b_`, `n_cols`, `dtype`) and its params
+    (`n_neighbors`, `n_epochs`, `random_state`, `metric`, the column
+    names, ...; name -> value)."""
+    model = _model_from_jax(UMAPModel, "UMAP", attrs, _UMAP_KEYS, {"embedding_": 2, "raw_data_": 2})
+    return _set_jax_params(model, params)

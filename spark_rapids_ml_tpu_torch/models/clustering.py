@@ -1,9 +1,11 @@
 #
-# KMeans estimator and model, drop-in for `pyspark.ml.clustering.KMeans`: the
-# PyTorch counterpart of spark_rapids_ml_tpu/models/clustering.py (KMeans,
-# KMeansModel, with KMeansModel's serving hooks), on one device. The
+# KMeans estimator and model, drop-in for `pyspark.ml.clustering.KMeans`,
+# and DBSCAN: the PyTorch counterpart of
+# spark_rapids_ml_tpu/models/clustering.py (KMeans, KMeansModel, with
+# KMeansModel's serving hooks; DBSCAN, DBSCANModel), on one device. The
 # out-of-core streaming fit and the multi-process init gather of the JAX
-# package are later ROADMAP items (A11, A10).
+# package are later ROADMAP items (A11, A10), as are DBSCAN's replicated
+# gather of every rank's rows (A10) and sparse input (A11).
 #
 from __future__ import annotations
 
@@ -11,11 +13,12 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 
-from ..core import FitInputs, _TpuEstimator, _TpuModelWithColumns
+from ..core import FitInputs, _TpuEstimator, _TpuModel, _TpuModelWithColumns
 from ..data import ExtractedData
 from ..params import (
     HasFeaturesCol,
     HasFeaturesCols,
+    HasIDCol,
     HasMaxIter,
     HasPredictionCol,
     HasSeed,
@@ -305,3 +308,190 @@ class KMeansModel(_KMeansParams, _TpuModelWithColumns):
         # |x|^2 - 2 x.c + |c|^2 form); the argmin epilogue left out
         k = max(1, int(self.cluster_centers_.shape[0]))
         return 3.0 * n_rows * k * n_cols
+
+
+class _DBSCANParams(HasFeaturesCol, HasFeaturesCols, HasPredictionCol, HasIDCol):
+    """DBSCAN's Param surface: the solver's knobs are Params of their own
+    (no pyspark DBSCAN exists to map from), identity-mapped to the solver
+    params."""
+
+    eps = Param(
+        "eps",
+        "maximum distance between 2 points such they reside in the same neighborhood",
+        TypeConverters.toFloat,
+    )
+    min_samples = Param(
+        "min_samples",
+        "number of samples in a neighborhood for a point to be a core point (incl. itself)",
+        TypeConverters.toInt,
+    )
+    metric = Param("metric", "distance metric: 'euclidean' or 'cosine'", TypeConverters.toString)
+    algorithm = Param("algorithm", "neighbor computation algorithm: 'brute' or 'rbc'", TypeConverters.toString)
+    max_mbytes_per_batch = Param(
+        "max_mbytes_per_batch",
+        "memory budget (MB) for each pairwise-distance tile — trades runtime for memory "
+        "on the N^2 distance computation",
+        TypeConverters.identity,
+    )
+    calc_core_sample_indices = Param(
+        "calc_core_sample_indices", "whether to compute core sample indices", TypeConverters.toBoolean
+    )
+
+    @classmethod
+    def _param_mapping(cls) -> Dict[str, Optional[str]]:
+        return {name: name for name in (
+            "eps", "min_samples", "metric", "algorithm", "max_mbytes_per_batch", "calc_core_sample_indices",
+        )}
+
+    def __init__(self, *args: Any, **kwargs: Any) -> None:
+        super().__init__(*args, **kwargs)
+        # the Param-tier defaults, here so a model built directly resolves
+        # them too; calc_core_sample_indices is True at this tier (the
+        # solver tier below says False, and the Param tier wins)
+        self._setDefault(
+            eps=0.5, min_samples=5, metric="euclidean", algorithm="brute",
+            max_mbytes_per_batch=None, calc_core_sample_indices=True,
+        )
+
+    def _get_solver_params_default(self) -> Dict[str, Any]:
+        return {
+            "eps": 0.5,
+            "min_samples": 5,
+            "metric": "euclidean",
+            "algorithm": "brute",
+            "verbose": False,
+            "max_mbytes_per_batch": None,
+            "calc_core_sample_indices": False,
+        }
+
+    def getEps(self) -> float:
+        return self.getOrDefault("eps")
+
+    def setEps(self, value: float):
+        return self._set_params(eps=value)
+
+    def getMinSamples(self) -> int:
+        return self.getOrDefault("min_samples")
+
+    def setMinSamples(self, value: int):
+        return self._set_params(min_samples=value)
+
+    def getMetric(self) -> str:
+        return self.getOrDefault("metric")
+
+    def setMetric(self, value: str):
+        return self._set_params(metric=value)
+
+    def setMaxMbytesPerBatch(self, value):
+        return self._set_params(max_mbytes_per_batch=value)
+
+    def getMaxMbytesPerBatch(self):
+        return self.getOrDefault("max_mbytes_per_batch")
+
+    def getAlgorithm(self) -> str:
+        return self.getOrDefault("algorithm")
+
+    def setAlgorithm(self, value: str):
+        return self._set_params(algorithm=value)
+
+    def getCalcCoreSampleIndices(self) -> bool:
+        return self.getOrDefault("calc_core_sample_indices")
+
+    def setCalcCoreSampleIndices(self, value: bool):
+        return self._set_params(calc_core_sample_indices=value)
+
+    def setFeaturesCol(self, value):
+        return self._set_params(featuresCol=value) if isinstance(value, str) else self._set_params(featuresCols=value)
+
+    def setPredictionCol(self, value: str):
+        return self._set_params(predictionCol=value)
+
+    def setIdCol(self, value: str):
+        return self._set_params(idCol=value)
+
+
+class DBSCAN(_DBSCANParams, _TpuEstimator):
+    """DBSCAN estimator. ``fit`` touches no data: it returns a copy of the
+    parameters as a model, and the clustering runs in ``model.transform``
+    (DBSCAN has no train/inference split).
+
+    >>> model = DBSCAN(eps=0.5, min_samples=5).setFeaturesCol("features").fit(df)
+    >>> out = model.transform(df)   # df + prediction column, noise = -1
+
+    The rows go to the device whole, and the N^2 distance work runs in three
+    tiled passes (ops/dbscan.py): core mask, components of the core graph,
+    border adoption. `max_mbytes_per_batch` bounds each distance tile."""
+
+    def __init__(self, **kwargs: Any) -> None:
+        super().__init__()
+        self._set_params(**kwargs)
+
+    def _set_params(self, **kwargs):
+        if "metric" in kwargs and kwargs["metric"] not in ("euclidean", "cosine", "precomputed"):
+            raise ValueError(
+                f"metric must be 'euclidean', 'cosine' or 'precomputed', got {kwargs['metric']!r}"
+            )
+        if "algorithm" in kwargs and kwargs["algorithm"] not in ("brute", "rbc"):
+            raise ValueError(f"algorithm must be 'brute' or 'rbc', got {kwargs['algorithm']!r}")
+        return super()._set_params(**kwargs)
+
+    def _get_tpu_fit_func(self, extracted: ExtractedData):  # pragma: no cover
+        raise NotImplementedError("DBSCAN does not fit and generate model")
+
+    def _fit_internal(self, dataset: Any, paramMaps, row_mask=None):
+        # parameter-copied models, no data touched; one per param map
+        sources = [self.copy(pm) for pm in paramMaps] if paramMaps else [self]
+        models = []
+        for src in sources:
+            model = DBSCANModel(n_cols=0, dtype="")
+            src._copyValues(model)
+            src._copy_solver_params(model)
+            models.append(model)
+        return models
+
+    def _create_model(self, attrs):  # pragma: no cover - _fit_internal overridden
+        return DBSCANModel(**attrs)
+
+
+class DBSCANModel(_DBSCANParams, _TpuModel):
+    """DBSCAN's model: the clustering runs inside transform, which appends
+    the int64 label column (noise -1).
+
+    `idCol` is accepted: the labels attach to the rows by position, and an
+    id column is left as it is."""
+
+    def __init__(self, n_cols: int = 0, dtype: str = "", **kwargs: Any) -> None:
+        super().__init__(n_cols=n_cols, dtype=dtype)
+        self.n_cols = int(n_cols)
+        self.dtype = dtype
+        self.core_sample_indices_: Optional[np.ndarray] = None
+
+    def transform(self, dataset: Any):
+        from ..data import as_pandas
+        from ..ops.dbscan import dbscan_fit
+        from ..parallel import default_device
+
+        if self.num_workers > 1:
+            raise NotImplementedError(
+                f"num_workers={self.num_workers}: DBSCAN runs on one device (the replicated "
+                "gather of every rank's rows is ROADMAP item A10)"
+            )
+        pdf = as_pandas(dataset)
+        feats = np.asarray(self._pre_process_data(dataset, for_fit=False).features, dtype=np.float32)
+        labels, core_idx = dbscan_fit(
+            feats,
+            device=default_device(),
+            eps=float(self.getOrDefault("eps")),
+            min_samples=int(self.getOrDefault("min_samples")),
+            metric=self.getOrDefault("metric"),
+            max_mbytes_per_batch=self.getOrDefault("max_mbytes_per_batch"),
+            calc_core_sample_indices=bool(self.getOrDefault("calc_core_sample_indices")),
+        )
+        if len(labels) != len(pdf):
+            raise RuntimeError(f"row count mismatch: {len(labels)} labels vs {len(pdf)} input rows")
+        # the latest transform's state, as cuML's fit_predict keeps it;
+        # concurrent transforms of one model should each use a copy()
+        self.core_sample_indices_ = core_idx
+        out = pdf.copy(deep=False)
+        out[self.getOrDefault("predictionCol")] = labels.astype(np.int64)
+        return out

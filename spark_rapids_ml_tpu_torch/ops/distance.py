@@ -1,8 +1,9 @@
 #
 # The tiled distance core in PyTorch: the public functions of
 # spark_rapids_ml_tpu/ops/distance.py that the KMeans fit, transform and
-# k-means|| seeding run, and the running top-k of exact kNN, with the same
-# contracts and the same ||x||^2-free results.
+# k-means|| seeding run, the running top-k of exact kNN, and DBSCAN's dense
+# distance tiles (`pairwise_d2`), with the same contracts and the same
+# ||x||^2-free results.
 #
 # Each function that holds a kernel has a plain PyTorch version beside it,
 # the counterpart of the JAX package's jnp branch. Dispatch is on the
@@ -20,6 +21,7 @@
 #
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Tuple
 
 import torch
@@ -223,10 +225,35 @@ def argmin_assign(
 # ------------------------------------------------------ distance tiles ------
 
 
-def pairwise_d2(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """One dense squared-euclidean distance tile [tq, n]. The tile IS the
-    output here, so it stays one matmul."""
+def pairwise_d2(q: torch.Tensor, x: torch.Tensor, metric: str = "euclidean") -> torch.Tensor:
+    """One dense distance tile [tq, n]: squared euclidean, or cosine
+    distance. The tile IS the output here (DBSCAN's threshold passes, the
+    k-means|| running min), so it stays one matmul.
+
+    For "cosine" the caller has scaled the rows to unit norm, so the
+    distance is 1 - q.x^T. For "precomputed" the rows ARE distances
+    already (DBSCAN hands each pass the matching column slice of the
+    user's distance matrix), so the tile is `q` itself."""
+    if metric == "precomputed":
+        return q
+    if metric == "cosine":
+        return 1.0 - q @ x.T
     return row_sq(q)[:, None] - 2.0 * (q @ x.T) + row_sq(x)[None, :]
+
+
+@contextlib.contextmanager
+def ieee_f32_products():
+    """float32 matmuls at full precision inside the block: a caller's
+    `torch.backends.cuda.matmul.allow_tf32 = True` (TF32 inputs, 10-bit
+    mantissas) would move products by ~1e-3 relative, enough to flip a
+    pair at DBSCAN's eps or a spectral layout. The setting is the
+    process's, restored on exit."""
+    prev = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(prev)
 
 
 def min_d2_update(x: torch.Tensor, cand: torch.Tensor, min_d2: torch.Tensor) -> torch.Tensor:

@@ -3,7 +3,8 @@
 # draw from, as torch ops on any device: `prng_key` (jax.random.PRNGKey),
 # `fold_in`, `split`, `random_bits` (32 and 64 bits), `uniform` in float32
 # and float64 on [minval, maxval), `randint`, `gumbel`, `categorical` and
-# `permutation` of a range. Threefry-2x32 with 20 rounds, in the layout
+# `permutation` of a range, and the float32 log and exp of JAX's CPU
+# backend (`log_f32`, `exp_f32`). Threefry-2x32 with 20 rounds, in the layout
 # JAX uses under `jax_threefry_partitionable=True` (its default):
 #
 #   * a key is two uint32 words (k1, k2); `prng_key(seed)` is
@@ -20,7 +21,8 @@
 #   * `randint(k, shape, lo, hi)` (int32) takes two 32-bit draws a and b
 #     from split(k) and returns lo + ((a mod s)·m + b mod s) mod s, s =
 #     hi − lo, m = (2^16 mod s)^2 mod s, every product and sum wrapping at
-#     2^32 as uint32 arithmetic does;
+#     2^32 as uint32 arithmetic does; its int64 form (JAX's under
+#     jax_enable_x64) takes 64-bit draws and m = (2^32 mod s)^2 mod s;
 #   * `gumbel` is −log(−log(u)), u uniform on [tiny, 1) (JAX's "low"
 #     mode), and `categorical(k, logits)` the first argmax of
 #     gumbel + logits.
@@ -168,17 +170,36 @@ def uniform(
     return torch.maximum(lo, f * (hi - lo) + lo)
 
 
-def randint(key: torch.Tensor, shape: Sequence[int], minval: int, maxval: int) -> torch.Tensor:
-    """jax.random.randint(key, shape, minval, maxval, int32): int32 values
-    on [minval, maxval) (minval when maxval <= minval), as int64."""
+def randint(
+    key: torch.Tensor, shape: Sequence[int], minval: int, maxval: int, bit_width: int = 32
+) -> torch.Tensor:
+    """jax.random.randint(key, shape, minval, maxval, dtype) for dtype int32
+    (`bit_width` 32) or int64 (64: JAX's default integer type under
+    jax_enable_x64): values on [minval, maxval) (minval when maxval <=
+    minval), as int64. At 64 bits the span must be below 2^31, so the
+    arithmetic stays inside int64 (a 64-bit draw mod s is taken from its
+    32-bit words)."""
     k = split(key)
-    a = random_bits(k[..., 0, :], 32, shape)
-    b = random_bits(k[..., 1, :], 32, shape)
-    span = (int(maxval) - int(minval)) & _MASK if int(maxval) > int(minval) else 1
-    mult = (1 << 16) % span
-    mult = ((mult * mult) & _MASK) % span
-    off = ((((a % span) * mult) & _MASK) + b % span) & _MASK
-    return int(minval) + off % span
+    span = int(maxval) - int(minval) if int(maxval) > int(minval) else 1
+    if bit_width == 32:
+        span &= _MASK
+        a = random_bits(k[..., 0, :], 32, shape)
+        b = random_bits(k[..., 1, :], 32, shape)
+        mult = (1 << 16) % span
+        mult = ((mult * mult) & _MASK) % span
+        off = ((((a % span) * mult) & _MASK) + b % span) & _MASK
+        return int(minval) + off % span
+    if bit_width != 64 or span >= 1 << 31:
+        raise ValueError(f"randint draws 32 bits, or 64 bits for a span below 2^31; got {bit_width}, {span}")
+    word = (1 << 32) % span
+
+    def mod_span(k_):  # (b1 << 32 | b2) mod span
+        hi, lo = _counters(shape, key.device)
+        b1, b2 = threefry2x32(_batched(k_, len(shape)), hi, lo)
+        return ((b1 % span) * word + b2 % span) % span
+
+    # every term below 2^62: no wrap, as in JAX's uint64 arithmetic here
+    return int(minval) + (mod_span(k[..., 0, :]) * (word * word % span) + mod_span(k[..., 1, :])) % span
 
 
 # float32 constants of Cephes' logf, as Eigen's plog_float (the float32
@@ -223,6 +244,36 @@ def log_f32(x: torch.Tensor) -> torch.Tensor:
     r = _fma(e, _LOG_Q2, _fma(y2, -0.5, y) + r)
     r = torch.where(x < 0, float("nan"), r)
     return torch.where((x == 0) | (x == float("inf")), torch.log(x), r)
+
+
+# Cephes' expf constants, as XLA's CPU backend evaluates float32 exp
+_EXP_LIMIT = 88.72283905206835
+_EXP_LOG2E = 1.44269504088896341
+_EXP_C1, _EXP_C2 = -0.693359375, 2.12194440e-4
+_EXP_P = (1.9875691500e-4, 1.3981999507e-3, 8.3334519073e-3, 4.1665795894e-2, 1.6666665459e-1, 5.0000001201e-1)
+
+
+def exp_f32(x: torch.Tensor) -> torch.Tensor:
+    """The float32 exp as JAX computes it on the CPU: Cephes' expf with
+    every multiply-add fused, on x clamped to ±88.72: m = floor(x·log2(e)
+    + 1/2), r = x - m·ln2 in two fused parts, a degree-5 polynomial in r,
+    scaled by 2^m; results below the smallest normal float32 flushed to
+    0, as XLA's CPU code runs with denormals flushed. Bit for bit with
+    `jnp.exp` on every x <= 80 (above ~88.4 its last bit may differ), on
+    the CPU and the card alike, where `torch.exp` gives others in about one
+    value in ten. NaN stays NaN."""
+    xc = torch.clamp(x, -_EXP_LIMIT, _EXP_LIMIT)
+    m = torch.floor(_fma(xc, _EXP_LOG2E, 0.5))
+    r = _fma(m, _EXP_C2, _fma(m, _EXP_C1, xc))
+    y = _fma(r, _EXP_P[0], _EXP_P[1])
+    for p in _EXP_P[2:]:
+        y = _fma(y, r, p)
+    y = _fma(y, r * r, r) + 1.0
+    # 2^m built from its bits (m in [-128, 128]), so the scaling is exact
+    # on every device
+    two_m = ((m.to(torch.int64) + 1023) << 52).view(torch.float64)
+    v = y.double() * two_m
+    return torch.where(v.abs() < torch.finfo(torch.float32).tiny, 0.0, v).float()
 
 
 def _log(x: torch.Tensor) -> torch.Tensor:

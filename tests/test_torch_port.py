@@ -85,6 +85,11 @@ import tempfile, os
 with tempfile.TemporaryDirectory() as tmp:
     pm.save(os.path.join(tmp, "pipe"))
     PipelineModel.load(os.path.join(tmp, "pipe")).transform(data)
+from spark_rapids_ml_tpu_torch import DBSCAN, DBSCANModel, UMAP, UMAPModel
+labels = DBSCAN(eps=1.5, min_samples=4).setFeaturesCol("features").fit({"features": x}).transform({"features": x})
+assert len(labels["prediction"]) == len(x)
+um = UMAP(n_epochs=4, random_state=0).setFeaturesCol("features").fit({"features": x})
+assert um.transform({"features": x[:5]})["embedding"].shape == (5,)
 bad = sorted(n for n in sys.modules
              if n == "spark_rapids_ml_tpu" or n.startswith("spark_rapids_ml_tpu."))
 assert not bad, bad
