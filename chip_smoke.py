@@ -175,8 +175,34 @@
 #      the graph, the fuzzy weights and a 5-epoch layout against the CPU;
 #      phase 2 also checks d2_block/f32 at d = 64 (exact on integers) and
 #      times it against torch.addmm;
-#  13. a {"kernels": [...]} line with all twelve kernel forms, the
+#  13. the out-of-core fits (memory admission, ops/streaming.py), on the
+#      float32 rows after phase 11, every earlier tensor released from the
+#      card first: 13a the double-buffered pipeline (two page-locked host
+#      buffers, the copies on a side stream) at the chunk the admission
+#      sizes under an 8 GiB budget: every streamed chunk equal to one
+#      place_rows of the rows bit for bit, a pass's GB/s against the
+#      host-to-page-locked and page-locked-to-card rates of one chunk alone,
+#      and ingest.overlap_fraction > 0 on a pass whose caller works longer
+#      on a chunk than a copy takes; 13b demotion by that budget: KMeans
+#      (k=1000, random init, 3 iterations) in high and fast, PCA(k=3), OLS
+#      and LogisticRegression (regParam 1e-5, 10 iterations) streamed, each
+#      held to its resident fit (KMeans: the first iteration's assignments
+#      equal, the first update's centers within 1e-5 of the largest
+#      |center| (later ones may part at near-tied rows: reported), final
+#      inertia rtol 1e-5, B1 and B2 launched exactly as the chunks' tiles
+#      imply; PCA and OLS: phase 7a's fits within its Weyl, Davis-Kahan and
+#      normwise bounds, doubled; logistic: objective rtol 1e-5, coefficients
+#      1e-3 normwise), fit.demotions once a fit, s a pass and a fit; 13c an
+#      allocator capped at 10 GiB (set_per_process_memory_fraction, no
+#      budget set): KMeans's 12 GB placement raises torch.OutOfMemoryError,
+#      caught and retried once streamed, equal to 13b's model bit for bit,
+#      and a RandomForestClassifier's raises HbmBudgetError naming
+#      placement.X; 13d a NaN in the third chunk of a streamed fit with
+#      validate_ingest raises IngestValidationError naming the column and
+#      the global row;
+#  14. a {"kernels": [...]} line with all twelve kernel forms, the
 #      nvidia-smi line, and as the last line {"ok": true, "device": {...}}.
+#      The seconds of each phase are printed as it ends.
 #
 # Every phase raises on failure; the script prints no result then. It needs
 # the repository around it and one CUDA card, and exits non-zero without
@@ -4074,6 +4100,385 @@ def phase_dbscan_umap(dev):
     return counts, timings
 
 
+# ----------------------------------------------------------- phase 13 ----
+
+# Phase 13's settings: the budget that demotes the 12 GB fits (8 GiB; the
+# admission keeps 10% headroom, so ~7.7 GB), the allocator cap of 13c under
+# which the 12 GB placement fails for real (the retry sizes its chunks
+# against what the allocator can hand out under it), the depth of the
+# streamed fits, and the global row of 13d's NaN (in the third chunk).
+OOCORE_BUDGET = 8 << 30
+OOCORE_CAP = 10 << 30
+OOCORE_KMEANS_ITERS = 3
+OOCORE_LOGREG = {"regParam": 1e-5, "elasticNetParam": 0.0, "maxIter": 10, "tol": 1e-30}
+OOCORE_NAN_AT = (700_001, 17)
+
+
+def _sleep_cycles_per_ms():
+    """Cycles of torch.cuda._sleep that last one millisecond on this card."""
+    import torch
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(100_000_000)
+    end.record()
+    end.synchronize()
+    return 100_000_000 / start.elapsed_time(end)
+
+
+def _held_on_card(min_bytes=1 << 26):
+    """The CUDA tensors of at least `min_bytes` that the process still
+    references after a collection, largest first: (bytes, shape, what
+    refers to them, and what refers to that), a leak's trail."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    found = []
+    for o in gc.get_objects():
+        if isinstance(o, torch.Tensor) and o.is_cuda and o.untyped_storage().nbytes() >= min_bytes:
+            trail = []
+            for r in gc.get_referrers(o)[:4]:
+                up = [type(u).__name__ + (f":{u.f_code.co_name}" if hasattr(u, "f_code") else "")
+                      for u in gc.get_referrers(r)[:4]]
+                trail.append((type(r).__name__, up))
+            found.append((o.untyped_storage().nbytes(), tuple(o.shape), trail))
+    return sorted(found, key=lambda f: -f[0])[:8]
+
+
+def phase_oocore(dev, X, linear_ref, y_cls):
+    """Phase 13: the out-of-core fits at full width on the float32 protocol
+    rows (12 GB), after every earlier phase's tensors left the card.
+    13a the double-buffered pipeline alone: streamed chunks equal to one
+    placement bit for bit, a pass's rate against the pinned copy's, and the
+    overlap fraction with a caller whose work per chunk outlasts a copy;
+    13b demotion by budget (config["hbm_budget_bytes"] = 8 GiB, the chunk
+    sized by the admission): KMeans (k=1000, random init, high and fast),
+    PCA(k=3), OLS and LogisticRegression streamed and held to their
+    resident fits (KMeans bit for bit; PCA and OLS: phase 7a's, within its
+    Weyl, Davis-Kahan and normwise bounds), B1 and B2 launched by exactly
+    the tiles the chunks imply; 13c a real torch.OutOfMemoryError under an
+    allocator cap turned into one streamed retry at the defaults (its chunk
+    sized against the allocator's room) equal to 13b's model, and a RandomForest's into
+    HbmBudgetError naming its largest term; 13d a NaN row named by
+    IngestValidationError. Returns (launches of the streamed fits, timings)."""
+    import gc
+
+    import torch
+
+    from spark_rapids_ml_tpu_torch import (KMeans, LinearRegression, LogisticRegression, PCA,
+                                           RandomForestClassifier, memory, telemetry)
+    from spark_rapids_ml_tpu_torch.core import config
+    from spark_rapids_ml_tpu_torch.data import extract_dataset
+    from spark_rapids_ml_tpu_torch.errors import HbmBudgetError, IngestValidationError
+    from spark_rapids_ml_tpu_torch.ops import _kernels
+    from spark_rapids_ml_tpu_torch.ops import distance as D
+    from spark_rapids_ml_tpu_torch.ops.streaming import _ranges
+    from spark_rapids_ml_tpu_torch.parallel import StreamStaging, place_rows, stream_place_blocks
+
+    say("phase 13: out-of-core fits at full width")
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(f"  on the card before the phase: {torch.cuda.memory_allocated(dev) / 1e9:.3f} GB allocated, "
+        f"{torch.cuda.memory_reserved(dev) / 1e9:.3f} GB reserved")
+    timings, counts = {}, {}
+    saved = {k: config[k] for k in ("hbm_budget_bytes", "stream_chunk_rows", "validate_ingest")}
+    was_on = telemetry.enabled()
+    telemetry.enable()
+    reg = telemetry.registry()
+    data = {"features": X}
+
+    def gauges():
+        return reg.snapshot()["gauges"]
+
+    def counter(name):
+        return int(reg.snapshot()["counters"].get(name, 0))
+
+    try:
+        # ---- 13a: the pipeline ------------------------------------------
+        config["hbm_budget_bytes"] = OOCORE_BUDGET
+        adm = memory.admit_fit(PCA(k=PCA_K), extract_dataset(data, input_col="features"), dev)
+        memory.release_admission(adm)
+        if adm.verdict != memory.STREAM:
+            fail(f"13a: the admission of the 12 GB rows under {OOCORE_BUDGET} bytes gave {adm.verdict}")
+        chunk = adm.chunk_rows
+        ranges = _ranges(N_ROWS, chunk)
+        say(f"  13a: budget {OOCORE_BUDGET} bytes: {adm.verdict}, {chunk} rows a chunk, {len(ranges)} chunks a "
+            f"pass ({chunk * N_COLS * 4 / 1e9:.2f} GB each; estimate {adm.estimate.total()} bytes, largest "
+            f"{adm.estimate.largest()})")
+        (Xd, _), timings["place_rows_s"] = _timed(lambda: place_rows(X, device=dev))
+        staging = StreamStaging()
+
+        def blocks():
+            return ({"X": X[lo:hi]} for lo, hi in ranges)
+
+        def check_pass():
+            # a function, so no chunk outlives the pass in a local
+            equal = 0
+            for i, blk in enumerate(stream_place_blocks(blocks(), device=dev, staging=staging)):
+                lo, hi = ranges[i]
+                equal += bool(torch.equal(blk["X"], Xd[lo:hi]))
+            return equal
+
+        equal, timings["first_pass_s"] = _timed(check_pass)  # the staging buffers allocated in it
+        check_overlap = gauges()["ingest.overlap_fraction"]
+        del Xd
+        torch.cuda.empty_cache()
+        if equal != len(ranges):
+            fail(f"13a: {len(ranges) - equal} of {len(ranges)} streamed chunks differ from one place_rows")
+
+        def bare_pass():
+            for _ in stream_place_blocks(blocks(), device=dev, staging=staging):
+                pass
+            torch.cuda.synchronize()
+
+        _, timings["pass_s"] = _timed(bare_pass)
+        # the copy rates alone, on one chunk: host memory into a page-locked
+        # buffer, and the page-locked buffer to the card
+        pinned, dbuf = staging.buffers(0, "X", X[:chunk], dev)
+        src = torch.from_numpy(X[:chunk])
+        _, timings["host_to_pinned_s"] = _timed(lambda: pinned.copy_(src))
+        timings["pinned_h2d_ms"] = cuda_ms(lambda: dbuf.copy_(pinned, non_blocking=True), reps=3)
+        gbs = X.nbytes / timings["pass_s"] / 1e9
+        h2p = chunk * N_COLS * 4 / timings["host_to_pinned_s"] / 1e9
+        p2d = chunk * N_COLS * 4 / timings["pinned_h2d_ms"] * 1e3 / 1e9
+        # a caller whose work on a chunk lasts 1.5 chunk transfers: each next
+        # chunk's copy should be done when it is asked for
+        per_chunk_ms = timings["pass_s"] * 1e3 / len(ranges)
+        cycles = int(1.5 * per_chunk_ms * _sleep_cycles_per_ms())
+
+        def busy_pass():
+            for _ in stream_place_blocks(blocks(), device=dev, staging=staging):
+                torch.cuda._sleep(cycles)
+                torch.cuda.synchronize()
+
+        _, timings["busy_pass_s"] = _timed(busy_pass)
+        busy_overlap = gauges()["ingest.overlap_fraction"]
+        del staging, pinned, dbuf, src
+        say(f"  13a: {len(ranges)} streamed chunks equal one place_rows of the rows bit for bit (overlap "
+            f"{check_overlap:.3f} in that pass, the caller's work a torch.equal); placing all rows at once "
+            f"{timings['place_rows_s']:.2f} s; a pass {timings['pass_s']:.3f} s = {gbs:.2f} GB/s, against "
+            f"{h2p:.2f} GB/s host to page-locked and {p2d:.2f} GB/s page-locked to the card on one chunk alone")
+        say(f"  13a: with {1.5 * per_chunk_ms:.0f} ms of card work a chunk the pass took "
+            f"{timings['busy_pass_s']:.3f} s ({len(ranges)} x {1.5 * per_chunk_ms / 1e3:.3f} s of work + "
+            f"{timings['pass_s']:.3f} s of transfer unhidden = "
+            f"{len(ranges) * 1.5 * per_chunk_ms / 1e3 + timings['pass_s']:.3f} s), ingest.overlap_fraction "
+            f"{busy_overlap:.3f} (at most {(len(ranges) - 1) / len(ranges):.3f})")
+        if not busy_overlap > 0:
+            fail("13a: ingest.overlap_fraction is 0 on a multi-chunk pass whose caller outlasts the copies")
+
+        # ---- 13b: demotion by budget ------------------------------------
+        def streamed(name, make, fit_data, passes):
+            config["hbm_budget_bytes"] = OOCORE_BUDGET
+            config["stream_chunk_rows"] = 0
+            d0 = counter("fit.demotions")
+            _kernels.reset_launches()
+            m, secs = _timed(lambda: make().fit(fit_data))
+            counts[name] = {k: n for k, n in _kernels.launches.items() if n}
+            config["hbm_budget_bytes"] = None
+            adm = m._fit_metrics["admission"]
+            if adm["verdict"] != "stream" or counter("fit.demotions") != d0 + 1:
+                fail(f"13b {name}: not demoted once (verdict {adm['verdict']}, fit.demotions "
+                     f"{counter('fit.demotions') - d0})")
+            timings[f"{name}_stream_fit_s"] = secs
+            gc.collect()
+            left = torch.cuda.memory_allocated(dev)
+            if left > 1 << 30:
+                fail(f"13b {name}: {left} bytes still allocated on the card after the streamed fit: "
+                     f"{_held_on_card()}")
+            n_passes = passes(m)
+            say(f"  13b {name}: streamed {secs:.2f} s, {n_passes} passes ({secs / n_passes:.3f} s a pass) of "
+                f"{len(_ranges(N_ROWS, adm['chunk_rows']))} chunks of {adm['chunk_rows']} admitted rows, "
+                f"estimate {adm['estimate_bytes']} bytes (largest {adm['largest_term']}), overlap "
+                f"{gauges().get('ingest.overlap_fraction', 0.0):.3f}, launches {counts[name] or 'none'}")
+            return m, adm
+
+        def resident(name, make, fit_data):
+            config["hbm_budget_bytes"] = None
+            m, secs = _timed(lambda: make().fit(fit_data))
+            timings[f"{name}_resident_fit_s"] = secs
+            return m
+
+        first_tiles = {}
+
+        def recording(tag):
+            """Record the assignments of the fit's first pass, tile by
+            tile."""
+            real = D.assign_argmin
+            tiles = first_tiles.setdefault(tag, [])
+
+            def spy(xb, centers, fast=False):
+                out = real(xb, centers, fast=fast)
+                if sum(len(t) for t in tiles) < N_ROWS:
+                    tiles.append(out[1].cpu())
+                return out
+
+            return real, spy
+
+        km = {}
+        for mode, extra in (("high", {"distance_precision": "high"}), ("fast", {"solver_precision": "bf16"})):
+            def make_km(extra=extra):
+                return KMeans(k=K, maxIter=OOCORE_KMEANS_ITERS, tol=1e-20, initMode="random", seed=1, **extra)
+
+            for where in ("resident", "stream"):
+                real, spy = recording(f"{mode}/{where}")
+                D.assign_argmin = spy
+                try:
+                    if where == "resident":
+                        km[(mode, where)] = resident(f"kmeans_{mode}", make_km, data), None
+                    else:
+                        km[(mode, where)] = streamed(f"kmeans_{mode}", make_km, data, lambda m: m.n_iter_ + 1)
+                finally:
+                    D.assign_argmin = real
+            res, (st, adm_km) = km[(mode, "resident")][0], km[(mode, "stream")]
+            # B1 and B2: every streamed pass runs the resident loop's tiles
+            # (whole Lloyd tiles per chunk); the in-loop passes at the
+            # mode's variant, the final inertia pass at f32
+            rounded = adm_km["chunk_rows"] // TILE_ROWS * TILE_ROWS if adm_km["chunk_rows"] > TILE_ROWS \
+                else adm_km["chunk_rows"]
+            tiles = sum(-(-(hi - lo) // TILE_ROWS) for lo, hi in _ranges(N_ROWS, rounded))
+            loop = "f32-fast" if mode == "fast" else "f32"
+            want = {}
+            for kern in ("assign_argmin", "assign_accumulate"):
+                want[f"{kern}/{loop}"] = want.get(f"{kern}/{loop}", 0) + st.n_iter_ * tiles
+                want[f"{kern}/f32"] = want.get(f"{kern}/f32", 0) + tiles
+            if counts[f"kmeans_{mode}"] != want:
+                fail(f"13b kmeans {mode}: launches {counts[f'kmeans_{mode}']}, the chunks imply {want}")
+            a, b = first_tiles[f"{mode}/stream"], first_tiles[f"{mode}/resident"]
+            if not torch.equal(torch.cat(a), torch.cat(b)):
+                fail(f"13b kmeans {mode}: the streamed first-iteration assignments differ from the resident ones")
+            # the streamed step sums every chunk's tiles into one set of
+            # accumulators on the card, in row order, with the resident
+            # loop's kernels at its tiles: the same additions in the same
+            # order, so the fits are equal bit for bit
+            if not (np.array_equal(st.cluster_centers_, res.cluster_centers_) and st.inertia_ == res.inertia_
+                    and st.n_iter_ == res.n_iter_):
+                diff = np.abs(st.cluster_centers_ - res.cluster_centers_).max(axis=1)
+                fail(f"13b kmeans {mode}: the streamed fit differs from the resident one: n_iter_ "
+                     f"{st.n_iter_}/{res.n_iter_}, {int((diff > 0).sum())} of {K} centers apart (the largest by "
+                     f"{float(diff.max())}), inertia {st.inertia_!r} vs {res.inertia_!r}")
+            say(f"  13b kmeans {mode}: resident {timings[f'kmeans_{mode}_resident_fit_s']:.2f} s, streamed "
+                f"{timings[f'kmeans_{mode}_stream_fit_s']:.2f} s; first-iteration assignments equal on all "
+                f"{N_ROWS} rows ({len(a)} tiles streamed, {len(b)} resident); final centers, inertia "
+                f"{st.inertia_:.6e} and n_iter_ {st.n_iter_} equal to the resident fit's bit for bit; launches as "
+                f"the {tiles} tiles a pass imply")
+        km_high = km[("high", "stream")][0]
+
+        pca = streamed("pca", lambda: PCA(k=PCA_K).setInputCol("features"), data, lambda m: 2)
+        ols = streamed("ols", lambda: LinearRegression(), {"features": X, "label": linear_ref["y"]},
+                       lambda m: 1)[0]
+        pca = pca[0]
+        # held to phase 7a's resident fits by its bounds (each fit's float32
+        # statistics and eigh or solve within F32_EIGH_REL / F32_SOLVE_REL of
+        # exact, so the two within twice that)
+        pca_res, ols_res, spectrum = linear_ref["pca"], linear_ref["ols"], linear_ref["spectrum"]
+        pert = 2 * F32_EIGH_REL * float(pca_res.explained_variance_[0])
+        ev_err = float(np.abs(pca.explained_variance_ - pca_res.explained_variance_).max())
+        if ev_err > pert:
+            fail(f"13b pca: explained variance within {ev_err} of the resident fit (Weyl bound {pert})")
+        cosines = []
+        for i in range(PCA_K):
+            gap = min(abs(spectrum[i] - spectrum[j]) for j in range(PCA_K + 1) if j != i) - 2 * pert
+            cos = abs(float(pca.components_[i].astype(np.float64) @ pca_res.components_[i]))
+            cosines.append(cos)
+            if gap > 0 and pert / gap < 1 and cos < np.sqrt(1 - (pert / gap) ** 2):
+                fail(f"13b pca: component {i}: |cos| {cos} below the Davis-Kahan bound {np.sqrt(1 - (pert / gap) ** 2)}")
+        kappa = float(spectrum[0] / spectrum[-1])
+        rel = 2 * kappa * F32_SOLVE_REL / (1 - 2 * kappa * F32_SOLVE_REL)
+        c_err = float(np.linalg.norm(ols.coef_ - ols_res.coef_) / np.linalg.norm(ols_res.coef_))
+        if c_err > rel:
+            fail(f"13b ols: coefficients {c_err} relative from the resident fit's (normwise bound {rel})")
+        say(f"  13b pca and ols against phase 7a's resident fits: explained variance within {ev_err:.3g} (bound "
+            f"{pert:.3g}), |cos| {[round(c, 9) for c in cosines]}; OLS coefficients within {c_err:.3g} relative "
+            f"(bound {rel:.3g}, condition {kappa:.4g}), intercept {ols.intercept_:.6g} vs {ols_res.intercept_:.6g}")
+
+        def make_lr():
+            return LogisticRegression(**OOCORE_LOGREG)
+
+        lr_data = {"features": X, "label": y_cls}
+        lr_res = resident("logreg", make_lr, lr_data)
+        lr, _ = streamed("logreg", make_lr, lr_data, lambda m: 2 + 2 * m.n_iter_)
+        # the same 10 iterations from the same start, the sums in another
+        # order: the objective within 1e-5 relative, the coefficients within
+        # 1e-3 (normwise) of the resident fit's
+        f_err = abs(lr.objective_ - lr_res.objective_) / abs(lr_res.objective_)
+        lc_err = float(np.linalg.norm(lr.coef_ - lr_res.coef_) / np.linalg.norm(lr_res.coef_))
+        if lr.n_iter_ != lr_res.n_iter_ or f_err > 1e-5 or lc_err > 1e-3:
+            fail(f"13b logreg: n_iter_ {lr.n_iter_}/{lr_res.n_iter_}, objective within {f_err} (tol 1e-5), "
+                 f"coefficients within {lc_err} (tol 1e-3) of the resident fit")
+        say(f"  13b logreg {OOCORE_LOGREG}: resident {timings['logreg_resident_fit_s']:.2f} s, streamed "
+            f"{timings['logreg_stream_fit_s']:.2f} s; n_iter_ {lr.n_iter_}, objective {lr.objective_:.8g} vs "
+            f"{lr_res.objective_:.8g} ({f_err:.3g} relative), coefficients within {lc_err:.3g}")
+        for name in ("pca", "ols", "logreg"):
+            if counts[name]:
+                fail(f"13b {name}: a kernel was launched ({counts[name]}); this path runs none")
+
+        # ---- 13c: the real OOM ladder -----------------------------------
+        config["hbm_budget_bytes"] = None
+        config["stream_chunk_rows"] = 0
+        gc.collect()
+        torch.cuda.empty_cache()
+        if torch.cuda.memory_allocated(dev) > 1 << 30:
+            fail(f"13c: {torch.cuda.memory_allocated(dev)} bytes allocated before the cap: {_held_on_card()}")
+        total = torch.cuda.get_device_properties(dev).total_memory
+        caught, d0 = counter("memory.oom_caught"), counter("fit.demotions")
+        torch.cuda.set_per_process_memory_fraction(OOCORE_CAP / total, dev)
+        try:
+            retried, timings["oom_retry_fit_s"] = _timed(
+                lambda: KMeans(k=K, maxIter=OOCORE_KMEANS_ITERS, tol=1e-20, initMode="random", seed=1,
+                               distance_precision="high").fit(data))
+            try:
+                RandomForestClassifier(numTrees=2, maxDepth=4).fit(lr_data)
+                fail("13c: a RandomForest fit over the cap did not raise")
+            except HbmBudgetError as e:
+                rf_err = e
+        finally:
+            torch.cuda.set_per_process_memory_fraction(1.0, dev)
+        adm = retried._fit_metrics["admission"]
+        if counter("memory.oom_caught") != caught + 2 or counter("fit.demotions") != d0 + 1:
+            fail(f"13c: memory.oom_caught advanced by {counter('memory.oom_caught') - caught} (expected 2: the "
+                 f"KMeans and the RandomForest placements), fit.demotions by {counter('fit.demotions') - d0}")
+        if adm["verdict"] != "stream" or not adm["reason"].startswith("backend OOM"):
+            fail(f"13c: the retry's admission is {adm}")
+        if not (np.array_equal(retried.cluster_centers_, km_high.cluster_centers_)
+                and retried.inertia_ == km_high.inertia_ and retried.n_iter_ == km_high.n_iter_):
+            fail("13c: the retried KMeans model differs from 13b's streamed one")
+        if rf_err.largest_term != "placement.X" or not isinstance(rf_err.__cause__, torch.OutOfMemoryError):
+            fail(f"13c: the RandomForest's error names {rf_err.largest_term}, caused by {type(rf_err.__cause__)}")
+        say(f"  13c: allocator capped at {OOCORE_CAP} bytes: KMeans's 12 GB placement raised "
+            f"torch.OutOfMemoryError, caught and retried once streamed ({timings['oom_retry_fit_s']:.2f} s; "
+            f"{adm['chunk_rows']} admitted rows a chunk, estimate {adm['estimate_bytes']} bytes, {adm['reason']}), "
+            f"equal to 13b's streamed model bit for bit; RandomForestClassifier raised HbmBudgetError naming "
+            f"{rf_err.largest_term} ({rf_err.largest_term_bytes} bytes)")
+
+        # ---- 13d: validation --------------------------------------------
+        config["hbm_budget_bytes"] = OOCORE_BUDGET
+        config["stream_chunk_rows"] = 0
+        config["validate_ingest"] = True
+        row, col = OOCORE_NAN_AT
+        kept = X[row, col]
+        X[row, col] = np.nan
+        try:
+            LinearRegression().fit({"features": X, "label": linear_ref["y"]})
+            fail("13d: a NaN row did not raise IngestValidationError in a streamed fit")
+        except IngestValidationError as e:
+            if (e.column, e.row) != ("features", row):
+                fail(f"13d: IngestValidationError names {e.column!r} row {e.row}, not 'features' row {row}")
+            say(f"  13d: a NaN at row {row} of a streamed fit raised IngestValidationError: {e}")
+        finally:
+            X[row, col] = kept
+    finally:
+        config.update(saved)
+        if not was_on:
+            telemetry.disable()
+    counts["oocore"] = {}
+    for name in ("kmeans_high", "kmeans_fast"):
+        for key, n in counts[name].items():
+            counts["oocore"][key] = counts["oocore"].get(key, 0) + n
+    return counts, timings
+
+
 def main():
     import torch
 
@@ -4086,28 +4491,36 @@ def main():
     sys.path.insert(0, str(ROOT))
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
-    smi = phase_setup()
-    entries = phase_kernels(dev)
-    d2_entries = phase_d2_block(dev)
-    t0 = time.perf_counter()
-    X = _protocol_rows()
-    say(f"data {X.shape} float32 made in {time.perf_counter() - t0:.1f} s")
-    counts, timings, kmeans_model = phase_main_path(dev, X)
-    knn_counts, knn_timings, (exact_ids, exact_dist) = phase_knn(dev, X, d2_entries[0]["ms"])
-    serve_counts, serve_timings = phase_serving(dev, X, kmeans_model)
-    linear_ref, linear_timings = phase_pca_linear(dev, X)
-    logreg_ref, logreg_timings = phase_logreg(dev, X)
-    forest_timings = phase_forests(dev, X)
-    multi_counts, multi_timings = phase_multifit(dev, X, linear_ref["y"], logreg_ref["y"])
-    ann_counts, ann_timings = phase_ann(dev, X, exact_ids, exact_dist)
-    t0 = time.perf_counter()
-    X = _f64_rows(X)  # the float32 rows are dropped here
-    say(f"data as float64 {X.shape} made in {time.perf_counter() - t0:.1f} s")
-    f64_counts, f64_timings = phase_f64(dev, X)
-    linear_f64_timings = phase_pca_linear_f64(dev, X, linear_ref)
-    logreg_f64_timings = phase_logreg_f64(dev, X, logreg_ref)
+    phase_s = {}
+
+    def run(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        phase_s[name] = round(time.perf_counter() - t0, 1)
+        say(f"[{name}: {phase_s[name]} s]")
+        return out
+
+    smi = run("1 setup", phase_setup)
+    entries = run("2 kernels", phase_kernels, dev)
+    d2_entries = run("2 d2_block", phase_d2_block, dev)
+    X = run("3 data", _protocol_rows)
+    say(f"data {X.shape} float32")
+    counts, timings, kmeans_model = run("3 kmeans", phase_main_path, dev, X)
+    knn_counts, knn_timings, (exact_ids, exact_dist) = run("4 knn", phase_knn, dev, X, d2_entries[0]["ms"])
+    serve_counts, serve_timings = run("5 serving", phase_serving, dev, X, kmeans_model)
+    linear_ref, linear_timings = run("7a pca/linear", phase_pca_linear, dev, X)
+    logreg_ref, logreg_timings = run("8a logreg", phase_logreg, dev, X)
+    forest_timings = run("9 forests", phase_forests, dev, X)
+    multi_counts, multi_timings = run("10 multifit", phase_multifit, dev, X, linear_ref["y"], logreg_ref["y"])
+    ann_counts, ann_timings = run("11 ann", phase_ann, dev, X, exact_ids, exact_dist)
+    oocore_counts, oocore_timings = run("13 oocore", phase_oocore, dev, X, linear_ref, logreg_ref["y"])
+    X = run("6 data f64", _f64_rows, X)  # the float32 rows are dropped here
+    say(f"data as float64 {X.shape}")
+    f64_counts, f64_timings = run("6 f64", phase_f64, dev, X)
+    linear_f64_timings = run("7b pca/linear f64", phase_pca_linear_f64, dev, X, linear_ref)
+    logreg_f64_timings = run("8b logreg f64", phase_logreg_f64, dev, X, logreg_ref)
     del X
-    du_counts, du_timings = phase_dbscan_umap(dev)
+    du_counts, du_timings = run("12 dbscan/umap", phase_dbscan_umap, dev)
     for e in entries + d2_entries:
         name = e["name"]
         if "/f64" in name:
@@ -4128,6 +4541,7 @@ def main():
             e["launches_by_run"]["serving"] = serve_counts[name]
             e["launches_by_run"]["fit_multiple"] = multi_counts[name]
             e["launches_by_run"]["ann"] = ann_counts[name]
+            e["launches_by_run"]["oocore"] = oocore_counts["oocore"].get(name, 0)
     entries += d2_entries
     for e in entries:  # phase 12: DBSCAN launches nothing, UMAP only d2_block/f32
         e.setdefault("launches_by_run", {}).update({run: c[e["name"]] for run, c in du_counts.items()})
@@ -4146,6 +4560,8 @@ def main():
     say("multi-fit engine timings: " + json.dumps(multi_timings))
     say("ApproximateNearestNeighbors timings: " + json.dumps(ann_timings))
     say("DBSCAN and UMAP timings: " + json.dumps(du_timings))
+    say("out-of-core timings: " + json.dumps(oocore_timings))
+    say("seconds by phase: " + json.dumps(phase_s))
     kernels_line = json.dumps({"kernels": entries})
     say(f"total {time.perf_counter() - t_start:.1f} s")
     LOG_DIR.mkdir(exist_ok=True)

@@ -7,14 +7,30 @@
 # the tuning layer (tuning.py), their transforms, save/load and the serving
 # plane run.
 #
-# Call stack (the JAX package's, without the per-fit telemetry scope, fit
-# admission, retry and recovery, streaming and the mesh):
-# fit(dataset[, maps]) / fitMultiple -> _fit_internal -> _call_fit_func ->
-# [_device_dataset: extract columns (data.py) and place the rows on the
-# device (parallel), or reuse a placement cached by an enclosing
-# `device_dataset_scope` -> an optional fold mask (w -> w·mask) ->
-# _dispatch_solves: param sets with one `_batch_group_key` solve as one
-# batched grid, the others one by one] -> _create_model per param map.
+# Call stack (the JAX package's, without the per-fit telemetry scope,
+# retry and recovery, and the mesh):
+# fit(dataset[, maps]) / fitMultiple -> _fit_internal -> _call_fit_func
+# [the OOM ladder] -> _call_fit_func_attempt -> [_device_dataset: extract
+# columns (data.py), then the memory admission (memory.admit_fit) and,
+# RESIDENT, the NaN/Inf scan and the placement of the rows on the device
+# (parallel), or, STREAM, a `StreamPlan` and no placement at all; or reuse
+# a placement cached by an enclosing `device_dataset_scope` -> an optional
+# fold mask (w -> w·mask) -> _dispatch_solves: param sets with one
+# `_batch_group_key` solve as one batched grid, the others one by one; a
+# streamed fit's one by one] -> _create_model per param map.
+#
+# Out-of-core fits (the fit half of memory.py): a fit whose resident working
+# set exceeds the card's budget demotes to the streaming solvers of
+# ops/streaming.py when its estimator has one (KMeans, PCA,
+# LinearRegression, LogisticRegression), which read the rows from the host
+# in double-buffered chunks; `fit.demotions` counts it and the model's
+# `_fit_metrics["admission"]` says why. The OOM ladder: a real allocation
+# failure on the card (torch.OutOfMemoryError, or the chaos `oom` fault
+# shaped like one) is retried ONCE on the streaming path; a second one, or
+# an estimator without a streaming path, raises `HbmBudgetError`. Nothing
+# over budget runs on the CPU. The scheduler's job reservations (A17), the
+# checkpointed resume of a streamed retry (A12) and the audit record
+# (A13-rest) are not in the port.
 #
 # Persistence keeps the JAX package's on-disk layout exactly:
 # metadata.json + arrays.npz + attributes.json, so a directory saved by
@@ -28,6 +44,7 @@ import contextlib
 import contextvars
 import dataclasses
 import json
+import logging
 import os
 import shutil
 import threading
@@ -42,6 +59,8 @@ import torch
 from .data import ExtractedData, as_pandas, extract_dataset
 from .linalg import DenseVector
 from .params import Param, _TpuParams
+
+_LOG = logging.getLogger(__name__)
 
 # Framework configuration: the keys this package reads (the JAX package's
 # `config` holds many more; they arrive with the layers that read them).
@@ -62,6 +81,17 @@ config: Dict[str, Any] = {
     # fraction of the capacity kept out of the budget, for allocator
     # fragmentation and transient buffers: budget = capacity * (1 - this)
     "hbm_headroom_fraction": 0.1,
+    # rows per out-of-core streaming chunk (the double-buffered host-to-card
+    # pipeline's unit). 0 = auto: sized so two chunks in flight plus the
+    # solver workspace fit the budget (floor 256 rows; 65536 when no
+    # capacity bounds it)
+    "stream_chunk_rows": 0,
+    # --- ingest (data.py) ---------------------------------------------------
+    # opt-in NaN/Inf scan of the ingested columns (IngestValidationError
+    # names the column and the first bad row)
+    "validate_ingest": False,
+    # bytes per chunk of the ingest conversion and of the NaN/Inf scan
+    "ingest_chunk_bytes": 128 << 20,
     # smallest rung of the bucket ladder: serving and transform batches pad
     # up a geometric (x2) ladder of row counts starting here
     "transform_bucket_min_rows": 256,
@@ -139,35 +169,62 @@ alias = namedtuple("alias", ("row_number",))("unique_id")
 
 
 @dataclass
-class FitInputs:
-    """Device-resident inputs handed to every algorithm's fit function: the
-    rows as one tensor on one device, their weights, and their labels for
-    a supervised estimator."""
+class StreamPlan:
+    """The out-of-core plan of a demoted fit (`FitInputs.stream`): the
+    host-retained extracted blocks and the ADMITTED chunk size. The
+    streaming solvers (ops/streaming.py) cut row chunks from `extracted`,
+    scan each for NaN/Inf when ``config["validate_ingest"]`` asked for it,
+    and feed them through the double-buffered pipeline
+    (parallel.stream_place_blocks). Mutable bookkeeping: `validated_rows`
+    (the scan's watermark: later passes over scanned rows are free) and
+    `staging` (the pipeline's two pinned host buffers and two device
+    buffers per column, reused by every pass of the fit)."""
 
-    X: torch.Tensor  # [n, d]
-    w: torch.Tensor  # [n]
+    extracted: Any  # host ExtractedData
+    chunk_rows: int
+    validate: bool = False
+    validated_rows: int = 0
+    staging: Any = None  # parallel.StreamStaging
+
+
+@dataclass
+class FitInputs:
+    """Inputs handed to every algorithm's fit function: the rows as one
+    tensor on one device, their weights, and their labels for a supervised
+    estimator. A streamed (demoted) fit places nothing: X is None, w and y
+    are host arrays and `stream` carries the plan the streaming solvers
+    read."""
+
+    X: Optional[torch.Tensor]  # [n, d]; None when streamed
+    w: Any  # [n] tensor on the device; a host array when streamed
     n_valid: int
     n_cols: int
     dtype: Any  # numpy dtype of X
     device: torch.device
-    y: Optional[torch.Tensor] = None  # [n] at X's dtype; None = unsupervised
+    y: Any = None  # [n] at X's dtype (host when streamed); None = unsupervised
     # host boolean row mask of the rows this fit trains on (None = all); set
     # by `with_row_mask`. Fit functions that derive host statistics from the
     # raw columns (a classifier's class set) must respect it.
     host_mask: Optional[np.ndarray] = None
+    # the out-of-core plan of a demoted fit (None = resident)
+    stream: Optional[StreamPlan] = None
 
     def with_row_mask(self, mask: np.ndarray) -> "FitInputs":
         """These inputs with the rows where ``mask == 0`` neutralized:
-        ``w -> w · mask`` on the device. The solvers treat ``w == 0`` rows as
-        absent, so a masked fit over the whole placed dataset is the fit over
-        the mask's rows: this is how CrossValidator realizes a fold without
-        another ingest or placement. X and y are shared untouched."""
+        ``w -> w · mask`` (on the device, or on the host for a streamed
+        fit). The solvers treat ``w == 0`` rows as absent, so a masked fit
+        over the whole dataset is the fit over the mask's rows: this is how
+        CrossValidator realizes a fold without another ingest or placement.
+        X and y are shared untouched."""
         from .parallel import host_tensor
 
         m = np.ascontiguousarray(np.asarray(mask), dtype=self.dtype)
         if m.shape[0] != self.n_valid:
             raise ValueError(f"row mask has {m.shape[0]} entries for {self.n_valid} rows")
-        w_masked = self.w * host_tensor(m).to(self.device)
+        if self.stream is not None:
+            w_masked = np.asarray(self.w) * m
+        else:
+            w_masked = self.w * host_tensor(m).to(self.device)
         return dataclasses.replace(self, w=w_masked, host_mask=m > 0)
 
 
@@ -184,6 +241,9 @@ class DeviceDataset:
     extracted: ExtractedData
     inputs: FitInputs
     source: Any = None
+    # the memory.AdmissionDecision that admitted the placement (a cache hit
+    # re-stamps it and re-reserves its bytes)
+    admission: Any = None
 
 
 class DeviceDatasetScope:
@@ -245,13 +305,17 @@ class _TpuCommon(_TpuParams):
     # a supervised estimator's fit reads its labelCol
     _supervised: bool = False
 
-    def _pre_process_data(self, dataset: Any, for_fit: bool = True) -> ExtractedData:
+    def _pre_process_data(
+        self, dataset: Any, for_fit: bool = True, defer_validation: bool = False
+    ) -> ExtractedData:
         """Column selection + dense extraction (features; labels and weights
-        on the fit side; row ids wherever the estimator has an idCol)."""
+        on the fit side; row ids wherever the estimator has an idCol).
+        ``defer_validation`` leaves the opt-in NaN/Inf scan to the caller
+        (core.py's fit path)."""
         if self.hasParam("enable_sparse_data_optim") and self.getOrDefault("enable_sparse_data_optim") is True:
             raise NotImplementedError(
                 "enable_sparse_data_optim=True (the CSR ingest path) is not in the "
-                "PyTorch port yet (ROADMAP item A11: memory admission, out-of-core, sparse)"
+                "PyTorch port yet (ROADMAP item A11b: the CSR ingest and the padded-ELL solvers)"
             )
         input_col, input_cols = self._get_input_columns()
         label_col = None
@@ -275,6 +339,7 @@ class _TpuCommon(_TpuParams):
             weight_col=weight_col,
             id_col=id_col,
             float32_inputs=self._float32_inputs,
+            validate=not defer_validation,
         )
         if for_fit and extracted.n_rows == 0:
             raise RuntimeError("Dataset is empty — cannot fit")
@@ -282,12 +347,48 @@ class _TpuCommon(_TpuParams):
 
 
 class _TpuCaller(_TpuCommon):
-    """Fit orchestration: extraction, placement, one solver call."""
+    """Fit orchestration: extraction, admission, placement, one solver
+    call."""
 
     # portable warm-start payload for the NEXT fit call (set by
     # _TpuEstimator.fit(..., warm_start_from=...), consumed by the
     # per-estimator fit closures, cleared in fit's finally)
     _warm_start: Any = None
+
+    # estimators whose solvers accumulate over row chunks (KMeans, PCA,
+    # LinearRegression, LogisticRegression) set this: an over-budget fit
+    # demotes to ops/streaming.py; for the rest it raises HbmBudgetError
+    _supports_streaming_fit: bool = False
+
+    # the memory.AdmissionDecision of the latest fit attempt (stamped onto
+    # model._fit_metrics by _call_fit_func)
+    _last_admission: Any = None
+
+    # this fit's live claim in the shared ledger (scheduler/ledger.py): one
+    # reservation from admission to the end of the fit, swapped on the OOM
+    # retry's re-admission and released in _call_fit_func's finally
+    _fit_reservation: Any = None
+
+    def _adopt_reservation(self, reservation: Any) -> None:
+        """Swap this fit's ledger claim: release the previous one
+        (idempotent) and hold the new. Decisions hand their reservation over
+        here, so the decisions cached on DeviceDatasets never carry a live
+        claim."""
+        from .scheduler.ledger import global_ledger
+
+        old = self._fit_reservation
+        if old is not None:
+            global_ledger().release(old)
+        self._fit_reservation = reservation
+
+    def _solver_workspace_terms(
+        self, rows_per_device: int, n_cols: int, params: Dict[str, Any], itemsize: int
+    ) -> Dict[str, int]:
+        """Per-solver device workspace hook of the admission budgeter
+        (memory.py): named byte terms BEYOND the placement of the rows, at
+        `rows_per_device` rows (the whole dataset resident, one chunk
+        streamed). {} (the default) = no modeled workspace."""
+        return {}
 
     def _build_fit_inputs(self, extracted: ExtractedData, device: torch.device) -> FitInputs:
         """Place the host rows, their weights and their labels on `device` as
@@ -326,11 +427,12 @@ class _TpuCaller(_TpuCommon):
 
     def _ingest(self, dataset: Any) -> ExtractedData:
         """The fit-side column extraction, timed as host_section.ingest_s
-        and counted (ingest.datasets, ingest.rows)."""
+        and counted (ingest.datasets, ingest.rows). The NaN/Inf scan is left
+        to `_admit_and_layout`."""
         from . import telemetry
 
         with telemetry.host_section("ingest"):
-            extracted = self._pre_process_data(dataset)
+            extracted = self._pre_process_data(dataset, defer_validation=True)
         reg = telemetry.registry()
         reg.inc("ingest.datasets")
         reg.inc("ingest.rows", extracted.n_rows)
@@ -364,17 +466,96 @@ class _TpuCaller(_TpuCommon):
             str(device),
         )
 
-    def _device_dataset(self, dataset: Any, device: torch.device) -> DeviceDataset:
-        """Ingest and placement, or a cache hit inside an active
+    def _admit_and_layout(
+        self,
+        extracted: ExtractedData,
+        device: torch.device,
+        *,
+        force_stream: bool = False,
+        key: Optional[tuple] = None,
+        source: Any = None,
+    ) -> DeviceDataset:
+        """The admission verdict and the data plane it calls for: RESIDENT
+        scans the rows for NaN/Inf (when asked) and places them; STREAM
+        (`fit.demotions`, the reason logged and stamped on the model) places
+        nothing and hands the streaming solvers a `StreamPlan`, their scan
+        deferred to each row block; a fit that fits neither way raises the
+        typed `HbmBudgetError` from `memory.admit_fit`. A streamed dataset
+        comes back with ``key=None``: there is no placement to reuse, and a
+        later fit must budget anew."""
+        from . import memory as _memory
+        from . import telemetry
+        from .data import run_deferred_validation
+        from .parallel import chaos
+
+        # hand back this fit's previous claim before re-admitting: the OOM
+        # retry must not count the failed attempt's bytes against itself
+        self._adopt_reservation(None)
+        adm = _memory.admit_fit(self, extracted, device, force_stream=force_stream)
+        self._last_admission = adm
+        # the claim belongs to this fit call (released in _call_fit_func's
+        # finally); the decision may be cached and must carry none
+        self._adopt_reservation(adm.reservation)
+        adm.reservation = None
+        reg = telemetry.registry()
+        if adm.verdict == _memory.STREAM:
+            reg.inc("memory.admission_stream")
+            reg.inc("fit.demotions")
+            _LOG.warning(
+                "%s fit demoted RESIDENT -> STREAM: %s (chunk_rows=%d)",
+                type(self).__name__, adm.reason, adm.chunk_rows,
+            )
+            plan = StreamPlan(
+                extracted=extracted,
+                chunk_rows=adm.chunk_rows,
+                validate=bool(config.get("validate_ingest", False)),
+            )
+            inputs = self._build_stream_inputs(extracted, device, plan)
+            return DeviceDataset(None, extracted, inputs, source=source, admission=adm)
+        reg.inc("memory.admission_resident")
+        run_deferred_validation(extracted)  # the full scan, before any placement
+        chaos.maybe_fail_oom("placement")
+        inputs = self._layout(extracted, device)
+        telemetry.record_device_memory(device)  # the watermark after placement
+        return DeviceDataset(key, extracted, inputs, source=source, admission=adm)
+
+    def _build_stream_inputs(
+        self, extracted: ExtractedData, device: torch.device, plan: StreamPlan
+    ) -> FitInputs:
+        """`FitInputs` of an out-of-core fit: NOTHING is placed. X is None,
+        w and y are the host columns, and `stream` carries the plan. The
+        solvers treat host w == 0 rows as absent, so `with_row_mask` works
+        unchanged."""
+        from .parallel import StreamStaging
+
+        dtype = np.float32 if self._float32_inputs else np.float64
+        w = extracted.weight
+        w_np = np.asarray(w, dtype=dtype) if w is not None else np.ones(extracted.n_rows, dtype=dtype)
+        plan.staging = StreamStaging()
+        y = None if extracted.label is None else extracted.label.astype(dtype, copy=False)
+        return FitInputs(
+            X=None, w=w_np, n_valid=extracted.n_rows, n_cols=extracted.n_cols,
+            dtype=dtype, device=device, y=y, stream=plan,
+        )
+
+    def _device_dataset(
+        self, dataset: Any, device: torch.device, force_stream: bool = False
+    ) -> DeviceDataset:
+        """Ingest, admission and placement, or a cache hit inside an active
         `device_dataset_scope`: the ingest and the placement happen only on
         a miss, which is how a numFolds x paramMaps CrossValidator fit
-        places its rows once."""
+        places its rows once. A streamed (demoted) dataset is never cached;
+        a cached entry is a RESIDENT placement that passed admission."""
+        from . import memory as _memory
         from . import telemetry
 
         scope = _DDS_SCOPE.get()
-        if scope is None:
+        if scope is None or force_stream:
             extracted = self._ingest(dataset)
-            return DeviceDataset(None, extracted, self._layout(extracted, device))
+            dds = self._admit_and_layout(extracted, device, force_stream=force_stream)
+            if scope is not None:
+                scope.last = dds
+            return dds
         key = self._device_dataset_key(dataset, device)
         reg = telemetry.registry()
         with scope.lock:
@@ -382,16 +563,23 @@ class _TpuCaller(_TpuCommon):
             if dds is not None:
                 scope.cache.move_to_end(key)
                 reg.inc("fit.device_dataset_reuses")
+                if dds.admission is not None:
+                    # a hit skips the admission: re-stamp the verdict that
+                    # admitted the placement, and re-reserve its bytes (they
+                    # are held, and other tenants must see them)
+                    self._last_admission = dds.admission
+                    self._adopt_reservation(_memory.rereserve_admission(dds.admission))
             else:
                 extracted = self._ingest(dataset)
                 # `source=dataset` pins the object whose id() keys the entry
-                dds = DeviceDataset(key, extracted, self._layout(extracted, device), source=dataset)
-                reg.inc("fit.device_dataset_builds")
-                scope.cache[key] = dds
-                cap = max(1, int(config.get("device_dataset_cache_entries", 2)))
-                while len(scope.cache) > cap:
-                    scope.cache.popitem(last=False)
-                    reg.inc("fit.device_dataset_evictions")
+                dds = self._admit_and_layout(extracted, device, key=key, source=dataset)
+                if dds.key is not None:  # streamed datasets are not cached
+                    reg.inc("fit.device_dataset_builds")
+                    scope.cache[key] = dds
+                    cap = max(1, int(config.get("device_dataset_cache_entries", 2)))
+                    while len(scope.cache) > cap:
+                        scope.cache.popitem(last=False)
+                        reg.inc("fit.device_dataset_evictions")
             scope.last = dds
         return dds
 
@@ -401,9 +589,12 @@ class _TpuCaller(_TpuCommon):
         param_maps: Optional[List[Dict[Any, Any]]] = None,
         row_mask: Optional[np.ndarray] = None,
     ) -> List[Dict[str, Any]]:
-        """One placement, one solve per param map (one for None): returns
-        the model-attribute dicts. `row_mask` trains on its rows only
-        (`FitInputs.with_row_mask`)."""
+        """One placement (or one streaming plan), one solve per param map
+        (one for None): returns the model-attribute dicts. `row_mask` trains
+        on its rows only (`FitInputs.with_row_mask`). The admission verdict
+        lands in ``self._last_fit_metrics["admission"]``: always for a
+        demoted fit, with telemetry on for a resident one."""
+        from . import telemetry
         from .parallel import default_device
 
         if self.num_workers > 1:
@@ -412,7 +603,77 @@ class _TpuCaller(_TpuCommon):
                 "device (multi-GPU is ROADMAP item A10)"
             )
         device = default_device()
-        dds = self._device_dataset(dataset, device)
+        self._last_admission = None
+        try:
+            rows = self._call_fit_func_oom_ladder(dataset, param_maps, row_mask, device)
+        finally:
+            # the fit's ledger claim ends with the fit, whatever its outcome
+            self._adopt_reservation(None)
+        adm = self._last_admission
+        self._last_fit_metrics = (
+            {"admission": adm.stamp()}
+            if adm is not None and (telemetry.enabled() or adm.demoted)
+            else {}
+        )
+        return rows
+
+    def _call_fit_func_oom_ladder(
+        self,
+        dataset: Any,
+        param_maps: Optional[List[Dict[Any, Any]]],
+        row_mask: Optional[np.ndarray],
+        device: torch.device,
+    ) -> List[Dict[str, Any]]:
+        """One attempt, with the OOM ladder around it: a real allocation
+        failure on the card (`memory.is_oom_error`: torch.OutOfMemoryError,
+        or the chaos `oom` fault shaped like one) is retried ONCE on the
+        streaming path. A second failure, or an estimator with no streaming
+        path, raises `HbmBudgetError`; a raw OOM never leaves a fit."""
+        from . import memory as _memory
+        from . import telemetry
+
+        try:
+            return self._call_fit_func_attempt(dataset, param_maps, row_mask, device)
+        except Exception as e:
+            if not _memory.is_oom_error(e):
+                raise
+            telemetry.registry().inc("memory.oom_caught")
+            if not self._supports_streaming_fit:
+                raise _memory.as_hbm_budget_error(e, self._last_admission) from e
+            _LOG.warning(
+                "%s: out of memory on the card during the fit (%s); retrying ONCE on "
+                "the out-of-core streaming path", type(self).__name__, e,
+            )
+        # the retry runs OUTSIDE the handler: the handler's traceback pins the
+        # failed attempt's frames, and with them its dead placement, while `e`
+        # lives. Placements cached by an enclosing scope go too: a cache hit
+        # is worth less than room for the streaming retry.
+        scope = _DDS_SCOPE.get()
+        if scope is not None:
+            with scope.lock:
+                n_evicted = len(scope.cache)
+                scope.cache.clear()
+                scope.last = None
+            if n_evicted:
+                telemetry.registry().inc("fit.device_dataset_evictions", n_evicted)
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        try:
+            return self._call_fit_func_attempt(dataset, param_maps, row_mask, device, force_stream=True)
+        except Exception as e2:
+            if _memory.is_oom_error(e2):
+                raise _memory.as_hbm_budget_error(e2, self._last_admission) from e2
+            raise
+
+    def _call_fit_func_attempt(
+        self,
+        dataset: Any,
+        param_maps: Optional[List[Dict[Any, Any]]],
+        row_mask: Optional[np.ndarray],
+        device: torch.device,
+        force_stream: bool = False,
+    ) -> List[Dict[str, Any]]:
+        dds = self._device_dataset(dataset, device, force_stream=force_stream)
         extracted, inputs = dds.extracted, dds.inputs
         fit_func = self._get_tpu_fit_func(extracted)
         if row_mask is not None:
@@ -429,7 +690,13 @@ class _TpuCaller(_TpuCommon):
                     if mapped:
                         est._set_solver_param(mapped, v, silent=True)
                 solver_param_sets.append(dict(est._solver_params))
-        return self._dispatch_solves(inputs, extracted, fit_func, solver_param_sets)
+        try:
+            return self._dispatch_solves(inputs, extracted, fit_func, solver_param_sets)
+        finally:
+            if inputs.stream is not None:
+                # the pipeline's page-locked and device buffers end with the
+                # fit (a scope's `last` keeps the dataset for scoring)
+                inputs.stream.staging = None
 
     def _dispatch_solves(
         self,
@@ -444,10 +711,18 @@ class _TpuCaller(_TpuCommon):
         fit.solves_batched and fit.solves_sequential say which way each
         went."""
         from . import telemetry
+        from .parallel import chaos
 
+        chaos.maybe_fail_oom("solve")  # round-less `oom:stage=solve` plans
         n_sets = len(solver_param_sets)
         rows: List[Optional[Dict[str, Any]]] = [None] * n_sets
-        batched_fn = self._get_tpu_batched_fit_func(extracted) if n_sets > 1 else None
+        # a streamed fit solves one by one: the batched grids run over a
+        # resident placement
+        batched_fn = (
+            self._get_tpu_batched_fit_func(extracted)
+            if n_sets > 1 and inputs.stream is None
+            else None
+        )
         groups: Dict[Any, List[int]] = {}
         for i, sp in enumerate(solver_param_sets):
             key = self._batch_group_key(sp) if batched_fn is not None else None
@@ -521,10 +796,12 @@ class _TpuEstimator(_TpuCaller):
         row_mask: Optional[np.ndarray] = None,
     ) -> List["_TpuModel"]:
         attr_rows = self._call_fit_func(dataset, paramMaps, row_mask)
+        fit_metrics = getattr(self, "_last_fit_metrics", {})
         models = []
         for i, attrs in enumerate(attr_rows):
             model = self._create_model(attrs)
             model._model_attributes = attrs
+            model._fit_metrics = fit_metrics
             self._copyValues(model, paramMaps[i] if paramMaps else None)
             if paramMaps:
                 self.copy(paramMaps[i])._copy_solver_params(model)
@@ -614,6 +891,10 @@ class _TpuModel(_TpuCommon):
     def __init__(self, **model_attrs: Any) -> None:
         super().__init__()
         self._model_attributes: Dict[str, Any] = model_attrs
+        # the fit's stamps: its memory admission verdict under "admission"
+        # (a demoted fit's always, a resident one's with telemetry on); {}
+        # otherwise
+        self._fit_metrics: Dict[str, Any] = {}
         # the serving plane's stamps: why the model is (or is no longer)
         # resident, set by serving.ModelRegistry
         self._serve_metrics: Dict[str, Any] = {}

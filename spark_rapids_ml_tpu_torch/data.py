@@ -1,31 +1,36 @@
 #
 # Data plane: DataFrame-like input -> one contiguous (row-major) numpy feature
-# block, ready to be placed on the device as one tensor (parallel.place_rows).
+# block, ready to be placed on the device as one tensor (parallel.place_rows)
+# or streamed to it in row chunks (parallel.stream_place_blocks).
 #
 # The dense half of the JAX package's spark_rapids_ml_tpu/data.py: a dict
 # holding a 2-D ndarray (the at-scale path), and pandas / pyarrow / dict
 # inputs whose feature column holds arrays, lists or DenseVectors, or whose
 # features are several scalar columns; a label column beside them for the
 # supervised estimators. Sparse input (SparseVector cells, scipy
-# CSR) raises NotImplementedError: the CSR path is ROADMAP item A11.
+# CSR) raises NotImplementedError: the CSR path is ROADMAP item A11b.
+#
+# The opt-in NaN/Inf scan (`config["validate_ingest"]`, off by default)
+# raises `IngestValidationError` naming the column and the first bad row.
+# Transforms and the estimators that bind their rows without a fit scan at
+# extraction; a fit defers the scan to core.py's fit path, which scans
+# everything before a resident placement and each row block as it enters
+# the stream on the out-of-core path. The drift statistics the JAX package
+# gathers on the same scan (ops_plane/drift.py) wait for the ops plane
+# (ROADMAP A13-rest).
 #
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Any, Optional, Sequence, Tuple
+from dataclasses import dataclass, field
+from typing import Any, List, Optional, Sequence, Tuple
 
 import numpy as np
 
 from .linalg import DenseVector, SparseVector
 
-# Per-row feature cells are converted to the dense block in row chunks of at
-# most this many bytes, so the per-row temporaries never hold a second copy
-# of the dataset (the JAX package's config["ingest_chunk_bytes"] default).
-_INGEST_CHUNK_BYTES = 128 << 20
-
 _SPARSE_TODO = (
     "sparse feature input is not supported by the PyTorch port yet "
-    "(ROADMAP item A11: memory admission, out-of-core, sparse)"
+    "(ROADMAP item A11b: the CSR ingest and the padded-ELL solvers)"
 )
 
 
@@ -41,6 +46,11 @@ class ExtractedData:
     # or list cells, or a dict's 2-D block) or "multi_cols" (scalar columns);
     # a 2-D transform result goes back as DenseVectors only for "vector"
     feature_kind: str = "array"
+    # source column names, for naming a bad value (the streaming path scans
+    # each row block long after extraction, so the names ride with the data)
+    feature_names: List[str] = field(default_factory=list)
+    label_name: Optional[str] = None
+    weight_name: Optional[str] = None
 
     @property
     def n_rows(self) -> int:
@@ -100,12 +110,93 @@ def dataset_fingerprint(dataset: Any) -> tuple:
     return (id(dataset), type(dataset).__name__, cols_t, tuple(shape) if shape else None)
 
 
+def ingest_chunk_rows(row_bytes: int) -> int:
+    """Rows per ingest chunk under ``core.config["ingest_chunk_bytes"]``."""
+    from .core import config  # lazy: core imports this module at load time
+
+    chunk_bytes = int(config.get("ingest_chunk_bytes", 128 << 20))
+    return max(1, chunk_bytes // max(1, int(row_bytes)))
+
+
+def _first_nonfinite_row(block: np.ndarray, lo: int) -> int:
+    """Row index (absolute, given chunk offset `lo`) of the first non-finite
+    entry in a dense chunk."""
+    finite_rows = np.isfinite(block).all(axis=tuple(range(1, block.ndim)))
+    return lo + int(np.argmin(finite_rows))
+
+
+def validate_extracted(
+    extracted: "ExtractedData",
+    label_col=None,
+    weight_col=None,
+    lo: int = 0,
+    hi: Optional[int] = None,
+) -> None:
+    """NaN/Inf scan over rows ``[lo, hi)`` of the ingested blocks.
+
+    Chunked under the same ``ingest_chunk_bytes`` bound as the ingest
+    itself, so the scan's temporaries (the per-chunk finite mask) never
+    scale with the dataset. Raises `IngestValidationError` naming the
+    offending column and the ABSOLUTE first bad row. The full-range call is
+    the eager scan; the streaming fit path calls it per row block as chunks
+    enter the pipeline, so the dataset is never read a second time just to
+    validate it."""
+    from .errors import IngestValidationError
+
+    feats = extracted.features
+    n = extracted.n_rows
+    hi = n if hi is None else min(int(hi), n)
+    lo = max(0, int(lo))
+    row_bytes = feats.shape[1] * feats.itemsize if feats.ndim > 1 else feats.itemsize
+    step = ingest_chunk_rows(row_bytes)
+    for clo in range(lo, hi, step):
+        chunk = np.asarray(feats[clo : min(clo + step, hi)])
+        if np.isfinite(chunk).all():
+            continue
+        if extracted.feature_kind == "multi_cols" and chunk.ndim > 1:
+            # name the exact offending source column, not the block
+            bad_cols = ~np.isfinite(chunk).all(axis=0)
+            name = extracted.feature_names[int(np.argmax(bad_cols))]
+            col = chunk[:, int(np.argmax(bad_cols))]
+            raise IngestValidationError(name, clo + int(np.argmin(np.isfinite(col))))
+        raise IngestValidationError(extracted.feature_names[0], _first_nonfinite_row(chunk, clo))
+    for name, arr in ((label_col, extracted.label), (weight_col, extracted.weight)):
+        if arr is None:
+            continue
+        part = arr[lo:hi]
+        if not np.isfinite(part).all():
+            raise IngestValidationError(str(name), lo + int(np.argmin(np.isfinite(part))))
+
+
+def run_deferred_validation(extracted: "ExtractedData", lo: int = 0, hi: Optional[int] = None) -> None:
+    """`validate_extracted` gated on ``config["validate_ingest"]``, with the
+    column names taken from the extraction record: the entry point for the
+    fit path (the full scan before a resident placement) and the streaming
+    pipeline (per row block)."""
+    from .core import config
+
+    if not config.get("validate_ingest", False):
+        return
+    validate_extracted(extracted, extracted.label_name, extracted.weight_name, lo=lo, hi=hi)
+
+
+def _record_ingest(extracted: "ExtractedData", label_col, weight_col, validate: bool) -> "ExtractedData":
+    """The column names of a completed extraction, and its eager scan unless
+    `validate` is False (a fit, whose fit path runs the scan itself)."""
+    extracted.label_name = None if label_col is None else str(label_col)
+    extracted.weight_name = None if weight_col is None else str(weight_col)
+    if validate:
+        run_deferred_validation(extracted)
+    return extracted
+
+
 def _fill_dense_chunked(values, n_cols: int, dtype, to_row) -> np.ndarray:
     """Object column of per-row cells -> preallocated [n, n_cols] block,
-    converted one row chunk at a time (see _INGEST_CHUNK_BYTES)."""
+    converted one row chunk at a time (`ingest_chunk_rows`), so the per-row
+    temporaries never hold a second copy of the dataset."""
     n = len(values)
     out = np.empty((n, n_cols), dtype=dtype)
-    step = max(1, _INGEST_CHUNK_BYTES // max(1, n_cols * np.dtype(dtype).itemsize))
+    step = ingest_chunk_rows(n_cols * np.dtype(dtype).itemsize)
     for lo in range(0, n, step):
         hi = min(lo + step, n)
         out[lo:hi] = [to_row(v) for v in values[lo:hi]]
@@ -141,11 +232,13 @@ def extract_dataset(
     weight_col: Optional[str] = None,
     id_col: Optional[str] = None,
     float32_inputs: bool = True,
+    validate: bool = True,
 ) -> ExtractedData:
     """Extract the features (one column of row cells, several scalar
     columns, or a dict's 2-D block), the labels and weights at the features'
     dtype, and the int64 row ids, as contiguous blocks. A named column the
-    dataset lacks raises ValueError."""
+    dataset lacks raises ValueError. ``validate=False`` defers the opt-in
+    NaN/Inf scan to the caller (`run_deferred_validation`)."""
     dtype = np.float32 if float32_inputs else np.float64
 
     def _scalar(columns, colname: Optional[str], dt) -> Optional[np.ndarray]:
@@ -163,12 +256,13 @@ def extract_dataset(
         if _is_scipy_sparse(block):
             raise NotImplementedError(_SPARSE_TODO)
         if isinstance(block, np.ndarray) and block.ndim == 2:
-            return ExtractedData(
+            return _record_ingest(ExtractedData(
                 np.ascontiguousarray(block, dtype=dtype),
                 label=_scalar(dataset, label_col, dtype),
                 weight=_scalar(dataset, weight_col, dtype),
                 row_id=_scalar(dataset, id_col, np.int64),
-            )
+                feature_names=[input_col],
+            ), label_col, weight_col, validate)
 
     pdf = as_pandas(dataset)
 
@@ -178,16 +272,19 @@ def extract_dataset(
             raise ValueError(f"feature columns not in dataset: {missing}")
         features = np.ascontiguousarray(pdf[list(input_cols)].to_numpy(dtype=dtype))
         kind = "multi_cols"
+        names = list(input_cols)
     else:
         if input_col is None:
             raise ValueError("an input column is required")
         if input_col not in pdf.columns:
             raise ValueError(f"feature column {input_col!r} not in dataset")
         features, kind = _column_to_matrix(pdf[input_col], dtype)
-    return ExtractedData(
+        names = [input_col]
+    return _record_ingest(ExtractedData(
         features,
         label=_scalar(pdf, label_col, dtype),
         weight=_scalar(pdf, weight_col, dtype),
         row_id=_scalar(pdf, id_col, np.int64),
         feature_kind=kind,
-    )
+        feature_names=names,
+    ), label_col, weight_col, validate)

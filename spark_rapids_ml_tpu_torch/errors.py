@@ -1,8 +1,10 @@
 #
 # Typed errors raised on the port's path: the base `SrmlError`,
 # `SolverDivergedError` (`ops.kmeans.kmeans_fit`, on a non-finite center
-# shift or inertia), and the serving plane's: `HbmBudgetError` (a model load
-# the device budget cannot hold), `ServeOverloadError` (a request refused at
+# shift or inertia), `IngestValidationError` (config["validate_ingest"]
+# found a NaN or Inf in an input column), `HbmBudgetError` (a fit or a model
+# load the device budget cannot hold), and the serving plane's
+# `ServeOverloadError` (a request refused at
 # submit), `RequestTimeoutError` (a request whose server-side deadline passed
 # before dispatch) and `ServingStoppedError` (the engine stopped first).
 # Counterparts of spark_rapids_ml_tpu/errors.py, with the same messages and
@@ -14,7 +16,7 @@ from __future__ import annotations
 from typing import Any, Dict, Optional
 
 __all__ = [
-    "SrmlError", "SolverDivergedError", "HbmBudgetError", "RequestTimeoutError",
+    "SrmlError", "SolverDivergedError", "IngestValidationError", "HbmBudgetError", "RequestTimeoutError",
     "ServeOverloadError", "ServingStoppedError",
 ]
 
@@ -48,12 +50,30 @@ class SolverDivergedError(SrmlError, ArithmeticError):
         super().__init__(msg)
 
 
+class IngestValidationError(SrmlError, ValueError):
+    """``config["validate_ingest"]`` found a non-finite value in an input
+    column. Names the column (and the first offending row) so the fix points
+    at the data, not at a NaN surfacing iterations later inside a solver."""
+
+    def __init__(self, column: str, row: Optional[int] = None, kind: str = "non-finite"):
+        self.column = column
+        self.row = row
+        at = f" (first at row {row})" if row is not None else ""
+        super().__init__(
+            f"input column {column!r} contains {kind} values{at}; "
+            "clean the data or disable config['validate_ingest']"
+        )
+
+
 class HbmBudgetError(SrmlError, MemoryError):
-    """A working set does not fit device memory: the serving plane's
-    admission (`memory.admit_model_load`) found a model load over the
-    per-device budget even with every other resident evicted. PERMANENT:
-    retrying the same load on the same device cannot help — shrink the model,
-    raise ``config["hbm_budget_bytes"]``, or add cards.
+    """A working set does not fit device memory: a fit whose resident and
+    streaming working sets are both over the budget, or that has no
+    streaming path (`memory.admit_fit`), a fit whose allocation failed on
+    the card twice (`memory.as_hbm_budget_error`), or a model load over the
+    serving budget even with every other resident evicted
+    (`memory.admit_model_load`). PERMANENT: retrying the same work on the
+    same device cannot help — shrink it, raise
+    ``config["hbm_budget_bytes"]``, or add cards.
 
     Carries the per-device byte accounting so the message (and post-mortems)
     name WHAT doesn't fit: ``estimate_bytes`` (total working set),

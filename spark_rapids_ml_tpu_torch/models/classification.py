@@ -13,9 +13,12 @@
 # (regParam, elasticNetParam) grid of one solver solves in lockstep
 # (`logistic_fit_batched`), and the fused cross-validation path
 # (`_combine`, `_transform_evaluate`) scores every model of a fold at once.
-# Left out, each raising NotImplementedError naming its ROADMAP item:
-# `evaluate` and `.cpu()` (Spark interop, A16), a `SolverCheckpoint` warm
-# start (A12), and sparse input or enable_sparse_data_optim=True (A11).
+# An over-budget fit streams its rows from the host
+# (ops/streaming.logistic_fit_streaming; L2 only: a demoted L1/elastic-net
+# fit raises HbmBudgetError, as in the JAX package). Left out, each raising
+# NotImplementedError naming its ROADMAP item: `evaluate` and `.cpu()`
+# (Spark interop, A16), a `SolverCheckpoint` warm start (A12), and sparse
+# input or enable_sparse_data_optim=True (A11b).
 #
 from __future__ import annotations
 
@@ -224,6 +227,62 @@ class LogisticRegression(_LogisticRegressionParams, _TpuEstimatorSupervised):
         self._setDefault(**_SPARK_DEFAULTS)
         self._set_params(**kwargs)
 
+    # full-batch gradients accumulate over row chunks: an over-budget
+    # dataset demotes to ops/streaming.logistic_fit_streaming (the L2 path;
+    # OWL-QN has no streaming form and a demoted L1 fit raises)
+    _supports_streaming_fit = True
+
+    def _solver_workspace_terms(
+        self, rows_per_device: int, n_cols: int, params: Dict[str, Any], itemsize: int
+    ) -> Dict[str, int]:
+        # the JAX package's terms: the per-row logits held twice (at the
+        # iterate and along the direction) and the L-BFGS (S, Y) history;
+        # the class count is unknown before the labels are read, so k_out is
+        # 1 unless the family is multinomial (then its floor, 2). The port's
+        # own: `fast` rounds X to bf16 on the card, once per resident fit
+        # (ops/logistic._dense_ops) or once per chunk when streamed
+        from ..core import resolve_solver_precision
+
+        k_out = 2 if self.getOrDefault("family") == "multinomial" else 1
+        n_flat = n_cols * k_out + k_out
+        mem = int(params.get("lbfgs_memory", 10))
+        terms = {
+            "glm_logits": 2 * rows_per_device * k_out * itemsize,
+            "lbfgs_history": 2 * mem * n_flat * itemsize,
+        }
+        if resolve_solver_precision(params) == "bf16":
+            terms["bf16_X"] = 2 * rows_per_device * n_cols
+        return terms
+
+    def _fit_streaming(
+        self, inputs: FitInputs, params: Dict[str, Any], classes, labels_host, alpha: float, l1_ratio: float
+    ) -> Dict[str, Any]:
+        """The out-of-core fit: the streamed GLM quasi-Newton. L1/elastic
+        net has no streaming form (OWL-QN's pseudo-gradient projection does
+        not accumulate over chunks), so a demoted L1 fit raises typed."""
+        from ..errors import HbmBudgetError
+        from ..ops.logistic import fetch_state
+        from ..ops.streaming import logistic_fit_streaming
+
+        if alpha * l1_ratio > 0:
+            raise HbmBudgetError(
+                "logistic L1/elastic-net fit does not fit device memory and "
+                "the OWL-QN solver has no out-of-core streaming path "
+                "(set elasticNetParam=0 or raise the budget)",
+                largest_term="solver.owlqn",
+            )
+        multinomial, y_idx_host = self._fit_geometry_host(classes, labels_host)
+        statics = self._solver_statics(params)
+        common = dict(k=len(classes), multinomial=multinomial, lam_l2=alpha, lam_l1=0.0, use_l1=False, **statics)
+        state = logistic_fit_streaming(
+            inputs, y_idx_host,
+            k=len(classes), multinomial=multinomial, lam_l2=alpha,
+            fit_intercept=statics["fit_intercept"], standardize=statics["standardize"],
+            max_iter=statics["max_iter"], tol=statics["tol"],
+            lbfgs_memory=statics["lbfgs_memory"], fast=statics["fast"],
+        )
+        return self._finalize_state(fetch_state(state), classes, inputs, common)
+
     def setMaxIter(self, value: int) -> "LogisticRegression":
         return self._set_params(maxIter=value)
 
@@ -393,6 +452,8 @@ class LogisticRegression(_LogisticRegressionParams, _TpuEstimatorSupervised):
             classes = self._resolve_classes(labels_host, inputs)
             if len(classes) == 1:
                 return self._degenerate_single_class(classes, inputs)
+            if inputs.stream is not None:
+                return self._fit_streaming(inputs, params, classes, labels_host, alpha, l1_ratio)
             multinomial, y_idx_host = self._fit_geometry_host(classes, labels_host)
             common = dict(
                 k=len(classes),

@@ -2,10 +2,11 @@
 # KMeans estimator and model, drop-in for `pyspark.ml.clustering.KMeans`,
 # and DBSCAN: the PyTorch counterpart of
 # spark_rapids_ml_tpu/models/clustering.py (KMeans, KMeansModel, with
-# KMeansModel's serving hooks; DBSCAN, DBSCANModel), on one device. The
-# out-of-core streaming fit and the multi-process init gather of the JAX
-# package are later ROADMAP items (A11, A10), as are DBSCAN's replicated
-# gather of every rank's rows (A10) and sparse input (A11).
+# KMeansModel's serving hooks; DBSCAN, DBSCANModel), on one device. An
+# over-budget KMeans fit streams its rows from the host
+# (ops/streaming.kmeans_fit_streaming). The multi-process init gather of
+# the JAX package is a later ROADMAP item (A10), as are DBSCAN's replicated
+# gather of every rank's rows (A10) and sparse input (A11b).
 #
 from __future__ import annotations
 
@@ -89,6 +90,37 @@ class KMeans(_KMeansParams, _TpuEstimator):
     Fit is a host loop of Lloyd iterations on one device, each iteration
     scanning row tiles of ``max_samples_per_batch`` rows through the argmin
     and accumulation kernels (ops/kmeans.py)."""
+
+    # per-chunk assignment and center accumulation: an over-budget dataset
+    # demotes to ops/streaming.kmeans_fit_streaming
+    _supports_streaming_fit = True
+
+    def _solver_workspace_terms(
+        self, rows_per_device: int, n_cols: int, params: Dict[str, Any], itemsize: int
+    ) -> Dict[str, int]:
+        # the JAX package's terms: the [b, k] distance and one-hot blocks of
+        # a batch_rows-row tile, the (k, d) centers and sums, and the
+        # predict-side [tile, k] block at config["distance_tile_rows"]
+        # rows. The port's own: the `fast` form of the argmin kernel stages
+        # the Lloyd tile as bf16, rows rounded up to its row tile and depth
+        # to STAGE_DEPTH (ops/_kernels.stage_bf16: 197 MB at 32768 x 3000)
+        from ..core import resolve_solver_precision
+        from ..ops._kernels import ARGMIN_TILE, STAGE_DEPTH
+        from ..ops.distance import tile_rows
+
+        k = int(params.get("n_clusters", 8))
+        b = min(int(params.get("max_samples_per_batch", 32768)), max(1, rows_per_device))
+        predict_rows = min(tile_rows(), max(1, rows_per_device))
+        terms = {
+            "tile_buffers": 2 * b * k * itemsize,
+            "centers": 2 * k * n_cols * itemsize,
+            "predict_tile": predict_rows * k * itemsize,
+        }
+        fast = resolve_solver_precision(params) == "bf16" or params.get("distance_precision") == "fast"
+        if fast and itemsize == 4:
+            rows = -(-b // ARGMIN_TILE["f32-fast"][0]) * ARGMIN_TILE["f32-fast"][0]
+            terms["fast_staging"] = rows * (-(-n_cols // STAGE_DEPTH) * STAGE_DEPTH) * 2
+        return terms
 
     def __init__(self, **kwargs: Any) -> None:
         super().__init__()
@@ -178,21 +210,39 @@ class KMeans(_KMeansParams, _TpuEstimator):
                 centers0 = kmeans_plus_plus_init(x_host, k, seed, w_host)
             centers0 = centers0.astype(inputs.dtype)
             # solver_precision="bf16" forces the fast in-loop path; otherwise
-            # distance_precision governs it
+            # distance_precision governs the resident loop, and the streamed
+            # one runs at full precision (the JAX package's rule)
             solver_precision = resolve_solver_precision(params)
-            state = kmeans_fit(
-                inputs.X,
-                inputs.w,
-                centers0,
-                max_iter=int(params["max_iter"]),
-                tol=float(params["tol"]),
-                batch_rows=int(params.get("max_samples_per_batch", 32768)),
-                precision_mode=(
-                    "fast"
-                    if solver_precision == "bf16"
-                    else str(params.get("distance_precision", "fast"))
-                ),
-            )
+            batch_rows = int(params.get("max_samples_per_batch", 32768))
+            if inputs.stream is not None:
+                from ..ops.streaming import kmeans_fit_streaming
+
+                # whole Lloyd tiles per chunk, so the kernels see the resident
+                # loop's tiles (a smaller chunk only shrinks the admitted set)
+                if inputs.stream.chunk_rows > batch_rows:
+                    inputs.stream.chunk_rows = inputs.stream.chunk_rows // batch_rows * batch_rows
+                state = kmeans_fit_streaming(
+                    inputs,
+                    centers0,
+                    max_iter=int(params["max_iter"]),
+                    tol=float(params["tol"]),
+                    batch_rows=batch_rows,
+                    precision_mode="fast" if solver_precision == "bf16" else "high",
+                )
+            else:
+                state = kmeans_fit(
+                    inputs.X,
+                    inputs.w,
+                    centers0,
+                    max_iter=int(params["max_iter"]),
+                    tol=float(params["tol"]),
+                    batch_rows=batch_rows,
+                    precision_mode=(
+                        "fast"
+                        if solver_precision == "bf16"
+                        else str(params.get("distance_precision", "fast"))
+                    ),
+                )
             return {
                 "cluster_centers_": state["cluster_centers_"].cpu().numpy(),
                 "inertia_": float(state["inertia_"]),
@@ -293,15 +343,20 @@ class KMeansModel(_KMeansParams, _TpuModelWithColumns):
     def _serve_workspace_terms(self, bucket_rows_count, itemsize):
         # the assignment runs in row tiles of config["distance_tile_rows"]
         # through the argmin kernel, which keeps no [tile, k] block; the plain
-        # version (the CPU) holds one, so the term prices it. The kernel's
-        # `fast` form stages the tile as bf16 instead ([tile, d rounded up
-        # to 64] x 2 bytes: 24.6 MB at 4096 x 3000 against this term's 16 MB
-        # at k = 1000); the term stays the reference's
+        # version (the CPU) holds one, the reference's term. The kernel's
+        # `fast` form (a bf16 load) stages the tile as bf16 instead: rows
+        # rounded up to its row tile, depth to STAGE_DEPTH, 2 bytes each
+        # (24.6 MB at 4096 x 3000, against the reference's 16 MB at k =
+        # 1000). The term prices the larger of the two
+        from ..ops._kernels import ARGMIN_TILE, STAGE_DEPTH
         from ..ops.distance import tile_rows
 
         k = int(self.cluster_centers_.shape[0])
+        d = int(self.cluster_centers_.shape[1])
         tile = min(tile_rows(), max(1, int(bucket_rows_count)))
-        return {"predict_tile": tile * k * itemsize}
+        row_tile = ARGMIN_TILE["f32-fast"][0]
+        staging = -(-tile // row_tile) * row_tile * (-(-d // STAGE_DEPTH) * STAGE_DEPTH) * 2
+        return {"predict_tile": max(tile * k * itemsize, staging)}
 
     def _serve_flop_estimate(self, n_rows, n_cols):
         # the [n, k] squared-distance block (~3*n*k*d for the expanded

@@ -1,8 +1,9 @@
 #
 # PCA estimator and model, drop-in for `pyspark.ml.feature.PCA`: the PyTorch
 # counterpart of spark_rapids_ml_tpu/models/feature.py (PCA, PCAModel, with
-# PCAModel's serving hooks), on one device. The checkpointed and streaming
-# fits are later ROADMAP items (A12, A11); `.cpu()` (Spark interop) is A16.
+# PCAModel's serving hooks), on one device. An over-budget fit streams its
+# rows from the host (ops/streaming.pca_fit_streaming). The checkpointed
+# fit is a later ROADMAP item (A12); `.cpu()` (Spark interop) is A16.
 #
 from __future__ import annotations
 
@@ -57,6 +58,20 @@ class PCA(_PCAParams, _TpuEstimator):
     then the top-k symmetric eigendecomposition with sign canonicalization
     (ops/pca.py)."""
 
+    # the (mean, covariance) statistics accumulate over row chunks: an
+    # over-budget dataset demotes to ops/streaming.pca_fit_streaming
+    _supports_streaming_fit = True
+
+    def _solver_workspace_terms(
+        self, rows_per_device: int, n_cols: int, params: Dict[str, Any], itemsize: int
+    ) -> Dict[str, int]:
+        # the JAX package's terms: the d x d covariance and the eigenvector
+        # output of its size, and the mean and variance d-vectors
+        return {
+            "covariance": 2 * n_cols * n_cols * itemsize,
+            "vectors": 2 * n_cols * itemsize,
+        }
+
     def __init__(self, **kwargs: Any) -> None:
         super().__init__()
         self._setDefault(k=1)
@@ -77,6 +92,7 @@ class PCA(_PCAParams, _TpuEstimator):
     def _get_tpu_fit_func(self, extracted: ExtractedData):
         from ..core import resolve_solver_precision
         from ..ops.pca import check_pca_state, pca_fit, record_pca_fit
+        from ..ops.streaming import pca_fit_streaming
 
         def _fit(inputs: FitInputs, params: Dict[str, Any]) -> Dict[str, Any]:
             k = int(params["n_components"])
@@ -85,7 +101,12 @@ class PCA(_PCAParams, _TpuEstimator):
                 raise ValueError(f"k must be >= 1, got {k}")
             if k > inputs.n_cols:
                 raise ValueError(f"k={k} exceeds the number of features {inputs.n_cols}")
-            state = pca_fit(inputs.X, inputs.w, k=k, fast=fast)
+            if inputs.stream is not None:
+                # out-of-core: two streamed passes (the mean, then the
+                # centered covariance), the resident fit's finish
+                state = pca_fit_streaming(inputs, k=k, fast=fast)
+            else:
+                state = pca_fit(inputs.X, inputs.w, k=k, fast=fast)
             out: Dict[str, Any] = {name: v.cpu().numpy() for name, v in state.items()}
             check_pca_state(out, k=k)  # guard on the host-fetched attributes
             record_pca_fit(out, k=k)

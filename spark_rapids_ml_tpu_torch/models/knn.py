@@ -20,7 +20,7 @@
 #
 # Left out, each a later ROADMAP item: the multi-device and multi-process
 # search (A10; num_workers > 1 is refused), with ANN's per-rank index and
-# top-k merge, and sparse item sets (A11; ingest raises), which ANN
+# top-k merge, and sparse item sets (A11b; ingest raises), which ANN
 # densifies in the JAX package.
 #
 from __future__ import annotations

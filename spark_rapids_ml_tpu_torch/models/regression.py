@@ -10,8 +10,10 @@
 # elasticNetParam) grid of one solver solves as one batched grid over one
 # statistics pass (ops/linear.py `linear_fit_batched`), and the fused
 # cross-validation path (`_combine`, `_transform_evaluate`) scores every
-# model of a fold at once. Left out, each raising NotImplementedError
-# naming its ROADMAP item: `evaluate` and `.cpu()` (Spark interop, A16).
+# model of a fold at once. An over-budget fit streams its rows from the
+# host (ops/streaming.linear_fit_streaming). Left out, each raising
+# NotImplementedError naming its ROADMAP item: `evaluate` and `.cpu()`
+# (Spark interop, A16).
 #
 from __future__ import annotations
 
@@ -194,15 +196,29 @@ class LinearRegression(_LinearRegressionParams, _TpuEstimatorSupervised):
     def setWeightCol(self, value: str) -> "LinearRegression":
         return self._set_params(weightCol=value)
 
+    # the sufficient statistics accumulate over row chunks: an over-budget
+    # dataset demotes to ops/streaming.linear_fit_streaming
+    _supports_streaming_fit = True
+
+    def _solver_workspace_terms(
+        self, rows_per_device: int, n_cols: int, params: Dict[str, Any], itemsize: int
+    ) -> Dict[str, int]:
+        # the JAX package's terms: the d x d gram and the d-vectors of the
+        # statistics (sx, c, scale, coef)
+        return {
+            "gram": n_cols * n_cols * itemsize,
+            "vectors": 4 * n_cols * itemsize,
+        }
+
     def _get_tpu_fit_func(self, extracted: ExtractedData):
         from ..core import resolve_solver_precision
         from ..ops.linear import linear_fit
+        from ..ops.streaming import linear_fit_streaming
 
         def _fit(inputs: FitInputs, params: Dict[str, Any]) -> Dict[str, Any]:
             alpha = float(params["alpha"])
             l1_ratio = float(params["l1_ratio"])
-            state = linear_fit(
-                inputs.X, inputs.y, inputs.w,
+            common = dict(
                 alpha=alpha,
                 l1_ratio=l1_ratio,
                 fit_intercept=bool(params["fit_intercept"]),
@@ -212,6 +228,11 @@ class LinearRegression(_LinearRegressionParams, _TpuEstimatorSupervised):
                 tol=float(params["tol"]),
                 fast=resolve_solver_precision(params) == "bf16",
             )
+            if inputs.stream is not None:
+                # out-of-core: one streamed statistics pass, the same solve
+                state = linear_fit_streaming(inputs, **common)
+            else:
+                state = linear_fit(inputs.X, inputs.y, inputs.w, **common)
             return self._attrs(state, inputs)
 
         return _fit

@@ -8,7 +8,7 @@
 # package's layout, so a directory either package saved loads in the other.
 #
 # The JAX package's multi-process fit (every rank's rows gathered) and
-# per-rank transform are ROADMAP item A10; sparse input is item A11.
+# per-rank transform are ROADMAP item A10; sparse input is item A11b.
 #
 from __future__ import annotations
 

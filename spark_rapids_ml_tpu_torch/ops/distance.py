@@ -65,6 +65,12 @@ def _on_kernel_device(name: str, *tensors: torch.Tensor) -> bool:
 # --------------------------------------------------------------- helpers ----
 
 
+# Rows per chunk of `row_sq`: its temporaries (the padded copy and the
+# squares) are one chunk, never the size of its input (at 1M x 3000 float32
+# that was 12 GB each). Read at each call.
+ROW_SQ_CHUNK_ROWS = 8192
+
+
 def row_sq(x: torch.Tensor) -> torch.Tensor:
     """Squared row norms, equal bit for bit for equal rows wherever they lie
     in x. torch's CUDA reduction reads the unaligned head of a row apart, so
@@ -72,11 +78,25 @@ def row_sq(x: torch.Tensor) -> torch.Tensor:
     offsets could sum in different orders, and a tie between repeated
     centers or items go to the later copy; such rows are summed from a copy
     padded with zero columns to a multiple of 4, where every row starts
-    16-byte aligned."""
-    d = x.shape[1]
-    if d % 4:
-        x = torch.nn.functional.pad(x, (0, 4 - d % 4))
-    return torch.sum(x * x, dim=1)
+    16-byte aligned.
+
+    The rows are summed in chunks of `ROW_SQ_CHUNK_ROWS`, so no temporary
+    is larger than a chunk. Past one chunk every chunk is that size, the
+    last padded with zero rows: a reduction's order may change with its row
+    count, and equal rows in the last chunk must sum as in the others."""
+    n, d = x.shape
+    step = ROW_SQ_CHUNK_ROWS
+    pad = (0, (4 - d % 4) % 4)
+    if n <= step:
+        xp = torch.nn.functional.pad(x, pad) if pad[1] else x
+        return torch.sum(xp * xp, dim=1)
+    out = torch.empty((n,), dtype=x.dtype, device=x.device)
+    for lo in range(0, n, step):
+        blk = x[lo:lo + step]
+        rows = blk.shape[0]
+        blk = torch.nn.functional.pad(blk, pad + (0, step - rows))
+        out[lo:lo + rows] = torch.sum(blk * blk, dim=1)[:rows]
+    return out
 
 
 def fixed_sum(s: torch.Tensor) -> torch.Tensor:
@@ -179,17 +199,23 @@ def assign_accumulate(
 
 def tile_assign_accumulate(
     X: torch.Tensor, w: torch.Tensor, centers: torch.Tensor, batch_rows: int,
-    fast: bool = False,
+    fast: bool = False, acc: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Scan the rows in tiles of `batch_rows`, the ragged tail last; returns
-    (sums [k, d], counts [k], inertia), summed over the tiles in row order.
-    The accumulators are updated in place. Tiles are views of X, so no copy
-    of X is made."""
+    (sums [k, d], counts [k], inertia), summed over the tiles in row order
+    into `acc` (zeros when None), in place. The streamed Lloyd loop passes
+    one `acc` through its chunks, which are whole tiles, so its sums are
+    the resident loop's additions in the same order. Tiles are views of X,
+    so no copy of X is made."""
     n, d = X.shape
     k = centers.shape[0]
-    sums = torch.zeros((k, d), dtype=X.dtype, device=X.device)
-    counts = torch.zeros((k,), dtype=X.dtype, device=X.device)
-    inertia = torch.zeros((), dtype=X.dtype, device=X.device)
+    if acc is None:
+        acc = (
+            torch.zeros((k, d), dtype=X.dtype, device=X.device),
+            torch.zeros((k,), dtype=X.dtype, device=X.device),
+            torch.zeros((), dtype=X.dtype, device=X.device),
+        )
+    sums, counts, inertia = acc
     batch_rows = max(1, min(batch_rows, n))
     for start in range(0, n, batch_rows):
         s, c, i = assign_accumulate(

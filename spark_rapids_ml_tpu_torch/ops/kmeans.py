@@ -51,6 +51,43 @@ def _raise_diverged(iteration: int, last_good_centers, detail: str) -> None:
     )
 
 
+def lloyd_loop(step, centers, *, max_iter: int, tol: float, fast: bool, final_inertia: bool = True):
+    """The Lloyd host loop over `step(centers, fast)` -> (new centers,
+    inertia of the entering centers, shift): one pass over the rows each,
+    resident (`_lloyd_step`) or streamed (ops/streaming.py). The convergence
+    check one iteration late, the last-good iterate, the divergence guard
+    and the final inertia at full precision; see `kmeans_fit`."""
+    n_iter = 0
+    prev_shift = None
+    last_good = centers  # iterate entering the step that produced prev_shift
+    while n_iter < max_iter:
+        step_in = centers
+        centers, inertia, shift = step(centers, fast)
+        n_iter += 1
+        if prev_shift is not None:
+            shift_host = float(prev_shift)
+            if not math.isfinite(shift_host):
+                _raise_diverged(n_iter - 1, last_good, f"center shift = {shift_host}")
+            if shift_host <= tol:
+                break
+        prev_shift = shift
+        last_good = step_in
+    if not final_inertia:
+        inertia = torch.full((), float("nan"), dtype=centers.dtype, device=centers.device)
+    else:
+        _, inertia, _ = step(centers, False)
+        inertia_host = float(inertia)
+        if not math.isfinite(inertia_host):
+            # the deferred check trails by one fetch: a divergence on the
+            # FINAL step (or a 1-iteration fit) is caught here
+            _raise_diverged(n_iter, last_good, f"final inertia = {inertia_host}")
+    return {
+        "cluster_centers_": centers,
+        "inertia_": inertia,
+        "n_iter_": torch.tensor(n_iter, dtype=torch.int32),
+    }
+
+
 def kmeans_fit(
     X: torch.Tensor,
     w: torch.Tensor,
@@ -83,36 +120,10 @@ def kmeans_fit(
         centers = init_centers.to(device=X.device, dtype=X.dtype)
     else:
         centers = torch.as_tensor(np.asarray(init_centers), dtype=X.dtype).to(X.device)
-    fast = precision_mode == "fast" and X.dtype == torch.float32
-    n_iter = 0
-    prev_shift = None
-    last_good = centers  # iterate entering the step that produced prev_shift
-    while n_iter < max_iter:
-        step_in = centers
-        centers, inertia, shift = _lloyd_step(X, w, centers, batch_rows, fast)
-        n_iter += 1
-        if prev_shift is not None:
-            shift_host = float(prev_shift)
-            if not math.isfinite(shift_host):
-                _raise_diverged(n_iter - 1, last_good, f"center shift = {shift_host}")
-            if shift_host <= tol:
-                break
-        prev_shift = shift
-        last_good = step_in
-    if not final_inertia:
-        inertia = torch.full((), float("nan"), dtype=X.dtype, device=X.device)
-    else:
-        _, inertia, _ = _lloyd_step(X, w, centers, batch_rows, False)
-        inertia_host = float(inertia)
-        if not math.isfinite(inertia_host):
-            # the deferred check trails by one fetch: a divergence on the
-            # FINAL step (or a 1-iteration fit) is caught here
-            _raise_diverged(n_iter, last_good, f"final inertia = {inertia_host}")
-    return {
-        "cluster_centers_": centers,
-        "inertia_": inertia,
-        "n_iter_": torch.tensor(n_iter, dtype=torch.int32),
-    }
+    return lloyd_loop(
+        lambda c, f: _lloyd_step(X, w, c, batch_rows, f), centers, max_iter=max_iter, tol=tol,
+        fast=precision_mode == "fast" and X.dtype == torch.float32, final_inertia=final_inertia,
+    )
 
 
 def kmeans_predict(X: torch.Tensor, centers: torch.Tensor) -> torch.Tensor:

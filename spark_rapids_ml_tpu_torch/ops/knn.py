@@ -17,7 +17,7 @@
 # lookup tables and the PQ encoding are plain torch on cuBLAS, as the JAX
 # package leaves them to XLA.
 #
-# Sparse item sets (`exact_knn_sparse`) are ROADMAP item A11, the sharded
+# Sparse item sets (`exact_knn_sparse`) are ROADMAP item A11b, the sharded
 # search over several cards (`_exact_knn_sharded`, `tile_topk`) item A10.
 #
 from __future__ import annotations

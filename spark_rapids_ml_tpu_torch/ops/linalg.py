@@ -51,17 +51,45 @@ def row_tiles(n: int):
     return [slice(lo, lo + STATS_TILE_ROWS) for lo in range(0, n, STATS_TILE_ROWS)]
 
 
-def weighted_moments(X: torch.Tensor, w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(total_weight, mean [d], var [d]); zero-weight rows count for
-    nothing. The squares are summed over row tiles."""
-    total_w = torch.sum(w)
-    mean = (w @ X) / total_w
-    sq = torch.zeros_like(mean)
+def weighted_sums(X: torch.Tensor, w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(Σw, Σw·x [d], Σw·x² [d]): the raw weighted moments, the squares
+    summed over row tiles. The streaming solvers sum them over row chunks
+    (ops/streaming.py)."""
+    sq = torch.zeros((X.shape[1],), dtype=X.dtype, device=X.device)
     for rows in row_tiles(X.shape[0]):
         xt = X[rows]
         sq += w[rows] @ (xt * xt)
+    return torch.sum(w), w @ X, sq
+
+
+def weighted_moments(X: torch.Tensor, w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(total_weight, mean [d], var [d]); zero-weight rows count for
+    nothing. The squares are summed over row tiles."""
+    return moments_from_sums(*weighted_sums(X, w))
+
+
+def moments_from_sums(total_w: torch.Tensor, sx: torch.Tensor, sq: torch.Tensor):
+    """(total_weight, mean, var) from the raw sums of `weighted_sums`,
+    taken over all rows at once or summed over streamed chunks."""
+    mean = sx / total_w
     var = torch.clamp_min(sq / total_w - mean * mean, 0.0)
     return total_w, mean, var
+
+
+def centered_gram(X: torch.Tensor, w: torch.Tensor, mean: torch.Tensor, fast: bool = False) -> torch.Tensor:
+    """Σ w (x-μ)(x-μ)ᵀ [d, d] over row tiles, float32 when `fast` (the
+    operands rounded to bf16, `mm_bf16`; the weighting and the centering at
+    full precision), else at X's dtype."""
+    d = X.shape[1]
+    acc = torch.zeros((d, d), dtype=torch.float32 if fast else X.dtype, device=X.device)
+    for rows in row_tiles(X.shape[0]):
+        xc = X[rows] - mean
+        xcw = xc * w[rows, None]
+        if fast:
+            acc += mm_bf16(xcw.T, xc)
+        else:
+            acc.addmm_(xcw.T, xc)
+    return acc
 
 
 def weighted_cov(
@@ -72,21 +100,12 @@ def weighted_cov(
     package's sample covariance).
 
     The mean comes first (one `w @ X`); the centered contraction then runs
-    over row tiles. ``fast`` rounds the operands of that contraction to
-    bf16 and sums in float32 (`mm_bf16`); the weighting and the centering
-    stay at full precision, as in the JAX package."""
+    over row tiles (`centered_gram`). ``fast`` rounds the operands of that
+    contraction to bf16 and sums in float32 (`mm_bf16`); the weighting and
+    the centering stay at full precision, as in the JAX package."""
     total_w = torch.sum(w)
     mean = (w @ X) / total_w
-    d = X.shape[1]
-    acc = torch.zeros((d, d), dtype=torch.float32 if fast else X.dtype, device=X.device)
-    for rows in row_tiles(X.shape[0]):
-        xc = X[rows] - mean
-        xcw = xc * w[rows, None]
-        if fast:
-            acc += mm_bf16(xcw.T, xc)
-        else:
-            acc.addmm_(xcw.T, xc)
-    cov = acc.to(X.dtype) / (total_w - ddof)
+    cov = centered_gram(X, w, mean, fast).to(X.dtype) / (total_w - ddof)
     return total_w, mean, cov
 
 

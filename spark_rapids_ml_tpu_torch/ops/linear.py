@@ -24,8 +24,9 @@
 # by one on the shared statistics, its CD points in one batched
 # coordinate descent that updates coordinate j of every point at once, so
 # a sweep costs one point's launches. A single fit is the grid of one, so
-# each grid point equals its `linear_fit` bit for bit. The ELL forms,
-# batched ones included, and the checkpointed forms wait for ROADMAP A11
+# each grid point equals its `linear_fit` bit for bit. The streamed fit
+# sums these statistics over row chunks (ops/streaming.py). The ELL forms,
+# batched ones included, and the checkpointed forms wait for ROADMAP A11b
 # and A12.
 #
 from __future__ import annotations

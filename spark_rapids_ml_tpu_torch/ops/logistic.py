@@ -35,8 +35,10 @@
 # that stops on a stall or on `tol` may stop at another iteration than its
 # grid's point).
 #
-# Waiting, each named in ROADMAP: the ELL and streaming forms, batched ones
-# included (A11), the checkpointed forms (A12), the per-iteration
+# The streamed fit (ops/streaming.logistic_fit_streaming) is `_fit_common`
+# with products served chunk by chunk from the host. Waiting, each
+# named in ROADMAP: the ELL forms, batched ones included, and the streamed
+# ELL form (A11b), the checkpointed forms (A12), the per-iteration
 # convergence trace (A15). The JAX package's optax
 # `_lbfgs_minimize` is reached by no entry point there and is not ported.
 #
@@ -67,7 +69,11 @@ def _make_scaling(X, w, standardize: bool, fit_intercept: bool):
     """Returns (mu [d], d_scale [d], total_w): logits use Beff = d_scale·B,
     offset −μ·Beff. The standard deviation is the unbiased one (Spark's
     summarizer); a constant column gets d_scale = 0."""
-    total_w, mean, var = weighted_moments(X, w)
+    return scaling_from_moments(*weighted_moments(X, w), standardize, fit_intercept)
+
+
+def scaling_from_moments(total_w, mean, var, standardize: bool, fit_intercept: bool):
+    """`_make_scaling` from the weighted moments, resident or streamed."""
     if not standardize:
         return torch.zeros_like(mean), torch.ones_like(mean), total_w
     sigma = torch.sqrt(var * (total_w / torch.clamp_min(total_w - 1.0, 1.0)))

@@ -6,8 +6,9 @@
 # One pass over the rows for the weighted mean and covariance
 # (ops/linalg.weighted_cov: the mean, then the centered contraction over row
 # tiles), then the d x d symmetric eigendecomposition, top-k descending, and
-# the sign canonicalization. The checkpointed fit waits for ROADMAP A12,
-# the streaming fit for A11.
+# the sign canonicalization. The streamed fit is
+# ops/streaming.pca_fit_streaming; the checkpointed fit waits for ROADMAP
+# A12.
 #
 from __future__ import annotations
 

@@ -288,7 +288,7 @@ class HasFeaturesCols(Params):
 class HasEnableSparseDataOptim(Params):
     """The opt-in CSR ingest switch (reference params.py:44-65). The port
     has no sparse path yet: a fit or transform with it set to True raises
-    NotImplementedError naming ROADMAP A11, as sparse input does."""
+    NotImplementedError naming ROADMAP A11b, as sparse input does."""
 
     enable_sparse_data_optim = Param(
         "enable_sparse_data_optim",

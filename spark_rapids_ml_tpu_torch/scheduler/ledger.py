@@ -1,20 +1,21 @@
 #
 # HbmLedger: one per-device byte ledger for every device-memory consumer in
 # the process. The port's subset of spark_rapids_ml_tpu/scheduler/ledger.py:
-# what the serving plane's admission uses.
+# what the fit and serving admissions use.
 #
-# Admission (`memory.admit_model_load`) charges a load against the budget
-# MINUS what this ledger already holds, and reserves its estimate here: one
-# reservation (kind "serve") per resident model, held from admission through
-# placement, prewarm and residency, and released on eviction
+# Both admissions (memory.py: `admit_fit`, `admit_model_load`) charge
+# against the budget MINUS what this ledger already holds, and reserve their
+# estimate here: a fit's claim (kind "fit") from admission to the end of the
+# fit (core._TpuCaller._call_fit_func), a model's (kind "serve") from
+# admission through placement, prewarm and residency to its eviction
 # (serving.ModelRegistry). The ledger never decides anything; it is
 # bookkeeping with one atomicity guarantee: `admission()` is the lock every
 # admission decision runs under, so check-then-reserve is race-free across
-# concurrent loads.
+# concurrent fits and loads.
 #
-# Left out (they have no consumer in the port yet): fit-side and scheduler
-# job reservations, resize/rebind, per-kind and per-tenant accounting, the
-# high watermark, the 2-D chip book and the admission hooks.
+# Left out (they have no consumer in the port yet): scheduler job
+# reservations and resize/rebind (ROADMAP A17), per-tenant accounting, the
+# high watermark, the 2-D chip book (A10) and the admission hooks.
 #
 from __future__ import annotations
 
@@ -32,7 +33,7 @@ class HbmReservation:
     on release (a second release is a no-op, never a double credit)."""
 
     owner: str
-    kind: str  # "serve"
+    kind: str  # "fit" | "serve"
     nbytes: int
     rid: int = 0
     active: bool = True

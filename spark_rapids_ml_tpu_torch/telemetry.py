@@ -19,6 +19,17 @@
 # LogisticRegression's fit): <solver>.fits, <solver>.iterations and
 # <solver>.line_search_stalls counters, the <solver>.objective gauge.
 #
+# The fit side's memory plane (memory.py, core.py, parallel.py) records:
+#
+#   memory.admission_resident / admission_stream, fit.demotions,
+#   memory.oom_caught                           counters (one per fit)
+#   memory.capacity_bytes, memory.estimate_bytes   gauges (the admission's)
+#   ingest.stream_chunks / stream_rows          counters (per streamed pass)
+#   ingest.overlap_fraction                     gauge (the last pass's)
+#   device.peak_bytes_in_use, device.bytes_in_use   gauges: the card's
+#       allocator watermark (`record_device_memory`), sampled after a
+#       resident placement and at every streamed chunk boundary
+#
 # `device_wait(stage, device)` closes on `torch.cuda.synchronize(device)`
 # for a CUDA device, so the time it records is the wait for the card's
 # queued work; `host_section(stage)` times host work. Left out of this copy
@@ -47,6 +58,7 @@ __all__ = [
     "tenant_metric",
     "device_wait",
     "host_section",
+    "record_device_memory",
     "record_solver_result",
 ]
 
@@ -183,6 +195,13 @@ class MetricsRegistry:
         with self._lock:
             self._gauges[name] = float(value)
 
+    def gauge_max(self, name: str, value: float) -> None:
+        """A high-water gauge: keeps the larger of its value and `value`."""
+        if not _ON:
+            return
+        with self._lock:
+            self._gauges[name] = max(self._gauges.get(name, float("-inf")), float(value))
+
     def observe(self, name: str, value: float) -> None:
         """Histogram observation (count/sum/min/max and retained samples)."""
         if not _ON:
@@ -318,6 +337,20 @@ def host_section(stage: str) -> Iterator[None]:
     yield
     if _ON:
         _REGISTRY.observe(f"host_section.{stage}_s", time.monotonic() - t0)
+
+
+def record_device_memory(device: Any = None) -> None:
+    """Sample the card's allocator into the watermark gauges: the peak of
+    `torch.cuda.max_memory_allocated` into ``device.peak_bytes_in_use`` and
+    `torch.cuda.memory_allocated` into ``device.bytes_in_use``. Neither
+    synchronizes. A CPU device has no such statistics: nothing is
+    recorded."""
+    if not _ON or device is None or getattr(device, "type", None) != "cuda":
+        return
+    import torch
+
+    _REGISTRY.gauge_max("device.peak_bytes_in_use", torch.cuda.max_memory_allocated(device))
+    _REGISTRY.gauge("device.bytes_in_use", torch.cuda.memory_allocated(device))
 
 
 def record_solver_result(

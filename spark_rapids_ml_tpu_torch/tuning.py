@@ -80,10 +80,16 @@ def _scoring_labels(data, est, eva) -> np.ndarray:
 
 def _held_out_rows(scope, valid_idx: np.ndarray):
     """The held-out rows of a fold, gathered on the device from the
-    placement the fold's fit used."""
+    placement the fold's fit used; a streamed fit placed none, and its
+    held-out rows go to the device from the host blocks."""
     import torch
 
-    X = scope.last.inputs.X
+    from .parallel import host_tensor
+
+    inputs = scope.last.inputs
+    if inputs.X is None:
+        return host_tensor(scope.last.extracted.features[np.asarray(valid_idx)]).to(inputs.device)
+    X = inputs.X
     return X.index_select(0, torch.from_numpy(np.asarray(valid_idx, dtype=np.int64)).to(X.device))
 
 

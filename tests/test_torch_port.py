@@ -55,6 +55,10 @@ x = np.random.default_rng(0).normal(size=(200, 4)).astype(np.float32)
 m = KMeans(k=3, maxIter=4, seed=1).fit({"features": x})
 m.transform({"features": x})
 KMeans(k=64, maxIter=2, seed=1).fit({"features": x})  # k-means|| seeding too
+from spark_rapids_ml_tpu_torch.core import config
+config.update(hbm_budget_bytes=30000, stream_chunk_rows=64)  # the out-of-core path too
+assert KMeans(k=3, maxIter=4, seed=1).fit({"features": x})._fit_metrics["admission"]["verdict"] == "stream"
+config.update(hbm_budget_bytes=None, stream_chunk_rows=0)
 nn = NearestNeighbors(k=5).setInputCol("features").fit({"features": x})
 nn.exactNearestNeighborsJoin({"features": x[:7]})  # kneighbors inside
 from spark_rapids_ml_tpu_torch import ApproximateNearestNeighbors
