@@ -200,7 +200,25 @@
 #      placement.X; 13d a NaN in the third chunk of a streamed fit with
 #      validate_ingest raises IngestValidationError naming the column and
 #      the global row;
-#  14. a {"kernels": [...]} line with all twelve kernel forms, the
+#  14. sparse input (CSR through the public entry points), after phase 12,
+#      at the reference's tests_large shape, 10,000,000 x 2200 at density
+#      0.001, float32, from this script's O(nnz) generator (random_csr,
+#      benchmark/gen_data.py's recipe): 14a LogisticRegression (regParam
+#      1e-6, standardization, maxIter 60) on the padded-ELL layout with its
+#      conversion, placement and solve timed apart, accuracy on the first
+#      200,000 rows and the cosine to the generating coefficients >= 0.9, a
+#      second fit bit for bit, a 4-point regParam grid equal to its single
+#      fits bit for bit, a 200,000-row slice on the card against the CPU;
+#      14b LinearRegression (OLS, ridge, CD elastic net) with its statistics
+#      pass and solve apart, OLS bit for bit twice, a 500,000-row slice
+#      against the densified dense fit; 14c both streamed under a 1 GiB
+#      budget and held to their resident fits; 14d a 3 x 4 CrossValidator
+#      on 1,000,000 rows converting and placing once; 14e NearestNeighbors
+#      (k=64) over 1,000,000 x 2200 CSR items at density 0.01 for 4096 dense
+#      queries, every item tile through B3 (d2_block/f32), the kernel route
+#      equal to the plain route; 14f a weighted k-means|| seeding twice, bit
+#      for bit;
+#  15. a {"kernels": [...]} line with all twelve kernel forms, the
 #      nvidia-smi line, and as the last line {"ok": true, "device": {...}}.
 #      The seconds of each phase are printed as it ends.
 #
@@ -4479,6 +4497,433 @@ def phase_oocore(dev, X, linear_ref, y_cls):
     return counts, timings
 
 
+
+# ----------------------------------------------------------- phase 14 ----
+
+# Phase 14's sizes: the reference's tests_large sparse shape (bench.py's
+# sparse_logreg lane), nothing cut; 14a's slice for the card-against-CPU
+# check and the holdout rows; the regParam grid of 14a and 14d; 14b's
+# slice held to the densified dense fit; 14c's budget, below the ~1.1 GB
+# of the resident ELL tensors; 14d's rows; 14e's item set and queries.
+SPARSE_ROWS, SPARSE_COLS, SPARSE_DENSITY = 10_000_000, 2200, 0.001
+SPARSE_LOGREG = {"regParam": 1e-6, "standardization": True, "maxIter": 60, "tol": 1e-12}
+SPARSE_SLICE_ROWS = 200_000
+SPARSE_GRID = (1e-6, 1e-5, 1e-4, 1e-3)
+SPARSE_LINEAR = (("ols", {"regParam": 0.0}), ("ridge", {"regParam": 1e-5}),
+                 ("cd", {"regParam": 1e-5, "elasticNetParam": 0.5, "maxIter": 10, "tol": 1e-30}))
+SPARSE_DENSE_ROWS = 500_000
+SPARSE_STREAM_BUDGET = 1 << 30
+SPARSE_STREAM_LOGREG = dict(SPARSE_LOGREG, maxIter=10)
+SPARSE_CV_ROWS = 1_000_000
+SPARSE_KNN_ROWS, SPARSE_KNN_DENSITY, SPARSE_KNN_QUERIES, SPARSE_KNN_K = 1_000_000, 0.01, 4096, 64
+SPARSE_KNN_TILE = 65536  # ops/knn.exact_knn_sparse's batch_items
+KMEANSPAR_ROWS, KMEANSPAR_COLS, KMEANSPAR_K = 262_144, 128, 1000
+
+
+def random_csr(rng, n_rows, n_cols, density, dtype=np.float32, values="uniform"):
+    """An O(nnz) CSR draw, as benchmark/gen_data.py's random_csr makes it:
+    per-row Binomial(n_cols, density) nonzeros, columns drawn with
+    replacement (a row may hold a column twice), values uniform on [0, 1)
+    or standard normal."""
+    import scipy.sparse as sp
+
+    nnz_row = rng.binomial(n_cols, density, size=n_rows).astype(np.int64)
+    indptr = np.zeros(n_rows + 1, np.int64)
+    np.cumsum(nnz_row, out=indptr[1:])
+    total = int(indptr[-1])
+    indices = rng.integers(0, n_cols, size=total).astype(np.int32)
+    if values == "normal":
+        data = rng.normal(size=total).astype(dtype)
+    else:
+        data = rng.random(total, dtype=np.float32).astype(dtype)
+    return sp.csr_matrix((data, indices, indptr), shape=(n_rows, n_cols))
+
+
+def _same_bits(a, b):
+    """Two fitted LogisticRegression models equal bit for bit."""
+    return (a.n_iter_ == b.n_iter_ and a.objective_ == b.objective_
+            and np.array_equal(a.coef_, b.coef_) and np.array_equal(a.intercept_, b.intercept_))
+
+
+def _hist_sum(name):
+    from spark_rapids_ml_tpu_torch import telemetry
+
+    return float(telemetry.summarize_histogram(name)["sum"] or 0.0)
+
+
+def _kmeanspar_twice(dev):
+    """A weighted k-means|| seeding (ops/kmeans.scalable_kmeans_init_device,
+    the ANN builds' seeding) run twice on the same rows and weights: the
+    candidate weights it reduces with (a float scatter-add) and the centers
+    must repeat bit for bit."""
+    import torch
+
+    from spark_rapids_ml_tpu_torch.ops import kmeans as KM
+
+    rng = np.random.default_rng(7)
+    xd = torch.from_numpy(rng.normal(size=(KMEANSPAR_ROWS, KMEANSPAR_COLS)).astype(np.float32)).to(dev)
+    sw = rng.uniform(0.5, 2.0, size=KMEANSPAR_ROWS).astype(np.float32)
+    real = KM._kmeanspp_device
+    runs = []
+
+    def spy(x, w, seed, *, k):
+        runs[-1]["weights"] = w.cpu().numpy()
+        return real(x, w, seed, k=k)
+
+    KM._kmeanspp_device = spy
+    try:
+        for _ in range(2):
+            runs.append({})
+            runs[-1]["centers"] = KM.scalable_kmeans_init_device(xd, KMEANSPAR_K, 3, sample_weight=sw).cpu().numpy()
+    finally:
+        KM._kmeanspp_device = real
+    same_w = np.array_equal(runs[0]["weights"], runs[1]["weights"])
+    same_c = np.array_equal(runs[0]["centers"], runs[1]["centers"])
+    n_diff, n_w = int((runs[0]["weights"] != runs[1]["weights"]).sum()), runs[0]["weights"].size
+    say(f"  14f weighted k-means|| seeding ({KMEANSPAR_ROWS} x {KMEANSPAR_COLS}, k={KMEANSPAR_K}) twice: candidate "
+        f"weights differ in {n_diff} of {n_w}, centers {'equal' if same_c else 'differ'}")
+    if not (same_w and same_c):
+        fail("14f: a weighted k-means|| seeding does not repeat bit for bit on the card")
+    return {"weights_equal": same_w, "centers_equal": same_c}
+
+
+def phase_sparse(dev):
+    """Phase 14: sparse input (CSR through the public entry points) at the
+    reference's tests_large shape, 10,000,000 x 2200 at density 0.001,
+    float32, from this script's O(nnz) generator. 14a LogisticRegression
+    (regParam 1e-6, standardization, maxIter 60, tol 1e-12) on labels
+    (x·β + 0.25·ε > 0), β ~ N(0, 4²): the conversion, placement and solve
+    timed apart; accuracy on the first 200,000 rows >= 0.9 and the cosine
+    to β >= 0.9 (tests/test_large_sparse.py's bars); a second fit bit for
+    bit; a 4-point regParam grid (fitMultiple) against its single fits bit
+    for bit; the same estimator on a 200,000-row slice on the card and the
+    CPU, its predictions of the slice equal on 99.9% of rows (the fits
+    stop on a stall at float32 noise, at iterations of their own), and
+    at 10 iterations, tol 0 (both stop there): float32 objective rtol
+    5e-5 and coefficients 1e-5 normwise (the float32 objective itself lies
+    1.4e-5 from float64's on these rows, on the CPU), float64 coefficients
+    within 1e-9 of the largest and objective rtol 1e-12. 14b
+    LinearRegression on the same rows with gen_sparse_regression_host's
+    labels (support d/40, noise 0.01): OLS, ridge and CD elastic net
+    (maxIter 10), the statistics pass and the solve timed apart, OLS
+    repeated bit for bit, and a 500,000-row slice's ELL OLS within 1e-4
+    (normwise) of the densified slice's dense fit. 14c under a 1 GiB budget:
+    LogisticRegression (maxIter 10) and OLS stream (verdict stream), held
+    to their resident fits (logistic: n_iter_ equal, objective rtol 1e-5,
+    coefficients 1e-3 normwise; OLS: 1e-4 normwise). 14d a 3-fold x 4-map
+    CrossValidator over LogisticRegression (maxIter 20) on the first
+    1,000,000 rows: one conversion, one ingest, one placement. 14e
+    NearestNeighbors(k=64) over 1,000,000 x 2200 CSR items at density 0.01
+    (normal values) for 4096 dense normal queries: every item tile's
+    distances through B3 (d2_block/f32, 4 blocks a tile), the kernel route
+    equal to the plain route (ids exactly, distances rtol 1e-5). 14f a
+    weighted k-means|| seeding twice, bit for bit. Returns (launches of
+    14e by kernel form, timings)."""
+    import gc
+
+    import torch
+
+    from spark_rapids_ml_tpu_torch import (CrossValidator, LinearRegression, LogisticRegression,
+                                           MulticlassClassificationEvaluator, NearestNeighbors,
+                                           ParamGridBuilder, set_devices, telemetry)
+    from spark_rapids_ml_tpu_torch import core as C
+    from spark_rapids_ml_tpu_torch.core import config
+    from spark_rapids_ml_tpu_torch.ops import _kernels
+    from spark_rapids_ml_tpu_torch.ops import distance as D
+    from spark_rapids_ml_tpu_torch.ops import knn as KNN
+    from spark_rapids_ml_tpu_torch.ops import linear as LIN
+    from spark_rapids_ml_tpu_torch.ops import logistic as LG
+    from spark_rapids_ml_tpu_torch.ops import sparse as SP
+
+    say(f"phase 14: sparse input, {SPARSE_ROWS} x {SPARSE_COLS} CSR at density {SPARSE_DENSITY}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    timings = {}
+    was_on = telemetry.enabled()
+    telemetry.enable()
+    reg = telemetry.registry()
+
+    def counters():
+        return reg.snapshot()["counters"]
+
+    seconds, clock = {}, [None, time.perf_counter()]
+
+    def lap(part):
+        """Close the running subphase (its seconds printed and kept) and
+        open `part`."""
+        now = time.perf_counter()
+        if clock[0] is not None:
+            seconds[clock[0]] = now - clock[1]
+            say(f"  [{clock[0]}: {seconds[clock[0]]:.1f} s]")
+        clock[0], clock[1] = part, now
+
+    try:
+        lap("14 data")
+        t0 = time.perf_counter()
+        rng = np.random.default_rng(0)
+        x = random_csr(rng, SPARSE_ROWS, SPARSE_COLS, SPARSE_DENSITY)
+        coef_true = rng.normal(scale=4.0, size=SPARSE_COLS)
+        y = ((np.asarray(x @ coef_true) + 0.25 * rng.normal(size=SPARSE_ROWS)) > 0).astype(np.float32)
+        timings["data_s"] = time.perf_counter() - t0
+        say(f"  data: {x.nnz} nonzeros, the widest row {int(np.diff(x.indptr).max())}, "
+            f"{timings['data_s']:.2f} s")
+        data = {"features": x, "label": y}
+
+        # ---- 14a: LogisticRegression --------------------------------------
+        lap("14a")
+        reg.reset()
+        box = []
+        with _call_timer(LG, "logistic_fit_ell", box):
+            m, fit_s = _timed(lambda: LogisticRegression(**SPARSE_LOGREG).fit(data))
+        snap = reg.snapshot()
+        k_max = int(snap["gauges"]["sparse.k_max"])
+        ell_bytes = int(snap["counters"]["sparse.ell_bytes"])
+        conv_s, place_s, solve_s = _hist_sum("host_section.ell_convert_s"), \
+            _hist_sum("device_wait.ell_layout_s"), box[0][1]
+        n_h = SPARSE_SLICE_ROWS
+        pred = m.transform({"features": x[:n_h]})["prediction"].to_numpy()
+        acc = float((pred == y[:n_h]).mean())
+        coef = m.coef_.ravel()
+        cos = float(coef @ coef_true / max(np.linalg.norm(coef) * np.linalg.norm(coef_true), 1e-30))
+        timings["logreg"] = dict(k_max=k_max, ell_bytes=ell_bytes, convert_s=conv_s, place_s=place_s,
+                                 solve_s=solve_s, fit_s=fit_s, n_iter=m.n_iter_,
+                                 ms_per_iter=1e3 * solve_s / max(1, m.n_iter_), objective=m.objective_,
+                                 accuracy=acc, cosine=cos)
+        say(f"  14a LogisticRegression {SPARSE_LOGREG}: k_max {k_max}, ELL {ell_bytes / 1e9:.3f} GB; conversion "
+            f"{conv_s:.2f} s, placement {place_s:.3f} s, solve {solve_s:.2f} s ({m.n_iter_} iterations, "
+            f"{timings['logreg']['ms_per_iter']:.2f} ms each), fit {fit_s:.2f} s; objective {m.objective_:.8g}; "
+            f"accuracy on the first {n_h} rows {acc:.4f}, cosine to the true coefficients {cos:.4f}")
+        if acc < 0.9 or cos < 0.9:
+            fail(f"14a: accuracy {acc} or cosine {cos} below 0.9")
+        # the solver's two products on the placed ELL, alone: X·b and Xᵀ·r,
+        # each bound by reading the ELL once (values and int32 indices) and
+        # its vector in and out
+        idx_h, val_h, _ = SP.csr_to_ell(x, dtype=np.float32)
+        val_d, idx_d = torch.from_numpy(val_h).to(dev), torch.from_numpy(idx_h).to(dev)
+        del idx_h, val_h
+        cols, cols_s = _timed(lambda: SP.EllColumns(val_d, idx_d, SPARSE_COLS))
+        matvec, rmat = LG._ell_ops(val_d, idx_d, SPARSE_COLS, False, cols)
+        b = torch.randn((SPARSE_COLS, 1), device=dev)
+        r = torch.randn((SPARSE_ROWS, 1), device=dev)
+        mv_ms, rm_ms = cuda_ms(lambda: matvec(b)), cuda_ms(lambda: rmat(r))
+        prod_bound = 1e3 * (val_d.numel() * 8 + (SPARSE_ROWS + SPARSE_COLS) * 4) / PEAK_BYTES_S
+        timings["logreg"].update(columns_build_s=cols_s, columns_bytes=cols.nbytes(), matvec_ms=mv_ms, rmat_ms=rm_ms,
+                                 product_bound_ms=prod_bound)
+        say(f"  14a the products on the placed ELL: X·b {mv_ms:.3f} ms, Xᵀ·r {rm_ms:.3f} ms, each bound by "
+            f"{prod_bound:.3f} ms (bytes); the column grouping {cols_s:.3f} s to build, {cols.nbytes() / 1e9:.3f} GB")
+        del val_d, idx_d, cols, matvec, rmat, b, r
+        m2, fit2_s = _timed(lambda: LogisticRegression(**SPARSE_LOGREG).fit(data))
+        if not _same_bits(m, m2):
+            fail("14a: a second sparse LogisticRegression fit differs from the first")
+        say(f"  14a a second fit ({fit2_s:.2f} s, its own conversion and placement): equal bit for bit")
+        est = LogisticRegression(**SPARSE_LOGREG)
+        maps = [{est.getParam("regParam"): v} for v in SPARSE_GRID]
+        reg.reset()
+        with C.device_dataset_scope():
+            grid, grid_s = _timed(lambda: est.fit(data, maps))
+            singles, singles_s = _timed(lambda: [est.copy(pm).fit(data) for pm in maps])
+        c = counters()
+        for v, gm, sm in zip(SPARSE_GRID, grid, singles):
+            if not _same_bits(gm, sm):
+                fail(f"14a: the batched grid's regParam={v} model differs from its single fit")
+        if int(c.get("sparse.csr_to_ell_calls", 0)) != 1 or int(c.get("fit.solves_batched", 0)) != len(SPARSE_GRID):
+            fail(f"14a: the grid and its single fits converted {c.get('sparse.csr_to_ell_calls')} times and "
+                 f"batched {c.get('fit.solves_batched')} solves (want 1 and {len(SPARSE_GRID)})")
+        timings["logreg_grid"] = dict(grid_s=grid_s, singles_s=singles_s, n_iter=[g.n_iter_ for g in grid])
+        say(f"  14a regParam grid {SPARSE_GRID} through fitMultiple: {grid_s:.2f} s (n_iter_ "
+            f"{[g.n_iter_ for g in grid]}), every model equal to its single fit bit for bit (4 fits "
+            f"{singles_s:.2f} s, one placement)")
+        del m2, grid, singles
+        # the card against the CPU on a slice
+        xs, ys = x[:n_h], y[:n_h]
+        slice_data = {"features": xs, "label": ys}
+        res = {}
+        ten = dict(SPARSE_LOGREG, maxIter=10, tol=0.0)  # tol 0: both stop after exactly 10 iterations
+        for where in ("cuda", "cpu"):
+            set_devices(where)
+            try:
+                full = LogisticRegression(**SPARSE_LOGREG).fit(slice_data)
+                res[where] = (full, full.transform(slice_data)["prediction"].to_numpy(),
+                              LogisticRegression(**ten).fit(slice_data),
+                              LogisticRegression(**ten, float32_inputs=False).fit(slice_data))
+            finally:
+                set_devices(None)
+        (g_full, p_g, g32, g64), (c_full, p_c, c32, c64) = res["cuda"], res["cpu"]
+        agree = float((p_g == p_c).mean())
+        f_full = abs(g_full.objective_ - c_full.objective_) / abs(c_full.objective_)
+        f32_err = abs(g32.objective_ - c32.objective_) / abs(c32.objective_)
+        c32_err = float(np.linalg.norm(g32.coef_ - c32.coef_) / np.linalg.norm(c32.coef_))
+        scale = float(np.abs(c64.coef_).max())
+        c64_err = float(np.abs(g64.coef_ - c64.coef_).max())
+        f64_err = abs(g64.objective_ - c64.objective_) / abs(c64.objective_)
+        timings["logreg_card_vs_cpu"] = dict(full_n_iter=[g_full.n_iter_, c_full.n_iter_], full_objective_rel=f_full,
+                                             prediction_agreement=agree, f32_objective_rel=f32_err,
+                                             f32_coef_rel=c32_err, f64_coef_err=c64_err, f64_objective_rel=f64_err)
+        say(f"  14a on {n_h} rows, card against CPU: the fit as above stops after {g_full.n_iter_}/{c_full.n_iter_} "
+            f"iterations (a stall at float32 noise), objectives {f_full:.3g} apart, predictions agree on {agree:.5f}; "
+            f"10 iterations (tol 0): float32 objective within {f32_err:.3g}, coefficients {c32_err:.3g} (normwise); "
+            f"float64 coefficients within {c64_err:.3g} (largest {scale:.4g}), objective within {f64_err:.3g}")
+        if agree < 0.999:
+            fail(f"14a: the card's and the CPU's slice fits predict alike on {agree} of the rows (want >= 0.999)")
+        if g32.n_iter_ != c32.n_iter_ or f32_err > 5e-5 or c32_err > 1e-5:
+            fail("14a: the float32 slice fit (10 iterations) differs between the card and the CPU beyond its bounds")
+        if g64.n_iter_ != c64.n_iter_ or c64_err > 1e-9 * scale or f64_err > 1e-12:
+            fail("14a: the float64 slice fit differs between the card and the CPU beyond its bounds")
+        del res, g_full, c_full, g32, g64, c32, c64, m
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # ---- 14b: LinearRegression ----------------------------------------
+        lap("14b")
+        rng_l = np.random.default_rng(1)
+        coef_lin = np.zeros(SPARSE_COLS, dtype=np.float32)
+        coef_lin[:max(1, SPARSE_COLS // 40)] = rng_l.normal(size=max(1, SPARSE_COLS // 40))
+        y_lin = (np.asarray(x @ coef_lin) + 0.01 * rng_l.normal(size=SPARSE_ROWS)).astype(np.float32)
+        lin_data = {"features": x, "label": y_lin}
+        lin_models, lin_t = {}, {}
+        with C.device_dataset_scope():
+            for name, params in SPARSE_LINEAR:
+                box = []
+                with _call_timer(LIN, "_ell_sufficient_stats", box), _call_timer(LIN, "_solve_from_stats", box):
+                    lin_models[name], fit_s = _timed(lambda: LinearRegression(**params).fit(lin_data))
+                lin_t[name] = dict(fit_s=fit_s, stats_s=box[0][1], solve_s=box[1][1])
+            again, _ = _timed(lambda: LinearRegression(**SPARSE_LINEAR[0][1]).fit(lin_data))
+        if not (np.array_equal(again.coef_, lin_models["ols"].coef_) and again.intercept_ == lin_models["ols"].intercept_):
+            fail("14b: a second sparse OLS fit differs from the first")
+        ols = lin_models["ols"]
+        rel = float(np.linalg.norm(ols.coef_ - coef_lin) / np.linalg.norm(coef_lin))
+        xd_s = x[:SPARSE_DENSE_ROWS]
+        ell_s = LinearRegression(**SPARSE_LINEAR[0][1]).fit({"features": xd_s, "label": y_lin[:SPARSE_DENSE_ROWS]})
+        dense_s = LinearRegression(**SPARSE_LINEAR[0][1]).fit(
+            {"features": np.asarray(xd_s.todense()), "label": y_lin[:SPARSE_DENSE_ROWS]})
+        d_err = float(np.linalg.norm(ell_s.coef_ - dense_s.coef_) / np.linalg.norm(dense_s.coef_))
+        lin_t["slice_ell_vs_dense"] = d_err
+        lin_t["ols_rel_to_truth"] = rel
+        timings["linear"] = lin_t
+        for name, _ in SPARSE_LINEAR:
+            t = lin_t[name]
+            say(f"  14b {name}: statistics pass {t['stats_s']:.2f} s, solve {t['solve_s']:.3f} s, fit {t['fit_s']:.2f} s, "
+                f"n_iter_ {lin_models[name].n_iter_}")
+        say(f"  14b OLS repeats bit for bit; coefficients {rel:.3g} (normwise) from the generating ones; on "
+            f"{SPARSE_DENSE_ROWS} rows the ELL fit is within {d_err:.3g} of the densified dense fit")
+        if d_err > 1e-4:
+            fail(f"14b: the ELL OLS of the slice is {d_err} from the dense fit (bound 1e-4)")
+        del again, ell_s, dense_s, xd_s
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # ---- 14c: streamed ------------------------------------------------
+        lap("14c")
+        stream_t = {}
+        lr_res, res_s = _timed(lambda: LogisticRegression(**SPARSE_STREAM_LOGREG).fit(data))
+        saved = {k: config[k] for k in ("hbm_budget_bytes", "stream_chunk_rows")}
+        config.update(hbm_budget_bytes=SPARSE_STREAM_BUDGET, stream_chunk_rows=0)
+        try:
+            reg.reset()
+            lr_st, st_s = _timed(lambda: LogisticRegression(**SPARSE_STREAM_LOGREG).fit(data))
+            ols_st, ols_st_s = _timed(lambda: LinearRegression(**SPARSE_LINEAR[0][1]).fit(lin_data))
+        finally:
+            config.update(saved)
+        adm, adm_l = lr_st._fit_metrics.get("admission", {}), ols_st._fit_metrics.get("admission", {})
+        if adm.get("verdict") != "stream" or adm_l.get("verdict") != "stream":
+            fail(f"14c: verdicts {adm.get('verdict')} and {adm_l.get('verdict')} under {SPARSE_STREAM_BUDGET} bytes "
+                 "(want stream)")
+        passes = 2 + 2 * lr_st.n_iter_
+        f_err = abs(lr_st.objective_ - lr_res.objective_) / abs(lr_res.objective_)
+        lc_err = float(np.linalg.norm(lr_st.coef_ - lr_res.coef_) / np.linalg.norm(lr_res.coef_))
+        oc_err = float(np.linalg.norm(ols_st.coef_ - ols.coef_) / np.linalg.norm(ols.coef_))
+        stream_t.update(logreg_resident_s=res_s, logreg_stream_s=st_s, logreg_chunk_rows=adm["chunk_rows"],
+                        logreg_s_per_pass=st_s / passes, ols_stream_s=ols_st_s, ols_chunk_rows=adm_l["chunk_rows"],
+                        logreg_objective_rel=f_err, logreg_coef_rel=lc_err, ols_coef_rel=oc_err)
+        timings["stream"] = stream_t
+        say(f"  14c budget {SPARSE_STREAM_BUDGET} bytes: LogisticRegression streamed in {adm['chunk_rows']}-row chunks, "
+            f"{st_s:.2f} s ({passes} passes, {st_s / passes:.3f} s each) against {res_s:.2f} s resident; objective within "
+            f"{f_err:.3g}, coefficients {lc_err:.3g}; OLS streamed in {adm_l['chunk_rows']}-row chunks, {ols_st_s:.2f} s, "
+            f"coefficients {oc_err:.3g} from the resident fit")
+        if lr_st.n_iter_ != lr_res.n_iter_ or f_err > 1e-5 or lc_err > 1e-3 or oc_err > 1e-4:
+            fail("14c: a streamed sparse fit is beyond its bounds from the resident fit")
+        del lr_res, lr_st, ols_st, lin_models, ols
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # ---- 14d: CrossValidator ------------------------------------------
+        lap("14d")
+        cv_data = {"features": x[:SPARSE_CV_ROWS], "label": y[:SPARSE_CV_ROWS]}
+        cv_est = LogisticRegression(**dict(SPARSE_LOGREG, maxIter=20))
+        cv_grid = ParamGridBuilder().addGrid(cv_est.getParam("regParam"), list(SPARSE_GRID)).build()
+        reg.reset()
+        cvm, cv_s = _timed(lambda: CrossValidator(
+            estimator=cv_est, estimatorParamMaps=cv_grid, numFolds=3, seed=4,
+            evaluator=MulticlassClassificationEvaluator(metricName="accuracy")).fit(cv_data))
+        c = counters()
+        want = {"sparse.csr_to_ell_calls": 1, "ingest.datasets": 1, "fit.device_dataset_builds": 1,
+                "fit.solves_batched": 3 * len(SPARSE_GRID)}
+        got = {k: int(c.get(k, 0)) for k in want}
+        if got != want:
+            fail(f"14d: CrossValidator counters {got}, want {want}")
+        timings["cv"] = dict(cv_s=cv_s, avg_metrics=[float(v) for v in cvm.avgMetrics])
+        say(f"  14d CrossValidator 3 folds x {len(SPARSE_GRID)} maps on {SPARSE_CV_ROWS} rows: {cv_s:.2f} s; "
+            f"{got}; avgMetrics {[round(float(v), 5) for v in cvm.avgMetrics]}")
+        del cvm, cv_data, data, lin_data, x, y, y_lin
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # ---- 14e: sparse exact kNN on B3 ----------------------------------
+        lap("14e")
+        rng_k = np.random.default_rng(2)
+        t0 = time.perf_counter()
+        items = random_csr(rng_k, SPARSE_KNN_ROWS, SPARSE_COLS, SPARSE_KNN_DENSITY, values="normal")
+        queries = rng_k.normal(size=(SPARSE_KNN_QUERIES, SPARSE_COLS)).astype(np.float32)
+        knn_gen_s = time.perf_counter() - t0
+        model = NearestNeighbors(k=SPARSE_KNN_K).setInputCol("features").fit({"features": items})
+        box = []
+        _kernels.reset_launches()
+        with _call_timer(KNN, "csr_to_ell", box), _call_timer(KNN, "ell_densify", box), \
+                _call_timer(KNN, "topk_tile", box):
+            (_, _, knn_df), knn_s = _timed(lambda: model.kneighbors({"features": queries}))
+        launches = dict(_kernels.launches)
+        tiles = -(-SPARSE_KNN_ROWS // SPARSE_KNN_TILE)
+        want_l = tiles * -(-SPARSE_KNN_TILE // D._DEFAULT_K_TILE)
+        if launches["d2_block/f32"] != want_l or sum(launches.values()) != want_l:
+            fail(f"14e: launches {launches}, want {want_l} of d2_block/f32 and no other kernel")
+        split = {name: sum(s for n_, s, _ in box if n_ == name) for name in ("csr_to_ell", "ell_densify", "topk_tile")}
+        ids_k = np.stack(knn_df["indices"].to_numpy())
+        dist_k = np.stack(knn_df["distances"].to_numpy())
+        Q = torch.from_numpy(queries).to(dev)
+        kernel_block = D.d2_block
+        D.d2_block = D.d2_block_plain
+        try:
+            (dist_p, ids_p), plain_s = _timed(lambda: KNN.exact_knn_sparse(items, Q, k=SPARSE_KNN_K))
+        finally:
+            D.d2_block = kernel_block
+        if not np.array_equal(ids_k, ids_p) or not np.allclose(dist_k, dist_p, rtol=1e-5, atol=0.0):
+            fail(f"14e: the kernel route and the plain route differ: {int((ids_k != ids_p).sum())} ids, distances "
+                 f"within {float(np.max(np.abs(dist_k - dist_p) / np.maximum(np.abs(dist_p), 1e-30)))}")
+        if not np.all(np.isfinite(dist_k)) or not np.all(np.diff(dist_k, axis=1) >= 0):
+            fail("14e: distances not finite and ascending")
+        timings["knn"] = dict(gen_s=knn_gen_s, kneighbors_s=knn_s, convert_s=split["csr_to_ell"],
+                              densify_s=split["ell_densify"], merge_s=split["topk_tile"], plain_s=plain_s,
+                              launches=launches["d2_block/f32"])
+        say(f"  14e NearestNeighbors(k={SPARSE_KNN_K}) over {SPARSE_KNN_ROWS} x {SPARSE_COLS} CSR items (density "
+            f"{SPARSE_KNN_DENSITY}, {items.nnz} nonzeros), {SPARSE_KNN_QUERIES} queries: kneighbors {knn_s:.2f} s "
+            f"(tile conversion {split['csr_to_ell']:.2f} s, densify on the card {split['ell_densify']:.3f} s, "
+            f"top-k merge through B3 {split['topk_tile']:.2f} s); {launches['d2_block/f32']} d2_block/f32 launches; the plain "
+            f"route {plain_s:.2f} s, ids equal, distances within rtol 1e-5")
+        del items, queries, Q, model, knn_df
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # ---- 14f: the k-means|| weights -----------------------------------
+        lap("14f")
+        timings["kmeanspar"] = _kmeanspar_twice(dev)
+        lap(None)
+        timings["seconds"] = seconds
+    finally:
+        if not was_on:
+            telemetry.disable()
+    return {"sparse_knn": launches}, timings
+
+
 def main():
     import torch
 
@@ -4521,6 +4966,7 @@ def main():
     logreg_f64_timings = run("8b logreg f64", phase_logreg_f64, dev, X, logreg_ref)
     del X
     du_counts, du_timings = run("12 dbscan/umap", phase_dbscan_umap, dev)
+    sparse_counts, sparse_timings = run("14 sparse", phase_sparse, dev)
     for e in entries + d2_entries:
         name = e["name"]
         if "/f64" in name:
@@ -4545,6 +4991,7 @@ def main():
     entries += d2_entries
     for e in entries:  # phase 12: DBSCAN launches nothing, UMAP only d2_block/f32
         e.setdefault("launches_by_run", {}).update({run: c[e["name"]] for run, c in du_counts.items()})
+        e["launches_by_run"]["sparse_knn"] = sparse_counts["sparse_knn"][e["name"]]  # phase 14e
     for name in ("assign_argmin/f64", "assign_accumulate/f64", "d2_block/f64", "assign_argmin/f64-fast"):
         if not f64_counts["route"][name]:
             fail(f"the float64 route never launched {name}")
@@ -4561,6 +5008,7 @@ def main():
     say("ApproximateNearestNeighbors timings: " + json.dumps(ann_timings))
     say("DBSCAN and UMAP timings: " + json.dumps(du_timings))
     say("out-of-core timings: " + json.dumps(oocore_timings))
+    say("sparse input timings: " + json.dumps(sparse_timings))
     say("seconds by phase: " + json.dumps(phase_s))
     kernels_line = json.dumps({"kernels": entries})
     say(f"total {time.perf_counter() - t_start:.1f} s")

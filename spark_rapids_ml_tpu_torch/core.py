@@ -56,7 +56,7 @@ from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence, Tupl
 import numpy as np
 import torch
 
-from .data import ExtractedData, as_pandas, extract_dataset
+from .data import ExtractedData, as_dense, as_pandas, extract_dataset
 from .linalg import DenseVector
 from .params import Param, _TpuParams
 
@@ -178,13 +178,18 @@ class StreamPlan:
     (parallel.stream_place_blocks). Mutable bookkeeping: `validated_rows`
     (the scan's watermark: later passes over scanned rows are free) and
     `staging` (the pipeline's two pinned host buffers and two device
-    buffers per column, reused by every pass of the fit)."""
+    buffers per column, reused by every pass of the fit) and, for CSR
+    input, the padded-ELL host blocks."""
 
     extracted: Any  # host ExtractedData
     chunk_rows: int
     validate: bool = False
     validated_rows: int = 0
     staging: Any = None  # parallel.StreamStaging
+    # a CSR fit's padded-ELL host blocks, converted once per fit at the
+    # global k_max (ops/streaming._ell_host_blocks)
+    ell_blocks: Any = None
+    ell_k_max: int = 0
 
 
 @dataclass
@@ -208,6 +213,46 @@ class FitInputs:
     host_mask: Optional[np.ndarray] = None
     # the out-of-core plan of a demoted fit (None = resident)
     stream: Optional[StreamPlan] = None
+    # the host CSR rows of a sparse fit (X is None then); the solvers read
+    # them through `ell_rows` and `ell_columns`
+    X_sparse: Any = None
+    # per-placement memos shared by every fold variant (`with_row_mask`
+    # copies the reference): the ELL tensors and their column grouping
+    extra: Dict[str, Any] = dataclasses.field(default_factory=dict)
+
+    def ell_rows(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The padded-ELL form of `X_sparse` on the device, (values [n,
+        k_max] at the fit's dtype, indices [n, k_max] int32), converted on
+        the host (ops/sparse.csr_to_ell, timed as
+        host_section.ell_convert_s) and placed (device_wait.ell_layout_s)
+        ONCE per placement: a grid or a CrossValidator over CSR data
+        converts once, whatever its folds and solves."""
+        cached = self.extra.get("ell_rows")
+        if cached is not None:
+            return cached
+        from . import telemetry
+        from .memory import ell_k_max
+        from .ops.sparse import csr_to_ell
+        from .parallel import host_tensor
+
+        assert self.X_sparse is not None, "ell_rows() needs a sparse fit input"
+        with telemetry.host_section("ell_convert"):
+            idx_h, val_h, _ = csr_to_ell(self.X_sparse, k_max=ell_k_max(self.X_sparse), dtype=self.dtype)
+        with telemetry.device_wait("ell_layout", self.device):
+            out = (host_tensor(val_h).to(self.device), host_tensor(idx_h).to(self.device))
+        self.extra["ell_rows"] = out
+        return out
+
+    def ell_columns(self):
+        """The column grouping of `ell_rows` (ops/sparse.EllColumns) for the
+        per-column sums of the logistic solver, made once per placement."""
+        cached = self.extra.get("ell_columns")
+        if cached is None:
+            from .ops.sparse import EllColumns
+
+            values, indices = self.ell_rows()
+            cached = self.extra["ell_columns"] = EllColumns(values, indices, int(self.n_cols))
+        return cached
 
     def with_row_mask(self, mask: np.ndarray) -> "FitInputs":
         """These inputs with the rows where ``mask == 0`` neutralized:
@@ -304,19 +349,26 @@ class _TpuCommon(_TpuParams):
 
     # a supervised estimator's fit reads its labelCol
     _supervised: bool = False
+    # estimators with a CSR path (the padded-ELL solvers, the sparse kNN)
+    # keep sparse input as CSR; the others densify it at extraction
+    _supports_sparse_input: bool = False
+
+    def _sparse_mode(self) -> Optional[bool]:
+        """The `enable_sparse_data_optim` the extraction runs with: the
+        param where there is one, and False (densify) where it is unset and
+        this class has no CSR path."""
+        mode = self.getOrDefault("enable_sparse_data_optim") if self.hasParam("enable_sparse_data_optim") else None
+        if mode is None and not self._supports_sparse_input:
+            return False
+        return mode
 
     def _pre_process_data(
         self, dataset: Any, for_fit: bool = True, defer_validation: bool = False
     ) -> ExtractedData:
-        """Column selection + dense extraction (features; labels and weights
-        on the fit side; row ids wherever the estimator has an idCol).
-        ``defer_validation`` leaves the opt-in NaN/Inf scan to the caller
-        (core.py's fit path)."""
-        if self.hasParam("enable_sparse_data_optim") and self.getOrDefault("enable_sparse_data_optim") is True:
-            raise NotImplementedError(
-                "enable_sparse_data_optim=True (the CSR ingest path) is not in the "
-                "PyTorch port yet (ROADMAP item A11b: the CSR ingest and the padded-ELL solvers)"
-            )
+        """Column selection + dense or CSR extraction (features; labels and
+        weights on the fit side; row ids wherever the estimator has an
+        idCol). ``defer_validation`` leaves the opt-in NaN/Inf scan to the
+        caller (core.py's fit path)."""
         input_col, input_cols = self._get_input_columns()
         label_col = None
         if for_fit and self._supervised:
@@ -339,6 +391,7 @@ class _TpuCommon(_TpuParams):
             weight_col=weight_col,
             id_col=id_col,
             float32_inputs=self._float32_inputs,
+            enable_sparse_data_optim=self._sparse_mode(),
             validate=not defer_validation,
         )
         if for_fit and extracted.n_rows == 0:
@@ -392,16 +445,26 @@ class _TpuCaller(_TpuCommon):
 
     def _build_fit_inputs(self, extracted: ExtractedData, device: torch.device) -> FitInputs:
         """Place the host rows, their weights and their labels on `device` as
-        one tensor each."""
+        one tensor each; CSR rows are placed in their padded-ELL form when a
+        solver first asks (`FitInputs.ell_rows`)."""
         from .parallel import host_tensor, place_rows
 
         dtype = np.float32 if self._float32_inputs else np.float64
-        X, w = place_rows(
-            extracted.features.astype(dtype, copy=False), extracted.weight, device=device
-        )
         y = None
         if extracted.label is not None:
             y = host_tensor(extracted.label.astype(dtype, copy=False)).to(device)
+        if extracted.is_sparse:
+            # the CSR rows stay on the host until a solver asks for their
+            # padded-ELL form (FitInputs.ell_rows)
+            n = extracted.n_rows
+            w_np = np.ones(n, dtype=dtype) if extracted.weight is None else np.asarray(extracted.weight, dtype=dtype)
+            return FitInputs(
+                X=None, w=host_tensor(w_np).to(device), n_valid=n, n_cols=extracted.n_cols,
+                dtype=dtype, device=device, y=y, X_sparse=extracted.features,
+            )
+        X, w = place_rows(
+            extracted.features.astype(dtype, copy=False), extracted.weight, device=device
+        )
         return FitInputs(
             X=X, w=w, n_valid=extracted.n_rows, n_cols=extracted.n_cols,
             dtype=dtype, device=device, y=y,
@@ -447,8 +510,9 @@ class _TpuCaller(_TpuCommon):
             return self._build_fit_inputs(extracted, device)
 
     def _device_dataset_key(self, dataset: Any, device: torch.device) -> tuple:
-        """(dataset identity fingerprint, columns, dtype, device): what must
-        match for a cached placement to serve this fit."""
+        """(dataset identity fingerprint, columns, (dtype, sparse mode),
+        device): what must match for a cached placement to serve this
+        fit."""
         from .data import dataset_fingerprint
 
         input_col, input_cols = self._get_input_columns()
@@ -462,7 +526,7 @@ class _TpuCaller(_TpuCommon):
         return (
             dataset_fingerprint(dataset),
             (input_col, tuple(input_cols) if input_cols else None, label_col, weight_col, id_col),
-            np.dtype(np.float32 if self._float32_inputs else np.float64).name,
+            (np.dtype(np.float32 if self._float32_inputs else np.float64).name, self._sparse_mode()),
             str(device),
         )
 
@@ -536,6 +600,7 @@ class _TpuCaller(_TpuCommon):
         return FitInputs(
             X=None, w=w_np, n_valid=extracted.n_rows, n_cols=extracted.n_cols,
             dtype=dtype, device=device, y=y, stream=plan,
+            X_sparse=extracted.features if extracted.is_sparse else None,
         )
 
     def _device_dataset(
@@ -1123,14 +1188,16 @@ class _TpuModelWithColumns(_TpuModel):
         PredictProgram: each batch is padded up the bucket ladder,
         dispatched, fetched and sliced back, as the serving plane does. The
         outputs of the batches are concatenated (per output, for a tuple). A
-        zero-row block still runs one batch, so the output keeps the type
+        CSR block is densified one batch at a time. A zero-row block still
+        runs one batch, so the output keeps the type
         and arity `predict` gives it."""
         n = features.shape[0]
         batch = int(config["max_records_per_batch"])
         program = PredictProgram(self, cap=batch)
         outs = []
         for start in range(0, n, batch) if n else (0,):
-            result, n_valid = program.dispatch(features[start:min(start + batch, n)])
+            # a CSR block is densified batch by batch
+            result, n_valid = program.dispatch(as_dense(features[start:min(start + batch, n)]))
             outs.append(program.fetch(result, n_valid))
         if isinstance(outs[0], tuple):
             return tuple(np.concatenate(parts, axis=0) for parts in zip(*outs))

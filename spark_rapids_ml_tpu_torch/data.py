@@ -3,12 +3,16 @@
 # block, ready to be placed on the device as one tensor (parallel.place_rows)
 # or streamed to it in row chunks (parallel.stream_place_blocks).
 #
-# The dense half of the JAX package's spark_rapids_ml_tpu/data.py: a dict
-# holding a 2-D ndarray (the at-scale path), and pandas / pyarrow / dict
-# inputs whose feature column holds arrays, lists or DenseVectors, or whose
-# features are several scalar columns; a label column beside them for the
-# supervised estimators. Sparse input (SparseVector cells, scipy
-# CSR) raises NotImplementedError: the CSR path is ROADMAP item A11b.
+# The PyTorch counterpart of the JAX package's spark_rapids_ml_tpu/data.py:
+# a dict holding a 2-D ndarray or a scipy sparse matrix (the at-scale path),
+# and pandas / pyarrow / dict inputs whose feature column holds arrays,
+# lists, DenseVectors, SparseVectors or scipy rows, or whose features are
+# several scalar columns; a label column beside them for the supervised
+# estimators. Sparse cells come out as one scipy CSR matrix (nnz counted
+# first, then filled in place); `enable_sparse_data_optim` decides whether
+# it stays CSR (None: autodetect; True: required, dense input raises
+# ValueError; False: densified). The estimators without a CSR path ask for
+# the densified form (core._TpuCommon._pre_process_data).
 #
 # The opt-in NaN/Inf scan (`config["validate_ingest"]`, off by default)
 # raises `IngestValidationError` naming the column and the first bad row.
@@ -28,17 +32,17 @@ import numpy as np
 
 from .linalg import DenseVector, SparseVector
 
-_SPARSE_TODO = (
-    "sparse feature input is not supported by the PyTorch port yet "
-    "(ROADMAP item A11b: the CSR ingest and the padded-ELL solvers)"
-)
+try:
+    import scipy.sparse as _sp
+except ImportError:  # pragma: no cover
+    _sp = None
 
 
 @dataclass
 class ExtractedData:
     """Columnar view of a dataset after ingest."""
 
-    features: np.ndarray  # [n, d]
+    features: Any  # np.ndarray [n, d], or a scipy CSR matrix
     label: Optional[np.ndarray] = None  # [n] at the features' dtype, None = unsupervised
     weight: Optional[np.ndarray] = None  # [n], None = all ones
     row_id: Optional[np.ndarray] = None  # [n] int64, None = no id column
@@ -60,9 +64,22 @@ class ExtractedData:
     def n_cols(self) -> int:
         return int(self.features.shape[1])
 
+    @property
+    def is_sparse(self) -> bool:
+        return _is_scipy_sparse(self.features)
+
 
 def _is_scipy_sparse(v: Any) -> bool:
-    return type(v).__module__.startswith("scipy.sparse")
+    return _sp is not None and _sp.issparse(v)
+
+
+def as_dense(features: Any) -> Any:
+    """A feature block as dense rows: a scipy sparse matrix densified
+    (duplicate entries summed in storage order, as scipy does), anything
+    else as it is."""
+    if _is_scipy_sparse(features):
+        return np.asarray(features.todense())
+    return features
 
 
 def as_pandas(dataset: Any):
@@ -140,26 +157,42 @@ def validate_extracted(
     offending column and the ABSOLUTE first bad row. The full-range call is
     the eager scan; the streaming fit path calls it per row block as chunks
     enter the pipeline, so the dataset is never read a second time just to
-    validate it."""
+    validate it. A CSR block is scanned through its stored values only."""
+    from .core import config
     from .errors import IngestValidationError
 
     feats = extracted.features
     n = extracted.n_rows
     hi = n if hi is None else min(int(hi), n)
     lo = max(0, int(lo))
-    row_bytes = feats.shape[1] * feats.itemsize if feats.ndim > 1 else feats.itemsize
-    step = ingest_chunk_rows(row_bytes)
-    for clo in range(lo, hi, step):
-        chunk = np.asarray(feats[clo : min(clo + step, hi)])
-        if np.isfinite(chunk).all():
-            continue
-        if extracted.feature_kind == "multi_cols" and chunk.ndim > 1:
-            # name the exact offending source column, not the block
-            bad_cols = ~np.isfinite(chunk).all(axis=0)
-            name = extracted.feature_names[int(np.argmax(bad_cols))]
-            col = chunk[:, int(np.argmax(bad_cols))]
-            raise IngestValidationError(name, clo + int(np.argmin(np.isfinite(col))))
-        raise IngestValidationError(extracted.feature_names[0], _first_nonfinite_row(chunk, clo))
+    if extracted.is_sparse:
+        # CSR: only the stored values can be non-finite; the rows' slice of
+        # the values in chunks, a bad element mapped back to its absolute
+        # row through indptr
+        indptr = feats.indptr
+        e_lo, e_hi = int(indptr[lo]), int(indptr[hi])
+        data = feats.data
+        step = max(1, int(config.get("ingest_chunk_bytes", 128 << 20)) // max(1, data.itemsize))
+        for elo in range(e_lo, e_hi, step):
+            chunk = data[elo:min(elo + step, e_hi)]
+            if not np.isfinite(chunk).all():
+                elem = elo + int(np.argmin(np.isfinite(chunk)))
+                row = int(np.searchsorted(indptr, elem, side="right") - 1)
+                raise IngestValidationError(extracted.feature_names[0], row)
+    else:
+        row_bytes = feats.shape[1] * feats.itemsize if feats.ndim > 1 else feats.itemsize
+        step = ingest_chunk_rows(row_bytes)
+        for clo in range(lo, hi, step):
+            chunk = np.asarray(feats[clo : min(clo + step, hi)])
+            if np.isfinite(chunk).all():
+                continue
+            if extracted.feature_kind == "multi_cols" and chunk.ndim > 1:
+                # name the exact offending source column, not the block
+                bad_cols = ~np.isfinite(chunk).all(axis=0)
+                name = extracted.feature_names[int(np.argmax(bad_cols))]
+                col = chunk[:, int(np.argmax(bad_cols))]
+                raise IngestValidationError(name, clo + int(np.argmin(np.isfinite(col))))
+            raise IngestValidationError(extracted.feature_names[0], _first_nonfinite_row(chunk, clo))
     for name, arr in ((label_col, extracted.label), (weight_col, extracted.weight)):
         if arr is None:
             continue
@@ -181,12 +214,26 @@ def run_deferred_validation(extracted: "ExtractedData", lo: int = 0, hi: Optiona
 
 
 def _record_ingest(extracted: "ExtractedData", label_col, weight_col, validate: bool) -> "ExtractedData":
-    """The column names of a completed extraction, and its eager scan unless
-    `validate` is False (a fit, whose fit path runs the scan itself)."""
+    """The column names of a completed extraction, its eager scan unless
+    `validate` is False (a fit, whose fit path runs the scan itself), and
+    the ingest's host bytes (`ingest.bytes`; CSR counts its data, index and
+    indptr arrays) while telemetry is on."""
+    from . import telemetry
+
     extracted.label_name = None if label_col is None else str(label_col)
     extracted.weight_name = None if weight_col is None else str(weight_col)
     if validate:
         run_deferred_validation(extracted)
+    if telemetry.enabled():
+        feats = extracted.features
+        if extracted.is_sparse:
+            nbytes = feats.data.nbytes + feats.indices.nbytes + feats.indptr.nbytes
+        else:
+            nbytes = feats.nbytes
+        for aux in (extracted.label, extracted.weight, extracted.row_id):
+            if aux is not None:
+                nbytes += aux.nbytes
+        telemetry.registry().inc("ingest.bytes", nbytes)
     return extracted
 
 
@@ -203,18 +250,49 @@ def _fill_dense_chunked(values, n_cols: int, dtype, to_row) -> np.ndarray:
     return out
 
 
-def _column_to_matrix(col, dtype) -> Tuple[np.ndarray, str]:
-    """One feature column of DenseVectors / arrays / lists -> (2-D block,
-    feature kind)."""
+def _column_to_csr(values, size: int, dtype):
+    """An object column of sparse (and dense) vector cells -> one scipy CSR
+    matrix [n, size] at `dtype`. Each row is decoded once (a SparseVector
+    gives references to its own arrays, no copy), the row lengths fill
+    indptr, then the cells are copied in place, each row's decode freed as
+    it goes: no second whole-nnz copy exists."""
+
+    def _row_parts(v):
+        if isinstance(v, SparseVector):
+            return v.indices, v.values
+        if isinstance(v, DenseVector):
+            idx = np.nonzero(v.values)[0].astype(np.int32)
+            return idx, v.values[idx]
+        v = v.tocsr()  # a scipy sparse row
+        return v.indices, v.data
+
+    n = len(values)
+    parts = [_row_parts(v) for v in values]
+    indptr = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum([len(idx) for idx, _ in parts], dtype=np.int64, out=indptr[1:])
+    data = np.empty(int(indptr[-1]), dtype=dtype)
+    indices = np.empty(int(indptr[-1]), dtype=np.int32)
+    for i in range(n):
+        idx, val = parts[i]
+        parts[i] = None
+        lo, hi = indptr[i], indptr[i + 1]
+        indices[lo:hi] = idx
+        data[lo:hi] = val  # cast to dtype on assignment
+    return _sp.csr_matrix((data, indices, indptr), shape=(n, size), dtype=dtype)
+
+
+def _column_to_matrix(col, dtype) -> Tuple[Any, str]:
+    """One feature column of vectors / arrays / lists -> (2-D block,
+    feature kind): a scipy CSR matrix when any cell is sparse (a
+    SparseVector or a scipy row), else a dense block."""
     values = col.to_numpy() if hasattr(col, "to_numpy") else np.asarray(col, dtype=object)
     if len(values) == 0:
         raise ValueError("empty feature column")
     first = values[0]
-    if isinstance(first, SparseVector) or _is_scipy_sparse(first):
-        raise NotImplementedError(_SPARSE_TODO)
-    if isinstance(first, DenseVector):
-        if any(isinstance(v, SparseVector) for v in values):
-            raise NotImplementedError(_SPARSE_TODO)
+    if isinstance(first, (DenseVector, SparseVector)) or _is_scipy_sparse(first):
+        if any(isinstance(v, SparseVector) or _is_scipy_sparse(v) for v in values):
+            size = first.size if isinstance(first, (DenseVector, SparseVector)) else first.shape[1]
+            return _column_to_csr(values, size, dtype), "vector"
         return _fill_dense_chunked(values, first.size, dtype, lambda v: v.toArray()), "vector"
     if isinstance(first, np.ndarray) and first.ndim == 1:
         return _fill_dense_chunked(values, len(first), dtype, lambda v: v), "array"
@@ -232,13 +310,17 @@ def extract_dataset(
     weight_col: Optional[str] = None,
     id_col: Optional[str] = None,
     float32_inputs: bool = True,
+    enable_sparse_data_optim: Optional[bool] = None,
     validate: bool = True,
 ) -> ExtractedData:
     """Extract the features (one column of row cells, several scalar
-    columns, or a dict's 2-D block), the labels and weights at the features'
-    dtype, and the int64 row ids, as contiguous blocks. A named column the
-    dataset lacks raises ValueError. ``validate=False`` defers the opt-in
-    NaN/Inf scan to the caller (`run_deferred_validation`)."""
+    columns, or a dict's 2-D block or scipy sparse matrix), the labels and
+    weights at the features' dtype, and the int64 row ids, as contiguous
+    blocks. A named column the dataset lacks raises ValueError.
+    ``enable_sparse_data_optim``: None keeps sparse input as CSR; True
+    requires it (dense input raises ValueError); False densifies it.
+    ``validate=False`` defers the opt-in NaN/Inf scan to the caller
+    (`run_deferred_validation`)."""
     dtype = np.float32 if float32_inputs else np.float64
 
     def _scalar(columns, colname: Optional[str], dt) -> Optional[np.ndarray]:
@@ -249,18 +331,28 @@ def extract_dataset(
         col = columns[colname]
         return np.ascontiguousarray(col.to_numpy(dtype=dt) if hasattr(col, "to_numpy") else np.asarray(col, dtype=dt))
 
-    # Fast path for dict datasets whose feature entry is ALREADY a 2-D block:
-    # skip the per-row object column entirely (the at-scale ingest).
+    # Fast path for dict datasets whose feature entry is ALREADY a 2-D block
+    # or a scipy sparse matrix: skip the per-row object column entirely (the
+    # at-scale ingest). A sparse block keeps its own dtype until it is
+    # converted for the device (ops/sparse.csr_to_ell casts to the fit's).
     if isinstance(dataset, dict) and input_col is not None and input_col in dataset:
         block = dataset[input_col]
+        features = None
         if _is_scipy_sparse(block):
-            raise NotImplementedError(_SPARSE_TODO)
-        if isinstance(block, np.ndarray) and block.ndim == 2:
+            features, kind = block.tocsr(), "vector"
+            if enable_sparse_data_optim is False:
+                features = np.asarray(features.todense(), dtype=dtype)
+        elif isinstance(block, np.ndarray) and block.ndim == 2:
+            if enable_sparse_data_optim is True:
+                raise ValueError("enable_sparse_data_optim=True requires sparse input")
+            features, kind = np.ascontiguousarray(block, dtype=dtype), "array"
+        if features is not None:
             return _record_ingest(ExtractedData(
-                np.ascontiguousarray(block, dtype=dtype),
+                features,
                 label=_scalar(dataset, label_col, dtype),
                 weight=_scalar(dataset, weight_col, dtype),
                 row_id=_scalar(dataset, id_col, np.int64),
+                feature_kind=kind,
                 feature_names=[input_col],
             ), label_col, weight_col, validate)
 
@@ -280,6 +372,11 @@ def extract_dataset(
             raise ValueError(f"feature column {input_col!r} not in dataset")
         features, kind = _column_to_matrix(pdf[input_col], dtype)
         names = [input_col]
+    if _is_scipy_sparse(features):
+        if enable_sparse_data_optim is False:
+            features = np.asarray(features.todense(), dtype=dtype)
+    elif enable_sparse_data_optim is True:
+        raise ValueError("enable_sparse_data_optim=True requires sparse vector input")
     return _record_ingest(ExtractedData(
         features,
         label=_scalar(pdf, label_col, dtype),

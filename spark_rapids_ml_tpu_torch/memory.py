@@ -39,9 +39,11 @@
 #
 # Not in the port: the scheduler-job branch (a job's reservation resized,
 # a preempted job force-streamed; ROADMAP A17), the chip-scoped claims
-# (A10), the audit record of each verdict (A13-rest), and the callers of
-# the padded-ELL terms (A11b; `ell_k_max` and the sparse branches of
-# `placement_terms` and `row_bytes` are here, plain numpy, for them).
+# (A10) and the audit record of each verdict (A13-rest). A CSR fit is
+# charged its padded-ELL placement (`placement_terms`, `row_bytes`: the
+# values and int32 indices, padding cells included, as in the JAX
+# package) and the ELL solvers' own workspace (`_extraction_workspace_terms`,
+# `ell_terms`).
 #
 from __future__ import annotations
 
@@ -54,7 +56,8 @@ from .errors import HbmBudgetError
 
 __all__ = [
     "RESIDENT", "STREAM", "MIN_STREAM_CHUNK_ROWS", "DEFAULT_STREAM_CHUNK_ROWS", "MemoryEstimate",
-    "AdmissionDecision", "rows_per_device", "ell_k_max", "placement_terms", "row_bytes",
+    "AdmissionDecision", "rows_per_device", "ell_k_max", "ell_terms", "ell_columns_bytes",
+    "placement_terms", "row_bytes",
     "workspace_estimate", "resident_estimate", "streaming_estimate", "headroom_fraction", "admit_fit",
     "rereserve_admission", "model_serve_estimate", "admit_model_load", "release_admission",
     "is_oom_error", "as_hbm_budget_error",
@@ -144,8 +147,8 @@ def ell_k_max(csr: Any) -> int:
 
 
 def _is_sparse(extracted: Any) -> bool:
-    """Whether the features are a scipy CSR (the JAX package's sparse
-    extraction; the port's own ingest is dense until A11b)."""
+    """Whether the features are a scipy CSR: the sparse extraction of the
+    port (`data.ExtractedData.is_sparse`) and of the JAX package alike."""
     return type(extracted.features).__module__.startswith("scipy.sparse")
 
 
@@ -181,6 +184,31 @@ def row_bytes(extracted: Any, dtype: Any) -> int:
     return per_row + itemsize  # + weight
 
 
+def ell_terms(extracted: Any, rows_dev: int) -> Tuple[int, int]:
+    """(k_max, nonzeros) of the padded-ELL rows a CSR fit holds at once:
+    all of them resident, and at most k_max a row in a chunk of `rows_dev`
+    rows."""
+    csr = extracted.features
+    k_max = ell_k_max(csr)
+    return k_max, min(int(csr.nnz), max(0, int(rows_dev)) * k_max)
+
+
+def ell_columns_bytes(nnz: int, d: int, rows: int, chunk: int) -> int:
+    """Upper bound of the device bytes of an `ops/sparse.EllColumns` over
+    `nnz` cells of `d` columns in `rows` rows: its int64 cell positions and
+    the int64 sort temporaries of its build (three arrays of nnz), each
+    reduction level's int64 gather (at most the level's values plus one
+    chunk of padding per column; a level holds at most a chunk-th of the
+    one before plus one value per column), the [d] final gather and the
+    [rows] bool of the rows with a (0, 0.0) cell."""
+    total, level, widest = 24 * nnz, nnz, nnz
+    while widest > 1:
+        total += 8 * (level + d * chunk)
+        level = level // chunk + d
+        widest = -(-widest // chunk)
+    return total + 8 * d + rows
+
+
 def workspace_estimate(
     estimator: Any, extracted: Any, n_devices: int = 1, rows_dev: Optional[int] = None
 ) -> MemoryEstimate:
@@ -188,15 +216,22 @@ def workspace_estimate(
     prefixed ``workspace.``, with the row-scaling ones evaluated at
     `rows_dev` rows: the whole dataset for a resident fit (the default),
     one chunk for a streamed one (the streaming solvers hold one chunk's
-    per-row state at a time)."""
+    per-row state at a time). An estimator's
+    `_extraction_workspace_terms(terms, rows_dev, extracted, params,
+    itemsize)` then adjusts them to what only the extraction tells: its
+    row count, and for CSR input its padded-ELL geometry (`ell_terms`)."""
     itemsize = _itemsize_of(estimator)
     if rows_dev is None:
         rows_dev = rows_per_device(extracted.n_rows, n_devices)
     hook = getattr(estimator, "_solver_workspace_terms", None)
     terms: Dict[str, int] = {}
     if hook is not None:
-        raw = hook(rows_dev, int(extracted.n_cols), dict(estimator._solver_params), itemsize)
-        for name, nbytes in (raw or {}).items():
+        params = dict(estimator._solver_params)
+        raw = dict(hook(rows_dev, int(extracted.n_cols), params, itemsize) or {})
+        data_hook = getattr(estimator, "_extraction_workspace_terms", None)
+        if data_hook is not None:
+            raw = data_hook(raw, rows_dev, extracted, params, itemsize)
+        for name, nbytes in raw.items():
             key = name if name.startswith("workspace.") else f"workspace.{name}"
             terms[key] = int(nbytes)
     return MemoryEstimate(terms)
@@ -385,10 +420,11 @@ def rereserve_admission(adm: AdmissionDecision, owner: str = "fit:cache-hit"):
 # ------------------------------------------------------- serving plane ------
 
 
-def model_serve_estimate(model: Any, bucket_rows_count: int) -> MemoryEstimate:
+def model_serve_estimate(model: Any, bucket_rows_count: int, serve_dtype: Optional[str] = None) -> MemoryEstimate:
     """Per-device working set of a RESIDENT serving model: the placement of
     its state (`_serve_placement_terms`) plus one dispatched bucket's predict
-    workspace (`_serve_workspace_terms` at `bucket_rows_count` rows)."""
+    workspace (`_serve_workspace_terms` at `bucket_rows_count` rows, and
+    what serving at `serve_dtype` adds, `_serve_dtype_workspace_terms`)."""
     itemsize = _itemsize_of(model)
     terms: Dict[str, int] = {}
     hook = getattr(model, "_serve_placement_terms", None)
@@ -396,8 +432,11 @@ def model_serve_estimate(model: Any, bucket_rows_count: int) -> MemoryEstimate:
         key = name if name.startswith("placement.") else f"placement.{name}"
         terms[key] = int(nbytes)
     whook = getattr(model, "_serve_workspace_terms", None)
-    raw = whook(int(bucket_rows_count), itemsize) if whook is not None else None
-    for name, nbytes in (raw or {}).items():
+    raw = dict((whook(int(bucket_rows_count), itemsize) if whook is not None else None) or {})
+    dhook = getattr(model, "_serve_dtype_workspace_terms", None)
+    if dhook is not None and serve_dtype is not None:
+        raw.update(dhook(int(bucket_rows_count), itemsize, serve_dtype))
+    for name, nbytes in raw.items():
         key = name if name.startswith("workspace.") else f"workspace.{name}"
         terms[key] = int(nbytes)
     return MemoryEstimate(terms)
@@ -408,6 +447,7 @@ def admit_model_load(
     *,
     bucket_rows_count: Optional[int] = None,
     device: Any = None,
+    serve_dtype: Optional[str] = None,
 ) -> AdmissionDecision:
     """Admission verdict for loading a fitted model onto `device` (a torch
     device) in the serving plane: RESIDENT, with its estimate reserved in
@@ -424,7 +464,7 @@ def admit_model_load(
     led = global_ledger()
     with led.admission():
         held = 0 if budget is None else led.reserved_bytes()
-        est = model_serve_estimate(model, bucket_rows_count)
+        est = model_serve_estimate(model, bucket_rows_count, serve_dtype)
         if budget is None or est.total() + held <= budget:
             return AdmissionDecision(
                 verdict=RESIDENT,

@@ -15,10 +15,11 @@
 # (`_combine`, `_transform_evaluate`) scores every model of a fold at once.
 # An over-budget fit streams its rows from the host
 # (ops/streaming.logistic_fit_streaming; L2 only: a demoted L1/elastic-net
-# fit raises HbmBudgetError, as in the JAX package). Left out, each raising
+# fit raises HbmBudgetError, as in the JAX package). CSR input fits on its
+# padded-ELL form (`logistic_fit_ell`, `logistic_fit_ell_batched`, and
+# streamed), with scale-only standardization. Left out, each raising
 # NotImplementedError naming its ROADMAP item: `evaluate` and `.cpu()`
-# (Spark interop, A16), a `SolverCheckpoint` warm start (A12), and sparse
-# input or enable_sparse_data_optim=True (A11b).
+# (Spark interop, A16) and a `SolverCheckpoint` warm start (A12).
 #
 from __future__ import annotations
 
@@ -27,7 +28,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 
 from ..core import FitInputs, _TpuEstimatorSupervised, _TpuModelWithColumns
-from ..data import ExtractedData, as_pandas
+from ..data import ExtractedData, as_dense, as_pandas
 from ..linalg import DenseVector
 from ..params import (
     HasElasticNetParam,
@@ -231,6 +232,30 @@ class LogisticRegression(_LogisticRegressionParams, _TpuEstimatorSupervised):
     # dataset demotes to ops/streaming.logistic_fit_streaming (the L2 path;
     # OWL-QN has no streaming form and a demoted L1 fit raises)
     _supports_streaming_fit = True
+    # CSR input fits on the padded-ELL layout (ops/logistic.logistic_fit_ell)
+    _supports_sparse_input = True
+
+    def _extraction_workspace_terms(self, terms, rows_dev, extracted, params, itemsize):
+        """The port's own terms of a CSR fit (memory.workspace_estimate):
+        the column grouping of the ELL cells (`sparse.EllColumns`) and the
+        ELL products' temporaries in place of the dense `fast` copy of X,
+        and under `fast` the bf16-rounded copy of the ELL values."""
+        from ..core import resolve_solver_precision
+        from ..memory import _is_sparse, ell_columns_bytes, ell_terms
+        from ..ops.sparse import MATVEC_TILE_CELLS, SEGMENT_CHUNK
+
+        if not _is_sparse(extracted):
+            return terms
+        k_max, nnz = ell_terms(extracted, rows_dev)
+        terms = {k: v for k, v in terms.items() if k != "bf16_X"}
+        d = int(extracted.n_cols)
+        terms["ell_columns"] = ell_columns_bytes(nnz, d, rows_dev, SEGMENT_CHUNK)
+        # one product's temporaries: a row tile's gathered operands and
+        # their products, and a column sum's cell products and first level
+        terms["ell_products"] = (2 * min(rows_dev * k_max, MATVEC_TILE_CELLS) + 2 * nnz + d * SEGMENT_CHUNK) * itemsize
+        if resolve_solver_precision(params) == "bf16":
+            terms["ell_fast_values"] = rows_dev * k_max * itemsize
+        return terms
 
     def _solver_workspace_terms(
         self, rows_per_device: int, n_cols: int, params: Dict[str, Any], itemsize: int
@@ -441,7 +466,7 @@ class LogisticRegression(_LogisticRegressionParams, _TpuEstimatorSupervised):
         return wcoef.astype(inputs.dtype), np.asarray(warm["intercept_"]).astype(inputs.dtype)
 
     def _get_tpu_fit_func(self, extracted: ExtractedData):
-        from ..ops.logistic import fetch_state, logistic_fit
+        from ..ops.logistic import fetch_state, logistic_fit, logistic_fit_ell
         from ..parallel import host_tensor
 
         labels_host = extracted.label
@@ -465,7 +490,14 @@ class LogisticRegression(_LogisticRegressionParams, _TpuEstimatorSupervised):
             )
             warm = self._warm_tuple(len(classes) if multinomial else 1, inputs)
             y_idx = host_tensor(y_idx_host).to(inputs.device)
-            state = logistic_fit(inputs.X, y_idx, inputs.w, warm_start=warm, **common)
+            if inputs.X_sparse is not None:
+                values, indices = inputs.ell_rows()
+                state = logistic_fit_ell(
+                    values, indices, y_idx, inputs.w, d=inputs.n_cols, warm_start=warm,
+                    columns=inputs.ell_columns(), **common,
+                )
+            else:
+                state = logistic_fit(inputs.X, y_idx, inputs.w, warm_start=warm, **common)
             return self._finalize_state(fetch_state(state), classes, inputs, common)
 
         return _fit
@@ -480,7 +512,7 @@ class LogisticRegression(_LogisticRegressionParams, _TpuEstimatorSupervised):
         return (use_l1, rest)
 
     def _get_tpu_batched_fit_func(self, extracted: ExtractedData):
-        from ..ops.logistic import fetch_states, logistic_fit_batched
+        from ..ops.logistic import fetch_states, logistic_fit_batched, logistic_fit_ell_batched
         from ..parallel import host_tensor
 
         labels_host = extracted.label
@@ -499,11 +531,16 @@ class LogisticRegression(_LogisticRegressionParams, _TpuEstimatorSupervised):
                 **self._solver_statics(param_sets[0]),
             )
             y_idx = host_tensor(y_idx_host).to(inputs.device)
-            states = logistic_fit_batched(
-                inputs.X, y_idx, inputs.w,
-                [a * (1.0 - r) for a, r in zip(alphas, l1rs)], [a * r for a, r in zip(alphas, l1rs)],
-                **common,
-            )
+            lam_l2s = [a * (1.0 - r) for a, r in zip(alphas, l1rs)]
+            lam_l1s = [a * r for a, r in zip(alphas, l1rs)]
+            if inputs.X_sparse is not None:
+                values, indices = inputs.ell_rows()
+                states = logistic_fit_ell_batched(
+                    values, indices, y_idx, inputs.w, lam_l2s, lam_l1s, d=inputs.n_cols,
+                    columns=inputs.ell_columns(), **common,
+                )
+            else:
+                states = logistic_fit_batched(inputs.X, y_idx, inputs.w, lam_l2s, lam_l1s, **common)
             return [self._finalize_state(st, classes, inputs, common) for st in fetch_states(states)]
 
         return _fit_batch
@@ -756,6 +793,7 @@ class LogisticRegressionModel(_LogisticRegressionParams, _TpuModelWithColumns):
         from ..metrics import MulticlassMetrics
 
         assert hasattr(self, "_sub_models"), "call _combine first"
+        features = as_dense(features)  # a CSR block once, not once per model
         want_logloss = evaluator.getMetricName() == "logLoss"
         eps = evaluator.getOrDefault("eps") if evaluator.hasParam("eps") else 1e-15
         scores = []

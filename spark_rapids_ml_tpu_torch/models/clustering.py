@@ -6,7 +6,8 @@
 # over-budget KMeans fit streams its rows from the host
 # (ops/streaming.kmeans_fit_streaming). The multi-process init gather of
 # the JAX package is a later ROADMAP item (A10), as are DBSCAN's replicated
-# gather of every rank's rows (A10) and sparse input (A11b).
+# gather of every rank's rows (A10). Sparse input is densified, as in the
+# JAX package.
 #
 from __future__ import annotations
 
@@ -15,7 +16,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 
 from ..core import FitInputs, _TpuEstimator, _TpuModel, _TpuModelWithColumns
-from ..data import ExtractedData
+from ..data import ExtractedData, as_dense
 from ..params import (
     HasFeaturesCol,
     HasFeaturesCols,
@@ -121,6 +122,24 @@ class KMeans(_KMeansParams, _TpuEstimator):
             rows = -(-b // ARGMIN_TILE["f32-fast"][0]) * ARGMIN_TILE["f32-fast"][0]
             terms["fast_staging"] = rows * (-(-n_cols // STAGE_DEPTH) * STAGE_DEPTH) * 2
         return terms
+
+    def _extraction_workspace_terms(self, terms, rows_dev, extracted, params, itemsize):
+        """The port's own term of a k-means|| seeding (k >= 64, no warm
+        start; memory.workspace_estimate): `ops/kmeans.scalable_kmeans_init`
+        places its row subsample (at most `_INIT_SAMPLE_CAP` rows of the
+        whole dataset, float32, whether or not the fit streams) with its
+        running min-d², the [subsample, 2k] distance block of each round,
+        and the candidate set of its rounds + 1 blocks of 2k rows."""
+        from ..ops.kmeans import _INIT_SAMPLE_CAP, INIT_ROUNDS
+
+        k = int(params.get("n_clusters", 8))
+        if (self._warm_start is not None or params.get("init", "scalable-k-means++") == "random"
+                or k < 64):
+            return terms
+        n_sub = min(int(extracted.n_rows), _INIT_SAMPLE_CAP)
+        d = int(extracted.n_cols)
+        l = 2 * k
+        return dict(terms, init_subsample=n_sub * (d + 1) * 4 + n_sub * l * 4 + (INIT_ROUNDS + 1) * l * d * 4)
 
     def __init__(self, **kwargs: Any) -> None:
         super().__init__()
@@ -532,7 +551,7 @@ class DBSCANModel(_DBSCANParams, _TpuModel):
                 "gather of every rank's rows is ROADMAP item A10)"
             )
         pdf = as_pandas(dataset)
-        feats = np.asarray(self._pre_process_data(dataset, for_fit=False).features, dtype=np.float32)
+        feats = np.asarray(as_dense(self._pre_process_data(dataset, for_fit=False).features), dtype=np.float32)
         labels, core_idx = dbscan_fit(
             feats,
             device=default_device(),

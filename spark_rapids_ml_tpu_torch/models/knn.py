@@ -9,6 +9,12 @@
 # `approxSimilarityJoin` explode the pairs. None supports persistence, as
 # in the reference.
 #
+# A CSR item set stays CSR: kneighbors searches it tile by tile
+# (ops/knn.exact_knn_sparse), each item tile densified on the card and its
+# distances taken by the d2-block kernel. CSR queries, and CSR items
+# everywhere else (the join's item side, serving, the ANN estimator), are
+# densified, as in the JAX package.
+#
 # The serving hooks keep the item block, its norms and its id map resident
 # on the card and answer each query batch through the running top-k
 # (`topk_tile`), at the items' dtype or, with serve_dtype="bf16", through the
@@ -18,10 +24,9 @@
 # model's serving hooks, so the serving plane answers it by exact kNN over
 # its item set, not through its index.
 #
-# Left out, each a later ROADMAP item: the multi-device and multi-process
+# Left out, a later ROADMAP item: the multi-device and multi-process
 # search (A10; num_workers > 1 is refused), with ANN's per-rank index and
-# top-k merge, and sparse item sets (A11b; ingest raises), which ANN
-# densifies in the JAX package.
+# top-k merge, and the sparse search's per-rank merge.
 #
 from __future__ import annotations
 
@@ -31,7 +36,7 @@ import numpy as np
 import torch
 
 from ..core import _TpuEstimator, _TpuModel, alias
-from ..data import ExtractedData, as_pandas
+from ..data import ExtractedData, as_dense, as_pandas
 from ..params import (
     HasFeaturesCol,
     HasFeaturesCols,
@@ -68,7 +73,11 @@ class NearestNeighbors(_KNNParams, _TpuEstimator):
     >>> item_out, query_out, knn_df = model.kneighbors(query_df)
 
     On the card, each query tile scans the items in blocks through the
-    d2-block kernel and keeps a running top-k (ops/knn.py)."""
+    d2-block kernel and keeps a running top-k (ops/knn.py). A CSR item set
+    is kept CSR and searched tile by tile (`exact_knn_sparse`)."""
+
+    # CSR items are searched as CSR (ops/knn.exact_knn_sparse)
+    _supports_sparse_input = True
 
     def __init__(self, **kwargs: Any) -> None:
         super().__init__()
@@ -115,6 +124,10 @@ class NearestNeighbors(_KNNParams, _TpuEstimator):
 
 
 class NearestNeighborsModel(_KNNParams, _TpuModel):
+    # its queries are extracted as the estimator's items are; CSR queries
+    # are then densified
+    _supports_sparse_input = True
+
     def __init__(self, n_cols: int = 0, dtype: str = "float32", **kwargs: Any) -> None:
         super().__init__(n_cols=n_cols, dtype=dtype)
         self.n_cols = int(n_cols)
@@ -144,7 +157,7 @@ class NearestNeighborsModel(_KNNParams, _TpuModel):
         item id values and `distances` euclidean, float64."""
         import pandas as pd
 
-        from ..ops.knn import exact_knn
+        from ..ops.knn import exact_knn, exact_knn_sparse
         from ..parallel import default_device, host_tensor, place_rows
 
         if self._item_pdf is None:
@@ -167,15 +180,18 @@ class NearestNeighborsModel(_KNNParams, _TpuModel):
 
         device = default_device()
         np_dtype = np.float32 if self._float32_inputs else np.float64
-        # the items are placed once per call, as the reference's
-        # make_global_rows does; one device has no padding rows
-        X, w = place_rows(item_ex.features.astype(np_dtype, copy=False), device=device)
-        Q = host_tensor(query_ex.features.astype(np_dtype, copy=False)).to(device)
-        dist, gidx = exact_knn(
-            X, w > 0, Q, k=k,
-            # 0 -> None: resolves config["distance_tile_rows"]
-            batch_queries=int(self._solver_params["batch_queries"]) or None,
-        )
+        Q = host_tensor(np.asarray(as_dense(query_ex.features), dtype=np_dtype)).to(device)
+        # 0 -> None: resolves config["distance_tile_rows"]
+        batch_queries = int(self._solver_params["batch_queries"]) or None
+        if item_ex.is_sparse:
+            # the CSR item set, tile by tile: never densified whole
+            dist, gidx = exact_knn_sparse(item_ex.features, Q, k=k, batch_queries=batch_queries)
+            gidx = np.maximum(gidx, 0)
+        else:
+            # the items are placed once per call, as the reference's
+            # make_global_rows does; one device has no padding rows
+            X, w = place_rows(item_ex.features.astype(np_dtype, copy=False), device=device)
+            dist, gidx = exact_knn(X, w > 0, Q, k=k, batch_queries=batch_queries)
         knn_df = pd.DataFrame(
             {
                 "query_id": query_ids,
@@ -264,6 +280,27 @@ class NearestNeighborsModel(_KNNParams, _TpuModel):
             "topk_carry": 2 * b * min(k, n_items) * itemsize,
         }
 
+    def _serve_dtype_workspace_terms(self, bucket_rows_count, itemsize, serve_dtype) -> Dict[str, int]:
+        # serve_dtype="bf16": the d2-block kernel's fast form stages both of
+        # its operands to bf16 on every dispatch (ops/_kernels.stage_bf16):
+        # the item block, rows rounded up to its item tile, and the query
+        # bucket, rows rounded up to its query tile, depth rounded up to
+        # STAGE_DEPTH (at 16,384 items x 3000: 98.6 MB; a 4096-row bucket:
+        # 24.6 MB)
+        if serve_dtype != "bf16":
+            return {}
+        from ..ops._kernels import D2_TILE, STAGE_DEPTH
+        from ..ops.distance import _DEFAULT_K_TILE
+
+        rows, cols = D2_TILE["f32-fast" if itemsize == 4 else "f64-fast"]
+        depth = -(-self._serve_n_cols() // STAGE_DEPTH) * STAGE_DEPTH
+        kt = min(_DEFAULT_K_TILE, max(1, self._n_items()))
+        b = max(1, int(bucket_rows_count))
+        return {
+            "fast_staging_items": -(-kt // cols) * cols * depth * 2,
+            "fast_staging_q": -(-b // rows) * rows * depth * 2,
+        }
+
     def _serve_flop_estimate(self, n_rows, n_cols):
         # the full [queries, items] squared-distance sweep (~3*n*m*d); the
         # top-k selection left out
@@ -287,7 +324,7 @@ class NearestNeighborsModel(_KNNParams, _TpuModel):
         self._serve_check(serve_dtype)  # dtype surface + bound item set
         fast = serve_dtype == "bf16"
         dtype = np.float32 if self._float32_inputs else np.float64
-        items_np = np.ascontiguousarray(np.asarray(self._item_extracted.features, dtype=dtype))
+        items_np = np.ascontiguousarray(np.asarray(as_dense(self._item_extracted.features), dtype=dtype))
         ids_np = np.asarray(self._ensure_id(self._item_pdf, self._item_extracted), dtype=np.int64)
         k = min(int(self._solver_params["n_neighbors"]), items_np.shape[0])
 
@@ -439,7 +476,7 @@ class ApproximateNearestNeighbors(_ANNParams, _TpuEstimator):
         sp = self._solver_params
         pdf = as_pandas(dataset)
         extracted = self._pre_process_data(dataset, for_fit=True)
-        feats = extracted.features
+        feats = as_dense(extracted.features)
         cosine = str(sp["metric"]) == "cosine"
         if cosine:
             # cosine rides the euclidean index on unit vectors (the same
@@ -547,7 +584,7 @@ class ApproximateNearestNeighborsModel(NearestNeighborsModel):
         query_ex = self._pre_process_data(query_df, for_fit=False)
         query_ids = self._ensure_id(query_pdf, query_ex)
         metric = str(sp["metric"])
-        queries = query_ex.features
+        queries = as_dense(query_ex.features)
         if metric == "cosine":
             queries = unit_rows(queries)
         device = default_device()

@@ -11,9 +11,11 @@
 # statistics pass (ops/linear.py `linear_fit_batched`), and the fused
 # cross-validation path (`_combine`, `_transform_evaluate`) scores every
 # model of a fold at once. An over-budget fit streams its rows from the
-# host (ops/streaming.linear_fit_streaming). Left out, each raising
-# NotImplementedError naming its ROADMAP item: `evaluate` and `.cpu()`
-# (Spark interop, A16).
+# host (ops/streaming.linear_fit_streaming). CSR input fits on its
+# padded-ELL form (ops/linear.py `linear_fit_ell`, `linear_fit_ell_batched`,
+# and streamed), equal to the dense fit of the same rows. Left out, each
+# raising NotImplementedError naming its ROADMAP item: `evaluate` and
+# `.cpu()` (Spark interop, A16).
 #
 from __future__ import annotations
 
@@ -22,9 +24,10 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 
 from ..core import FitInputs, _TpuEstimatorSupervised, _TpuModelWithColumns
-from ..data import ExtractedData
+from ..data import ExtractedData, as_dense
 from ..params import (
     HasElasticNetParam,
+    HasEnableSparseDataOptim,
     HasFeaturesCol,
     HasFeaturesCols,
     HasFitIntercept,
@@ -87,6 +90,7 @@ class RandomForestRegressionModel(_RandomForestModel):
 
 
 class _LinearRegressionParams(
+    HasEnableSparseDataOptim,
     HasFeaturesCol,
     HasFeaturesCols,
     HasLabelCol,
@@ -199,6 +203,29 @@ class LinearRegression(_LinearRegressionParams, _TpuEstimatorSupervised):
     # the sufficient statistics accumulate over row chunks: an over-budget
     # dataset demotes to ops/streaming.linear_fit_streaming
     _supports_streaming_fit = True
+    # CSR input fits on the padded-ELL layout with full dense parity: the
+    # centering is done on the statistics, never on the data
+    _supports_sparse_input = True
+
+    def _extraction_workspace_terms(self, terms, rows_dev, extracted, params, itemsize):
+        """The port's own terms of a CSR fit (memory.workspace_estimate):
+        the densified row tile of the gram and its weighted copy, and under
+        `fast` the densified tile of the rounded values and the
+        bf16-rounded copy of the ELL values."""
+        from ..core import resolve_solver_precision
+        from ..memory import _is_sparse, ell_terms
+        from ..ops.linear import ELL_TILE_ROWS
+
+        if not _is_sparse(extracted):
+            return terms
+        k_max, _ = ell_terms(extracted, rows_dev)
+        fast = resolve_solver_precision(params) == "bf16"
+        tile = min(ELL_TILE_ROWS, max(1, rows_dev))
+        terms = dict(terms)
+        terms["ell_row_tile"] = (3 if fast else 2) * tile * int(extracted.n_cols) * itemsize
+        if fast:
+            terms["ell_fast_values"] = rows_dev * k_max * itemsize
+        return terms
 
     def _solver_workspace_terms(
         self, rows_per_device: int, n_cols: int, params: Dict[str, Any], itemsize: int
@@ -212,7 +239,7 @@ class LinearRegression(_LinearRegressionParams, _TpuEstimatorSupervised):
 
     def _get_tpu_fit_func(self, extracted: ExtractedData):
         from ..core import resolve_solver_precision
-        from ..ops.linear import linear_fit
+        from ..ops.linear import linear_fit, linear_fit_ell
         from ..ops.streaming import linear_fit_streaming
 
         def _fit(inputs: FitInputs, params: Dict[str, Any]) -> Dict[str, Any]:
@@ -231,6 +258,9 @@ class LinearRegression(_LinearRegressionParams, _TpuEstimatorSupervised):
             if inputs.stream is not None:
                 # out-of-core: one streamed statistics pass, the same solve
                 state = linear_fit_streaming(inputs, **common)
+            elif inputs.X_sparse is not None:
+                values, indices = inputs.ell_rows()
+                state = linear_fit_ell(values, indices, inputs.y, inputs.w, d=inputs.n_cols, **common)
             else:
                 state = linear_fit(inputs.X, inputs.y, inputs.w, **common)
             return self._attrs(state, inputs)
@@ -248,14 +278,13 @@ class LinearRegression(_LinearRegressionParams, _TpuEstimatorSupervised):
 
     def _get_tpu_batched_fit_func(self, extracted: ExtractedData):
         from ..core import resolve_solver_precision
-        from ..ops.linear import linear_fit_batched
+        from ..ops.linear import linear_fit_batched, linear_fit_ell_batched
 
         def _fit_batch(inputs: FitInputs, param_sets) -> List[Dict[str, Any]]:
             alphas = [float(sp["alpha"]) for sp in param_sets]
             l1rs = [float(sp["l1_ratio"]) for sp in param_sets]
             p0 = param_sets[0]  # uniform per group key
-            states = linear_fit_batched(
-                inputs.X, inputs.y, inputs.w, alphas, l1rs,
+            common = dict(
                 fit_intercept=bool(p0["fit_intercept"]),
                 standardize=bool(p0.get("normalize", False)),
                 use_cd=bool(alphas[0] > 0 and l1rs[0] > 0),
@@ -263,6 +292,13 @@ class LinearRegression(_LinearRegressionParams, _TpuEstimatorSupervised):
                 tol=float(p0["tol"]),
                 fast=resolve_solver_precision(p0) == "bf16",
             )
+            if inputs.X_sparse is not None:
+                values, indices = inputs.ell_rows()
+                states = linear_fit_ell_batched(
+                    values, indices, inputs.y, inputs.w, alphas, l1rs, d=inputs.n_cols, **common
+                )
+            else:
+                states = linear_fit_batched(inputs.X, inputs.y, inputs.w, alphas, l1rs, **common)
             return [self._attrs(state, inputs) for state in states]
 
         return _fit_batch
@@ -393,7 +429,7 @@ class LinearRegressionModel(_LinearRegressionParams, _TpuModelWithColumns):
                 or [np.zeros((0, self.coef_.shape[0]))]
             ) + self._intercepts[None, :]
         else:
-            preds = np.asarray(features, dtype=np.float64) @ self.coef_.T + self._intercepts[None, :]
+            preds = np.asarray(as_dense(features), dtype=np.float64) @ self.coef_.T + self._intercepts[None, :]
         return [
             RegressionMetrics.from_values(label, preds[:, j]).evaluate(evaluator)
             for j in range(preds.shape[1])

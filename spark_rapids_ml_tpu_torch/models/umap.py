@@ -8,7 +8,8 @@
 # package's layout, so a directory either package saved loads in the other.
 #
 # The JAX package's multi-process fit (every rank's rows gathered) and
-# per-rank transform are ROADMAP item A10; sparse input is item A11b.
+# per-rank transform are ROADMAP item A10. Sparse input is densified, as
+# in the JAX package.
 #
 from __future__ import annotations
 
@@ -19,7 +20,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 
 from ..core import _TpuEstimator, _TpuModel, _TpuReader, _TpuWriter, _np_default
-from ..data import ExtractedData
+from ..data import ExtractedData, as_dense
 from ..params import (
     HasFeaturesCol,
     HasFeaturesCols,
@@ -196,7 +197,7 @@ class UMAP(_UMAPParams, _TpuEstimator):
             raise NotImplementedError("UMAP does not support fitMultiple param maps")
         _refuse_workers(self, "fit (every rank's rows gathered)")
         extracted = self._pre_process_data(dataset, for_fit=True)
-        feats = np.asarray(extracted.features, dtype=np.float32)
+        feats = np.asarray(as_dense(extracted.features), dtype=np.float32)
         labels = extracted.label
 
         frac = float(self.getSampleFraction())
@@ -300,7 +301,7 @@ class UMAPModel(_UMAPParams, _TpuModel):
         from ..parallel import default_device
 
         _refuse_workers(self, "transform (each rank's rows embedded on its own devices)")
-        feats = np.asarray(self._pre_process_data(dataset, for_fit=False).features, dtype=np.float32)
+        feats = np.asarray(as_dense(self._pre_process_data(dataset, for_fit=False).features), dtype=np.float32)
         sp = self._solver_params
         emb = umap_transform(
             feats,

@@ -20,6 +20,7 @@ import torch
 
 from . import prng
 from .distance import _topk_lex, argmin_assign, min_d2_update, row_sq, tile_assign_accumulate
+from .sparse import segment_sums
 
 
 def _finish_centers(sums, counts, inertia, centers):
@@ -134,6 +135,7 @@ def kmeans_predict(X: torch.Tensor, centers: torch.Tensor) -> torch.Tensor:
 
 
 _INIT_SAMPLE_CAP = 262_144  # rows used for seeding (both init paths)
+INIT_ROUNDS = 5  # k-means|| oversampling rounds
 
 
 def _init_subsample(x_host, sample_weight, rng):
@@ -182,7 +184,7 @@ def _kmeanspp_device(x: torch.Tensor, sw: torch.Tensor, seed: int, *, k: int) ->
 
 
 def scalable_kmeans_init(
-    x_host, k: int, seed: int, sample_weight=None, rounds: int = 5, *, device: torch.device
+    x_host, k: int, seed: int, sample_weight=None, rounds: int = INIT_ROUNDS, *, device: torch.device
 ):
     """k-means|| (Bahmani et al.) seeding — the reference's
     'scalable-k-means++'. Each round computes distances to ONLY the new
@@ -257,7 +259,8 @@ def scalable_kmeans_init_device(
     `categorical` over log-weights, repeated to a block of l = min(2k, n)
     rows; each of `rounds` rounds is `_kmeanspar_round`; the candidates are
     weighted by the rows they own (the argmin kernel through
-    `argmin_assign`, then a scatter-add of the row weights) and reduced to
+    `argmin_assign`, then the row weights summed per candidate in a fixed
+    order, `sparse.segment_sums`) and reduced to
     k by `_kmeanspp_device(seed + 1)`. Returns [k, d] float32 centers on
     the device; no row, distance or weight goes to the host."""
     n, d = xd.shape
@@ -277,10 +280,11 @@ def scalable_kmeans_init_device(
         blocks.append(cand)
     cand_all = torch.cat(blocks, dim=0)
     # duplicate rows (the first block) lose every argmin tie to the first
-    # copy, so they own nothing
+    # copy, so they own nothing. The weights are summed in an order the
+    # assignment fixes (a float index_add_ on the card did not give the same
+    # bits twice: fault C7)
     assign = argmin_assign(xd, cand_all)
-    weights = torch.zeros((cand_all.shape[0],), dtype=torch.float32, device=xd.device)
-    weights.index_add_(0, assign.long(), sw)
+    weights = segment_sums(sw, assign, cand_all.shape[0])
     return _kmeanspp_device(
         cand_all, torch.clamp_min(weights, 1e-12), seed + 1, k=min(k, cand_all.shape[0])
     )

@@ -17,8 +17,12 @@
 # lookup tables and the PQ encoding are plain torch on cuBLAS, as the JAX
 # package leaves them to XLA.
 #
-# Sparse item sets (`exact_knn_sparse`) are ROADMAP item A11b, the sharded
-# search over several cards (`_exact_knn_sharded`, `tile_topk`) item A10.
+# Sparse item sets (`exact_knn_sparse`): item tiles of the CSR rows are
+# converted to padded ELL on the host, densified on the card
+# (`sparse.ell_densify`, the tile scipy's `todense` gives) and merged into
+# each query tile's running top-k through `topk_tile`, so every tile's
+# distances come from the d2-block kernel. The sharded search over several
+# cards (`_exact_knn_sharded`, `tile_topk`) is ROADMAP item A10.
 #
 from __future__ import annotations
 
@@ -28,6 +32,7 @@ import numpy as np
 import torch
 
 from .distance import _topk_lex, argmin_assign, row_sq, tile_rows, topk_tile
+from .sparse import csr_to_ell, ell_densify
 
 
 def exact_knn(
@@ -71,6 +76,67 @@ def exact_knn(
         d2 = np.pad(d2, ((0, 0), (0, k - kk)), constant_values=np.inf)
         idx = np.pad(idx, ((0, 0), (0, k - kk)))
     return np.sqrt(np.maximum(d2, 0.0)), idx
+
+
+def exact_knn_sparse(
+    items_csr,  # scipy CSR [n, d]
+    queries: torch.Tensor,  # [nq, d] on the device
+    *,
+    k: int,
+    batch_items: int = 65536,
+    batch_queries: Optional[int] = None,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Exact kNN of dense queries against a CSR item set, never densified
+    whole: host arrays (euclidean distances [nq, k], item row indices [nq,
+    k] int32), ascending by distance, lower index first on ties. With
+    fewer than k items the missing columns hold +inf and index -1.
+
+    Item tiles of `batch_items` rows are densified on the device one at a
+    time and merged into every query tile's running best list; the last
+    item tile is clamped back to full size and its rows already merged are
+    masked, as the JAX package does. Within a tile `topk_tile` scans the
+    items in blocks through the d2-block kernel; the carried list comes
+    first in each merge, so ties go to the lower item index."""
+    n, d = items_csr.shape
+    nq = queries.shape[0]
+    np_dtype = np.float32 if queries.dtype == torch.float32 else np.float64
+    if nq == 0:
+        return np.zeros((0, k), dtype=np_dtype), np.zeros((0, k), dtype=np.int32)
+    device = queries.device
+    kk = min(k, n)
+    batch_items = min(batch_items, n)
+    batch_queries = min(batch_queries or tile_rows(), nq)
+    q_starts = list(range(0, nq, batch_queries))
+    best = [
+        (torch.full((batch_queries, kk), float("inf"), dtype=queries.dtype, device=device),
+         torch.full((batch_queries, kk), -1, dtype=torch.int32, device=device))
+        for _ in q_starts
+    ]
+    for start in range(0, n, batch_items):
+        s0 = min(start, n - batch_items)
+        idx_h, val_h, _ = csr_to_ell(items_csr[s0:s0 + batch_items], dtype=np_dtype)
+        xt = ell_densify(torch.from_numpy(val_h).to(device), torch.from_numpy(idx_h).to(device), d)
+        xt_sq = row_sq(xt)
+        fresh = torch.arange(s0, s0 + batch_items, device=device) >= start if s0 < start else None
+        for qi, qs in enumerate(q_starts):
+            q0 = min(qs, nq - batch_queries)
+            td2, ti = topk_tile(queries[q0:q0 + batch_queries], xt, fresh, kk, item_sq=xt_sq)
+            cat_d = torch.cat([best[qi][0], td2], dim=1)
+            cat_i = torch.cat([best[qi][1], ti + s0], dim=1)
+            order = torch.sort(cat_d, dim=1, stable=True).indices[:, :kk]
+            best[qi] = (cat_d.gather(1, order), cat_i.gather(1, order))
+    d_parts, i_parts = [], []
+    for qs, (bd2, bi) in zip(q_starts, best):
+        q0 = min(qs, nq - batch_queries)
+        fresh_q = qs - q0
+        d_parts.append((bd2 + row_sq(queries[q0:q0 + batch_queries])[:, None])[fresh_q:].cpu().numpy())
+        i_parts.append(bi[fresh_q:].cpu().numpy())
+    dist = np.sqrt(np.maximum(np.concatenate(d_parts, axis=0), 0.0))
+    idx = np.concatenate(i_parts, axis=0)
+    if kk < k:
+        dist = np.pad(dist, ((0, 0), (0, k - kk)), constant_values=np.inf)
+        idx = np.pad(idx, ((0, 0), (0, k - kk)), constant_values=-1)
+    return dist, idx
 
 
 # ---------------------------------------------------------------- IVFFlat --

@@ -25,9 +25,16 @@
 # coordinate descent that updates coordinate j of every point at once, so
 # a sweep costs one point's launches. A single fit is the grid of one, so
 # each grid point equals its `linear_fit` bit for bit. The streamed fit
-# sums these statistics over row chunks (ops/streaming.py). The ELL forms,
-# batched ones included, and the checkpointed forms wait for ROADMAP A11b
-# and A12.
+# sums these statistics over row chunks (ops/streaming.py).
+#
+# The ELL forms (`linear_fit_ell`, `linear_fit_ell_batched`) take the same
+# statistics from padded-ELL rows (ops/sparse.py) and run the same solve,
+# so they equal the dense fit on the same data up to summation rounding:
+# the centering is done on the statistics, never on the data. Their gram is
+# summed over `tile`-row blocks densified on the device (`ell_densify`) and
+# multiplied by one GEMM each, an order fixed by the layout (a scatter of
+# the [tile, k_max, k_max] outer products would add in thread order on the
+# card). The checkpointed forms wait for ROADMAP A12.
 #
 from __future__ import annotations
 
@@ -37,6 +44,9 @@ import torch
 
 from .linalg import mm_bf16, row_tiles, rows_dot_fixed
 from .owlqn import freeze_when_done
+
+# rows per densified tile of the ELL gram (`_ell_sufficient_stats`)
+ELL_TILE_ROWS = 8192
 
 
 def _sufficient_stats(X, y, w, fast: bool = False):
@@ -64,6 +74,33 @@ def _sufficient_stats(X, y, w, fast: bool = False):
             c += xw.T @ yt
     syy = torch.sum(w * y * y)
     return sw, sx, sy, G.to(X.dtype), c.to(X.dtype), syy
+
+
+def _ell_sufficient_stats(values, indices, y, w, d: int, tile: int = ELL_TILE_ROWS, fast: bool = False):
+    """`_sufficient_stats` of padded-ELL rows (values, indices [n, k_max]):
+    the same tuple, each `tile`-row block densified on the device and
+    multiplied once. ``fast`` rounds the values feeding the gram and XᵀWy
+    through bf16 once (`sparse.round_bf16`: bf16 inputs) and sums at full
+    precision; Σwx keeps the unrounded values, as in the JAX package."""
+    from .sparse import ell_densify, round_bf16
+
+    gv = round_bf16(values) if fast else values
+    sw = torch.sum(w)
+    sy = torch.sum(w * y)
+    syy = torch.sum(w * y * y)
+    G = values.new_zeros((d, d))
+    sx = values.new_zeros((d,))
+    c = values.new_zeros((d,))
+    for lo in range(0, values.shape[0], max(1, int(tile))):
+        rows = slice(lo, lo + max(1, int(tile)))
+        xt = ell_densify(values[rows], indices[rows], d)
+        gt = ell_densify(gv[rows], indices[rows], d) if fast else xt
+        wt = w[rows]
+        sx += wt @ xt
+        xw = gt * wt[:, None]
+        G.addmm_(xw.T, gt)
+        c += xw.T @ y[rows]
+    return sw, sx, sy, G, c, syy
 
 
 def _cd_elastic_net(A, r, lams, l1_ratios, max_iter: int, tol: float) -> Tuple[torch.Tensor, List[int]]:
@@ -229,6 +266,59 @@ def linear_fit_batched(
     one `linear_fit` state per point."""
     return _solve_grid_from_stats(
         _sufficient_stats(X, y, w, fast), X.dtype, alphas, l1_ratios,
+        fit_intercept=fit_intercept, standardize=standardize, use_cd=use_cd,
+        max_iter=max_iter, tol=tol,
+    )
+
+
+def linear_fit_ell(
+    values: torch.Tensor,  # [n, k_max] padded-ELL values (ops/sparse.py)
+    indices: torch.Tensor,  # [n, k_max] int32 column indices
+    y: torch.Tensor,
+    w: torch.Tensor,
+    *,
+    d: int,
+    alpha: float,
+    l1_ratio: float,
+    fit_intercept: bool = True,
+    standardize: bool = True,
+    use_cd: bool = False,
+    max_iter: int = 1000,
+    tol: float = 1e-6,
+    tile: int = ELL_TILE_ROWS,
+    fast: bool = False,
+) -> Dict[str, torch.Tensor]:
+    """Sparse linear regression: `linear_fit`'s math on padded-ELL rows,
+    the statistics from `_ell_sufficient_stats`, then the same d x d
+    solve."""
+    return _solve_from_stats(
+        _ell_sufficient_stats(values, indices, y, w, d, tile, fast), values.dtype,
+        alpha=alpha, l1_ratio=l1_ratio, fit_intercept=fit_intercept,
+        standardize=standardize, use_cd=use_cd, max_iter=max_iter, tol=tol,
+    )
+
+
+def linear_fit_ell_batched(
+    values: torch.Tensor,
+    indices: torch.Tensor,
+    y: torch.Tensor,
+    w: torch.Tensor,
+    alphas: Sequence[float],
+    l1_ratios: Sequence[float],
+    *,
+    d: int,
+    fit_intercept: bool = True,
+    standardize: bool = True,
+    use_cd: bool = False,
+    max_iter: int = 1000,
+    tol: float = 1e-6,
+    tile: int = ELL_TILE_ROWS,
+    fast: bool = False,
+) -> List[Dict[str, torch.Tensor]]:
+    """`linear_fit_batched` on padded-ELL rows: one statistics pass for the
+    whole grid, each point equal to its `linear_fit_ell` bit for bit."""
+    return _solve_grid_from_stats(
+        _ell_sufficient_stats(values, indices, y, w, d, tile, fast), values.dtype, alphas, l1_ratios,
         fit_intercept=fit_intercept, standardize=standardize, use_cd=use_cd,
         max_iter=max_iter, tol=tol,
     )

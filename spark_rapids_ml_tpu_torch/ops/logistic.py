@@ -36,10 +36,21 @@
 # grid's point).
 #
 # The streamed fit (ops/streaming.logistic_fit_streaming) is `_fit_common`
-# with products served chunk by chunk from the host. Waiting, each
-# named in ROADMAP: the ELL forms, batched ones included, and the streamed
-# ELL form (A11b), the checkpointed forms (A12), the per-iteration
-# convergence trace (A15). The JAX package's optax
+# with products served chunk by chunk from the host.
+#
+# The ELL forms (`logistic_fit_ell`, `logistic_fit_ell_batched`) run
+# `_fit_common` over the padded-ELL products of ops/sparse.py (`_ell_ops`):
+# X·B column by column, Xᵀ·R per column through the placement's column
+# grouping (`sparse.EllColumns`), so a column's products are the same bits
+# whatever columns ride beside it and the grid equals its single fits bit
+# for bit. Their standardization is scale-only (`_ell_scaling`): the data
+# is divided by the column std and never centered, which keeps it sparse,
+# as the reference's sparse path does; so a sparse fit equals JAX's ELL
+# fit, not the dense fit of the same rows. `fast` rounds the stored values
+# through bf16 once and sums at full precision.
+#
+# Waiting, each named in ROADMAP: the checkpointed forms (A12), the
+# per-iteration convergence trace (A15). The JAX package's optax
 # `_lbfgs_minimize` is reached by no entry point there and is not ported.
 #
 from __future__ import annotations
@@ -80,6 +91,41 @@ def scaling_from_moments(total_w, mean, var, standardize: bool, fit_intercept: b
     d_scale = torch.where(sigma > 0, 1.0 / torch.clamp_min(sigma, 1e-30), torch.zeros_like(sigma))
     mu = mean if fit_intercept else torch.zeros_like(mean)
     return mu, d_scale, total_w
+
+
+def _ell_scaling(values, indices, w, d: int, standardize: bool, columns=None):
+    """Scale-only standardization of padded-ELL rows: (mu = 0, d_scale [d],
+    total_w). The column std comes from `sparse.ell_col_moments` (the
+    population variance, unclamped, made unbiased as `_make_scaling`
+    does); the data is never centered."""
+    from .sparse import ell_col_moments
+
+    if standardize:
+        total_w, _, var = ell_col_moments(values, indices, w, d, columns)
+        sigma = torch.sqrt(var * (total_w / torch.clamp_min(total_w - 1.0, 1.0)))
+        d_scale = torch.where(sigma > 0, 1.0 / torch.clamp_min(sigma, 1e-30), torch.zeros_like(sigma))
+    else:
+        total_w = torch.sum(w)
+        d_scale = values.new_ones((d,))
+    return values.new_zeros((d,)), d_scale, total_w
+
+
+def _ell_ops(values, indices, d: int, fast: bool = False, columns=None):
+    """(matvec, rmat) closures over padded-ELL rows: B ↦ X·B column by
+    column (`sparse.ell_matmul`), R ↦ Xᵀ·R column by column through the
+    column grouping `columns` (made at the first Xᵀ·R when None). `fast`
+    rounds the stored values through bf16 once, here."""
+    from .sparse import EllColumns, ell_matmul, round_bf16
+
+    gv = round_bf16(values) if fast else values
+    held = [columns]
+
+    def rmat(r):
+        if held[0] is None:
+            held[0] = EllColumns(values, indices, d)
+        return torch.stack([held[0].col_sums(gv, r[:, j]) for j in range(r.shape[1])], dim=1)
+
+    return (lambda Beff: ell_matmul(gv, indices, Beff)), rmat
 
 
 def softplus(z: torch.Tensor) -> torch.Tensor:
@@ -447,6 +493,81 @@ def logistic_fit_batched(
     matvec, rmat = _dense_ops(X, fast)
     return _fit_common_grid(
         matvec, rmat, X.shape[0], X.dtype, d, y_idx, w, mu, d_scale, total_w,
+        k=k, multinomial=multinomial, lam_l2s=[float(v) for v in lam_l2s],
+        lam_l1s=[float(v) for v in lam_l1s], use_l1=use_l1, fit_intercept=fit_intercept,
+        max_iter=max_iter, tol=tol, lbfgs_memory=lbfgs_memory,
+    )
+
+
+def logistic_fit_ell(
+    values: torch.Tensor,  # [n, k_max] padded-ELL values (ops/sparse.py)
+    indices: torch.Tensor,  # [n, k_max] int32 column indices
+    y_idx: torch.Tensor,
+    w: torch.Tensor,
+    *,
+    d: int,
+    k: int,
+    multinomial: bool,
+    lam_l2: float,
+    lam_l1: float = 0.0,
+    use_l1: bool = False,
+    fit_intercept: bool = True,
+    standardize: bool = True,
+    max_iter: int = 100,
+    tol: float = 1e-6,
+    lbfgs_memory: int = 10,
+    fast: bool = False,
+    warm_start=None,
+    columns=None,  # sparse.EllColumns of (values, indices), made once per placement
+) -> Dict[str, Any]:
+    """Sparse (padded-ELL) logistic fit: `logistic_fit`'s solvers over the
+    ELL products, with scale-only standardization (`_ell_scaling`).
+    Coefficients return in original space."""
+    from .sparse import EllColumns
+
+    if columns is None:
+        columns = EllColumns(values, indices, d)
+    mu, d_scale, total_w = _ell_scaling(values, indices, w, d, standardize, columns)
+    matvec, rmat = _ell_ops(values, indices, d, fast, columns)
+    return _fit_common(
+        matvec, rmat, values.shape[0], values.dtype, d, y_idx, w, mu, d_scale, total_w,
+        k=k, multinomial=multinomial, lam_l2=lam_l2, lam_l1=lam_l1, use_l1=use_l1,
+        fit_intercept=fit_intercept, max_iter=max_iter, tol=tol, lbfgs_memory=lbfgs_memory,
+        warm_start=warm_start,
+    )
+
+
+def logistic_fit_ell_batched(
+    values: torch.Tensor,
+    indices: torch.Tensor,
+    y_idx: torch.Tensor,
+    w: torch.Tensor,
+    lam_l2s,
+    lam_l1s,
+    *,
+    d: int,
+    k: int,
+    multinomial: bool,
+    use_l1: bool = False,
+    fit_intercept: bool = True,
+    standardize: bool = True,
+    max_iter: int = 100,
+    tol: float = 1e-6,
+    lbfgs_memory: int = 10,
+    fast: bool = False,
+    columns=None,
+) -> list:
+    """`logistic_fit_batched` on padded-ELL rows: the scale-only scaling
+    once, the S solves in lockstep over the ELL products; each state equals
+    its `logistic_fit_ell` bit for bit."""
+    from .sparse import EllColumns
+
+    if columns is None:
+        columns = EllColumns(values, indices, d)
+    mu, d_scale, total_w = _ell_scaling(values, indices, w, d, standardize, columns)
+    matvec, rmat = _ell_ops(values, indices, d, fast, columns)
+    return _fit_common_grid(
+        matvec, rmat, values.shape[0], values.dtype, d, y_idx, w, mu, d_scale, total_w,
         k=k, multinomial=multinomial, lam_l2s=[float(v) for v in lam_l2s],
         lam_l1s=[float(v) for v in lam_l1s], use_l1=use_l1, fit_intercept=fit_intercept,
         max_iter=max_iter, tol=tol, lbfgs_memory=lbfgs_memory,

@@ -35,9 +35,21 @@
 # 1e-9 in float64). `fast` (bf16 products with float32 sums) rounds each
 # chunk on the card and keeps no bf16 copy of X.
 #
-# Not here, each named in ROADMAP: the padded-ELL block forms (A11b), the
-# checkpoint store and its keys (A12), the numerical-check hooks
-# (A13-rest).
+# CSR fits stream padded-ELL blocks (values and int32 indices at the
+# global k_max) through the same pipeline and the same solvers: linear's
+# statistics per chunk are ops/linear._ell_sufficient_stats, converted
+# chunk by chunk and kept nowhere (`_ell_block_iter(cache=False)`); the GLM
+# converts once per fit and keeps the host blocks on the plan
+# (`_ell_host_blocks`), since it passes over them twice an iteration. Its
+# chunk products are ops/logistic._ell_ops' (the JAX package's
+# `_glm_search_block_ell` is the chunk's X·B, `_glm_grad_block_ell` its
+# Xᵀ·R; its `_glm_eval_block_ell`, logits, loss and gradient at one point,
+# has no counterpart, since `_fit_common` asks for the products alone),
+# each chunk's column grouping made anew per pass; its scaling is
+# scale-only (`_ell_moments_block`).
+#
+# Not here, each named in ROADMAP: the checkpoint store and its keys
+# (A12), the numerical-check hooks (A13-rest).
 #
 from __future__ import annotations
 
@@ -84,13 +96,73 @@ def _dense_block_iter(inputs: Any, extras: Dict[str, np.ndarray], per_block=None
         yield blk
 
 
-def _chunks(inputs: Any, extras: Dict[str, np.ndarray], per_block=None):
-    """One streamed pass: the placed chunks, in row order."""
-    return stream_place_blocks(
-        _dense_block_iter(inputs, extras, per_block),
-        device=inputs.device,
-        staging=inputs.stream.staging,
-    )
+def _ell_k_max(inputs: Any) -> int:
+    """The global padded-ELL width of a CSR fit, kept on the plan."""
+    from ..memory import ell_k_max
+
+    plan = inputs.stream
+    if not plan.ell_k_max:
+        plan.ell_k_max = ell_k_max(inputs.X_sparse)
+    return plan.ell_k_max
+
+
+def _ell_host_blocks(inputs: Any) -> List[Tuple[int, int, np.ndarray, np.ndarray]]:
+    """The CSR rows as padded-ELL host blocks (lo, hi, values, indices) at
+    the global k_max, converted ONCE per fit and kept on the plan, each row
+    block scanned as it is converted. The GLM passes over them twice an
+    iteration; a single-pass consumer uses `_ell_block_iter(cache=False)`
+    and keeps nothing."""
+    plan = inputs.stream
+    if plan.ell_blocks is None:
+        from .sparse import csr_to_ell
+
+        k_max = _ell_k_max(inputs)
+        blocks = []
+        for lo, hi in _ranges(inputs.n_valid, plan.chunk_rows):
+            _maybe_validate(plan, lo, hi)
+            idx, val, _ = csr_to_ell(inputs.X_sparse[lo:hi], k_max=k_max, dtype=inputs.dtype)
+            blocks.append((lo, hi, val, idx))
+        plan.ell_blocks = blocks
+    return plan.ell_blocks
+
+
+def _ell_block_iter(inputs: Any, extras: Dict[str, np.ndarray], per_block=None, cache: bool = True):
+    """Host dicts of one padded-ELL pass ("val", "idx" and the aligned
+    slices of `extras`): from the plan's cached blocks, or with
+    ``cache=False`` (and no cache yet) converted chunk by chunk and kept
+    nowhere, so a dataset streamed for want of device memory grows no
+    second host copy just to be read once."""
+    plan = inputs.stream
+    if cache or plan.ell_blocks is not None:
+        blocks = _ell_host_blocks(inputs)
+    else:
+        from .sparse import csr_to_ell
+
+        def convert():
+            for lo, hi in _ranges(inputs.n_valid, plan.chunk_rows):
+                _maybe_validate(plan, lo, hi)
+                idx, val, _ = csr_to_ell(inputs.X_sparse[lo:hi], k_max=_ell_k_max(inputs), dtype=inputs.dtype)
+                yield lo, hi, val, idx
+
+        blocks = convert()
+    for bi, (lo, hi, val, idx) in enumerate(blocks):
+        blk = {"val": val, "idx": idx}
+        for name, arr in extras.items():
+            blk[name] = arr[lo:hi]
+        if per_block is not None:
+            for name, arrs in per_block.items():
+                blk[name] = arrs[bi]
+        yield blk
+
+
+def _chunks(inputs: Any, extras: Dict[str, np.ndarray], per_block=None, cache: bool = True):
+    """One streamed pass: the placed chunks, in row order (dense rows as
+    "X", CSR rows as padded-ELL "val" and "idx")."""
+    if inputs.X_sparse is not None:
+        blocks = _ell_block_iter(inputs, extras, per_block, cache=cache)
+    else:
+        blocks = _dense_block_iter(inputs, extras, per_block)
+    return stream_place_blocks(blocks, device=inputs.device, staging=inputs.stream.staging)
 
 
 def _fetch(device: torch.device, *parts: torch.Tensor) -> List[np.ndarray]:
@@ -114,16 +186,21 @@ def _on_device(inputs: Any, *arrays: np.ndarray) -> List[torch.Tensor]:
 
 def linear_streaming_stats(inputs: Any, fast: bool = False) -> Tuple[np.ndarray, ...]:
     """One streamed pass summing the normal-equation sufficient statistics
-    (ops/linear._sufficient_stats: Σw, Σwx, Σwy, XᵀWX, XᵀWy, Σwy²) over the
-    chunks. `fast` runs each chunk's contractions bf16-in / float32-sum; the
-    sum over chunks stays at full precision."""
-    from .linear import _sufficient_stats
+    (ops/linear._sufficient_stats: Σw, Σwx, Σwy, XᵀWX, XᵀWy, Σwy²; of a
+    CSR fit's ELL chunks, `_ell_sufficient_stats`) over the chunks. `fast`
+    runs each chunk's contractions bf16-in / float32-sum (ELL: its values
+    rounded through bf16); the sum over chunks stays at full precision."""
+    from .linear import _ell_sufficient_stats, _sufficient_stats
 
     y = np.asarray(inputs.y, dtype=inputs.dtype)
     w = np.asarray(inputs.w, dtype=inputs.dtype)
     acc: Optional[List[np.ndarray]] = None
-    for blk in _chunks(inputs, {"y": y, "w": w}):
-        part = _fetch(inputs.device, *_sufficient_stats(blk["X"], blk["y"], blk["w"], fast))
+    for blk in _chunks(inputs, {"y": y, "w": w}, cache=False):
+        if "val" in blk:
+            stats = _ell_sufficient_stats(blk["val"], blk["idx"], blk["y"], blk["w"], int(inputs.n_cols), fast=fast)
+        else:
+            stats = _sufficient_stats(blk["X"], blk["y"], blk["w"], fast)
+        part = _fetch(inputs.device, *stats)
         acc = part if acc is None else [a + b for a, b in zip(acc, part)]
     assert acc is not None, "streaming statistics over an empty dataset"
     return tuple(acc)
@@ -229,6 +306,8 @@ def _streaming_scaling(inputs: Any, w_host: np.ndarray, w: torch.Tensor, standar
     if not standardize:
         zero = w.new_zeros((int(inputs.n_cols),))
         return scaling_from_moments(torch.sum(w), zero, zero, False, fit_intercept)
+    if inputs.X_sparse is not None:
+        return _ell_streaming_scaling(inputs, w_host, w)
     sums = None
     for blk in _chunks(inputs, {"w": w_host}):
         part = weighted_sums(blk["X"], blk["w"])
@@ -237,28 +316,63 @@ def _streaming_scaling(inputs: Any, w_host: np.ndarray, w: torch.Tensor, standar
     return scaling_from_moments(*moments_from_sums(*sums), True, fit_intercept)
 
 
+def _ell_moments_block(val: torch.Tensor, idx: torch.Tensor, wb: torch.Tensor, d: int):
+    """One ELL chunk's scale-only standardization partials: (Σw, Σw·x [d],
+    Σw·x² [d]), the column sums in the chunk's fixed order
+    (`sparse.EllColumns`)."""
+    from .sparse import EllColumns
+
+    cols = EllColumns(val, idx, d)
+    return torch.sum(wb), cols.col_sums(val, wb), cols.col_sums(val * val, wb)
+
+
+def _ell_streaming_scaling(inputs: Any, w_host: np.ndarray, w: torch.Tensor):
+    """ops/logistic._ell_scaling over the streamed ELL chunks: the moments
+    summed on the host in chunk order, then mean, the population variance
+    (unclamped) and the unbiased std, at w's dtype; mu is 0 (sparse data is
+    never centered)."""
+    d = int(inputs.n_cols)
+    sums = None
+    for blk in _chunks(inputs, {"w": w_host}):
+        part = _fetch(inputs.device, *_ell_moments_block(blk["val"], blk["idx"], blk["w"], d))
+        sums = part if sums is None else [a + b for a, b in zip(sums, part)]
+    sw, s1, s2 = (torch.from_numpy(np.asarray(a)).to(w.dtype) for a in sums)
+    mean = s1 / sw
+    var = s2 / sw - mean * mean
+    sigma = torch.sqrt(var * (sw / torch.clamp_min(sw - 1.0, 1.0)))
+    d_scale = torch.where(sigma > 0, 1.0 / torch.clamp_min(sigma, 1e-30), torch.zeros_like(sigma))
+    return torch.zeros_like(mean), d_scale, sw
+
+
 def _streamed_ops(inputs: Any, fast: bool):
-    """(matvec, rmat) of ops/logistic._dense_ops over the streamed chunks,
+    """(matvec, rmat) of ops/logistic._dense_ops (CSR: `_ell_ops`) over the
+    streamed chunks,
     taking and returning host tensors (the products at X's dtype on the
     card, cast back to the operand's dtype on the host): X·B the chunks'
     products fetched chunk by chunk and concatenated in row order, Xᵀ·R the
     chunks' products summed on the card in chunk order and fetched once.
     Each is one pass over the rows."""
-    from .logistic import _dense_ops
+    from .logistic import _dense_ops, _ell_ops
 
     device = inputs.device
     x_dtype = torch.from_numpy(np.zeros(0, dtype=inputs.dtype)).dtype
     ranges = _ranges(inputs.n_valid, inputs.stream.chunk_rows)
+    d = int(inputs.n_cols)
+
+    def block_ops(blk):
+        if "val" in blk:
+            return _ell_ops(blk["val"], blk["idx"], d, fast)
+        return _dense_ops(blk["X"], fast)
 
     def matvec(B):
         Bd = B.to(device=device, dtype=x_dtype)
-        return torch.cat([torch.from_numpy(_fetch(device, _dense_ops(blk["X"], fast)[0](Bd))[0])
+        return torch.cat([torch.from_numpy(_fetch(device, block_ops(blk)[0](Bd))[0])
                           for blk in _chunks(inputs, {})], dim=0).to(B.dtype)
 
     def rmat(R):
         out = None
         for (lo, hi), blk in zip(ranges, _chunks(inputs, {})):
-            part = _dense_ops(blk["X"], fast)[1](R[lo:hi].to(device=device, dtype=x_dtype))
+            part = block_ops(blk)[1](R[lo:hi].to(device=device, dtype=x_dtype))
             out = part if out is None else out + part
         return torch.from_numpy(_fetch(device, out)[0]).to(R.dtype)
 

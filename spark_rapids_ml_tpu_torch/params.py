@@ -286,9 +286,10 @@ class HasFeaturesCols(Params):
 
 
 class HasEnableSparseDataOptim(Params):
-    """The opt-in CSR ingest switch (reference params.py:44-65). The port
-    has no sparse path yet: a fit or transform with it set to True raises
-    NotImplementedError naming ROADMAP A11b, as sparse input does."""
+    """The CSR ingest switch (reference params.py:44-65): None (default)
+    keeps sparse input as CSR where the estimator has a CSR path and
+    densifies it elsewhere; True requires sparse input (dense input raises
+    ValueError); False densifies it."""
 
     enable_sparse_data_optim = Param(
         "enable_sparse_data_optim",

@@ -44,6 +44,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 
 from .. import telemetry
+from ..data import as_dense
 from ..errors import RequestTimeoutError, ServingStoppedError
 from .overload import OverloadController, plan_target_rows, plan_window
 from .registry import ModelRegistry
@@ -207,7 +208,7 @@ class ScoringEngine:
         from ..core import config
 
         entry = self.registry.get(name)  # KeyError for unknown/evicted models
-        feats = np.asarray(features)
+        feats = np.asarray(as_dense(features))  # a CSR request is densified
         if feats.ndim != 2:
             raise ValueError(
                 f"features must be a [rows, {entry.n_cols}] block; got shape "

@@ -147,7 +147,7 @@ class ModelRegistry:
                 try:
                     # residents are charged through their ledger reservations
                     adm = memory.admit_model_load(
-                        model, bucket_rows_count=self._cap, device=device
+                        model, bucket_rows_count=self._cap, device=device, serve_dtype=serve_dtype
                     )
                     break
                 except HbmBudgetError as e:

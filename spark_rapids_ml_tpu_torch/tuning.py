@@ -56,7 +56,8 @@ def _rows_of(dataset: Any):
 
 def _n_rows(data: Any) -> int:
     if isinstance(data, dict):
-        return len(next(iter(data.values())))
+        first = next(iter(data.values()))
+        return int(first.shape[0]) if hasattr(first, "shape") else len(first)
     return len(data)
 
 
@@ -65,9 +66,12 @@ def _column(data: Any, name: str) -> np.ndarray:
 
 
 def _take_rows(data: Any, idx: np.ndarray) -> Any:
-    """The rows `idx` of a dict (each entry indexed) or a pandas frame."""
+    """The rows `idx` of a dict (each entry indexed: an array or a scipy
+    sparse matrix by rows) or a pandas frame."""
+    from .data import _is_scipy_sparse
+
     if isinstance(data, dict):
-        return {k: (np.asarray(v)[idx] if isinstance(v, np.ndarray) else [v[i] for i in idx])
+        return {k: (v[idx] if isinstance(v, np.ndarray) or _is_scipy_sparse(v) else [v[i] for i in idx])
                 for k, v in data.items()}
     return data.iloc[idx].reset_index(drop=True)
 
@@ -81,14 +85,20 @@ def _scoring_labels(data, est, eva) -> np.ndarray:
 def _held_out_rows(scope, valid_idx: np.ndarray):
     """The held-out rows of a fold, gathered on the device from the
     placement the fold's fit used; a streamed fit placed none, and its
-    held-out rows go to the device from the host blocks."""
+    held-out rows go to the device from the host blocks; CSR rows are
+    handed over as their CSR slice."""
     import torch
 
     from .parallel import host_tensor
 
     inputs = scope.last.inputs
+    feats = scope.last.extracted.features
+    if scope.last.extracted.is_sparse:
+        # CSR rows stay on the host: the model's scoring densifies them in
+        # batches (or multiplies them there, LinearRegression)
+        return feats[np.asarray(valid_idx)]
     if inputs.X is None:
-        return host_tensor(scope.last.extracted.features[np.asarray(valid_idx)]).to(inputs.device)
+        return host_tensor(feats[np.asarray(valid_idx)]).to(inputs.device)
     X = inputs.X
     return X.index_select(0, torch.from_numpy(np.asarray(valid_idx, dtype=np.int64)).to(X.device))
 

@@ -516,9 +516,16 @@ def test_refusals():
         est.fit(df).write()
     with pytest.raises(NotImplementedError, match="A10"):
         ApproximateNearestNeighbors(k=2, num_workers=2).setInputCol("features").fit(df)
+    # sparse items are densified, as in the JAX package: the same index as
+    # the dense rows' (this case raised for ROADMAP A11b before)
     sparse = pd.DataFrame({"features": [Vectors.sparse(4, [0], [1.0 + i]) for i in range(10)]})
-    with pytest.raises(NotImplementedError, match="A11"):
-        ApproximateNearestNeighbors(k=2, algoParams={"nlist": 2}).setInputCol("features").fit(sparse)
+    dense = pd.DataFrame({"features": [np.array([1.0 + i, 0, 0, 0], np.float32) for i in range(10)]})
+    ann = ApproximateNearestNeighbors(k=2, algoParams={"nlist": 2}).setInputCol("features")
+    q = pd.DataFrame({"features": [np.array([2.2, 0, 0, 0], np.float32)]})
+    _, _, got = ann.fit(sparse).kneighbors(q)
+    _, _, want = ann.fit(dense).kneighbors(q)
+    np.testing.assert_array_equal(np.stack(got["indices"]), np.stack(want["indices"]))
+    np.testing.assert_array_equal(np.stack(got["distances"]), np.stack(want["distances"]))
     with pytest.raises(ValueError, match="compression"):
         ApproximateNearestNeighbors(k=2, algorithm="cagra", algoParams={"compression": {}})
 

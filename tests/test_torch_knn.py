@@ -280,9 +280,20 @@ def test_more_than_one_worker_is_refused():
 
 
 def test_sparse_items_name_their_roadmap_item():
-    data = pd.DataFrame({"features": [Vectors.sparse(3, [0], [1.0]), Vectors.sparse(3, [2], [2.0])]})
-    with pytest.raises(NotImplementedError, match="A11"):
-        NearestNeighbors(k=1).setInputCol("features").fit(data)
+    # (named when sparse items raised for ROADMAP A11b) a SparseVector item
+    # set is kept CSR and searched tile by tile, with JAX's answer
+    from spark_rapids_ml_tpu.linalg import Vectors as JaxVectors
+
+    items = [(3, [0], [1.0]), (3, [2], [2.0]), (3, [0, 1], [0.5, 4.0]), (3, [1], [-1.0])]
+    data = pd.DataFrame({"features": [Vectors.sparse(*c) for c in items]})
+    jdata = pd.DataFrame({"features": [JaxVectors.sparse(*c) for c in items]})
+    model = NearestNeighbors(k=2).setInputCol("features").fit(data)
+    assert model._item_extracted.is_sparse
+    q = {"features": np.array([[1.0, 0.0, 0.0], [0.0, 3.0, 1.0]], np.float32)}
+    _, _, knn = model.kneighbors(q)
+    _, _, jknn = JaxNearestNeighbors(k=2, num_workers=1).setInputCol("features").fit(jdata).kneighbors(q)
+    np.testing.assert_array_equal(np.stack(knn["indices"]), np.stack(jknn["indices"]))
+    np.testing.assert_allclose(np.stack(knn["distances"]), np.stack(jknn["distances"]), rtol=1e-6)
 
 
 def test_no_persistence_and_no_transform():

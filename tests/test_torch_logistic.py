@@ -623,13 +623,29 @@ def test_warm_start_refusals():
 
 
 def test_sparse_switch_and_input_name_their_roadmap_item():
+    # (named when both raised for ROADMAP A11b) the switch and sparse input
+    # behave as in the JAX package: True on dense input raises JAX's
+    # ValueError; sparse input fits on the padded-ELL layout (scale-only
+    # standardization), equal to JAX's fit; False densifies it, and then
+    # the fit is the dense fit
+    import scipy.sparse as sp
+
     x, y = _cls(n=50, seed=25, dtype=np.float32)
-    with pytest.raises(NotImplementedError, match="A11"):
-        LogisticRegression(enable_sparse_data_optim=True).fit({"features": x, "label": y.astype(np.float32)})
-    sparse = pd.DataFrame({"features": [Vectors.sparse(6, [0, 2], [1.0, 2.0])] * 4, "label": [0.0, 1.0] * 2})
-    with pytest.raises(NotImplementedError, match="A11"):
-        LogisticRegression().fit(sparse)
-    m = LogisticRegression(enable_sparse_data_optim=False).fit({"features": x, "label": y.astype(np.float32)})
+    data = {"features": x, "label": y.astype(np.float32)}
+    with pytest.raises(ValueError, match="requires sparse input"):
+        LogisticRegression(enable_sparse_data_optim=True).fit(data)
+    with pytest.raises(ValueError, match="requires sparse input"):
+        JaxLogisticRegression(enable_sparse_data_optim=True, num_workers=1).fit(data)
+    xs = np.where(np.abs(x) > 0.5, x, 0.0).astype(np.float64)
+    sparse = {"features": sp.csr_matrix(xs), "label": y.astype(np.float64)}
+    tm = LogisticRegression(maxIter=30, float32_inputs=False).fit(sparse)
+    jm = JaxLogisticRegression(maxIter=30, float32_inputs=False, num_workers=1).fit(sparse)
+    assert tm.n_iter_ == jm.n_iter_
+    np.testing.assert_allclose(tm.coef_, jm.coef_, rtol=1e-8, atol=1e-10)
+    dense = LogisticRegression(maxIter=30, float32_inputs=False).fit({"features": xs, "label": sparse["label"]})
+    off = LogisticRegression(maxIter=30, float32_inputs=False, enable_sparse_data_optim=False).fit(sparse)
+    np.testing.assert_array_equal(off.coef_, dense.coef_)
+    m = LogisticRegression(enable_sparse_data_optim=False).fit(data)
     assert m.n_iter_ > 0
 
 

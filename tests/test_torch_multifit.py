@@ -273,16 +273,31 @@ def test_cv_fold_metrics_bit_identical_linear(rng):
 
 
 def test_sparse_cv_is_refused_naming_a11(rng):
-    # the sparse (ELL) half of the engine is ROADMAP A11 in the port
+    # (named when the sparse half of the engine raised for ROADMAP A11) a
+    # sparse CV runs the engine: one ingest, one conversion, and JAX's
+    # avgMetrics
     x = np.where(np.abs(rng.normal(size=(40, 4))) > 0.8, 1.0, 0.0)
     rows = [SparseVector(4, np.nonzero(r)[0].astype(np.int32), r[np.nonzero(r)[0]]) for r in x]
     df = pd.DataFrame({"features": rows, "label": (x[:, 0] > 0).astype(float)})
-    lr = LogisticRegression(maxIter=5).setFeaturesCol("features")
+    lr = LogisticRegression(maxIter=5, float32_inputs=False).setFeaturesCol("features")
     grid = ParamGridBuilder().addGrid(lr.getParam("regParam"), [0.0, 0.1]).build()
     cv = CrossValidator(estimator=lr, estimatorParamMaps=grid,
                         evaluator=MulticlassClassificationEvaluator(metricName="accuracy"), numFolds=2)
-    with pytest.raises(NotImplementedError, match="A11"):
-        cv.fit(df)
+    telemetry.enable()
+    telemetry.registry().reset()
+    try:
+        avg = cv.fit(df).avgMetrics
+        c = telemetry.registry().snapshot()["counters"]
+    finally:
+        telemetry.disable()
+    assert c["ingest.datasets"] == 1 and c["sparse.csr_to_ell_calls"] == 1
+    from spark_rapids_ml_tpu.linalg import SparseVector as JaxSparseVector
+
+    jx = pd.DataFrame({"features": [JaxSparseVector(4, v.indices, v.values) for v in rows], "label": df["label"]})
+    jest = _jax(lr)
+    jcv = JaxCrossValidator(estimator=jest, estimatorParamMaps=_jax_grid(jest, grid),
+                            evaluator=JaxMulticlassEvaluator(metricName="accuracy"), numFolds=2)
+    np.testing.assert_array_equal(avg, jcv.fit(jx).avgMetrics)
 
 
 def test_cv_masked_fold_respects_train_classes(rng):

@@ -59,6 +59,17 @@ from spark_rapids_ml_tpu_torch.core import config
 config.update(hbm_budget_bytes=30000, stream_chunk_rows=64)  # the out-of-core path too
 assert KMeans(k=3, maxIter=4, seed=1).fit({"features": x})._fit_metrics["admission"]["verdict"] == "stream"
 config.update(hbm_budget_bytes=None, stream_chunk_rows=0)
+import scipy.sparse as sp
+from spark_rapids_ml_tpu_torch import LinearRegression, LogisticRegression
+xs = sp.csr_matrix(np.where(np.abs(x) > 0.7, x, 0.0))  # CSR: the padded-ELL fits and the sparse kNN
+sdata = {"features": xs, "label": (x[:, 0] > 0).astype(float)}
+LinearRegression().fit(sdata).transform(sdata)
+slr = LogisticRegression(maxIter=5)
+slr.fit(sdata, [{slr.getParam("regParam"): v} for v in (0.0, 0.1)])
+config.update(hbm_budget_bytes=30000, stream_chunk_rows=64)
+assert LogisticRegression(maxIter=3).fit(sdata)._fit_metrics["admission"]["verdict"] == "stream"
+config.update(hbm_budget_bytes=None, stream_chunk_rows=0)
+NearestNeighbors(k=3).setInputCol("features").fit({"features": xs}).kneighbors({"features": x[:4]})
 nn = NearestNeighbors(k=5).setInputCol("features").fit({"features": x})
 nn.exactNearestNeighborsJoin({"features": x[:7]})  # kneighbors inside
 from spark_rapids_ml_tpu_torch import ApproximateNearestNeighbors
@@ -254,9 +265,20 @@ def test_feature_column_kinds_give_the_same_fit(kind):
 
 
 def test_sparse_input_names_its_roadmap_item():
-    data = pd.DataFrame({"features": [Vectors.sparse(3, [0], [1.0]), Vectors.sparse(3, [2], [2.0])]})
-    with pytest.raises(NotImplementedError, match="A11"):
-        KMeans(k=1).fit(data)
+    # (named when sparse input raised for ROADMAP A11b) KMeans has no CSR
+    # path: SparseVector cells and a scipy CSR block are densified at
+    # extraction, as in the JAX package, and fit as the dense rows do
+    import scipy.sparse as sp
+
+    x = np.round(_x(seed=31)) * (np.random.default_rng(31).random((300, 5)) > 0.4)
+    rows = [Vectors.sparse(5, np.nonzero(r)[0].tolist(), r[np.nonzero(r)[0]].tolist()) for r in x]
+    dense = KMeans(k=4, maxIter=10, seed=5).fit({"features": x})
+    for data in (pd.DataFrame({"features": rows}), {"features": sp.csr_matrix(x)}):
+        model = KMeans(k=4, maxIter=10, seed=5).fit(data)
+        np.testing.assert_array_equal(model.cluster_centers_, dense.cluster_centers_)
+    jm = JaxKMeans(k=4, maxIter=10, seed=5, num_workers=1).fit({"features": sp.csr_matrix(x)})
+    np.testing.assert_allclose(dense.cluster_centers_, jm.cluster_centers_, rtol=1e-6)
+    np.testing.assert_array_equal(_pred(dense, {"features": sp.csr_matrix(x)}), _pred(dense, {"features": x}))
 
 
 def test_params_mirror_the_jax_estimator():
