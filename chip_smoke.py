@@ -218,7 +218,35 @@
 #      queries, every item tile through B3 (d2_block/f32), the kernel route
 #      equal to the plain route; 14f a weighted k-means|| seeding twice, bit
 #      for bit;
-#  15. a {"kernels": [...]} line with all twelve kernel forms, the
+#  15. serving overload and the ops plane, right after phase 5, with phase
+#      3's KMeansModel (k = 1000, d = 3000): 15a the serving saturation
+#      protocol (benchmark/bench_saturation.py's run_saturation_bench, its
+#      parameters and its five gates unchanged: 32-row requests, 128-row
+#      batches, a 2 s plateau of 4 closed-loop clients, a 4 s open-loop
+#      burst at 2.5 x the plateau declared by a chaos `burst` entry, a
+#      recovery, every dispatch delayed 20 ms by a chaos `delay:stage=serve`
+#      entry; serve_degraded_dtype "bf16", hold 0.4 s, 0.25 s x 24 windows):
+#      zero over-deadline dispatches, the burst p99 within the deadline plus
+#      the SLO threshold, burst goodput >= 0.3 and recovery goodput >= 0.6 of
+#      the plateau, the ladder engaged with every transition audited, and
+#      assign_argmin/f32-fast launched by the degraded rung during the
+#      burst; 15b the degrade rung forced: KMeans answers equal a
+#      serve_dtype="bf16" registry's bit for bit with assign_argmin/f32-fast
+#      launched once per dispatched tile, a float64 NearestNeighbors(k=64)
+#      over 131,072 x 3000 float64 items served on its float64 rung
+#      (d2_block/f64) and its degraded rung (d2_block/f64-fast, one launch
+#      per item block and dispatch), equal to bf16 serving bit for bit;
+#      both degraded rungs held against a plain reference of bf16 rounding
+#      with float64 sums (KMeans on every drill row, kNN on every 16th
+#      query over all items): assignments, neighbors and distances equal
+#      but for ties within the bound of float32 sums, with planted errors
+#      that the check must catch; the kNN recall@64 against the float64
+#      rung >= 0.98 (measured, see the floor's comment); shed and throttle refused
+#      typed with their levels; 15c the ops plane: /metrics scraped once on
+#      an ephemeral port (15a's serve.* counters), /healthz, report()'s
+#      serving tenants and backpressure decisions, an SRML_NUMCHECK=1 sweep
+#      of a degraded response with no trip;
+#  16. a {"kernels": [...]} line with all twelve kernel forms, the
 #      nvidia-smi line, and as the last line {"ok": true, "device": {...}}.
 #      The seconds of each phase are printed as it ends.
 #
@@ -1741,6 +1769,642 @@ def phase_serving(dev, X, kmeans_model):
         "repeated rows lower copy first across item blocks")
     del it
     telemetry.disable()
+    return counts, timings
+
+
+# ----------------------------------------------------------- phase 15 ----
+
+# the serving saturation protocol (benchmark/bench_saturation.py's
+# run_saturation_bench, its parameters and its five gates unchanged), run
+# against the port with phase 3's KMeansModel at full width
+SAT = {
+    "request_rows": 32, "max_batch_rows": 128, "plateau_s": 2.0, "burst_s": 4.0, "recover_s": 1.5,
+    "recover_timeout_s": 15.0, "concurrency": 4, "service_delay_s": 0.02, "overload_factor": 2.5,
+    "burst_goodput_frac": 0.3, "recover_goodput_frac": 0.6,
+}
+SAT_TENANT = "default"
+# the degraded-rung drill: request sizes, and the float64 kNN model's items
+# (131,072 x 3000 float64, 3.1 GB; each resident program places its own copy)
+DRILL_SIZES = (1, 100, 1000, 4096)
+OVERLOAD_KNN_ITEMS = 131_072
+# the float64 kNN drill's queries held against the plain bf16 reference over
+# all items (every 16th of the 4096), and the floor of the degraded rung's
+# recall@64 against the float64 rung: 0.985668 in two runs on these rows
+# (H100 80GB HBM3, 700 W); the plain bf16 reference's own recall says
+# what bf16 rounding costs here
+REF_QUERY_STEP = 16
+DEGRADED_RECALL_FLOOR = 0.98
+
+
+def _bf16_of(a):
+    """`a` rounded to bf16 as the fast kernel forms round it (float64 through
+    float32), widened to float64, where a product of two such values is
+    exact."""
+    return a.float().bfloat16().double()
+
+
+def _f32_sum_err(S):
+    """Bound on |fl32(sum) - sum| for N_COLS terms whose magnitudes sum to S,
+    summed in any order by float32 adds that round to nearest or truncate
+    (u = 2^-23), as a tensor core's accumulator may."""
+    nu = (N_COLS + 1) * 2.0 ** -23
+    return nu / (1.0 - nu) * S
+
+
+def _worst_swap(got, want, ref_got, ref_want, e_got, e_want):
+    """Per row, the largest (ref[j] - ref[m]) / (e[j] + e[m]) over the ids j
+    that the answer `got` [R, k] holds and the reference's answer `want`
+    lacks, against the ids m that `want` holds and `got` lacks (0 where the
+    two sets are equal). ref_* are the reference's squared distances of
+    those ids, e_* the bounds on how far the answer's own values may lie
+    from them. An answer whose every value lies within its bound of the
+    reference can swap j for m only where that ratio is at most 1."""
+    worst = np.zeros(len(got))
+    for r in range(len(got)):
+        mj, mm = ~np.isin(got[r], want[r]), ~np.isin(want[r], got[r])
+        if mj.any():
+            num = ref_got[r][mj][:, None] - ref_want[r][mm][None, :]
+            worst[r] = (num / (e_got[r][mj][:, None] + e_want[r][mm][None, :])).max()
+    return worst
+
+
+def _kmeans_bf16_reference(requests, centers, got, dev):
+    """The degraded KMeans rung's assignments against a plain reference on
+    the card: ||c||^2 - 2 bf16(x).bf16(c) with the products and sums in
+    float64, so that it differs from the rung only by the rung's float32
+    sums. A row may be assigned apart from the reference's argmin only
+    within those sums' bound. Planted errors: each row sent to another
+    center at random (a wrong tile or offset; it must be caught), and to
+    the reference's second-nearest center (what the check resolves;
+    printed)."""
+    import torch
+
+    C = torch.as_tensor(centers, device=dev)
+    Cb = _bf16_of(C)
+    c_sq = (C.double() ** 2).sum(1)
+    x = torch.as_tensor(np.concatenate(requests), device=dev)
+    xb = _bf16_of(x)
+    dots = xb @ Cb.T
+    S = xb.abs() @ Cb.abs().T
+    ref = c_sq[None, :] - 2.0 * dots
+    u = 2.0 ** -23
+    # the rung's float32 value: its norms, its sums, its last subtraction
+    e = 2.0 * _f32_sum_err(S) + _f32_sum_err(c_sq)[None, :] + u * (c_sq[None, :] + 2.0 * S)
+    best = torch.topk(ref, 2, dim=1, largest=False).indices
+    a = torch.as_tensor(np.concatenate(got), device=dev).long()[:, None]
+
+    def check(ids):
+        return _worst_swap(*(t.cpu().numpy() for t in (
+            ids, best[:, :1], ref.gather(1, ids), ref.gather(1, best[:, :1]), e.gather(1, ids),
+            e.gather(1, best[:, :1]))))
+
+    worst = check(a)
+    k = len(centers)
+    other = (best[:, :1] + torch.as_tensor(np.random.default_rng(18).integers(1, k, (len(x), 1)), device=dev)) % k
+    caught = {name: float(np.mean(check(ids) > 1.0)) for name, ids in (("random", other), ("second", best[:, 1:2]))}
+    return {"rows": len(x), "apart": int((a[:, 0] != best[:, 0]).sum()), "worst": float(worst.max()),
+            "planted_caught": caught}
+
+
+def _knn_bf16_reference(items, rows, gd, gi, pi, dev):
+    """The degraded float64 kNN rung against a plain reference on the card
+    for the queries items[rows], over all items: ||x||^2 + ||q||^2 -
+    2 bf16(q).bf16(x), the products and sums in float64, so that it differs
+    from the rung only by the rung's float32 sums. Each distance the rung
+    returns must lie within those sums' bound of the reference's, and its
+    neighbors may differ from the reference's top k only within the bounds
+    of the two ids swapped: the worst-case bound, and a tight one from the
+    errors measured on the returned ids. Two planted errors must be caught:
+    a within-cluster scramble (the query itself and 63 of its nearest 128 at
+    random) by either, and a shift at the boundary (ranks 57-64 exchanged
+    for 65-72) by the tight one."""
+    import torch
+
+    kk = gi.shape[1]
+    q = torch.as_tensor(items[rows], device=dev)
+    qb = _bf16_of(q)
+    q_sq = (q * q).sum(1)
+    ref = torch.empty((len(rows), len(items)), dtype=torch.float64, device=dev)
+    step = 16384
+    for lo in range(0, len(items), step):
+        x = torch.as_tensor(items[lo:lo + step], device=dev)
+        ref[:, lo:lo + step] = (x * x).sum(1)[None, :] + q_sq[:, None] - 2.0 * (qb @ _bf16_of(x).T)
+    near = torch.topk(ref, 2 * kk, dim=1, largest=False).indices  # ascending
+
+    def bound(ids):
+        """The bound on each (query, id)'s value, and its exact float64
+        squared distance."""
+        xs = torch.as_tensor(items[ids.cpu().numpy()], device=dev)  # [R, m, d]
+        xb = _bf16_of(xs)
+        S = (qb.abs()[:, None, :] * xb.abs()).sum(2)
+        scale = (xs * xs).sum(2) + q_sq[:, None] + 2.0 * S
+        exact = ((xs - q[:, None, :]) ** 2).sum(2)
+        # the float32 sums, and the float64 steps of both sides
+        return (2.0 * _f32_sum_err(S) + 1e-11 * scale).cpu().numpy(), exact.cpu().numpy()
+
+    want = near[:, :kk]
+    e_want = bound(want)[0]
+
+    def check(ids, e_ids, e_w):
+        return _worst_swap(ids.cpu().numpy(), want.cpu().numpy(), ref.gather(1, ids).cpu().numpy(),
+                           ref.gather(1, want).cpu().numpy(), e_ids, e_w)
+
+    a = torch.as_tensor(gi[rows], device=dev).long()
+    e_a, exact_a = bound(a)
+    worst = check(a, e_a, e_want)
+    got_d2 = gd[rows] ** 2
+    err = np.abs(got_d2 - ref.gather(1, a).clamp_min(0.0).cpu().numpy())
+    # the tight tier: an id the rung did not return is taken to err by at
+    # most 4 x the largest error measured on the ids it returned
+    tight = np.full_like(e_a, 4.0 * err.max())
+    worst_tight = check(a, tight, tight)
+    gen = np.random.default_rng(17)
+    pick = np.stack([np.concatenate([[0], 1 + np.sort(gen.choice(2 * kk - 1, kk - 1, replace=False))])
+                     for _ in rows])
+    scramble = near.gather(1, torch.as_tensor(pick, device=dev))
+    shift = torch.cat([near[:, :kk - 8], near[:, kk:kk + 8]], dim=1)
+    caught = {name: {"bound": float(np.mean(check(ids, bound(ids)[0], e_want) > 1.0)),
+                     "tight": float(np.mean(check(ids, tight, tight) > 1.0))}
+              for name, ids in (("scramble", scramble), ("shift", shift))}
+    recall_ref = float(np.mean([len(np.intersect1d(w, p)) / kk for w, p in zip(want.cpu().numpy(), pi[rows])]))
+    return {"queries": len(rows), "worst_swap": float(worst.max()), "worst_swap_tight": float(worst_tight.max()),
+            "tight_tol": float(tight.flat[0]), "swapped_queries": int((worst > 0).sum()),
+            "worst_dist_err": float((err / e_a).max()), "max_err_vs_ref": float(err.max()),
+            "median_err_vs_ref": float(np.median(err)),
+            "median_err_vs_f64": float(np.median(np.abs(got_d2 - exact_a))), "recall_ref_vs_f64": recall_ref,
+            "planted_caught": caught}
+
+
+def _closed_loop(engine, name, make_request, duration_s, concurrency, deadline_ms):
+    """Closed-loop clients (bench_saturation._closed_loop): each thread
+    submits, waits, repeats; a refusal backs off 10 ms and retries. Returns
+    served rows, wall, rows/s, p50/p99 of the served requests, refusals."""
+    import threading
+
+    from spark_rapids_ml_tpu_torch.errors import ServeOverloadError, SrmlError
+
+    latencies, refused, rows = [], [0], [0]
+    lock = threading.Lock()
+    t_end = time.perf_counter() + duration_s
+
+    def client():
+        while time.perf_counter() < t_end:
+            feats = make_request()
+            t0 = time.perf_counter()
+            try:
+                engine.submit(name, feats, deadline_ms=deadline_ms, tenant=SAT_TENANT).result(timeout=30)
+            except ServeOverloadError:
+                with lock:
+                    refused[0] += 1
+                time.sleep(0.01)
+                continue
+            except SrmlError:
+                continue  # expiries under churn: counted by the engine
+            dt = time.perf_counter() - t0
+            with lock:
+                latencies.append(dt)
+                rows[0] += feats.shape[0]
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client) for _ in range(concurrency)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    lat = np.asarray(latencies) if latencies else np.zeros(1)
+    return {"rows": rows[0], "wall_s": wall, "rows_per_sec": rows[0] / wall if wall > 0 else 0.0,
+            "p50_s": float(np.percentile(lat, 50)), "p99_s": float(np.percentile(lat, 99)),
+            "served": len(latencies), "refused": refused[0]}
+
+
+def _saturation(X, kmeans_model):
+    """Returns the figures and the (stopped) engine, whose ladder state the
+    ops report of 15c reads. 15a: plateau (closed loop, calibrates the SLO, deadline and queue
+    bound), burst (an open loop at overload_factor x the plateau, shaped by a
+    chaos `burst` entry), recover (closed loop again once the tenant is back
+    to healthy), with every dispatch delayed by a chaos `delay:stage=serve`
+    entry; the lane's five gates, hard."""
+    import itertools
+
+    import torch
+
+    from spark_rapids_ml_tpu_torch import ModelRegistry, ScoringEngine, telemetry
+    from spark_rapids_ml_tpu_torch.core import config
+    from spark_rapids_ml_tpu_torch.errors import ServeOverloadError, SrmlError
+    from spark_rapids_ml_tpu_torch.ops import _kernels
+    from spark_rapids_ml_tpu_torch.ops_plane import audit
+    from spark_rapids_ml_tpu_torch.parallel import chaos
+
+    p = SAT
+    rr = p["request_rows"]
+    gen = np.random.default_rng(15)
+    pool = [np.ascontiguousarray(X[s:s + rr]) for s in gen.integers(0, len(X) - rr, size=32)]
+    counter = itertools.count()
+
+    def make_request():
+        return pool[next(counter) % len(pool)]
+
+    # fast windows, so the closed loop reacts at this timescale (they bind at
+    # the first record after the reset)
+    config.update(metrics_bucket_seconds=0.25, metrics_bucket_count=24, serve_coalesce_window_ms=2.0,
+                  serve_adaptive_batching=True, serve_overload_hold_s=0.4, serve_degraded_dtype="bf16", slo=[])
+    telemetry.registry().reset()
+    telemetry.enable()
+    audited_before = len(audit.decisions(kind="backpressure"))
+    mark = telemetry.registry().mark()
+    delay_entry = f"delay:stage=serve:seconds={p['service_delay_s']}:times=1000000"
+    chaos.set_fault_plan(delay_entry)
+    out = {}
+    registry = ModelRegistry()
+    t0 = time.perf_counter()
+    entry = registry.load("satbench", kmeans_model)
+    torch.cuda.synchronize()
+    out["load_s"] = time.perf_counter() - t0
+    if entry.degraded_dtype != "bf16" or entry.degraded_program is None:
+        fail("overload: the saturation model was loaded without its bf16 degraded rung")
+    with ScoringEngine(registry, max_batch_rows=p["max_batch_rows"]) as engine:
+        engine.score("satbench", make_request())  # the dispatch path warm
+        plateau = _closed_loop(engine, "satbench", make_request, p["plateau_s"], p["concurrency"], 10_000.0)
+        capacity = max(plateau["rows_per_sec"], 1.0)
+        # the run's SLO: the threshold well above the plateau p99 (healthy
+        # traffic never burns), the deadline a small multiple of it
+        threshold_s = max(0.08, 4.0 * plateau["p99_s"])
+        deadline_s = 2.5 * threshold_s
+        config["serve_max_queue_rows"] = max(512, int(capacity))
+        config["slo"] = [{"name": "saturation_p99", "kind": "latency", "histogram": "serve.e2e_s",
+                          "threshold_s": threshold_s, "objective": 0.5, "fast_window_s": 1.0, "fast_burn": 1.0}]
+        burst_rate = int(p["overload_factor"] * capacity)
+        chaos.set_fault_plan(delay_entry + f";burst:stage=serve:rows={burst_rate}:seconds={p['burst_s']}")
+        fault = chaos.maybe_burst_stage("serve")
+        if fault is None or fault.rows != burst_rate:
+            fail("overload: the chaos plan's burst entry did not fire")
+        fast_before = _kernels.launches["assign_argmin/f32-fast"]
+        futures, refusals = [], {"shed": 0, "throttle": 0, "other": 0}
+        t_burst0 = t_next = time.perf_counter()
+        while time.perf_counter() - t_burst0 < fault.seconds:
+            try:
+                futures.append(engine.submit("satbench", make_request(), deadline_ms=deadline_s * 1e3,
+                                             tenant=SAT_TENANT))
+            except ServeOverloadError as e:
+                refusals[e.level if e.level in refusals else "other"] += 1
+            t_next += rr / fault.rows
+            lag = t_next - time.perf_counter()
+            if lag > 0:
+                time.sleep(lag)
+        served_rows, burst_lat, expired = 0, [], 0
+        for fut in futures:  # the drain: the tail still resolves, typed
+            try:
+                fut.result(timeout=60)
+            except SrmlError:
+                expired += 1
+                continue
+            served_rows += fut.rows
+            burst_lat.append(fut.t_done - fut.t_submit)
+        burst_wall = time.perf_counter() - t_burst0
+        fast_burst = _kernels.launches["assign_argmin/f32-fast"] - fast_before
+        lat = np.asarray(burst_lat) if burst_lat else np.zeros(1)
+        burst = {"offered_rows_per_sec": float(burst_rate), "rows_per_sec": served_rows / burst_wall,
+                 "p99_s": float(np.percentile(lat, 99)), "served": len(burst_lat), "expired": expired,
+                 "refused": dict(refusals), "wall_s": burst_wall}
+        t0 = time.perf_counter()
+        level = "unknown"
+        while time.perf_counter() - t0 < p["recover_timeout_s"]:
+            try:
+                engine.submit("satbench", make_request(), deadline_ms=10_000.0, tenant=SAT_TENANT).result(timeout=30)
+            except SrmlError:
+                time.sleep(0.02)
+            level = engine.stats()["tenants"].get(SAT_TENANT, {}).get("level", "unknown")
+            if level == "healthy":
+                break
+        recover_wait_s = time.perf_counter() - t0
+        recover = _closed_loop(engine, "satbench", make_request, p["recover_s"], p["concurrency"], 10_000.0)
+        stats = engine.stats()
+    registry.evict("satbench")
+    chaos.clear_fault_plan()
+    config["slo"] = []
+    transitions = sum(t.get("transitions", 0) for t in stats["tenants"].values())
+    audited = audit.decisions(kind="backpressure")[audited_before:]
+    verdicts = [d["verdict"] for d in audited]
+    counters = telemetry.registry().delta(mark)["counters"]
+    gates = {
+        "zero_overdeadline_dispatches": (
+            counters.get("serve.overdeadline_dispatches", 0.0) == 0.0,
+            f"{counters.get('serve.overdeadline_dispatches', 0.0):g} request(s) dispatched past their deadline"),
+        "bounded_p99": (
+            burst["p99_s"] <= deadline_s + threshold_s,
+            f"served p99 {burst['p99_s'] * 1e3:.0f} ms vs bound {(deadline_s + threshold_s) * 1e3:.0f} ms"),
+        "burst_goodput": (
+            burst["rows_per_sec"] >= p["burst_goodput_frac"] * capacity,
+            f"{burst['rows_per_sec']:,.0f} rows/s under burst vs {p['burst_goodput_frac']:.2f} x plateau "
+            f"{capacity:,.0f}"),
+        "recover_goodput": (
+            recover["rows_per_sec"] >= p["recover_goodput_frac"] * capacity,
+            f"{recover['rows_per_sec']:,.0f} rows/s after recovery (level {level!r} after {recover_wait_s:.1f} s) "
+            f"vs {p['recover_goodput_frac']:g} x plateau {capacity:,.0f}"),
+        "ladder_engaged_and_audited": (
+            transitions > 0 and len(audited) == transitions,
+            f"{transitions} transition(s), {len(audited)} audited"),
+    }
+    out.update({
+        "plateau_rows_per_sec": plateau["rows_per_sec"], "plateau_p99_ms": plateau["p99_s"] * 1e3,
+        "burst_offered_rows_per_sec": burst["offered_rows_per_sec"], "burst_rows_per_sec": burst["rows_per_sec"],
+        "burst_p99_ms": burst["p99_s"] * 1e3, "burst_served": burst["served"], "burst_expired": expired,
+        "recover_rows_per_sec": recover["rows_per_sec"], "recover_p99_ms": recover["p99_s"] * 1e3,
+        "recover_wait_s": recover_wait_s, "final_level": level, "threshold_ms": threshold_s * 1e3,
+        "deadline_ms": deadline_s * 1e3, "refusals_by_rung": burst["refused"], "transitions": transitions,
+        "verdicts": verdicts,
+        "counters": {k: counters.get(k, 0.0) for k in (
+            "serve.requests", "serve.expired_requests", "serve.rejected_requests", "serve.shed_requests",
+            "serve.throttled_requests", "serve.degraded_requests", "serve.degraded_rows",
+            "serve.overdeadline_dispatches", "serve.degraded_fallbacks")},
+        "f32_fast_launches_burst": fast_burst,
+        "gates": {k: ok for k, (ok, _) in gates.items()},
+    })
+    say(f"  15a plateau {plateau['rows_per_sec']:,.0f} rows/s, p99 {plateau['p99_s'] * 1e3:.1f} ms "
+        f"({plateau['served']} requests); SLO threshold {threshold_s * 1e3:.0f} ms, deadline "
+        f"{deadline_s * 1e3:.0f} ms, queue bound {config['serve_max_queue_rows']} rows")
+    say(f"  15a burst offered {burst_rate:,} rows/s for {p['burst_s']} s: served {burst['rows_per_sec']:,.0f} "
+        f"rows/s, p99 {burst['p99_s'] * 1e3:.1f} ms, {burst['served']} served, {expired} expired; refusals by "
+        f"rung {burst['refused']}; assign_argmin/f32-fast launches in the burst {fast_burst}")
+    say(f"  15a recover: healthy after {recover_wait_s:.2f} s, then {recover['rows_per_sec']:,.0f} rows/s, p99 "
+        f"{recover['p99_s'] * 1e3:.1f} ms; ladder verdicts {verdicts}; counters {out['counters']}")
+    for k, (ok, detail) in gates.items():
+        say(f"  15a gate {k}: {'ok' if ok else 'FAILED'} ({detail})")
+    failed = [k for k, (ok, _) in gates.items() if not ok]
+    if failed:
+        fail("overload: saturation gates failed: " + "; ".join(f"{k}: {gates[k][1]}" for k in failed))
+    if not counters.get("serve.degraded_requests"):
+        fail("overload: no request was served on the degraded rung during the burst")
+    if fast_burst <= 0:
+        fail("overload: assign_argmin/f32-fast did not launch during the burst")
+    return out, engine
+
+
+def _counting(program, name, buckets):
+    """Wrap `program.dispatch` to record each dispatched bucket's rows."""
+    from spark_rapids_ml_tpu_torch.parallel import bucket_size
+
+    real = program.dispatch
+
+    def dispatch(xb):
+        buckets.setdefault(name, []).append(bucket_size(len(xb), min_rows=program.bucket_min, cap=program.cap))
+        return real(xb)
+
+    program.dispatch = dispatch
+
+
+def _drill(dev, X, kmeans_model):
+    """15b: the degrade rung forced (`force_level`, as the JAX package's test
+    does) for KMeans and for a float64 kNN model; each degraded response
+    against a registry that serves the model at serve_dtype="bf16", bit for
+    bit, the fast forms' launches against the dispatches; shed and throttle
+    refusals typed. Returns the registries and engines 15c reads."""
+    import torch
+
+    from spark_rapids_ml_tpu_torch import ModelRegistry, NearestNeighbors, ScoringEngine
+    from spark_rapids_ml_tpu_torch.core import config
+    from spark_rapids_ml_tpu_torch.errors import ServeOverloadError
+    from spark_rapids_ml_tpu_torch.ops import _kernels
+    from spark_rapids_ml_tpu_torch.ops import distance as D
+    from spark_rapids_ml_tpu_torch.serving.overload import LEVEL_DEGRADE, LEVEL_SHED, LEVEL_THROTTLE
+
+    out = {}
+    # degrade sits above throttle on the ladder: a drill meters nothing
+    config.update(serve_degraded_dtype="bf16", serve_throttle_rows_per_s=1e12, slo=[])
+    registry, ref = ModelRegistry(), ModelRegistry()
+    t0 = time.perf_counter()
+    registry.load("km", kmeans_model)
+    ref.load("km16", kmeans_model, serve_dtype="bf16")
+    torch.cuda.synchronize()
+    out["kmeans_loads_s"] = time.perf_counter() - t0
+    buckets = {}
+    _counting(registry.get("km").degraded_program, "km", buckets)
+    gen = np.random.default_rng(16)
+    requests = [X[lo:lo + n] for lo, n in zip(gen.integers(0, len(X) - 4096, size=len(DRILL_SIZES)), DRILL_SIZES)]
+    engine = ScoringEngine(registry, coalesce_window_s=0.0).start()
+    ref_engine = ScoringEngine(ref, coalesce_window_s=0.0).start()
+    engines = [engine, ref_engine]
+    engine._overload.force_level("drill", LEVEL_DEGRADE)
+    before = dict(_kernels.launches)
+    got = [engine.submit("km", q, tenant="drill").result(600) for q in requests]
+    fast = _kernels.launches["assign_argmin/f32-fast"] - before["assign_argmin/f32-fast"]
+    f32 = _kernels.launches["assign_argmin/f32"] - before["assign_argmin/f32"]
+    want = [ref_engine.score("km16", q, timeout=600) for q in requests]
+    for q, g, w in zip(requests, got, want):
+        if g.dtype != w.dtype or not np.array_equal(g, w):
+            fail(f"overload: a degraded KMeans response of {len(q)} rows differs from bf16 serving")
+    tiles = sum(-(-b // D.tile_rows()) for b in buckets["km"])
+    if fast != tiles or f32:
+        fail(f"overload: the degraded KMeans dispatches launched assign_argmin/f32-fast {fast} times (expected "
+             f"{tiles}, the dispatched buckets' tiles {buckets['km']}) and assign_argmin/f32 {f32} times")
+    flips = sum(int((g != kmeans_model._transform_arrays(q)).sum()) for q, g in zip(requests, got))
+    t0 = time.perf_counter()
+    kref = _kmeans_bf16_reference(requests, kmeans_model.cluster_centers_, got, dev)
+    kref["s"] = time.perf_counter() - t0
+    if kref["worst"] > 1.0 or kref["planted_caught"]["random"] < 0.99:
+        fail(f"overload: the degraded KMeans assignments against the plain bf16 reference: {kref} (a row apart "
+             "from the reference's argmin must be a tie within the float32 sums' bound, worst <= 1; the planted "
+             "random assignments must be caught in >= 0.99 of the rows)")
+    out.update({"kmeans_f32_fast_launches": fast, "kmeans_buckets": buckets["km"], "kmeans_bf16_flips": flips,
+                "kmeans_bf16_reference": kref})
+    say(f"  15b KMeans degraded: {len(requests)} requests of {DRILL_SIZES} rows equal bf16 serving bit for bit; "
+        f"assign_argmin/f32-fast {fast} launches = the tiles of buckets {buckets['km']}; {flips} rows assigned "
+        f"apart from the float32 rung; against the plain bf16 reference (float64 sums) {kref['apart']} of "
+        f"{kref['rows']} rows apart from its argmin, the largest excess {kref['worst']:.3g} x the float32 sums' "
+        f"bound; planted errors caught (share of rows): {kref['planted_caught']}")
+
+    # shed and throttle refuse, typed, with their level
+    engine._overload.force_level("shed_me", LEVEL_SHED)
+    config["serve_throttle_rows_per_s"] = 10.0  # a 10-row bucket: a 32-row request is refused
+    engine._overload.force_level("slow", LEVEL_THROTTLE)
+    levels = {}
+    for tenant in ("shed_me", "slow"):
+        try:
+            engine.submit("km", requests[1][:32], tenant=tenant)
+            fail(f"overload: tenant {tenant!r} was admitted at its forced level")
+        except ServeOverloadError as e:
+            levels[tenant] = e.level
+    config["serve_throttle_rows_per_s"] = 1e12
+    if levels != {"shed_me": "shed", "slow": "throttle"}:
+        fail(f"overload: refusals carry levels {levels}")
+    say(f"  15b refusals typed ServeOverloadError with their levels: {levels}")
+
+    # the float64 kNN model: its primary rung runs d2_block/f64, its
+    # degraded rung d2_block/f64-fast (the form's first path)
+    t0 = time.perf_counter()
+    items = np.ascontiguousarray(X[:OVERLOAD_KNN_ITEMS], dtype=np.float64)
+    knn = NearestNeighbors(k=KNN_K, float32_inputs=False).setInputCol("features").fit({"features": items})
+    registry.load("knn64", knn)
+    ref.load("knn64_16", knn, serve_dtype="bf16")
+    torch.cuda.synchronize()
+    out["knn_loads_s"] = time.perf_counter() - t0
+    entry = registry.get("knn64")
+    out["knn_resident_gb"] = entry.resident_bytes / 1e9
+    _counting(entry.degraded_program, "knn64", buckets)
+    blocks = -(-OVERLOAD_KNN_ITEMS // D._DEFAULT_K_TILE)
+    Q = items[:KNN_QUERIES]
+    t0 = time.perf_counter()
+    pd_, pi = engine.submit("knn64", Q, tenant="primary").result(600)
+    out["knn_primary_s"] = time.perf_counter() - t0
+    before = dict(_kernels.launches)
+    t0 = time.perf_counter()
+    gd, gi = engine.submit("knn64", Q, tenant="drill").result(600)
+    out["knn_degraded_s"] = time.perf_counter() - t0
+    f64_fast = _kernels.launches["d2_block/f64-fast"] - before["d2_block/f64-fast"]
+    f64 = _kernels.launches["d2_block/f64"] - before["d2_block/f64"]
+    wd, wi = ref_engine.score("knn64_16", Q, timeout=600)
+    if not (gd.dtype == wd.dtype and np.array_equal(gd, wd) and np.array_equal(gi, wi)):
+        fail("overload: the degraded float64 kNN response differs from bf16 serving")
+    want_launches = blocks * len(buckets["knn64"])
+    if f64_fast != want_launches or f64:
+        fail(f"overload: the degraded kNN dispatches launched d2_block/f64-fast {f64_fast} times (expected "
+             f"{want_launches} = {blocks} item blocks x {len(buckets['knn64'])} dispatches) and d2_block/f64 {f64}")
+    if pd_.dtype != np.float64 or not np.array_equal(pi[:, 0], np.arange(KNN_QUERIES)):
+        fail("overload: the float64 primary rung's queries do not find themselves first")
+    if not (np.isfinite(gd).all() and (np.diff(gd, axis=1) >= 0).all()):
+        fail("overload: degraded kNN distances not finite or not ascending")
+    recall = sum(len(np.intersect1d(a, b)) for a, b in zip(gi, pi)) / pi.size
+    t0 = time.perf_counter()
+    kn = _knn_bf16_reference(items, np.arange(0, KNN_QUERIES, REF_QUERY_STEP), gd, gi, pi, dev)
+    kn["s"] = time.perf_counter() - t0
+    gates = {
+        "neighbors within ties of the plain bf16 reference": kn["worst_swap"] <= 1.0,
+        "neighbors within the tight ties": kn["worst_swap_tight"] <= 1.0,
+        "distances within the float32 sums' bound of it": kn["worst_dist_err"] <= 1.0,
+        "nearer the bf16 reference than exact float64": kn["median_err_vs_ref"] < kn["median_err_vs_f64"],
+        "the planted within-cluster scramble caught": min(kn["planted_caught"]["scramble"].values()) >= 0.99,
+        "the planted boundary shift caught by the tight ties": kn["planted_caught"]["shift"]["tight"] >= 0.99,
+        f"recall@{KNN_K} >= {DEGRADED_RECALL_FLOOR}": recall >= DEGRADED_RECALL_FLOOR,
+    }
+    out.update({"knn_f64_fast_launches": f64_fast, "knn_recall_at_64": recall, "knn_bf16_reference": kn,
+                "knn_self_first_degraded": float(np.mean(gi[:, 0] == np.arange(KNN_QUERIES)))})
+    say(f"  15b float64 kNN ({OVERLOAD_KNN_ITEMS} x {N_COLS} items, k = {KNN_K}, {KNN_QUERIES} queries; "
+        f"{out['knn_resident_gb']:.2f} GB admitted for both rungs; loads {out['knn_loads_s']:.2f} s): primary "
+        f"{out['knn_primary_s']:.3f} s, degraded {out['knn_degraded_s']:.3f} s, equal to bf16 serving bit for bit; "
+        f"d2_block/f64-fast {f64_fast} launches = {blocks} blocks x {len(buckets['knn64'])} dispatches; "
+        f"recall@{KNN_K} against the float64 rung {recall:.6f}")
+    say(f"  15b against the plain bf16 reference (float64 sums, all items) on {kn['queries']} queries: "
+        f"{kn['swapped_queries']} with a neighbor apart, the largest excess {kn['worst_swap']:.3g} x the two "
+        f"ids' float32 bounds, {kn['worst_swap_tight']:.3g} x the tight ties ({kn['tight_tol']:.3g} an id); "
+        f"distances within {kn['worst_dist_err']:.3g} x their bound (|error| max {kn['max_err_vs_ref']:.3g}, "
+        f"median {kn['median_err_vs_ref']:.3g}, against exact float64 {kn['median_err_vs_f64']:.3g}); the reference's "
+        f"own recall@{KNN_K} against the float64 rung {kn['recall_ref_vs_f64']:.6f}; planted errors caught: "
+        f"{kn['planted_caught']} ({kn['s']:.2f} s)")
+    failed = [k for k, ok in gates.items() if not ok]
+    if failed:
+        fail("overload: the degraded float64 kNN rung: " + "; ".join(failed) + f" failed ({kn}, recall {recall})")
+    return out, (registry, ref, engines, knn, items)
+
+
+def _ops_plane(drill_state):
+    """15c: the exporter on an ephemeral port scraped once (/metrics shows
+    15a's serve.* counters; /healthz answers), report()'s serving and
+    decision sections, and an SRML_NUMCHECK=1 sweep of one degraded
+    response."""
+    import urllib.error
+    import urllib.request
+
+    from spark_rapids_ml_tpu_torch import ScoringEngine, ops_plane, telemetry
+    from spark_rapids_ml_tpu_torch.serving.overload import LEVEL_DEGRADE
+    from spark_rapids_ml_tpu_torch.utils import numcheck
+
+    registry = drill_state[0]
+    out = {}
+    os.environ["SRML_METRICS_PORT"] = "0"
+    try:
+        host, port = ops_plane.ensure_server()
+        body = urllib.request.urlopen(f"http://{host}:{port}/metrics", timeout=30).read().decode()
+        counters = telemetry.registry().snapshot()["counters"]
+        for name in ("serve.requests", "serve.shed_requests", "serve.degraded_requests",
+                     "serve.backpressure_transitions"):
+            line = f'srml_{name.replace(".", "_")}{{rank="0"}} {counters.get(name, 0.0):g}'
+            if counters.get(name) and line not in body:
+                fail(f"overload: /metrics lacks {line!r}")
+        try:
+            health = urllib.request.urlopen(f"http://{host}:{port}/healthz", timeout=30).status
+        except urllib.error.HTTPError as e:
+            health = e.code
+        if health not in (200, 503):
+            fail(f"overload: /healthz answered {health}")
+        out.update({"metrics_lines": body.count("\n"), "healthz": health})
+    finally:
+        ops_plane.stop_server()
+        os.environ.pop("SRML_METRICS_PORT", None)
+    rep = ops_plane.report()
+    tenants = rep["serving"]["tenants"]
+    if not {SAT_TENANT, "drill"} <= set(tenants):
+        fail(f"overload: report()'s serving section lacks the tenants: {sorted(tenants)}")
+    backpressure = [d for d in rep["decisions"] if d["kind"] == "backpressure"]
+    if not backpressure:
+        fail("overload: report() carries no backpressure decision")
+    os.environ["SRML_NUMCHECK"] = "1"
+    state = numcheck.snapshot()
+    numcheck.reset()
+    try:
+        engine = ScoringEngine(registry, coalesce_window_s=0.0).start()
+        try:
+            engine._overload.force_level("drill", LEVEL_DEGRADE)
+            fut = engine.submit("knn64", drill_state[4][:256], tenant="drill")
+            fut.result(600)
+            if not fut.degraded:
+                fail("overload: the numcheck request was not served on the degraded rung")
+        finally:
+            engine.stop()
+        sweep = {"checks": numcheck.checks(), "trips": numcheck.trips(),
+                 "watermarks": numcheck.watermarks().get("serving.response")}
+    finally:
+        numcheck.restore(state)
+        os.environ.pop("SRML_NUMCHECK", None)
+    if sweep["trips"] or not sweep["checks"] or not sweep["watermarks"]:
+        fail(f"overload: the SRML_NUMCHECK=1 sweep of a degraded response: {sweep}")
+    out.update({"report_tenants": sorted(tenants), "backpressure_decisions": len(backpressure),
+                "numcheck": sweep})
+    say(f"  15c /metrics on {host}:{port}: {out['metrics_lines']} lines with 15a's serve.* counters; /healthz "
+        f"{health}; report(): tenants {sorted(tenants)}, {len(backpressure)} backpressure decisions; numcheck "
+        f"sweep of a degraded response: {sweep['checks']} checks, no trip, watermarks {sweep['watermarks']}")
+    return out
+
+
+def phase_overload(dev, X, kmeans_model):
+    import torch
+
+    from spark_rapids_ml_tpu_torch import telemetry
+    from spark_rapids_ml_tpu_torch.core import config
+    from spark_rapids_ml_tpu_torch.ops import _kernels
+    from spark_rapids_ml_tpu_torch.ops_plane import slo
+    from spark_rapids_ml_tpu_torch.parallel import chaos
+
+    say(f"phase 15: serving overload and the ops plane, KMeans(k = {K}) over {N_COLS} columns; the saturation "
+        f"protocol {SAT}, then the degraded-rung drill and the ops plane")
+    torch.cuda.empty_cache()
+    keys = ("metrics_bucket_seconds", "metrics_bucket_count", "serve_coalesce_window_ms", "serve_adaptive_batching",
+            "serve_overload_hold_s", "serve_degraded_dtype", "slo", "serve_max_queue_rows",
+            "serve_throttle_rows_per_s")
+    saved = {k: config[k] for k in keys}
+    drill_state = None
+    _kernels.reset_launches()  # this phase's counts: the run "overload"
+    try:
+        timings = {}
+        timings["saturation"], sat_engine = _saturation(X, kmeans_model)
+        timings["drill"], drill_state = _drill(dev, X, kmeans_model)
+        timings["ops_plane"] = _ops_plane(drill_state)
+        del sat_engine
+    finally:
+        counts = dict(_kernels.launches)
+        if drill_state is not None:
+            for engine in drill_state[2]:
+                engine.stop()
+            drill_state[0].clear()
+            drill_state[1].clear()
+        chaos.clear_fault_plan()
+        config.update(saved)
+        slo.reset()
+        telemetry.disable()
+        telemetry.registry().reset()
+    del drill_state
+    torch.cuda.empty_cache()
+    say("  launches in phase 15: " + ", ".join(f"{k_}={v}" for k_, v in counts.items() if v))
     return counts, timings
 
 
@@ -4953,6 +5617,7 @@ def main():
     counts, timings, kmeans_model = run("3 kmeans", phase_main_path, dev, X)
     knn_counts, knn_timings, (exact_ids, exact_dist) = run("4 knn", phase_knn, dev, X, d2_entries[0]["ms"])
     serve_counts, serve_timings = run("5 serving", phase_serving, dev, X, kmeans_model)
+    overload_counts, overload_timings = run("15 overload", phase_overload, dev, X, kmeans_model)
     linear_ref, linear_timings = run("7a pca/linear", phase_pca_linear, dev, X)
     logreg_ref, logreg_timings = run("8a logreg", phase_logreg, dev, X)
     forest_timings = run("9 forests", phase_forests, dev, X)
@@ -4969,11 +5634,16 @@ def main():
     sparse_counts, sparse_timings = run("14 sparse", phase_sparse, dev)
     for e in entries + d2_entries:
         name = e["name"]
-        if "/f64" in name:
+        if name == "d2_block/f64-fast":
+            # its path is the degraded rung of a float64 kNN model (phase
+            # 15b); the float64 route of phase 6 serves its kNN model as
+            # float64
+            e["launches"] = overload_counts[name]
+            e["launches_by_run"] = {run: c[name] for run, c in f64_counts.items() if run != "route"}
+        elif "/f64" in name:
             # the float64 route (phase 6) runs every f64 form but
-            # assign_accumulate/f64-fast and d2_block/f64-fast, which no path
-            # runs (a float64 fit keeps `fast` off; a float64 kNN model
-            # served as bf16 is not in its mix)
+            # assign_accumulate/f64-fast, which no path runs (a float64 fit
+            # keeps `fast` off)
             e["launches"] = f64_counts["route"][name]
             e["launches_by_run"] = {run: c[name] for run, c in f64_counts.items() if run != "route"}
         elif name.startswith("d2_block"):
@@ -4992,12 +5662,17 @@ def main():
     for e in entries:  # phase 12: DBSCAN launches nothing, UMAP only d2_block/f32
         e.setdefault("launches_by_run", {}).update({run: c[e["name"]] for run, c in du_counts.items()})
         e["launches_by_run"]["sparse_knn"] = sparse_counts["sparse_knn"][e["name"]]  # phase 14e
+        e["launches_by_run"]["overload"] = overload_counts[e["name"]]  # phase 15
     for name in ("assign_argmin/f64", "assign_accumulate/f64", "d2_block/f64", "assign_argmin/f64-fast"):
         if not f64_counts["route"][name]:
             fail(f"the float64 route never launched {name}")
+    for name in ("d2_block/f64-fast", "d2_block/f64", "assign_argmin/f32-fast", "assign_argmin/f32"):
+        if not overload_counts[name]:
+            fail(f"the overload path (phase 15) never launched {name}")
     say("KMeans path timings: " + json.dumps(timings))
     say("kNN path timings: " + json.dumps(knn_timings))
     say("serving timings: " + json.dumps(serve_timings))
+    say("overload and ops plane timings: " + json.dumps(overload_timings, default=str))
     say("float64 route timings: " + json.dumps(f64_timings))
     say("PCA and LinearRegression timings: " + json.dumps(linear_timings))
     say("PCA and LinearRegression float64 timings: " + json.dumps(linear_f64_timings))

@@ -28,9 +28,10 @@
 # failure on the card (torch.OutOfMemoryError, or the chaos `oom` fault
 # shaped like one) is retried ONCE on the streaming path; a second one, or
 # an estimator without a streaming path, raises `HbmBudgetError`. Nothing
-# over budget runs on the CPU. The scheduler's job reservations (A17), the
-# checkpointed resume of a streamed retry (A12) and the audit record
-# (A13-rest) are not in the port.
+# over budget runs on the CPU. Each verdict lands in the decision log
+# (ops_plane/audit.py, through memory.py). The scheduler's job reservations
+# (A17) and the checkpointed resume of a streamed retry (A12) are not in
+# the port.
 #
 # Persistence keeps the JAX package's on-disk layout exactly:
 # metadata.json + arrays.npz + attributes.json, so a directory saved by
@@ -61,6 +62,15 @@ from .linalg import DenseVector
 from .params import Param, _TpuParams
 
 _LOG = logging.getLogger(__name__)
+
+
+def _env_float(name: str, default: float) -> float:
+    """A float from the environment; unset or malformed gives `default`."""
+    try:
+        return float(os.environ.get(name) or default)
+    except ValueError:
+        return default
+
 
 # Framework configuration: the keys this package reads (the JAX package's
 # `config` holds many more; they arrive with the layers that read them).
@@ -121,13 +131,41 @@ config: Dict[str, Any] = {
     "serve_adaptive_batching": True,
     "serve_coalesce_window_floor_ms": 0.5,
     "serve_coalesce_window_ceiling_ms": 20.0,
-    # the degraded serving rung of the backpressure ladder: not in the port
-    # yet (ROADMAP A13); a value other than None is refused at load
+    # backpressure ladder hysteresis (serving/overload.py): the least dwell
+    # (seconds) between two of a tenant's ladder transitions (throttle ->
+    # degrade -> shed and every restore step), so a flapping burn cannot
+    # flap the ladder
+    "serve_overload_hold_s": 30.0,
+    # the throttle rung's per-tenant token-bucket rate, rows/second; 0 =
+    # auto (half the tenant's recent admitted row rate)
+    "serve_throttle_rows_per_s": 0.0,
+    # the degraded serving rung: a serve dtype (e.g. "bf16") the registry
+    # builds as a SECOND resident program (its bytes admitted against the
+    # budget) for models whose `_serve_dtypes` allow it; the ladder routes a
+    # burning tenant's traffic there before shedding. None: no rung (the
+    # ladder's degrade level then serves the primary program)
     "serve_degraded_dtype": None,
-    # rolling-window geometry of the telemetry registry (rates and windowed
-    # quantiles the overload controller reads)
+    # rolling-window geometry of the telemetry registry: every counter gets
+    # rate() and every histogram window_quantile() over the most recent
+    # bucket_seconds x bucket_count (default 10 s x 18 = 3 min). Bound when
+    # a ring is first written: change it before recording, or call
+    # telemetry.registry().reset()
     "metrics_bucket_seconds": 10.0,
     "metrics_bucket_count": 18,
+    # declarative SLO specs evaluated by multi-window burn rate
+    # (ops_plane/slo.py): a list of dicts naming a latency histogram, an
+    # error-rate counter pair or a gauge ceiling, with thresholds. A latency
+    # spec over a serve.* histogram drives the backpressure ladder. None or
+    # [] disables the monitors
+    "slo": None,
+    # directory of the rotating ops-plane snapshots (`ops_snapshot.json` and
+    # bounded .1/.2/... generations, ops_plane/export.write_snapshot);
+    # seeded from SRML_OPS_SNAPSHOT_DIR. None: no files
+    "ops_snapshot_dir": os.environ.get("SRML_OPS_SNAPSHOT_DIR") or None,
+    # hold (ms) above which the SRML_LOCKCHECK=1 sanitizer
+    # (utils/lockcheck.py) records a `lockcheck.long_hold` violation; seeded
+    # from SRML_LOCKCHECK_LONG_HOLD_MS (a malformed value keeps 500)
+    "lockcheck_long_hold_ms": _env_float("SRML_LOCKCHECK_LONG_HOLD_MS", 500.0),
     # --- multi-fit engine -------------------------------------------------
     # placements (rows on the device + the host blocks they came from) a
     # device_dataset_scope keeps at once; the least recently used go beyond

@@ -19,9 +19,9 @@
 # Transforms and the estimators that bind their rows without a fit scan at
 # extraction; a fit defers the scan to core.py's fit path, which scans
 # everything before a resident placement and each row block as it enters
-# the stream on the out-of-core path. The drift statistics the JAX package
-# gathers on the same scan (ops_plane/drift.py) wait for the ops plane
-# (ROADMAP A13-rest).
+# the stream on the out-of-core path. The same scan of dense rows feeds the
+# drift statistics (ops_plane/drift.py: per-column moments and PSI against
+# a registered baseline, while telemetry is on).
 #
 from __future__ import annotations
 
@@ -180,10 +180,19 @@ def validate_extracted(
                 row = int(np.searchsorted(indptr, elem, side="right") - 1)
                 raise IngestValidationError(extracted.feature_names[0], row)
     else:
+        # the drift statistics accumulate off this same pass (no extra read
+        # of the data); a failing chunk is counted before the raise, and
+        # partial statistics are never published. None, and no cost, while
+        # telemetry is off
+        from .ops_plane import drift as _drift
+
+        acc = _drift.accumulator_for(extracted)
         row_bytes = feats.shape[1] * feats.itemsize if feats.ndim > 1 else feats.itemsize
         step = ingest_chunk_rows(row_bytes)
         for clo in range(lo, hi, step):
             chunk = np.asarray(feats[clo : min(clo + step, hi)])
+            if acc is not None:
+                acc.update(chunk)
             if np.isfinite(chunk).all():
                 continue
             if extracted.feature_kind == "multi_cols" and chunk.ndim > 1:
@@ -193,6 +202,10 @@ def validate_extracted(
                 col = chunk[:, int(np.argmax(bad_cols))]
                 raise IngestValidationError(name, clo + int(np.argmin(np.isfinite(col))))
             raise IngestValidationError(extracted.feature_names[0], _first_nonfinite_row(chunk, clo))
+        if acc is not None and acc.rows >= n:
+            # the whole dataset has been scanned (eagerly, or by the last of
+            # a streamed fit's per-block scans): publish the gauges
+            acc.publish()
     for name, arr in ((label_col, extracted.label), (weight_col, extracted.weight)):
         if arr is None:
             continue

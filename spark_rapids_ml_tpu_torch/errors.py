@@ -6,7 +6,9 @@
 # load the device budget cannot hold), and the serving plane's
 # `ServeOverloadError` (a request refused at
 # submit), `RequestTimeoutError` (a request whose server-side deadline passed
-# before dispatch) and `ServingStoppedError` (the engine stopped first).
+# before dispatch) and `ServingStoppedError` (the engine stopped first), and
+# `NumericsError` (the SRML_NUMCHECK=1 sanitizer, utils/numcheck.py, found a
+# NaN or Inf at a boundary).
 # Counterparts of spark_rapids_ml_tpu/errors.py, with the same messages and
 # attributes, without the flight-recorder hook and the control-plane errors
 # (the port has no rendezvous yet).
@@ -17,7 +19,7 @@ from typing import Any, Dict, Optional
 
 __all__ = [
     "SrmlError", "SolverDivergedError", "IngestValidationError", "HbmBudgetError", "RequestTimeoutError",
-    "ServeOverloadError", "ServingStoppedError",
+    "ServeOverloadError", "ServingStoppedError", "NumericsError",
 ]
 
 
@@ -231,3 +233,39 @@ class ServingStoppedError(SrmlError, RuntimeError):
             f"scoring engine stopped before request for model {model!r} "
             f"dispatched{at}"
         )
+
+
+class NumericsError(SrmlError, ArithmeticError):
+    """The runtime numerics sanitizer (``utils.numcheck``, opt-in via
+    ``SRML_NUMCHECK=1``) found a non-finite value at a boundary whose values
+    are already on the host: the Lloyd loop's shift read, a streamed chunk's
+    partials or GLM iteration, or the serving response assembly. PERMANENT:
+    a retry re-runs the same arithmetic.
+
+    Carries ``stage`` (the boundary's name, e.g. ``kmeans.iterate``),
+    ``solver``, ``iteration``, ``value_name`` (which checked value tripped),
+    and ``detail`` (NaN/Inf counts)."""
+
+    def __init__(
+        self,
+        stage: str,
+        *,
+        solver: str = "",
+        iteration: Optional[int] = None,
+        value_name: str = "",
+        detail: str = "",
+    ):
+        self.stage = stage
+        self.solver = solver
+        self.iteration = None if iteration is None else int(iteration)
+        self.value_name = value_name
+        self.detail = detail
+        parts = [f"non-finite value at numerics boundary {stage!r}"]
+        if solver:
+            at = f" iteration {self.iteration}" if self.iteration is not None else ""
+            parts.append(f"(solver {solver}{at})")
+        if value_name:
+            parts.append(f"in {value_name!r}")
+        if detail:
+            parts.append(f"— {detail}")
+        super().__init__(" ".join(parts))

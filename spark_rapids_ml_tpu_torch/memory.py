@@ -37,9 +37,14 @@
 # the card's total memory (`parallel.device_capacity_bytes`); a CPU device
 # has none, and then everything is admitted unbudgeted.
 #
+# Every verdict also appends one record to the decision log
+# (ops_plane/audit.py): a fit's admission, demotion or refusal (subsystem
+# "fit"), a load's admission or refusal (subsystem "serving", tenant
+# "serving:<name>"), with the JAX package's keys and values.
+#
 # Not in the port: the scheduler-job branch (a job's reservation resized,
-# a preempted job force-streamed; ROADMAP A17), the chip-scoped claims
-# (A10) and the audit record of each verdict (A13-rest). A CSR fit is
+# a preempted job force-streamed; ROADMAP A17) and the chip-scoped claims
+# (A10). A CSR fit is
 # charged its padded-ELL placement (`placement_terms`, `row_bytes`: the
 # values and int32 indices, padding cells included, as in the JAX
 # package) and the ELL solvers' own workspace (`_extraction_workspace_terms`,
@@ -300,6 +305,7 @@ def admit_fit(
     is the card's total memory by default, and a fit whose resident set
     passed it has just failed to allocate."""
     from . import telemetry
+    from .ops_plane import audit as _audit
     from .parallel import device_allocatable_bytes, device_capacity_bytes
     from .scheduler.ledger import global_ledger
 
@@ -319,6 +325,13 @@ def admit_fit(
         )
 
         def _grant(est_obj, verdict, chunk_rows=0, reason="", demoted=False):
+            # one decision record per verdict: the queryable side of the
+            # _fit_metrics["admission"] stamp
+            _audit.record_decision(
+                "demotion" if demoted else "admission", "fit", verdict,
+                subject=type(estimator).__name__, reason=reason,
+                estimate_bytes=est_obj.total(), budget_bytes=budget, chunk_rows=int(chunk_rows),
+            )
             return AdmissionDecision(
                 verdict=verdict,
                 estimate=est_obj,
@@ -329,6 +342,13 @@ def admit_fit(
                 demoted=demoted,
                 reservation=led.reserve(f"fit:{type(estimator).__name__}", "fit", est_obj.total()),
             )
+
+        def _refuse(exc):
+            _audit.record_decision(
+                "admission", "fit", "refused", subject=type(estimator).__name__, reason=str(exc),
+                estimate_bytes=getattr(exc, "estimate_bytes", None), budget_bytes=budget,
+            )
+            raise exc
 
         res = resident_estimate(estimator, extracted, n_devices)
         if not force_stream:
@@ -347,7 +367,7 @@ def admit_fit(
         # ---- the streaming side of the ladder ------------------------------
         if not getattr(estimator, "_supports_streaming_fit", False):
             name, nbytes = res.largest()
-            raise HbmBudgetError(
+            _refuse(HbmBudgetError(
                 f"{type(estimator).__name__} fit does not fit device memory "
                 f"and has no out-of-core streaming path{held_note}",
                 estimate_bytes=res.total(),
@@ -355,7 +375,7 @@ def admit_fit(
                 largest_term=name,
                 largest_term_bytes=nbytes,
                 terms=res.terms,
-            )
+            ))
         dtype = np.float32 if getattr(estimator, "_float32_inputs", True) else np.float64
         rb = row_bytes(extracted, dtype)
         chunk_rows = _configured_chunk_rows()
@@ -386,7 +406,7 @@ def admit_fit(
             stream_floor = streaming_estimate(estimator, extracted, n_devices, floor)
             if stream_floor.total() > avail:
                 name, nbytes = stream_floor.largest()
-                raise HbmBudgetError(
+                _refuse(HbmBudgetError(
                     f"{type(estimator).__name__} fit does not fit device "
                     f"memory even on the out-of-core streaming path{held_note}",
                     estimate_bytes=stream_floor.total(),
@@ -394,7 +414,7 @@ def admit_fit(
                     largest_term=name,
                     largest_term_bytes=nbytes,
                     terms=stream_floor.terms,
-                )
+                ))
             lo, hi = floor, chunk_rows  # estimate(lo) fits, estimate(hi) does not
             while hi - lo > 1:
                 mid = (lo + hi) // 2
@@ -448,17 +468,22 @@ def admit_model_load(
     bucket_rows_count: Optional[int] = None,
     device: Any = None,
     serve_dtype: Optional[str] = None,
+    tenant: Optional[str] = None,
 ) -> AdmissionDecision:
     """Admission verdict for loading a fitted model onto `device` (a torch
     device) in the serving plane: RESIDENT, with its estimate reserved in
     the shared ledger, or a raised `HbmBudgetError` naming the largest
-    term."""
+    term. `tenant` names the load in the decision log (the registry passes
+    "serving:<name>"; default "serving:<model class>")."""
     from .core import config
+    from .ops_plane import audit as _audit
     from .parallel import device_capacity_bytes
     from .scheduler.ledger import global_ledger
 
     if bucket_rows_count is None:
         bucket_rows_count = int(config.get("serve_max_batch_rows", 8192))
+    if tenant is None:
+        tenant = f"serving:{type(model).__name__}"
     capacity = device_capacity_bytes(device)
     budget = None if capacity is None else int(capacity * (1.0 - headroom_fraction()))
     led = global_ledger()
@@ -466,6 +491,10 @@ def admit_model_load(
         held = 0 if budget is None else led.reserved_bytes()
         est = model_serve_estimate(model, bucket_rows_count, serve_dtype)
         if budget is None or est.total() + held <= budget:
+            _audit.record_decision(
+                "admission", "serving", RESIDENT, subject=type(model).__name__, tenant=tenant,
+                estimate_bytes=est.total(), budget_bytes=budget,
+            )
             return AdmissionDecision(
                 verdict=RESIDENT,
                 estimate=est,
@@ -475,6 +504,10 @@ def admit_model_load(
                 reservation=led.reserve(f"serve:{type(model).__name__}", "serve", est.total()),
             )
         name, nbytes = est.largest()
+        _audit.record_decision(
+            "admission", "serving", "refused", subject=type(model).__name__, tenant=tenant,
+            reason="over budget", estimate_bytes=est.total(), budget_bytes=budget, largest_term=name,
+        )
         raise HbmBudgetError(
             f"{type(model).__name__} load does not fit the serving budget "
             f"({held} bytes/device held in the shared ledger)",

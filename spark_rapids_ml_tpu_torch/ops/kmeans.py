@@ -52,12 +52,19 @@ def _raise_diverged(iteration: int, last_good_centers, detail: str) -> None:
     )
 
 
-def lloyd_loop(step, centers, *, max_iter: int, tol: float, fast: bool, final_inertia: bool = True):
+def lloyd_loop(
+    step, centers, *, max_iter: int, tol: float, fast: bool, final_inertia: bool = True, solver: str = "kmeans",
+):
     """The Lloyd host loop over `step(centers, fast)` -> (new centers,
     inertia of the entering centers, shift): one pass over the rows each,
     resident (`_lloyd_step`) or streamed (ops/streaming.py). The convergence
     check one iteration late, the last-good iterate, the divergence guard
-    and the final inertia at full precision; see `kmeans_fit`."""
+    and the final inertia at full precision; see `kmeans_fit`. Under
+    SRML_NUMCHECK=1 the shift each iteration reads anyway is swept at
+    `<solver>.iterate` (utils/numcheck.py)."""
+    from ..utils import numcheck
+
+    _nc = numcheck.hook()  # resolved once per solve; None when off
     n_iter = 0
     prev_shift = None
     last_good = centers  # iterate entering the step that produced prev_shift
@@ -69,6 +76,12 @@ def lloyd_loop(step, centers, *, max_iter: int, tol: float, fast: bool, final_in
             shift_host = float(prev_shift)
             if not math.isfinite(shift_host):
                 _raise_diverged(n_iter - 1, last_good, f"center shift = {shift_host}")
+            if _nc is not None:
+                # after the divergence guard (SolverDivergedError owns a
+                # non-finite shift): the scalar already read, and the
+                # iterate's dtype as a watermark, with no new read
+                _nc(f"{solver}.iterate", solver=solver, iteration=n_iter - 1,
+                    watermark=str(centers.dtype).replace("torch.", ""), shift=shift_host)
             if shift_host <= tol:
                 break
         prev_shift = shift

@@ -322,6 +322,11 @@ def _glm_qn_steps(
         if ok:
             x, z_p, g, f_cur = xn, z_n, gn, f_new
         it += 1
+        if "numcheck" in prob:
+            # the streamed fit's state is host tensors: the outer iteration
+            # IS its host boundary, swept with no new read
+            nc, stage = prob["numcheck"]
+            nc(stage, solver="glm_qn_stream", iteration=it - 1, objective=f_cur, iterate=x, gradient=g)
         stalled = not ok
         if stalled or not go:
             break
@@ -383,11 +388,17 @@ def _glm_solve(prob, n_rows, dtype, device, d, *, lam_l1, use_l1, max_iter, tol,
 def _fit_common_grid(
     matvec, rmat, n_rows, dtype, d, y_idx, w, mu, d_scale, total_w,
     *, k, multinomial, lam_l2s, lam_l1s, use_l1, fit_intercept, max_iter, tol, lbfgs_memory,
-    warm_start=None,
+    warm_start=None, numcheck_stage=None,
 ) -> list:
     """The fits of a (lam_l2, lam_l1) grid over one placement, in lockstep
     (`run_lockstep`): one list of `_fit_common` states, each with its own
-    `host_reads_` and the reads the whole grid made, `grid_host_reads_`."""
+    `host_reads_` and the reads the whole grid made, `grid_host_reads_`.
+    `numcheck_stage` (the streamed fit's, whose state lives on the host)
+    sweeps each GLM iteration's objective, iterate and gradient at
+    `<stage>.iterate` under SRML_NUMCHECK=1."""
+    from ..utils import numcheck
+
+    _nc = numcheck.hook() if numcheck_stage else None
     device = w.device
     solves, probs = [], []
     for lam_l2, lam_l1 in zip(lam_l2s, lam_l1s):
@@ -399,6 +410,8 @@ def _fit_common_grid(
             _warm_x0(warm_start, d, prob["k_out"], mu, d_scale, fit_intercept, dtype)
             if warm_start is not None else None
         )
+        if _nc is not None:
+            prob["numcheck"] = (_nc, f"{numcheck_stage}.iterate")
         probs.append(prob)
         solves.append(_glm_solve(
             prob, n_rows, dtype, device, d, lam_l1=lam_l1, use_l1=use_l1, max_iter=max_iter, tol=tol,
@@ -418,13 +431,13 @@ def _fit_common_grid(
 def _fit_common(
     matvec, rmat, n_rows, dtype, d, y_idx, w, mu, d_scale, total_w,
     *, k, multinomial, lam_l2, lam_l1, use_l1, fit_intercept, max_iter, tol, lbfgs_memory,
-    warm_start=None,
+    warm_start=None, numcheck_stage=None,
 ) -> Dict[str, Any]:
     (out,) = _fit_common_grid(
         matvec, rmat, n_rows, dtype, d, y_idx, w, mu, d_scale, total_w,
         k=k, multinomial=multinomial, lam_l2s=[lam_l2], lam_l1s=[lam_l1], use_l1=use_l1,
         fit_intercept=fit_intercept, max_iter=max_iter, tol=tol, lbfgs_memory=lbfgs_memory,
-        warm_start=warm_start,
+        warm_start=warm_start, numcheck_stage=numcheck_stage,
     )
     del out["grid_host_reads_"]
     return out

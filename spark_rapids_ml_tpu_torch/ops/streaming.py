@@ -48,8 +48,15 @@
 # each chunk's column grouping made anew per pass; its scaling is
 # scale-only (`_ell_moments_block`).
 #
-# Not here, each named in ROADMAP: the checkpoint store and its keys
-# (A12), the numerical-check hooks (A13-rest).
+# Under SRML_NUMCHECK=1 (utils/numcheck.py) the host values are swept for
+# NaN/Inf where they already are on the host: linear's and PCA's per-chunk
+# partials (`linear_stream.chunk`, `pca_stream.chunk`, `pca_stream.stats`),
+# the streamed Lloyd loop's shift read (`kmeans_stream.iterate`; its chunk
+# partials stay on the card, so the JAX package's `kmeans_stream.chunk` has
+# no counterpart) and the streamed GLM's outer iterations
+# (`glm_stream.iterate`, ops/logistic._glm_qn_steps).
+#
+# Not here, named in ROADMAP: the checkpoint store and its keys (A12).
 #
 from __future__ import annotations
 
@@ -60,6 +67,11 @@ import torch
 
 from .. import telemetry
 from ..parallel import stream_place_blocks
+from ..utils import numcheck
+
+# the names of ops/linear._sufficient_stats' outputs, in order (the JAX
+# package's `_STATS_NAMES`)
+_STATS_NAMES = ("sw", "sx", "sy", "G", "c", "syy")
 
 
 def _ranges(n: int, chunk_rows: int) -> List[Tuple[int, int]]:
@@ -195,12 +207,15 @@ def linear_streaming_stats(inputs: Any, fast: bool = False) -> Tuple[np.ndarray,
     y = np.asarray(inputs.y, dtype=inputs.dtype)
     w = np.asarray(inputs.w, dtype=inputs.dtype)
     acc: Optional[List[np.ndarray]] = None
+    _nc = numcheck.hook()  # SRML_NUMCHECK=1: sweep the per-chunk host partials
     for blk in _chunks(inputs, {"y": y, "w": w}, cache=False):
         if "val" in blk:
             stats = _ell_sufficient_stats(blk["val"], blk["idx"], blk["y"], blk["w"], int(inputs.n_cols), fast=fast)
         else:
             stats = _sufficient_stats(blk["X"], blk["y"], blk["w"], fast)
         part = _fetch(inputs.device, *stats)
+        if _nc is not None:
+            _nc("linear_stream.chunk", solver="linear_stream", **dict(zip(_STATS_NAMES, part)))
         acc = part if acc is None else [a + b for a, b in zip(acc, part)]
     assert acc is not None, "streaming statistics over an empty dataset"
     return tuple(acc)
@@ -240,8 +255,11 @@ def pca_fit_streaming(inputs: Any, *, k: int, fast: bool = False) -> Dict[str, t
 
     w = np.asarray(inputs.w, dtype=inputs.dtype)
     sw = sx = None
+    _nc = numcheck.hook()  # SRML_NUMCHECK=1: sweep the per-chunk host partials
     for blk in _chunks(inputs, {"w": w}):
         b_sw, b_sx = _fetch(inputs.device, torch.sum(blk["w"]), blk["w"] @ blk["X"])
+        if _nc is not None:
+            _nc("pca_stream.chunk", solver="pca_stream", sum_w=b_sw, sum_x=b_sx)
         sw = b_sw if sw is None else sw + b_sw
         sx = b_sx if sx is None else sx + b_sx
     assert sw is not None, "streaming moments over an empty dataset"
@@ -250,8 +268,12 @@ def pca_fit_streaming(inputs: Any, *, k: int, fast: bool = False) -> Dict[str, t
     cov_sum = None
     for blk in _chunks(inputs, {"w": w}):
         (part,) = _fetch(inputs.device, centered_gram(blk["X"], blk["w"], mean_dev, fast).to(mean_dev.dtype))
+        if _nc is not None:
+            _nc("pca_stream.chunk", solver="pca_stream", cov_partial=part)
         cov_sum = part if cov_sum is None else cov_sum + part
     cov = cov_sum / (sw - 1.0)
+    if _nc is not None:
+        _nc("pca_stream.stats", solver="pca_stream", mean=mean, cov=cov)
     total_w, mean_t, cov_t = _on_device(inputs, sw, mean, cov)
     return _pca_finish(total_w, mean_t, cov_t, k=k)
 
@@ -289,7 +311,7 @@ def kmeans_fit_streaming(
 
     return lloyd_loop(
         step, centers, max_iter=max_iter, tol=tol,
-        fast=precision_mode == "fast" and np.dtype(inputs.dtype) == np.float32,
+        fast=precision_mode == "fast" and np.dtype(inputs.dtype) == np.float32, solver="kmeans_stream",
     )
 
 
@@ -415,6 +437,7 @@ def logistic_fit_streaming(
         matvec, rmat, inputs.n_valid, torch.float64, int(inputs.n_cols), y_idx, w, mu, d_scale, total_w,
         k=k, multinomial=multinomial, lam_l2=lam_l2, lam_l1=0.0, use_l1=False,
         fit_intercept=fit_intercept, max_iter=max_iter, tol=tol, lbfgs_memory=lbfgs_memory,
+        numcheck_stage="glm_stream",  # its iterate, objective and gradient live on the host
     )
     x_dtype = torch.from_numpy(w_host[:0]).dtype
     return {key: v.to(x_dtype) if key in ("coef_", "intercept_", "objective_") else v

@@ -1,7 +1,8 @@
 #
-# Fault injection: the port's copy of the plan parser and the `oom` half of
-# spark_rapids_ml_tpu/parallel/chaos.py, the test substrate of the fit-side
-# memory ladder (memory.admit_fit, core._TpuCaller's OOM retry).
+# Fault injection: the port's copy of the plan parser, the `oom` half and
+# the serving stage hooks of spark_rapids_ml_tpu/parallel/chaos.py, the test
+# substrate of the fit-side memory ladder (memory.admit_fit,
+# core._TpuCaller's OOM retry) and of the serving overload ladder.
 #
 # A fault plan is a spec string (the `SRML_FAULT_PLAN` environment variable,
 # or `set_fault_plan()` in process): semicolon-separated entries, each
@@ -21,24 +22,35 @@
 #                                  path as a real one
 #   oom:stage=solve                the same, raised as a fit dispatches its
 #                                  solves (round-less plans)
+#   delay:stage=serve:seconds=0.02 latency injection: the serving engine
+#                                  sleeps this long before each dispatch
+#                                  while the entry has firings left
+#                                  (`maybe_delay_stage`), pinning the service
+#                                  time of an overload drill
+#   burst:stage=serve:rows=4096:seconds=2   an offered-load burst: the
+#                                  harness driving the stage (chip_smoke.py's
+#                                  saturation protocol, the tests) consults
+#                                  `maybe_burst_stage` and ramps its offered
+#                                  load to `rows` rows/s for `seconds`
 #
 # Every entry fires at most `times` times (default 1), so the retry runs
-# clean. `rank=` restricts an `oom` entry to the process whose rank is
+# clean. `rank=` restricts an entry to the process whose rank is
 # `SRML_RANK` (0 when unset). Not wired yet, each named in ROADMAP: the
 # `oom:stage=solve:round=` firings at solver checkpoint boundaries (A12);
-# `kill`/`abort`/`delay`/`drop` (the rendezvous, A10), `fail` (the
-# retryable stages, A12), `burst` and `delay:stage=` (the serving
-# overload ladder, A13-rest). They parse, and nothing consults them.
+# `kill`/`abort`/`drop` and the round-scoped `delay` (the rendezvous, A10),
+# `fail` (the retryable stages, A12). They parse, and nothing consults
+# them.
 #
 from __future__ import annotations
 
 import os
+import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
 __all__ = [
     "Fault", "parse_fault_plan", "set_fault_plan", "clear_fault_plan", "active_plan",
-    "maybe_fail_oom", "injected_hbm_budget",
+    "maybe_fail_oom", "injected_hbm_budget", "maybe_delay_stage", "maybe_burst_stage",
 ]
 
 _KINDS = {"kill", "abort", "delay", "drop", "fail", "oom", "burst"}
@@ -179,3 +191,30 @@ def maybe_fail_oom(stage: str, index: int = 0) -> None:
         raise torch.OutOfMemoryError(
             f"CUDA out of memory (chaos: injected oom at stage={stage} index={index})"
         )
+
+
+def maybe_delay_stage(stage: str) -> None:
+    """Stage-scoped latency injection: an unspent `delay:stage=<stage>`
+    entry sleeps `seconds` before the stage runs, spending one firing."""
+    for f in active_plan():
+        if f.kind != "delay" or f.stage != stage or f.spent() or not _rank_matches(f):
+            continue
+        f.fired += 1
+        # the flight-recorder event of the firing (`chaos_injection`) arrives with A15
+        time.sleep(f.seconds)  # the plan-bounded injected stage delay
+
+
+def maybe_burst_stage(stage: str) -> Optional[Fault]:
+    """Offered-load burst: an unspent `burst:stage=<stage>` entry is spent
+    (one firing) and returned; the consulting harness then ramps its offered
+    load to `fault.rows` rows/s for `fault.seconds`. None when no entry
+    matches. The burst is traffic the caller generates, so the entry is the
+    load's shape, and the plan stays the one place a drill's faults are
+    declared."""
+    for f in active_plan():
+        if f.kind != "burst" or f.stage != stage or f.spent() or not _rank_matches(f):
+            continue
+        f.fired += 1
+        # the flight-recorder event of the firing (`chaos_injection`) arrives with A15
+        return f
+    return None

@@ -19,19 +19,32 @@
 # Every request carries a server-side monotonic deadline (submit(deadline_ms=),
 # default `config["serve_default_deadline_ms"]`): an expired request NEVER
 # dispatches (typed RequestTimeoutError). Admission, the refusal point, runs
-# before the request queues: the bounded queue and the deadline-feasibility
-# check live in `serving.overload.OverloadController` and raise typed
-# ServeOverloadError.
+# before the request queues: the bounded queue, the deadline-feasibility
+# check and the tenant's backpressure ladder live in
+# `serving.overload.OverloadController` and raise typed ServeOverloadError.
+# A tenant on the ladder's degrade rung is served by the registry's degraded
+# program (`config["serve_degraded_dtype"]`): requests coalesce only with
+# requests of the same model AND the same rung, and a group whose rung went
+# away with a reload runs on the primary program
+# (`serve.degraded_fallbacks`). The ladder is evaluated on the dispatch path
+# and on the submit path (a fully shed tenant dispatches nothing), as the
+# SLO monitors are after each dispatch.
 #
 # Telemetry (telemetry.py, while enabled): serve.requests / rows / batches /
 # coalesced_batches / coalesced_requests / bucket_hits / expired_requests /
-# errors / flops counters, and the serve.queue_wait_s / serve.e2e_s
-# histograms with their per-tenant siblings (`telemetry.tenant_metric`).
+# errors / flops / degraded_requests / degraded_rows /
+# overdeadline_dispatches (a tripwire that stays 0) counters, and the
+# serve.queue_wait_s / serve.e2e_s histograms with their per-tenant
+# siblings (`telemetry.tenant_metric`).
+#
+# A chaos `delay:stage=serve` entry (parallel/chaos.py) sleeps before each
+# dispatch, pinning the service time of an overload drill; under
+# SRML_NUMCHECK=1 each response is swept for NaN at assembly
+# (utils/numcheck.py); with SRML_METRICS_PORT set, `start()` starts the ops
+# plane's HTTP exporter.
 #
 # One thread, the engine's loop, launches every kernel; client threads only
-# queue. Not in the port yet (ROADMAP A13): chaos delay injection at
-# dispatch, the numerics sweep of responses, SLO evaluation, and the ops
-# HTTP server.
+# queue.
 #
 from __future__ import annotations
 
@@ -46,6 +59,7 @@ import numpy as np
 from .. import telemetry
 from ..data import as_dense
 from ..errors import RequestTimeoutError, ServingStoppedError
+from ..utils import lockcheck, numcheck
 from .overload import OverloadController, plan_target_rows, plan_window
 from .registry import ModelRegistry
 
@@ -59,7 +73,7 @@ class ScoreFuture:
 
     __slots__ = (
         "name", "features", "_event", "_result", "_error", "t_submit",
-        "t_done", "rows", "tenant", "deadline",
+        "t_done", "rows", "tenant", "deadline", "degraded",
     )
 
     def __init__(
@@ -70,6 +84,7 @@ class ScoreFuture:
         *,
         tenant: str = "default",
         deadline: Optional[float] = None,
+        degraded: bool = False,
     ) -> None:
         self.name = name
         self.features = features
@@ -82,6 +97,9 @@ class ScoreFuture:
         self.tenant = tenant
         # server-side deadline, ABSOLUTE monotonic seconds (None = none)
         self.deadline = deadline
+        # the backpressure ladder routed this request to the degraded
+        # (serve_degraded_dtype) resident program
+        self.degraded = degraded
 
     def done(self) -> bool:
         return self._event.is_set()
@@ -139,15 +157,21 @@ class ScoringEngine:
             coalesce_window_s = float(config.get("serve_coalesce_window_ms", 2.0)) / 1e3
         self._window_s = max(0.0, float(coalesce_window_s))
         self._max_rows = int(max_batch_rows or config.get("serve_max_batch_rows", 8192))
-        self._cond = threading.Condition()
+        self._cond = lockcheck.make_condition("serving.engine.ScoringEngine._cond")
         self._queue: "deque[ScoreFuture]" = deque()  # guarded-by: _cond
         self._queued_rows = 0  # guarded-by: _cond
         self._thread: Optional[threading.Thread] = None
         self._stop = False
+        # deadline admission and the per-tenant backpressure ladder
         self._overload = OverloadController()
+        # the SRML_NUMCHECK=1 response sweep, resolved once per engine
+        self._numcheck = numcheck.hook()
 
     # ---------------------------------------------------------- lifecycle --
     def start(self) -> "ScoringEngine":
+        from ..ops_plane import ensure_server
+
+        ensure_server()  # the opt-in scrape surface (SRML_METRICS_PORT)
         with self._cond:
             if self._thread is not None and self._thread.is_alive():
                 return self
@@ -203,8 +227,9 @@ class ScoringEngine:
         ``config["serve_default_deadline_ms"]``; <= 0 disables): the engine
         never dispatches an expired request (typed `RequestTimeoutError` on
         the future), and admission refuses synchronously (typed
-        `ServeOverloadError`) when the bounded queue is full or the live
-        queue-wait p99 predicts the deadline cannot be met."""
+        `ServeOverloadError`) when the bounded queue is full, the live
+        queue-wait p99 predicts the deadline cannot be met, or `tenant`'s
+        backpressure ladder is throttling or shedding."""
         from ..core import config
 
         entry = self.registry.get(name)  # KeyError for unknown/evicted models
@@ -223,16 +248,23 @@ class ScoringEngine:
         if deadline_ms is None:
             deadline_ms = float(config.get("serve_default_deadline_ms", 30000.0))
         deadline = now + deadline_ms / 1e3 if deadline_ms > 0 else None
+        # the ladder advances on the submit path too: a fully shed tenant
+        # dispatches nothing, so without this its burn would never be read
+        # again (throttled to one pass per metrics bucket)
+        self._overload.maybe_evaluate(now)
         # admission: the typed refusal point, BEFORE anything queues, on a
         # snapshot of the queue taken under the lock
         with self._cond:
             q_depth, q_rows = len(self._queue), self._queued_rows
-        self._overload.admit(
+        degraded = self._overload.admit(
             model=name, tenant=tenant, rows=int(feats.shape[0]),
             deadline_s=deadline, now=now,
             queue_depth=q_depth, queue_rows=q_rows,
         )
-        fut = ScoreFuture(name, feats, now, tenant=tenant, deadline=deadline)
+        fut = ScoreFuture(
+            name, feats, now, tenant=tenant, deadline=deadline,
+            degraded=degraded and entry.degraded_program is not None,
+        )
         with self._cond:
             if self._stop or self._thread is None:
                 raise RuntimeError("scoring engine is not running (call start())")
@@ -252,8 +284,9 @@ class ScoringEngine:
     def stats(self) -> Dict[str, Any]:
         """Latency view of the serve.* telemetry (p50/p99 through
         `telemetry.summarize_histogram`; None while telemetry is off or
-        nothing has been served), the live queue, the request counters, and
-        each tenant's queue-wait and end-to-end p50/p99."""
+        nothing has been served), the live queue, the request and overload
+        counters, and per tenant its backpressure ladder state with its
+        queue-wait and end-to-end p50/p99."""
         qw = telemetry.summarize_histogram("serve.queue_wait_s")
         e2e = telemetry.summarize_histogram("serve.e2e_s")
         counters: Dict[str, float] = {}
@@ -262,20 +295,16 @@ class ScoringEngine:
         with self._cond:
             q_depth, q_rows = len(self._queue), self._queued_rows
         tenants: Dict[str, Any] = {}
-        prefix = "serve.e2e_s."
-        for hist in telemetry.registry().snapshot()["histograms"]:
-            if hist.startswith(prefix):
-                tenant = hist[len(prefix):]
-                tqw = telemetry.summarize_histogram(
-                    telemetry.tenant_metric("serve.queue_wait_s", tenant)
-                )
-                te2e = telemetry.summarize_histogram(hist)
-                tenants[tenant] = {
-                    "queue_wait_p50_s": tqw["p50"],
-                    "queue_wait_p99_s": tqw["p99"],
-                    "e2e_p50_s": te2e["p50"],
-                    "e2e_p99_s": te2e["p99"],
-                }
+        for tenant, view in self._overload.stats().items():
+            tqw = telemetry.summarize_histogram(telemetry.tenant_metric("serve.queue_wait_s", tenant))
+            te2e = telemetry.summarize_histogram(telemetry.tenant_metric("serve.e2e_s", tenant))
+            tenants[tenant] = {
+                **view,
+                "queue_wait_p50_s": tqw["p50"],
+                "queue_wait_p99_s": tqw["p99"],
+                "e2e_p50_s": te2e["p50"],
+                "e2e_p99_s": te2e["p99"],
+            }
         return {
             "queue_wait_p50_s": qw["p50"],
             "queue_wait_p99_s": qw["p99"],
@@ -289,6 +318,9 @@ class ScoringEngine:
             "coalesced_batches": int(counters.get("serve.coalesced_batches", 0)),
             "expired_requests": int(counters.get("serve.expired_requests", 0)),
             "rejected_requests": int(counters.get("serve.rejected_requests", 0)),
+            "shed_requests": int(counters.get("serve.shed_requests", 0)),
+            "throttled_requests": int(counters.get("serve.throttled_requests", 0)),
+            "degraded_requests": int(counters.get("serve.degraded_requests", 0)),
             "tenants": tenants,
         }
 
@@ -373,9 +405,10 @@ class ScoringEngine:
         return window_s, target_rows
 
     def _coalesce(self, first: ScoreFuture) -> List[ScoreFuture]:
-        """Grow a micro-batch from `first`: same-model requests already
-        queued, or arriving inside the coalesce window, merge until the batch
-        reaches the row target. Other models' requests stay queued in order.
+        """Grow a micro-batch from `first`: requests of the same model and
+        the same ladder rung (degraded or not) already queued, or arriving
+        inside the coalesce window, merge until the batch reaches the row
+        target. Other requests stay queued in order.
         A zero window disables coalescing: even queued same-model requests
         dispatch solo."""
         window_s, target_rows = self._plan_batch()
@@ -388,7 +421,7 @@ class ScoringEngine:
             with self._cond:
                 took = None
                 for i, fut in enumerate(self._queue):
-                    if fut.name == first.name:
+                    if fut.name == first.name and fut.degraded == first.degraded:
                         took = fut
                         del self._queue[i]
                         self._queued_rows -= fut.rows
@@ -404,10 +437,16 @@ class ScoringEngine:
         return group
 
     def _dispatch_group(self, group: List[ScoreFuture]) -> None:
+        from ..ops_plane import slo as _slo
+        from ..parallel.chaos import maybe_delay_stage
+
+        # chaos latency injection (`delay:stage=serve:seconds=`): the pinned
+        # service time of an overload drill
+        maybe_delay_stage("serve")
         t0 = time.monotonic()
         reg = telemetry.registry() if telemetry.enabled() else None
-        # members whose deadline passed while the batch formed fail typed
-        # HERE, before any device work
+        # members whose deadline passed while the batch formed (or during an
+        # injected delay) fail typed HERE, before any device work
         live: List[ScoreFuture] = []
         for fut in group:
             if fut.deadline is not None and t0 > fut.deadline:
@@ -418,18 +457,36 @@ class ScoringEngine:
         if not group:
             return
         if reg is not None:
+            # tripwire, expected to stay 0: a request past its deadline
+            # reaching this point means the filter above regressed. Measured
+            # at t0, the instant the filter decided at
+            late = sum(1 for f in group if f.deadline is not None and t0 > f.deadline)
+            if late:
+                reg.inc("serve.overdeadline_dispatches", late)
             reg.inc("serve.requests", len(group))
             reg.inc("serve.batches")
             if len(group) > 1:
                 reg.inc("serve.coalesced_batches")
                 reg.inc("serve.coalesced_requests", len(group))
+            if group[0].degraded:
+                reg.inc("serve.degraded_requests", len(group))
+                reg.inc("serve.degraded_rows", sum(f.rows for f in group))
             for fut in group:
                 wait = t0 - fut.t_submit
                 reg.observe("serve.queue_wait_s", wait)
                 reg.observe(telemetry.tenant_metric("serve.queue_wait_s", fut.tenant), wait)
         try:
             entry = self.registry.get(group[0].name)  # use-touch: keeps it MRU
+            # the degrade rung: the ladder routed this group to the
+            # registry's serve_degraded_dtype program; a group whose rung
+            # went away (the model reloaded without one) runs on the primary
+            # program, counted, never silently
             program = entry.program
+            if group[0].degraded:
+                if entry.degraded_program is not None:
+                    program = entry.degraded_program
+                elif reg is not None:
+                    reg.inc("serve.degraded_fallbacks", len(group))
             if program is None:
                 # evicted between get() and here (eviction nulls the
                 # program): fail typed like a never-resident model
@@ -455,6 +512,16 @@ class ScoringEngine:
             with telemetry.device_wait("serve_assembly", program.device):
                 pass
             outs = [program.fetch(r, nv) for r, nv in in_flight]
+            if self._numcheck is not None:
+                # response assembly is the serving plane's one host boundary:
+                # the fetched outputs are swept before any tenant sees them.
+                # allow_inf: top-k pads short result rows with inf distances
+                for oi, out in enumerate(outs):
+                    vals = out if isinstance(out, tuple) else (out,)
+                    self._numcheck(
+                        "serving.response", solver=group[0].name, allow_inf=True,
+                        **{f"chunk{oi}_out{j}": v for j, v in enumerate(vals)},
+                    )
             with telemetry.host_section("serve_response"):
                 self._resolve_group(group, sizes, outs)
             if reg is not None:
@@ -475,6 +542,11 @@ class ScoringEngine:
             for fut in group:
                 if not fut.done():
                     fut._resolve(error=e)
+        # the latency histograms were just recorded: the SLO monitors'
+        # inline evaluation point, then the backpressure ladder's (each
+        # throttled to one pass per bucket width, inert without specs)
+        _slo.maybe_evaluate()
+        self._overload.maybe_evaluate()
 
     @staticmethod
     def _resolve_group(

@@ -23,23 +23,32 @@
 # Serveability is preflighted (`model._serve_check`) before any eviction, so
 # a load that can never succeed does not drop residents as a side effect.
 # Eviction (explicit `evict()`, pressure during a later load, or a reload of
-# the same name) drops the entry's program, the only reference to its device
-# state, and re-stamps the evicted model with verdict "evicted".
+# the same name) drops the entry's programs, the only references to its
+# device state, re-stamps the evicted model with verdict "evicted", and
+# appends an "eviction" record to `ops_plane.audit` (the admission's record
+# comes from memory.admit_model_load).
 #
-# Not in the port yet (ROADMAP A13): the degraded serving rung
-# (`config["serve_degraded_dtype"]`, a second resident program for the
-# backpressure ladder) and the audit log of admissions and evictions.
+# THE DEGRADED RUNG (`config["serve_degraded_dtype"]`, e.g. "bf16"): where
+# the model's `_serve_dtypes` allow it and it differs from the primary
+# serve dtype, a load builds a SECOND resident program at that dtype, with
+# its own admission (no eviction pressure: refusing the primary load
+# because the degraded copy does not fit would be backwards) and its own
+# prewarm at load, so the backpressure ladder (serving/overload.py) can
+# route a burning tenant's traffic there before shedding. A refused second
+# admission is logged, and the model serves without the rung. For a kNN
+# model the rung is a second copy of the items on the card, charged with
+# its `fast` staging (`_serve_dtype_workspace_terms`).
 #
 from __future__ import annotations
 
 import logging
-import threading
 from collections import OrderedDict
 from dataclasses import dataclass
 from typing import Any, List, Optional
 
 from .. import telemetry
 from ..errors import HbmBudgetError
+from ..utils import lockcheck
 
 __all__ = ["ResidentModel", "ModelRegistry"]
 
@@ -58,10 +67,20 @@ class ResidentModel:
     serve_dtype: Optional[str] = None
     n_cols: int = 0
     prewarmed_rungs: int = 0
+    # the degraded serving rung (config["serve_degraded_dtype"]): a SECOND
+    # resident program the backpressure ladder routes a burning tenant's
+    # traffic to before shedding, its bytes admitted (degraded_admission)
+    # and released with the entry
+    degraded_program: Any = None
+    degraded_admission: Any = None
+    degraded_dtype: Optional[str] = None
 
     @property
     def resident_bytes(self) -> int:
-        return int(self.admission.estimate.total())
+        total = int(self.admission.estimate.total())
+        if self.degraded_admission is not None:
+            total += int(self.degraded_admission.estimate.total())
+        return total
 
 
 class ModelRegistry:
@@ -76,7 +95,7 @@ class ModelRegistry:
     ) -> None:
         from ..core import config
 
-        self._lock = threading.RLock()
+        self._lock = lockcheck.make_lock("serving.registry.ModelRegistry._lock", "rlock")
         self._entries: "OrderedDict[str, ResidentModel]" = OrderedDict()  # guarded-by: _lock
         self._prewarm_default = bool(prewarm)
         self._cap = int(max_batch_rows or config.get("serve_max_batch_rows", 8192))
@@ -131,15 +150,10 @@ class ModelRegistry:
         from ..core import config
         from ..parallel import default_device
 
-        if config.get("serve_degraded_dtype") is not None:
-            raise NotImplementedError(
-                f"serve_degraded_dtype={config['serve_degraded_dtype']!r}: the degraded "
-                "serving rung of the backpressure ladder is not in the PyTorch port yet "
-                "(ROADMAP item A13)"
-            )
         do_prewarm = self._prewarm_default if prewarm is None else bool(prewarm)
         model._serve_check(serve_dtype)  # before anything is evicted
         device = default_device()  # raises without a card or set_devices("cpu")
+        tenant = f"serving:{name}"
         with self._lock:
             if name in self._entries:
                 self._evict_locked(name, reason="reloaded")
@@ -147,7 +161,8 @@ class ModelRegistry:
                 try:
                     # residents are charged through their ledger reservations
                     adm = memory.admit_model_load(
-                        model, bucket_rows_count=self._cap, device=device, serve_dtype=serve_dtype
+                        model, bucket_rows_count=self._cap, device=device, serve_dtype=serve_dtype,
+                        tenant=tenant,
                     )
                     break
                 except HbmBudgetError as e:
@@ -167,16 +182,42 @@ class ModelRegistry:
                         "resident %r (%s)", name, victim, e,
                     )
                     self._evict_locked(victim, reason=f"pressure from load of {name!r}")
+        # ---- the degraded rung: a second admission, no eviction pressure ----
+        degraded_dtype = config.get("serve_degraded_dtype")
+        degraded_adm = None
+        if (
+            degraded_dtype is not None
+            and degraded_dtype != serve_dtype
+            and degraded_dtype in getattr(model, "_serve_dtypes", ())
+        ):
+            try:
+                degraded_adm = memory.admit_model_load(
+                    model, bucket_rows_count=self._cap, device=device, serve_dtype=degraded_dtype,
+                    tenant=tenant,
+                )
+            except HbmBudgetError as e:
+                _LOG.warning(
+                    "degraded rung (%s) for %r refused admission, serving "
+                    "without it: %s", degraded_dtype, name, e,
+                )
         # ---- placement + prewarm: no registry lock held ------------------
+        max_rows = int(config.get("serve_prewarm_rows", 4096))
         try:
             program = model._serve_program(serve_dtype, cap=self._cap)
             n_cols = model._serve_n_cols()
             rungs = 0
-            max_rows = int(config.get("serve_prewarm_rows", 4096))
             if do_prewarm and max_rows > 0:
                 rungs = program.prewarm(n_cols, max_rows=max_rows)
+            degraded_program = None
+            if degraded_adm is not None:
+                degraded_program = model._serve_program(degraded_dtype, cap=self._cap)
+                if do_prewarm and max_rows > 0:
+                    # prewarmed at load like the primary: building kernels
+                    # mid-overload would spend seconds when the ladder needs it
+                    degraded_program.prewarm(n_cols, max_rows=max_rows)
         except BaseException as e:
             memory.release_admission(adm)
+            memory.release_admission(degraded_adm)
             if memory.is_oom_error(e):
                 est = adm.estimate
                 name_, nbytes = est.largest()
@@ -200,6 +241,9 @@ class ModelRegistry:
                 serve_dtype=serve_dtype,
                 n_cols=n_cols,
                 prewarmed_rungs=rungs,
+                degraded_program=degraded_program,
+                degraded_admission=degraded_adm,
+                degraded_dtype=degraded_dtype if degraded_adm is not None else None,
             )
             self._entries[name] = entry
             model._serve_metrics["admission"] = adm.stamp()
@@ -227,6 +271,7 @@ class ModelRegistry:
 
     def _evict_locked(self, name: str, reason: str) -> None:
         from .. import memory
+        from ..ops_plane import audit as _audit
 
         entry = self._entries.pop(name)
         # the model carries WHY it left residency, largest byte term and all
@@ -234,10 +279,17 @@ class ModelRegistry:
         stamp["verdict"] = "evicted"
         stamp["reason"] = reason
         entry.model._serve_metrics["admission"] = stamp
-        # the program holds the only references to the device state; the
-        # ledger claim returns with it
+        # the queryable side of the stamp: why THIS model left residency
+        _audit.record_decision(
+            "eviction", "serving", "evicted", subject=name, tenant=f"serving:{name}",
+            reason=reason, estimate_bytes=entry.resident_bytes,
+        )
+        # the programs hold the only references to the device state; the
+        # ledger claims return with them
         memory.release_admission(entry.admission)
         entry.program = None
+        memory.release_admission(entry.degraded_admission)
+        entry.degraded_program = None
         if telemetry.enabled():
             reg = telemetry.registry()
             reg.inc("serve.model_evictions")

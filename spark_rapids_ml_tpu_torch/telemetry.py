@@ -30,22 +30,41 @@
 #       allocator watermark (`record_device_memory`), sampled after a
 #       resident placement and at every streamed chunk boundary
 #
+# The serving overload ladder and the ops plane (serving/overload.py,
+# ops_plane/) record:
+#
+#   serve.shed_requests / throttled_requests / degraded_requests
+#   / degraded_rows / overdeadline_dispatches / backpressure_transitions
+#                                               counters
+#   serve.overload_level (+ per-tenant)         gauge: the ladder's level
+#   slo.evaluations / trips / clears, ops.decisions_recorded / _dropped,
+#   numcheck.trips, lockcheck.inversions / long_holds    counters
+#
+# and read the rolling windows back: `rate`, `window_quantile`,
+# `window_fraction_over` (the SLO burn numerator) over the most recent
+# `window_s`, within `window_horizon_s()`; `mark()`/`delta()` give the
+# counters and histograms accumulated between two points (a benchmark
+# phase's view). `enable()` also starts the ops plane's HTTP exporter when
+# SRML_METRICS_PORT names a port.
+#
 # `device_wait(stage, device)` closes on `torch.cuda.synchronize(device)`
 # for a CUDA device, so the time it records is the wait for the card's
 # queued work; `host_section(stage)` times host work. Left out of this copy
-# (ROADMAP A15): the JSONL sinks, spans, the fleet merge, the efficiency
-# attribution plane, and the solvers' diagnostics events and convergence
-# ring.
+# (ROADMAP A15): the JSONL sinks, spans, the efficiency attribution plane,
+# and the solvers' diagnostics events and convergence ring; the fleet
+# merge of the windows across ranks (`MergedWindows`, `windows_export`)
+# waits for A10.
 #
 from __future__ import annotations
 
 import os
 import re
 import sys
-import threading
 import time
 from contextlib import contextmanager
 from typing import Any, Dict, Iterator, List, Optional, Tuple
+
+from .utils import lockcheck
 
 __all__ = [
     "enable",
@@ -77,8 +96,18 @@ def enabled() -> bool:
 
 
 def enable() -> None:
+    """Turn recording on. When SRML_METRICS_PORT names a port, the ops
+    plane's exporter thread starts too (best-effort: a busy port leaves no
+    server, never a failed call)."""
     global _ON
     _ON = True
+    if os.environ.get("SRML_METRICS_PORT"):
+        try:
+            from . import ops_plane
+
+            ops_plane.ensure_server()
+        except Exception:  # pragma: no cover - the exporter never breaks enable
+            pass
 
 
 def disable() -> None:
@@ -163,7 +192,7 @@ class MetricsRegistry:
     no-op while telemetry is disabled."""
 
     def __init__(self) -> None:
-        self._lock = threading.Lock()
+        self._lock = lockcheck.make_lock("telemetry.MetricsRegistry._lock")
         self._counters: Dict[str, float] = {}  # guarded-by: _lock
         self._gauges: Dict[str, float] = {}  # guarded-by: _lock
         self._hists: Dict[str, Dict[str, float]] = {}  # guarded-by: _lock
@@ -175,9 +204,7 @@ class MetricsRegistry:
     def _ring(self, rings: Dict[str, _Ring], name: str) -> _Ring:
         ring = rings.get(name)
         if ring is None:
-            if self._win_cfg is None:
-                self._win_cfg = _window_params()
-            ring = rings[name] = _Ring(*self._win_cfg)
+            ring = rings[name] = _Ring(*self._win())
         return ring
 
     # -- record ------------------------------------------------------------
@@ -230,11 +257,22 @@ class MetricsRegistry:
             samples = list(self._hist_samples.get(name) or ())
         return quantile_of(samples, q)
 
+    def _win(self) -> Tuple[float, int]:
+        """Window params, resolved once per construction or reset (the
+        caller holds the lock)."""
+        if self._win_cfg is None:
+            self._win_cfg = _window_params()
+        return self._win_cfg
+
     def bucket_seconds(self) -> float:
         with self._lock:
-            if self._win_cfg is None:
-                self._win_cfg = _window_params()
-            return self._win_cfg[0]
+            return self._win()[0]
+
+    def window_horizon_s(self) -> float:
+        """The rolling-window horizon (bucket width x bucket count)."""
+        with self._lock:
+            bucket_s, n = self._win()
+        return bucket_s * n
 
     def rate(self, name: str, window_s: Optional[float] = None) -> Optional[float]:
         """Counter increments per second over the most recent `window_s`;
@@ -260,6 +298,58 @@ class MetricsRegistry:
             samples = [v for i in slots for v in ring.samples[i]]
         return quantile_of(samples, q)
 
+    def window_fraction_over(
+        self, name: str, threshold: float, window_s: Optional[float] = None
+    ) -> Optional[Tuple[float, int]]:
+        """(fraction of the windowed observations of histogram `name`
+        strictly above `threshold`, their count): the SLO burn numerator.
+        None when the window is empty (no traffic is not a violation)."""
+        with self._lock:
+            ring = self._win_hists.get(name)
+            if ring is None:
+                return None
+            slots, _ = ring.slots(time.monotonic(), window_s)
+            samples = [v for i in slots for v in ring.samples[i]]
+        if not samples:
+            return None
+        bad = sum(1 for v in samples if v > threshold)
+        return bad / len(samples), len(samples)
+
+    def windows_snapshot(self) -> Dict[str, Any]:
+        """The rolling windows as the ops report serves them: each counter's
+        rate over the fast window (60 s, within the horizon) and over the
+        whole horizon, each histogram's p50/p99/count over the horizon; one
+        lock hold at one clock reading, so every metric describes the same
+        window."""
+        now = time.monotonic()
+        with self._lock:
+            bucket_s, n = self._win()
+            horizon = bucket_s * n
+            fast = min(60.0, horizon)
+            rates: Dict[str, Any] = {}
+            for name, ring in self._win_counters.items():
+                out = {}
+                for key, window in (("fast_per_s", fast), ("horizon_per_s", None)):
+                    slots, span = ring.slots(now, window)
+                    out[key] = sum(ring.sums[i] for i in slots) / span if span > 0 else None
+                rates[name] = out
+            quantiles: Dict[str, Any] = {}
+            for name, ring in self._win_hists.items():
+                slots, _ = ring.slots(now, None)
+                samples = [v for i in slots for v in ring.samples[i]]
+                quantiles[name] = {
+                    "p50": quantile_of(samples, 0.5),
+                    "p99": quantile_of(samples, 0.99),
+                    "count": float(sum(ring.counts[i] for i in slots)),
+                }
+        return {
+            "bucket_seconds": bucket_s,
+            "bucket_count": n,
+            "horizon_s": horizon,
+            "rates": rates,
+            "quantiles": quantiles,
+        }
+
     def snapshot(self) -> Dict[str, Any]:
         """Counters, gauges and histogram summaries (JSON-able)."""
         with self._lock:
@@ -268,6 +358,35 @@ class MetricsRegistry:
                 "gauges": dict(self._gauges),
                 "histograms": {k: dict(v) for k, v in self._hists.items()},
             }
+
+    class _Mark:
+        __slots__ = ("counters", "hists")
+
+    def mark(self) -> "MetricsRegistry._Mark":
+        """Cheap position marker for `delta()`."""
+        m = MetricsRegistry._Mark()
+        with self._lock:
+            m.counters = dict(self._counters)
+            m.hists = {k: dict(v) for k, v in self._hists.items()}
+        return m
+
+    def delta(self, m: "MetricsRegistry._Mark") -> Dict[str, Any]:
+        """Counters and histogram counts/sums accumulated SINCE `m`, and the
+        current gauges."""
+        with self._lock:
+            counters = {
+                k: v - m.counters.get(k, 0.0)
+                for k, v in self._counters.items()
+                if v != m.counters.get(k, 0.0)
+            }
+            hists = {}
+            for k, v in self._hists.items():
+                prev = m.hists.get(k)
+                count = v["count"] - (prev["count"] if prev else 0.0)
+                if count:
+                    hists[k] = {"count": count, "sum": v["sum"] - (prev["sum"] if prev else 0.0)}
+            gauges = dict(self._gauges)
+        return {"counters": counters, "gauges": gauges, "histograms": hists}
 
     def reset(self) -> None:
         with self._lock:

@@ -105,6 +105,23 @@ labels = DBSCAN(eps=1.5, min_samples=4).setFeaturesCol("features").fit({"feature
 assert len(labels["prediction"]) == len(x)
 um = UMAP(n_epochs=4, random_state=0).setFeaturesCol("features").fit({"features": x})
 assert um.transform({"features": x[:5]})["embedding"].shape == (5,)
+from spark_rapids_ml_tpu_torch import ops_plane, telemetry
+from spark_rapids_ml_tpu_torch.serving.overload import LEVEL_DEGRADE, LEVELS
+telemetry.enable()  # one ladder walk: scripted burns, then a degraded request and a shed
+spec = {"name": "p99", "kind": "latency", "histogram": "serve.e2e_s", "threshold_s": 0.1, "fast_burn": 1.0}
+config.update(serve_degraded_dtype="bf16", serve_throttle_rows_per_s=1e9, serve_overload_hold_s=1e6, slo=[spec])
+registry = ModelRegistry()
+registry.load("km", m)
+with ScoringEngine(registry) as engine:
+    ctl = engine._overload
+    ctl.force_level("t", LEVEL_DEGRADE)
+    assert engine.submit("km", x[:3], tenant="t").result(30).shape == (3,)
+    ctl._tenant_burn = lambda tenant, spec: 5.0
+    ctl.evaluate(spec, now=1e9)
+    assert LEVELS[ctl.level("t")] == "shed"
+ctr = telemetry.registry().snapshot()["counters"]
+assert ctr["serve.degraded_requests"] == 1 and ctr["serve.backpressure_transitions"] == 2
+assert [d["verdict"] for d in ops_plane.report()["decisions"] if d["kind"] == "backpressure"] == ["degrade", "shed"]
 bad = sorted(n for n in sys.modules
              if n == "spark_rapids_ml_tpu" or n.startswith("spark_rapids_ml_tpu."))
 assert not bad, bad

@@ -428,18 +428,52 @@ def test_latency_histograms_and_stats(rng):
     ("slo", [{"name": "p99", "kind": "latency", "histogram": "serve.e2e_s", "threshold_s": 0.1}]),
 ])
 def test_backpressure_ladder_is_refused_by_name(rng, config_key, value):
-    # the ladder and its degraded rung are not in the port: configuring
-    # either raises, naming the roadmap item, instead of being ignored
-    saved = dict(config)
-    config[config_key] = value
+    # (named when the port refused both settings, naming ROADMAP A13) the
+    # ladder and its degraded rung are ported: each setting now builds the
+    # rung or drives the ladder as the JAX package does on the same input
+    saved, jsaved = dict(config), dict(jcore.config)
+    config[config_key] = jcore.config[config_key] = value
     try:
-        registry = ModelRegistry()
-        with pytest.raises(NotImplementedError, match="A13"):
-            registry.load("km", _kmeans_pair(_centers(rng))[0])
-            ScoringEngine(registry)
+        port, jax_model = _kmeans_pair(_centers(rng, scale=50.0))
+        feats = rng.standard_normal((24, 10)).astype(np.float32)
+        if config_key == "serve_degraded_dtype":
+            config["serve_throttle_rows_per_s"] = jcore.config["serve_throttle_rows_per_s"] = 1e9
+            got = {}
+            for name, reg_cls, eng_cls, model in (
+                ("port", ModelRegistry, ScoringEngine, port),
+                ("jax", JaxModelRegistry, JaxScoringEngine, jax_model),
+            ):
+                registry = reg_cls()
+                entry = registry.load("km", model)
+                assert entry.degraded_dtype == "bf16" and entry.degraded_program is not None
+                with eng_cls(registry) as engine:
+                    engine._overload.force_level("default", toverload.LEVEL_DEGRADE)
+                    got[name] = np.asarray(engine.score("km", feats))
+            np.testing.assert_array_equal(got["port"], got["jax"])
+            assert _counters()["serve.degraded_requests"] == 1
+        else:
+            config["serve_overload_hold_s"] = jcore.config["serve_overload_hold_s"] = 10.0
+            walks = {}
+            for name, mod in (("port", toverload), ("jax", joverload)):
+                ctl = mod.OverloadController()
+                ctl.admit(model="km", tenant="t", rows=1, deadline_s=None, now=0.0, queue_depth=0, queue_rows=0)
+                ctl._tenant_burn = lambda tenant, spec: 20.0  # above the default fast burn, 14.4
+                spec = value[0]
+                walk = []
+                for now in (0.0, 5.0, 11.0, 22.0):
+                    ctl.evaluate(spec, now=now)
+                    walk.append(ctl.level("t"))
+                walks[name] = walk
+            assert walks["port"] == walks["jax"] == [1, 1, 2, 3]
+            registry = ModelRegistry()
+            registry.load("km", port)
+            with ScoringEngine(registry) as engine:  # starts with the spec set
+                assert engine.score("km", feats).shape == (24,)
     finally:
         config.clear()
         config.update(saved)
+        jcore.config.clear()
+        jcore.config.update(jsaved)
 
 
 # ------------------------------------------------- registry and admission ----
