@@ -133,7 +133,7 @@
 #      mask as a weight column bit for bit, the grid's host reads on
 #      resident rows equal the longest single fit's and the card's sync
 #      count; 10b CrossValidator over LinearRegression(tol=1e-30,
-#      maxIter=10), regParam {1e-5, 1e-3} x elasticNetParam {0, 0.5}, on
+#      maxIter=4, cut from 10), regParam {1e-5, 1e-3} x elasticNetParam {0, 0.5}, on
 #      phase 7's y: a normal-equation and a CD group per fold, batched CD
 #      equal to sequential CD bit for bit; 10c TrainValidationSplit over an
 #      OWL-QN pair (regParam 1e-2, elasticNetParam {0.5, 1.0}): the single
@@ -148,7 +148,8 @@
 #      IVFFlat {nlist 256, nprobe 16}, IVFPQ {the same, M = 8, n_bits = 8,
 #      refine_ratio 4} and CAGRA {graph degree 64, intermediate 128,
 #      build_algo ivf_pq, itopk 64} (benchmark/bench_approximate_nearest_
-#      neighbors.py's values, nothing cut), k = 64 for the first 4096 rows
+#      neighbors.py's values; CAGRA's NN-descent cut from 3 rounds to 1),
+#      k = 64 for the first 4096 rows
 #      through the public API: each build's seconds split into its parts
 #      (seeding, Lloyd, layout, PQ training, encoding; CAGRA's seeding reps
 #      and each descent round with its n_new), peak memory, search seconds
@@ -185,7 +186,7 @@
 #      and ingest.overlap_fraction > 0 on a pass whose caller works longer
 #      on a chunk than a copy takes; 13b demotion by that budget: KMeans
 #      (k=1000, random init, 3 iterations) in high and fast, PCA(k=3), OLS
-#      and LogisticRegression (regParam 1e-5, 10 iterations) streamed, each
+#      and LogisticRegression (regParam 1e-5, 4 iterations, cut from 10) streamed, each
 #      held to its resident fit (KMeans: the first iteration's assignments
 #      equal, the first update's centers within 1e-5 of the largest
 #      |center| (later ones may part at near-tied rows: reported), final
@@ -246,7 +247,30 @@
 #      an ephemeral port (15a's serve.* counters), /healthz, report()'s
 #      serving tenants and backpressure decisions, an SRML_NUMCHECK=1 sweep
 #      of a degraded response with no trip;
-#  16. a {"kernels": [...]} line with all twelve kernel forms, the
+#  16. recovery (checkpoint.py, core.retryable_stage, the solver
+#      checkpoints), right after phase 8a, on the protocol rows: 16a
+#      KMeans(k = 1000, random init, maxIter 6, tol 0) in `fast` and `high`
+#      at a checkpoint cadence of 2, each mode's unchecked, checkpointed and
+#      `fail:stage=solve`-faulted fits in one device_dataset_scope, equal
+#      bit for bit, the faulted one with fit.retries 1 and
+#      checkpoint.restores 1 and the unchecked fit's B1/B2 launches (no
+#      iteration ran twice); 16b a resident `high` fit under
+#      `oom:stage=solve:round=4`: the fault at the iteration-4 boundary, the
+#      streamed retry, in 13b's chunks of 300,000 rows, resuming that
+#      checkpoint (memory.oom_caught, fit.demotions and checkpoint.restores
+#      1; B1/B2 launches of 4 resident and 3 streamed passes), bit for bit
+#      with 16a's resident fit; 16c LogisticRegression, the GLM quasi-Newton {regParam 1e-5,
+#      maxIter 30, tol 1e-30} and OWL-QN {regParam 1e-4, elasticNetParam
+#      0.5, maxIter 30}, at a cadence of 10 with the fault at the
+#      iteration-20 boundary: resumed = checkpointed = unchecked bit for
+#      bit, and the host reads per iteration with and without the cadence;
+#      16d PCA(k=3) and OLS under `fail:stage=solve`: the retry reuses the
+#      retained statistics (checkpoint.stats_reuses 1, one statistics pass),
+#      equal bit for bit, the retry's seconds against phase 7a's statistics
+#      pass; 16e a streamed GLM (6 iterations at a cadence of 3, the fault
+#      at 3) and OLS on 200,000 rows under a 1 GiB budget, each resumed fit
+#      equal to its uninterrupted streamed fit bit for bit;
+#  17. a {"kernels": [...]} line with all twelve kernel forms, the
 #      nvidia-smi line, and as the last line {"ok": true, "device": {...}}.
 #      The seconds of each phase are printed as it ends.
 #
@@ -3864,7 +3888,7 @@ def phase_forests(dev, X):
 CV_LOGREG = {"maxIter": 30, "tol": 1e-12}
 CV_REGS = tuple(float(v) for v in np.logspace(-6, -3, 4))
 CV_FOLDS, CV_SEED = 3, 0
-CV_LINEAR = {"tol": 1e-30, "maxIter": 10}
+CV_LINEAR = {"tol": 1e-30, "maxIter": 4}  # the CD row's 10 sweeps cut to 4
 CV_LINEAR_REGS, CV_LINEAR_ENETS = (1e-5, 1e-3), (0.0, 0.5)
 TVS_OWLQN = {"regParam": 1e-2, "maxIter": 30}
 TVS_ENETS, TVS_RATIO, TVS_SEED = (0.5, 1.0), 0.75, 0
@@ -3945,7 +3969,7 @@ def phase_multifit(dev, X, y_lin, y_cls):
       grid reads the card once per iteration for the whole grid: its reads
       equal the longest single fit's, reads per iteration equal the single
       fit's, and the card's sync count equals the reads.
-    - 10b, CrossValidator(LinearRegression(tol=1e-30, maxIter=10), grid
+    - 10b, CrossValidator(LinearRegression(tol=1e-30, maxIter=4), grid
       regParam {1e-5, 1e-3} x elasticNetParam {0, 0.5}, numFolds=3, rmse)
       on phase 7's y: two batched groups per fold (normal equations, CD:
       6 calls of linear_fit_batched, 3 of each), 12 batched solves, 1
@@ -4271,7 +4295,9 @@ def _small_tuning_reference():
 ANN_CONFIGS = (
     ("ivfflat", {"nlist": 256, "nprobe": 16}),
     ("ivfpq", {"nlist": 256, "nprobe": 16, "M": 8, "n_bits": 8, "refine_ratio": 4}),
-    ("cagra", {"graph_degree": 64, "intermediate_graph_degree": 128, "build_algo": "ivf_pq", "itopk_size": 64}),
+    # CAGRA's NN-descent cut from 3 rounds to 1
+    ("cagra", {"graph_degree": 64, "intermediate_graph_degree": 128, "build_algo": "ivf_pq", "itopk_size": 64,
+               "nn_descent_niter": 1}),
 )
 ANN_PQ_TRAIN_ROWS = 65536  # build_ivfpq's train_cap
 ANN_RECALL_FLOOR = {"ivfflat": 0.85}  # IVFPQ's and CAGRA's are printed, held on the CPU and card = CPU
@@ -4332,7 +4358,7 @@ def _ann_build_split(algo, box, build_s):
 def phase_ann(dev, X, exact_ids, exact_dist):
     """Phase 11: ApproximateNearestNeighbors at full width through the public
     API, on the float32 protocol rows after phase 10: IVFFlat, IVFPQ and
-    CAGRA as ANN_CONFIGS gives them, nothing cut; the first 4096 rows as
+    CAGRA as ANN_CONFIGS gives them (one NN-descent round); the first 4096 rows as
     queries, k = 64, phase 4's exact ids and distances the reference. Gates,
     fixed before the first run on the card: every returned id a row or -1
     where short, distances finite and ascending per row where an id is
@@ -4792,7 +4818,7 @@ def phase_dbscan_umap(dev):
 OOCORE_BUDGET = 8 << 30
 OOCORE_CAP = 10 << 30
 OOCORE_KMEANS_ITERS = 3
-OOCORE_LOGREG = {"regParam": 1e-5, "elasticNetParam": 0.0, "maxIter": 10, "tol": 1e-30}
+OOCORE_LOGREG = {"regParam": 1e-5, "elasticNetParam": 0.0, "maxIter": 4, "tol": 1e-30}  # cut from 10
 OOCORE_NAN_AT = (700_001, 17)
 
 
@@ -5081,7 +5107,7 @@ def phase_oocore(dev, X, linear_ref, y_cls):
         lr_data = {"features": X, "label": y_cls}
         lr_res = resident("logreg", make_lr, lr_data)
         lr, _ = streamed("logreg", make_lr, lr_data, lambda m: 2 + 2 * m.n_iter_)
-        # the same 10 iterations from the same start, the sums in another
+        # the same iterations from the same start, the sums in another
         # order: the objective within 1e-5 relative, the coefficients within
         # 1e-3 (normwise) of the resident fit's
         f_err = abs(lr.objective_ - lr_res.objective_) / abs(lr_res.objective_)
@@ -5177,7 +5203,7 @@ SPARSE_LINEAR = (("ols", {"regParam": 0.0}), ("ridge", {"regParam": 1e-5}),
                  ("cd", {"regParam": 1e-5, "elasticNetParam": 0.5, "maxIter": 10, "tol": 1e-30}))
 SPARSE_DENSE_ROWS = 500_000
 SPARSE_STREAM_BUDGET = 1 << 30
-SPARSE_STREAM_LOGREG = dict(SPARSE_LOGREG, maxIter=10)
+SPARSE_STREAM_LOGREG = dict(SPARSE_LOGREG, maxIter=4)  # cut from 10
 SPARSE_CV_ROWS = 1_000_000
 SPARSE_KNN_ROWS, SPARSE_KNN_DENSITY, SPARSE_KNN_QUERIES, SPARSE_KNN_K = 1_000_000, 0.01, 4096, 64
 SPARSE_KNN_TILE = 65536  # ops/knn.exact_knn_sparse's batch_items
@@ -5272,7 +5298,7 @@ def phase_sparse(dev):
     (maxIter 10), the statistics pass and the solve timed apart, OLS
     repeated bit for bit, and a 500,000-row slice's ELL OLS within 1e-4
     (normwise) of the densified slice's dense fit. 14c under a 1 GiB budget:
-    LogisticRegression (maxIter 10) and OLS stream (verdict stream), held
+    LogisticRegression (maxIter 4, cut from 10) and OLS stream (verdict stream), held
     to their resident fits (logistic: n_iter_ equal, objective rtol 1e-5,
     coefficients 1e-3 normwise; OLS: 1e-4 normwise). 14d a 3-fold x 4-map
     CrossValidator over LogisticRegression (maxIter 20) on the first
@@ -5587,6 +5613,328 @@ def phase_sparse(dev):
             telemetry.disable()
     return {"sparse_knn": launches}, timings
 
+# ----------------------------------------------------------- phase 16 ----
+
+# Phase 16's fits: 16a/16b KMeans at the protocol's k with random centers
+# (maxIter cut from 30 to 6, tol 0 so every iteration runs), its cadence and
+# 16b's fault boundary; 16c LogisticRegression's two solvers, their cadence
+# and fault boundary; 16e the streamed slice (cut from 1M rows: a streamed
+# GLM iteration costs ~2 s at full size, PERF.md section 5), its budget and
+# GLM.
+RECOVERY_KMEANS = {"k": K, "maxIter": 6, "tol": 0.0, "initMode": "random", "seed": 1}
+RECOVERY_KMEANS_EVERY, RECOVERY_OOM_AT = 2, 4
+RECOVERY_OOM_CHUNK_ROWS = 300_000  # 16b's streamed retry: 13b's admitted chunk, 9 whole tiles
+RECOVERY_LOGREG = (("glm_qn", {"regParam": 1e-5, "maxIter": 30, "tol": 1e-30}),
+                   ("owlqn", {"regParam": 1e-4, "elasticNetParam": 0.5, "maxIter": 30}))
+RECOVERY_LOGREG_EVERY, RECOVERY_LOGREG_FAULT_AT = 10, 20
+RECOVERY_STREAM_ROWS, RECOVERY_STREAM_BUDGET = 200_000, 1 << 30
+RECOVERY_STREAM_LOGREG = {"regParam": 1e-5, "maxIter": 6, "tol": 1e-30}
+RECOVERY_STREAM_EVERY = 3
+
+
+def _same_model(a, b, attrs):
+    """Whether two models' attributes are equal bit for bit."""
+    return all(np.array_equal(np.asarray(getattr(a, n)), np.asarray(getattr(b, n))) for n in attrs)
+
+
+def phase_recovery(dev, X, linear_ref, y_cls, linear_timings):
+    """Phase 16: recovery on the protocol rows (the module comment's list).
+    Returns (the launches of the phase, timings)."""
+    import gc
+
+    import torch
+
+    from spark_rapids_ml_tpu_torch import KMeans, LinearRegression, LogisticRegression, PCA, telemetry
+    from spark_rapids_ml_tpu_torch.core import config, device_dataset_scope
+    from spark_rapids_ml_tpu_torch.ops import _kernels
+    from spark_rapids_ml_tpu_torch.ops import linear as LR
+    from spark_rapids_ml_tpu_torch.ops import logistic as LG
+    from spark_rapids_ml_tpu_torch.ops import pca as P
+    from spark_rapids_ml_tpu_torch.parallel import chaos
+
+    say(f"phase 16: recovery, {N_ROWS} x {N_COLS} float32")
+    gc.collect()
+    torch.cuda.empty_cache()
+    keys = ("checkpoint_every_iters", "fit_retry_backoff_s", "hbm_budget_bytes", "stream_chunk_rows")
+    saved = {k_: config[k_] for k_ in keys}
+    was_on = telemetry.enabled()
+    telemetry.enable()
+    reg = telemetry.registry()
+    timings = {}
+    tiles = -(-N_ROWS // TILE_ROWS)
+    _kernels.reset_launches()  # the recovery run's launches: every fit of the phase
+
+    def fit(tag, make, data, *, every=0, plan=None):
+        """One fit at a cadence under a fault plan: (model, the counters it
+        moved, the kernel launches it made). Every plan entry must fire."""
+        config["checkpoint_every_iters"] = every
+        faults = chaos.set_fault_plan(plan) if plan else chaos.clear_fault_plan()
+        c0, l0 = dict(reg.snapshot()["counters"]), dict(_kernels.launches)
+        try:
+            m, timings[tag] = _timed(lambda: make().fit(data))
+        finally:
+            chaos.clear_fault_plan()
+            config["checkpoint_every_iters"] = 0
+        if plan and not all(f.spent() for f in faults):
+            fail(f"16 {tag}: the fault plan {plan!r} never fired")
+        c1 = reg.snapshot()["counters"]
+        moved = {k_: int(v - c0.get(k_, 0)) for k_, v in c1.items() if v != c0.get(k_, 0)}
+        launched = {k_: n - l0.get(k_, 0) for k_, n in _kernels.launches.items() if n != l0.get(k_, 0)}
+        return m, moved, launched
+
+    def recovery_counters(moved):
+        return {k_: v for k_, v in moved.items()
+                if k_.startswith(("checkpoint.", "fit.retries", "memory.oom", "fit.demotions"))}
+
+    def want_counters(tag, moved, **want):
+        got = {k_: moved.get(k_, 0) for k_ in want}
+        if got != want:
+            fail(f"16 {tag}: counters {got}, expected {want}")
+
+    config["fit_retry_backoff_s"] = 0.01
+    try:
+        # ---- 16a: KMeans, checkpointed and resumed, both modes ----------
+        # one scope: the two modes share the placement (the dataset key has
+        # no precision), so the 12 GB is placed once
+        data = {"features": X}
+        kmeans, fits = {}, {}
+        with device_dataset_scope():
+            for mode, extra in (("fast", {}), ("high", {"distance_precision": "high"})):
+                def make(extra=extra):
+                    return KMeans(**RECOVERY_KMEANS, **extra)
+
+                plain, _, l_plain = fit(f"kmeans_{mode}_unchecked_s", make, data)
+                ckpt, c_ckpt, l_ckpt = fit(f"kmeans_{mode}_checkpointed_s", make, data,
+                                           every=RECOVERY_KMEANS_EVERY)
+                res, c_res, l_res = fit(f"kmeans_{mode}_resumed_s", make, data, every=RECOVERY_KMEANS_EVERY,
+                                        plan="fail:stage=solve:times=1")
+                if mode == "high":
+                    # ---- 16b: the OOM ladder's streamed retry resumes the
+                    # resident checkpoint (the placement above is evicted
+                    # by the ladder, the retry streams the same rows in
+                    # chunks of 13b's size: on the emptied card it would
+                    # admit all the rows as one chunk and cross no chunk
+                    # boundary)
+                    real, at_fault = chaos.maybe_fail_oom, {}
+
+                    def spy(stage, index=0):
+                        try:
+                            real(stage, index)
+                        except BaseException:
+                            at_fault.update(index=index, launches=dict(_kernels.launches))
+                            raise
+
+                    chaos.maybe_fail_oom = spy
+                    config["stream_chunk_rows"] = RECOVERY_OOM_CHUNK_ROWS
+                    l_start = dict(_kernels.launches)
+                    try:
+                        oom, c_oom, l_oom = fit("kmeans_high_oom_retry_s", make, data,
+                                                every=RECOVERY_KMEANS_EVERY,
+                                                plan=f"oom:stage=solve:round={RECOVERY_OOM_AT}")
+                    finally:
+                        chaos.maybe_fail_oom = real
+                        config["stream_chunk_rows"] = 0
+                fits[mode] = (plain, ckpt, res, c_ckpt, c_res, l_plain, l_ckpt, l_res)
+        gc.collect()
+        torch.cuda.empty_cache()
+        for mode, (plain, ckpt, res, c_ckpt, c_res, l_plain, l_ckpt, l_res) in fits.items():
+            loop = "f32-fast" if mode == "fast" else "f32"
+            n_iter = RECOVERY_KMEANS["maxIter"]
+            want = {f"{kern}/{loop}": n_iter * tiles for kern in ("assign_argmin", "assign_accumulate")}
+            for kern in ("assign_argmin", "assign_accumulate"):  # the final inertia pass, full precision
+                want[f"{kern}/f32"] = want.get(f"{kern}/f32", 0) + tiles
+            for tag, m in (("checkpointed", ckpt), ("resumed", res)):
+                if not (_same_model(m, plain, ("cluster_centers_", "inertia_", "n_iter_"))):
+                    diff = np.abs(m.cluster_centers_ - plain.cluster_centers_).max()
+                    fail(f"16a kmeans {mode}: the {tag} fit differs from the unchecked one (centers by {diff}, "
+                         f"inertia {m.inertia_!r} vs {plain.inertia_!r}, n_iter_ {m.n_iter_}/{plain.n_iter_})")
+            n_saves = n_iter // RECOVERY_KMEANS_EVERY
+            want_counters(f"kmeans {mode} checkpointed", c_ckpt, **{"checkpoint.saves": n_saves})
+            want_counters(f"kmeans {mode} resumed", c_res, **{"fit.retries": 1, "checkpoint.restores": 1,
+                                                              "checkpoint.saves": n_saves})
+            if not (l_plain == l_ckpt == l_res == want):
+                fail(f"16a kmeans {mode}: launches unchecked {l_plain}, checkpointed {l_ckpt}, resumed {l_res}; "
+                     f"{n_iter} iterations and the final inertia over {tiles} tiles imply {want}")
+            kmeans[mode] = plain
+            say(f"  16a kmeans {mode}: unchecked {timings[f'kmeans_{mode}_unchecked_s']:.2f} s (placement "
+                f"{'included' if mode == 'fast' else 'reused'}), checkpointed every {RECOVERY_KMEANS_EVERY} "
+                f"{timings[f'kmeans_{mode}_checkpointed_s']:.2f} s, resumed after `fail:stage=solve` at iteration "
+                f"{RECOVERY_KMEANS_EVERY} {timings[f'kmeans_{mode}_resumed_s']:.2f} s; the three equal bit for bit "
+                f"(inertia {plain.inertia_:.6e}, n_iter_ {plain.n_iter_}); resumed counters "
+                f"{recovery_counters(c_res)}; launches {l_res} in each of the three, no iteration twice")
+
+        # 16b's checks
+        resident_part = {k_: n - l_start.get(k_, 0) for k_, n in at_fault.get("launches", {}).items()
+                         if n != l_start.get(k_, 0)}
+        streamed_part = {k_: n - resident_part.get(k_, 0) for k_, n in l_oom.items()}
+        n_after = RECOVERY_KMEANS["maxIter"] - RECOVERY_OOM_AT + 1  # iterations 5-6 and the final inertia
+        want_res = {f"{kern}/f32": RECOVERY_OOM_AT * tiles for kern in ("assign_argmin", "assign_accumulate")}
+        want_str = {f"{kern}/f32": n_after * tiles for kern in ("assign_argmin", "assign_accumulate")}
+        if at_fault.get("index") != RECOVERY_OOM_AT:
+            fail(f"16b: the injected OOM fired at {at_fault.get('index')}, not at the iteration-{RECOVERY_OOM_AT} "
+                 "boundary")
+        want_counters("kmeans oom", c_oom, **{"memory.oom_caught": 1, "fit.demotions": 1, "checkpoint.restores": 1})
+        if oom._fit_metrics["admission"]["verdict"] != "stream" or not (
+                oom._fit_metrics["admission"]["chunk_rows"] < N_ROWS):
+            fail(f"16b: the retry's admission is {oom._fit_metrics['admission']}: not streamed in several chunks")
+        if resident_part != want_res or streamed_part != want_str:
+            fail(f"16b: launches resident {resident_part} (want {want_res}), streamed {streamed_part} (want "
+                 f"{want_str})")
+        # 13b holds a streamed KMeans fit to the resident one bit for bit
+        # (whole Lloyd tiles per chunk), so a resumed fit is held so too
+        held = _same_model(oom, kmeans["high"], ("cluster_centers_", "inertia_", "n_iter_"))
+        if not held:
+            diff = np.abs(oom.cluster_centers_ - kmeans["high"].cluster_centers_).max()
+            fail(f"16b: the resumed streamed retry differs from the uninterrupted resident fit (centers by {diff}, "
+                 f"inertia {oom.inertia_!r} vs {kmeans['high'].inertia_!r})")
+        say(f"  16b kmeans high under oom:stage=solve:round={RECOVERY_OOM_AT}: the fault at the iteration-"
+            f"{RECOVERY_OOM_AT} boundary after {resident_part} resident launches; the streamed retry "
+            f"({oom._fit_metrics['admission']['chunk_rows']} admitted rows a chunk) restored that checkpoint and "
+            f"streamed {streamed_part} (iterations {RECOVERY_OOM_AT + 1}-{RECOVERY_KMEANS['maxIter']} and the final "
+            f"inertia); {timings['kmeans_high_oom_retry_s']:.2f} s; counters {recovery_counters(c_oom)}; held BIT "
+            "FOR BIT to 16a's uninterrupted resident fit (13b's streamed = resident gate)")
+
+        # ---- 16c: LogisticRegression's two loops ------------------------
+        real_common, loops = LG._fit_common, []
+
+        def spy_common(*a, **kw):
+            out = real_common(*a, **kw)
+            loops.append((out["n_iter_"], out["host_reads_"]))
+            return out
+
+        LG._fit_common = spy_common
+        lr_data = {"features": X, "label": y_cls}
+        try:
+            with device_dataset_scope():
+                for name, params in RECOVERY_LOGREG:
+                    def make(params=params):
+                        return LogisticRegression(**params)
+
+                    loops.clear()
+                    plain, _, _ = fit(f"logreg_{name}_unchecked_s", make, lr_data)
+                    ckpt, c_ckpt, _ = fit(f"logreg_{name}_checkpointed_s", make, lr_data, every=RECOVERY_LOGREG_EVERY)
+                    # the fault at the iteration-20 boundary, or the last
+                    # boundary this fit reaches
+                    at = min(RECOVERY_LOGREG_FAULT_AT,
+                             (plain.n_iter_ - 1) // RECOVERY_LOGREG_EVERY * RECOVERY_LOGREG_EVERY or plain.n_iter_)
+                    res, c_res, _ = fit(f"logreg_{name}_resumed_s", make, lr_data, every=RECOVERY_LOGREG_EVERY,
+                                        plan=f"fail:stage=solve:round={at}")
+                    attrs = ("coef_", "intercept_", "n_iter_", "objective_")
+                    for tag, m in (("checkpointed", ckpt), ("resumed", res)):
+                        if not _same_model(m, plain, attrs):
+                            fail(f"16c {name}: the {tag} fit differs from the unchecked one: n_iter_ "
+                                 f"{m.n_iter_}/{plain.n_iter_}, objective {m.objective_!r} vs {plain.objective_!r}, "
+                                 f"coefficients by {np.abs(m.coef_ - plain.coef_).max()}")
+                    n_saves = -(-plain.n_iter_ // RECOVERY_LOGREG_EVERY)
+                    want_counters(f"logreg {name} checkpointed", c_ckpt, **{"checkpoint.saves": n_saves})
+                    want_counters(f"logreg {name} resumed", c_res, **{"fit.retries": 1, "checkpoint.restores": 1,
+                                                                      "checkpoint.saves": n_saves})
+                    (n0, r0), (n1, r1) = loops[0], loops[1]
+                    timings[f"logreg_{name}_reads_per_iter"] = r0 / n0
+                    timings[f"logreg_{name}_reads_per_iter_checkpointed"] = r1 / n1
+                    if r1 != r0 + n_saves:
+                        fail(f"16c {name}: {r1} host reads with checkpoints against {r0} without and {n_saves} saves")
+                    say(f"  16c logreg {name} {params}: unchecked {timings[f'logreg_{name}_unchecked_s']:.2f} s, "
+                        f"checkpointed every {RECOVERY_LOGREG_EVERY} {timings[f'logreg_{name}_checkpointed_s']:.2f} "
+                        f"s, resumed after the fault at the iteration-{at} boundary "
+                        f"{timings[f'logreg_{name}_resumed_s']:.2f} s; the three equal bit for bit (n_iter_ "
+                        f"{plain.n_iter_}, objective {plain.objective_:.9g}); resumed counters "
+                        f"{recovery_counters(c_res)}; host reads per iteration {r0 / n0:.3f} unchecked, "
+                        f"{r1 / n1:.3f} checkpointed ({r0} and {r1} over {n0} iterations)")
+        finally:
+            LG._fit_common = real_common
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # ---- 16d: PCA and OLS, retained statistics ----------------------
+        passes, t_fault = [], {}
+        real_cov, real_stats, real_stage = P.weighted_cov, LR._sufficient_stats, chaos.maybe_fail_stage
+
+        def count(fn):
+            def counted(*a, **kw):
+                passes.append(1)
+                return fn(*a, **kw)
+            return counted
+
+        def stamp(stage, index):
+            try:
+                real_stage(stage, index)
+            except BaseException:
+                t_fault["t"] = time.perf_counter()
+                raise
+
+        P.weighted_cov, LR._sufficient_stats, chaos.maybe_fail_stage = count(real_cov), count(real_stats), stamp
+        lin_data = {"features": X, "label": linear_ref["y"]}
+        try:
+            for name, make, fit_data, attrs, pass_s in (
+                    ("pca", lambda: PCA(k=PCA_K).setInputCol("features"), data,
+                     ("components_", "explained_variance_", "mean_"), linear_timings["pca_stats_s"]),
+                    ("ols", lambda: LinearRegression(), lin_data, ("coef_", "intercept_"),
+                     linear_timings["linear_stats_s"])):
+                with device_dataset_scope():
+                    plain, _, _ = fit(f"{name}_unchecked_s", make, fit_data)
+                    passes.clear()
+                    res, c_res, _ = fit(f"{name}_resumed_s", make, fit_data, every=1, plan="fail:stage=solve:times=1")
+                    t_end = time.perf_counter()
+                retry_s = t_end - t_fault["t"]
+                timings[f"{name}_retry_s"] = retry_s
+                want_counters(f"{name} resumed", c_res, **{"fit.retries": 1, "checkpoint.stats_reuses": 1,
+                                                           "checkpoint.saves": 1})
+                if len(passes) != 1:
+                    fail(f"16d {name}: {len(passes)} statistics passes in the faulted fit (one expected)")
+                if not _same_model(res, plain, attrs):
+                    fail(f"16d {name}: the resumed fit differs from the unchecked one")
+                say(f"  16d {name}: unchecked {timings[f'{name}_unchecked_s']:.2f} s, resumed after "
+                    f"`fail:stage=solve` {timings[f'{name}_resumed_s']:.2f} s, of which the retry {retry_s:.3f} s "
+                    f"after the fault (phase 7a's statistics pass {pass_s:.3f} s) with one statistics pass in all; "
+                    f"equal bit for bit; counters {recovery_counters(c_res)}")
+                gc.collect()
+                torch.cuda.empty_cache()
+        finally:
+            P.weighted_cov, LR._sufficient_stats, chaos.maybe_fail_stage = real_cov, real_stats, real_stage
+
+        # ---- 16e: the streamed GLM and OLS ------------------------------
+        rows = slice(0, RECOVERY_STREAM_ROWS)
+        config["hbm_budget_bytes"], config["stream_chunk_rows"] = RECOVERY_STREAM_BUDGET, 0
+        for name, make, fit_data, attrs, every, at in (
+                ("glm", lambda: LogisticRegression(**RECOVERY_STREAM_LOGREG),
+                 {"features": X[rows], "label": y_cls[rows]}, ("coef_", "intercept_", "n_iter_", "objective_"),
+                 RECOVERY_STREAM_EVERY, RECOVERY_STREAM_EVERY),
+                ("ols", lambda: LinearRegression(), {"features": X[rows], "label": linear_ref["y"][rows]},
+                 ("coef_", "intercept_"), 1, 0)):
+            plain, c_plain, _ = fit(f"stream_{name}_s", make, fit_data)
+            res, c_res, _ = fit(f"stream_{name}_resumed_s", make, fit_data, every=every,
+                                plan=f"fail:stage=solve:round={at}")
+            adm = res._fit_metrics["admission"]
+            if plain._fit_metrics["admission"]["verdict"] != "stream" or adm["verdict"] != "stream":
+                fail(f"16e {name}: not streamed under {RECOVERY_STREAM_BUDGET} bytes ({adm})")
+            want = {"fit.retries": 1, "checkpoint.restores": 1} if name == "glm" else \
+                {"fit.retries": 1, "checkpoint.stats_reuses": 1}
+            want_counters(f"stream {name}", c_res, **want)
+            if not _same_model(res, plain, attrs):
+                fail(f"16e {name}: the resumed streamed fit differs from the uninterrupted one")
+            # passes: the GLM's scaling pass, its first gradient and two an
+            # iteration, and the retry's scaling again (the restored state
+            # holds the gradient); OLS's one statistics pass, not repeated
+            n_passes = c_res.get("ingest.stream_rows", 0) / RECOVERY_STREAM_ROWS
+            want_passes = 3 + 2 * plain.n_iter_ if name == "glm" else 1
+            if n_passes != want_passes:
+                fail(f"16e {name}: {n_passes} streamed passes in the resumed fit, {want_passes} expected")
+            say(f"  16e streamed {name} ({RECOVERY_STREAM_ROWS} x {N_COLS} under {RECOVERY_STREAM_BUDGET} bytes, "
+                f"{adm['chunk_rows']} rows a chunk): uninterrupted {timings[f'stream_{name}_s']:.2f} s "
+                f"({c_plain.get('ingest.stream_rows', 0) / RECOVERY_STREAM_ROWS:g} passes), resumed after the fault "
+                f"at {at} {timings[f'stream_{name}_resumed_s']:.2f} s ({n_passes:g} passes); equal bit for bit"
+                + (f" (n_iter_ {plain.n_iter_}, objective {plain.objective_:.9g})" if name == "glm" else "")
+                + f"; counters {recovery_counters(c_res)}")
+    finally:
+        config.update(saved)
+        chaos.clear_fault_plan()
+        if not was_on:
+            telemetry.disable()
+    counts = {k_: n for k_, n in _kernels.launches.items() if n}
+    say("  launches in phase 16: " + ", ".join(f"{k_}={v}" for k_, v in counts.items()))
+    return counts, timings
+
 
 def main():
     import torch
@@ -5620,6 +5968,8 @@ def main():
     overload_counts, overload_timings = run("15 overload", phase_overload, dev, X, kmeans_model)
     linear_ref, linear_timings = run("7a pca/linear", phase_pca_linear, dev, X)
     logreg_ref, logreg_timings = run("8a logreg", phase_logreg, dev, X)
+    recovery_counts, recovery_timings = run("16 recovery", phase_recovery, dev, X, linear_ref, logreg_ref["y"],
+                                            linear_timings)
     forest_timings = run("9 forests", phase_forests, dev, X)
     multi_counts, multi_timings = run("10 multifit", phase_multifit, dev, X, linear_ref["y"], logreg_ref["y"])
     ann_counts, ann_timings = run("11 ann", phase_ann, dev, X, exact_ids, exact_dist)
@@ -5663,12 +6013,16 @@ def main():
         e.setdefault("launches_by_run", {}).update({run: c[e["name"]] for run, c in du_counts.items()})
         e["launches_by_run"]["sparse_knn"] = sparse_counts["sparse_knn"][e["name"]]  # phase 14e
         e["launches_by_run"]["overload"] = overload_counts[e["name"]]  # phase 15
+        e["launches_by_run"]["recovery"] = recovery_counts.get(e["name"], 0)  # phase 16
     for name in ("assign_argmin/f64", "assign_accumulate/f64", "d2_block/f64", "assign_argmin/f64-fast"):
         if not f64_counts["route"][name]:
             fail(f"the float64 route never launched {name}")
     for name in ("d2_block/f64-fast", "d2_block/f64", "assign_argmin/f32-fast", "assign_argmin/f32"):
         if not overload_counts[name]:
             fail(f"the overload path (phase 15) never launched {name}")
+    for name in ("assign_argmin/f32", "assign_accumulate/f32", "assign_argmin/f32-fast", "assign_accumulate/f32-fast"):
+        if not recovery_counts.get(name):
+            fail(f"the recovery path (phase 16) never launched {name}")
     say("KMeans path timings: " + json.dumps(timings))
     say("kNN path timings: " + json.dumps(knn_timings))
     say("serving timings: " + json.dumps(serve_timings))
@@ -5684,6 +6038,7 @@ def main():
     say("DBSCAN and UMAP timings: " + json.dumps(du_timings))
     say("out-of-core timings: " + json.dumps(oocore_timings))
     say("sparse input timings: " + json.dumps(sparse_timings))
+    say("recovery timings: " + json.dumps(recovery_timings))
     say("seconds by phase: " + json.dumps(phase_s))
     kernels_line = json.dumps({"kernels": entries})
     say(f"total {time.perf_counter() - t_start:.1f} s")

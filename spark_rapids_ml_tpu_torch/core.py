@@ -7,10 +7,12 @@
 # the tuning layer (tuning.py), their transforms, save/load and the serving
 # plane run.
 #
-# Call stack (the JAX package's, without the per-fit telemetry scope,
-# retry and recovery, and the mesh):
+# Call stack (the JAX package's, without the per-fit telemetry scope and
+# the mesh):
 # fit(dataset[, maps]) / fitMultiple -> _fit_internal -> _call_fit_func
-# [the OOM ladder] -> _call_fit_func_attempt -> [_device_dataset: extract
+# [recoverable_stage(stage="fit"): bounded transient retries over one
+# checkpoint store] -> [the OOM ladder] -> _call_fit_func_attempt ->
+# [_device_dataset: extract
 # columns (data.py), then the memory admission (memory.admit_fit) and,
 # RESIDENT, the NaN/Inf scan and the placement of the rows on the device
 # (parallel), or, STREAM, a `StreamPlan` and no placement at all; or reuse
@@ -30,8 +32,20 @@
 # an estimator without a streaming path, raises `HbmBudgetError`. Nothing
 # over budget runs on the CPU. Each verdict lands in the decision log
 # (ops_plane/audit.py, through memory.py). The scheduler's job reservations
-# (A17) and the checkpointed resume of a streamed retry (A12) are not in
-# the port.
+# (A17) are not in the port.
+#
+# Recovery (checkpoint.py): the whole fit is ONE recoverable stage. A
+# transient failure (`errors.is_transient`: a RendezvousTimeoutError, as the
+# chaos `fail:` plans raise it) retries the stage at most
+# `config["fit_max_retries"]` times with capped exponential backoff
+# (`fit.retries`); every attempt shares one `CheckpointStore`, so with
+# `config["checkpoint_every_iters"]` > 0 a solver resumes from its last
+# checkpoint (`checkpoint.restores`) and the retained statistics of the
+# linear family are reused (`checkpoint.stats_reuses`). The OOM ladder runs
+# inside the stage, so its streamed retry resumes a resident fit's KMeans
+# checkpoint too. With no rendezvous (until A10) a rank loss is never
+# reformed around: it propagates typed, as the JAX package's does on a
+# substrate that cannot reform.
 #
 # Persistence keeps the JAX package's on-disk layout exactly:
 # metadata.json + arrays.npz + attributes.json, so a directory saved by
@@ -166,6 +180,16 @@ config: Dict[str, Any] = {
     # (utils/lockcheck.py) records a `lockcheck.long_hold` violation; seeded
     # from SRML_LOCKCHECK_LONG_HOLD_MS (a malformed value keeps 500)
     "lockcheck_long_hold_ms": _env_float("SRML_LOCKCHECK_LONG_HOLD_MS", 500.0),
+    # --- recovery (checkpoint.py, retryable_stage) -------------------------
+    # transient-failure retries of one fit stage (errors.is_transient), with
+    # exponential backoff from fit_retry_backoff_s capped at
+    # fit_retry_backoff_max_s (seconds)
+    "fit_max_retries": 2,
+    "fit_retry_backoff_s": 0.5,
+    "fit_retry_backoff_max_s": 30.0,
+    # solver-checkpoint cadence in inner iterations (0 = off: no checkpoint
+    # and no host read is added to a fit)
+    "checkpoint_every_iters": 0,
     # --- multi-fit engine -------------------------------------------------
     # placements (rows on the device + the host blocks they came from) a
     # device_dataset_scope keeps at once; the least recently used go beyond
@@ -199,6 +223,78 @@ def evaluator_label_column(params_obj: Any, evaluator: Any) -> str:
     if hasattr(evaluator, "hasParam") and evaluator.hasParam("labelCol"):
         return evaluator.getOrDefault("labelCol")
     return params_obj.getOrDefault("labelCol")
+
+
+def retryable_stage(fn: Callable[[int], Any], *, stage: str, max_retries: Optional[int] = None) -> Any:
+    """Run ``fn(attempt)`` with bounded retries on TRANSIENT failures
+    (`errors.is_transient`); a permanent one (RankFailedError,
+    SolverDivergedError, HbmBudgetError, a user error) propagates at once.
+
+    Before each retry: exponential backoff from
+    ``config["fit_retry_backoff_s"]`` (attempt N sleeps base * 2^(N-1),
+    capped at ``config["fit_retry_backoff_max_s"]``), and the
+    ``fit.retries`` counter ticks. The chaos hook
+    (`parallel.chaos.maybe_fail_stage`) runs at the top of every attempt.
+    A `checkpoint.CheckpointStore` is active for all attempts (adopting
+    the enclosing `recoverable_stage`'s when there is one), so solvers that
+    checkpoint resume a retry from their last checkpoint. The JAX
+    package's `rendezvous.begin_epoch` before a retry waits for a
+    rendezvous (A10)."""
+    import time
+
+    from . import checkpoint as _checkpoint
+    from . import telemetry
+    from .errors import is_transient
+    from .parallel import chaos
+
+    if max_retries is None:
+        max_retries = int(config.get("fit_max_retries", 2))
+    backoff_s = float(config.get("fit_retry_backoff_s", 0.5))
+    backoff_max_s = float(config.get("fit_retry_backoff_max_s", 30.0))
+    with _checkpoint.ensure_scope():
+        for attempt in range(max_retries + 1):
+            try:
+                chaos.maybe_fail_stage(stage, attempt)
+                return fn(attempt)
+            except Exception as e:
+                if not is_transient(e) or attempt >= max_retries:
+                    raise
+                telemetry.registry().inc("fit.retries")
+                # the flight-recorder event (`retry`) arrives with A15
+                sleep_s = min(backoff_s * (2 ** attempt), backoff_max_s)
+                _LOG.warning(
+                    "stage %s attempt %d/%d failed transiently (%s: %s); retrying in %.2fs",
+                    stage, attempt + 1, max_retries + 1, type(e).__name__, e, sleep_s,
+                )
+                time.sleep(sleep_s)  # the capped retry backoff
+    raise AssertionError("unreachable")  # pragma: no cover
+
+
+def recoverable_stage(fn: Callable[[int], Any], *, stage: str) -> Any:
+    """The elastic outer layer over `retryable_stage`, on a substrate that
+    cannot reform (the port has no rendezvous until A10): transient
+    failures retry as there, inside one checkpoint store that the stage
+    owns; a `RankFailedError`, or a `RendezvousTimeoutError` naming missing
+    ranks that outlived the retries, propagates with
+    ``recovery_exhausted=False`` and ``recovery_generations=0`` stamped,
+    exactly as the JAX package's does when its rendezvous is None. Its
+    recovery epochs (survivors agree on a live set, the mesh is rebuilt
+    over them, the solvers resume from the store; bounded by a budget of
+    rank losses) arrive with A10."""
+    from . import checkpoint as _checkpoint
+    from .errors import RankFailedError, RendezvousTimeoutError
+
+    with _checkpoint.ensure_scope():
+        try:
+            return retryable_stage(fn, stage=stage)
+        except (RankFailedError, RendezvousTimeoutError) as e:
+            if isinstance(e, RendezvousTimeoutError) and not getattr(e, "missing_ranks", None):
+                # no liveness evidence to reform around (a desync, a chaos
+                # `fail` injection): retryable_stage's, and it ran out
+                raise
+            e.recovery_exhausted = False
+            e.recovery_generations = 0
+            raise
 
 
 # Internal column aliases (reference core.py:333): `row_number` names the id
@@ -576,6 +672,7 @@ class _TpuCaller(_TpuCommon):
         force_stream: bool = False,
         key: Optional[tuple] = None,
         source: Any = None,
+        attempt: int = 0,
     ) -> DeviceDataset:
         """The admission verdict and the data plane it calls for: RESIDENT
         scans the rows for NaN/Inf (when asked) and places them; STREAM
@@ -616,7 +713,9 @@ class _TpuCaller(_TpuCommon):
             return DeviceDataset(None, extracted, inputs, source=source, admission=adm)
         reg.inc("memory.admission_resident")
         run_deferred_validation(extracted)  # the full scan, before any placement
-        chaos.maybe_fail_oom("placement")
+        # index = the fit stage's attempt: `oom:stage=placement:round=1`
+        # targets the re-placement of a retried attempt, not the first one
+        chaos.maybe_fail_oom("placement", attempt)
         inputs = self._layout(extracted, device)
         telemetry.record_device_memory(device)  # the watermark after placement
         return DeviceDataset(key, extracted, inputs, source=source, admission=adm)
@@ -642,7 +741,7 @@ class _TpuCaller(_TpuCommon):
         )
 
     def _device_dataset(
-        self, dataset: Any, device: torch.device, force_stream: bool = False
+        self, dataset: Any, device: torch.device, force_stream: bool = False, attempt: int = 0
     ) -> DeviceDataset:
         """Ingest, admission and placement, or a cache hit inside an active
         `device_dataset_scope`: the ingest and the placement happen only on
@@ -655,7 +754,7 @@ class _TpuCaller(_TpuCommon):
         scope = _DDS_SCOPE.get()
         if scope is None or force_stream:
             extracted = self._ingest(dataset)
-            dds = self._admit_and_layout(extracted, device, force_stream=force_stream)
+            dds = self._admit_and_layout(extracted, device, force_stream=force_stream, attempt=attempt)
             if scope is not None:
                 scope.last = dds
             return dds
@@ -675,7 +774,7 @@ class _TpuCaller(_TpuCommon):
             else:
                 extracted = self._ingest(dataset)
                 # `source=dataset` pins the object whose id() keys the entry
-                dds = self._admit_and_layout(extracted, device, key=key, source=dataset)
+                dds = self._admit_and_layout(extracted, device, key=key, source=dataset, attempt=attempt)
                 if dds.key is not None:  # streamed datasets are not cached
                     reg.inc("fit.device_dataset_builds")
                     scope.cache[key] = dds
@@ -708,7 +807,14 @@ class _TpuCaller(_TpuCommon):
         device = default_device()
         self._last_admission = None
         try:
-            rows = self._call_fit_func_oom_ladder(dataset, param_maps, row_mask, device)
+            # the whole fit (ingest, admission, placement, solve) is ONE
+            # recoverable stage: a transient retry re-derives its state from
+            # the immutable dataset, and the solvers resume from the
+            # checkpoint store the attempts share
+            rows = recoverable_stage(
+                lambda attempt: self._call_fit_func_oom_ladder(dataset, param_maps, row_mask, device, attempt),
+                stage="fit",
+            )
         finally:
             # the fit's ledger claim ends with the fit, whatever its outcome
             self._adopt_reservation(None)
@@ -726,6 +832,7 @@ class _TpuCaller(_TpuCommon):
         param_maps: Optional[List[Dict[Any, Any]]],
         row_mask: Optional[np.ndarray],
         device: torch.device,
+        attempt: int = 0,
     ) -> List[Dict[str, Any]]:
         """One attempt, with the OOM ladder around it: a real allocation
         failure on the card (`memory.is_oom_error`: torch.OutOfMemoryError,
@@ -736,7 +843,7 @@ class _TpuCaller(_TpuCommon):
         from . import telemetry
 
         try:
-            return self._call_fit_func_attempt(dataset, param_maps, row_mask, device)
+            return self._call_fit_func_attempt(dataset, param_maps, row_mask, device, attempt=attempt)
         except Exception as e:
             if not _memory.is_oom_error(e):
                 raise
@@ -762,7 +869,9 @@ class _TpuCaller(_TpuCommon):
         if device.type == "cuda":
             torch.cuda.empty_cache()
         try:
-            return self._call_fit_func_attempt(dataset, param_maps, row_mask, device, force_stream=True)
+            return self._call_fit_func_attempt(
+                dataset, param_maps, row_mask, device, force_stream=True, attempt=attempt
+            )
         except Exception as e2:
             if _memory.is_oom_error(e2):
                 raise _memory.as_hbm_budget_error(e2, self._last_admission) from e2
@@ -775,8 +884,9 @@ class _TpuCaller(_TpuCommon):
         row_mask: Optional[np.ndarray],
         device: torch.device,
         force_stream: bool = False,
+        attempt: int = 0,
     ) -> List[Dict[str, Any]]:
-        dds = self._device_dataset(dataset, device, force_stream=force_stream)
+        dds = self._device_dataset(dataset, device, force_stream=force_stream, attempt=attempt)
         extracted, inputs = dds.extracted, dds.inputs
         fit_func = self._get_tpu_fit_func(extracted)
         if row_mask is not None:

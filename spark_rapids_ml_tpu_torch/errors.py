@@ -8,23 +8,79 @@
 # submit), `RequestTimeoutError` (a request whose server-side deadline passed
 # before dispatch) and `ServingStoppedError` (the engine stopped first), and
 # `NumericsError` (the SRML_NUMCHECK=1 sanitizer, utils/numcheck.py, found a
-# NaN or Inf at a boundary).
+# NaN or Inf at a boundary), and the fit stages' two failure classes:
+# `RendezvousTimeoutError` (TRANSIENT: `core.retryable_stage` retries it;
+# the chaos `fail:` plans raise it) and `RankFailedError` (PERMANENT), with
+# `is_transient`, the retry predicate.
 # Counterparts of spark_rapids_ml_tpu/errors.py, with the same messages and
-# attributes, without the flight-recorder hook and the control-plane errors
-# (the port has no rendezvous yet).
+# attributes, without the flight-recorder hook (A15). `PreemptedError`
+# arrives with the fit scheduler (A17).
 #
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Sequence
 
 __all__ = [
-    "SrmlError", "SolverDivergedError", "IngestValidationError", "HbmBudgetError", "RequestTimeoutError",
-    "ServeOverloadError", "ServingStoppedError", "NumericsError",
+    "SrmlError", "RendezvousTimeoutError", "RankFailedError", "SolverDivergedError", "IngestValidationError",
+    "HbmBudgetError", "RequestTimeoutError", "ServeOverloadError", "ServingStoppedError", "NumericsError",
+    "is_transient",
 ]
 
 
 class SrmlError(Exception):
     """Base class for every error this package raises on purpose."""
+
+
+class RendezvousTimeoutError(SrmlError, TimeoutError):
+    """A control-plane round's deadline elapsed with ranks still missing.
+
+    TRANSIENT: the deadline fires symmetrically on every rank still waiting,
+    so all survivors unwind to the fit driver together and a coordinated
+    retry is safe. Distinguish from `RankFailedError`, where a peer is KNOWN
+    dead. The port has no rendezvous yet (A10); the chaos `fail:` plans
+    raise this error at a fit stage or a solver checkpoint boundary."""
+
+    def __init__(
+        self,
+        message: str,
+        *,
+        round_index: Optional[int] = None,
+        missing_ranks: Optional[Sequence[int]] = None,
+        timeout_s: Optional[float] = None,
+    ):
+        self.round_index = round_index
+        self.missing_ranks = list(missing_ranks) if missing_ranks is not None else None
+        self.timeout_s = timeout_s
+        super().__init__(message)
+
+
+class RankFailedError(SrmlError, RuntimeError):
+    """A peer rank failed mid-fit. `core.recoverable_stage` stamps
+    ``recovery_exhausted``/``recovery_generations`` on it as it propagates,
+    so callers and post-mortems can tell "never tried" from "tried and ran
+    out"; with no rendezvous to reform (the port's one process, until A10)
+    recovery is never opened. PERMANENT once it propagates: an external
+    supervisor, not an in-process retry, must relaunch the rank."""
+
+    # stamped by core.recoverable_stage when it re-raises: how many
+    # membership reforms this fit survived first (0 = recovery never opened)
+    recovery_exhausted: bool = False
+    recovery_generations: int = 0
+
+    def __init__(
+        self,
+        failed_rank: int,
+        reason: str = "",
+        *,
+        round_index: Optional[int] = None,
+    ):
+        self.failed_rank = int(failed_rank)
+        self.reason = reason
+        self.round_index = round_index
+        where = f" at round {round_index}" if round_index is not None else ""
+        super().__init__(
+            f"rank {failed_rank} failed{where}: {reason or 'no reason published'}"
+        )
 
 
 class SolverDivergedError(SrmlError, ArithmeticError):
@@ -269,3 +325,22 @@ class NumericsError(SrmlError, ArithmeticError):
         if detail:
             parts.append(f"— {detail}")
         super().__init__(" ".join(parts))
+
+
+def is_transient(exc: BaseException) -> bool:
+    """Whether the fit driver may retry the stage after this error.
+
+    Transient: rendezvous round timeouts (symmetric: every rank unwinds
+    together) and the distributed-init race (two fits standing up the
+    process group at once; the loser sees an 'already initialized'
+    RuntimeError and succeeds on retry). `RankFailedError`,
+    `SolverDivergedError` and every other error are NOT transient."""
+    if isinstance(exc, RendezvousTimeoutError):
+        return True
+    if isinstance(exc, RuntimeError) and not isinstance(exc, SrmlError):
+        # ONLY the already-initialized loser race: a broader 'initialize'
+        # match would retry deterministic configuration errors for minutes
+        msg = str(exc).lower()
+        if "distributed" in msg and "already initialized" in msg:
+            return True
+    return False

@@ -17,9 +17,13 @@
 # (ops/streaming.logistic_fit_streaming; L2 only: a demoted L1/elastic-net
 # fit raises HbmBudgetError, as in the JAX package). CSR input fits on its
 # padded-ELL form (`logistic_fit_ell`, `logistic_fit_ell_batched`, and
-# streamed), with scale-only standardization. Left out, each raising
-# NotImplementedError naming its ROADMAP item: `evaluate` and `.cpu()`
-# (Spark interop, A16) and a `SolverCheckpoint` warm start (A12).
+# streamed), with scale-only standardization. With solver checkpoints
+# active (checkpoint.py) a single fit, resident, sparse or streamed,
+# checkpoints its loop under "logistic:<its params>" (streamed:
+# "logistic_stream:..."), the JAX package's keys; warm start takes a fitted
+# model or a `SolverCheckpoint` with an original-space `coef_`. Left out,
+# each raising NotImplementedError naming its ROADMAP item: `evaluate` and
+# `.cpu()` (Spark interop, A16).
 #
 from __future__ import annotations
 
@@ -305,6 +309,10 @@ class LogisticRegression(_LogisticRegressionParams, _TpuEstimatorSupervised):
             fit_intercept=statics["fit_intercept"], standardize=statics["standardize"],
             max_iter=statics["max_iter"], tol=statics["tol"],
             lbfgs_memory=statics["lbfgs_memory"], fast=statics["fast"],
+            # the param-naming key of the resident fit's form, so the
+            # sequential param sets of one demoted stage never resume each
+            # other's trajectories
+            ckpt_key="logistic_stream:" + repr(sorted(common.items())),
         )
         return self._finalize_state(fetch_state(state), classes, inputs, common)
 
@@ -425,18 +433,35 @@ class LogisticRegression(_LogisticRegressionParams, _TpuEstimatorSupervised):
         )
 
     def _resolve_warm_start(self, source: Any) -> Dict[str, Any]:
-        """Warm-start payload for `fit(..., warm_start_from=model)`: a fitted
-        `LogisticRegressionModel`'s original-space (coef_, intercept_)."""
+        """Warm-start payload for `fit(..., warm_start_from=...)`: a fitted
+        `LogisticRegressionModel`'s original-space (coef_, intercept_), or a
+        `SolverCheckpoint` (of either package, known by its class name)
+        carrying one. GLM loop checkpoints hold the STANDARDIZED flat
+        iterate, which is the dataset's own and not portable across fits:
+        those are refused with a pointer at the model route, as in the JAX
+        package."""
         if type(source).__name__ == "SolverCheckpoint":
-            raise NotImplementedError(
-                "warm start from a SolverCheckpoint is not in the PyTorch port "
-                "yet (ROADMAP item A12); warm-start from the fitted model instead"
-            )
+            st = dict(source.portable or {})
+            st.update({k: v for k, v in (source.state or {}).items() if k not in st})
+            if "coef_" not in st:
+                raise ValueError(
+                    "SolverCheckpoint warm start for LogisticRegression needs "
+                    "an original-space 'coef_' payload; GLM segment "
+                    "checkpoints carry the standardized iterate (dataset-"
+                    "specific) — warm-start from the fitted model instead"
+                )
+            coef = np.asarray(st["coef_"])
+            return {
+                "coef_": coef,
+                "intercept_": np.asarray(st.get("intercept_", np.zeros(coef.shape[0], coef.dtype))),
+                "n_iter_": int(st.get("n_iter_", source.iteration) or 0),
+            }
         coef = getattr(source, "coef_", None)
         if coef is None:
             raise TypeError(
                 f"cannot warm-start LogisticRegression from "
-                f"{type(source).__name__}: expected a fitted LogisticRegressionModel"
+                f"{type(source).__name__}: expected a fitted LogisticRegressionModel "
+                "or a SolverCheckpoint"
             )
         coef = np.asarray(coef)
         return {
@@ -466,6 +491,7 @@ class LogisticRegression(_LogisticRegressionParams, _TpuEstimatorSupervised):
         return wcoef.astype(inputs.dtype), np.asarray(warm["intercept_"]).astype(inputs.dtype)
 
     def _get_tpu_fit_func(self, extracted: ExtractedData):
+        from .. import checkpoint as _ckpt
         from ..ops.logistic import fetch_state, logistic_fit, logistic_fit_ell
         from ..parallel import host_tensor
 
@@ -490,14 +516,19 @@ class LogisticRegression(_LogisticRegressionParams, _TpuEstimatorSupervised):
             )
             warm = self._warm_tuple(len(classes) if multinomial else 1, inputs)
             y_idx = host_tensor(y_idx_host).to(inputs.device)
+            # recovery: with a checkpoint cadence and a store installed by
+            # the enclosing fit stage, the loop checkpoints under this key,
+            # so a retried fit resumes from its last boundary
+            ckpt_common = dict(ckpt_key="logistic:" + repr(sorted(common.items())),
+                               placement_key=_ckpt.placement_key_of(inputs))
             if inputs.X_sparse is not None:
                 values, indices = inputs.ell_rows()
                 state = logistic_fit_ell(
                     values, indices, y_idx, inputs.w, d=inputs.n_cols, warm_start=warm,
-                    columns=inputs.ell_columns(), **common,
+                    columns=inputs.ell_columns(), **common, **ckpt_common,
                 )
             else:
-                state = logistic_fit(inputs.X, y_idx, inputs.w, warm_start=warm, **common)
+                state = logistic_fit(inputs.X, y_idx, inputs.w, warm_start=warm, **common, **ckpt_common)
             return self._finalize_state(fetch_state(state), classes, inputs, common)
 
         return _fit

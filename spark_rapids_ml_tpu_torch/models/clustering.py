@@ -4,7 +4,8 @@
 # spark_rapids_ml_tpu/models/clustering.py (KMeans, KMeansModel, with
 # KMeansModel's serving hooks; DBSCAN, DBSCANModel), on one device. An
 # over-budget KMeans fit streams its rows from the host
-# (ops/streaming.kmeans_fit_streaming). The multi-process init gather of
+# (ops/streaming.kmeans_fit_streaming). Warm start takes a fitted model or a
+# `SolverCheckpoint` with a `centers` payload. The multi-process init gather of
 # the JAX package is a later ROADMAP item (A10), as are DBSCAN's replicated
 # gather of every rank's rows (A10). Sparse input is densified, as in the
 # JAX package.
@@ -178,13 +179,23 @@ class KMeans(_KMeansParams, _TpuEstimator):
         return self._set_params(weightCol=value)
 
     def _resolve_warm_start(self, source: Any) -> Dict[str, Any]:
-        """Warm-start payload for `fit(..., warm_start_from=model)`: a fitted
-        `KMeansModel`'s centers."""
+        """Warm-start payload for `fit(..., warm_start_from=...)`: a fitted
+        `KMeansModel`'s centers, or a `SolverCheckpoint`'s (of either
+        package, known by its class name) portable center subset, as k-means
+        checkpoints carry it."""
+        if type(source).__name__ == "SolverCheckpoint":
+            centers = (source.portable or {}).get("centers", (source.state or {}).get("centers"))
+            if centers is None:
+                raise ValueError(
+                    "SolverCheckpoint warm start for KMeans needs a "
+                    "'centers' payload (k-means checkpoints carry one)"
+                )
+            return {"cluster_centers_": np.asarray(centers), "n_iter_": int(source.iteration)}
         centers = getattr(source, "cluster_centers_", None)
         if centers is None:
             raise TypeError(
                 f"cannot warm-start KMeans from {type(source).__name__}: "
-                "expected a fitted KMeansModel"
+                "expected a fitted KMeansModel or a SolverCheckpoint"
             )
         return {
             "cluster_centers_": np.asarray(centers),
@@ -219,6 +230,11 @@ class KMeans(_KMeansParams, _TpuEstimator):
                         f"warm-start centers shape {tuple(centers0.shape)} does not "
                         f"match this fit (k={k}, d={inputs.n_cols})"
                     )
+                from .. import telemetry
+
+                reg = telemetry.registry()
+                reg.inc("fit.warm_starts")
+                reg.inc("fit.warm_start_iterations_saved", int(warm.get("n_iter_", 0) or 0))
             elif init_mode == "random":
                 centers0 = random_init(x_host, k, seed)
             elif k >= 64:

@@ -2,8 +2,10 @@
 # PCA estimator and model, drop-in for `pyspark.ml.feature.PCA`: the PyTorch
 # counterpart of spark_rapids_ml_tpu/models/feature.py (PCA, PCAModel, with
 # PCAModel's serving hooks), on one device. An over-budget fit streams its
-# rows from the host (ops/streaming.pca_fit_streaming). The checkpointed
-# fit is a later ROADMAP item (A12); `.cpu()` (Spark interop) is A16.
+# rows from the host (ops/streaming.pca_fit_streaming). With solver
+# checkpoints active (checkpoint.py) a fit retains its statistics in the
+# fit stage's store (`pca_fit_checkpointed`), so a retry re-runs only the
+# eigendecomposition. `.cpu()` (Spark interop) is A16.
 #
 from __future__ import annotations
 
@@ -90,8 +92,9 @@ class PCA(_PCAParams, _TpuEstimator):
         return self._set_params(outputCol=value)
 
     def _get_tpu_fit_func(self, extracted: ExtractedData):
+        from .. import checkpoint as _ckpt
         from ..core import resolve_solver_precision
-        from ..ops.pca import check_pca_state, pca_fit, record_pca_fit
+        from ..ops.pca import check_pca_state, pca_fit, pca_fit_checkpointed, record_pca_fit
         from ..ops.streaming import pca_fit_streaming
 
         def _fit(inputs: FitInputs, params: Dict[str, Any]) -> Dict[str, Any]:
@@ -105,6 +108,12 @@ class PCA(_PCAParams, _TpuEstimator):
                 # out-of-core: two streamed passes (the mean, then the
                 # centered covariance), the resident fit's finish
                 state = pca_fit_streaming(inputs, k=k, fast=fast)
+            elif _ckpt.solver_checkpoints_active():
+                # recovery: the (mean, covariance) statistics retained, so a
+                # transient retry (or a k sweep of the stage) skips the pass
+                state = pca_fit_checkpointed(
+                    inputs.X, inputs.w, k=k, fast=fast, placement_key=_ckpt.placement_key_of(inputs),
+                )
             else:
                 state = pca_fit(inputs.X, inputs.w, k=k, fast=fast)
             out: Dict[str, Any] = {name: v.cpu().numpy() for name, v in state.items()}

@@ -13,9 +13,12 @@
 # model of a fold at once. An over-budget fit streams its rows from the
 # host (ops/streaming.linear_fit_streaming). CSR input fits on its
 # padded-ELL form (ops/linear.py `linear_fit_ell`, `linear_fit_ell_batched`,
-# and streamed), equal to the dense fit of the same rows. Left out, each
-# raising NotImplementedError naming its ROADMAP item: `evaluate` and
-# `.cpu()` (Spark interop, A16).
+# and streamed), equal to the dense fit of the same rows. With solver
+# checkpoints active (checkpoint.py) a single fit retains its sufficient
+# statistics in the fit stage's store, so a retry solves without another
+# pass (`linear_fit_checkpointed`, `linear_fit_ell_checkpointed`). Left
+# out, each raising NotImplementedError naming its ROADMAP item:
+# `evaluate` and `.cpu()` (Spark interop, A16).
 #
 from __future__ import annotations
 
@@ -238,8 +241,9 @@ class LinearRegression(_LinearRegressionParams, _TpuEstimatorSupervised):
         }
 
     def _get_tpu_fit_func(self, extracted: ExtractedData):
+        from .. import checkpoint as _ckpt
         from ..core import resolve_solver_precision
-        from ..ops.linear import linear_fit, linear_fit_ell
+        from ..ops.linear import linear_fit, linear_fit_checkpointed, linear_fit_ell, linear_fit_ell_checkpointed
         from ..ops.streaming import linear_fit_streaming
 
         def _fit(inputs: FitInputs, params: Dict[str, Any]) -> Dict[str, Any]:
@@ -255,14 +259,22 @@ class LinearRegression(_LinearRegressionParams, _TpuEstimatorSupervised):
                 tol=float(params["tol"]),
                 fast=resolve_solver_precision(params) == "bf16",
             )
+            # recovery: retain the sufficient statistics (the one pass) on
+            # the host, so a transient retry, and every further param set
+            # of the stage, solves without another pass; they never depend
+            # on alpha / l1_ratio, so one key serves the whole stage
+            use_ckpt = _ckpt.solver_checkpoints_active()
+            ckpt_common = dict(placement_key=_ckpt.placement_key_of(inputs)) if use_ckpt else {}
             if inputs.stream is not None:
                 # out-of-core: one streamed statistics pass, the same solve
                 state = linear_fit_streaming(inputs, **common)
             elif inputs.X_sparse is not None:
                 values, indices = inputs.ell_rows()
-                state = linear_fit_ell(values, indices, inputs.y, inputs.w, d=inputs.n_cols, **common)
+                fit_fn = linear_fit_ell_checkpointed if use_ckpt else linear_fit_ell
+                state = fit_fn(values, indices, inputs.y, inputs.w, d=inputs.n_cols, **common, **ckpt_common)
             else:
-                state = linear_fit(inputs.X, inputs.y, inputs.w, **common)
+                fit_fn = linear_fit_checkpointed if use_ckpt else linear_fit
+                state = fit_fn(inputs.X, inputs.y, inputs.w, **common, **ckpt_common)
             return self._attrs(state, inputs)
 
         return _fit

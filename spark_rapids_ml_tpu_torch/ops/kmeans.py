@@ -10,6 +10,15 @@
 # multi-device form with an all-reduce of the sums waits for multi-GPU
 # (ROADMAP item A10).
 #
+# Solver checkpoints (checkpoint.py): with `config["checkpoint_every_iters"]`
+# > 0 inside a fit stage, the Lloyd loop saves its centers, the divergence
+# fallback iterate and the deferred shift every that many iterations, under
+# `kmeans_ckpt_key` (the JAX package's key), and a retried fit resumes from
+# the last one. The loop is shared by the resident and the streamed fit
+# (ops/streaming.py), so a resident fit's checkpoint resumes the OOM
+# ladder's streamed retry. Centers are the whole state of a Lloyd step, so
+# a resumed fit equals an uninterrupted one bit for bit.
+#
 from __future__ import annotations
 
 import math
@@ -39,6 +48,19 @@ def _lloyd_step(X, w, centers, batch_rows, fast=False):
     return _finish_centers(sums, counts, inertia, centers)
 
 
+def kmeans_ckpt_key(init_centers, max_iter: int, tol: float) -> str:
+    """The checkpoint key of one Lloyd trajectory, the JAX package's string:
+    the init centers' digest and shape and the loop statics. One format for
+    the resident and the streamed loop, so a resident fit's checkpoint
+    resumes a streamed retry and the other way round (the callers append
+    ":bf16" for a `fast` trajectory)."""
+    import hashlib
+
+    init = init_centers.cpu().numpy() if isinstance(init_centers, torch.Tensor) else np.asarray(init_centers)
+    init_digest = hashlib.sha1(np.ascontiguousarray(init).tobytes()).hexdigest()[:12]
+    return f"kmeans:{tuple(np.shape(init))}:{init_digest}:{max_iter}:{tol}"
+
+
 def _raise_diverged(iteration: int, last_good_centers, detail: str) -> None:
     """Typed divergence error off the already-fetched per-iteration shift:
     carries the iterate that ENTERED the diverging update (still finite)."""
@@ -54,6 +76,7 @@ def _raise_diverged(iteration: int, last_good_centers, detail: str) -> None:
 
 def lloyd_loop(
     step, centers, *, max_iter: int, tol: float, fast: bool, final_inertia: bool = True, solver: str = "kmeans",
+    init_centers=None,
 ):
     """The Lloyd host loop over `step(centers, fast)` -> (new centers,
     inertia of the entering centers, shift): one pass over the rows each,
@@ -61,13 +84,47 @@ def lloyd_loop(
     check one iteration late, the last-good iterate, the divergence guard
     and the final inertia at full precision; see `kmeans_fit`. Under
     SRML_NUMCHECK=1 the shift each iteration reads anyway is swept at
-    `<solver>.iterate` (utils/numcheck.py)."""
+    `<solver>.iterate` (utils/numcheck.py), and each checkpoint's centers
+    at `kmeans.checkpoint`.
+
+    Checkpoints: when `checkpoint.solver_checkpoints_active()`, the loop
+    resumes from the store's entry under `kmeans_ckpt_key(init_centers,
+    ...)` (the host array the fit was seeded with; `centers` when None),
+    and every `every_iters()` iterations saves (centers, the deferred shift,
+    the last-good iterate) in one device-to-host copy, then consults the
+    chaos hooks `maybe_fail_oom("solve", n_iter)` and
+    `maybe_fail_stage("solve", n_iter)`, so a retried fit provably resumes."""
+    from .. import checkpoint as _ckpt
     from ..utils import numcheck
 
     _nc = numcheck.hook()  # resolved once per solve; None when off
     n_iter = 0
     prev_shift = None
     last_good = centers  # iterate entering the step that produced prev_shift
+    ckpt_store = _ckpt.active_store()
+    ckpt_every = _ckpt.every_iters()
+    ckpt_key = None
+    if ckpt_store is not None and ckpt_every > 0:
+        # the key names THIS trajectory (the init centers' digest and the
+        # loop statics): the sequential solves of one stage share the store.
+        # A `fast` trajectory walks another path, so it is keyed apart, with
+        # the same suffix on the resident and the streamed loop
+        ckpt_key = kmeans_ckpt_key(centers if init_centers is None else init_centers, max_iter, tol)
+        if fast:
+            ckpt_key += ":bf16"
+        saved = ckpt_store.load(ckpt_key)
+        if saved is not None and tuple(saved.state["centers"].shape) == tuple(centers.shape):
+            def _dev(a):
+                return torch.from_numpy(np.array(a)).to(device=centers.device, dtype=centers.dtype)
+
+            centers = _dev(saved.state["centers"])
+            # last_good is the iterate ENTERING the step that produced
+            # prev_shift, one step behind the checkpointed centers
+            lg = saved.state.get("last_good")
+            last_good = centers if lg is None else _dev(lg)
+            n_iter = int(saved.iteration)
+            ps = saved.state.get("prev_shift")
+            prev_shift = None if ps is None else float(ps)
     while n_iter < max_iter:
         step_in = centers
         centers, inertia, shift = step(centers, fast)
@@ -86,6 +143,35 @@ def lloyd_loop(
                 break
         prev_shift = shift
         last_good = step_in
+        if ckpt_key is not None and n_iter % ckpt_every == 0:
+            # ONE device-to-host copy of the boundary's state; the shift
+            # survives the round trip exactly, so the resumed convergence
+            # test reads what the uninterrupted run would
+            k = centers.numel()
+            flat = torch.cat([centers.reshape(-1), last_good.reshape(-1), prev_shift.reshape(1)]).cpu().numpy()
+            centers_host = flat[:k].reshape(tuple(centers.shape))
+            prev_shift = float(flat[-1])
+            if _nc is not None:
+                # the checkpoint already fetched the whole iterate: sweep it
+                # (a non-finite checkpoint would poison every later resume)
+                _nc("kmeans.checkpoint", solver="kmeans", iteration=n_iter, centers=centers_host)
+            ckpt_store.save(ckpt_key, _ckpt.SolverCheckpoint(
+                solver="kmeans", iteration=n_iter,
+                state={
+                    "centers": centers_host,
+                    "prev_shift": prev_shift,
+                    # the divergence-fallback iterate (one step behind)
+                    "last_good": flat[k:2 * k].reshape(tuple(centers.shape)),
+                },
+            ))
+            # the mid-solve fault injection points fire AFTER the boundary's
+            # checkpoint landed, so a retried fit (the bounded transient
+            # retry, or the OOM ladder's streamed retry) resumes from it. The
+            # scheduler's `preemption_point` goes here too (A17)
+            from ..parallel import chaos
+
+            chaos.maybe_fail_oom("solve", n_iter)
+            chaos.maybe_fail_stage("solve", n_iter)
     if not final_inertia:
         inertia = torch.full((), float("nan"), dtype=centers.dtype, device=centers.device)
     else:
@@ -137,6 +223,7 @@ def kmeans_fit(
     return lloyd_loop(
         lambda c, f: _lloyd_step(X, w, c, batch_rows, f), centers, max_iter=max_iter, tol=tol,
         fast=precision_mode == "fast" and X.dtype == torch.float32, final_inertia=final_inertia,
+        init_centers=init_centers,
     )
 
 

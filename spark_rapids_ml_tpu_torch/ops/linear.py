@@ -34,12 +34,20 @@
 # summed over `tile`-row blocks densified on the device (`ell_densify`) and
 # multiplied by one GEMM each, an order fixed by the layout (a scatter of
 # the [tile, k_max, k_max] outer products would add in thread order on the
-# card). The checkpointed forms wait for ROADMAP A12.
+# card).
+#
+# The checkpointed forms (`linear_fit_checkpointed`,
+# `linear_fit_ell_checkpointed`) retain the statistics on the host in the
+# fit stage's checkpoint store (checkpoint.py) under the JAX package's keys
+# ("linear_stats", "linear_stats_ell", ":bf16" apart), so a transient retry
+# or a further param set of the stage solves without another pass, and its
+# solve is the same bits (`_fit_from_retained_stats`).
 #
 from __future__ import annotations
 
 from typing import Dict, List, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from .linalg import mm_bf16, row_tiles, rows_dot_fixed
@@ -328,3 +336,94 @@ def linear_predict(X: torch.Tensor, coef: torch.Tensor, intercept: torch.Tensor)
     """X @ coef + intercept, each row summed in a fixed order
     (`linalg.rows_dot_fixed`), so it does not depend on its batch."""
     return rows_dot_fixed(X, coef[None, :])[:, 0] + intercept
+
+
+# the names of `_sufficient_stats`' outputs, in order: the retained
+# statistics' payload (the JAX package's `_STATS_NAMES`)
+_STATS_NAMES = ("sw", "sx", "sy", "G", "c", "syy")
+
+
+def _fit_from_retained_stats(
+    compute_stats, dtype, device, *, alpha, l1_ratio, fit_intercept, standardize, use_cd, max_iter, tol,
+    ckpt_key, placement_key,
+) -> Dict[str, torch.Tensor]:
+    """A linear fit through host-RETAINED sufficient statistics: the one
+    pass over the rows lands its d x d outputs in the active checkpoint
+    store, so a transient retry, and every further param set of the stage,
+    solves from them with no other pass (``checkpoint.stats_reuses``). The
+    solve is deterministic given the statistics, so a resumed fit equals an
+    uninterrupted one bit for bit."""
+    from ..checkpoint import retained
+
+    def compute():
+        stats = compute_stats()
+        flat = torch.cat([t.reshape(-1) for t in stats]).cpu().numpy()  # one copy
+        out, lo = {}, 0
+        for name, t in zip(_STATS_NAMES, stats):
+            out[name] = flat[lo:lo + t.numel()].reshape(tuple(t.shape))
+            lo += t.numel()
+        return out
+
+    state = retained(ckpt_key, compute, solver="linear", placement_key=placement_key)
+    stats = tuple(torch.from_numpy(np.array(state[n])).to(device=device, dtype=dtype) for n in _STATS_NAMES)
+    return _solve_from_stats(
+        stats, dtype, alpha=alpha, l1_ratio=l1_ratio, fit_intercept=fit_intercept,
+        standardize=standardize, use_cd=use_cd, max_iter=max_iter, tol=tol,
+    )
+
+
+def linear_fit_checkpointed(
+    X: torch.Tensor,
+    y: torch.Tensor,
+    w: torch.Tensor,
+    *,
+    alpha: float,
+    l1_ratio: float,
+    fit_intercept: bool = True,
+    standardize: bool = True,
+    use_cd: bool = False,
+    max_iter: int = 1000,
+    tol: float = 1e-6,
+    fast: bool = False,
+    ckpt_key: str = "linear_stats",
+    placement_key=None,
+) -> Dict[str, torch.Tensor]:
+    """`linear_fit` with the sufficient statistics retained on the host
+    (`_fit_from_retained_stats`). The statistics depend on (X, y, w) alone,
+    never on alpha / l1_ratio, so one retained pass serves a sequential
+    sweep and any retry. `fast` statistics are keyed apart."""
+    return _fit_from_retained_stats(
+        lambda: _sufficient_stats(X, y, w, fast), X.dtype, X.device,
+        alpha=alpha, l1_ratio=l1_ratio, fit_intercept=fit_intercept, standardize=standardize,
+        use_cd=use_cd, max_iter=max_iter, tol=tol,
+        ckpt_key=ckpt_key + (":bf16" if fast else ""), placement_key=placement_key,
+    )
+
+
+def linear_fit_ell_checkpointed(
+    values: torch.Tensor,
+    indices: torch.Tensor,
+    y: torch.Tensor,
+    w: torch.Tensor,
+    *,
+    d: int,
+    alpha: float,
+    l1_ratio: float,
+    fit_intercept: bool = True,
+    standardize: bool = True,
+    use_cd: bool = False,
+    max_iter: int = 1000,
+    tol: float = 1e-6,
+    tile: int = ELL_TILE_ROWS,
+    fast: bool = False,
+    ckpt_key: str = "linear_stats_ell",
+    placement_key=None,
+) -> Dict[str, torch.Tensor]:
+    """`linear_fit_ell` with the statistics retained: the tiled gram pass
+    is the retained one."""
+    return _fit_from_retained_stats(
+        lambda: _ell_sufficient_stats(values, indices, y, w, d, tile, fast), values.dtype, values.device,
+        alpha=alpha, l1_ratio=l1_ratio, fit_intercept=fit_intercept, standardize=standardize,
+        use_cd=use_cd, max_iter=max_iter, tol=tol,
+        ckpt_key=ckpt_key + (":bf16" if fast else ""), placement_key=placement_key,
+    )

@@ -49,9 +49,17 @@
 # fit, not the dense fit of the same rows. `fast` rounds the stored values
 # through bf16 once and sums at full precision.
 #
-# Waiting, each named in ROADMAP: the checkpointed forms (A12), the
-# per-iteration convergence trace (A15). The JAX package's optax
-# `_lbfgs_minimize` is reached by no entry point there and is not ported.
+# With checkpoints active (checkpoint.py) a single fit's loop saves its
+# whole state every `config["checkpoint_every_iters"]` iterations, under
+# the key the model layer names ("logistic:<its params>", the JAX
+# package's; a `fast` trajectory under the key + ":bf16", so a bf16 solve
+# never resumes a full-precision one), and a retried fit resumes it
+# exactly (`logistic_fit`, `logistic_fit_ell`, the streamed fit); a batched
+# grid runs unsegmented, as in the JAX package.
+#
+# Waiting, named in ROADMAP: the per-iteration convergence trace (A15).
+# The JAX package's optax `_lbfgs_minimize` is reached by no entry point
+# there and is not ported.
 #
 from __future__ import annotations
 
@@ -63,7 +71,9 @@ import torch
 import torch.nn.functional as F
 
 from .linalg import mm_bf16, rows_dot_fixed, weighted_moments
-from .owlqn import LbfgsMemory, check_solver_state, owlqn_steps, relative_change_exceeds, run_lockstep
+from .owlqn import (
+    LbfgsMemory, LoopCheckpoint, check_solver_state, owlqn_steps, relative_change_exceeds, restore_tensor, run_lockstep,
+)
 
 _LOG = logging.getLogger(__name__)
 
@@ -267,7 +277,7 @@ def armijo_pick(f_cand, f_cur, a, gd, c1: float = 1e-4):
 
 def _glm_qn_steps(
     prob: Dict[str, Any], z_shape, dtype, device, max_iter: int, tol: float, memory: int = 10,
-    c1: float = 1e-4, x0=None,
+    c1: float = 1e-4, x0=None, ckpt: Optional[LoopCheckpoint] = None,
 ):
     """L-BFGS specialized to GLM objectives loss(p) = rowloss(z(p)) +
     penalty(p) with z linear in p, as a solve of `run_lockstep`. Each
@@ -276,25 +286,47 @@ def _glm_qn_steps(
     candidates, the largest passing step, the gradient from the logits z_p
     + a·z_d, one flag read. Stops at `max_iter`, when the relative objective
     change is at most `tol`, or when no candidate passes (stalled). Returns
-    (flat params, objective, n_iter, stalled, its flag reads)."""
+    (flat params, objective, n_iter, stalled, its host reads).
+
+    With `ckpt` (a single fit), the loop saves its whole state (x, the
+    logits z_p, g, f_cur, the history) at its boundaries, and a fit
+    that finds a checkpoint of an equal placement continues from it
+    exactly; one of another placement warm-starts the loop from its
+    portable iterate x (the logits re-derived with one pass), as the JAX
+    package's `glm_qn_minimize_segmented` does."""
     rowloss, rowloss_alphas, penalty_terms = prob["rowloss"], prob["rowloss_alphas"], prob["penalty_terms"]
     z_solve, grad_solve, n_flat = prob["z_solve"], prob["grad_solve"], prob["n_flat"]
     # the step candidates made on the device, exactly (products of powers of
     # 2), so the fit copies nothing from the host
     alphas = 4.0 * torch.full((N_ALPHAS,), 0.5, dtype=dtype, device=device).cumprod(0)
-    if x0 is None:
-        x = torch.zeros((n_flat,), dtype=dtype, device=device)
-        z_p = torch.zeros(z_shape, dtype=dtype, device=device)  # z(0) == 0: z has no constant
+    saved, x_port = ckpt.restore() if ckpt is not None else (None, None)
+    if x_port is not None and tuple(np.shape(x_port)) == (n_flat,):
+        x0 = torch.from_numpy(np.array(x_port)).to(device=device, dtype=dtype)
+        ckpt.store.load(ckpt.key)  # counts the (portable) restore
+    reads = 0
+    if saved is not None:
+        st = saved.state
+        like = torch.zeros((), dtype=dtype, device=device)
+        x, z_p, g, f_cur = (restore_tensor(st, n, like) for n in ("x", "z_p", "g", "f_cur"))
+        hist = LbfgsMemory.restored(*(restore_tensor(st, n, like) for n in ("S", "Y", "rho")), st["count"], st["pos"])
+        it, stalled = saved.iteration, bool(st["stalled"])
+        if st["done"]:
+            return x, f_cur, it, stalled, reads
     else:
-        x = x0
-        z_p = yield from z_solve(x0)
-    g = yield from grad_solve(x, z_p)
-    f_cur = rowloss(z_p) + penalty_terms(x, torch.zeros_like(x))[0]
-    hist = LbfgsMemory(memory, n_flat, x)
-    # the loop's test before its first iteration (f_prev = +inf): it holds
-    # exactly when f0 is finite; read with the first iteration's flags
-    go_first = relative_change_exceeds(torch.full_like(f_cur, float("inf")), f_cur, tol)
-    it, reads, stalled = 0, 0, False
+        if x0 is None:
+            x = torch.zeros((n_flat,), dtype=dtype, device=device)
+            z_p = torch.zeros(z_shape, dtype=dtype, device=device)  # z(0) == 0: z has no constant
+        else:
+            x = x0
+            z_p = yield from z_solve(x0)
+        g = yield from grad_solve(x, z_p)
+        f_cur = rowloss(z_p) + penalty_terms(x, torch.zeros_like(x))[0]
+        hist = LbfgsMemory(memory, n_flat, x)
+        # the loop's test before its first iteration (f_prev = +inf): it
+        # holds exactly when f0 is finite; read with the first iteration's
+        # flags
+        go_first = relative_change_exceeds(torch.full_like(f_cur, float("inf")), f_cur, tol)
+        it, stalled = 0, False
     while it < max_iter:
         d = hist.direction(g)
         gd = torch.dot(g, d)
@@ -328,7 +360,14 @@ def _glm_qn_steps(
             nc, stage = prob["numcheck"]
             nc(stage, solver="glm_qn_stream", iteration=it - 1, objective=f_cur, iterate=x, gradient=g)
         stalled = not ok
-        if stalled or not go:
+        stop = stalled or not go or it >= max_iter
+        if ckpt is not None and ckpt.boundary(it, stop):
+            reads += ckpt.save(
+                it, {"x": x, "z_p": z_p, "g": g, "f_cur": f_cur,
+                     "S": hist.S, "Y": hist.Y, "rho": hist.rho},
+                {"count": hist.count, "pos": hist.pos, "stalled": stalled, "done": stop},
+            )
+        if stop:
             break
     return x, f_cur, it, stalled, reads
 
@@ -359,14 +398,20 @@ def _warm_x0(warm_start, d, k_out, mu, d_scale, fit_intercept, dtype):
     return torch.cat([B.reshape(-1), b0])
 
 
-def _glm_solve(prob, n_rows, dtype, device, d, *, lam_l1, use_l1, max_iter, tol, lbfgs_memory, x_warm):
+def _glm_solve(
+    prob, n_rows, dtype, device, d, *, lam_l1, use_l1, max_iter, tol, lbfgs_memory, x_warm, ckpt_key=None,
+    placement_key=None,
+):
     """One GLM fit as a solve of `run_lockstep`, returning (flat params,
-    objective, n_iter, stalled, its flag reads): OWL-QN when the L1 term is
-    on, the GLM quasi-Newton otherwise."""
+    objective, n_iter, stalled, its host reads): OWL-QN when the L1 term is
+    on, the GLM quasi-Newton otherwise. With `ckpt_key` and checkpoints
+    active (checkpoint.py) the loop checkpoints under it (OWL-QN's under
+    `ckpt_key + ":owlqn"`, the JAX package's keys)."""
     k_out, n_flat = prob["k_out"], prob["n_flat"]
     if not use_l1:
         return (yield from _glm_qn_steps(
             prob, (n_rows, k_out), dtype, device, max_iter=max_iter, tol=tol, memory=lbfgs_memory, x0=x_warm,
+            ckpt=LoopCheckpoint.active(ckpt_key, "glm_qn", placement_key),
         ))
     # L1 / elastic net: OWL-QN over (B, b0), the L1 mask on the coefficients
     # only; its gradient from the accepted trial's logits
@@ -381,6 +426,7 @@ def _glm_solve(prob, n_rows, dtype, device, d, *, lam_l1, use_l1, max_iter, tol,
     x0 = x_warm if x_warm is not None else torch.zeros((n_flat,), dtype=dtype, device=device)
     xf, obj, n_iter, reads = yield from owlqn_steps(
         value_fn, prob["grad_solve"], x0, l1_mask, lam_l1, max_iter=max_iter, tol=tol, memory=lbfgs_memory,
+        ckpt=LoopCheckpoint.active(None if ckpt_key is None else ckpt_key + ":owlqn", "owlqn", placement_key),
     )
     return xf, obj, n_iter, False, reads
 
@@ -388,14 +434,15 @@ def _glm_solve(prob, n_rows, dtype, device, d, *, lam_l1, use_l1, max_iter, tol,
 def _fit_common_grid(
     matvec, rmat, n_rows, dtype, d, y_idx, w, mu, d_scale, total_w,
     *, k, multinomial, lam_l2s, lam_l1s, use_l1, fit_intercept, max_iter, tol, lbfgs_memory,
-    warm_start=None, numcheck_stage=None,
+    warm_start=None, numcheck_stage=None, ckpt_key=None, placement_key=None,
 ) -> list:
     """The fits of a (lam_l2, lam_l1) grid over one placement, in lockstep
     (`run_lockstep`): one list of `_fit_common` states, each with its own
     `host_reads_` and the reads the whole grid made, `grid_host_reads_`.
     `numcheck_stage` (the streamed fit's, whose state lives on the host)
     sweeps each GLM iteration's objective, iterate and gradient at
-    `<stage>.iterate` under SRML_NUMCHECK=1."""
+    `<stage>.iterate` under SRML_NUMCHECK=1. `ckpt_key` and
+    `placement_key` checkpoint a single fit (`_glm_solve`)."""
     from ..utils import numcheck
 
     _nc = numcheck.hook() if numcheck_stage else None
@@ -415,7 +462,7 @@ def _fit_common_grid(
         probs.append(prob)
         solves.append(_glm_solve(
             prob, n_rows, dtype, device, d, lam_l1=lam_l1, use_l1=use_l1, max_iter=max_iter, tol=tol,
-            lbfgs_memory=lbfgs_memory, x_warm=x_warm,
+            lbfgs_memory=lbfgs_memory, x_warm=x_warm, ckpt_key=ckpt_key, placement_key=placement_key,
         ))
     results, grid_reads = run_lockstep(solves, matvec, rmat)
     states = []
@@ -431,16 +478,24 @@ def _fit_common_grid(
 def _fit_common(
     matvec, rmat, n_rows, dtype, d, y_idx, w, mu, d_scale, total_w,
     *, k, multinomial, lam_l2, lam_l1, use_l1, fit_intercept, max_iter, tol, lbfgs_memory,
-    warm_start=None, numcheck_stage=None,
+    warm_start=None, numcheck_stage=None, ckpt_key=None, placement_key=None,
 ) -> Dict[str, Any]:
+    """One fit: the grid of one. With `ckpt_key` it is also the JAX
+    package's `_fit_common_checkpointed`: the same loop, checkpointed."""
     (out,) = _fit_common_grid(
         matvec, rmat, n_rows, dtype, d, y_idx, w, mu, d_scale, total_w,
         k=k, multinomial=multinomial, lam_l2s=[lam_l2], lam_l1s=[lam_l1], use_l1=use_l1,
         fit_intercept=fit_intercept, max_iter=max_iter, tol=tol, lbfgs_memory=lbfgs_memory,
-        warm_start=warm_start, numcheck_stage=numcheck_stage,
+        warm_start=warm_start, numcheck_stage=numcheck_stage, ckpt_key=ckpt_key, placement_key=placement_key,
     )
     del out["grid_host_reads_"]
     return out
+
+
+def _ckpt_key(key: Optional[str], fast: bool) -> Optional[str]:
+    """A single fit's checkpoint key: a `fast` trajectory keyed apart (+
+    ":bf16"), so a bf16 solve never resumes a full-precision one."""
+    return None if key is None else key + (":bf16" if fast else "")
 
 
 def logistic_fit(
@@ -460,11 +515,15 @@ def logistic_fit(
     lbfgs_memory: int = 10,
     fast: bool = False,
     warm_start=None,  # (coef [k_out, d], intercept [k_out]) original-space seed
+    ckpt_key: Optional[str] = None,
+    placement_key=None,
 ) -> Dict[str, Any]:
     """Weighted logistic regression on rows X [n, d] on X's device. Returns
     coef_ [k_out, d], intercept_ [k_out] (ORIGINAL feature space) and
     objective_ as device tensors, and n_iter_, stalled_ and host_reads_ (the
-    solver's reads of the device) as host values."""
+    solver's reads of the device) as host values. `ckpt_key` checkpoints
+    the loop when checkpoints are active, a `fast` one under the key +
+    ":bf16" (the JAX package's `logistic_fit_checkpointed`)."""
     d = X.shape[1]
     mu, d_scale, total_w = _make_scaling(X, w, standardize, fit_intercept)
     matvec, rmat = _dense_ops(X, fast)
@@ -472,7 +531,7 @@ def logistic_fit(
         matvec, rmat, X.shape[0], X.dtype, d, y_idx, w, mu, d_scale, total_w,
         k=k, multinomial=multinomial, lam_l2=lam_l2, lam_l1=lam_l1, use_l1=use_l1,
         fit_intercept=fit_intercept, max_iter=max_iter, tol=tol, lbfgs_memory=lbfgs_memory,
-        warm_start=warm_start,
+        warm_start=warm_start, ckpt_key=_ckpt_key(ckpt_key, fast), placement_key=placement_key,
     )
 
 
@@ -532,6 +591,8 @@ def logistic_fit_ell(
     fast: bool = False,
     warm_start=None,
     columns=None,  # sparse.EllColumns of (values, indices), made once per placement
+    ckpt_key: Optional[str] = None,
+    placement_key=None,
 ) -> Dict[str, Any]:
     """Sparse (padded-ELL) logistic fit: `logistic_fit`'s solvers over the
     ELL products, with scale-only standardization (`_ell_scaling`).
@@ -546,7 +607,7 @@ def logistic_fit_ell(
         matvec, rmat, values.shape[0], values.dtype, d, y_idx, w, mu, d_scale, total_w,
         k=k, multinomial=multinomial, lam_l2=lam_l2, lam_l1=lam_l1, use_l1=use_l1,
         fit_intercept=fit_intercept, max_iter=max_iter, tol=tol, lbfgs_memory=lbfgs_memory,
-        warm_start=warm_start,
+        warm_start=warm_start, ckpt_key=_ckpt_key(ckpt_key, fast), placement_key=placement_key,
     )
 
 

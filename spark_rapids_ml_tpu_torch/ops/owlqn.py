@@ -31,12 +31,19 @@
 # `freeze_when_done`, which the batched coordinate descent of
 # ops/linear.py uses as a select). Each solve keeps its own `LbfgsMemory`,
 # with its own push count and position, so every dot product of its
-# two-loop has the shape of the sequential one. The segmented, checkpointed
-# forms wait for A12.
+# two-loop has the shape of the sequential one.
+#
+# Checkpoints (checkpoint.py; the JAX package's `owlqn_minimize_segmented`
+# and `glm_qn_minimize_segmented` over `run_segmented_while`): a single
+# fit's loop takes a `LoopCheckpoint`, and every `every` iterations (and
+# where the loop stops, as a segment ends there) saves its whole state in
+# ONE device-to-host copy, then consults the chaos hooks. A fit that starts
+# under an equal placement key continues from the saved state exactly. A
+# batched grid takes none (the JAX package checkpoints the single fit only).
 #
 from __future__ import annotations
 
-from typing import Any, Callable, Generator, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, Generator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -98,6 +105,14 @@ class LbfgsMemory:
         self.count = 0
         self.pos = 0
 
+    @classmethod
+    def restored(cls, S: torch.Tensor, Y: torch.Tensor, rho: torch.Tensor, count: int, pos: int) -> "LbfgsMemory":
+        """A history put back from a checkpoint's buffers and positions."""
+        hist = cls.__new__(cls)
+        hist.m, hist.S, hist.Y, hist.rho = S.shape[0], S, Y, rho
+        hist.count, hist.pos = int(count), int(pos)
+        return hist
+
     def push(self, s: torch.Tensor, y: torch.Tensor, sy: torch.Tensor) -> None:
         """Keep the pair (s, y) with sᵀy = `sy` in the oldest slot."""
         self.S[self.pos] = s
@@ -134,6 +149,81 @@ def lbfgs_two_loop(pg, S, Y, rho, count: int, pos: int, m: int) -> torch.Tensor:
         beta = rho[j] * torch.dot(Y[j], r)
         r = r + (alphas[j] - beta) * S[j]
     return -r
+
+
+class LoopCheckpoint:
+    """The checkpoint boundary of one host-stepped solver loop: the place in
+    the Python loop where the JAX package's `run_segmented_while` ends a
+    segment. `active` gives one only when `checkpoint.solver_checkpoints_active()`
+    (a cadence and a store), so a fit at cadence 0 does no checkpoint work
+    and adds no host read."""
+
+    def __init__(self, store, key: str, solver: str, every: int, placement_key=None) -> None:
+        self.store, self.key, self.solver = store, key, solver
+        self.every, self.placement_key = int(every), placement_key
+
+    @classmethod
+    def active(cls, key: Optional[str], solver: str, placement_key=None) -> Optional["LoopCheckpoint"]:
+        from .. import checkpoint as _ckpt
+
+        if key is None or not _ckpt.solver_checkpoints_active():
+            return None
+        return cls(_ckpt.active_store(), key, solver, _ckpt.every_iters(), placement_key)
+
+    def restore(self):
+        """(the checkpoint under this key and an EQUAL placement key, counted
+        as a restore, or None; the portable iterate of one taken under
+        another placement, or None)."""
+        saved = self.store.peek(self.key)
+        if saved is None:
+            return None, None
+        if saved.placement_key != self.placement_key:
+            return None, saved.portable.get("x")
+        self.store.load(self.key)  # counts the restore
+        return saved, None
+
+    def boundary(self, it: int, stop: bool) -> bool:
+        """Whether iteration `it` ends a segment: every `every` iterations,
+        and where the loop stops."""
+        return stop or it % self.every == 0
+
+    def save(self, it: int, tensors: Dict[str, torch.Tensor], host: Dict[str, Any]) -> int:
+        """Save the loop's state after iteration `it`: `tensors` (of one
+        dtype) in ONE device-to-host copy, beside the host values `host`,
+        swept under SRML_NUMCHECK=1 at `segment.<solver>` (allow_inf: the
+        loops' objectives start at +inf); then the mid-solve fault hooks
+        `maybe_fail_oom("solve", it)` and `maybe_fail_stage("solve", it)`,
+        after the checkpoint landed. Returns the host reads made (1)."""
+        from .. import checkpoint as _ckpt
+        from ..parallel import chaos
+        from ..utils import numcheck
+
+        flat = torch.cat([t.reshape(-1) for t in tensors.values()]).cpu().numpy()
+        state: Dict[str, Any] = {}
+        lo = 0
+        for name, t in tensors.items():
+            state[name] = flat[lo:lo + t.numel()].reshape(tuple(t.shape))
+            lo += t.numel()
+        _nc = numcheck.hook()
+        if _nc is not None:
+            # a NaN here would poison every later resume of this trajectory;
+            # the bytes are on the host already
+            _nc(f"segment.{self.solver}", solver=self.solver, iteration=it, allow_inf=True, **state)
+        state.update(host)
+        self.store.save(self.key, _ckpt.SolverCheckpoint(
+            solver=self.solver, iteration=it, state=state, placement_key=self.placement_key,
+            portable={"x": state["x"]},
+        ))
+        # the scheduler's `preemption_point` goes here too (A17)
+        chaos.maybe_fail_oom("solve", it)
+        chaos.maybe_fail_stage("solve", it)
+        return 1
+
+
+def restore_tensor(state: Dict[str, Any], name: str, like: torch.Tensor) -> torch.Tensor:
+    """A checkpointed array back on `like`'s device and dtype, in memory of
+    its own (the loops update the history buffers in place)."""
+    return torch.from_numpy(np.array(state[name])).to(device=like.device, dtype=like.dtype)
 
 
 def relative_change_exceeds(f_prev: torch.Tensor, f_cur: torch.Tensor, tol: float) -> torch.Tensor:
@@ -227,6 +317,7 @@ def owlqn_steps(
     memory: int = 10,
     ls_max: int = 25,
     c1: float = 1e-4,
+    ckpt: Optional[LoopCheckpoint] = None,
 ) -> Solve:
     """OWL-QN as a solve of `run_lockstep`: minimize smooth(x) + lam1 ·
     Σ l1_mask·|x|.
@@ -236,10 +327,12 @@ def owlqn_steps(
     search backtracks from a = 1, halving at most `ls_max` times, on the
     projection of x + a·d onto x's orthant, with Armijo against the
     pseudo-gradient; an iteration whose search finds no step ends the loop
-    (stalled). Returns (x, objective, n_iter, its own flag reads); with
-    lam1 = 0 it is plain two-loop L-BFGS."""
+    (stalled). Returns (x, objective, n_iter, its own host reads); with
+    lam1 = 0 it is plain two-loop L-BFGS. With `ckpt` (a single fit) the
+    loop saves (x, g, f_cur, the history) at its boundaries and
+    continues from a checkpoint of an equal placement (the JAX package's
+    `owlqn_minimize_segmented`, which has no portable resume)."""
     lam = lam1 * l1_mask
-    hist = LbfgsMemory(memory, x0.shape[0], x0)
 
     def f_total(x):
         f, aux = yield from value_fn(x)
@@ -250,13 +343,23 @@ def owlqn_steps(
         at0 = torch.where(g + lam < 0, g + lam, torch.where(g - lam > 0, g - lam, zero))
         return torch.where(x > 0, g + lam, torch.where(x < 0, g - lam, at0))
 
-    x = x0
-    f_cur, aux = yield from f_total(x0)
-    g = (yield from grad_fn(x0, aux)).to(x0.dtype)
-    # the loop's test before its first iteration: f_prev = +inf, so it holds
-    # exactly when f0 is finite; read with the first trial's flag
-    go_first = relative_change_exceeds(torch.full_like(f_cur, float("inf")), f_cur, tol)
-    it, reads = 0, 0
+    saved = ckpt.restore()[0] if ckpt is not None else None
+    if saved is not None:
+        st = saved.state
+        x, g, f_cur = (restore_tensor(st, n, x0) for n in ("x", "g", "f_cur"))
+        hist = LbfgsMemory.restored(*(restore_tensor(st, n, x0) for n in ("S", "Y", "rho")), st["count"], st["pos"])
+        it, reads = saved.iteration, 0
+        if st["done"]:
+            return x, f_cur, it, reads
+    else:
+        hist = LbfgsMemory(memory, x0.shape[0], x0)
+        x = x0
+        f_cur, aux = yield from f_total(x0)
+        g = (yield from grad_fn(x0, aux)).to(x0.dtype)
+        # the loop's test before its first iteration: f_prev = +inf, so it
+        # holds exactly when f0 is finite; read with the first trial's flag
+        go_first = relative_change_exceeds(torch.full_like(f_cur, float("inf")), f_cur, tol)
+        it, reads = 0, 0
     while it < max_iter:
         pg = pseudo_grad(x, g)
         d = hist.direction(pg)
@@ -281,16 +384,23 @@ def owlqn_steps(
                 break
             a *= 0.5
         it += 1
-        if not ok:
-            break  # stalled: the iterate and objective stay
-        gn = (yield from grad_fn(xn, aux)).to(x0.dtype)
-        s, y = xn - x, gn - g
-        sy = torch.dot(s, y)
-        keep, go = yield ("read", [sy > 1e-10, relative_change_exceeds(f_cur, fn, tol)])
-        reads += 1
-        if keep:
-            hist.push(s, y, sy)
-        x, g, f_cur = xn, gn, fn
-        if not go:
+        if ok:
+            gn = (yield from grad_fn(xn, aux)).to(x0.dtype)
+            s, y = xn - x, gn - g
+            sy = torch.dot(s, y)
+            keep, go = yield ("read", [sy > 1e-10, relative_change_exceeds(f_cur, fn, tol)])
+            reads += 1
+            if keep:
+                hist.push(s, y, sy)
+            x, g, f_cur = xn, gn, fn
+        # a search that found no step stalls the loop: the iterate and the
+        # objective stay
+        stop = not ok or not go or it >= max_iter
+        if ckpt is not None and ckpt.boundary(it, stop):
+            reads += ckpt.save(
+                it, {"x": x, "g": g, "f_cur": f_cur, "S": hist.S, "Y": hist.Y, "rho": hist.rho},
+                {"count": hist.count, "pos": hist.pos, "stalled": not ok, "done": stop},
+            )
+        if stop:
             break
     return x, f_cur, it, reads

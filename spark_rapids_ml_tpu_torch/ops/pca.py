@@ -7,8 +7,11 @@
 # (ops/linalg.weighted_cov: the mean, then the centered contraction over row
 # tiles), then the d x d symmetric eigendecomposition, top-k descending, and
 # the sign canonicalization. The streamed fit is
-# ops/streaming.pca_fit_streaming; the checkpointed fit waits for ROADMAP
-# A12.
+# ops/streaming.pca_fit_streaming. The checkpointed fit
+# (`pca_fit_checkpointed`) retains (total_w, mean, covariance) on the host
+# in the fit stage's checkpoint store (checkpoint.py) under the JAX
+# package's key "pca_stats" (":bf16" apart), so a retry re-runs only the
+# d x d eigendecomposition.
 #
 from __future__ import annotations
 
@@ -57,6 +60,29 @@ def pca_fit(X: torch.Tensor, w: torch.Tensor, *, k: int, fast: bool = False) -> 
     covariance contraction bf16-in / float32-accumulate; the
     eigendecomposition and every reported variance stay full precision."""
     total_w, mean, cov = weighted_cov(X, w, ddof=1, fast=fast)
+    return _pca_finish(total_w, mean, cov, k=k)
+
+
+def pca_fit_checkpointed(
+    X: torch.Tensor, w: torch.Tensor, *, k: int, fast: bool = False, ckpt_key: str = "pca_stats", placement_key=None,
+) -> Dict[str, torch.Tensor]:
+    """`pca_fit` with the statistics of its one pass, (total_w, mean,
+    covariance), retained on the host in the active checkpoint store: a
+    transient retry, or a k sweep of the stage, re-runs only the d x d
+    eigendecomposition (``checkpoint.stats_reuses``). The same statistics
+    and finish as `pca_fit`; a `fast` pass is keyed apart."""
+    from ..checkpoint import retained
+
+    def compute():
+        total_w, mean, cov = weighted_cov(X, w, ddof=1, fast=fast)
+        flat = torch.cat([total_w.reshape(1), mean, cov.reshape(-1)]).cpu().numpy()  # one copy
+        d = mean.shape[0]
+        return {"total_w": flat[0].copy(), "mean": flat[1:1 + d], "cov": flat[1 + d:].reshape(d, d)}
+
+    state = retained(ckpt_key + (":bf16" if fast else ""), compute, solver="pca", placement_key=placement_key)
+    total_w, mean, cov = (
+        torch.from_numpy(np.array(state[n])).to(device=X.device, dtype=X.dtype) for n in ("total_w", "mean", "cov")
+    )
     return _pca_finish(total_w, mean, cov, k=k)
 
 

@@ -56,7 +56,17 @@
 # no counterpart) and the streamed GLM's outer iterations
 # (`glm_stream.iterate`, ops/logistic._glm_qn_steps).
 #
-# Not here, named in ROADMAP: the checkpoint store and its keys (A12).
+# Recovery (checkpoint.py), with the JAX package's keys: linear's and PCA's
+# statistics are retained in the fit stage's store ("linear_stats_stream",
+# "_ell", ":bf16"; "pca_stats_stream"; placement key ("stream", rows,
+# columns, dtype)), so a retry solves without another pass; the streamed
+# Lloyd loop checkpoints under the resident loop's key (a resident fit's
+# checkpoint resumes the OOM ladder's streamed retry); the streamed GLM
+# checkpoints its whole loop state under the model's "logistic_stream:..."
+# key. Its host state (x, the logits, g, f_cur, the history) is
+# saved whole, so a resume continues bit for bit; the JAX package saves the
+# iterate and the history and re-derives the logits with one pass, which
+# is one pass more and not the same bits (z_p + a·z_d is not X·x).
 #
 from __future__ import annotations
 
@@ -66,6 +76,7 @@ import numpy as np
 import torch
 
 from .. import telemetry
+from ..checkpoint import retained
 from ..parallel import stream_place_blocks
 from ..utils import numcheck
 
@@ -221,6 +232,11 @@ def linear_streaming_stats(inputs: Any, fast: bool = False) -> Tuple[np.ndarray,
     return tuple(acc)
 
 
+def _stream_placement_key(inputs: Any) -> tuple:
+    """The placement key of streamed state (the JAX package's)."""
+    return ("stream", int(inputs.n_valid), int(inputs.n_cols), np.dtype(inputs.dtype).name)
+
+
 def linear_fit_streaming(
     inputs: Any,
     *,
@@ -234,10 +250,18 @@ def linear_fit_streaming(
     fast: bool = False,
 ) -> Dict[str, torch.Tensor]:
     """Out-of-core linear regression: one streamed statistics pass, then the
-    resident fit's d x d solve on the card."""
+    resident fit's d x d solve on the card. The statistics are retained in
+    the stage's checkpoint store (when one is installed), so a transient
+    retry, or a further param set of the stage, skips the pass; `fast`
+    statistics are keyed apart."""
     from .linear import _solve_from_stats
 
-    stats = _on_device(inputs, *linear_streaming_stats(inputs, fast))
+    key = "linear_stats_stream" + ("_ell" if inputs.X_sparse is not None else "") + (":bf16" if fast else "")
+    state = retained(
+        key, lambda: dict(zip(_STATS_NAMES, linear_streaming_stats(inputs, fast))), solver="linear",
+        placement_key=_stream_placement_key(inputs),
+    )
+    stats = _on_device(inputs, *(state[n] for n in _STATS_NAMES))
     return _solve_from_stats(
         tuple(stats), stats[0].dtype, alpha=alpha, l1_ratio=l1_ratio, fit_intercept=fit_intercept,
         standardize=standardize, use_cd=use_cd, max_iter=int(max_iter), tol=tol,
@@ -249,9 +273,19 @@ def pca_fit_streaming(inputs: Any, *, k: int, fast: bool = False) -> Dict[str, t
     CENTERED covariance Σw(x-μ)(x-μ)ᵀ/(Σw-1) (never the uncentered form,
     which cancels), and the resident fit's finish. `fast` is the
     covariance contraction's only; the mean and the eigendecomposition stay
-    at full precision."""
-    from .linalg import centered_gram
+    at full precision. The statistics are retained as linear's are."""
     from .pca import _pca_finish
+
+    state = retained("pca_stats_stream" + (":bf16" if fast else ""), lambda: _pca_streaming_stats(inputs, fast),
+                     solver="pca", placement_key=_stream_placement_key(inputs))
+    total_w, mean_t, cov_t = _on_device(inputs, state["total_w"], state["mean"], state["cov"])
+    return _pca_finish(total_w, mean_t, cov_t, k=k)
+
+
+def _pca_streaming_stats(inputs: Any, fast: bool) -> Dict[str, np.ndarray]:
+    """The two streamed passes of `pca_fit_streaming`: (total_w, mean,
+    centered covariance) on the host."""
+    from .linalg import centered_gram
 
     w = np.asarray(inputs.w, dtype=inputs.dtype)
     sw = sx = None
@@ -274,8 +308,7 @@ def pca_fit_streaming(inputs: Any, *, k: int, fast: bool = False) -> Dict[str, t
     cov = cov_sum / (sw - 1.0)
     if _nc is not None:
         _nc("pca_stream.stats", solver="pca_stream", mean=mean, cov=cov)
-    total_w, mean_t, cov_t = _on_device(inputs, sw, mean, cov)
-    return _pca_finish(total_w, mean_t, cov_t, k=k)
+    return {"total_w": np.asarray(sw), "mean": np.asarray(mean), "cov": np.asarray(cov)}
 
 
 # ------------------------------------------------------------- k-means ------
@@ -312,6 +345,7 @@ def kmeans_fit_streaming(
     return lloyd_loop(
         step, centers, max_iter=max_iter, tol=tol,
         fast=precision_mode == "fast" and np.dtype(inputs.dtype) == np.float32, solver="kmeans_stream",
+        init_centers=init_centers,
     )
 
 
@@ -393,7 +427,9 @@ def _streamed_ops(inputs: Any, fast: bool):
 
     def rmat(R):
         out = None
-        for (lo, hi), blk in zip(ranges, _chunks(inputs, {})):
+        # the chunks lead the zip, so the pass is drained and counted
+        # (`ingest.stream_rows`) when the ranges run out
+        for blk, (lo, hi) in zip(_chunks(inputs, {}), ranges):
             part = block_ops(blk)[1](R[lo:hi].to(device=device, dtype=x_dtype))
             out = part if out is None else out + part
         return torch.from_numpy(_fetch(device, out)[0]).to(R.dtype)
@@ -414,6 +450,7 @@ def logistic_fit_streaming(
     tol: float = 1e-6,
     lbfgs_memory: int = 10,
     fast: bool = False,
+    ckpt_key: str = "logistic_stream",
 ) -> Dict[str, Any]:
     """Out-of-core logistic regression, the smooth L2 path (the model layer
     refuses a demoted L1 fit, as the JAX package does): the resident GLM
@@ -424,6 +461,7 @@ def logistic_fit_streaming(
     vector algebra runs, in float64: its sums over all the rows (the step
     candidates' losses are one GEMV) would be less exact in float32 on the
     CPU than on the card. The card holds the chunks and their products.
+    With checkpoints active the loop checkpoints under `ckpt_key`.
     Returns `logistic_fit`'s state as host tensors at X's dtype."""
     from ..parallel import host_tensor
     from .logistic import _fit_common
@@ -438,6 +476,7 @@ def logistic_fit_streaming(
         k=k, multinomial=multinomial, lam_l2=lam_l2, lam_l1=0.0, use_l1=False,
         fit_intercept=fit_intercept, max_iter=max_iter, tol=tol, lbfgs_memory=lbfgs_memory,
         numcheck_stage="glm_stream",  # its iterate, objective and gradient live on the host
+        ckpt_key=ckpt_key, placement_key=_stream_placement_key(inputs),
     )
     x_dtype = torch.from_numpy(w_host[:0]).dtype
     return {key: v.to(x_dtype) if key in ("coef_", "intercept_", "objective_") else v

@@ -1,8 +1,9 @@
 #
-# Fault injection: the port's copy of the plan parser, the `oom` half and
-# the serving stage hooks of spark_rapids_ml_tpu/parallel/chaos.py, the test
-# substrate of the fit-side memory ladder (memory.admit_fit,
-# core._TpuCaller's OOM retry) and of the serving overload ladder.
+# Fault injection: the port's copy of the plan parser, the `oom` and `fail`
+# halves and the serving stage hooks of spark_rapids_ml_tpu/parallel/chaos.py,
+# the test substrate of the fit-side memory ladder (memory.admit_fit,
+# core._TpuCaller's OOM retry), of recovery (core.retryable_stage and the
+# solver checkpoints) and of the serving overload ladder.
 #
 # A fault plan is a spec string (the `SRML_FAULT_PLAN` environment variable,
 # or `set_fault_plan()` in process): semicolon-separated entries, each
@@ -18,10 +19,27 @@
 #   oom:stage=placement            a simulated ALLOCATION FAILURE: a
 #                                  torch.OutOfMemoryError raised just before
 #                                  a resident fit places its rows
-#                                  (`maybe_fail_oom`), which takes the same
-#                                  path as a real one
-#   oom:stage=solve                the same, raised as a fit dispatches its
-#                                  solves (round-less plans)
+#                                  (`maybe_fail_oom`, `round=` matching the
+#                                  fit stage's attempt), which takes the
+#                                  same path as a real one
+#   oom:stage=solve:round=4        the same, raised as a fit dispatches its
+#                                  solves (index 0) and at every solver
+#                                  checkpoint boundary (index = the
+#                                  iteration), AFTER the boundary's
+#                                  checkpoint landed: the OOM ladder's
+#                                  streamed retry resumes from it
+#   fail:stage=fit                 a TRANSIENT failure: `maybe_fail_stage`
+#   fail:stage=solve:round=20      raises RendezvousTimeoutError at the top
+#                                  of every `core.retryable_stage` attempt
+#                                  (stage=fit, index = the attempt) and at
+#                                  every solver checkpoint boundary
+#                                  (stage=solve, index = the iteration; the
+#                                  retained statistics' solve, index 0), so
+#                                  the bounded retry resumes from the
+#                                  checkpoint. Without `round=` it fires at
+#                                  the first consult, as in the JAX package;
+#                                  the JAX package ignores a `fail` entry's
+#                                  `round=`, the port matches it as `oom`'s
 #   delay:stage=serve:seconds=0.02 latency injection: the serving engine
 #                                  sleeps this long before each dispatch
 #                                  while the entry has firings left
@@ -35,11 +53,9 @@
 #
 # Every entry fires at most `times` times (default 1), so the retry runs
 # clean. `rank=` restricts an entry to the process whose rank is
-# `SRML_RANK` (0 when unset). Not wired yet, each named in ROADMAP: the
-# `oom:stage=solve:round=` firings at solver checkpoint boundaries (A12);
-# `kill`/`abort`/`drop` and the round-scoped `delay` (the rendezvous, A10),
-# `fail` (the retryable stages, A12). They parse, and nothing consults
-# them.
+# `SRML_RANK` (0 when unset). Not wired yet, named in ROADMAP:
+# `kill`/`abort`/`drop` and the round-scoped `delay` (the rendezvous, A10).
+# They parse, and nothing consults them.
 #
 from __future__ import annotations
 
@@ -50,7 +66,7 @@ from typing import Dict, List, Optional
 
 __all__ = [
     "Fault", "parse_fault_plan", "set_fault_plan", "clear_fault_plan", "active_plan",
-    "maybe_fail_oom", "injected_hbm_budget", "maybe_delay_stage", "maybe_burst_stage",
+    "maybe_fail_oom", "maybe_fail_stage", "injected_hbm_budget", "maybe_delay_stage", "maybe_burst_stage",
 ]
 
 _KINDS = {"kill", "abort", "delay", "drop", "fail", "oom", "burst"}
@@ -190,6 +206,32 @@ def maybe_fail_oom(stage: str, index: int = 0) -> None:
 
         raise torch.OutOfMemoryError(
             f"CUDA out of memory (chaos: injected oom at stage={stage} index={index})"
+        )
+
+
+def maybe_fail_stage(stage: str, index: int) -> None:
+    """A simulated transient failure: an unspent `fail:stage=<stage>` entry
+    whose `round=` (when set) matches `index` raises
+    `errors.RendezvousTimeoutError`, the retryable class, spending one
+    firing. Consulted by `core.retryable_stage` at the top of every attempt
+    (index = the attempt) and by the solvers after each checkpoint landed
+    (index = the iteration)."""
+    for f in active_plan():
+        if (
+            f.kind != "fail"
+            or f.stage != stage
+            or f.spent()
+            or (f.round is not None and f.round != index)
+            or not _rank_matches(f)
+        ):
+            continue
+        f.fired += 1
+        # the flight-recorder event of the firing (`chaos_injection`) arrives with A15
+        from ..errors import RendezvousTimeoutError
+
+        raise RendezvousTimeoutError(
+            f"chaos: injected transient failure at stage {stage!r} attempt {index}",
+            timeout_s=0.0,
         )
 
 

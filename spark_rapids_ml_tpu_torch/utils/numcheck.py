@@ -11,8 +11,10 @@
 # so a check adds arithmetic on bytes the host holds anyway, never a new
 # wait for the card: the Lloyd loop's deferred shift read
 # (ops/kmeans.lloyd_loop), the streamed solvers' per-chunk partials and the
-# streamed GLM's outer iterations (ops/streaming.py, ops/logistic.py), and
-# the serving plane's response assembly (serving/engine.py):
+# streamed GLM's outer iterations (ops/streaming.py, ops/logistic.py), the
+# solver checkpoints' fetched state (`kmeans.checkpoint`; `segment.glm_qn`
+# and `segment.owlqn`, ops/owlqn.LoopCheckpoint), and the serving plane's
+# response assembly (serving/engine.py):
 #
 #   * every float value passed is swept with `np.isfinite`; a NaN/Inf TRIPS:
 #     the violation is recorded here, ticks `numcheck.trips`, and raises a

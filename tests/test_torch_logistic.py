@@ -617,9 +617,43 @@ def test_warm_start_refusals():
         LogisticRegression(maxIter=10).fit({"features": x[:, :4], "label": data["label"]}, warm_start_from=cold)
     with pytest.raises(TypeError, match="cannot warm-start"):
         LogisticRegression().fit(data, warm_start_from=object())
+    # a GLM loop checkpoint carries the STANDARDIZED iterate, not portable
+    # across fits: both packages refuse it with the same pointer
     snap = jckpt.SolverCheckpoint(solver="glm_qn", iteration=7, state={}, portable={"x": np.zeros(7)})
-    with pytest.raises(NotImplementedError, match="A12"):
+    with pytest.raises(ValueError, match="warm-start from the fitted model") as port_err:
         LogisticRegression(maxIter=10).fit(data, warm_start_from=snap)
+    with pytest.raises(ValueError, match="warm-start from the fitted model") as jax_err:
+        JaxLogisticRegression(num_workers=1, maxIter=10).fit(data, warm_start_from=snap)
+    assert str(port_err.value) == str(jax_err.value)
+
+
+@pytest.mark.parametrize("ckpt_package", ["jax", "torch"])
+def test_warm_start_from_a_checkpoint_with_a_coef_payload(ckpt_package):
+    # tests/test_warm_start.py's seed through a SolverCheckpoint of either
+    # package carrying the original-space coef_ (and intercept_): the same
+    # seed as the fitted model, so the same fit, and as JAX's
+    from spark_rapids_ml_tpu_torch import checkpoint as tckpt
+
+    x, y = _cls(n=300, seed=26, dtype=np.float64)
+    data = {"features": x, "label": y.astype(np.float64)}
+
+    def make():
+        return LogisticRegression(maxIter=50, regParam=1e-3, float32_inputs=False)
+
+    cold = make().fit(data)
+    payload = dict(solver="glm_qn", iteration=int(cold.n_iter_), state={},
+                   portable={"coef_": cold.coef_, "intercept_": cold.intercept_})
+    snap = (jckpt if ckpt_package == "jax" else tckpt).SolverCheckpoint(**payload)
+    from_model = make().fit(data, warm_start_from=cold)
+    from_ckpt = make().fit(data, warm_start_from=snap)
+    np.testing.assert_array_equal(from_ckpt.coef_, from_model.coef_)
+    assert from_ckpt.n_iter_ == from_model.n_iter_ <= cold.n_iter_
+    # the JAX package takes only its own class
+    jwarm = JaxLogisticRegression(num_workers=1, maxIter=50, regParam=1e-3, float32_inputs=False).fit(
+        data, warm_start_from=jckpt.SolverCheckpoint(**payload))
+    assert abs(jwarm.n_iter_ - from_ckpt.n_iter_) <= 1
+    # the converged float64 fits' bound (the header): 1e-8 of the largest
+    assert np.abs(jwarm.coef_ - from_ckpt.coef_).max() <= 1e-8 * np.abs(from_ckpt.coef_).max() + 1e-12
 
 
 def test_sparse_switch_and_input_name_their_roadmap_item():

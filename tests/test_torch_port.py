@@ -59,6 +59,13 @@ from spark_rapids_ml_tpu_torch.core import config
 config.update(hbm_budget_bytes=30000, stream_chunk_rows=64)  # the out-of-core path too
 assert KMeans(k=3, maxIter=4, seed=1).fit({"features": x})._fit_metrics["admission"]["verdict"] == "stream"
 config.update(hbm_budget_bytes=None, stream_chunk_rows=0)
+from spark_rapids_ml_tpu_torch import LogisticRegression, PCA
+from spark_rapids_ml_tpu_torch.parallel import chaos  # recovery: checkpoints, a retry, a resume
+config.update(checkpoint_every_iters=2, fit_retry_backoff_s=0.01)
+for est in (KMeans(k=3, maxIter=4, seed=1), LogisticRegression(maxIter=6), PCA(k=2, inputCol="features")):
+    chaos.set_fault_plan("fail:stage=solve:times=1")
+    est.fit({"features": x, "label": (x[:, 0] > 0).astype(float)})
+config.update(checkpoint_every_iters=0)
 import scipy.sparse as sp
 from spark_rapids_ml_tpu_torch import LinearRegression, LogisticRegression
 xs = sp.csr_matrix(np.where(np.abs(x) > 0.7, x, 0.0))  # CSR: the padded-ELL fits and the sparse kNN
