@@ -113,9 +113,10 @@
 #      CPU's bit for bit, an entropy forest parting only at near-tied gains,
 #      every fit twice on the card bit for bit, binning of edge values, ±inf
 #      and NaN equal, fault C3's row at probability [0, 1]; 9b and 9c,
-#      BASELINE.md's rows at full width, nothing cut: the classifier
-#      {numTrees=50, maxDepth=13, maxBins=128} on labels argmax([0, X·β +
-#      0.5·ε]) and the regressor {numTrees=30, maxDepth=6, maxBins=128} on
+#      BASELINE.md's rows at full width, their tree counts halved: the
+#      classifier {numTrees=25 (of 50), maxDepth=13, maxBins=128} on labels
+#      argmax([0, X·β + 0.5·ε]) and the regressor {numTrees=15 (of 30),
+#      maxDepth=6, maxBins=128} on
 #      phase 7's labels, each fit (quantile sketch, binning, s per tree),
 #      transform of every row, save and load, a 2-tree refit equal to trees
 #      0-1 bit for bit (ms per level and per histogram pass by depth), the
@@ -148,7 +149,8 @@
 #      IVFFlat {nlist 256, nprobe 16}, IVFPQ {the same, M = 8, n_bits = 8,
 #      refine_ratio 4} and CAGRA {graph degree 64, intermediate 128,
 #      build_algo ivf_pq, itopk 64} (benchmark/bench_approximate_nearest_
-#      neighbors.py's values; CAGRA's NN-descent cut from 3 rounds to 1),
+#      neighbors.py's values; CAGRA's NN-descent cut from 3 rounds to 1, its
+#      clustered seeding from 8 repetitions to 2),
 #      k = 64 for the first 4096 rows
 #      through the public API: each build's seconds split into its parts
 #      (seeding, Lloyd, layout, PQ training, encoding; CAGRA's seeding reps
@@ -270,7 +272,35 @@
 #      pass; 16e a streamed GLM (6 iterations at a cadence of 3, the fault
 #      at 3) and OLS on 200,000 rows under a 1 GiB budget, each resumed fit
 #      equal to its uninterrupted streamed fit bit for bit;
-#  17. a {"kernels": [...]} line with all twelve kernel forms, the
+#  17. the multi-tenant fit scheduler (scheduler/, memory.admit_fit's job
+#      branch, the solvers' preemption points), right after phase 16, on
+#      the protocol rows, held to phase 16's unchecked fits: 17a
+#      benchmark/bench_scheduler.py's contention lane at full width, 4
+#      tenants: the even ones each submit one big priority-0 job (16a's
+#      `fast` KMeans at a cadence of 2; the lane's maxIter 120 at a cadence
+#      of 3 cut to 6), the odd ones each a burst of 3 small priority-10
+#      KMeans(k = 100, maxIter 10, seed 3, random init) on a view of the
+#      first 100,000 rows, under a budget of a big job and half a small one (the lane's
+#      sizing, from the port's resident estimates), the bursts submitted
+#      right after the first big job's admission: no admission decision
+#      over budget, at least one preemption and as many resumes, every job
+#      completed and equal to its uninterrupted fit bit for bit (the big
+#      ones to 16a's unchecked `fast` fit), B1/B2 launches by form equal to
+#      the uninterrupted passes of the 8 jobs (no iteration twice), the
+#      ledger back at 0; wall s, rows/s, utilization, queue waits per
+#      tenant and of the high-priority jobs, the preemption's margin; 17b
+#      16c's GLM at a cadence of 10, preempted by a priority-10 GLM on
+#      100,000 rows and resumed equal to 16c's unchecked fit bit for bit;
+#      17c 16a's `high` fit with sched_max_preemptions 1, asked to yield
+#      after its first checkpoint: demoted, resumed streamed in 16b's
+#      chunks, its launches those of the resident passes before and the
+#      streamed passes after, equal to 16a's unchecked `high` fit bit for
+#      bit; 17d a RandomForestClassifier over its budget refused at submit
+#      naming placement.X, the ops report's tenants with byte-seconds, and
+#      every audit record under its job's tenant. The phase fails if the
+#      ledger holds a claim when it starts (naming its owners), or if the
+#      card keeps over 1 GiB more reserved after it than before;
+#  18. a {"kernels": [...]} line with all twelve kernel forms, the
 #      nvidia-smi line, and as the last line {"ok": true, "device": {...}}.
 #      The seconds of each phase are printed as it ends.
 #
@@ -3531,9 +3561,11 @@ def phase_logreg_f64(dev, X64, ref):
 # refit that must repeat the first trees; the rows held against the CPU's
 # descent and the rows of the training-quality gates; 9a's small input
 # (rows, columns; trees, depth, bins); the serving traffic
+# BASELINE.md's rows, their tree counts halved (50 and 30) for the script's
+# time: every level, split and descent path of a tree is there in the first
 RF_CONFIGS = (
-    ("classifier", {"numTrees": 50, "maxDepth": 13, "maxBins": 128}),
-    ("regressor", {"numTrees": 30, "maxDepth": 6, "maxBins": 128}),
+    ("classifier", {"numTrees": 25, "maxDepth": 13, "maxBins": 128}),
+    ("regressor", {"numTrees": 15, "maxDepth": 6, "maxBins": 128}),
 )
 RF_REFIT_TREES = 2
 RF_DESCENT_ROWS, RF_QUALITY_ROWS = 4096, 100_000
@@ -3727,9 +3759,9 @@ def _small_forest_reference():
 
 
 def phase_forests(dev, X):
-    """Phase 9: BASELINE.md's RandomForestClassifier {numTrees=50,
-    maxDepth=13, maxBins=128} and RandomForestRegressor {numTrees=30,
-    maxDepth=6, maxBins=128} through the public API on the protocol rows
+    """Phase 9: BASELINE.md's RandomForestClassifier {numTrees=50 cut to 25,
+    maxDepth=13, maxBins=128} and RandomForestRegressor {numTrees=30 cut to
+    15, maxDepth=6, maxBins=128} through the public API on the protocol rows
     (float32): 9a on a small input against the CPU, then for each forest
     fit (its parts timed), transform of every row, save/load bit for bit, a
     refit of RF_REFIT_TREES trees repeating the first trees bit for bit
@@ -4295,9 +4327,10 @@ def _small_tuning_reference():
 ANN_CONFIGS = (
     ("ivfflat", {"nlist": 256, "nprobe": 16}),
     ("ivfpq", {"nlist": 256, "nprobe": 16, "M": 8, "n_bits": 8, "refine_ratio": 4}),
-    # CAGRA's NN-descent cut from 3 rounds to 1
+    # CAGRA's NN-descent cut from 3 rounds to 1, its clustered seeding from
+    # 8 repetitions to 2, for the script's time
     ("cagra", {"graph_degree": 64, "intermediate_graph_degree": 128, "build_algo": "ivf_pq", "itopk_size": 64,
-               "nn_descent_niter": 1}),
+               "nn_descent_niter": 1, "cluster_reps": 2}),
 )
 ANN_PQ_TRAIN_ROWS = 65536  # build_ivfpq's train_cap
 ANN_RECALL_FLOOR = {"ivfflat": 0.85}  # IVFPQ's and CAGRA's are printed, held on the CPU and card = CPU
@@ -4358,7 +4391,8 @@ def _ann_build_split(algo, box, build_s):
 def phase_ann(dev, X, exact_ids, exact_dist):
     """Phase 11: ApproximateNearestNeighbors at full width through the public
     API, on the float32 protocol rows after phase 10: IVFFlat, IVFPQ and
-    CAGRA as ANN_CONFIGS gives them (one NN-descent round); the first 4096 rows as
+    CAGRA as ANN_CONFIGS gives them (one NN-descent round, two seeding
+    repetitions); the first 4096 rows as
     queries, k = 64, phase 4's exact ids and distances the reference. Gates,
     fixed before the first run on the card: every returned id a row or -1
     where short, distances finite and ascending per row where an id is
@@ -5639,7 +5673,8 @@ def _same_model(a, b, attrs):
 
 def phase_recovery(dev, X, linear_ref, y_cls, linear_timings):
     """Phase 16: recovery on the protocol rows (the module comment's list).
-    Returns (the launches of the phase, timings)."""
+    Returns (the launches of the phase, timings, the unchecked fits phase 17
+    is held to: 16a's KMeans by mode with their launches, 16c's GLM)."""
     import gc
 
     import torch
@@ -5661,6 +5696,7 @@ def phase_recovery(dev, X, linear_ref, y_cls, linear_timings):
     telemetry.enable()
     reg = telemetry.registry()
     timings = {}
+    refs = {"kmeans": {}, "kmeans_launches": {}}
     tiles = -(-N_ROWS // TILE_ROWS)
     _kernels.reset_launches()  # the recovery run's launches: every fit of the phase
 
@@ -5756,6 +5792,7 @@ def phase_recovery(dev, X, linear_ref, y_cls, linear_timings):
                 fail(f"16a kmeans {mode}: launches unchecked {l_plain}, checkpointed {l_ckpt}, resumed {l_res}; "
                      f"{n_iter} iterations and the final inertia over {tiles} tiles imply {want}")
             kmeans[mode] = plain
+            refs["kmeans"][mode], refs["kmeans_launches"][mode] = plain, l_plain
             say(f"  16a kmeans {mode}: unchecked {timings[f'kmeans_{mode}_unchecked_s']:.2f} s (placement "
                 f"{'included' if mode == 'fast' else 'reused'}), checkpointed every {RECOVERY_KMEANS_EVERY} "
                 f"{timings[f'kmeans_{mode}_checkpointed_s']:.2f} s, resumed after `fail:stage=solve` at iteration "
@@ -5812,6 +5849,8 @@ def phase_recovery(dev, X, linear_ref, y_cls, linear_timings):
 
                     loops.clear()
                     plain, _, _ = fit(f"logreg_{name}_unchecked_s", make, lr_data)
+                    if name == "glm_qn":
+                        refs["glm"] = plain
                     ckpt, c_ckpt, _ = fit(f"logreg_{name}_checkpointed_s", make, lr_data, every=RECOVERY_LOGREG_EVERY)
                     # the fault at the iteration-20 boundary, or the last
                     # boundary this fit reaches
@@ -5933,6 +5972,334 @@ def phase_recovery(dev, X, linear_ref, y_cls, linear_timings):
             telemetry.disable()
     counts = {k_: n for k_, n in _kernels.launches.items() if n}
     say("  launches in phase 16: " + ", ".join(f"{k_}={v}" for k_, v in counts.items()))
+    return counts, timings, refs
+
+
+# Phase 17's shapes. 17a: bench_scheduler.py's contention lane at full width
+# (4 tenants, 3 small jobs per bursting tenant, sched_max_preemptions 2); a
+# big job is 16a's `fast` fit, the lane's maxIter 120 at a cadence of 3 cut to
+# 6 at a cadence of 2; a small job the lane's KMeans(k, maxIter=10, seed=3)
+# at k = 100 on the first 100,000 rows (a view), with random init as the big
+# ones, for the script's time (the lane's k-means|| seeding made a small job
+# 2.59 s on the card, 17a 17.4 s; phase 3 runs that seeding). 17b: 16c's GLM
+# at a cadence of 10. 17c: 16a's `high` fit demoted after one preemption,
+# streamed in 16b's chunks.
+SCHED_TENANTS, SCHED_SMALL_JOBS, SCHED_BIG_EVERY = 4, 3, 2
+SCHED_SMALL_ROWS = 100_000
+SCHED_SMALL = {"k": 100, "maxIter": 10, "seed": 3, "initMode": "random"}
+SCHED_GLM_EVERY = 10
+SCHED_TIMEOUT = 600.0
+
+
+def phase_scheduler(dev, X, y_cls, refs):
+    """Phase 17: the multi-tenant fit scheduler on the protocol rows (the
+    module comment's list), held to phase 16's unchecked fits (`refs`).
+    Returns (the launches of the phase, timings)."""
+    import gc
+    import threading
+
+    import torch
+
+    from spark_rapids_ml_tpu_torch import (FitScheduler, KMeans, LogisticRegression, RandomForestClassifier, memory,
+                                           ops_plane, telemetry)
+    from spark_rapids_ml_tpu_torch.core import config
+    from spark_rapids_ml_tpu_torch.errors import SchedulerSaturatedError
+    from spark_rapids_ml_tpu_torch.ops import _kernels
+    from spark_rapids_ml_tpu_torch.ops_plane import audit
+    from spark_rapids_ml_tpu_torch.scheduler import global_ledger
+
+    say(f"phase 17: the fit scheduler, {N_ROWS} x {N_COLS} float32")
+    gc.collect()
+    torch.cuda.empty_cache()
+    reserved0 = torch.cuda.memory_reserved(dev)
+    keys = ("hbm_budget_bytes", "checkpoint_every_iters", "sched_max_preemptions", "stream_chunk_rows")
+    saved = {k_: config[k_] for k_ in keys}
+    was_on = telemetry.enabled()
+    telemetry.enable()
+    reg = telemetry.registry()
+    # phase 17 starts from an empty book: every earlier fit and served model
+    # gave its claim back
+    ledger = global_ledger()
+    if ledger.reserved_bytes():
+        fail("17: the ledger holds claims before the phase: " + ", ".join(
+            f"{r.owner} (tenant {r.tenant}, {r.nbytes} bytes)" for r in ledger.reservations()))
+    timings, tiles = {}, -(-N_ROWS // TILE_ROWS)
+    big_data, small_data = {"features": X}, {"features": X[:SCHED_SMALL_ROWS]}
+    _kernels.reset_launches()  # the scheduler run's launches: every job of the phase
+
+    def need(est, data):
+        ex = est._pre_process_data(data, for_fit=True, defer_validation=True)
+        return memory.resident_estimate(est, ex).total()
+
+    def budget_for(raw):
+        """hbm_budget_bytes whose budget after the headroom is `raw`."""
+        config["hbm_budget_bytes"] = int(raw / (1.0 - memory.headroom_fraction()))
+        return int(config["hbm_budget_bytes"] * (1.0 - memory.headroom_fraction()))
+
+    def moved(c0):
+        return {k_: int(v - c0.get(k_, 0)) for k_, v in reg.snapshot()["counters"].items() if v != c0.get(k_, 0)}
+
+    def launched(l0, l1=None):
+        l1 = dict(_kernels.launches) if l1 is None else l1
+        return {k_: n - l0.get(k_, 0) for k_, n in l1.items() if n != l0.get(k_, 0)}
+
+    def spy_yield(job, into):
+        """Record (solver, iteration, time) where `job` yields."""
+        real = job.check_preempt
+
+        def check(solver, iteration):
+            try:
+                real(solver, iteration)
+            except BaseException:
+                into.append((solver, iteration, time.time()))
+                raise
+
+        job.check_preempt = check
+
+    def requested_at(tenant):
+        recs = [d for d in audit.decisions(tenant=tenant, kind="preemption") if d["verdict"] == "requested"]
+        return recs[0]["t"] if recs else None
+
+    def same(a, b, attrs):
+        return all(np.array_equal(np.asarray(getattr(a, n)), np.asarray(getattr(b, n))) for n in attrs)
+
+    over, decisions = [0], [0]
+
+    def conformance(reserved, budget):  # at EVERY admission decision
+        decisions[0] += 1
+        if budget is not None and reserved > budget:
+            over[0] += 1
+
+    ledger.admission_hooks.append(conformance)
+    try:
+        # ---- 17a: the contention lane -----------------------------------
+        def mk_big():
+            return KMeans(**RECOVERY_KMEANS)
+
+        def mk_small():
+            return KMeans(**SCHED_SMALL)
+
+        config["checkpoint_every_iters"] = SCHED_BIG_EVERY
+        config["sched_max_preemptions"] = 2
+        # a small job's uninterrupted passes, and its model, alone
+        l0 = dict(_kernels.launches)
+        solo, timings["small_alone_s"] = _timed(lambda: mk_small().fit(small_data))
+        l_small = launched(l0)
+        need_b, need_s = need(mk_big(), big_data), need(mk_small(), small_data)
+        # a big job fits alone, but not beside one small job: the burst
+        # preempts the running big job, and the big jobs serialize
+        budget = budget_for(need_b + 0.5 * need_s)
+        yielded, jobs = [], []
+        c0, l0, d0 = dict(reg.snapshot()["counters"]), dict(_kernels.launches), decisions[0]
+        t0 = time.perf_counter()
+        sched = FitScheduler()
+        try:
+            for t in range(SCHED_TENANTS):
+                tenant = f"tenant{t}"
+                if t % 2 == 0:
+                    jobs.append((sched.submit(mk_big(), big_data, tenant=tenant, priority=0), N_ROWS))
+                    if t == 0:
+                        spy_yield(jobs[0][0], yielded)
+                else:
+                    # right after the first big job's admission: its
+                    # preemption is requested during its 12 GB placement
+                    jobs += [(sched.submit(mk_small(), small_data, tenant=tenant, priority=10), SCHED_SMALL_ROWS)
+                             for _ in range(SCHED_SMALL_JOBS)]
+            models = [j.result(timeout=SCHED_TIMEOUT) for j, _ in jobs]
+            wall = time.perf_counter() - t0
+            stats = sched.stats()
+        finally:
+            sched.shutdown(wait=True, timeout=SCHED_TIMEOUT)
+        c_a, l_a = moved(c0), launched(l0)
+        timings["contention_s"] = wall
+        if over[0]:
+            fail(f"17a: {over[0]} admission decisions over the {budget}-byte budget")
+        n_pre, n_res = c_a.get("scheduler.jobs_preempted", 0), c_a.get("scheduler.jobs_resumed", 0)
+        if not (n_pre >= 1 and n_res == n_pre and c_a.get("scheduler.jobs_completed", 0) == len(jobs)):
+            fail(f"17a: {n_pre} preemptions, {n_res} resumes, "
+                 f"{c_a.get('scheduler.jobs_completed', 0)}/{len(jobs)} jobs completed")
+        if not yielded:
+            fail("17a: the first big job never yielded at a boundary")
+        big_ref, small_jobs = refs["kmeans"]["fast"], [(j, m) for (j, _), m in zip(jobs, models) if j.priority]
+        for (job, _), m in zip(jobs, models):
+            ref, attrs = ((big_ref, ("cluster_centers_", "inertia_", "n_iter_")) if not job.priority
+                          else (solo, ("cluster_centers_", "inertia_", "n_iter_")))
+            if not same(m, ref, attrs):
+                fail(f"17a: job {job.job_id} ({job.tenant}) differs from its uninterrupted fit (centers by "
+                     f"{np.abs(m.cluster_centers_ - ref.cluster_centers_).max()}, n_iter_ {m.n_iter_}/{ref.n_iter_})")
+        want = {}
+        for part, times in ((refs["kmeans_launches"]["fast"], 2), (l_small, SCHED_TENANTS // 2 * SCHED_SMALL_JOBS)):
+            for k_, n in part.items():
+                want[k_] = want.get(k_, 0) + times * n
+        if l_a != want:
+            fail(f"17a: launches {l_a}, while the uninterrupted passes of the {len(jobs)} jobs are {want}")
+        solver, at, t_yield = yielded[0]
+        margin = t_yield - requested_at("tenant0")
+        timings["preemption_margin_s"] = margin
+        rows = sum(n for _, n in jobs)
+        byte_s = sum(j.admitted_bytes * j.run_s for j, _ in jobs)
+        usage = ledger.tenant_usage()
+        ledger_byte_s = sum(usage[f"tenant{t}"]["byte_seconds"] for t in range(SCHED_TENANTS))
+        timings["utilization"] = byte_s / (budget * wall)
+        timings["utilization_ledger"] = ledger_byte_s / (budget * wall)
+        waits = {t: (s["queue_wait_p50_s"], s["queue_wait_p99_s"]) for t, s in stats["tenants"].items()}
+        hi_waits = [j.queue_wait_s for j, _ in small_jobs]
+        timings["queue_wait_by_tenant_s"] = waits
+        timings["hi_priority_wait_p50_s"] = telemetry.quantile_of(hi_waits, 0.5)
+        timings["hi_priority_wait_p99_s"] = telemetry.quantile_of(hi_waits, 0.99)
+        say(f"  17a contention ({SCHED_TENANTS} tenants: 2 big KMeans(k={K}) jobs on {N_ROWS} rows at priority 0, "
+            f"{SCHED_TENANTS // 2 * SCHED_SMALL_JOBS} small KMeans(k={SCHED_SMALL['k']}) jobs on "
+            f"{SCHED_SMALL_ROWS} rows at priority 10; budget {budget} bytes = big {need_b} + half a small "
+            f"{need_s}): wall {wall:.2f} s, {rows / wall:.4g} rows/s, utilization {timings['utilization']:.4f} "
+            f"(ledger byte-seconds {timings['utilization_ledger']:.4f}); {n_pre} preemption(s), {n_res} "
+            f"resume(s), {c_a.get('scheduler.jobs_demoted', 0)} demotion(s); the first big job yielded at "
+            f"{solver} iteration {at}, {margin:.3f} s after the request; {decisions[0] - d0} admission "
+            f"decisions, none over budget; every job equal to its uninterrupted fit bit for bit (the big ones to "
+            f"16a's unchecked `fast` fit); launches {l_a} = 2 big + {SCHED_TENANTS // 2 * SCHED_SMALL_JOBS} "
+            f"small uninterrupted fits (a small job alone {timings['small_alone_s']:.2f} s), no iteration twice")
+        say("  17a queue wait p50/p99 by tenant (s): " + ", ".join(
+            f"{t} {p50:.3f}/{p99:.3f}" for t, (p50, p99) in sorted(waits.items()))
+            + f"; high-priority jobs {timings['hi_priority_wait_p50_s']:.3f}/{timings['hi_priority_wait_p99_s']:.3f}")
+        del models, jobs, small_jobs, solo
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # ---- 17b: the GLM boundary --------------------------------------
+        def mk_glm():
+            return LogisticRegression(**RECOVERY_LOGREG[0][1])
+
+        glm_big, glm_small = ({"features": X, "label": y_cls},
+                              {"features": X[:SCHED_SMALL_ROWS], "label": y_cls[:SCHED_SMALL_ROWS]})
+        config["checkpoint_every_iters"] = SCHED_GLM_EVERY
+        budget = budget_for(need(mk_glm(), glm_big) + 0.5 * need(mk_glm(), glm_small))
+        yielded, c0 = [], dict(reg.snapshot()["counters"])
+        t0 = time.perf_counter()
+        with FitScheduler() as sched:
+            big = sched.submit(mk_glm(), glm_big, tenant="glm_batch", priority=0)
+            spy_yield(big, yielded)
+            hi = sched.submit(mk_glm(), glm_small, tenant="glm_interactive", priority=10)
+            hi.result(timeout=SCHED_TIMEOUT)
+            m_big = big.result(timeout=SCHED_TIMEOUT)
+        timings["glm_s"] = time.perf_counter() - t0
+        c_b = moved(c0)
+        if not (big.preemptions == 1 and yielded and c_b.get("checkpoint.restores", 0) >= 1):
+            fail(f"17b: {big.preemptions} preemptions of the GLM, yields {yielded}, counters {c_b}")
+        if not same(m_big, refs["glm"], ("coef_", "intercept_", "n_iter_", "objective_")):
+            fail(f"17b: the resumed GLM differs from 16c's unchecked fit (n_iter_ {m_big.n_iter_}/"
+                 f"{refs['glm'].n_iter_}, coefficients by {np.abs(m_big.coef_ - refs['glm'].coef_).max()})")
+        solver, at, t_yield = yielded[0]
+        say(f"  17b GLM {RECOVERY_LOGREG[0][1]} at a cadence of {SCHED_GLM_EVERY} (budget {budget} bytes): "
+            f"yielded at {solver} iteration {at}, {t_yield - requested_at('glm_batch'):.3f} s after the "
+            f"request, to a priority-10 fit on {SCHED_SMALL_ROWS} rows; resumed equal to 16c's unchecked fit bit "
+            f"for bit (n_iter_ {m_big.n_iter_}, objective {m_big.objective_:.9g}); {timings['glm_s']:.2f} s")
+        del m_big, hi, big
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # ---- 17c: demotion ----------------------------------------------
+        config.update(hbm_budget_bytes=None, checkpoint_every_iters=RECOVERY_KMEANS_EVERY, sched_max_preemptions=1,
+                      stream_chunk_rows=RECOVERY_OOM_CHUNK_ROWS)
+        est = KMeans(**RECOVERY_KMEANS, distance_precision="high")
+        gate, at_save = threading.Event(), {}
+        real_fit = est.fit
+
+        def gated_fit(dataset, *a, **kw):
+            if not gate.wait(SCHED_TIMEOUT):
+                fail("17c: the job's fit was never released")
+            return real_fit(dataset, *a, **kw)
+
+        est.fit = gated_fit
+        c0, l0 = dict(reg.snapshot()["counters"]), dict(_kernels.launches)
+        t0 = time.perf_counter()
+        with FitScheduler() as sched:
+            job = sched.submit(est, big_data, tenant="demoted", priority=0)
+            real_save = job.store.save
+
+            def save(key, ckpt):  # the first checkpoint landed: ask the job to yield
+                real_save(key, ckpt)
+                if not at_save:
+                    at_save.update(iteration=ckpt.iteration, launches=dict(_kernels.launches))
+                    job.request_preempt("the phase asks the job to yield after its first checkpoint")
+
+            job.store.save = save
+            gate.set()
+            m_dem = job.result(timeout=SCHED_TIMEOUT)
+        timings["demotion_s"] = time.perf_counter() - t0
+        c_c = moved(c0)
+        adm = m_dem._fit_metrics["admission"]
+        resident_part = launched(l0, at_save.get("launches", l0))
+        streamed_part = launched(at_save.get("launches", l0))
+        n_before = at_save.get("iteration", 0)
+        n_after = RECOVERY_KMEANS["maxIter"] - n_before + 1  # the later iterations and the final inertia
+        want_res = {f"{kern}/f32": n_before * tiles for kern in ("assign_argmin", "assign_accumulate")}
+        want_str = {f"{kern}/f32": n_after * tiles for kern in ("assign_argmin", "assign_accumulate")}
+        if not (c_c.get("scheduler.jobs_demoted") == 1 and c_c.get("scheduler.jobs_preempted") == 1
+                and adm["verdict"] == "stream" and "sched_max_preemptions" in adm["reason"]):
+            fail(f"17c: counters {c_c}, admission {adm}")
+        if n_before != RECOVERY_KMEANS_EVERY or resident_part != want_res or streamed_part != want_str:
+            fail(f"17c: yielded after iteration {n_before}; launches resident {resident_part} (want {want_res}), "
+                 f"streamed {streamed_part} (want {want_str})")
+        if not same(m_dem, refs["kmeans"]["high"], ("cluster_centers_", "inertia_", "n_iter_")):
+            fail(f"17c: the demoted fit differs from 16a's unchecked `high` fit (centers by "
+                 f"{np.abs(m_dem.cluster_centers_ - refs['kmeans']['high'].cluster_centers_).max()})")
+        say(f"  17c demotion (sched_max_preemptions 1): 16a's `high` fit yielded after its iteration-{n_before} "
+            f"checkpoint ({resident_part} resident launches), was demoted and resumed streamed in "
+            f"{adm['chunk_rows']}-row chunks ({streamed_part}); reason {adm['reason']!r}; equal to 16a's "
+            f"unchecked `high` fit bit for bit; {timings['demotion_s']:.2f} s; counters "
+            f"{ {k_: v for k_, v in c_c.items() if k_.startswith(('scheduler.', 'checkpoint.restores'))} }")
+        del m_dem, est, job
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # ---- 17d: the typed refusal and the ops plane -------------------
+        rf, rf_data = RandomForestClassifier(), {"features": X, "label": y_cls}
+        resident = need(rf, rf_data)
+        budget = budget_for(resident // 2)
+        with FitScheduler() as sched:
+            try:
+                sched.submit(rf, rf_data, tenant="rf_hopeless", priority=5)
+                fail("17d: a RandomForestClassifier over the budget was not refused")
+            except SchedulerSaturatedError as e:
+                refusal = e
+        if not (refusal.largest_term == "placement.X" and refusal.tenant == "rf_hopeless"
+                and refusal.estimate_bytes == resident and refusal.budget_bytes == budget):
+            fail(f"17d: refusal {refusal!r} (largest term {refusal.largest_term})")
+        tenants = ops_plane.report()["tenants"]
+        named = [f"tenant{t}" for t in range(SCHED_TENANTS)] + ["glm_batch", "glm_interactive", "demoted"]
+        short = [t for t in named if not tenants.get(t, {}).get("byte_seconds", 0) > 0]
+        if short or "_pool" not in tenants:
+            fail(f"17d: tenants without byte-seconds {short} (report tenants {sorted(tenants)})")
+        trail = {(d["kind"], d["subsystem"], d["verdict"], d["tenant"]) for d in audit.decisions()}
+        want_trail = {("admission", "scheduler", "admitted", "tenant0"), ("preemption", "scheduler", "requested", "tenant0"),
+                      ("preemption", "scheduler", "preempted", "tenant0"), ("admission", "scheduler", "resumed", "tenant0"),
+                      ("admission", "scheduler", "admitted", "tenant1"), ("admission", "scheduler", "admitted", "tenant3"),
+                      ("preemption", "scheduler", "requested", "glm_batch"),
+                      ("demotion", "scheduler", "stream", "demoted"), ("demotion", "fit", "stream", "demoted"),
+                      ("admission", "scheduler", "refused", "rf_hopeless")}
+        if want_trail - trail:
+            fail(f"17d: the audit log lacks {sorted(want_trail - trail)}")
+        say(f"  17d refused at submit: {refusal}; ops report tenants "
+            + ", ".join(f"{t} {tenants[t]['byte_seconds']:.4g} B*s" for t in named)
+            + f", _pool chips_busy {tenants['_pool']['chips_busy']:g}; every audit record with its job's tenant")
+        if ledger.reserved_bytes():
+            fail(f"17: {ledger.reserved_bytes()} bytes left in the ledger")
+    finally:
+        ledger.admission_hooks.remove(conformance)
+        config.update(saved)
+        if not was_on:
+            telemetry.disable()
+    # the schedulers' workers took their cuBLAS workspaces before any
+    # placement, so no freed 12 GB placement stays reserved behind one
+    # (phase 13c caps the allocator)
+    gc.collect()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_reserved(dev) - reserved0
+    say(f"  on the card after the jobs: {torch.cuda.memory_allocated(dev) / 1e9:.3f} GB allocated, "
+        f"{torch.cuda.memory_reserved(dev) / 1e9:.3f} GB reserved ({reserved0 / 1e9:.3f} GB before the phase)")
+    if left > (1 << 30):
+        fail(f"17: {left / 1e9:.3f} GB more reserved on the card than before the phase")
+    counts = {k_: n for k_, n in _kernels.launches.items() if n}
+    say("  launches in phase 17: " + ", ".join(f"{k_}={v}" for k_, v in counts.items()))
     return counts, timings
 
 
@@ -5968,8 +6335,10 @@ def main():
     overload_counts, overload_timings = run("15 overload", phase_overload, dev, X, kmeans_model)
     linear_ref, linear_timings = run("7a pca/linear", phase_pca_linear, dev, X)
     logreg_ref, logreg_timings = run("8a logreg", phase_logreg, dev, X)
-    recovery_counts, recovery_timings = run("16 recovery", phase_recovery, dev, X, linear_ref, logreg_ref["y"],
-                                            linear_timings)
+    recovery_counts, recovery_timings, recovery_refs = run("16 recovery", phase_recovery, dev, X, linear_ref,
+                                                           logreg_ref["y"], linear_timings)
+    sched_counts, sched_timings = run("17 scheduler", phase_scheduler, dev, X, logreg_ref["y"], recovery_refs)
+    del recovery_refs
     forest_timings = run("9 forests", phase_forests, dev, X)
     multi_counts, multi_timings = run("10 multifit", phase_multifit, dev, X, linear_ref["y"], logreg_ref["y"])
     ann_counts, ann_timings = run("11 ann", phase_ann, dev, X, exact_ids, exact_dist)
@@ -6014,6 +6383,7 @@ def main():
         e["launches_by_run"]["sparse_knn"] = sparse_counts["sparse_knn"][e["name"]]  # phase 14e
         e["launches_by_run"]["overload"] = overload_counts[e["name"]]  # phase 15
         e["launches_by_run"]["recovery"] = recovery_counts.get(e["name"], 0)  # phase 16
+        e["launches_by_run"]["scheduler"] = sched_counts.get(e["name"], 0)  # phase 17
     for name in ("assign_argmin/f64", "assign_accumulate/f64", "d2_block/f64", "assign_argmin/f64-fast"):
         if not f64_counts["route"][name]:
             fail(f"the float64 route never launched {name}")
@@ -6023,6 +6393,8 @@ def main():
     for name in ("assign_argmin/f32", "assign_accumulate/f32", "assign_argmin/f32-fast", "assign_accumulate/f32-fast"):
         if not recovery_counts.get(name):
             fail(f"the recovery path (phase 16) never launched {name}")
+        if not sched_counts.get(name):
+            fail(f"the scheduler path (phase 17) never launched {name}")
     say("KMeans path timings: " + json.dumps(timings))
     say("kNN path timings: " + json.dumps(knn_timings))
     say("serving timings: " + json.dumps(serve_timings))
@@ -6039,6 +6411,7 @@ def main():
     say("out-of-core timings: " + json.dumps(oocore_timings))
     say("sparse input timings: " + json.dumps(sparse_timings))
     say("recovery timings: " + json.dumps(recovery_timings))
+    say("scheduler timings: " + json.dumps(sched_timings))
     say("seconds by phase: " + json.dumps(phase_s))
     kernels_line = json.dumps({"kernels": entries})
     say(f"total {time.perf_counter() - t_start:.1f} s")

@@ -22,11 +22,13 @@
 # est.fitMultiple(data, maps), CrossValidator(estimator=..., estimatorParamMaps=
 # ParamGridBuilder()...build(), evaluator=RegressionEvaluator()).fit(data),
 # TrainValidationSplit(...) and Pipeline(stages=[...]) to tune and chain
-# them. Entry
+# them; FitScheduler().submit(est, data, tenant=..., priority=...) to share
+# the card's memory among tenants' fits (a future: job.result()). Entry
 # points run on the CUDA card; call
 # set_devices("cpu") to run the plain PyTorch versions on the CPU instead.
 # This package imports neither jax nor anything of spark_rapids_ml_tpu.
 #
+from .errors import PreemptedError, SchedulerSaturatedError
 from .evaluation import BinaryClassificationEvaluator, MulticlassClassificationEvaluator, RegressionEvaluator
 from .linalg import Vectors
 from .models.classification import (
@@ -52,6 +54,7 @@ from .models.regression import (
 from .models.umap import UMAP, UMAPModel
 from .parallel import set_devices
 from .pipeline import Pipeline, PipelineModel
+from .scheduler import FitScheduler
 from .serving import ModelRegistry, OverloadController, ResidentModel, ScoreFuture, ScoringEngine
 from .tuning import (
     CrossValidator,
@@ -71,5 +74,6 @@ __all__ = [
     "ModelRegistry", "OverloadController", "ResidentModel", "ScoreFuture", "ScoringEngine",
     "CrossValidator", "CrossValidatorModel", "ParamGridBuilder", "TrainValidationSplit",
     "TrainValidationSplitModel", "RegressionEvaluator", "MulticlassClassificationEvaluator",
-    "BinaryClassificationEvaluator", "Pipeline", "PipelineModel",
+    "BinaryClassificationEvaluator", "Pipeline", "PipelineModel", "FitScheduler", "PreemptedError",
+    "SchedulerSaturatedError",
 ]

@@ -31,8 +31,10 @@
 # shaped like one) is retried ONCE on the streaming path; a second one, or
 # an estimator without a streaming path, raises `HbmBudgetError`. Nothing
 # over budget runs on the CPU. Each verdict lands in the decision log
-# (ops_plane/audit.py, through memory.py). The scheduler's job reservations
-# (A17) are not in the port.
+# (ops_plane/audit.py, through memory.py). Inside a fit scheduler job
+# (scheduler/queue.py) the job owns the ledger claim: the admission resizes
+# it, the fit holds none of its own, and the OOM ladder's streamed retry
+# resizes it again.
 #
 # Recovery (checkpoint.py): the whole fit is ONE recoverable stage. A
 # transient failure (`errors.is_transient`: a RendezvousTimeoutError, as the
@@ -196,6 +198,17 @@ config: Dict[str, Any] = {
     # this, so a scope around a loop over FRESH dataset objects cannot stack
     # placements until the card runs out of memory
     "device_dataset_cache_entries": 2,
+    # --- multi-tenant fit scheduler (scheduler/queue.py) ------------------
+    # preemptions one job may absorb before the scheduler demotes it to the
+    # out-of-core streaming path (a floor-chunk footprint that packs into
+    # almost any budget: degraded-mode service instead of starvation);
+    # estimators without a streaming path become non-preemptible instead
+    "sched_max_preemptions": 2,
+    # co-admitted jobs running concurrently at most, however many bin-pack
+    # into the ledger: the number of a scheduler's worker threads, started
+    # when it is built, and a bound on the per-job pressure on the card (a
+    # fairness and safety knob)
+    "sched_max_concurrent": 4,
 }
 
 
@@ -228,7 +241,10 @@ def evaluator_label_column(params_obj: Any, evaluator: Any) -> str:
 def retryable_stage(fn: Callable[[int], Any], *, stage: str, max_retries: Optional[int] = None) -> Any:
     """Run ``fn(attempt)`` with bounded retries on TRANSIENT failures
     (`errors.is_transient`); a permanent one (RankFailedError,
-    SolverDivergedError, HbmBudgetError, a user error) propagates at once.
+    SolverDivergedError, HbmBudgetError, a user error) propagates at once,
+    as does a scheduler's `PreemptedError` (its job runner requeues the
+    job; a retry here would re-enter the solve whose claim is being
+    freed).
 
     Before each retry: exponential backoff from
     ``config["fit_retry_backoff_s"]`` (attempt N sleeps base * 2^(N-1),
@@ -553,7 +569,8 @@ class _TpuCaller(_TpuCommon):
 
     # this fit's live claim in the shared ledger (scheduler/ledger.py): one
     # reservation from admission to the end of the fit, swapped on the OOM
-    # retry's re-admission and released in _call_fit_func's finally
+    # retry's re-admission and released in _call_fit_func's finally. None
+    # inside a scheduler job, whose claim the admission resizes instead
     _fit_reservation: Any = None
 
     def _adopt_reservation(self, reservation: Any) -> None:

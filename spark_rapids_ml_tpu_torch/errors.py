@@ -11,10 +11,13 @@
 # NaN or Inf at a boundary), and the fit stages' two failure classes:
 # `RendezvousTimeoutError` (TRANSIENT: `core.retryable_stage` retries it;
 # the chaos `fail:` plans raise it) and `RankFailedError` (PERMANENT), with
-# `is_transient`, the retry predicate.
+# `is_transient`, the retry predicate, and the fit scheduler's two:
+# `PreemptedError` (a job asked to yield at a solver checkpoint boundary;
+# not transient: only the scheduler's job runner catches it) and
+# `SchedulerSaturatedError` (a job that can never be placed, refused at
+# `FitScheduler.submit`).
 # Counterparts of spark_rapids_ml_tpu/errors.py, with the same messages and
-# attributes, without the flight-recorder hook (A15). `PreemptedError`
-# arrives with the fit scheduler (A17).
+# attributes, without the flight-recorder hook (A15).
 #
 from __future__ import annotations
 
@@ -23,7 +26,7 @@ from typing import Any, Dict, Optional, Sequence
 __all__ = [
     "SrmlError", "RendezvousTimeoutError", "RankFailedError", "SolverDivergedError", "IngestValidationError",
     "HbmBudgetError", "RequestTimeoutError", "ServeOverloadError", "ServingStoppedError", "NumericsError",
-    "is_transient",
+    "PreemptedError", "SchedulerSaturatedError", "is_transient",
 ]
 
 
@@ -170,6 +173,85 @@ class HbmBudgetError(SrmlError, MemoryError):
                 else f"largest term: {largest_term} = {self.largest_term_bytes} bytes"
             )
             parts.append(f"[{lt}]")
+        super().__init__(" ".join(parts))
+
+
+class PreemptedError(SrmlError):
+    """The multi-tenant fit scheduler (`scheduler/queue.py`) asked this fit
+    to yield: a higher-priority job needs its device-memory reservation.
+    Raised COOPERATIVELY, only at a solver checkpoint boundary
+    (``config["checkpoint_every_iters"]``), right AFTER the boundary's
+    `SolverCheckpoint` landed in the job's store, so the fit unwinds with
+    zero lost work and a later re-admission resumes bit for bit.
+
+    Transient from the tenant's view (the job requeues; its future still
+    resolves), but deliberately NOT `is_transient`: an in-place
+    `retryable_stage` retry would re-enter the solve while the scheduler is
+    freeing the job's claim. The scheduler's job runner is the one catcher."""
+
+    def __init__(
+        self,
+        job_id: int,
+        *,
+        solver: str = "",
+        iteration: int = 0,
+        reason: str = "",
+    ):
+        self.job_id = int(job_id)
+        self.solver = solver
+        self.iteration = int(iteration)
+        self.reason = reason
+        at = f" at {solver} iteration {iteration}" if solver else ""
+        super().__init__(
+            f"job {job_id} preempted{at}: "
+            f"{reason or 'higher-priority job needs the reservation'}"
+        )
+
+
+class SchedulerSaturatedError(SrmlError, MemoryError):
+    """A job submitted to the fit scheduler can NEVER be placed: its
+    smallest possible working set (the streaming floor for an estimator
+    with an out-of-core path, the resident estimate otherwise) exceeds the
+    whole per-device budget even with every other job drained. PERMANENT,
+    refused at `FitScheduler.submit`, so the tenant learns at once instead
+    of queueing forever. Mirrors `HbmBudgetError`'s accounting:
+    ``estimate_bytes`` / ``budget_bytes`` / ``largest_term`` /
+    ``largest_term_bytes`` / ``terms`` name what does not fit."""
+
+    def __init__(
+        self,
+        message: str,
+        *,
+        tenant: Optional[str] = None,
+        estimate_bytes: Optional[int] = None,
+        budget_bytes: Optional[int] = None,
+        largest_term: Optional[str] = None,
+        largest_term_bytes: Optional[int] = None,
+        terms: Optional[Dict[str, int]] = None,
+    ):
+        self.tenant = tenant
+        self.estimate_bytes = None if estimate_bytes is None else int(estimate_bytes)
+        self.budget_bytes = None if budget_bytes is None else int(budget_bytes)
+        self.largest_term = largest_term
+        self.largest_term_bytes = (
+            None if largest_term_bytes is None else int(largest_term_bytes)
+        )
+        self.terms: Dict[str, int] = dict(terms) if terms else {}
+        parts = [message]
+        if estimate_bytes is not None and budget_bytes is not None:
+            parts.append(
+                f"(minimal working set {self.estimate_bytes} bytes/device "
+                f"against a {self.budget_bytes}-byte budget)"
+            )
+        if largest_term is not None:
+            parts.append(
+                f"[largest term: {largest_term}"
+                + (
+                    f" = {self.largest_term_bytes} bytes]"
+                    if largest_term_bytes is not None
+                    else "]"
+                )
+            )
         super().__init__(" ".join(parts))
 
 
@@ -334,7 +416,10 @@ def is_transient(exc: BaseException) -> bool:
     together) and the distributed-init race (two fits standing up the
     process group at once; the loser sees an 'already initialized'
     RuntimeError and succeeds on retry). `RankFailedError`,
-    `SolverDivergedError` and every other error are NOT transient."""
+    `SolverDivergedError`, `PreemptedError` (the scheduler's job runner
+    requeues it; a retry in place would re-enter the solve the scheduler
+    is freeing), `SchedulerSaturatedError` and every other error are NOT
+    transient."""
     if isinstance(exc, RendezvousTimeoutError):
         return True
     if isinstance(exc, RuntimeError) and not isinstance(exc, SrmlError):

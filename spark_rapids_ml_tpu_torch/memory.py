@@ -42,9 +42,14 @@
 # "fit"), a load's admission or refusal (subsystem "serving", tenant
 # "serving:<name>"), with the JAX package's keys and values.
 #
-# Not in the port: the scheduler-job branch (a job's reservation resized,
-# a preempted job force-streamed; ROADMAP A17) and the chip-scoped claims
-# (A10). A CSR fit is
+# Inside a fit scheduler job (scheduler/context.current_job) the job owns
+# the claim: `admit_fit` charges against what the ledger holds besides it
+# and RESIZES it to the admitted estimate (the decision carries no claim of
+# its own), a job the scheduler demoted after repeated preemption is
+# force-streamed (reason naming config['sched_max_preemptions'], one
+# `demotion` record), and a cache hit resizes it too
+# (`rereserve_admission`). The chip-scoped claims of the 2-D book are A10.
+# A CSR fit is
 # charged its padded-ELL placement (`placement_terms`, `row_bytes`: the
 # values and int32 indices, padding cells included, as in the JAX
 # package) and the ELL solvers' own workspace (`_extraction_workspace_terms`,
@@ -286,6 +291,14 @@ def _configured_chunk_rows() -> int:
         return 0
 
 
+def _job_claim() -> Tuple[Any, Any]:
+    """(the enclosing fit scheduler job or None, its ledger claim or None)."""
+    from .scheduler import context as _sched_ctx
+
+    job = _sched_ctx.current_job()
+    return job, getattr(job, "reservation", None)
+
+
 def admit_fit(
     estimator: Any, extracted: Any, device: Any = None, *, force_stream: bool = False
 ) -> AdmissionDecision:
@@ -303,7 +316,12 @@ def admit_fit(
     against the smaller of the budget and what the allocator can hand out
     now (`parallel.device_allocatable_bytes`, less the headroom): the budget
     is the card's total memory by default, and a fit whose resident set
-    passed it has just failed to allocate."""
+    passed it has just failed to allocate.
+
+    Inside a scheduler job the job's claim is excluded from what is held
+    and resized to the admitted estimate (the decision's `reservation` is
+    None: the scheduler releases the job's claim), and a job the scheduler
+    demoted streams as if `force_stream` were set."""
     from . import telemetry
     from .ops_plane import audit as _audit
     from .parallel import device_allocatable_bytes, device_capacity_bytes
@@ -316,8 +334,12 @@ def admit_fit(
     if capacity is not None:
         reg.gauge("memory.capacity_bytes", capacity)
     led = global_ledger()
+    job, job_res = _job_claim()
+    sched_demoted = job is not None and getattr(job, "demote_to_stream", False)
+    oom_retry = force_stream
+    force_stream = force_stream or sched_demoted
     with led.admission():
-        held = 0 if budget is None else led.reserved_bytes()
+        held = 0 if budget is None else led.reserved_bytes(exclude=job_res)
         avail = None if budget is None else max(0, budget - held)
         held_note = (
             f" ({held} bytes/device already reserved in the shared ledger by other fits/serving models)"
@@ -325,6 +347,13 @@ def admit_fit(
         )
 
         def _grant(est_obj, verdict, chunk_rows=0, reason="", demoted=False):
+            # a job's claim is resized; a standalone fit reserves its own
+            if job_res is not None:
+                led.resize(job_res, est_obj.total())
+                reservation = None
+            else:
+                reservation = led.reserve(f"fit:{type(estimator).__name__}", "fit", est_obj.total())
+            led.note_admission(budget)
             # one decision record per verdict: the queryable side of the
             # _fit_metrics["admission"] stamp
             _audit.record_decision(
@@ -340,10 +369,11 @@ def admit_fit(
                 chunk_rows=int(chunk_rows),
                 reason=reason,
                 demoted=demoted,
-                reservation=led.reserve(f"fit:{type(estimator).__name__}", "fit", est_obj.total()),
+                reservation=reservation,
             )
 
         def _refuse(exc):
+            led.note_admission(budget)  # refusals fire the admission hooks too
             _audit.record_decision(
                 "admission", "fit", "refused", subject=type(estimator).__name__, reason=str(exc),
                 estimate_bytes=getattr(exc, "estimate_bytes", None), budget_bytes=budget,
@@ -356,8 +386,14 @@ def admit_fit(
             if avail is None or res.total() <= avail:
                 return _grant(res, RESIDENT, reason="fits" if budget is not None else "no capacity information")
             reason = f"resident working set {res.total()} bytes/device exceeds the {budget}-byte budget{held_note}"
+        elif sched_demoted:
+            reason = (
+                f"scheduler demotion: preempted {getattr(job, 'preemptions', 0)} time(s) "
+                "(config['sched_max_preemptions'])"
+            )
         else:
             reason = "backend OOM caught; retrying out-of-core"
+        if oom_retry:
             live = device_allocatable_bytes(device)
             if live is not None:
                 live_avail = int(live * (1.0 - headroom_fraction()))
@@ -431,10 +467,16 @@ def rereserve_admission(adm: AdmissionDecision, owner: str = "fit:cache-hit"):
     """The ledger claim of a fit served from the device-dataset scope's
     cache (the placement exists; a cache hit skips `admit_fit`). No budget
     check: the bytes are held already, so they are recorded, and later
-    admissions see them."""
+    admissions see them. Inside a scheduler job the job's claim is resized
+    instead, and None is returned (the job owns the claim)."""
     from .scheduler.ledger import global_ledger
 
-    return global_ledger().reserve(owner, "fit", adm.estimate.total())
+    led = global_ledger()
+    _, job_res = _job_claim()
+    if job_res is not None:
+        led.resize(job_res, adm.estimate.total())
+        return None
+    return led.reserve(owner, "fit", adm.estimate.total())
 
 
 # ------------------------------------------------------- serving plane ------
@@ -501,7 +543,9 @@ def admit_model_load(
                 capacity_bytes=capacity,
                 budget_bytes=budget,
                 reason="fits" if budget is not None else "no capacity information",
-                reservation=led.reserve(f"serve:{type(model).__name__}", "serve", est.total()),
+                # serving residents are shared infrastructure: accounted to
+                # their "serving:<name>" tenant, not to the loading thread's
+                reservation=led.reserve(f"serve:{type(model).__name__}", "serve", est.total(), tenant=tenant),
             )
         name, nbytes = est.largest()
         _audit.record_decision(
@@ -521,7 +565,8 @@ def admit_model_load(
 
 def release_admission(adm: Optional[AdmissionDecision]) -> None:
     """Return an admission's shared-ledger claim (idempotent; None-safe for
-    `finally` blocks)."""
+    `finally` blocks). A no-op for a job's admission (its `reservation` is
+    None: the scheduler releases the job's claim at the job's end)."""
     if adm is None or adm.reservation is None:
         return
     from .scheduler.ledger import global_ledger

@@ -37,9 +37,9 @@
 # launches in `launches`: a plain integer per kernel and each variant it has
 # (VARIANTS: "assign_argmin/f32-fast", "d2_block/f64", ...), so a run shows
 # by reading them that its path went through the kernels: one count per
-# wrapper call, however many CUDA launches the call makes. Only the thread
-# that launches a kernel writes its counter (the serving engine launches from
-# its one dispatch thread).
+# wrapper call, however many CUDA launches the call makes. Fits co-admitted
+# by the fit scheduler launch from several threads at once, so a count is
+# advanced under a lock (`_count`); readers read the dict.
 #
 from __future__ import annotations
 
@@ -110,9 +110,19 @@ _LIBS: Dict[str, ctypes.CDLL] = {}
 _BUILD_LOCK = threading.Lock()
 
 
+_COUNT_LOCK = threading.Lock()
+
+
 def reset_launches() -> None:
-    for key in launches:
-        launches[key] = 0
+    with _COUNT_LOCK:
+        for key in launches:
+            launches[key] = 0
+
+
+def _count(key: str) -> None:
+    """One launch of `key` ("<kernel>/<variant>"), safe under threads."""
+    with _COUNT_LOCK:
+        launches[key] += 1
 
 
 def launch_total(name: str) -> int:
@@ -396,7 +406,7 @@ def assign_argmin(
         xo, co = _argmin_operands(x, c, variant)
         pv, pj = _argmin_tiles(xo, co, c_sq, B, k, d, variant)
         mind, best = _argmin_merge(pv, pj)
-    launches[f"{name}/{variant}"] += 1
+    _count(f"{name}/{variant}")
     return mind, best
 
 
@@ -522,7 +532,7 @@ def assign_accumulate(
         plan = _accumulate_prep(assign, k)
         sums, counts, part, part_counts = _accumulate_sums(x, w, plan, fast)
         _accumulate_fold(sums, counts, part, part_counts, plan, fast)
-    launches[f"{name}/{variant}"] += 1
+    _count(f"{name}/{variant}")
     return sums, counts
 
 
@@ -585,5 +595,5 @@ def d2_block(
     with torch.cuda.device(q.device):
         qo, xo = _d2_operands(q, xt, variant)
         out = _d2_tiles(qo, xo, xt_sq, B, d, variant)
-    launches[f"{name}/{variant}"] += 1
+    _count(f"{name}/{variant}")
     return out

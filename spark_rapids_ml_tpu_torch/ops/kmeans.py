@@ -93,7 +93,9 @@ def lloyd_loop(
     and every `every_iters()` iterations saves (centers, the deferred shift,
     the last-good iterate) in one device-to-host copy, then consults the
     chaos hooks `maybe_fail_oom("solve", n_iter)` and
-    `maybe_fail_stage("solve", n_iter)`, so a retried fit provably resumes."""
+    `maybe_fail_stage("solve", n_iter)`, so a retried fit provably resumes,
+    and the scheduler's `preemption_point(solver, n_iter)`, so a preempted
+    job resumes there."""
     from .. import checkpoint as _ckpt
     from ..utils import numcheck
 
@@ -166,12 +168,16 @@ def lloyd_loop(
             ))
             # the mid-solve fault injection points fire AFTER the boundary's
             # checkpoint landed, so a retried fit (the bounded transient
-            # retry, or the OOM ladder's streamed retry) resumes from it. The
-            # scheduler's `preemption_point` goes here too (A17)
+            # retry, or the OOM ladder's streamed retry) resumes from it; so
+            # does the scheduler's cooperative preemption, whose resumed job
+            # restores this iterate ("kmeans" resident, "kmeans_stream"
+            # streamed, as the JAX package names them)
             from ..parallel import chaos
+            from ..scheduler.context import preemption_point
 
             chaos.maybe_fail_oom("solve", n_iter)
             chaos.maybe_fail_stage("solve", n_iter)
+            preemption_point(solver, n_iter)
     if not final_inertia:
         inertia = torch.full((), float("nan"), dtype=centers.dtype, device=centers.device)
     else:

@@ -400,18 +400,20 @@ def _warm_x0(warm_start, d, k_out, mu, d_scale, fit_intercept, dtype):
 
 def _glm_solve(
     prob, n_rows, dtype, device, d, *, lam_l1, use_l1, max_iter, tol, lbfgs_memory, x_warm, ckpt_key=None,
-    placement_key=None,
+    placement_key=None, ckpt_solver="glm_qn",
 ):
     """One GLM fit as a solve of `run_lockstep`, returning (flat params,
     objective, n_iter, stalled, its host reads): OWL-QN when the L1 term is
     on, the GLM quasi-Newton otherwise. With `ckpt_key` and checkpoints
     active (checkpoint.py) the loop checkpoints under it (OWL-QN's under
-    `ckpt_key + ":owlqn"`, the JAX package's keys)."""
+    `ckpt_key + ":owlqn"`, the JAX package's keys), its checkpoints and
+    preemption points named `ckpt_solver` (the quasi-Newton's; "owlqn" for
+    OWL-QN), as the JAX package names them."""
     k_out, n_flat = prob["k_out"], prob["n_flat"]
     if not use_l1:
         return (yield from _glm_qn_steps(
             prob, (n_rows, k_out), dtype, device, max_iter=max_iter, tol=tol, memory=lbfgs_memory, x0=x_warm,
-            ckpt=LoopCheckpoint.active(ckpt_key, "glm_qn", placement_key),
+            ckpt=LoopCheckpoint.active(ckpt_key, ckpt_solver, placement_key),
         ))
     # L1 / elastic net: OWL-QN over (B, b0), the L1 mask on the coefficients
     # only; its gradient from the accepted trial's logits
@@ -434,15 +436,15 @@ def _glm_solve(
 def _fit_common_grid(
     matvec, rmat, n_rows, dtype, d, y_idx, w, mu, d_scale, total_w,
     *, k, multinomial, lam_l2s, lam_l1s, use_l1, fit_intercept, max_iter, tol, lbfgs_memory,
-    warm_start=None, numcheck_stage=None, ckpt_key=None, placement_key=None,
+    warm_start=None, numcheck_stage=None, ckpt_key=None, placement_key=None, ckpt_solver="glm_qn",
 ) -> list:
     """The fits of a (lam_l2, lam_l1) grid over one placement, in lockstep
     (`run_lockstep`): one list of `_fit_common` states, each with its own
     `host_reads_` and the reads the whole grid made, `grid_host_reads_`.
     `numcheck_stage` (the streamed fit's, whose state lives on the host)
     sweeps each GLM iteration's objective, iterate and gradient at
-    `<stage>.iterate` under SRML_NUMCHECK=1. `ckpt_key` and
-    `placement_key` checkpoint a single fit (`_glm_solve`)."""
+    `<stage>.iterate` under SRML_NUMCHECK=1. `ckpt_key`, `placement_key`
+    and `ckpt_solver` checkpoint a single fit (`_glm_solve`)."""
     from ..utils import numcheck
 
     _nc = numcheck.hook() if numcheck_stage else None
@@ -463,6 +465,7 @@ def _fit_common_grid(
         solves.append(_glm_solve(
             prob, n_rows, dtype, device, d, lam_l1=lam_l1, use_l1=use_l1, max_iter=max_iter, tol=tol,
             lbfgs_memory=lbfgs_memory, x_warm=x_warm, ckpt_key=ckpt_key, placement_key=placement_key,
+            ckpt_solver=ckpt_solver,
         ))
     results, grid_reads = run_lockstep(solves, matvec, rmat)
     states = []
@@ -478,7 +481,7 @@ def _fit_common_grid(
 def _fit_common(
     matvec, rmat, n_rows, dtype, d, y_idx, w, mu, d_scale, total_w,
     *, k, multinomial, lam_l2, lam_l1, use_l1, fit_intercept, max_iter, tol, lbfgs_memory,
-    warm_start=None, numcheck_stage=None, ckpt_key=None, placement_key=None,
+    warm_start=None, numcheck_stage=None, ckpt_key=None, placement_key=None, ckpt_solver="glm_qn",
 ) -> Dict[str, Any]:
     """One fit: the grid of one. With `ckpt_key` it is also the JAX
     package's `_fit_common_checkpointed`: the same loop, checkpointed."""
@@ -487,6 +490,7 @@ def _fit_common(
         k=k, multinomial=multinomial, lam_l2s=[lam_l2], lam_l1s=[lam_l1], use_l1=use_l1,
         fit_intercept=fit_intercept, max_iter=max_iter, tol=tol, lbfgs_memory=lbfgs_memory,
         warm_start=warm_start, numcheck_stage=numcheck_stage, ckpt_key=ckpt_key, placement_key=placement_key,
+        ckpt_solver=ckpt_solver,
     )
     del out["grid_host_reads_"]
     return out

@@ -193,9 +193,11 @@ class LoopCheckpoint:
         swept under SRML_NUMCHECK=1 at `segment.<solver>` (allow_inf: the
         loops' objectives start at +inf); then the mid-solve fault hooks
         `maybe_fail_oom("solve", it)` and `maybe_fail_stage("solve", it)`,
-        after the checkpoint landed. Returns the host reads made (1)."""
+        after the checkpoint landed, and the scheduler's
+        `preemption_point(solver, it)`. Returns the host reads made (1)."""
         from .. import checkpoint as _ckpt
         from ..parallel import chaos
+        from ..scheduler.context import preemption_point
         from ..utils import numcheck
 
         flat = torch.cat([t.reshape(-1) for t in tensors.values()]).cpu().numpy()
@@ -214,9 +216,11 @@ class LoopCheckpoint:
             solver=self.solver, iteration=it, state=state, placement_key=self.placement_key,
             portable={"x": state["x"]},
         ))
-        # the scheduler's `preemption_point` goes here too (A17)
+        # then the scheduler's cooperative preemption: the job yields here
+        # and its resumed attempt restores this checkpoint
         chaos.maybe_fail_oom("solve", it)
         chaos.maybe_fail_stage("solve", it)
+        preemption_point(self.solver, it)
         return 1
 
 

@@ -476,7 +476,7 @@ def logistic_fit_streaming(
         k=k, multinomial=multinomial, lam_l2=lam_l2, lam_l1=0.0, use_l1=False,
         fit_intercept=fit_intercept, max_iter=max_iter, tol=tol, lbfgs_memory=lbfgs_memory,
         numcheck_stage="glm_stream",  # its iterate, objective and gradient live on the host
-        ckpt_key=ckpt_key, placement_key=_stream_placement_key(inputs),
+        ckpt_key=ckpt_key, placement_key=_stream_placement_key(inputs), ckpt_solver="glm_qn_stream",
     )
     x_dtype = torch.from_numpy(w_host[:0]).dtype
     return {key: v.to(x_dtype) if key in ("coef_", "intercept_", "objective_") else v

@@ -13,8 +13,9 @@
 #                      multi-window burn rate, feeding /healthz and the
 #                      serving backpressure ladder;
 #   * audit            the bounded per-tenant decision log (every fit and
-#                      load admission, demotion, refusal, eviction and
-#                      ladder step);
+#                      load admission, demotion, refusal, eviction, ladder
+#                      step and scheduler admission, preemption and
+#                      demotion);
 #   * drift            per-column ingest feature statistics and PSI against
 #                      a registered baseline.
 #
@@ -68,10 +69,12 @@ def report(
 ) -> Dict[str, Any]:
     """The ops-plane state as one JSON-able dict: health and SLO verdicts
     (evaluated fresh), rolling-window rates and quantiles, the decision log
-    (optionally filtered to one tenant or trace), drift statistics, the
+    (optionally filtered to one tenant or trace), the shared ledger's
+    per-tenant usage (`tenants`), drift statistics, the
     serving ladder, and the registry snapshot, under a `meta` header (rank,
     host, pid, time, trace id)."""
     from .. import diagnostics, telemetry
+    from ..scheduler.ledger import global_ledger
 
     reg = telemetry.registry()
     health = slo.health(fresh=True)
@@ -90,9 +93,10 @@ def report(
         "windows": reg.windows_snapshot(),
         "decisions": audit.decisions(tenant=tenant, trace_id=trace_id, limit=decision_limit),
         "decision_log": audit.stats(),
-        # the shared ledger's per-tenant byte-seconds ("tenants") arrive with
-        # the scheduler (ROADMAP A17); the efficiency section with A15, the
-        # fleet's merged windows and cluster view with A10
+        # the shared ledger's per-tenant byte- and chip-seconds; the
+        # efficiency section comes with A15, the fleet's merged windows and
+        # cluster view with A10
+        "tenants": global_ledger().tenant_usage(),
         "drift": drift.last_stats(),
         "serving": _serving_section(),
         "telemetry": reg.snapshot(),

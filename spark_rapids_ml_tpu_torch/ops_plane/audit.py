@@ -14,9 +14,9 @@
 #     append; capacity is `SRML_AUDIT_EVENTS` (default 4096) and overwrites
 #     are counted (`ops.decisions_dropped`), never silent. Decisions record
 #     whether telemetry is on or not, like the admission stamps they mirror.
-#   * every record carries its tenant (explicit, else "default"; the
-#     scheduler's job tenant arrives with ROADMAP A17), the trace tags and
-#     the rank (diagnostics.py).
+#   * every record carries its tenant (explicit, else the enclosing fit
+#     scheduler job's, else "default"), the trace tags and the rank
+#     (diagnostics.py).
 #
 # A record's keys and values equal the JAX package's for the same call,
 # except its time `t`.
@@ -60,15 +60,20 @@ def record_decision(
     """Append one decision record.
 
     `kind` is the verdict family (``admission`` | ``demotion`` |
-    ``eviction`` | ``backpressure``), `subsystem` the plane that decided
-    (``fit`` | ``serving``), `subject` what was decided about (estimator or
+    ``eviction`` | ``backpressure`` | ``preemption``), `subsystem` the plane
+    that decided (``fit`` | ``serving`` | ``scheduler``), `subject` what was decided about (estimator or
     model name, or tenant), and `detail` any JSON-able specifics (byte
     terms, ladder levels). Returns the record."""
     global _TOTAL
     from .. import diagnostics, telemetry
 
     if tenant is None:
-        tenant = "default"  # the enclosing scheduler job's tenant: ROADMAP A17
+        # the enclosing scheduler job's tenant, so a job's fit admissions
+        # and demotions land under it
+        from ..scheduler import context as _sched_ctx
+
+        job = _sched_ctx.current_job()
+        tenant = str(job.tenant) if job is not None else "default"
     rec: Dict[str, Any] = {
         "t": time.time(),
         "kind": str(kind),

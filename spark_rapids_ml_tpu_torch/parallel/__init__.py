@@ -298,12 +298,15 @@ def bucket_rows(
 # --------------------------------------------------------- device memory ----
 
 
-def device_capacity_bytes(device: Optional[torch.device] = None) -> Optional[int]:
+def device_capacity_bytes(device: Optional[torch.device] = None, *, consume_chaos: bool = True) -> Optional[int]:
     """Per-device memory the admission budgeter charges against: a budget
     injected by an `oom:budget=` fault (parallel/chaos.py; reading it spends
-    one firing), else ``config["hbm_budget_bytes"]`` when set, else the
-    card's TOTAL memory (`torch.cuda.get_device_properties(device).total_memory`),
-    else None (a CPU device: no budgeting).
+    one firing, unless ``consume_chaos=False``: the fit scheduler's passes
+    read the capacity often, and each such entry must demote exactly its
+    count of fit admissions), else ``config["hbm_budget_bytes"]`` when set,
+    else the card's TOTAL memory
+    (`torch.cuda.get_device_properties(device).total_memory`), else None (a
+    CPU device: no budgeting).
 
     Not the card's free memory: PyTorch's caching allocator keeps freed
     blocks as used, so free memory undercounts what a load can have. What
@@ -313,7 +316,7 @@ def device_capacity_bytes(device: Optional[torch.device] = None) -> Optional[int
     from ..core import config
     from . import chaos
 
-    injected = chaos.injected_hbm_budget()
+    injected = chaos.injected_hbm_budget() if consume_chaos else None
     if injected is not None:
         return int(injected)
     override = config.get("hbm_budget_bytes")

@@ -23,8 +23,18 @@
 #
 # Lock NAMES are the JAX package's (`<module>.<Class>.<attr>` /
 # `<module>.<GLOBAL>` relative to the package), so both packages' reports
-# speak one vocabulary: the serving, telemetry, audit, SLO, drift and
-# exporter locks are built here.
+# speak one vocabulary: the serving, scheduler, checkpoint, telemetry,
+# audit, SLO, drift and exporter locks are built here. The order they are
+# taken in is the JAX package's:
+#
+#   1. control-plane entry locks: `scheduler.queue.FitScheduler._lock`,
+#      `serving.registry.ModelRegistry._lock` (never both);
+#   2. `scheduler.ledger.HbmLedger._admission_lock`, the one
+#      check-then-reserve lock of every admission decision;
+#   3. `scheduler.ledger.HbmLedger._lock`, the ledger's bookkeeping;
+#   4. leaf observer locks, which take nothing else
+#      (`telemetry.MetricsRegistry._lock`, `ops_plane.audit._LOCK`,
+#      `ops_plane.slo._LOCK`, `ops_plane.export._SERVER_LOCK`).
 #
 # ``SRML_LOCKCHECK_REPORT=<path>`` writes the violation report at
 # interpreter exit.

@@ -306,7 +306,8 @@ def test_the_port_builds_its_locks_under_the_jax_names(locks):
 
     root = Path(__file__).resolve().parent.parent
     for rel in ("ops_plane/audit.py", "ops_plane/slo.py", "ops_plane/export.py", "ops_plane/drift.py",
-                "serving/overload.py", "serving/registry.py", "serving/engine.py", "telemetry.py"):
+                "serving/overload.py", "serving/registry.py", "serving/engine.py", "telemetry.py",
+                "scheduler/ledger.py", "scheduler/queue.py", "checkpoint.py"):
         ours = _lock_names(root / "spark_rapids_ml_tpu_torch" / rel, ast)
         theirs = _lock_names(root / "spark_rapids_ml_tpu" / rel, ast)
         assert ours and ours <= theirs, rel

@@ -129,6 +129,23 @@ with ScoringEngine(registry) as engine:
 ctr = telemetry.registry().snapshot()["counters"]
 assert ctr["serve.degraded_requests"] == 1 and ctr["serve.backpressure_transitions"] == 2
 assert [d["verdict"] for d in ops_plane.report()["decisions"] if d["kind"] == "backpressure"] == ["degrade", "shed"]
+from spark_rapids_ml_tpu_torch import FitScheduler, checkpoint  # the fit scheduler: two tenants, a preemption
+from spark_rapids_ml_tpu_torch.errors import PreemptedError
+from spark_rapids_ml_tpu_torch.scheduler import FitJob, job_scope
+with FitScheduler() as sched:
+    jobs = [sched.submit(KMeans(k=3, maxIter=4, seed=1), {"features": x}, tenant=t) for t in ("a", "b")]
+    assert [j.result(60)._fit_metrics["scheduler"]["tenant"] for j in jobs] == ["a", "b"]
+config.update(checkpoint_every_iters=2)
+job = FitJob(1, LogisticRegression(maxIter=6), {"features": x, "label": (x[:, 0] > 0).astype(float)}, "t", 0)
+job.request_preempt("guard")
+try:
+    with job_scope(job), checkpoint.checkpoint_scope(store=job.store):
+        job.estimator.fit(job.dataset)
+    raise AssertionError("not preempted")
+except PreemptedError as e:
+    assert (e.solver, e.iteration) == ("glm_qn", 2)
+config.update(checkpoint_every_iters=0)
+assert {"a", "b", "_pool"} <= set(ops_plane.report()["tenants"])
 bad = sorted(n for n in sys.modules
              if n == "spark_rapids_ml_tpu" or n.startswith("spark_rapids_ml_tpu."))
 assert not bad, bad
