@@ -300,7 +300,25 @@
 #      every audit record under its job's tenant. The phase fails if the
 #      ledger holds a claim when it starts (naming its owners), or if the
 #      card keeps over 1 GiB more reserved after it than before;
-#  18. a {"kernels": [...]} line with all twelve kernel forms, the
+#  18. multi-process fits (after 17, before the float32 rows are dropped):
+#      two ranks, each this script started afresh with `--mp-worker`,
+#      share the card over a gloo process group and meet through a
+#      FileRendezvous; each makes only its rows of the protocol data (rank
+#      0: [0, 589,824), rank 1: [589,824, 1,000,000), the generator's chunk
+#      boundaries) under hbm_budget_bytes half the card, and fits under
+#      TpuContext: KMeans(k = 1000, random init, maxIter 3) `high` and
+#      `fast`, PCA(k = 3), OLS, LogisticRegression at 8a's row, and exact
+#      kNN of phase 4's 4096 queries (2048 a rank), k = 64. Gated on every
+#      rank's models equal to rank 0's bit for bit; KMeans equal bit for
+#      bit to one process summing the same row blocks in rank order, and
+#      within 1e-4 of the plain one-process fit's inertia with at least
+#      0.999 of every 16th row's assignment equal; PCA, OLS and the GLM held
+#      to 7a and 8a by 13b's bounds; the kNN ids equal to phase 4's and the
+#      distances within 1e-5; B1 (f32, f32-fast), B2 (f32, f32-fast) and
+#      B3 f32 launched on both ranks; 18b, a one-rank NCCL group opened by
+#      the same code, its all-gather on the card equal to its input. Each
+#      rank's placement, collective and solve seconds are printed;
+#  19. a {"kernels": [...]} line with all twelve kernel forms, the
 #      nvidia-smi line, and as the last line {"ok": true, "device": {...}}.
 #      The seconds of each phase are printed as it ends.
 #
@@ -1154,28 +1172,35 @@ def phase_kernels(dev):
 # ------------------------------------------------------------ phase 3 ----
 
 
-def _protocol_rows():
+PROTOCOL_CHUNK = 65536  # rows of one generator chunk of _protocol_rows
+
+
+def _protocol_rows(lo=0, hi=None):
     """1M x 3000 float32 rows around 1000 Gaussian centers, from a seed. Row
     chunks are filled by threads, each with its own generator spawned from
-    the seed, so the data is the same on every run and every machine."""
+    the seed, so the data is the same on every run and every machine. With
+    `lo`/`hi` (multiples of PROTOCOL_CHUNK, or hi = N_ROWS) only rows [lo,
+    hi) are made, the same values as those rows of the whole."""
     from concurrent.futures import ThreadPoolExecutor
 
+    hi = N_ROWS if hi is None else hi
     seq = np.random.SeedSequence(2024)
     rng = np.random.default_rng(seq)
     true_centers = rng.standard_normal((K, N_COLS), dtype=np.float32) * 4.0
     labels = rng.integers(0, K, size=N_ROWS)
-    X = np.empty((N_ROWS, N_COLS), dtype=np.float32)
-    step = 65536
-    starts = list(range(0, N_ROWS, step))
+    X = np.empty((hi - lo, N_COLS), dtype=np.float32)
+    starts = list(range(0, N_ROWS, PROTOCOL_CHUNK))
     chunk_seeds = seq.spawn(len(starts))
+    if lo % PROTOCOL_CHUNK or (hi % PROTOCOL_CHUNK and hi != N_ROWS):
+        fail(f"_protocol_rows({lo}, {hi}): not on the {PROTOCOL_CHUNK}-row chunk boundaries")
 
     def fill(i):
-        lo, hi = starts[i], min(starts[i] + step, N_ROWS)
-        np.random.default_rng(chunk_seeds[i]).standard_normal(dtype=np.float32, out=X[lo:hi])
-        X[lo:hi] += true_centers[labels[lo:hi]]
+        a, b = starts[i], min(starts[i] + PROTOCOL_CHUNK, N_ROWS)
+        np.random.default_rng(chunk_seeds[i]).standard_normal(dtype=np.float32, out=X[a - lo:b - lo])
+        X[a - lo:b - lo] += true_centers[labels[a:b]]
 
     with ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1)) as pool:
-        list(pool.map(fill, range(len(starts))))
+        list(pool.map(fill, [i for i, a in enumerate(starts) if lo <= a < hi]))
     return X
 
 
@@ -6303,6 +6328,335 @@ def phase_scheduler(dev, X, y_cls, refs):
     return counts, timings
 
 
+# ---------------------------------------------------------------- phase 18 --
+#
+# Multi-process fits: two ranks, each a fresh interpreter (this script with
+# `--mp-worker`), share the card over a gloo process group and meet through
+# a FileRendezvous; each rebuilds only its own rows of _protocol_rows, split
+# on the generator's chunk boundaries (rank 0: rows [0, MP_SPLIT), rank 1:
+# [MP_SPLIT, N_ROWS)), reads its share of phase 4's queries and its labels
+# from files the parent writes, and fits under TpuContext with
+# hbm_budget_bytes half the card.
+
+MP_NRANKS = 2
+MP_SPLIT = 9 * PROTOCOL_CHUNK  # 589,824 rows on rank 0, 410,176 on rank 1
+MP_KMEANS = {"k": K, "maxIter": 3, "tol": 1e-20, "initMode": "random", "seed": 1}
+MP_QUERIES = KNN_QUERIES // MP_NRANKS  # each rank's share of phase 4's queries
+MP_TIMEOUT_S = 600.0
+MP_KMEANS_RTOL = 1e-4  # the inertia against the plain one-process fit
+MP_ASSIGN_AGREE = 0.999  # the share of sampled assignments equal to the plain one-process fit's
+MP_ASSIGN_STEP = 16  # every 16th row's assignment compared
+MP_KNN_RTOL = 1e-5
+MP_MODEL_KEYS = ("init_high", "init_fast", "km_high_centers", "km_high_inertia", "km_high_iter",
+                 "km_fast_centers", "km_fast_inertia", "km_fast_iter", "pca_components", "pca_variance",
+                 "pca_mean", "ols_coef", "ols_intercept", "lr_coef", "lr_intercept", "lr_objective", "lr_iter")
+MP_KERNELS = ("assign_argmin/f32", "assign_argmin/f32-fast", "assign_accumulate/f32",
+              "assign_accumulate/f32-fast", "d2_block/f32")
+
+
+def _mp_bounds(rank):
+    return (0, MP_SPLIT) if rank == 0 else (MP_SPLIT, N_ROWS)
+
+
+def mp_worker(rank, nranks, tmp):
+    """One rank of phase 18: its rows, its fits under TpuContext, its
+    results in `tmp` (rank<r>.npz, rank<r>.json). Rank 0 then opens a
+    one-rank NCCL group through the same code and checks its all-gather on
+    the card (18b)."""
+    import torch
+
+    from spark_rapids_ml_tpu_torch import PCA, KMeans, LinearRegression, LogisticRegression, NearestNeighbors, telemetry
+    from spark_rapids_ml_tpu_torch.core import config, device_dataset_scope
+    from spark_rapids_ml_tpu_torch.ops import _kernels
+    from spark_rapids_ml_tpu_torch.ops import kmeans as km_ops
+    from spark_rapids_ml_tpu_torch.parallel import FileRendezvous, TpuContext
+
+    tmp = Path(tmp)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    config["hbm_budget_bytes"] = torch.cuda.get_device_properties(dev).total_memory // nranks
+    telemetry.enable()
+    info = {"rank": rank}
+    t0 = time.perf_counter()
+    lo, hi = _mp_bounds(rank)
+    X = _protocol_rows(lo, hi)
+    Q = np.array(np.load(tmp / "queries.npy", mmap_mode="r")[rank * MP_QUERIES:(rank + 1) * MP_QUERIES])
+    y_lin = np.array(np.load(tmp / "y_lin.npy", mmap_mode="r")[lo:hi])
+    y_cls = np.array(np.load(tmp / "y_cls.npy", mmap_mode="r")[lo:hi])
+    info["data_s"] = time.perf_counter() - t0
+    inits = []
+    real_fit = km_ops.kmeans_fit
+
+    def recording_fit(X_, w_, init_centers, **kw):
+        inits.append(np.array(init_centers))
+        return real_fit(X_, w_, init_centers, **kw)
+
+    km_ops.kmeans_fit = recording_fit
+    reg = telemetry.registry()
+    rdv = FileRendezvous(rank, nranks, str(tmp / "rdv"), timeout_s=MP_TIMEOUT_S, heartbeat_interval_s=5.0)
+    with TpuContext(rank, nranks, rdv) as ctx:
+        group = ctx.group
+        info["backend"] = ctx.backend
+        fits = {}
+
+        def timed(name, fn):
+            mark = reg.mark()
+            c0, n0 = group.collective_s, group.calls
+            t1 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize(dev)
+            hists = reg.delta(mark)["histograms"]
+            fits[name] = {
+                "s": time.perf_counter() - t1,
+                "place_s": hists.get("device_wait.layout_s", {}).get("sum", 0.0),
+                "collective_s": group.collective_s - c0,
+                "collectives": group.calls - n0,
+            }
+            return out
+
+        data = {"features": X}
+        _kernels.reset_launches()  # the counts of this rank's fits alone
+        with device_dataset_scope():  # one placement for both KMeans fits and PCA
+            km_high = timed("kmeans_high", lambda: KMeans(**MP_KMEANS, distance_precision="high").fit(data))
+            km_fast = timed("kmeans_fast", lambda: KMeans(**MP_KMEANS).fit(data))
+            pca = timed("pca", lambda: PCA(k=PCA_K).setInputCol("features").fit(data))
+        ols = timed("ols", lambda: LinearRegression().fit({"features": X, "label": y_lin}))
+        lr = timed("logreg", lambda: LogisticRegression(**LOGREG_ROW).fit({"features": X, "label": y_cls}))
+        nn = NearestNeighbors(k=KNN_K).setInputCol("features").fit(data)
+        _, _, knn = timed("knn", lambda: nn.kneighbors({"features": Q}))
+        info["launches"] = {k_: n for k_, n in _kernels.launches.items() if n}
+        info["spmd_rounds"] = reg.snapshot()["counters"].get("fit.device_dataset_spmd_rounds", 0)
+    rdv.close()
+    info["fits"] = fits
+    if rank == 0:
+        # 18b: the same code opens a one-rank group on the card: NCCL
+        rdv1 = FileRendezvous(0, 1, str(tmp / "nccl"), timeout_s=120.0, heartbeat_interval_s=5.0)
+        with TpuContext(0, 1, rdv1, require_distributed=True) as one:
+            v = torch.arange(1 << 20, dtype=torch.float32, device=dev)
+            t1 = time.perf_counter()
+            (g,) = one.group.allgather(v)
+            (r_,) = one.group.allreduce_fixed(v)
+            torch.cuda.synchronize(dev)
+            info["nccl"] = {"backend": one.backend, "device": str(g.device),
+                            "equal": bool(torch.equal(g, v) and torch.equal(r_, v)),
+                            "s": time.perf_counter() - t1}
+        rdv1.close()
+    np.savez(
+        tmp / f"rank{rank}.npz",
+        init_high=inits[0], init_fast=inits[1],
+        km_high_centers=km_high.cluster_centers_, km_high_inertia=np.asarray(km_high.inertia_),
+        km_high_iter=np.asarray(km_high.n_iter_),
+        km_fast_centers=km_fast.cluster_centers_, km_fast_inertia=np.asarray(km_fast.inertia_),
+        km_fast_iter=np.asarray(km_fast.n_iter_),
+        pca_components=pca.components_, pca_variance=pca.explained_variance_, pca_mean=pca.mean_,
+        ols_coef=ols.coef_, ols_intercept=np.asarray(ols.intercept_),
+        lr_coef=lr.coef_, lr_intercept=np.asarray(lr.intercept_), lr_objective=np.asarray(lr.objective_),
+        lr_iter=np.asarray(lr.n_iter_),
+        knn_ids=np.stack(knn["indices"].to_numpy()), knn_dist=np.stack(knn["distances"].to_numpy()),
+        knn_query_ids=knn["query_id"].to_numpy(),
+    )
+    (tmp / f"rank{rank}.json").write_text(json.dumps(info))
+    return 0
+
+
+def _mp_launch(tmp):
+    """Start the ranks as fresh interpreters and wait for them, each within
+    MP_TIMEOUT_S; every process is stopped before this returns."""
+    procs, logs = [], []
+    try:
+        for r in range(MP_NRANKS):
+            log = open(tmp / f"rank{r}.log", "w")
+            logs.append(log)
+            procs.append(subprocess.Popen(
+                [sys.executable, str(ROOT / "chip_smoke.py"), "--mp-worker", str(r), str(MP_NRANKS), str(tmp)],
+                stdout=log, stderr=subprocess.STDOUT, cwd=str(ROOT),
+            ))
+        deadline = time.monotonic() + MP_TIMEOUT_S
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for log in logs:
+            log.close()
+    rcs = [p.returncode for p in procs]
+    if any(rcs):
+        for r in range(MP_NRANKS):
+            say(f"  rank {r} (exit {rcs[r]}), last lines:\n" + "\n".join(
+                (tmp / f"rank{r}.log").read_text().splitlines()[-25:]))
+        fail(f"18: the ranks exited {rcs}")
+
+
+def phase_multiprocess(dev, X, linear_ref, logreg_ref, exact_ids, exact_dist):
+    """Phase 18: multi-process fits at full width, two ranks sharing the
+    card over gloo (see the constants above); the gates are the ranks'
+    models equal bit for bit, KMeans held to one process (below), PCA, OLS
+    and LogisticRegression held to phases 7a and 8a by phase 13b's bounds,
+    the kNN ids equal to phase 4's and the distances within MP_KNN_RTOL,
+    B1/B2/B3 launched on both ranks, and 18b's one-rank NCCL all-gather on
+    the card. Returns (launches summed over the ranks, timings).
+
+    KMeans is held twice, from rank 0's init centers: bit for bit to a
+    one-process Lloyd loop whose step sums the same two row blocks in rank
+    order (what the collective computes), and to the plain one-process fit
+    (one sum over all rows) by its inertia within MP_KMEANS_RTOL and at
+    least MP_ASSIGN_AGREE of every MP_ASSIGN_STEP-th row's assignment equal:
+    in float32 the two orders of summation move a center by an ulp, and a
+    row near a tie between two centers can change sides by the third
+    iteration."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from spark_rapids_ml_tpu_torch.ops.distance import tile_assign_accumulate
+    from spark_rapids_ml_tpu_torch.ops.kmeans import _finish_centers, kmeans_fit, kmeans_predict, lloyd_loop
+    from spark_rapids_ml_tpu_torch.parallel import place_rows
+
+    say(f"phase 18: multi-process fits, {MP_NRANKS} ranks sharing {torch.cuda.get_device_name(dev)} over gloo, "
+        f"rows [0, {MP_SPLIT}) and [{MP_SPLIT}, {N_ROWS}) of the {N_ROWS} x {N_COLS} float32 rows")
+    LOG_DIR.mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="mp_", dir=str(LOG_DIR)))
+    timings = {}
+    try:
+        np.save(tmp / "y_lin.npy", linear_ref["y"])
+        np.save(tmp / "y_cls.npy", logreg_ref["y"])
+        np.save(tmp / "queries.npy", X[:KNN_QUERIES])  # phase 4's queries, split between the ranks
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()  # the earlier phases' cached blocks are released to the card
+        t0 = time.perf_counter()
+        _mp_launch(tmp)
+        timings["ranks_s"] = time.perf_counter() - t0
+        got = [np.load(tmp / f"rank{r}.npz") for r in range(MP_NRANKS)]
+        info = [json.loads((tmp / f"rank{r}.json").read_text()) for r in range(MP_NRANKS)]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for r in range(MP_NRANKS):
+        f = info[r]["fits"]
+        place = sum(v["place_s"] for v in f.values())
+        coll = sum(v["collective_s"] for v in f.values())
+        total = sum(v["s"] for v in f.values())
+        timings[f"rank{r}"] = {"data_s": info[r]["data_s"], "fits_s": total, "placement_s": place,
+                               "collective_s": coll, "solve_s": total - place - coll,
+                               "collectives": sum(v["collectives"] for v in f.values())}
+        say(f"  rank {r} ({info[r]['backend']}): data {info[r]['data_s']:.2f} s; fits {total:.2f} s = placement "
+            f"{place:.2f} + collectives {coll:.2f} ({timings[f'rank{r}']['collectives']} all-gathers) + solve "
+            f"{total - place - coll:.2f}; " + ", ".join(f"{k_} {v['s']:.2f}" for k_, v in f.items()))
+        if info[r]["backend"] != "gloo":
+            fail(f"18: rank {r} ran {info[r]['backend']}, not gloo (the ranks share the card)")
+        for key in MP_MODEL_KEYS:
+            if not np.array_equal(got[r][key], got[0][key]):
+                fail(f"18: rank {r}'s {key} differs from rank 0's")
+        for name in MP_KERNELS:
+            if not info[r]["launches"].get(name):
+                fail(f"18: rank {r} never launched {name}")
+        if not info[r]["spmd_rounds"]:
+            fail(f"18: rank {r} ran no placement-cache agreement round")
+    g = got[0]
+    say(f"  every rank's KMeans, PCA, OLS and LogisticRegression model equals rank 0's bit for bit; "
+        f"placement-cache agreement rounds {info[0]['spmd_rounds']}")
+    # KMeans against one process from the same init centers
+    Xd, wd = place_rows(X, device=dev)
+    sample = Xd[::MP_ASSIGN_STEP].contiguous()
+    blocks = [_mp_bounds(r) for r in range(MP_NRANKS)]
+
+    def ranked_step(c, fast):
+        acc = None
+        for a, b in blocks:
+            part = tile_assign_accumulate(Xd[a:b], wd[a:b], c, TILE_ROWS, fast)
+            acc = part if acc is None else tuple(x + y for x, y in zip(acc, part))
+        return _finish_centers(*acc, c)
+
+    for mode in ("high", "fast"):
+        init = g[f"init_{mode}"]
+        fit_args = dict(max_iter=MP_KMEANS["maxIter"], tol=MP_KMEANS["tol"])
+        ranked = lloyd_loop(ranked_step, torch.from_numpy(init).to(dev), fast=mode == "fast", init_centers=init,
+                            **fit_args)
+        if not (np.array_equal(g[f"km_{mode}_centers"], ranked["cluster_centers_"].cpu().numpy())
+                and float(g[f"km_{mode}_inertia"]) == float(ranked["inertia_"])
+                and int(g[f"km_{mode}_iter"]) == int(ranked["n_iter_"])):
+            fail(f"18 kmeans {mode}: the two-rank fit differs from one process summing the same blocks in rank order")
+        plain = kmeans_fit(Xd, wd, init, batch_rows=TILE_ROWS, precision_mode=mode, **fit_args)
+        c_ref = plain["cluster_centers_"]
+        c_err = float(np.abs(g[f"km_{mode}_centers"] - c_ref.cpu().numpy()).max() / c_ref.abs().max().item())
+        i_err = abs(float(g[f"km_{mode}_inertia"]) - float(plain["inertia_"])) / float(plain["inertia_"])
+        a_spmd = kmeans_predict(sample, torch.from_numpy(g[f"km_{mode}_centers"]).to(dev))
+        same = int((a_spmd == kmeans_predict(sample, c_ref)).sum())
+        if int(g[f"km_{mode}_iter"]) != int(plain["n_iter_"]) or i_err > MP_KMEANS_RTOL \
+                or same < MP_ASSIGN_AGREE * sample.shape[0]:
+            fail(f"18 kmeans {mode}: n_iter_ {int(g[f'km_{mode}_iter'])}/{int(plain['n_iter_'])}, inertia within "
+                 f"{i_err} (rtol {MP_KMEANS_RTOL}), {same}/{sample.shape[0]} equal assignments (at least "
+                 f"{MP_ASSIGN_AGREE}) against the plain one-process fit")
+        timings[f"kmeans_{mode}_assignments_equal"] = same / sample.shape[0]
+        say(f"  18 kmeans {mode}: equal bit for bit to one process summing the rank blocks in rank order; against "
+            f"the plain one-process fit from rank 0's init: inertia within {i_err:.3g} (rtol {MP_KMEANS_RTOL}), "
+            f"{same}/{sample.shape[0]} sampled assignments equal, centers within {c_err:.3g} of the largest "
+            "coordinate")
+    del Xd, wd, sample
+    torch.cuda.empty_cache()
+    # PCA, OLS and LogisticRegression against phases 7a and 8a (phase 13b's bounds)
+    pca_res, ols_res, spectrum = linear_ref["pca"], linear_ref["ols"], linear_ref["spectrum"]
+    pert = 2 * F32_EIGH_REL * float(pca_res.explained_variance_[0])
+    ev_err = float(np.abs(g["pca_variance"] - pca_res.explained_variance_).max())
+    if ev_err > pert:
+        fail(f"18 pca: explained variance within {ev_err} of phase 7a's (Weyl bound {pert})")
+    cosines = []
+    for i in range(PCA_K):
+        gap = min(abs(spectrum[i] - spectrum[j]) for j in range(PCA_K + 1) if j != i) - 2 * pert
+        cos = abs(float(g["pca_components"][i].astype(np.float64) @ pca_res.components_[i]))
+        cosines.append(cos)
+        if gap > 0 and pert / gap < 1 and cos < np.sqrt(1 - (pert / gap) ** 2):
+            fail(f"18 pca: component {i}: |cos| {cos} below the Davis-Kahan bound {np.sqrt(1 - (pert / gap) ** 2)}")
+    kappa = float(spectrum[0] / spectrum[-1])
+    rel = 2 * kappa * F32_SOLVE_REL / (1 - 2 * kappa * F32_SOLVE_REL)
+    c_err = float(np.linalg.norm(g["ols_coef"] - ols_res.coef_) / np.linalg.norm(ols_res.coef_))
+    if c_err > rel:
+        fail(f"18 ols: coefficients {c_err} relative from phase 7a's (normwise bound {rel})")
+    base = logreg_ref["baseline"]
+    f_err = abs(float(g["lr_objective"]) - base.objective_) / abs(base.objective_)
+    lc_err = float(np.linalg.norm(g["lr_coef"] - base.coef_) / np.linalg.norm(base.coef_))
+    if f_err > 1e-5 or lc_err > 1e-3:
+        fail(f"18 logreg: objective within {f_err} (tol 1e-5), coefficients within {lc_err} (tol 1e-3) of phase 8a's")
+    say(f"  18 pca: explained variance within {ev_err:.3g} (bound {pert:.3g}), |cos| "
+        f"{[round(c, 9) for c in cosines]}; ols: coefficients within {c_err:.3g} (bound {rel:.3g}); logreg "
+        f"{LOGREG_ROW}: n_iter_ {int(g['lr_iter'])} (phase 8a {base.n_iter_}), objective within {f_err:.3g}, "
+        f"coefficients within {lc_err:.3g}")
+    # kNN: each rank's queries are its share of phase 4's, in rank order
+    worst = 0.0
+    for r in range(MP_NRANKS):
+        rows = slice(r * MP_QUERIES, (r + 1) * MP_QUERIES)
+        if not np.array_equal(got[r]["knn_query_ids"], np.arange(rows.start, rows.stop)):
+            fail(f"18 knn: rank {r}'s query ids are not rows {rows.start}..{rows.stop - 1}")
+        if not np.array_equal(got[r]["knn_ids"], exact_ids[rows]):
+            bad = int((got[r]["knn_ids"] != exact_ids[rows]).any(axis=1).sum())
+            fail(f"18 knn: rank {r}: {bad} query rows' ids differ from phase 4's")
+        d_ref = np.asarray(exact_dist[rows], dtype=np.float64)
+        err = float((np.abs(got[r]["knn_dist"] - d_ref) / np.maximum(np.abs(d_ref), 1e-30))[:, 1:].max())
+        worst = max(worst, err)
+    if worst > MP_KNN_RTOL:
+        fail(f"18 knn: distances within {worst} of phase 4's (rtol {MP_KNN_RTOL})")
+    say(f"  18 knn: {KNN_QUERIES} queries ({MP_QUERIES} a rank), k = {KNN_K}: ids equal to phase 4's, distances "
+        f"within {worst:.3g} (self-distances aside)")
+    nccl = info[0].get("nccl") or {}
+    if nccl.get("backend") != "nccl" or not nccl.get("equal") or not nccl.get("device", "").startswith("cuda"):
+        fail(f"18b: the one-rank group's all-gather: {nccl}")
+    timings["nccl_allgather_s"] = nccl["s"]
+    say(f"  18b: a one-rank NCCL group's all-gather and fixed-order sum of 4 MB on {nccl['device']} equal the "
+        f"input ({nccl['s']:.3f} s)")
+    counts = {}
+    for r in range(MP_NRANKS):
+        for k_, n in info[r]["launches"].items():
+            counts[k_] = counts.get(k_, 0) + n
+    say("  launches in phase 18 (both ranks): " + ", ".join(f"{k_}={v}" for k_, v in counts.items()))
+    return counts, timings
+
+
 def main():
     import torch
 
@@ -6313,6 +6667,8 @@ def main():
         print("chip_smoke: run it from a checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
+    if sys.argv[1:2] == ["--mp-worker"]:  # one rank of phase 18
+        return mp_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
     phase_s = {}
@@ -6339,6 +6695,8 @@ def main():
                                                            logreg_ref["y"], linear_timings)
     sched_counts, sched_timings = run("17 scheduler", phase_scheduler, dev, X, logreg_ref["y"], recovery_refs)
     del recovery_refs
+    mp_counts, mp_timings = run("18 multiprocess", phase_multiprocess, dev, X, linear_ref, logreg_ref,
+                                exact_ids, exact_dist)
     forest_timings = run("9 forests", phase_forests, dev, X)
     multi_counts, multi_timings = run("10 multifit", phase_multifit, dev, X, linear_ref["y"], logreg_ref["y"])
     ann_counts, ann_timings = run("11 ann", phase_ann, dev, X, exact_ids, exact_dist)
@@ -6384,6 +6742,7 @@ def main():
         e["launches_by_run"]["overload"] = overload_counts[e["name"]]  # phase 15
         e["launches_by_run"]["recovery"] = recovery_counts.get(e["name"], 0)  # phase 16
         e["launches_by_run"]["scheduler"] = sched_counts.get(e["name"], 0)  # phase 17
+        e["launches_by_run"]["multiprocess"] = mp_counts.get(e["name"], 0)  # phase 18, both ranks
     for name in ("assign_argmin/f64", "assign_accumulate/f64", "d2_block/f64", "assign_argmin/f64-fast"):
         if not f64_counts["route"][name]:
             fail(f"the float64 route never launched {name}")
@@ -6412,6 +6771,7 @@ def main():
     say("sparse input timings: " + json.dumps(sparse_timings))
     say("recovery timings: " + json.dumps(recovery_timings))
     say("scheduler timings: " + json.dumps(sched_timings))
+    say("multi-process timings: " + json.dumps(mp_timings))
     say("seconds by phase: " + json.dumps(phase_s))
     kernels_line = json.dumps({"kernels": entries})
     say(f"total {time.perf_counter() - t_start:.1f} s")

@@ -1,6 +1,7 @@
 #
-# Core execution framework on one device: the estimator and model bases, the
-# fit driver with its multi-fit half, batched transform, the resident
+# Core execution framework: the estimator and model bases, the fit path
+# with its multi-fit half and its multi-process (SPMD) half, batched
+# transform, the resident
 # predict handle the serving plane keeps per model (`PredictProgram`), and
 # persistence. The PyTorch counterpart of the parts of
 # spark_rapids_ml_tpu/core.py that the estimators' fits, fitMultiple and
@@ -45,9 +46,24 @@
 # checkpoint (`checkpoint.restores`) and the retained statistics of the
 # linear family are reused (`checkpoint.stats_reuses`). The OOM ladder runs
 # inside the stage, so its streamed retry resumes a resident fit's KMeans
-# checkpoint too. With no rendezvous (until A10) a rank loss is never
-# reformed around: it propagates typed, as the JAX package's does on a
-# substrate that cannot reform.
+# checkpoint too. A retry of a multi-process fit begins a new rendezvous
+# epoch on every rank. No rendezvous of the port can reform around a lost
+# rank yet (the recovery epochs are a later A10 item): a rank loss
+# propagates typed, as the JAX package's does on a substrate that cannot
+# reform.
+#
+# Multi-process fits (parallel/context.py): under an entered
+# `TpuContext(rank, nranks, rendezvous)` with nranks > 1, each rank passes
+# its own row block; the global layout is agreed through the rendezvous
+# (`PartitionDescriptor`, `FitInputs.desc`; `n_valid` is the global row
+# count), each rank places only its block, and the solvers of the
+# estimators that set `_supports_multiprocess` (KMeans, PCA,
+# LinearRegression, LogisticRegression; NearestNeighbors searches in its
+# own kneighbors) sum their row statistics across ranks through the
+# context's process group (`parallel.context.allreduce_fixed`, active for
+# the fit's extent). Every other estimator refuses, naming A10. A
+# multi-process fit must fit resident (memory.py), dense, and alone (no
+# fit scheduler, no tuning gather).
 #
 # Persistence keeps the JAX package's on-disk layout exactly:
 # metadata.json + arrays.npz + attributes.json, so a directory saved by
@@ -182,6 +198,24 @@ config: Dict[str, Any] = {
     # (utils/lockcheck.py) records a `lockcheck.long_hold` violation; seeded
     # from SRML_LOCKCHECK_LONG_HOLD_MS (a malformed value keeps 500)
     "lockcheck_long_hold_ms": _env_float("SRML_LOCKCHECK_LONG_HOLD_MS", 500.0),
+    # --- multi-process control plane (parallel/context.py) ------------------
+    # per-round rendezvous deadline, and the process group's collective
+    # timeout: a round with ranks still missing raises RendezvousTimeoutError
+    # (transient, retryable) when it elapses
+    "rendezvous_timeout_s": 300.0,
+    # liveness-file cadence of FileRendezvous; a peer whose heartbeat goes
+    # stale by 1.5x this raises RankFailedError on the others, so a killed
+    # rank surfaces within 2x the interval instead of the round deadline
+    "heartbeat_interval_s": 5.0,
+    # bound of the success-path TpuContext teardown barrier: a peer that
+    # already exited must not hang teardown (a timeout there only logs)
+    "teardown_timeout_s": 15.0,
+    # bytes per round of `parallel.context.allgather_ndarray`
+    "broadcast_chunk_bytes": 8 << 30,
+    # the address rank 0 advertises for the process group's store; ranks on
+    # other hosts must reach rank 0 by it. None: the loopback address (all
+    # ranks on one host)
+    "coordinator_host": None,
     # --- recovery (checkpoint.py, retryable_stage) -------------------------
     # transient-failure retries of one fit stage (errors.is_transient), with
     # exponential backoff from fit_retry_backoff_s capped at
@@ -238,7 +272,9 @@ def evaluator_label_column(params_obj: Any, evaluator: Any) -> str:
     return params_obj.getOrDefault("labelCol")
 
 
-def retryable_stage(fn: Callable[[int], Any], *, stage: str, max_retries: Optional[int] = None) -> Any:
+def retryable_stage(
+    fn: Callable[[int], Any], *, stage: str, rendezvous: Any = None, max_retries: Optional[int] = None
+) -> Any:
     """Run ``fn(attempt)`` with bounded retries on TRANSIENT failures
     (`errors.is_transient`); a permanent one (RankFailedError,
     SolverDivergedError, HbmBudgetError, a user error) propagates at once,
@@ -253,9 +289,10 @@ def retryable_stage(fn: Callable[[int], Any], *, stage: str, max_retries: Option
     (`parallel.chaos.maybe_fail_stage`) runs at the top of every attempt.
     A `checkpoint.CheckpointStore` is active for all attempts (adopting
     the enclosing `recoverable_stage`'s when there is one), so solvers that
-    checkpoint resume a retry from their last checkpoint. The JAX
-    package's `rendezvous.begin_epoch` before a retry waits for a
-    rendezvous (A10)."""
+    checkpoint resume a retry from their last checkpoint. With a
+    `rendezvous` (a multi-process fit), `rendezvous.begin_epoch(attempt)`
+    re-namespaces the control plane before each retry, so it never reads
+    the failed attempt's rounds."""
     import time
 
     from . import checkpoint as _checkpoint
@@ -283,26 +320,28 @@ def retryable_stage(fn: Callable[[int], Any], *, stage: str, max_retries: Option
                     stage, attempt + 1, max_retries + 1, type(e).__name__, e, sleep_s,
                 )
                 time.sleep(sleep_s)  # the capped retry backoff
+                if rendezvous is not None:
+                    rendezvous.begin_epoch(attempt + 1)
     raise AssertionError("unreachable")  # pragma: no cover
 
 
-def recoverable_stage(fn: Callable[[int], Any], *, stage: str) -> Any:
+def recoverable_stage(fn: Callable[[int], Any], *, stage: str, rendezvous: Any = None) -> Any:
     """The elastic outer layer over `retryable_stage`, on a substrate that
-    cannot reform (the port has no rendezvous until A10): transient
-    failures retry as there, inside one checkpoint store that the stage
-    owns; a `RankFailedError`, or a `RendezvousTimeoutError` naming missing
-    ranks that outlived the retries, propagates with
-    ``recovery_exhausted=False`` and ``recovery_generations=0`` stamped,
-    exactly as the JAX package's does when its rendezvous is None. Its
-    recovery epochs (survivors agree on a live set, the mesh is rebuilt
-    over them, the solvers resume from the store; bounded by a budget of
-    rank losses) arrive with A10."""
+    cannot reform (no rendezvous of the port can yet): transient failures
+    retry as there (a multi-process fit's in a new epoch of `rendezvous`),
+    inside one checkpoint store that the stage owns; a `RankFailedError`,
+    or a `RendezvousTimeoutError` naming missing ranks that outlived the
+    retries, propagates with ``recovery_exhausted=False`` and
+    ``recovery_generations=0`` stamped, exactly as the JAX package's does
+    when its rendezvous cannot reform. Its recovery epochs (survivors agree
+    on a live set and resume from the store, bounded by a budget of rank
+    losses) are a later A10 item."""
     from . import checkpoint as _checkpoint
     from .errors import RankFailedError, RendezvousTimeoutError
 
     with _checkpoint.ensure_scope():
         try:
-            return retryable_stage(fn, stage=stage)
+            return retryable_stage(fn, stage=stage, rendezvous=rendezvous)
         except (RankFailedError, RendezvousTimeoutError) as e:
             if isinstance(e, RendezvousTimeoutError) and not getattr(e, "missing_ranks", None):
                 # no liveness evidence to reform around (a desync, a chaos
@@ -348,11 +387,13 @@ class FitInputs:
     tensor on one device, their weights, and their labels for a supervised
     estimator. A streamed (demoted) fit places nothing: X is None, w and y
     are host arrays and `stream` carries the plan the streaming solvers
-    read."""
+    read. In a multi-process fit X, w and y are this rank's block, `n_valid`
+    is the GLOBAL row count (the sum over ranks), `desc` the agreed layout
+    and `ctx` the TpuContext the fit runs under."""
 
     X: Optional[torch.Tensor]  # [n, d]; None when streamed
     w: Any  # [n] tensor on the device; a host array when streamed
-    n_valid: int
+    n_valid: int  # GLOBAL valid rows (the sum over ranks in a multi-process fit)
     n_cols: int
     dtype: Any  # numpy dtype of X
     device: torch.device
@@ -369,6 +410,41 @@ class FitInputs:
     # per-placement memos shared by every fold variant (`with_row_mask`
     # copies the reference): the ELL tensors and their column grouping
     extra: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    # the multi-process fit's TpuContext and agreed row layout
+    # (parallel.PartitionDescriptor); None on one process
+    ctx: Any = None
+    desc: Any = None
+
+    @property
+    def spmd(self) -> bool:
+        return self.ctx is not None and self.ctx.is_spmd
+
+    def allgather_host(self, payload: str) -> List[str]:
+        """Control-plane allgather of a small string across ranks (host
+        statistics: class sets); `[payload]` on one process."""
+        if self.spmd:
+            return self.ctx.rendezvous.allgather(payload)
+        return [payload]
+
+    def allgather_array(self, arr: np.ndarray) -> np.ndarray:
+        """Every rank's host block of `arr` (the same trailing shape and
+        dtype on every rank), concatenated in rank order along axis 0 (the
+        KMeans init sample); `arr` on one process. It travels through the
+        context's process group (host memory under gloo, the card under
+        NCCL), or through the rendezvous when the context has no group."""
+        if not self.spmd:
+            return arr
+        arr = np.ascontiguousarray(arr)
+        group = self.ctx.group
+        if group is None:
+            from .parallel.context import allgather_ndarray
+
+            return np.concatenate(allgather_ndarray(self.ctx.rendezvous, arr), axis=0)
+        from .parallel import host_tensor
+
+        dev = torch.device("cpu") if group.backend == "gloo" else group.device
+        parts = group.allgather_rows(host_tensor(arr).to(dev))
+        return np.concatenate([p.cpu().numpy() for p in parts], axis=0)
 
     def ell_rows(self) -> Tuple[torch.Tensor, torch.Tensor]:
         """The padded-ELL form of `X_sparse` on the device, (values [n,
@@ -410,11 +486,16 @@ class FitInputs:
         fit). The solvers treat ``w == 0`` rows as absent, so a masked fit
         over the whole dataset is the fit over the mask's rows: this is how
         CrossValidator realizes a fold without another ingest or placement.
-        X and y are shared untouched."""
+        X and y are shared untouched. In a multi-process fit the mask names
+        THIS rank's rows (`n_valid` is the global count)."""
         from .parallel import host_tensor
 
         m = np.ascontiguousarray(np.asarray(mask), dtype=self.dtype)
-        if m.shape[0] != self.n_valid:
+        if self.spmd:
+            local = self.desc.rows_of(self.ctx.rank)
+            if m.shape[0] != local:
+                raise ValueError(f"row mask has {m.shape[0]} entries for this rank's {local} rows")
+        elif m.shape[0] != self.n_valid:
             raise ValueError(f"row mask has {m.shape[0]} entries for {self.n_valid} rows")
         if self.stream is not None:
             w_masked = np.asarray(self.w) * m
@@ -563,6 +644,10 @@ class _TpuCaller(_TpuCommon):
     # demotes to ops/streaming.py; for the rest it raises HbmBudgetError
     _supports_streaming_fit: bool = False
 
+    # estimators whose solvers sum their row statistics across ranks set
+    # this: under a multi-process TpuContext the others refuse (A10)
+    _supports_multiprocess: bool = False
+
     # the memory.AdmissionDecision of the latest fit attempt (stamped onto
     # model._fit_metrics by _call_fit_func)
     _last_admission: Any = None
@@ -594,12 +679,23 @@ class _TpuCaller(_TpuCommon):
         streamed). {} (the default) = no modeled workspace."""
         return {}
 
-    def _build_fit_inputs(self, extracted: ExtractedData, device: torch.device) -> FitInputs:
+    def _build_fit_inputs(self, extracted: ExtractedData, device: torch.device, ctx: Any = None) -> FitInputs:
         """Place the host rows, their weights and their labels on `device` as
         one tensor each; CSR rows are placed in their padded-ELL form when a
-        solver first asks (`FitInputs.ell_rows`)."""
-        from .parallel import host_tensor, place_rows
+        solver first asks (`FitInputs.ell_rows`). In a multi-process fit
+        (`ctx`) `extracted` is this rank's block: the global layout is agreed
+        through the rendezvous first (one round), and the rank places its
+        block alone. No padding to a common local size: no program here
+        needs equal blocks."""
+        from .parallel import PartitionDescriptor, host_tensor, place_rows
 
+        if ctx is not None:
+            desc = PartitionDescriptor.build(
+                [extracted.n_rows], extracted.n_cols, rank=ctx.rank, rendezvous=ctx.rendezvous
+            )
+            return dataclasses.replace(
+                self._build_fit_inputs(extracted, device), n_valid=desc.m, ctx=ctx, desc=desc
+            )
         dtype = np.float32 if self._float32_inputs else np.float64
         y = None
         if extracted.label is not None:
@@ -652,13 +748,13 @@ class _TpuCaller(_TpuCommon):
         reg.inc("ingest.rows", extracted.n_rows)
         return extracted
 
-    def _layout(self, extracted: ExtractedData, device: torch.device) -> FitInputs:
+    def _layout(self, extracted: ExtractedData, device: torch.device, ctx: Any = None) -> FitInputs:
         """The placement of the host blocks on `device`, timed as
         device_wait.layout_s."""
         from . import telemetry
 
         with telemetry.device_wait("layout", device):
-            return self._build_fit_inputs(extracted, device)
+            return self._build_fit_inputs(extracted, device, ctx)
 
     def _device_dataset_key(self, dataset: Any, device: torch.device) -> tuple:
         """(dataset identity fingerprint, columns, (dtype, sparse mode),
@@ -690,6 +786,7 @@ class _TpuCaller(_TpuCommon):
         key: Optional[tuple] = None,
         source: Any = None,
         attempt: int = 0,
+        ctx: Any = None,
     ) -> DeviceDataset:
         """The admission verdict and the data plane it calls for: RESIDENT
         scans the rows for NaN/Inf (when asked) and places them; STREAM
@@ -698,12 +795,19 @@ class _TpuCaller(_TpuCommon):
         deferred to each row block; a fit that fits neither way raises the
         typed `HbmBudgetError` from `memory.admit_fit`. A streamed dataset
         comes back with ``key=None``: there is no placement to reuse, and a
-        later fit must budget anew."""
+        later fit must budget anew. In a multi-process fit (`ctx`) a rank
+        places its own block (`_build_fit_inputs`); CSR input there is a
+        later A10 item."""
         from . import memory as _memory
         from . import telemetry
         from .data import run_deferred_validation
         from .parallel import chaos
 
+        if ctx is not None and extracted.is_sparse:
+            raise NotImplementedError(
+                f"{type(self).__name__}: sparse (padded-ELL) fits under a multi-process "
+                "TpuContext are ROADMAP item A10; densify the rows or fit on one process"
+            )
         # hand back this fit's previous claim before re-admitting: the OOM
         # retry must not count the failed attempt's bytes against itself
         self._adopt_reservation(None)
@@ -733,7 +837,7 @@ class _TpuCaller(_TpuCommon):
         # index = the fit stage's attempt: `oom:stage=placement:round=1`
         # targets the re-placement of a retried attempt, not the first one
         chaos.maybe_fail_oom("placement", attempt)
-        inputs = self._layout(extracted, device)
+        inputs = self._layout(extracted, device, ctx)
         telemetry.record_device_memory(device)  # the watermark after placement
         return DeviceDataset(key, extracted, inputs, source=source, admission=adm)
 
@@ -758,27 +862,42 @@ class _TpuCaller(_TpuCommon):
         )
 
     def _device_dataset(
-        self, dataset: Any, device: torch.device, force_stream: bool = False, attempt: int = 0
+        self, dataset: Any, device: torch.device, force_stream: bool = False, attempt: int = 0, ctx: Any = None
     ) -> DeviceDataset:
         """Ingest, admission and placement, or a cache hit inside an active
         `device_dataset_scope`: the ingest and the placement happen only on
         a miss, which is how a numFolds x paramMaps CrossValidator fit
         places its rows once. A streamed (demoted) dataset is never cached;
-        a cached entry is a RESIDENT placement that passed admission."""
+        a cached entry is a RESIDENT placement that passed admission.
+
+        In a multi-process fit (`ctx`) a hit runs no rendezvous round and a
+        miss runs the layout's, so hit and miss must agree across ranks:
+        one round first (`fit.device_dataset_spmd_rounds`) in which every
+        rank states whether it holds the entry, and the cache serves only
+        when all do; otherwise every rank ingests and places anew."""
         from . import memory as _memory
         from . import telemetry
 
         scope = _DDS_SCOPE.get()
         if scope is None or force_stream:
             extracted = self._ingest(dataset)
-            dds = self._admit_and_layout(extracted, device, force_stream=force_stream, attempt=attempt)
+            dds = self._admit_and_layout(extracted, device, force_stream=force_stream, attempt=attempt, ctx=ctx)
             if scope is not None:
                 scope.last = dds
             return dds
         key = self._device_dataset_key(dataset, device)
         reg = telemetry.registry()
+        allow_hit = True
+        if ctx is not None:
+            with scope.lock:
+                have = key in scope.cache
+            votes = ctx.rendezvous.allgather(f"dds-have:{int(have)}")
+            allow_hit = all(v == "dds-have:1" for v in votes)
+            reg.inc("fit.device_dataset_spmd_rounds")
+        # the scope is this rank's own, so holding its lock across the miss
+        # branch's layout round blocks no peer
         with scope.lock:
-            dds = scope.cache.get(key)
+            dds = scope.cache.get(key) if allow_hit else None
             if dds is not None:
                 scope.cache.move_to_end(key)
                 reg.inc("fit.device_dataset_reuses")
@@ -791,7 +910,9 @@ class _TpuCaller(_TpuCommon):
             else:
                 extracted = self._ingest(dataset)
                 # `source=dataset` pins the object whose id() keys the entry
-                dds = self._admit_and_layout(extracted, device, key=key, source=dataset, attempt=attempt)
+                dds = self._admit_and_layout(
+                    extracted, device, key=key, source=dataset, attempt=attempt, ctx=ctx
+                )
                 if dds.key is not None:  # streamed datasets are not cached
                     reg.inc("fit.device_dataset_builds")
                     scope.cache[key] = dds
@@ -812,15 +933,27 @@ class _TpuCaller(_TpuCommon):
         (one for None): returns the model-attribute dicts. `row_mask` trains
         on its rows only (`FitInputs.with_row_mask`). The admission verdict
         lands in ``self._last_fit_metrics["admission"]``: always for a
-        demoted fit, with telemetry on for a resident one."""
+        demoted fit, with telemetry on for a resident one. A multi-process
+        fit (an entered TpuContext with nranks > 1) runs under the context's
+        process group, its rank, size and backend stamped in
+        ``_last_fit_metrics["spmd"]``; an estimator that does not support it
+        refuses."""
         from . import telemetry
-        from .parallel import default_device
+        from .parallel import default_device, refuse_multi_device
+        from .parallel.context import TpuContext, fit_group_scope
 
-        if self.num_workers > 1:
-            raise NotImplementedError(
-                f"num_workers={self.num_workers}: the PyTorch port fits on one "
-                "device (multi-GPU is ROADMAP item A10)"
-            )
+        ctx = TpuContext.current()
+        if ctx is not None and ctx.is_spmd:
+            if not self._supports_multiprocess:
+                raise NotImplementedError(
+                    f"{type(self).__name__} does not support multi-process SPMD fit yet; "
+                    "run it single-controller (one process driving all devices); its "
+                    "multi-process fit is ROADMAP item A10"
+                )
+        else:
+            ctx = None
+            # as the JAX package clamps num_workers to the visible devices
+            refuse_multi_device(self.num_workers, f"{type(self).__name__} fit")
         device = default_device()
         self._last_admission = None
         try:
@@ -828,10 +961,14 @@ class _TpuCaller(_TpuCommon):
             # recoverable stage: a transient retry re-derives its state from
             # the immutable dataset, and the solvers resume from the
             # checkpoint store the attempts share
-            rows = recoverable_stage(
-                lambda attempt: self._call_fit_func_oom_ladder(dataset, param_maps, row_mask, device, attempt),
-                stage="fit",
-            )
+            with fit_group_scope(None if ctx is None else ctx.group):
+                rows = recoverable_stage(
+                    lambda attempt: self._call_fit_func_oom_ladder(
+                        dataset, param_maps, row_mask, device, attempt, ctx=ctx
+                    ),
+                    stage="fit",
+                    rendezvous=None if ctx is None else ctx.rendezvous,
+                )
         finally:
             # the fit's ledger claim ends with the fit, whatever its outcome
             self._adopt_reservation(None)
@@ -841,6 +978,8 @@ class _TpuCaller(_TpuCommon):
             if adm is not None and (telemetry.enabled() or adm.demoted)
             else {}
         )
+        if ctx is not None:
+            self._last_fit_metrics["spmd"] = {"rank": ctx.rank, "nranks": ctx.nranks, "backend": ctx.backend}
         return rows
 
     def _call_fit_func_oom_ladder(
@@ -850,22 +989,24 @@ class _TpuCaller(_TpuCommon):
         row_mask: Optional[np.ndarray],
         device: torch.device,
         attempt: int = 0,
+        ctx: Any = None,
     ) -> List[Dict[str, Any]]:
         """One attempt, with the OOM ladder around it: a real allocation
         failure on the card (`memory.is_oom_error`: torch.OutOfMemoryError,
         or the chaos `oom` fault shaped like one) is retried ONCE on the
-        streaming path. A second failure, or an estimator with no streaming
-        path, raises `HbmBudgetError`; a raw OOM never leaves a fit."""
+        streaming path. A second failure, an estimator with no streaming
+        path, or a multi-process fit (which must fit resident), raises
+        `HbmBudgetError`; a raw OOM never leaves a fit."""
         from . import memory as _memory
         from . import telemetry
 
         try:
-            return self._call_fit_func_attempt(dataset, param_maps, row_mask, device, attempt=attempt)
+            return self._call_fit_func_attempt(dataset, param_maps, row_mask, device, attempt=attempt, ctx=ctx)
         except Exception as e:
             if not _memory.is_oom_error(e):
                 raise
             telemetry.registry().inc("memory.oom_caught")
-            if not self._supports_streaming_fit:
+            if not self._supports_streaming_fit or ctx is not None:
                 raise _memory.as_hbm_budget_error(e, self._last_admission) from e
             _LOG.warning(
                 "%s: out of memory on the card during the fit (%s); retrying ONCE on "
@@ -902,12 +1043,19 @@ class _TpuCaller(_TpuCommon):
         device: torch.device,
         force_stream: bool = False,
         attempt: int = 0,
+        ctx: Any = None,
     ) -> List[Dict[str, Any]]:
-        dds = self._device_dataset(dataset, device, force_stream=force_stream, attempt=attempt)
+        dds = self._device_dataset(dataset, device, force_stream=force_stream, attempt=attempt, ctx=ctx)
         extracted, inputs = dds.extracted, dds.inputs
         fit_func = self._get_tpu_fit_func(extracted)
         if row_mask is not None:
+            # in a multi-process fit each rank passes its LOCAL fold mask
             inputs = inputs.with_row_mask(row_mask)
+        _LOG.info(
+            "fit: %d rows x %d cols on %s (%s)%s", inputs.n_valid, inputs.n_cols, device,
+            "sparse" if inputs.X_sparse is not None else "dense",
+            f" [SPMD rank {ctx.rank}/{ctx.nranks}, {ctx.backend}]" if ctx is not None else "",
+        )
         if param_maps is None:
             solver_param_sets = [dict(self._solver_params)]
         else:

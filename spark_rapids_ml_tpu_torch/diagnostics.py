@@ -3,8 +3,8 @@
 # ops plane's records carry (the audit log, the Prometheus rank label, the
 # report's `meta` header).
 #
-#   `_rank()`       this process's rank: `SRML_RANK`, else 0 (the port runs
-#                   one process per card and has no rendezvous context yet);
+#   `_rank()`       this process's rank: the active TpuContext's, else
+#                   `SRML_RANK`, else 0;
 #   `trace_tags()`  ``{"trace_id": SRML_TRACE_ID}`` when a launcher minted
 #                   one, else ``{}``.
 #
@@ -23,8 +23,13 @@ __all__ = ["trace_tags"]
 
 
 def _rank() -> int:
-    """This process's rank for record tagging: `SRML_RANK`, else 0 (a
-    malformed value counts as unset)."""
+    """This process's rank for record tagging: the active TpuContext's
+    rank, else `SRML_RANK`, else 0 (a malformed value counts as unset)."""
+    from .parallel.context import TpuContext
+
+    ctx = TpuContext.current()
+    if ctx is not None:
+        return ctx.rank
     env = os.environ.get("SRML_RANK")
     if env:
         try:

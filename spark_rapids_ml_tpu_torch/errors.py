@@ -40,8 +40,9 @@ class RendezvousTimeoutError(SrmlError, TimeoutError):
     TRANSIENT: the deadline fires symmetrically on every rank still waiting,
     so all survivors unwind to the fit driver together and a coordinated
     retry is safe. Distinguish from `RankFailedError`, where a peer is KNOWN
-    dead. The port has no rendezvous yet (A10); the chaos `fail:` plans
-    raise this error at a fit stage or a solver checkpoint boundary."""
+    dead. Raised by the rendezvous substrates and the process group's
+    collectives (parallel/context.py), and by the chaos `fail:` plans at a
+    fit stage or a solver checkpoint boundary."""
 
     def __init__(
         self,
@@ -61,8 +62,9 @@ class RankFailedError(SrmlError, RuntimeError):
     """A peer rank failed mid-fit. `core.recoverable_stage` stamps
     ``recovery_exhausted``/``recovery_generations`` on it as it propagates,
     so callers and post-mortems can tell "never tried" from "tried and ran
-    out"; with no rendezvous to reform (the port's one process, until A10)
-    recovery is never opened. PERMANENT once it propagates: an external
+    out"; no rendezvous of the port can reform yet (the recovery epochs are
+    a later A10 item), so recovery is never opened. PERMANENT once it
+    propagates: an external
     supervisor, not an in-process retry, must relaunch the rank."""
 
     # stamped by core.recoverable_stage when it re-raises: how many

@@ -49,6 +49,9 @@
 # force-streamed (reason naming config['sched_max_preemptions'], one
 # `demotion` record), and a cache hit resizes it too
 # (`rereserve_admission`). The chip-scoped claims of the 2-D book are A10.
+# A multi-process fit (a TpuContext with nranks > 1) budgets each rank's
+# own block and never streams: over budget it is refused with the typed
+# HbmBudgetError, as in the JAX package.
 # A CSR fit is
 # charged its padded-ELL placement (`placement_terms`, `row_bytes`: the
 # values and int32 indices, padding cells included, as in the JAX
@@ -406,6 +409,23 @@ def admit_fit(
             _refuse(HbmBudgetError(
                 f"{type(estimator).__name__} fit does not fit device memory "
                 f"and has no out-of-core streaming path{held_note}",
+                estimate_bytes=res.total(),
+                capacity_bytes=budget,
+                largest_term=name,
+                largest_term_bytes=nbytes,
+                terms=res.terms,
+            ))
+        from .parallel.context import TpuContext
+
+        ctx = TpuContext.current()
+        if ctx is not None and ctx.is_spmd:
+            # each rank budgets its own block; a multi-process fit must fit
+            # resident, as in the JAX package
+            name, nbytes = res.largest()
+            _refuse(HbmBudgetError(
+                f"{type(estimator).__name__} fit does not fit device memory; "
+                "the out-of-core streaming path is single-controller only "
+                "(multi-process SPMD fits must fit resident)",
                 estimate_bytes=res.total(),
                 capacity_bytes=budget,
                 largest_term=name,

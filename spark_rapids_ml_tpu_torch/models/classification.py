@@ -21,7 +21,11 @@
 # active (checkpoint.py) a single fit, resident, sparse or streamed,
 # checkpoints its loop under "logistic:<its params>" (streamed:
 # "logistic_stream:..."), the JAX package's keys; warm start takes a fitted
-# model or a `SolverCheckpoint` with an original-space `coef_`. Left out,
+# model or a `SolverCheckpoint` with an original-space `coef_`. It fits
+# across processes too (a TpuContext with nranks > 1): the class sets are
+# merged over the rendezvous and every row reduction of the solvers is
+# summed across ranks (ops/logistic.py); the forests' multi-process fit is
+# a later A10 item. Left out,
 # each raising NotImplementedError naming its ROADMAP item: `evaluate` and
 # `.cpu()` (Spark interop, A16).
 #
@@ -236,6 +240,8 @@ class LogisticRegression(_LogisticRegressionParams, _TpuEstimatorSupervised):
     # dataset demotes to ops/streaming.logistic_fit_streaming (the L2 path;
     # OWL-QN has no streaming form and a demoted L1 fit raises)
     _supports_streaming_fit = True
+    # its row statistics summed across ranks (a multi-process fit)
+    _supports_multiprocess = True
     # CSR input fits on the padded-ELL layout (ops/logistic.logistic_fit_ell)
     _supports_sparse_input = True
 
@@ -365,9 +371,17 @@ class LogisticRegression(_LogisticRegressionParams, _TpuEstimatorSupervised):
     def _resolve_classes(labels_host: np.ndarray, inputs: FitInputs) -> np.ndarray:
         """Sorted class values of this fit's labels. A fold's row mask is
         honored: a weight-masked CV fold finds its classes among its train
-        rows only, as the physical split would."""
+        rows only, as the physical split would. In a multi-process fit the
+        ranks' class sets are merged (one rendezvous round), so a rank that
+        holds one class still fits every class."""
+        import json
+
         lbl = labels_host if inputs.host_mask is None else labels_host[inputs.host_mask]
-        return np.unique(lbl).astype(np.float64)
+        local = np.unique(lbl).astype(np.float64)
+        if not inputs.spmd:
+            return local
+        gathered = inputs.allgather_host(json.dumps(local.tolist()))
+        return np.unique(np.concatenate([np.asarray(json.loads(g), dtype=np.float64) for g in gathered]))
 
     @staticmethod
     def _degenerate_single_class(classes: np.ndarray, inputs: FitInputs) -> Dict[str, Any]:

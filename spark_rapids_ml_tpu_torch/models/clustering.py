@@ -5,10 +5,13 @@
 # KMeansModel's serving hooks; DBSCAN, DBSCANModel), on one device. An
 # over-budget KMeans fit streams its rows from the host
 # (ops/streaming.kmeans_fit_streaming). Warm start takes a fitted model or a
-# `SolverCheckpoint` with a `centers` payload. The multi-process init gather of
-# the JAX package is a later ROADMAP item (A10), as are DBSCAN's replicated
-# gather of every rank's rows (A10). Sparse input is densified, as in the
-# JAX package.
+# `SolverCheckpoint` with a `centers` payload. KMeans fits across processes
+# too (a TpuContext with nranks > 1): every rank draws a bounded sample of
+# its own rows, the samples are gathered in rank order, and every rank
+# seeds on that same union, so all enter the Lloyd loop (whose step sums
+# across ranks, ops/kmeans.py) with the same centers. DBSCAN's replicated
+# gather of every rank's rows is a later A10 item. Sparse input is
+# densified, as in the JAX package.
 #
 from __future__ import annotations
 
@@ -96,6 +99,8 @@ class KMeans(_KMeansParams, _TpuEstimator):
     # per-chunk assignment and center accumulation: an over-budget dataset
     # demotes to ops/streaming.kmeans_fit_streaming
     _supports_streaming_fit = True
+    # the init sample gathered across ranks, the Lloyd sums reduced
+    _supports_multiprocess = True
 
     def _solver_workspace_terms(
         self, rows_per_device: int, n_cols: int, params: Dict[str, Any], itemsize: int
@@ -204,12 +209,7 @@ class KMeans(_KMeansParams, _TpuEstimator):
 
     def _get_tpu_fit_func(self, extracted: ExtractedData):
         from ..core import resolve_solver_precision
-        from ..ops.kmeans import (
-            kmeans_fit,
-            kmeans_plus_plus_init,
-            random_init,
-            scalable_kmeans_init,
-        )
+        from ..ops.kmeans import kmeans_fit, kmeans_plus_plus_init, scalable_kmeans_init
 
         x_host = extracted.features
         w_host = extracted.weight
@@ -236,13 +236,15 @@ class KMeans(_KMeansParams, _TpuEstimator):
                 reg.inc("fit.warm_starts")
                 reg.inc("fit.warm_start_iterations_saved", int(warm.get("n_iter_", 0) or 0))
             elif init_mode == "random":
-                centers0 = random_init(x_host, k, seed)
-            elif k >= 64:
-                # true k-means|| for large k: O(rounds) device passes instead
-                # of k sequential host passes
-                centers0 = scalable_kmeans_init(x_host, k, seed, w_host, device=inputs.device)
-            else:  # small k: classic k-means++ on the host
-                centers0 = kmeans_plus_plus_init(x_host, k, seed, w_host)
+                centers0 = _random_init(inputs, x_host, k, seed)
+            else:
+                x_init, w_init = _init_rows(inputs, x_host, w_host, k, seed)
+                if k >= 64:
+                    # true k-means|| for large k: O(rounds) device passes
+                    # instead of k sequential host passes
+                    centers0 = scalable_kmeans_init(x_init, k, seed, w_init, device=inputs.device)
+                else:  # small k: classic k-means++ on the host
+                    centers0 = kmeans_plus_plus_init(x_init, k, seed, w_init)
             centers0 = centers0.astype(inputs.dtype)
             # solver_precision="bf16" forces the fast in-loop path; otherwise
             # distance_precision governs the resident loop, and the streamed
@@ -290,6 +292,62 @@ class KMeans(_KMeansParams, _TpuEstimator):
 
     def _create_model(self, attrs: Dict[str, Any]) -> "KMeansModel":
         return KMeansModel(**attrs)
+
+
+def _init_sample(inputs: FitInputs, n_loc: int, k: int, seed: int) -> np.ndarray:
+    """This rank's share of the init union in a multi-process fit: the
+    positions of its rows, all of them, or, past ``max(4k, 262144 //
+    nranks)``, that many drawn without replacement and sorted, from
+    ``np.random.default_rng(seed * 100003 + rank)`` (the JAX package's
+    draw)."""
+    cap = max(4 * k, 262_144 // inputs.ctx.nranks)
+    if n_loc <= cap:
+        return np.arange(n_loc)
+    rs = np.random.default_rng(seed * 100_003 + inputs.ctx.rank)
+    return np.sort(rs.choice(n_loc, cap, replace=False))
+
+
+def _init_rows(inputs: FitInputs, x_host, w_host, k: int, seed: int):
+    """The (rows, weights) a fit seeds on: its own rows on one process; in
+    a multi-process fit the union of every rank's sample (`_init_sample`),
+    gathered in rank order, the same on every rank. The sample travels at
+    the rows' dtype and is widened to float64 after the gather: the JAX
+    package's union (which widens first), in half the bytes for float32
+    rows."""
+    if not inputs.spmd:
+        return x_host, w_host
+    sel = _init_sample(inputs, x_host.shape[0], k, seed)
+    x_init = inputs.allgather_array(np.asarray(x_host[sel])).astype(np.float64)
+    # the weight column is set on every rank or on none (one estimator)
+    w_init = None if w_host is None else inputs.allgather_array(np.asarray(w_host[sel])).astype(np.float64)
+    return x_init, w_init
+
+
+def _random_init(inputs: FitInputs, x_host, k: int, seed: int) -> np.ndarray:
+    """`ops.kmeans.random_init` on the rows a fit seeds on. In a
+    multi-process fit that union is never gathered whole: random_init
+    draws k of its positions (``default_rng(seed).choice(n_union, k)``),
+    so every rank makes the same draw once the ranks' sample sizes are
+    known (one rendezvous round), and the k drawn rows are gathered from
+    their owners; the centers equal random_init of the gathered union bit
+    for bit, at k rows of traffic instead of the union's."""
+    from ..ops.kmeans import random_init
+
+    if not inputs.spmd:
+        return random_init(x_host, k, seed)
+    rank = inputs.ctx.rank
+    sel = _init_sample(inputs, x_host.shape[0], k, seed)
+    sizes = [int(v) for v in inputs.allgather_host(str(len(sel)))]
+    n_union, lo = sum(sizes), sum(sizes[:rank])
+    if k > n_union:
+        raise ValueError(f"k={k} exceeds number of rows {n_union}")
+    idx = np.random.default_rng(seed).choice(n_union, k, replace=False)
+    owner = np.searchsorted(np.cumsum(sizes), idx, side="right")
+    mine = idx[owner == rank] - lo
+    rows = inputs.allgather_array(np.asarray(x_host[sel[mine]]))  # rank order, then draw order
+    centers = np.empty((k, x_host.shape[1]), dtype=np.float64)
+    centers[np.argsort(owner, kind="stable")] = rows
+    return centers
 
 
 class KMeansModel(_KMeansParams, _TpuModelWithColumns):
@@ -559,13 +617,10 @@ class DBSCANModel(_DBSCANParams, _TpuModel):
     def transform(self, dataset: Any):
         from ..data import as_pandas
         from ..ops.dbscan import dbscan_fit
-        from ..parallel import default_device
+        from ..parallel import default_device, refuse_multi_device, refuse_spmd
 
-        if self.num_workers > 1:
-            raise NotImplementedError(
-                f"num_workers={self.num_workers}: DBSCAN runs on one device (the replicated "
-                "gather of every rank's rows is ROADMAP item A10)"
-            )
+        refuse_spmd("DBSCAN (the replicated gather of every rank's rows)")
+        refuse_multi_device(self.num_workers, "DBSCAN")
         pdf = as_pandas(dataset)
         feats = np.asarray(as_dense(self._pre_process_data(dataset, for_fit=False).features), dtype=np.float32)
         labels, core_idx = dbscan_fit(

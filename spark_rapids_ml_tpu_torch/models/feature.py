@@ -5,7 +5,10 @@
 # rows from the host (ops/streaming.pca_fit_streaming). With solver
 # checkpoints active (checkpoint.py) a fit retains its statistics in the
 # fit stage's store (`pca_fit_checkpointed`), so a retry re-runs only the
-# eigendecomposition. `.cpu()` (Spark interop) is A16.
+# eigendecomposition. It fits across processes too (a TpuContext with
+# nranks > 1): the weighted moments and the centered gram are summed across
+# ranks (ops/linalg.weighted_cov) and every rank solves the same
+# eigensystem. `.cpu()` (Spark interop) is A16.
 #
 from __future__ import annotations
 
@@ -63,6 +66,8 @@ class PCA(_PCAParams, _TpuEstimator):
     # the (mean, covariance) statistics accumulate over row chunks: an
     # over-budget dataset demotes to ops/streaming.pca_fit_streaming
     _supports_streaming_fit = True
+    # its row statistics summed across ranks (a multi-process fit)
+    _supports_multiprocess = True
 
     def _solver_workspace_terms(
         self, rows_per_device: int, n_cols: int, params: Dict[str, Any], itemsize: int

@@ -24,9 +24,17 @@
 # model's serving hooks, so the serving plane answers it by exact kNN over
 # its item set, not through its index.
 #
-# Left out, a later ROADMAP item: the multi-device and multi-process
-# search (A10; num_workers > 1 is refused), with ANN's per-rank index and
-# top-k merge, and the sparse search's per-rank merge.
+# Multi-process search (a TpuContext with nranks > 1; the JAX package's
+# SPMD branch of kneighbors): the items stay rank-local, their default ids
+# offset by the rows of the lower ranks; the queries are gathered from every
+# rank (the process group, in rank order); each rank searches its own items
+# for every query with `exact_knn` (the d2-block kernel); the per-rank
+# candidates (distance, item id) are gathered and merged into the global
+# top-k in `jax.lax.top_k`'s order, and each rank returns its own queries'
+# rows. Later A10 items, refused under a multi-process context: ANN's
+# per-rank index and merge, the sparse search's per-rank merge, and the
+# joins (the item table lives on every rank). One process driving several
+# cards is refused when more than one is visible (A10).
 #
 from __future__ import annotations
 
@@ -94,13 +102,14 @@ class NearestNeighbors(_KNNParams, _TpuEstimator):
         return self._set_params(idCol=value)
 
     def _fit_internal(self, dataset: Any, paramMaps=None, row_mask=None) -> List["NearestNeighborsModel"]:
-        # kNN fits no parameters: the model is the item set, bound here; the
-        # search runs in kneighbors
-        if self.num_workers > 1:
-            raise NotImplementedError(
-                f"num_workers={self.num_workers}: the PyTorch port searches on one "
-                "device (multi-GPU is ROADMAP item A10)"
-            )
+        # kNN fits no parameters: the model is the item set, bound here (in
+        # a multi-process fit, this rank's items); the search runs in
+        # kneighbors
+        from ..parallel import TpuContext, refuse_multi_device
+
+        ctx = TpuContext.current()
+        if ctx is None or not ctx.is_spmd:
+            refuse_multi_device(self.num_workers, "NearestNeighbors")
         pdf = as_pandas(dataset)
         extracted = self._pre_process_data(dataset, for_fit=True)
         model = NearestNeighborsModel(
@@ -175,14 +184,22 @@ class NearestNeighborsModel(_KNNParams, _TpuModel):
                     self._with_ids(query_pdf, np.zeros(0, dtype=np.int64)), knn_df)
         query_ex = self._pre_process_data(query_df, for_fit=False)
         query_ids = self._ensure_id(query_pdf, query_ex)
-        if k > item_ex.n_rows:
-            raise ValueError(f"k={k} exceeds the number of item rows {item_ex.n_rows}")
-
         device = default_device()
         np_dtype = np.float32 if self._float32_inputs else np.float64
         Q = host_tensor(np.asarray(as_dense(query_ex.features), dtype=np_dtype)).to(device)
         # 0 -> None: resolves config["distance_tile_rows"]
         batch_queries = int(self._solver_params["batch_queries"]) or None
+        from ..parallel import TpuContext
+
+        ctx = TpuContext.current()
+        if ctx is not None and ctx.is_spmd:
+            dist, indices, item_ids, query_ids = self._kneighbors_spmd(
+                ctx, item_ex, item_ids, Q, query_ex, query_ids, k, batch_queries, np_dtype,
+            )
+            knn_df = pd.DataFrame({"query_id": query_ids, "indices": list(indices), "distances": list(dist)})
+            return self._with_ids(self._item_pdf, item_ids), self._with_ids(query_pdf, query_ids), knn_df
+        if k > item_ex.n_rows:
+            raise ValueError(f"k={k} exceeds the number of item rows {item_ex.n_rows}")
         if item_ex.is_sparse:
             # the CSR item set, tile by tile: never densified whole
             dist, gidx = exact_knn_sparse(item_ex.features, Q, k=k, batch_queries=batch_queries)
@@ -201,12 +218,70 @@ class NearestNeighborsModel(_KNNParams, _TpuModel):
         )
         return self._with_ids(self._item_pdf, item_ids), self._with_ids(query_pdf, query_ids), knn_df
 
+    def _kneighbors_spmd(self, ctx, item_ex, item_ids, Q, query_ex, query_ids, k, batch_queries, np_dtype):
+        """The multi-process search: (distances [nq, k] float64, item ids
+        [nq, k], this rank's item ids, its query ids), its queries' rows of
+        the global top-k. One rendezvous round (the row layout) and four
+        all-gathers (the query counts, the queries, the candidates' distances
+        and ids)."""
+        import torch
+
+        from ..ops.knn import exact_knn
+        from ..parallel import PartitionDescriptor, place_rows
+
+        if item_ex.is_sparse:
+            raise NotImplementedError(
+                "the sparse kNN's per-rank merge under a multi-process TpuContext is ROADMAP item A10"
+            )
+        group = ctx.group
+        desc = PartitionDescriptor.build([item_ex.n_rows], item_ex.n_cols, rank=ctx.rank, rendezvous=ctx.rendezvous)
+        if k > desc.m:
+            raise ValueError(f"k={k} exceeds the number of item rows {desc.m}")
+        if item_ex.row_id is None:
+            # row-number ids are rank-local: offset by the lower ranks' rows
+            item_ids = item_ids + desc.row_offset_of(ctx.rank)
+        q_blocks = group.allgather_rows(Q)
+        q_offset = sum(int(b.shape[0]) for b in q_blocks[: ctx.rank])
+        nq_local = int(Q.shape[0])
+        if query_ex.row_id is None:
+            query_ids = query_ids + q_offset
+        queries = torch.cat(q_blocks)
+        n_loc = int(item_ex.n_rows)
+        if n_loc:
+            X, w = place_rows(item_ex.features.astype(np_dtype, copy=False), device=Q.device)
+            dist, lidx = exact_knn(X, w > 0, queries, k=k, batch_queries=batch_queries)
+            del X, w
+        else:
+            dist = np.full((queries.shape[0], k), np.inf)
+            lidx = np.zeros((queries.shape[0], k), dtype=np.int32)
+        kk = min(k, n_loc)
+        ids = np.full(dist.shape, -1, dtype=np.int64)
+        ids[:, :kk] = item_ids[lidx[:, :kk]]
+        dist = np.asarray(dist, dtype=np.float64)
+        d_all = torch.cat(group.allgather(torch.from_numpy(dist).to(Q.device)), dim=1).cpu().numpy()
+        i_all = torch.cat(group.allgather(torch.from_numpy(ids).to(Q.device)), dim=1).cpu().numpy()
+        # the candidates are in rank order and, within a rank, ascending
+        # with the lower row first on ties: a stable sort keeps the lower
+        # global row first among equal distances, as `jax.lax.top_k` over
+        # all rows would. A NaN query row (every distance NaN) keeps its
+        # first k rows, as one process does (fault C2)
+        key = np.where(np.isnan(d_all), -np.inf, d_all)
+        order = np.argsort(key, axis=1, kind="stable")[:, :k]
+        rows = slice(q_offset, q_offset + nq_local)
+        return (np.take_along_axis(d_all, order, axis=1)[rows], np.take_along_axis(i_all, order, axis=1)[rows],
+                item_ids, query_ids)
+
     def exactNearestNeighborsJoin(self, query_df: Any, distCol: str = "distCol") -> Any:
         """Exploded (item, query, distance) join: one row per (query,
         neighbor) pair, the item's columns prefixed `item_`, the query's
-        `query_`, and the euclidean distance in `distCol`."""
+        `query_`, and the euclidean distance in `distCol`. One process only:
+        under a multi-process context the neighbors' rows live on other
+        ranks (join `kneighbors`' ids against the distributed item table)."""
         import pandas as pd
 
+        from ..parallel import refuse_spmd
+
+        refuse_spmd("exactNearestNeighborsJoin/approxSimilarityJoin (the item table on one rank)")
         item_out, query_out, knn_df = self.kneighbors(query_df)
         id_col = self._id_col()
         item_by_id = item_out.set_index(id_col)
@@ -468,11 +543,10 @@ class ApproximateNearestNeighbors(_ANNParams, _TpuEstimator):
         from ..parallel import default_device, host_tensor
         from ..utils import unit_rows
 
-        if self.num_workers > 1:
-            raise NotImplementedError(
-                f"num_workers={self.num_workers}: the PyTorch port builds its ANN index on one "
-                "device (the per-rank index and top-k merge are ROADMAP item A10)"
-            )
+        from ..parallel import refuse_multi_device, refuse_spmd
+
+        refuse_spmd("ApproximateNearestNeighbors (the per-rank index and top-k merge)")
+        refuse_multi_device(self.num_workers, "ApproximateNearestNeighbors")
         sp = self._solver_params
         pdf = as_pandas(dataset)
         extracted = self._pre_process_data(dataset, for_fit=True)
@@ -572,6 +646,9 @@ class ApproximateNearestNeighborsModel(NearestNeighborsModel):
 
         if self._index is None or self._item_pdf is None:
             raise ValueError("ApproximateNearestNeighborsModel has no index; fit it first")
+        from ..parallel import refuse_spmd
+
+        refuse_spmd("ApproximateNearestNeighbors search (the per-rank index and top-k merge)")
         sp = self._solver_params
         k = int(sp["n_neighbors"])
         item_ex = self._item_extracted

@@ -16,7 +16,10 @@
 # and streamed), equal to the dense fit of the same rows. With solver
 # checkpoints active (checkpoint.py) a single fit retains its sufficient
 # statistics in the fit stage's store, so a retry solves without another
-# pass (`linear_fit_checkpointed`, `linear_fit_ell_checkpointed`). Left
+# pass (`linear_fit_checkpointed`, `linear_fit_ell_checkpointed`). It fits
+# across processes too (a TpuContext with nranks > 1): the sufficient
+# statistics are summed across ranks and every rank solves the same
+# system; the forests' multi-process fit is a later A10 item. Left
 # out, each raising NotImplementedError naming its ROADMAP item:
 # `evaluate` and `.cpu()` (Spark interop, A16).
 #
@@ -206,6 +209,8 @@ class LinearRegression(_LinearRegressionParams, _TpuEstimatorSupervised):
     # the sufficient statistics accumulate over row chunks: an over-budget
     # dataset demotes to ops/streaming.linear_fit_streaming
     _supports_streaming_fit = True
+    # its row statistics summed across ranks (a multi-process fit)
+    _supports_multiprocess = True
     # CSR input fits on the padded-ELL layout with full dense parity: the
     # centering is done on the statistics, never on the data
     _supports_sparse_input = True

@@ -14,9 +14,10 @@
 #
 # Left out, each raising NotImplementedError naming its ROADMAP item:
 # `.cpu()` (the conversion to Spark's forests), `predictLeaf` and
-# `evaluate`, which go through it (A16); a fit over more than one device,
-# with its allgathered class set and sketch (A10, refused by
-# `core._TpuCaller._call_fit_func`). The JAX solver param `node_chunk`
+# `evaluate`, which go through it (A16); the multi-process fit, with its
+# allgathered class set and sketch, and one process driving several cards
+# (A10, both refused by `core._TpuCaller._call_fit_func`). The JAX solver
+# param `node_chunk`
 # (its TPU chunk cap) is not here: the port sizes its node chunks by
 # memory (ops/trees.HIST_BUDGET).
 #

@@ -32,11 +32,13 @@ from ..params import (
 
 
 def _refuse_workers(obj: Any, what: str) -> None:
-    if obj.num_workers > 1:
-        raise NotImplementedError(
-            f"num_workers={obj.num_workers}: UMAP runs on one device (the multi-process {what} "
-            "is ROADMAP item A10)"
-        )
+    """UMAP runs in one process on one device: its multi-process `what`
+    (under a TpuContext with nranks > 1), like one process driving several
+    cards, is ROADMAP item A10."""
+    from ..parallel import refuse_multi_device, refuse_spmd
+
+    refuse_spmd(f"UMAP's multi-process {what}")
+    refuse_multi_device(obj.num_workers, f"UMAP {what}")
 
 
 class _UMAPParams(HasFeaturesCol, HasFeaturesCols, HasLabelCol, HasOutputCol):

@@ -6,9 +6,13 @@
 # The JAX package has three step programs (_lloyd_step, _lloyd_step_fused_1dev,
 # _lloyd_step_1dev) that compute the same thing and differ only in how XLA
 # buffers X. PyTorch runs eagerly, so one device needs one host loop over row
-# tiles of `batch_rows` rows (`distance.tile_assign_accumulate`). The
-# multi-device form with an all-reduce of the sums waits for multi-GPU
-# (ROADMAP item A10).
+# tiles of `batch_rows` rows (`distance.tile_assign_accumulate`). In a
+# multi-process fit each rank scans its own rows and the step's sums,
+# counts and inertia are summed across ranks (`allreduce_fixed`, the rank
+# partials added in rank order) before the center update, so every rank
+# computes the same centers and the same shift, and every rank's host loop
+# stops at the same iteration. The loop, its checkpoints and the streamed
+# form run unchanged.
 #
 # Solver checkpoints (checkpoint.py): with `config["checkpoint_every_iters"]`
 # > 0 inside a fit stage, the Lloyd loop saves its centers, the divergence
@@ -27,6 +31,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from ..parallel.context import allreduce_fixed
 from . import prng
 from .distance import _topk_lex, argmin_assign, min_d2_update, row_sq, tile_assign_accumulate
 from .sparse import segment_sums
@@ -42,9 +47,10 @@ def _finish_centers(sums, counts, inertia, centers):
 
 
 def _lloyd_step(X, w, centers, batch_rows, fast=False):
-    """One Lloyd iteration: tiled assignment + accumulation, center update.
-    Returns (new centers, inertia of the entering centers, shift)."""
-    sums, counts, inertia = tile_assign_accumulate(X, w, centers, batch_rows, fast)
+    """One Lloyd iteration: tiled assignment + accumulation, summed across
+    ranks in a multi-process fit, then the center update. Returns (new
+    centers, inertia of the entering centers, shift)."""
+    sums, counts, inertia = allreduce_fixed(*tile_assign_accumulate(X, w, centers, batch_rows, fast))
     return _finish_centers(sums, counts, inertia, centers)
 
 

@@ -21,8 +21,10 @@
 # converted to padded ELL on the host, densified on the card
 # (`sparse.ell_densify`, the tile scipy's `todense` gives) and merged into
 # each query tile's running top-k through `topk_tile`, so every tile's
-# distances come from the d2-block kernel. The sharded search over several
-# cards (`_exact_knn_sharded`, `tile_topk`) is ROADMAP item A10.
+# distances come from the d2-block kernel. A multi-process search runs
+# `exact_knn` on each rank's own items and merges the ranks' candidates
+# (models/knn.py), which gives the JAX package's global-mesh result without
+# its sharded search (`_exact_knn_sharded`, `tile_topk`).
 #
 from __future__ import annotations
 

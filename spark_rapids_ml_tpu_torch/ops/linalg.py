@@ -5,7 +5,9 @@
 # independent row products their transforms run. The PyTorch counterpart
 # of spark_rapids_ml_tpu/ops/linalg.py, on one device: the contractions go
 # to cuBLAS and `eigh` to cuSOLVER through torch (the JAX package leaves
-# them to XLA; no Pallas kernel is involved).
+# them to XLA; no Pallas kernel is involved). In a multi-process fit the
+# row sums of `weighted_cov` and `global_moments` are summed across ranks
+# (parallel/context.allreduce_fixed; the identity on one process).
 #
 # Two differences in form, none in math:
 #
@@ -28,6 +30,7 @@ from typing import Tuple
 
 import torch
 
+from ..parallel.context import allreduce_fixed
 from .distance import _bf16, fixed_sum
 
 # Rows per tile of the statistics passes (the Lloyd tile of ops/kmeans.py):
@@ -68,6 +71,12 @@ def weighted_moments(X: torch.Tensor, w: torch.Tensor) -> Tuple[torch.Tensor, to
     return moments_from_sums(*weighted_sums(X, w))
 
 
+def global_moments(X: torch.Tensor, w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """`weighted_moments` over the rows of every rank: the raw sums are
+    summed across ranks first (one collective in a multi-process fit)."""
+    return moments_from_sums(*allreduce_fixed(*weighted_sums(X, w)))
+
+
 def moments_from_sums(total_w: torch.Tensor, sx: torch.Tensor, sq: torch.Tensor):
     """(total_weight, mean, var) from the raw sums of `weighted_sums`,
     taken over all rows at once or summed over streamed chunks."""
@@ -102,10 +111,14 @@ def weighted_cov(
     The mean comes first (one `w @ X`); the centered contraction then runs
     over row tiles (`centered_gram`). ``fast`` rounds the operands of that
     contraction to bf16 and sums in float32 (`mm_bf16`); the weighting and
-    the centering stay at full precision, as in the JAX package."""
-    total_w = torch.sum(w)
-    mean = (w @ X) / total_w
-    cov = centered_gram(X, w, mean, fast).to(X.dtype) / (total_w - ddof)
+    the centering stay at full precision, as in the JAX package. In a
+    multi-process fit Σw and Σw·x are summed across ranks before the mean,
+    and the centered gram before the division, so every rank holds the
+    global covariance."""
+    total_w, sx = allreduce_fixed(torch.sum(w), w @ X)
+    mean = sx / total_w
+    (gram,) = allreduce_fixed(centered_gram(X, w, mean, fast))
+    cov = gram.to(X.dtype) / (total_w - ddof)
     return total_w, mean, cov
 
 

@@ -25,7 +25,10 @@
 # coordinate descent that updates coordinate j of every point at once, so
 # a sweep costs one point's launches. A single fit is the grid of one, so
 # each grid point equals its `linear_fit` bit for bit. The streamed fit
-# sums these statistics over row chunks (ops/streaming.py).
+# sums these statistics over row chunks (ops/streaming.py). In a
+# multi-process fit each rank's statistics are summed across ranks
+# (`_global_stats`, one collective), and every rank solves the same d x d
+# system to the same bits.
 #
 # The ELL forms (`linear_fit_ell`, `linear_fit_ell_batched`) take the same
 # statistics from padded-ELL rows (ops/sparse.py) and run the same solve,
@@ -50,6 +53,7 @@ from typing import Dict, List, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..parallel.context import allreduce_fixed
 from .linalg import mm_bf16, row_tiles, rows_dot_fixed
 from .owlqn import freeze_when_done
 
@@ -82,6 +86,12 @@ def _sufficient_stats(X, y, w, fast: bool = False):
             c += xw.T @ yt
     syy = torch.sum(w * y * y)
     return sw, sx, sy, G.to(X.dtype), c.to(X.dtype), syy
+
+
+def _global_stats(X, y, w, fast: bool = False):
+    """`_sufficient_stats` over the rows of every rank: one collective in a
+    multi-process fit, the rank partials added in rank order."""
+    return allreduce_fixed(*_sufficient_stats(X, y, w, fast))
 
 
 def _ell_sufficient_stats(values, indices, y, w, d: int, tile: int = ELL_TILE_ROWS, fast: bool = False):
@@ -248,7 +258,7 @@ def linear_fit(
     objective); `fast` runs the sufficient-statistics contractions bf16-in /
     float32-accumulate."""
     return _solve_from_stats(
-        _sufficient_stats(X, y, w, fast), X.dtype,
+        _global_stats(X, y, w, fast), X.dtype,
         alpha=alpha, l1_ratio=l1_ratio, fit_intercept=fit_intercept,
         standardize=standardize, use_cd=use_cd, max_iter=max_iter, tol=tol,
     )
@@ -273,7 +283,7 @@ def linear_fit_batched(
     (`_solve_grid_from_stats`). `use_cd` is uniform over the grid. Returns
     one `linear_fit` state per point."""
     return _solve_grid_from_stats(
-        _sufficient_stats(X, y, w, fast), X.dtype, alphas, l1_ratios,
+        _global_stats(X, y, w, fast), X.dtype, alphas, l1_ratios,
         fit_intercept=fit_intercept, standardize=standardize, use_cd=use_cd,
         max_iter=max_iter, tol=tol,
     )
@@ -393,7 +403,7 @@ def linear_fit_checkpointed(
     never on alpha / l1_ratio, so one retained pass serves a sequential
     sweep and any retry. `fast` statistics are keyed apart."""
     return _fit_from_retained_stats(
-        lambda: _sufficient_stats(X, y, w, fast), X.dtype, X.device,
+        lambda: _global_stats(X, y, w, fast), X.dtype, X.device,
         alpha=alpha, l1_ratio=l1_ratio, fit_intercept=fit_intercept, standardize=standardize,
         use_cd=use_cd, max_iter=max_iter, tol=tol,
         ckpt_key=ckpt_key + (":bf16" if fast else ""), placement_key=placement_key,

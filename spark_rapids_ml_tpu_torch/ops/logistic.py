@@ -38,6 +38,14 @@
 # The streamed fit (ops/streaming.logistic_fit_streaming) is `_fit_common`
 # with products served chunk by chunk from the host.
 #
+# In a multi-process fit every row reduction is summed across ranks
+# (parallel/context.allreduce_fixed, the rank partials added in rank
+# order): the scaling moments once, then in each iteration the objective
+# terms of the step candidates (one collective) and Xᵀ·r with the residual
+# sums (one more). Every rank then holds the same bits of every vector the
+# loop reads, so the flags its one host read per iteration returns, and the
+# iterates, are the same on every rank.
+#
 # The ELL forms (`logistic_fit_ell`, `logistic_fit_ell_batched`) run
 # `_fit_common` over the padded-ELL products of ops/sparse.py (`_ell_ops`):
 # X·B column by column, Xᵀ·R per column through the placement's column
@@ -70,7 +78,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .linalg import mm_bf16, rows_dot_fixed, weighted_moments
+from ..parallel.context import allreduce_fixed
+from .linalg import global_moments, mm_bf16, rows_dot_fixed
 from .owlqn import (
     LbfgsMemory, LoopCheckpoint, check_solver_state, owlqn_steps, relative_change_exceeds, restore_tensor, run_lockstep,
 )
@@ -89,8 +98,9 @@ COL_BLOCK = 8
 def _make_scaling(X, w, standardize: bool, fit_intercept: bool):
     """Returns (mu [d], d_scale [d], total_w): logits use Beff = d_scale·B,
     offset −μ·Beff. The standard deviation is the unbiased one (Spark's
-    summarizer); a constant column gets d_scale = 0."""
-    return scaling_from_moments(*weighted_moments(X, w), standardize, fit_intercept)
+    summarizer); a constant column gets d_scale = 0. The moments are those
+    of every rank's rows (`linalg.global_moments`)."""
+    return scaling_from_moments(*global_moments(X, w), standardize, fit_intercept)
 
 
 def scaling_from_moments(total_w, mean, var, standardize: bool, fit_intercept: bool):
@@ -189,7 +199,9 @@ def _build_glm_problem(
       grad_solve(xf, z) -> flat gradient           (penalty included)
 
     The two passes over the rows, z_solve and grad_solve, are solves of
-    `run_lockstep`: they request their products (X·B, Xᵀ·R) from it."""
+    `run_lockstep`: they request their products (X·B, Xᵀ·R) from it. Every
+    sum over rows (the data terms, Xᵀ·r and the residual sums) is summed
+    across ranks in a multi-process fit (`allreduce_fixed`)."""
     k_out = k if multinomial else 1
     n_flat = d * k_out + k_out
 
@@ -210,23 +222,23 @@ def _build_glm_problem(
     if multinomial:
         def rowloss(z):
             z_true = torch.gather(z, 1, y_idx[:, None])[:, 0]
-            return torch.sum(w * (torch.logsumexp(z, dim=1) - z_true)) / total_w
+            return allreduce_fixed(torch.sum(w * (torch.logsumexp(z, dim=1) - z_true)))[0] / total_w
 
         def rowloss_alphas(z_p, z_d, a):
             z = z_p[:, None, :] + a[None, :, None] * z_d[:, None, :]  # [n, S, k]
             idx = y_idx[:, None, None].expand(z.shape[0], a.shape[0], 1)
             z_true = torch.gather(z, 2, idx)[..., 0]  # [n, S]
-            return (w @ (torch.logsumexp(z, dim=2) - z_true)) / total_w
+            return allreduce_fixed(w @ (torch.logsumexp(z, dim=2) - z_true))[0] / total_w
     else:
         y = y_idx.to(dtype)
 
         def rowloss(z):
             z0 = z[:, 0]
-            return torch.sum(w * (softplus(z0) - y * z0)) / total_w
+            return allreduce_fixed(torch.sum(w * (softplus(z0) - y * z0)))[0] / total_w
 
         def rowloss_alphas(z_p, z_d, a):
             z = z_p[:, :1] + a[None, :] * z_d[:, :1]  # [n, S]
-            return (w @ (softplus(z) - y[:, None] * z)) / total_w
+            return allreduce_fixed(w @ (softplus(z) - y[:, None] * z))[0] / total_w
 
     def penalty_terms(xf, df):
         Bx, Bd = xf[: d * k_out], df[: d * k_out]
@@ -248,7 +260,7 @@ def _build_glm_problem(
         """The flat gradient from the residual r and its product xr = Xᵀ·r:
         the chain through z = X·(B·D) + (b0 − μ·Beff) is vector algebra."""
         B, _ = unflatten(xf)
-        r_sum = torch.sum(r, dim=0)
+        xr, r_sum = allreduce_fixed(xr, torch.sum(r, dim=0))
         g_beff = xr - mu[:, None] * r_sum[None, :]  # [d, k_out]
         dB = g_beff * d_scale[:, None] + lam_l2 * B
         db0 = r_sum if fit_intercept else torch.zeros((k_out,), dtype=dtype, device=r.device)

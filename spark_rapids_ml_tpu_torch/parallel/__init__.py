@@ -9,8 +9,10 @@
 # of `TpuContext` (parallel/context.py:1073), the serving bucket ladder
 # (`bucket_size`, `bucket_ladder`, `bucket_rows`, parallel/mesh.py:466-528)
 # and the device capacity the admission budgeter reads (memory.py
-# `device_capacity_bytes`). Multi-GPU meshes and process groups are ROADMAP
-# item A10.
+# `device_capacity_bytes`). The multi-process control plane and process
+# group (`TpuContext`, the rendezvous substrates, `PartitionDescriptor`) are
+# in context.py and partition.py; one process driving several cards is a
+# later ROADMAP A10 item.
 #
 # Entry points run on the CUDA card. The CPU runs only when the caller asks
 # for it with `set_devices("cpu")` (the tests do): with no card and no such
@@ -28,8 +30,21 @@ import torch
 __all__ = [
     "set_devices", "default_device", "host_tensor", "place_rows", "StreamStaging",
     "stream_place_blocks", "bucket_size", "bucket_ladder", "bucket_rows", "device_capacity_bytes",
-    "device_allocatable_bytes",
+    "device_allocatable_bytes", "PartitionDescriptor", "TpuContext", "Rendezvous", "LocalRendezvous",
+    "FileRendezvous", "BarrierRendezvous", "ChaosRendezvous", "allgather_ndarray", "visible_device_count",
+    "refuse_multi_device", "refuse_spmd",
 ]
+
+from .chaos import ChaosRendezvous  # noqa: E402
+from .context import (  # noqa: E402
+    BarrierRendezvous,
+    FileRendezvous,
+    LocalRendezvous,
+    Rendezvous,
+    TpuContext,
+    allgather_ndarray,
+)
+from .partition import PartitionDescriptor  # noqa: E402
 
 _DEVICE_OVERRIDE: Optional[torch.device] = None
 
@@ -54,6 +69,35 @@ def default_device() -> torch.device:
         "the card unless asked otherwise; call "
         'spark_rapids_ml_tpu_torch.parallel.set_devices("cpu") to run on the CPU'
     )
+
+
+def visible_device_count() -> int:
+    """Devices one process could drive: 1 under a `set_devices` pin (or
+    with no card), else the CUDA cards torch sees."""
+    if _DEVICE_OVERRIDE is not None or not torch.cuda.is_available():
+        return 1
+    return torch.cuda.device_count()
+
+
+def refuse_multi_device(num_workers: int, what: str) -> None:
+    """`num_workers` is clamped to the visible devices, as the JAX package
+    clamps it (``min(num_workers, len(default_devices()))``): on one device
+    any count fits there. One process driving more than one card is a later
+    ROADMAP A10 item, refused when more than one is visible."""
+    n = min(int(num_workers), visible_device_count())
+    if n > 1:
+        raise NotImplementedError(
+            f"{what}: num_workers={num_workers} would drive {n} devices from one process, "
+            "which is ROADMAP item A10; run one process per card under a TpuContext"
+        )
+
+
+def refuse_spmd(what: str) -> None:
+    """Raise naming A10 when a multi-process TpuContext is active: `what`
+    has no multi-process form in the port yet."""
+    ctx = TpuContext.current()
+    if ctx is not None and ctx.is_spmd:
+        raise NotImplementedError(f"{what} under a multi-process TpuContext is ROADMAP item A10")
 
 
 def host_tensor(a: np.ndarray) -> torch.Tensor:

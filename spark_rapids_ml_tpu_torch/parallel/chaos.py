@@ -51,22 +51,34 @@
 #                                  `maybe_burst_stage` and ramps its offered
 #                                  load to `rows` rows/s for `seconds`
 #
+#   kill:rank=1:round=3            the rendezvous faults, applied by a
+#   abort:rank=1:round=3           `ChaosRendezvous` around a rank's
+#   delay:rank=0:round=2:seconds=0.5   rendezvous at its Nth round of the
+#   drop:rank=1:round=2            attempt: SIGKILL the process (no abort
+#                                  file, no atexit: what heartbeats are
+#                                  for), publish the abort and raise, sleep
+#                                  before joining, or never join (every
+#                                  rank, the dropper too, raises the
+#                                  symmetric RendezvousTimeoutError)
+#
 # Every entry fires at most `times` times (default 1), so the retry runs
-# clean. `rank=` restricts an entry to the process whose rank is
-# `SRML_RANK` (0 when unset). Not wired yet, named in ROADMAP:
-# `kill`/`abort`/`drop` and the round-scoped `delay` (the rendezvous, A10).
-# They parse, and nothing consults them.
+# clean. `rank=` restricts an entry to the process of that rank: the
+# active TpuContext's rank, else `SRML_RANK` (0 when unset).
 #
 from __future__ import annotations
 
 import os
+import signal
 import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
+from .context import Rendezvous
+
 __all__ = [
     "Fault", "parse_fault_plan", "set_fault_plan", "clear_fault_plan", "active_plan",
     "maybe_fail_oom", "maybe_fail_stage", "injected_hbm_budget", "maybe_delay_stage", "maybe_burst_stage",
+    "ChaosRendezvous",
 ]
 
 _KINDS = {"kill", "abort", "delay", "drop", "fail", "oom", "burst"}
@@ -172,8 +184,12 @@ def clear_fault_plan() -> None:
 
 def _rank_matches(f: Fault) -> bool:
     """A `rank=`-restricted entry fires only in the process of that rank
-    (`SRML_RANK`, 0 when unset: the port runs one process per card)."""
-    return f.rank is None or int(os.environ.get("SRML_RANK", "0") or 0) == f.rank
+    (`diagnostics._rank()`: the active TpuContext's, else `SRML_RANK`)."""
+    if f.rank is None:
+        return True
+    from .. import diagnostics
+
+    return diagnostics._rank() == f.rank
 
 
 def injected_hbm_budget() -> Optional[int]:
@@ -260,3 +276,78 @@ def maybe_burst_stage(stage: str) -> Optional[Fault]:
         # the flight-recorder event of the firing (`chaos_injection`) arrives with A15
         return f
     return None
+
+
+class ChaosRendezvous(Rendezvous):
+    """A rendezvous wrapper that applies the plan's rendezvous faults
+    (`kill`, `abort`, `delay`, `drop`) to an inner rendezvous. It counts its
+    own rounds (reset by `begin_epoch`, as the inner's are), so a fault fires
+    at "the Nth control-plane round of this attempt" of the rank it names."""
+
+    def __init__(self, inner, plan: Optional[List[Fault]] = None):
+        self.inner = inner
+        self.rank = inner.rank
+        self.nranks = inner.nranks
+        self.plan = plan if plan is not None else active_plan()
+        self._round = 0
+        self._epoch = 0
+
+    def _apply_faults(self, round_index: int) -> None:
+        for f in self.plan:
+            if (
+                f.kind in ("fail", "oom", "burst")  # stage and budget hooks, not rounds
+                or (f.kind == "delay" and f.stage is not None)
+                or f.spent()
+                or f.rank != self.rank
+                or f.round != round_index
+            ):
+                continue
+            f.fired += 1
+            # the flight-recorder event of the firing (`chaos_injection`) arrives with A15
+            if f.kind == "delay":
+                time.sleep(f.seconds)  # the plan-bounded injected delay
+            elif f.kind == "abort":
+                self.inner.abort(f.reason)
+                raise RuntimeError(f"chaos: rank {self.rank} aborted at round {round_index} ({f.reason})")
+            elif f.kind == "drop":
+                # the message is lost: never join the round, and wait out
+                # this rank's own deadline, so its failure is the same
+                # symmetric timeout its peers raise
+                timeout_s = self.inner._round_timeout_s()
+                time.sleep(timeout_s)
+                self._raise_timeout(round_index, None, timeout_s)
+            elif f.kind == "kill":
+                # the hard death: no abort file, no atexit, no flush
+                os.kill(os.getpid(), signal.SIGKILL)
+                time.sleep(60)  # pragma: no cover - the signal is on its way
+
+    def _allgather_impl(self, payload: str) -> List[str]:
+        round_index = self._round
+        self._round += 1
+        self._apply_faults(round_index)
+        return self.inner._allgather_impl(payload)
+
+    def abort(self, reason: str) -> None:
+        self.inner.abort(reason)
+
+    def peer_failure(self):
+        return self.inner.peer_failure()
+
+    def begin_epoch(self, epoch: int) -> None:
+        self.inner.begin_epoch(epoch)
+        self._round = 0
+        self._epoch = int(epoch)
+
+    def close(self) -> None:
+        self.inner.close()
+
+    # the one-round override must land on the INNER instance, whose
+    # _allgather_impl reads it
+    def _get_timeout_override(self) -> Optional[float]:
+        return self.inner._get_timeout_override()
+
+    def _set_timeout_override(self, value: Optional[float]) -> None:
+        self.inner._set_timeout_override(value)
+
+    def _round_timeout_s(self) -> float:
+        return self.inner._round_timeout_s()

@@ -270,7 +270,9 @@ class FitScheduler:
         an estimator with no out-of-core path) exceeds the whole budget: no
         queueing or preemption could ever place it."""
         from .. import telemetry
+        from ..parallel import refuse_spmd
 
+        refuse_spmd("FitScheduler (the 2-D chip book and sched_coadmit)")
         with self._lock:
             if self._closed:
                 raise RuntimeError("FitScheduler is shut down")
@@ -299,7 +301,7 @@ class FitScheduler:
 
         est = job.estimator
         extracted = est._pre_process_data(job.dataset, for_fit=True, defer_validation=True)
-        job.chips = 1  # the port fits on one card (num_workers > 1 is A10)
+        job.chips = 1  # one card per process (one process driving several is A10)
         job.resident_estimate = memory.resident_estimate(est, extracted, job.chips)
         if getattr(est, "_supports_streaming_fit", False):
             floor = min(memory.MIN_STREAM_CHUNK_ROWS, max(1, int(extracted.n_rows)))

@@ -30,8 +30,9 @@
 # The folds are drawn as the JAX package draws them
 # (`np.random.default_rng(seed).permutation(n) % numFolds`, or `foldCol`),
 # so both packages train and score the same rows. The multi-process scoring
-# gather (`_gather_validation`) waits for multi-GPU fits (ROADMAP A10): on
-# one card every held-out row is local.
+# gather (`_gather_validation`) and the sweep ledger are later ROADMAP A10
+# items: under a multi-process TpuContext both validators refuse, naming
+# it; on one card every held-out row is local.
 #
 from __future__ import annotations
 
@@ -228,6 +229,9 @@ class CrossValidator(_ValidatorParams):
         return out
 
     def fit(self, dataset: Any) -> "CrossValidatorModel":
+        from .parallel import refuse_spmd
+
+        refuse_spmd("CrossValidator (the held-out scoring gather and the sweep ledger)")
         est, epm, eva, engine = self._parts()
         data = _rows_of(dataset)
         n = _n_rows(data)
@@ -375,6 +379,9 @@ class TrainValidationSplit(_ValidatorParams):
         return self.getOrDefault("trainRatio")
 
     def fit(self, dataset: Any) -> "TrainValidationSplitModel":
+        from .parallel import refuse_spmd
+
+        refuse_spmd("TrainValidationSplit (the held-out scoring gather and the sweep ledger)")
         est, epm, eva, engine = self._parts()
         ratio = float(self.getOrDefault("trainRatio"))
         if not 0.0 < ratio < 1.0:

@@ -514,8 +514,12 @@ def test_refusals():
         est.write()
     with pytest.raises(NotImplementedError, match="saving"):
         est.fit(df).write()
-    with pytest.raises(NotImplementedError, match="A10"):
-        ApproximateNearestNeighbors(k=2, num_workers=2).setInputCol("features").fit(df)
+    from spark_rapids_ml_tpu_torch import parallel
+
+    with pytest.MonkeyPatch.context() as mp:  # more than one card visible: A10
+        mp.setattr(parallel, "visible_device_count", lambda: 2)
+        with pytest.raises(NotImplementedError, match="A10"):
+            ApproximateNearestNeighbors(k=2, num_workers=2).setInputCol("features").fit(df)
     # sparse items are densified, as in the JAX package: the same index as
     # the dense rows' (this case raised for ROADMAP A11b before)
     sparse = pd.DataFrame({"features": [Vectors.sparse(4, [0], [1.0 + i]) for i in range(10)]})

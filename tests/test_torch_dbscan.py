@@ -299,8 +299,12 @@ def test_refusals_name_their_items():
     x = _blobs(40, 2, 0.3, 1)
     m = DBSCAN(eps=0.5, min_samples=3).setFeaturesCol("features").fit(_df(x))
     m.num_workers = 2
-    with pytest.raises(NotImplementedError, match="A10"):
-        m.transform(_df(x))
+    from spark_rapids_ml_tpu_torch import parallel
+
+    with pytest.MonkeyPatch.context() as mp:  # more than one card visible: A10
+        mp.setattr(parallel, "visible_device_count", lambda: 2)
+        with pytest.raises(NotImplementedError, match="A10"):
+            m.transform(_df(x))
     with pytest.raises(NotImplementedError):
         DBSCAN().fit(_df(x), warm_start_from=m)
     with pytest.raises(NotImplementedError, match="serving hook"):

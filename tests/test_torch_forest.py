@@ -231,8 +231,12 @@ def test_params_mirror_the_jax_estimator():
         RandomForestRegressor(impurity="gini")
     with pytest.raises(ValueError, match="Unknown parameter"):
         RandomForestClassifier(node_chunk=64)
-    with pytest.raises(NotImplementedError, match="A10"):
-        RandomForestClassifier(num_workers=2, **FOREST).fit({"features": X, "label": Y3})
+    from spark_rapids_ml_tpu_torch import parallel
+
+    with pytest.MonkeyPatch.context() as mp:  # more than one card visible: A10
+        mp.setattr(parallel, "visible_device_count", lambda: 2)
+        with pytest.raises(NotImplementedError, match="A10"):
+            RandomForestClassifier(num_workers=2, **FOREST).fit({"features": X, "label": Y3})
 
 
 @pytest.mark.parametrize("call", ["cpu", "predictLeaf", "evaluate"])

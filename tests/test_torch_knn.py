@@ -274,7 +274,12 @@ def test_kneighbors_raises_without_a_card_or_set_devices(monkeypatch):
         model.kneighbors({"features": x[:3]})
 
 
-def test_more_than_one_worker_is_refused():
+def test_more_than_one_worker_is_refused(monkeypatch):
+    # one process driving more than one card is A10; on one device
+    # num_workers is clamped to it (tests/test_torch_port.py)
+    from spark_rapids_ml_tpu_torch import parallel
+
+    monkeypatch.setattr(parallel, "visible_device_count", lambda: 2)
     with pytest.raises(NotImplementedError, match="A10"):
         NearestNeighbors(k=2, num_workers=2).setInputCol("features").fit({"features": _rows(10, 3, seed=19)})
 

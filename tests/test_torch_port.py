@@ -204,9 +204,19 @@ def test_entry_points_raise_without_a_card_or_set_devices(monkeypatch):
         ModelRegistry().load("km", model)
 
 
-def test_more_than_one_worker_is_refused():
+def test_more_than_one_worker_is_refused(monkeypatch):
+    # num_workers is clamped to the visible devices, as the JAX package
+    # clamps it: on one device num_workers=2 fits there, equal to
+    # num_workers=1; one process driving more than one card (A10) is refused
+    x = _x()
+    two = KMeans(k=2, seed=1, num_workers=2).fit({"features": x})
+    one = KMeans(k=2, seed=1).fit({"features": x})
+    np.testing.assert_array_equal(two.cluster_centers_, one.cluster_centers_)
+    from spark_rapids_ml_tpu_torch import parallel
+
+    monkeypatch.setattr(parallel, "visible_device_count", lambda: 2)
     with pytest.raises(NotImplementedError, match="A10"):
-        KMeans(k=2, num_workers=2).fit({"features": _x()})
+        KMeans(k=2, num_workers=2).fit({"features": x})
 
 
 def test_param_map_lists_return_the_single_fits():

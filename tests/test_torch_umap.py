@@ -534,11 +534,15 @@ def test_refusals():
     with pytest.raises(NotImplementedError, match="serving hook"):
         m._serve_program()
     m.num_workers = 2
-    with pytest.raises(NotImplementedError, match="A10"):
-        m.transform(_df(x))
-    est.num_workers = 2
-    with pytest.raises(NotImplementedError, match="A10"):
-        est.fit(_df(x))
+    from spark_rapids_ml_tpu_torch import parallel
+
+    with pytest.MonkeyPatch.context() as mp:  # more than one card visible: A10
+        mp.setattr(parallel, "visible_device_count", lambda: 2)
+        with pytest.raises(NotImplementedError, match="A10"):
+            m.transform(_df(x))
+        est.num_workers = 2
+        with pytest.raises(NotImplementedError, match="A10"):
+            est.fit(_df(x))
 
 
 def test_chip_smoke_quality_measures_equal_sklearn():
