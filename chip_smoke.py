@@ -300,7 +300,9 @@
 #      every audit record under its job's tenant. The phase fails if the
 #      ledger holds a claim when it starts (naming its owners), or if the
 #      card keeps over 1 GiB more reserved after it than before;
-#  18. multi-process fits (after 17, before the float32 rows are dropped):
+#  18. multi-process fits (after phases 9-14, the last phase of the float32
+#      rows; the order of the phases run after 17 is 9, 10, 11, 13, 12, 14,
+#      18, 6, 7b, 8b):
 #      two ranks, each this script started afresh with `--mp-worker`,
 #      share the card over a gloo process group and meet through a
 #      FileRendezvous; each makes only its rows of the protocol data (rank
@@ -316,8 +318,24 @@
 #      to 7a and 8a by 13b's bounds; the kNN ids equal to phase 4's and the
 #      distances within 1e-5; B1 (f32, f32-fast), B2 (f32, f32-fast) and
 #      B3 f32 launched on both ranks; 18b, a one-rank NCCL group opened by
-#      the same code, its all-gather on the card equal to its input. Each
-#      rank's placement, collective and solve seconds are printed;
+#      the same code, its all-gather on the card equal to its input. Then
+#      in the same ranks: 18c RandomForestClassifier at 9b's row with 8
+#      trees (4 a rank) on every row, the ranks' forests equal, tree 0 of
+#      each rank regrown on one process (`ops.trees.grow_tree` on the
+#      rank's rows, the ranks' edges, a draw over the larger block) equal
+#      to the rank's, training accuracy on 100,000 fixed rows >= 0.85; 18d
+#      12a's DBSCAN, rows split 60/40, the labels equal to 12a's; 18e 12b's
+#      UMAP at 100000 rows split 60/40, the embedding equal to 12b's bit for
+#      bit, each rank's transform to the one-process transform of its rows;
+#      18f phase 11's indexes over each rank's rows (CAGRA over the first
+#      131,072 rows of each, a cut) and phase 4's queries: IVFFlat over
+#      every list gives phase 4's id sets (64th/65th near-ties counted),
+#      IVFFlat and IVFPQ at nprobe 16 within 0.02 of phase 11's recall,
+#      CAGRA's ids valid and its recall printed; 18g phase 14's sparse rows
+#      split 60/40: 14a's LogisticRegression within 1e-6 of its objective,
+#      OLS within 1e-4 (normwise) of 14b's, the sparse kNN's ids equal to
+#      14e's. Each rank's placement, collective and solve seconds and its
+#      launches are printed by sub-phase;
 #  19. a {"kernels": [...]} line with all twelve kernel forms, the
 #      nvidia-smi line, and as the last line {"ok": true, "device": {...}}.
 #      The seconds of each phase are printed as it ends.
@@ -3603,10 +3621,13 @@ RF_TIE_RTOL = 1e-6
 
 
 @contextlib.contextmanager
-def _forest_timers(levels=False):
+def _forest_timers(levels=False, edges=None):
     """Times the forest fit's parts while the body runs, each call waited
     for on the card: the quantile sketch, the binning and forest_fit, and
-    with `levels` every level and its histogram pass by depth (ms lists)."""
+    with `levels` every level and its histogram pass by depth (ms lists).
+    The sketch's edges land in box["edges"]; given `edges`, the sketch
+    returns them instead of computing them again (a refit of the same
+    rows)."""
     import torch
 
     from spark_rapids_ml_tpu_torch.ops import trees as TR
@@ -3642,7 +3663,11 @@ def _forest_timers(levels=False):
         depth["now"] = a[-1]
         return timed(real["_tree_level"], level)(*a, **kw)
 
-    TR.quantile_bins = timed(real["quantile_bins"], put("sketch_s"))
+    def sketch(*a, **kw):
+        box["edges"] = real["quantile_bins"](*a, **kw) if edges is None else edges
+        return box["edges"]
+
+    TR.quantile_bins = timed(sketch, put("sketch_s"))
     TR.bin_features = timed(real["bin_features"], put("bin_s"))
     TR.forest_fit = timed(real["forest_fit"], put("forest_s"))
     if levels:
@@ -3858,7 +3883,9 @@ def phase_forests(dev, X):
         loaded = model_cls.load(str(path))
         if not (_same_forest(loaded, m) and np.array_equal(loaded._transform_arrays(head), m._transform_arrays(head))):
             fail(f"RF {name} save/load: the loaded model differs from the fitted one")
-        with _forest_timers(levels=True) as lv:
+        # the refit bins with the first fit's edges: the same rows, seed and
+        # maxBins give the same sketch, which is not run again (PR 21's cut)
+        with _forest_timers(levels=True, edges=tm["edges"]) as lv:
             refit = est_cls(**dict(params, numTrees=RF_REFIT_TREES)).fit(data)
         if not _same_forest(m, refit, trees=RF_REFIT_TREES):
             fail(f"RF {name}: a refit of {RF_REFIT_TREES} trees differs from trees 0-{RF_REFIT_TREES - 1} of the first")
@@ -4731,7 +4758,9 @@ def phase_dbscan_umap(dev):
     form; the graph through B3 against the plain route on the same
     resident rows (ids equal on integer rows; squared distances within
     the float32 bound on the blobs) and, at 20000 rows, the stages against
-    the CPU (`_umap_card_vs_cpu`). Returns (launch counts by run, timings)."""
+    the CPU (`_umap_card_vs_cpu`). Returns (launch counts by run, timings,
+    phase 18's references: 12a's labels and core rows, 12b's 100000-row
+    embedding, transform and model)."""
     import torch
 
     from spark_rapids_ml_tpu_torch import DBSCAN, UMAP
@@ -4742,7 +4771,7 @@ def phase_dbscan_umap(dev):
 
     say(f"phase 12: DBSCAN ({DBSCAN_ROWS} x {DBSCAN_COLS}) and UMAP ({' and '.join(map(str, UMAP_ROWS))} x "
         f"{UMAP_COLS}) at the benchmark protocol's sizes")
-    timings, counts = {}, {}
+    timings, counts, refs = {}, {}, {}
 
     # 12a: DBSCAN
     x, y = make_blobs(DBSCAN_ROWS, DBSCAN_COLS, DBSCAN_CENTERS, 0)
@@ -4780,6 +4809,7 @@ def phase_dbscan_umap(dev):
         fail(f"DBSCAN: ARI {ari} against the generating blobs below {DBSCAN_ARI_FLOOR}")
     t["card_vs_cpu"] = _dbscan_card_vs_cpu(dev)
     timings["dbscan"] = t
+    refs.update(dbscan_labels=labels, dbscan_core=model.core_sample_indices_)
     del model
 
     # 12b: UMAP
@@ -4837,6 +4867,8 @@ def phase_dbscan_umap(dev):
             fail(f"UMAP at {n} rows: a second fit on the card differs from the first "
                  f"(max {np.abs(again.embedding_ - emb).max()})")
         say("    a second fit equals the first bit for bit")
+        if n == UMAP_ROWS[-1]:  # phase 18e's reference
+            refs.update(umap_embedding=emb, umap_transform=emb_t, umap_model=model)
         del again, model, out
         # B3 against the plain route on the same resident rows
         Xd = torch.from_numpy(x).to(dev)
@@ -4864,7 +4896,7 @@ def phase_dbscan_umap(dev):
     say("  launches in phase 12: DBSCAN none; UMAP fits " + ", ".join(
         f"{k_}={v}" for k_, v in counts["umap_fit"].items() if v) + "; transforms " + ", ".join(
         f"{k_}={v}" for k_, v in counts["umap_transform"].items() if v))
-    return counts, timings
+    return counts, timings, refs
 
 
 # ----------------------------------------------------------- phase 13 ----
@@ -5288,6 +5320,35 @@ def random_csr(rng, n_rows, n_cols, density, dtype=np.float32, values="uniform")
     return sp.csr_matrix((data, indices, indptr), shape=(n_rows, n_cols))
 
 
+def sparse_problem():
+    """14a's rows and labels: (CSR x, float32 labels x·β + 0.25·ε > 0,
+    β ~ N(0, 4²)), from default_rng(0)."""
+    rng = np.random.default_rng(0)
+    x = random_csr(rng, SPARSE_ROWS, SPARSE_COLS, SPARSE_DENSITY)
+    coef_true = rng.normal(scale=4.0, size=SPARSE_COLS)
+    y = ((np.asarray(x @ coef_true) + 0.25 * rng.normal(size=SPARSE_ROWS)) > 0).astype(np.float32)
+    return x, y, coef_true
+
+
+def sparse_linear_labels(x):
+    """14b's labels of `x` (gen_sparse_regression_host's: support d/40,
+    noise 0.01), from default_rng(1): (float32 labels, coefficients)."""
+    rng_l = np.random.default_rng(1)
+    coef_lin = np.zeros(SPARSE_COLS, dtype=np.float32)
+    coef_lin[:max(1, SPARSE_COLS // 40)] = rng_l.normal(size=max(1, SPARSE_COLS // 40))
+    y_lin = (np.asarray(x @ coef_lin) + 0.01 * rng_l.normal(size=SPARSE_ROWS)).astype(np.float32)
+    return y_lin, coef_lin
+
+
+def sparse_knn_problem():
+    """14e's CSR items (normal values) and dense queries, from
+    default_rng(2)."""
+    rng_k = np.random.default_rng(2)
+    items = random_csr(rng_k, SPARSE_KNN_ROWS, SPARSE_COLS, SPARSE_KNN_DENSITY, values="normal")
+    queries = rng_k.normal(size=(SPARSE_KNN_QUERIES, SPARSE_COLS)).astype(np.float32)
+    return items, queries
+
+
 def _same_bits(a, b):
     """Two fitted LogisticRegression models equal bit for bit."""
     return (a.n_iter_ == b.n_iter_ and a.objective_ == b.objective_
@@ -5367,7 +5428,8 @@ def phase_sparse(dev):
     distances through B3 (d2_block/f32, 4 blocks a tile), the kernel route
     equal to the plain route (ids exactly, distances rtol 1e-5). 14f a
     weighted k-means|| seeding twice, bit for bit. Returns (launches of
-    14e by kernel form, timings)."""
+    14e by kernel form, timings, phase 18's references: 14a's objective,
+    14b's OLS, 14e's ids and distances)."""
     import gc
 
     import torch
@@ -5387,7 +5449,7 @@ def phase_sparse(dev):
     say(f"phase 14: sparse input, {SPARSE_ROWS} x {SPARSE_COLS} CSR at density {SPARSE_DENSITY}")
     gc.collect()
     torch.cuda.empty_cache()
-    timings = {}
+    timings, refs = {}, {}
     was_on = telemetry.enabled()
     telemetry.enable()
     reg = telemetry.registry()
@@ -5409,10 +5471,7 @@ def phase_sparse(dev):
     try:
         lap("14 data")
         t0 = time.perf_counter()
-        rng = np.random.default_rng(0)
-        x = random_csr(rng, SPARSE_ROWS, SPARSE_COLS, SPARSE_DENSITY)
-        coef_true = rng.normal(scale=4.0, size=SPARSE_COLS)
-        y = ((np.asarray(x @ coef_true) + 0.25 * rng.normal(size=SPARSE_ROWS)) > 0).astype(np.float32)
+        x, y, coef_true = sparse_problem()
         timings["data_s"] = time.perf_counter() - t0
         say(f"  data: {x.nnz} nonzeros, the widest row {int(np.diff(x.indptr).max())}, "
             f"{timings['data_s']:.2f} s")
@@ -5434,6 +5493,7 @@ def phase_sparse(dev):
         acc = float((pred == y[:n_h]).mean())
         coef = m.coef_.ravel()
         cos = float(coef @ coef_true / max(np.linalg.norm(coef) * np.linalg.norm(coef_true), 1e-30))
+        refs["logreg_objective"] = m.objective_
         timings["logreg"] = dict(k_max=k_max, ell_bytes=ell_bytes, convert_s=conv_s, place_s=place_s,
                                  solve_s=solve_s, fit_s=fit_s, n_iter=m.n_iter_,
                                  ms_per_iter=1e3 * solve_s / max(1, m.n_iter_), objective=m.objective_,
@@ -5524,10 +5584,7 @@ def phase_sparse(dev):
 
         # ---- 14b: LinearRegression ----------------------------------------
         lap("14b")
-        rng_l = np.random.default_rng(1)
-        coef_lin = np.zeros(SPARSE_COLS, dtype=np.float32)
-        coef_lin[:max(1, SPARSE_COLS // 40)] = rng_l.normal(size=max(1, SPARSE_COLS // 40))
-        y_lin = (np.asarray(x @ coef_lin) + 0.01 * rng_l.normal(size=SPARSE_ROWS)).astype(np.float32)
+        y_lin, coef_lin = sparse_linear_labels(x)
         lin_data = {"features": x, "label": y_lin}
         lin_models, lin_t = {}, {}
         with C.device_dataset_scope():
@@ -5540,6 +5597,7 @@ def phase_sparse(dev):
         if not (np.array_equal(again.coef_, lin_models["ols"].coef_) and again.intercept_ == lin_models["ols"].intercept_):
             fail("14b: a second sparse OLS fit differs from the first")
         ols = lin_models["ols"]
+        refs.update(ols_coef=ols.coef_, ols_intercept=ols.intercept_)
         rel = float(np.linalg.norm(ols.coef_ - coef_lin) / np.linalg.norm(coef_lin))
         xd_s = x[:SPARSE_DENSE_ROWS]
         ell_s = LinearRegression(**SPARSE_LINEAR[0][1]).fit({"features": xd_s, "label": y_lin[:SPARSE_DENSE_ROWS]})
@@ -5619,10 +5677,8 @@ def phase_sparse(dev):
 
         # ---- 14e: sparse exact kNN on B3 ----------------------------------
         lap("14e")
-        rng_k = np.random.default_rng(2)
         t0 = time.perf_counter()
-        items = random_csr(rng_k, SPARSE_KNN_ROWS, SPARSE_COLS, SPARSE_KNN_DENSITY, values="normal")
-        queries = rng_k.normal(size=(SPARSE_KNN_QUERIES, SPARSE_COLS)).astype(np.float32)
+        items, queries = sparse_knn_problem()
         knn_gen_s = time.perf_counter() - t0
         model = NearestNeighbors(k=SPARSE_KNN_K).setInputCol("features").fit({"features": items})
         box = []
@@ -5638,6 +5694,7 @@ def phase_sparse(dev):
         split = {name: sum(s for n_, s, _ in box if n_ == name) for name in ("csr_to_ell", "ell_densify", "topk_tile")}
         ids_k = np.stack(knn_df["indices"].to_numpy())
         dist_k = np.stack(knn_df["distances"].to_numpy())
+        refs.update(knn_ids=ids_k, knn_dist=dist_k)
         Q = torch.from_numpy(queries).to(dev)
         kernel_block = D.d2_block
         D.d2_block = D.d2_block_plain
@@ -5670,7 +5727,7 @@ def phase_sparse(dev):
     finally:
         if not was_on:
             telemetry.disable()
-    return {"sparse_knn": launches}, timings
+    return {"sparse_knn": launches}, timings, refs
 
 # ----------------------------------------------------------- phase 16 ----
 
@@ -6349,13 +6406,54 @@ MP_ASSIGN_STEP = 16  # every 16th row's assignment compared
 MP_KNN_RTOL = 1e-5
 MP_MODEL_KEYS = ("init_high", "init_fast", "km_high_centers", "km_high_inertia", "km_high_iter",
                  "km_fast_centers", "km_fast_inertia", "km_fast_iter", "pca_components", "pca_variance",
-                 "pca_mean", "ols_coef", "ols_intercept", "lr_coef", "lr_intercept", "lr_objective", "lr_iter")
+                 "pca_mean", "ols_coef", "ols_intercept", "lr_coef", "lr_intercept", "lr_objective", "lr_iter",
+                 # 18c-18g
+                 "rf_feature", "rf_threshold", "rf_node_stats", "rf_classes", "db_core", "um_emb",
+                 "sp_lr_coef", "sp_lr_intercept", "sp_lr_objective", "sp_ols_coef", "sp_ols_intercept")
 MP_KERNELS = ("assign_argmin/f32", "assign_argmin/f32-fast", "assign_accumulate/f32",
               "assign_accumulate/f32-fast", "d2_block/f32")
+# 18c-18g, the fits after the headline five in the same two ranks. 18c:
+# phase 9b's forest row with 8 trees (4 a rank; seed 0, bootstrap on), its
+# training accuracy on a fixed sample of rows against a floor set before the
+# first run: 9b's 0.9197 (25 trees on every row, PR 20's last call) less
+# 0.07, since each of these 8 trees sees one rank's rows only
+MP_FOREST = dict(RF_CONFIGS[0][1], numTrees=8)
+MP_FOREST_SAMPLE, MP_FOREST_SAMPLE_SEED, MP_FOREST_ACC_FLOOR = 100_000, 18, 0.85
+# 18d, 18e, 18g: the first 60% of phase 12's and 14's rows on rank 0
+MP_SHARE = 0.6
+# 18f: phase 11's indexes over each rank's rows and phase 4's queries; IVFFlat
+# and IVFPQ at phase 11's nprobe held to its one-process recall@64 less this
+# margin (set before the first run); CAGRA over the first MP_CAGRA_ROWS rows
+# of each rank (262,144 in all; cut from 1M for the script's time)
+MP_ANN_RECALL_MARGIN = 0.02
+MP_CAGRA_ROWS = 131_072
+# the ranks' ANN query tile (the estimator's default 1024: an IVFPQ search
+# tile of 1024 queries holds ~20 GB of ADC candidates at a rank's list
+# lengths, and both ranks search every query on the one card)
+MP_ANN_BATCH = 256
+# 18g: against phase 14's one-process fits: 14a's objective (relative), 14b's
+# OLS coefficients (normwise, 14b's bound); the kNN ids equal 14e's
+MP_SPARSE_OBJ_RTOL, MP_SPARSE_OLS_RTOL = 1e-6, 1e-4
+# the fits of each sub-phase, as the ranks time them
+MP_SUBPHASES = {
+    "18": ("kmeans_high", "kmeans_fast", "pca", "ols", "logreg", "knn"),
+    "18c": ("forest",),
+    "18d": ("dbscan",),
+    "18e": ("umap", "umap_transform"),
+    "18f": ("ivfflat_build", "ivfflat_search", "ivfflat_all", "ivfpq_build", "ivfpq_search", "cagra_build",
+            "cagra_search"),
+    "18g": ("sparse_data", "sparse_logreg", "sparse_ols", "sparse_knn_data", "sparse_knn"),
+}
 
 
 def _mp_bounds(rank):
     return (0, MP_SPLIT) if rank == 0 else (MP_SPLIT, N_ROWS)
+
+
+def _mp_share(n, rank):
+    """Rank `rank`'s rows of an n-row set split MP_SHARE / the rest."""
+    cut = int(n * MP_SHARE)
+    return (0, cut) if rank == 0 else (cut, n)
 
 
 def mp_worker(rank, nranks, tmp):
@@ -6414,6 +6512,7 @@ def mp_worker(rank, nranks, tmp):
                 "collective_s": group.collective_s - c0,
                 "collectives": group.calls - n0,
             }
+            print(f"rank {rank}: {name} {fits[name]['s']:.2f} s", flush=True)  # to the rank's log
             return out
 
         data = {"features": X}
@@ -6426,8 +6525,16 @@ def mp_worker(rank, nranks, tmp):
         lr = timed("logreg", lambda: LogisticRegression(**LOGREG_ROW).fit({"features": X, "label": y_cls}))
         nn = NearestNeighbors(k=KNN_K).setInputCol("features").fit(data)
         _, _, knn = timed("knn", lambda: nn.kneighbors({"features": Q}))
-        info["launches"] = {k_: n for k_, n in _kernels.launches.items() if n}
+        del nn
+        km_ops.kmeans_fit = real_fit  # the init record ends with the KMeans fits (the IVF builds call it too)
         info["spmd_rounds"] = reg.snapshot()["counters"].get("fit.device_dataset_spmd_rounds", 0)
+        sub_launches = {"18": dict(_kernels.launches)}
+        more = _mp_worker_rest(rank, tmp, X, Q, y_cls, timed, sub_launches)
+        info["launches"] = {k_: n for k_, n in _kernels.launches.items() if n}
+        info["sub_launches"] = {
+            name: {k_: n - prev.get(k_, 0) for k_, n in now.items() if n - prev.get(k_, 0)}
+            for (name, now), prev in zip(sub_launches.items(), [{}] + list(sub_launches.values())[:-1])
+        }
     rdv.close()
     info["fits"] = fits
     if rank == 0:
@@ -6455,10 +6562,114 @@ def mp_worker(rank, nranks, tmp):
         lr_coef=lr.coef_, lr_intercept=np.asarray(lr.intercept_), lr_objective=np.asarray(lr.objective_),
         lr_iter=np.asarray(lr.n_iter_),
         knn_ids=np.stack(knn["indices"].to_numpy()), knn_dist=np.stack(knn["distances"].to_numpy()),
-        knn_query_ids=knn["query_id"].to_numpy(),
+        knn_query_ids=knn["query_id"].to_numpy(), **more,
     )
     (tmp / f"rank{rank}.json").write_text(json.dumps(info))
     return 0
+
+
+def _mp_worker_rest(rank, tmp, X, Q, y_cls, timed, sub_launches):
+    """18c-18g in one rank, after the headline fits: the forest, DBSCAN,
+    UMAP, the ANN indexes and the sparse fits and kNN, each timed by
+    `timed`; the launch counters after each sub-phase go to `sub_launches`.
+    Rank 0 writes the forest's bin edges to `tmp` (edges.npy). Returns the
+    arrays for rank<r>.npz."""
+    import torch
+
+    from spark_rapids_ml_tpu_torch import (DBSCAN, UMAP, ApproximateNearestNeighbors, LinearRegression,
+                                           LogisticRegression, NearestNeighbors, RandomForestClassifier)
+    from spark_rapids_ml_tpu_torch.ops import _kernels
+    from spark_rapids_ml_tpu_torch.ops import trees as tree_ops
+
+    out = {}
+
+    def done(name):
+        torch.cuda.empty_cache()
+        sub_launches[name] = dict(_kernels.launches)
+
+    # 18c: phase 9b's forest, 4 trees a rank, the edges recorded
+    edges, real_bins = [], tree_ops.quantile_bins
+
+    def recording_bins(*a, **kw):
+        edges.append(real_bins(*a, **kw))
+        return edges[-1]
+
+    tree_ops.quantile_bins = recording_bins
+    try:
+        rf = timed("forest", lambda: RandomForestClassifier(**MP_FOREST).fit({"features": X, "label": y_cls}))
+    finally:
+        tree_ops.quantile_bins = real_bins
+    if rank == 0:
+        np.save(tmp / "edges.npy", edges[0])
+    out.update(rf_feature=rf.feature, rf_threshold=rf.threshold, rf_node_stats=rf.node_stats, rf_classes=rf.classes_)
+    del rf
+    done("18c")
+    # 18d: phase 12a's DBSCAN, rows split MP_SHARE / the rest
+    xb, _ = make_blobs(DBSCAN_ROWS, DBSCAN_COLS, DBSCAN_CENTERS, 0)
+    a, b = _mp_share(DBSCAN_ROWS, rank)
+    db = DBSCAN(eps=DBSCAN_EPS, min_samples=DBSCAN_MIN_SAMPLES, max_mbytes_per_batch=DBSCAN_MBYTES) \
+        .setFeaturesCol("features").fit({"features": xb[a:b]})
+    out["db_labels"] = timed("dbscan", lambda: db.transform({"features": xb[a:b]})["prediction"].to_numpy())
+    out["db_core"] = db.core_sample_indices_
+    done("18d")
+    # 18e: phase 12b's UMAP at 100000 rows, rows split MP_SHARE / the rest
+    xu, _ = make_blobs(UMAP_ROWS[1], UMAP_COLS, UMAP_CENTERS, 0)
+    a, b = _mp_share(UMAP_ROWS[1], rank)
+    um = timed("umap", lambda: UMAP(n_neighbors=UMAP_K, n_epochs=UMAP_EPOCHS, random_state=UMAP_SEED)
+               .setFeaturesCol("features").fit({"features": xu[a:b]}))
+    out["um_emb"] = um.embedding_
+    out["um_transform"] = timed(
+        "umap_transform", lambda: np.stack(um.transform({"features": xu[a:b]})["embedding"].to_list()))
+    del um
+    done("18e")
+    # 18f: phase 11's indexes over this rank's rows, phase 4's queries; a
+    # query tile of MP_ANN_BATCH rows, as two ranks' searches of all 4096
+    # queries share the card
+    ann = {algo: dict(ap, batch_queries=MP_ANN_BATCH) for algo, ap in ANN_CONFIGS}
+    flat = timed("ivfflat_build", lambda: ApproximateNearestNeighbors(
+        k=KNN_K, algorithm="ivfflat", algoParams=ann["ivfflat"]).setInputCol("features").fit({"features": X}))
+    _, _, got = timed("ivfflat_search", lambda: flat.kneighbors({"features": Q}))
+    out["ivfflat_ids"] = np.stack(got["indices"].to_numpy())
+    flat._solver_params["n_probes"] = ann["ivfflat"]["nlist"]  # every list: each rank's search is exact
+    _, _, got = timed("ivfflat_all", lambda: flat.kneighbors({"features": Q}))
+    out["ivfflat_all_ids"] = np.stack(got["indices"].to_numpy())
+    out["ivfflat_all_dist"] = np.stack(got["distances"].to_numpy())
+    del flat
+    torch.cuda.empty_cache()
+    pq = timed("ivfpq_build", lambda: ApproximateNearestNeighbors(
+        k=KNN_K, algorithm="ivfpq", algoParams=ann["ivfpq"]).setInputCol("features").fit({"features": X}))
+    _, _, got = timed("ivfpq_search", lambda: pq.kneighbors({"features": Q}))
+    out["ivfpq_ids"] = np.stack(got["indices"].to_numpy())
+    del pq
+    torch.cuda.empty_cache()
+    cg = timed("cagra_build", lambda: ApproximateNearestNeighbors(
+        k=KNN_K, algorithm="cagra", algoParams=ann["cagra"]).setInputCol("features")
+        .fit({"features": X[:MP_CAGRA_ROWS]}))
+    _, _, got = timed("cagra_search", lambda: cg.kneighbors({"features": Q}))
+    out["cagra_ids"] = np.stack(got["indices"].to_numpy())
+    del cg, got
+    done("18f")
+    # 18g: phase 14's sparse rows, split MP_SHARE / the rest; the generator
+    # draws row lengths for every row first, so each rank builds all of them
+    # (~1.3 s) and fits its own
+    x, y, _ = timed("sparse_data", sparse_problem)
+    y_lin, _ = sparse_linear_labels(x)
+    a, b = _mp_share(SPARSE_ROWS, rank)
+    xs, ys, ys_lin = x[a:b], y[a:b], y_lin[a:b]
+    del x, y, y_lin
+    lr = timed("sparse_logreg", lambda: LogisticRegression(**SPARSE_LOGREG).fit({"features": xs, "label": ys}))
+    ols = timed("sparse_ols", lambda: LinearRegression(regParam=0.0).fit({"features": xs, "label": ys_lin}))
+    out.update(sp_lr_coef=lr.coef_, sp_lr_intercept=np.asarray(lr.intercept_), sp_lr_objective=np.asarray(lr.objective_),
+               sp_lr_iter=np.asarray(lr.n_iter_), sp_ols_coef=ols.coef_, sp_ols_intercept=np.asarray(ols.intercept_))
+    del xs, ys, ys_lin, lr, ols
+    items, queries = timed("sparse_knn_data", sparse_knn_problem)
+    a, b = _mp_share(SPARSE_KNN_ROWS, rank)
+    q_rows = slice(rank * SPARSE_KNN_QUERIES // MP_NRANKS, (rank + 1) * SPARSE_KNN_QUERIES // MP_NRANKS)
+    snn = NearestNeighbors(k=SPARSE_KNN_K).setInputCol("features").fit({"features": items[a:b]})
+    _, _, got = timed("sparse_knn", lambda: snn.kneighbors({"features": queries[q_rows]}))
+    out.update(sp_knn_ids=np.stack(got["indices"].to_numpy()), sp_knn_dist=np.stack(got["distances"].to_numpy()))
+    done("18g")
+    return out
 
 
 def _mp_launch(tmp):
@@ -6493,14 +6704,17 @@ def _mp_launch(tmp):
         fail(f"18: the ranks exited {rcs}")
 
 
-def phase_multiprocess(dev, X, linear_ref, logreg_ref, exact_ids, exact_dist):
+def phase_multiprocess(dev, X, linear_ref, logreg_ref, exact_ids, exact_dist, ann_ref, du_ref, sparse_ref):
     """Phase 18: multi-process fits at full width, two ranks sharing the
     card over gloo (see the constants above); the gates are the ranks'
     models equal bit for bit, KMeans held to one process (below), PCA, OLS
     and LogisticRegression held to phases 7a and 8a by phase 13b's bounds,
     the kNN ids equal to phase 4's and the distances within MP_KNN_RTOL,
     B1/B2/B3 launched on both ranks, and 18b's one-rank NCCL all-gather on
-    the card. Returns (launches summed over the ranks, timings).
+    the card. Then 18c-18g in the same ranks (`_mp_checks_rest`), against
+    phase 11's recalls (`ann_ref`), phase 12's references (`du_ref`) and
+    phase 14's (`sparse_ref`). Returns (launches summed over the ranks,
+    timings).
 
     KMeans is held twice, from rank 0's init centers: bit for bit to a
     one-process Lloyd loop whose step sums the same two row blocks in rank
@@ -6520,7 +6734,8 @@ def phase_multiprocess(dev, X, linear_ref, logreg_ref, exact_ids, exact_dist):
     from spark_rapids_ml_tpu_torch.parallel import place_rows
 
     say(f"phase 18: multi-process fits, {MP_NRANKS} ranks sharing {torch.cuda.get_device_name(dev)} over gloo, "
-        f"rows [0, {MP_SPLIT}) and [{MP_SPLIT}, {N_ROWS}) of the {N_ROWS} x {N_COLS} float32 rows")
+        f"rows [0, {MP_SPLIT}) and [{MP_SPLIT}, {N_ROWS}) of the {N_ROWS} x {N_COLS} float32 rows; host memory "
+        "{:.1f} of {:.1f} GB available".format(*reversed(_host_memory_gb())))
     LOG_DIR.mkdir(exist_ok=True)
     tmp = Path(tempfile.mkdtemp(prefix="mp_", dir=str(LOG_DIR)))
     timings = {}
@@ -6533,21 +6748,27 @@ def phase_multiprocess(dev, X, linear_ref, logreg_ref, exact_ids, exact_dist):
         t0 = time.perf_counter()
         _mp_launch(tmp)
         timings["ranks_s"] = time.perf_counter() - t0
-        got = [np.load(tmp / f"rank{r}.npz") for r in range(MP_NRANKS)]
+        got = [dict(np.load(tmp / f"rank{r}.npz")) for r in range(MP_NRANKS)]
         info = [json.loads((tmp / f"rank{r}.json").read_text()) for r in range(MP_NRANKS)]
+        edges = np.load(tmp / "edges.npy")  # 18c's bin edges, as rank 0 derived them
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     for r in range(MP_NRANKS):
-        f = info[r]["fits"]
-        place = sum(v["place_s"] for v in f.values())
-        coll = sum(v["collective_s"] for v in f.values())
-        total = sum(v["s"] for v in f.values())
-        timings[f"rank{r}"] = {"data_s": info[r]["data_s"], "fits_s": total, "placement_s": place,
-                               "collective_s": coll, "solve_s": total - place - coll,
-                               "collectives": sum(v["collectives"] for v in f.values())}
-        say(f"  rank {r} ({info[r]['backend']}): data {info[r]['data_s']:.2f} s; fits {total:.2f} s = placement "
-            f"{place:.2f} + collectives {coll:.2f} ({timings[f'rank{r}']['collectives']} all-gathers) + solve "
-            f"{total - place - coll:.2f}; " + ", ".join(f"{k_} {v['s']:.2f}" for k_, v in f.items()))
+        timings[f"rank{r}"] = {"data_s": info[r]["data_s"]}
+        say(f"  rank {r} ({info[r]['backend']}): data {info[r]['data_s']:.2f} s")
+        for sub, names in MP_SUBPHASES.items():
+            f = {k_: info[r]["fits"][k_] for k_ in names}
+            place = sum(v["place_s"] for v in f.values())
+            coll = sum(v["collective_s"] for v in f.values())
+            total = sum(v["s"] for v in f.values())
+            timings[f"rank{r}"][sub] = {"fits_s": total, "placement_s": place, "collective_s": coll,
+                                        "solve_s": total - place - coll,
+                                        "collectives": sum(v["collectives"] for v in f.values()),
+                                        "launches": info[r]["sub_launches"][sub]}
+            say(f"    {sub}: fits {total:.2f} s = placement {place:.2f} + collectives {coll:.2f} "
+                f"({timings[f'rank{r}'][sub]['collectives']} all-gathers) + solve {total - place - coll:.2f}; "
+                + ", ".join(f"{k_} {v['s']:.2f}" for k_, v in f.items()) + "; launches "
+                + (", ".join(f"{k_}={n}" for k_, n in info[r]["sub_launches"][sub].items()) or "none"))
         if info[r]["backend"] != "gloo":
             fail(f"18: rank {r} ran {info[r]['backend']}, not gloo (the ranks share the card)")
         for key in MP_MODEL_KEYS:
@@ -6598,7 +6819,10 @@ def phase_multiprocess(dev, X, linear_ref, logreg_ref, exact_ids, exact_dist):
             f"the plain one-process fit from rank 0's init: inertia within {i_err:.3g} (rtol {MP_KMEANS_RTOL}), "
             f"{same}/{sample.shape[0]} sampled assignments equal, centers within {c_err:.3g} of the largest "
             "coordinate")
-    del Xd, wd, sample
+    del wd, sample
+    rest = _mp_checks_rest(dev, X, Xd, got, edges, logreg_ref["y"], exact_ids, exact_dist, ann_ref, du_ref,
+                           sparse_ref)
+    del Xd
     torch.cuda.empty_cache()
     # PCA, OLS and LogisticRegression against phases 7a and 8a (phase 13b's bounds)
     pca_res, ols_res, spectrum = linear_ref["pca"], linear_ref["ols"], linear_ref["spectrum"]
@@ -6654,7 +6878,151 @@ def phase_multiprocess(dev, X, linear_ref, logreg_ref, exact_ids, exact_dist):
         for k_, n in info[r]["launches"].items():
             counts[k_] = counts.get(k_, 0) + n
     say("  launches in phase 18 (both ranks): " + ", ".join(f"{k_}={v}" for k_, v in counts.items()))
+    timings.update(rest)
     return counts, timings
+
+
+def _mp_checks_rest(dev, X, Xd, got, edges, y_cls, exact_ids, exact_dist, ann_ref, du_ref, sparse_ref):
+    """The parent's gates of 18c-18g on the ranks' results `got` (and 18c's
+    bin `edges`), with the protocol rows placed as `Xd`. Returns their
+    timings and counts."""
+    import torch
+
+    from spark_rapids_ml_tpu_torch import RandomForestClassificationModel, RandomForestClassifier
+    from spark_rapids_ml_tpu_torch.models.tree import _fill_empty_nodes, resolve_max_features
+    from spark_rapids_ml_tpu_torch.ops.knn import exact_knn
+    from spark_rapids_ml_tpu_torch.ops.trees import bin_features, grow_tree, split_bins_to_thresholds
+    from spark_rapids_ml_tpu_torch.parallel import host_tensor
+
+    out = {}
+    g = got[0]
+    # 18c: one tree of each rank regrown on one process, and the accuracy
+    t0 = time.perf_counter()
+    sp_ = RandomForestClassifier(**MP_FOREST)._solver_params
+    classes = g["rf_classes"]
+    T = int(MP_FOREST["numTrees"])
+    tpd = -(-T // MP_NRANKS)
+    params = {"max_depth": int(sp_["max_depth"]), "max_bins": int(sp_["n_bins"]),
+              "max_features": resolve_max_features(sp_["max_features"], N_COLS, True),
+              "impurity": sp_["split_criterion"], "bootstrap": bool(sp_["bootstrap"]),
+              "subsample_rate": float(sp_["max_samples"]), "min_instances": float(sp_["min_samples_leaf"]),
+              "min_info_gain": float(sp_["min_impurity_decrease"]),
+              "draw_rows": max(b - a for a, b in (_mp_bounds(r) for r in range(MP_NRANKS)))}
+    for r in range(MP_NRANKS):
+        lo, hi = _mp_bounds(r)
+        Xb = bin_features(Xd[lo:hi], host_tensor(edges.astype(np.float32)))
+        onehot = (y_cls[lo:hi, None] == classes[None, :]).astype(np.float32)
+        w = torch.ones(hi - lo, dtype=torch.float32, device=dev)
+        f, b, ns = (t.cpu().numpy() for t in grow_tree(Xb, host_tensor(onehot).to(dev), w, int(sp_["random_state"] or 0),
+                                                       r * tpd, params))
+        del Xb
+        f = f.astype(np.int32)[None]
+        # rank r's first tree is place r of the forest's first (round-major) round
+        same = (np.array_equal(f[0], g["rf_feature"][r])
+                and np.array_equal(split_bins_to_thresholds(f, b[None], edges)[0], g["rf_threshold"][r])
+                and np.array_equal(_fill_empty_nodes(f, ns[None].astype(np.float64))[0], g["rf_node_stats"][r]))
+        if not same:
+            fail(f"18c: tree {r * tpd} (rank {r}'s first) regrown on one process differs from the rank's")
+    model = RandomForestClassificationModel(
+        feature=g["rf_feature"], threshold=g["rf_threshold"], node_stats=g["rf_node_stats"], classes_=classes,
+        num_trees=T, max_depth=int(MP_FOREST["maxDepth"]), n_cols=N_COLS, dtype="float32")
+    rows = np.sort(np.random.default_rng(MP_FOREST_SAMPLE_SEED).choice(N_ROWS, MP_FOREST_SAMPLE, replace=False))
+    pred = np.asarray(model.transform({"features": X[rows]})["prediction"])
+    acc = float(np.mean(pred == y_cls[rows]))
+    out["18c"] = {"check_s": time.perf_counter() - t0, "accuracy": acc, "split_nodes": int((g["rf_feature"] >= 0).sum())}
+    say(f"  18c forest {MP_FOREST} ({tpd} trees a rank): the ranks' forests equal bit for bit; tree 0 of each rank "
+        f"regrown on one process from the ranks' edges, its rows and a draw over {params['draw_rows']} rows equals "
+        f"the rank's; training accuracy on {MP_FOREST_SAMPLE} fixed rows {acc:.4f} (floor {MP_FOREST_ACC_FLOOR}); "
+        f"{out['18c']['split_nodes']} split nodes")
+    if acc < MP_FOREST_ACC_FLOOR:
+        fail(f"18c: training accuracy {acc} below {MP_FOREST_ACC_FLOOR}")
+    # 18d: DBSCAN's labels and core rows equal 12a's
+    labels = np.concatenate([gr["db_labels"] for gr in got])
+    if not (np.array_equal(labels, du_ref["dbscan_labels"]) and np.array_equal(g["db_core"], du_ref["dbscan_core"])):
+        fail(f"18d: the ranks' DBSCAN labels or core rows differ from 12a's ({int((labels != du_ref['dbscan_labels']).sum())} labels)")
+    say(f"  18d DBSCAN: the ranks' labels ({', '.join(str(len(gr['db_labels'])) for gr in got)} rows) and core rows "
+        "equal 12a's one-process labels exactly")
+    # 18e: UMAP's embedding equals 12b's; each rank's transform the
+    # one-process transform of its rows (rank 0's rows come first, so its
+    # transform is 12b's rows: the transform's negative draws are positional)
+    if not np.array_equal(g["um_emb"], du_ref["umap_embedding"]):
+        fail(f"18e: the ranks' UMAP embedding differs from 12b's (max {np.abs(g['um_emb'] - du_ref['umap_embedding']).max()})")
+    xu, _ = make_blobs(UMAP_ROWS[1], UMAP_COLS, UMAP_CENTERS, 0)
+    for r, gr in enumerate(got):
+        a, b = _mp_share(UMAP_ROWS[1], r)
+        want = du_ref["umap_transform"][a:b] if r == 0 else np.stack(
+            du_ref["umap_model"].transform({"features": xu[a:b]})["embedding"].to_list())
+        if not np.array_equal(gr["um_transform"], want):
+            fail(f"18e: rank {r}'s transform of its rows differs from the one-process transform")
+    say("  18e UMAP: every rank's embedding equals 12b's bit for bit; each rank's transform of its rows equals the "
+        "one-process transform of those rows (rank 0's: 12b's rows)")
+    # 18f: IVFFlat over every list against phase 4's exact sets: where a
+    # query's set differs, it may only swap rows whose exact (float64)
+    # squared distances lie within the two float32 routes' error on that
+    # query (B3's on phase 4's rows, IVFFlat's on its own) of each other
+    def true_d2(ids):
+        out_ = np.empty(ids.shape)
+        for s0 in range(0, KNN_QUERIES, 256):
+            q = Xd[s0:s0 + 256].double()
+            c = Xd[torch.from_numpy(ids[s0:s0 + 256]).to(dev).long().clamp_min(0)].double()
+            out_[s0:s0 + 256] = ((c - q[:, None, :]) ** 2).sum(2).cpu().numpy()
+        return out_
+
+    ids_all = np.concatenate([gr["ivfflat_all_ids"] for gr in got])
+    d_all = np.concatenate([gr["ivfflat_all_dist"] for gr in got])
+    t_exact, t_ivf = true_d2(exact_ids), true_d2(ids_all)
+    tol = (np.abs(np.asarray(exact_dist, np.float64) ** 2 - t_exact).max(1)
+           + np.abs(d_all ** 2 - t_ivf).max(1))
+    differ, worst = 0, 0.0
+    for qi in range(KNN_QUERIES):
+        extra = ~np.isin(ids_all[qi], exact_ids[qi])
+        if not extra.any():
+            continue
+        differ += 1
+        missing = ~np.isin(exact_ids[qi], ids_all[qi])
+        gap = t_ivf[qi][extra].max() - t_exact[qi][missing].min()
+        worst = max(worst, gap / tol[qi])
+        if gap > tol[qi]:
+            fail(f"18f: IVFFlat over every list, query {qi}: a row {gap:.4g} farther than the exact set's row it "
+                 f"replaces (the routes' float32 error {tol[qi]:.4g})")
+    def recall(ids, ref):
+        return float(np.mean([len(set(a[a >= 0]) & set(b)) / KNN_K for a, b in zip(ids, ref)]))
+
+    out["18f"] = {"differing_sets": differ, "worst_swap_over_error": worst}
+    for algo in ("ivfflat", "ivfpq"):
+        rc = recall(np.concatenate([gr[f"{algo}_ids"] for gr in got]), exact_ids)
+        one = ann_ref[algo]["recall_at_64"]
+        out["18f"][f"{algo}_recall"] = rc
+        if rc < one - MP_ANN_RECALL_MARGIN:
+            fail(f"18f {algo}: recall@{KNN_K} {rc:.4f} below phase 11's {one:.4f} less {MP_ANN_RECALL_MARGIN}")
+    cg = np.concatenate([gr["cagra_ids"] for gr in got])
+    if ((cg < 0) | (cg >= MP_NRANKS * MP_CAGRA_ROWS)).any():
+        fail(f"18f cagra: ids outside [0, {MP_NRANKS * MP_CAGRA_ROWS})")
+    sub = torch.cat([Xd[a:a + MP_CAGRA_ROWS] for a, _ in (_mp_bounds(r) for r in range(MP_NRANKS))])
+    _, cg_exact = exact_knn(sub, None, Xd[:KNN_QUERIES], k=KNN_K)
+    del sub
+    out["18f"]["cagra_recall"] = recall(cg, cg_exact)
+    say(f"  18f IVFFlat over every list: each query's ids equal phase 4's set but for {differ} queries, whose swaps "
+        f"are of rows within the float32 routes' error of each other (the worst at {worst:.3g} of it); recall@{KNN_K} at "
+        f"phase 11's nprobe: IVFFlat {out['18f']['ivfflat_recall']:.4f} (one process "
+        f"{ann_ref['ivfflat']['recall_at_64']:.4f}), IVFPQ {out['18f']['ivfpq_recall']:.4f} (one process "
+        f"{ann_ref['ivfpq']['recall_at_64']:.4f}), margin {MP_ANN_RECALL_MARGIN}; CAGRA over the first "
+        f"{MP_CAGRA_ROWS} rows of each rank: ids valid, recall@{KNN_K} {out['18f']['cagra_recall']:.4f}")
+    # 18g: the sparse fits against 14a and 14b, the kNN against 14e
+    f_err = abs(float(g["sp_lr_objective"]) - sparse_ref["logreg_objective"]) / abs(sparse_ref["logreg_objective"])
+    c_err = float(np.linalg.norm(g["sp_ols_coef"] - sparse_ref["ols_coef"]) / np.linalg.norm(sparse_ref["ols_coef"]))
+    knn_ids = np.concatenate([gr["sp_knn_ids"] for gr in got])
+    out["18g"] = {"logreg_objective_rel": f_err, "ols_coef_rel": c_err, "logreg_iter": int(g["sp_lr_iter"])}
+    if f_err > MP_SPARSE_OBJ_RTOL:
+        fail(f"18g logreg: objective {float(g['sp_lr_objective'])} within {f_err} of 14a's (rtol {MP_SPARSE_OBJ_RTOL})")
+    if c_err > MP_SPARSE_OLS_RTOL:
+        fail(f"18g ols: coefficients {c_err} (normwise) from 14b's (bound {MP_SPARSE_OLS_RTOL})")
+    if not np.array_equal(knn_ids, sparse_ref["knn_ids"]):
+        fail(f"18g knn: {int((knn_ids != sparse_ref['knn_ids']).any(axis=1).sum())} query rows' ids differ from 14e's")
+    say(f"  18g sparse, rows split {MP_SHARE:.0%} / the rest: LogisticRegression {SPARSE_LOGREG} n_iter_ "
+        f"{int(g['sp_lr_iter'])}, objective within {f_err:.3g} of 14a's; OLS coefficients within {c_err:.3g} "
+        f"(normwise) of 14b's; kNN ids equal 14e's")
+    return out
 
 
 def main():
@@ -6695,20 +7063,22 @@ def main():
                                                            logreg_ref["y"], linear_timings)
     sched_counts, sched_timings = run("17 scheduler", phase_scheduler, dev, X, logreg_ref["y"], recovery_refs)
     del recovery_refs
-    mp_counts, mp_timings = run("18 multiprocess", phase_multiprocess, dev, X, linear_ref, logreg_ref,
-                                exact_ids, exact_dist)
     forest_timings = run("9 forests", phase_forests, dev, X)
     multi_counts, multi_timings = run("10 multifit", phase_multifit, dev, X, linear_ref["y"], logreg_ref["y"])
     ann_counts, ann_timings = run("11 ann", phase_ann, dev, X, exact_ids, exact_dist)
     oocore_counts, oocore_timings = run("13 oocore", phase_oocore, dev, X, linear_ref, logreg_ref["y"])
+    du_counts, du_timings, du_refs = run("12 dbscan/umap", phase_dbscan_umap, dev)
+    sparse_counts, sparse_timings, sparse_refs = run("14 sparse", phase_sparse, dev)
+    # phase 18 last of the float32 rows: 18f-18g hold to phases 11, 12 and 14
+    mp_counts, mp_timings = run("18 multiprocess", phase_multiprocess, dev, X, linear_ref, logreg_ref,
+                                exact_ids, exact_dist, ann_timings, du_refs, sparse_refs)
+    del du_refs, sparse_refs
     X = run("6 data f64", _f64_rows, X)  # the float32 rows are dropped here
     say(f"data as float64 {X.shape}")
     f64_counts, f64_timings = run("6 f64", phase_f64, dev, X)
     linear_f64_timings = run("7b pca/linear f64", phase_pca_linear_f64, dev, X, linear_ref)
     logreg_f64_timings = run("8b logreg f64", phase_logreg_f64, dev, X, logreg_ref)
     del X
-    du_counts, du_timings = run("12 dbscan/umap", phase_dbscan_umap, dev)
-    sparse_counts, sparse_timings = run("14 sparse", phase_sparse, dev)
     for e in entries + d2_entries:
         name = e["name"]
         if name == "d2_block/f64-fast":

@@ -56,14 +56,18 @@
 # `TpuContext(rank, nranks, rendezvous)` with nranks > 1, each rank passes
 # its own row block; the global layout is agreed through the rendezvous
 # (`PartitionDescriptor`, `FitInputs.desc`; `n_valid` is the global row
-# count), each rank places only its block, and the solvers of the
-# estimators that set `_supports_multiprocess` (KMeans, PCA,
-# LinearRegression, LogisticRegression; NearestNeighbors searches in its
-# own kneighbors) sum their row statistics across ranks through the
-# context's process group (`parallel.context.allreduce_fixed`, active for
-# the fit's extent). Every other estimator refuses, naming A10. A
-# multi-process fit must fit resident (memory.py), dense, and alone (no
-# fit scheduler, no tuning gather).
+# count), each rank places only its block (CSR rows at the padded-ELL
+# width the ranks agree on), and the solvers of the estimators that set
+# `_supports_multiprocess` (KMeans, PCA, LinearRegression,
+# LogisticRegression, dense or sparse; the forests, which gather their
+# class set and sketch and split the trees between the ranks) sum their row
+# statistics across ranks through the context's process group
+# (`parallel.context.allreduce_fixed`, active for the fit's extent).
+# NearestNeighbors, ApproximateNearestNeighbors, DBSCAN and UMAP, whose fits
+# touch no rows or run in their own `_fit_internal`, gather and merge in
+# their own code. Every other estimator refuses, naming A10. A
+# multi-process fit must fit resident (memory.py) and alone (no fit
+# scheduler, no tuning gather).
 #
 # Persistence keeps the JAX package's on-disk layout exactly:
 # metadata.json + arrays.npz + attributes.json, so a directory saved by
@@ -440,11 +444,7 @@ class FitInputs:
             from .parallel.context import allgather_ndarray
 
             return np.concatenate(allgather_ndarray(self.ctx.rendezvous, arr), axis=0)
-        from .parallel import host_tensor
-
-        dev = torch.device("cpu") if group.backend == "gloo" else group.device
-        parts = group.allgather_rows(host_tensor(arr).to(dev))
-        return np.concatenate([p.cpu().numpy() for p in parts], axis=0)
+        return np.concatenate(group.allgather_arrays(arr), axis=0)
 
     def ell_rows(self) -> Tuple[torch.Tensor, torch.Tensor]:
         """The padded-ELL form of `X_sparse` on the device, (values [n,
@@ -452,7 +452,8 @@ class FitInputs:
         the host (ops/sparse.csr_to_ell, timed as
         host_section.ell_convert_s) and placed (device_wait.ell_layout_s)
         ONCE per placement: a grid or a CrossValidator over CSR data
-        converts once, whatever its folds and solves."""
+        converts once, whatever its folds and solves. In a multi-process fit
+        k_max is the widest row of every rank."""
         cached = self.extra.get("ell_rows")
         if cached is not None:
             return cached
@@ -462,8 +463,11 @@ class FitInputs:
         from .parallel import host_tensor
 
         assert self.X_sparse is not None, "ell_rows() needs a sparse fit input"
+        # a multi-process fit pads every rank's rows to the widest row of
+        # any rank, agreed in one control-plane round, as the JAX package does
+        k_max = max(int(g) for g in self.allgather_host(str(ell_k_max(self.X_sparse))))
         with telemetry.host_section("ell_convert"):
-            idx_h, val_h, _ = csr_to_ell(self.X_sparse, k_max=ell_k_max(self.X_sparse), dtype=self.dtype)
+            idx_h, val_h, _ = csr_to_ell(self.X_sparse, k_max=k_max, dtype=self.dtype)
         with telemetry.device_wait("ell_layout", self.device):
             out = (host_tensor(val_h).to(self.device), host_tensor(idx_h).to(self.device))
         self.extra["ell_rows"] = out
@@ -796,18 +800,13 @@ class _TpuCaller(_TpuCommon):
         typed `HbmBudgetError` from `memory.admit_fit`. A streamed dataset
         comes back with ``key=None``: there is no placement to reuse, and a
         later fit must budget anew. In a multi-process fit (`ctx`) a rank
-        places its own block (`_build_fit_inputs`); CSR input there is a
-        later A10 item."""
+        places its own block (`_build_fit_inputs`), CSR rows in the padded-ELL
+        width the ranks agree on (`FitInputs.ell_rows`)."""
         from . import memory as _memory
         from . import telemetry
         from .data import run_deferred_validation
         from .parallel import chaos
 
-        if ctx is not None and extracted.is_sparse:
-            raise NotImplementedError(
-                f"{type(self).__name__}: sparse (padded-ELL) fits under a multi-process "
-                "TpuContext are ROADMAP item A10; densify the rows or fit on one process"
-            )
         # hand back this fit's previous claim before re-admitting: the OOM
         # retry must not count the failed attempt's bytes against itself
         self._adopt_reservation(None)
@@ -939,11 +938,11 @@ class _TpuCaller(_TpuCommon):
         ``_last_fit_metrics["spmd"]``; an estimator that does not support it
         refuses."""
         from . import telemetry
-        from .parallel import default_device, refuse_multi_device
-        from .parallel.context import TpuContext, fit_group_scope
+        from .parallel import default_device, refuse_multi_device, spmd_context
+        from .parallel.context import fit_group_scope
 
-        ctx = TpuContext.current()
-        if ctx is not None and ctx.is_spmd:
+        ctx = spmd_context()
+        if ctx is not None:
             if not self._supports_multiprocess:
                 raise NotImplementedError(
                     f"{type(self).__name__} does not support multi-process SPMD fit yet; "
@@ -951,7 +950,6 @@ class _TpuCaller(_TpuCommon):
                     "multi-process fit is ROADMAP item A10"
                 )
         else:
-            ctx = None
             # as the JAX package clamps num_workers to the visible devices
             refuse_multi_device(self.num_workers, f"{type(self).__name__} fit")
         device = default_device()

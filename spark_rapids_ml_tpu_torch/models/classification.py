@@ -23,9 +23,9 @@
 # "logistic_stream:..."), the JAX package's keys; warm start takes a fitted
 # model or a `SolverCheckpoint` with an original-space `coef_`. It fits
 # across processes too (a TpuContext with nranks > 1): the class sets are
-# merged over the rendezvous and every row reduction of the solvers is
-# summed across ranks (ops/logistic.py); the forests' multi-process fit is
-# a later A10 item. Left out,
+# merged over the rendezvous and every row reduction of the solvers, dense
+# or padded-ELL, is summed across ranks (ops/logistic.py); the forests'
+# fit splits its trees between the ranks (models/tree.py). Left out,
 # each raising NotImplementedError naming its ROADMAP item: `evaluate` and
 # `.cpu()` (Spark interop, A16).
 #

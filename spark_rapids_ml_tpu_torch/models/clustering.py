@@ -9,9 +9,10 @@
 # too (a TpuContext with nranks > 1): every rank draws a bounded sample of
 # its own rows, the samples are gathered in rank order, and every rank
 # seeds on that same union, so all enter the Lloyd loop (whose step sums
-# across ranks, ops/kmeans.py) with the same centers. DBSCAN's replicated
-# gather of every rank's rows is a later A10 item. Sparse input is
-# densified, as in the JAX package.
+# across ranks, ops/kmeans.py) with the same centers. DBSCAN under a
+# multi-process context gathers every rank's rows, splits its passes'
+# row tiles between the ranks (ops/dbscan.py), and each rank keeps its own
+# rows' labels. Sparse input is densified, as in the JAX package.
 #
 from __future__ import annotations
 
@@ -617,12 +618,20 @@ class DBSCANModel(_DBSCANParams, _TpuModel):
     def transform(self, dataset: Any):
         from ..data import as_pandas
         from ..ops.dbscan import dbscan_fit
-        from ..parallel import default_device, refuse_multi_device, refuse_spmd
+        from ..parallel import default_device, refuse_multi_device, spmd_context
 
-        refuse_spmd("DBSCAN (the replicated gather of every rank's rows)")
-        refuse_multi_device(self.num_workers, "DBSCAN")
+        ctx = spmd_context()
+        if ctx is None:
+            refuse_multi_device(self.num_workers, "DBSCAN")
         pdf = as_pandas(dataset)
         feats = np.asarray(as_dense(self._pre_process_data(dataset, for_fit=False).features), dtype=np.float32)
+        row_offset, n_local = 0, feats.shape[0]
+        if ctx is not None:
+            # every rank's rows, gathered in rank order over the process
+            # group; the passes split their row tiles between the ranks
+            blocks = ctx.group.allgather_arrays(feats)
+            row_offset = sum(b.shape[0] for b in blocks[: ctx.rank])
+            feats = np.concatenate(blocks, axis=0)
         labels, core_idx = dbscan_fit(
             feats,
             device=default_device(),
@@ -631,7 +640,11 @@ class DBSCANModel(_DBSCANParams, _TpuModel):
             metric=self.getOrDefault("metric"),
             max_mbytes_per_batch=self.getOrDefault("max_mbytes_per_batch"),
             calc_core_sample_indices=bool(self.getOrDefault("calc_core_sample_indices")),
+            group=None if ctx is None else ctx.group,
         )
+        # a multi-process transform keeps its own rows' labels;
+        # core_sample_indices_ stay global row positions
+        labels = labels[row_offset:row_offset + n_local]
         if len(labels) != len(pdf):
             raise RuntimeError(f"row count mismatch: {len(labels)} labels vs {len(pdf)} input rows")
         # the latest transform's state, as cuML's fit_predict keeps it;

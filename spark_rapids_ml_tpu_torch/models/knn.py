@@ -25,16 +25,17 @@
 # its item set, not through its index.
 #
 # Multi-process search (a TpuContext with nranks > 1; the JAX package's
-# SPMD branch of kneighbors): the items stay rank-local, their default ids
-# offset by the rows of the lower ranks; the queries are gathered from every
-# rank (the process group, in rank order); each rank searches its own items
-# for every query with `exact_knn` (the d2-block kernel); the per-rank
-# candidates (distance, item id) are gathered and merged into the global
-# top-k in `jax.lax.top_k`'s order, and each rank returns its own queries'
-# rows. Later A10 items, refused under a multi-process context: ANN's
-# per-rank index and merge, the sparse search's per-rank merge, and the
-# joins (the item table lives on every rank). One process driving several
-# cards is refused when more than one is visible (A10).
+# SPMD branches of kneighbors): the items stay rank-local, their default
+# ids offset by the rows of the lower ranks; the queries are gathered from
+# every rank (the process group, in rank order); each rank searches its own
+# items for every query (`exact_knn` or, for CSR items, `exact_knn_sparse`
+# on the d2-block kernel; an ANN model its own index, built at fit over the
+# rank's items); the per-rank candidates (distance, item id) are gathered
+# and merged into the global top-k (`ops/knn.merge_topk`, the order of one
+# `exact_knn` over the global rows), and each rank returns its own queries'
+# rows. The joins are refused under a multi-process context (the item
+# table lives on every rank, as in the JAX package). One process driving
+# several cards is refused when more than one is visible (A10i).
 #
 from __future__ import annotations
 
@@ -105,10 +106,9 @@ class NearestNeighbors(_KNNParams, _TpuEstimator):
         # kNN fits no parameters: the model is the item set, bound here (in
         # a multi-process fit, this rank's items); the search runs in
         # kneighbors
-        from ..parallel import TpuContext, refuse_multi_device
+        from ..parallel import refuse_multi_device, spmd_context
 
-        ctx = TpuContext.current()
-        if ctx is None or not ctx.is_spmd:
+        if spmd_context() is None:
             refuse_multi_device(self.num_workers, "NearestNeighbors")
         pdf = as_pandas(dataset)
         extracted = self._pre_process_data(dataset, for_fit=True)
@@ -189,10 +189,10 @@ class NearestNeighborsModel(_KNNParams, _TpuModel):
         Q = host_tensor(np.asarray(as_dense(query_ex.features), dtype=np_dtype)).to(device)
         # 0 -> None: resolves config["distance_tile_rows"]
         batch_queries = int(self._solver_params["batch_queries"]) or None
-        from ..parallel import TpuContext
+        from ..parallel import spmd_context
 
-        ctx = TpuContext.current()
-        if ctx is not None and ctx.is_spmd:
+        ctx = spmd_context()
+        if ctx is not None:
             dist, indices, item_ids, query_ids = self._kneighbors_spmd(
                 ctx, item_ex, item_ids, Q, query_ex, query_ids, k, batch_queries, np_dtype,
             )
@@ -221,55 +221,38 @@ class NearestNeighborsModel(_KNNParams, _TpuModel):
     def _kneighbors_spmd(self, ctx, item_ex, item_ids, Q, query_ex, query_ids, k, batch_queries, np_dtype):
         """The multi-process search: (distances [nq, k] float64, item ids
         [nq, k], this rank's item ids, its query ids), its queries' rows of
-        the global top-k. One rendezvous round (the row layout) and four
-        all-gathers (the query counts, the queries, the candidates' distances
-        and ids)."""
-        import torch
+        the global top-k. Each rank searches its own items for every query:
+        dense rows with `exact_knn`, CSR rows with `exact_knn_sparse` (both
+        on the d2-block kernel); the candidates merge in `ops/knn.merge_topk`
+        (`spmd_search`)."""
+        from ..ops.knn import exact_knn, exact_knn_sparse
+        from ..parallel import place_rows
 
-        from ..ops.knn import exact_knn
-        from ..parallel import PartitionDescriptor, place_rows
-
-        if item_ex.is_sparse:
-            raise NotImplementedError(
-                "the sparse kNN's per-rank merge under a multi-process TpuContext is ROADMAP item A10"
-            )
-        group = ctx.group
-        desc = PartitionDescriptor.build([item_ex.n_rows], item_ex.n_cols, rank=ctx.rank, rendezvous=ctx.rendezvous)
-        if k > desc.m:
-            raise ValueError(f"k={k} exceeds the number of item rows {desc.m}")
+        counts = rank_counts(ctx, item_ex.n_rows)
+        if k > sum(counts):
+            raise ValueError(f"k={k} exceeds the number of item rows {sum(counts)}")
         if item_ex.row_id is None:
             # row-number ids are rank-local: offset by the lower ranks' rows
-            item_ids = item_ids + desc.row_offset_of(ctx.rank)
-        q_blocks = group.allgather_rows(Q)
-        q_offset = sum(int(b.shape[0]) for b in q_blocks[: ctx.rank])
-        nq_local = int(Q.shape[0])
+            item_ids = item_ids + sum(counts[: ctx.rank])
+        n_loc = int(item_ex.n_rows)
+
+        def search(queries):
+            if n_loc == 0:
+                pad = np.full((queries.shape[0], k), np.inf)
+                return pad, np.full((queries.shape[0], k), -1, np.int64), pad
+            if item_ex.is_sparse:
+                dist, lidx, key = exact_knn_sparse(item_ex.features, queries, k=k, batch_queries=batch_queries,
+                                                   keys=True)
+            else:
+                X, w = place_rows(item_ex.features.astype(np_dtype, copy=False), device=queries.device)
+                dist, lidx, key = exact_knn(X, w > 0, queries, k=k, batch_queries=batch_queries, keys=True)
+                lidx[:, min(k, n_loc):] = -1  # exact_knn's pad columns
+            return dist, np.where(lidx >= 0, item_ids[np.maximum(lidx, 0)], -1), key
+
+        dist, indices, q_offset = spmd_search(ctx, Q, search, k)
         if query_ex.row_id is None:
             query_ids = query_ids + q_offset
-        queries = torch.cat(q_blocks)
-        n_loc = int(item_ex.n_rows)
-        if n_loc:
-            X, w = place_rows(item_ex.features.astype(np_dtype, copy=False), device=Q.device)
-            dist, lidx = exact_knn(X, w > 0, queries, k=k, batch_queries=batch_queries)
-            del X, w
-        else:
-            dist = np.full((queries.shape[0], k), np.inf)
-            lidx = np.zeros((queries.shape[0], k), dtype=np.int32)
-        kk = min(k, n_loc)
-        ids = np.full(dist.shape, -1, dtype=np.int64)
-        ids[:, :kk] = item_ids[lidx[:, :kk]]
-        dist = np.asarray(dist, dtype=np.float64)
-        d_all = torch.cat(group.allgather(torch.from_numpy(dist).to(Q.device)), dim=1).cpu().numpy()
-        i_all = torch.cat(group.allgather(torch.from_numpy(ids).to(Q.device)), dim=1).cpu().numpy()
-        # the candidates are in rank order and, within a rank, ascending
-        # with the lower row first on ties: a stable sort keeps the lower
-        # global row first among equal distances, as `jax.lax.top_k` over
-        # all rows would. A NaN query row (every distance NaN) keeps its
-        # first k rows, as one process does (fault C2)
-        key = np.where(np.isnan(d_all), -np.inf, d_all)
-        order = np.argsort(key, axis=1, kind="stable")[:, :k]
-        rows = slice(q_offset, q_offset + nq_local)
-        return (np.take_along_axis(d_all, order, axis=1)[rows], np.take_along_axis(i_all, order, axis=1)[rows],
-                item_ids, query_ids)
+        return dist, indices, item_ids, query_ids
 
     def exactNearestNeighborsJoin(self, query_df: Any, distCol: str = "distCol") -> Any:
         """Exploded (item, query, distance) join: one row per (query,
@@ -420,6 +403,33 @@ class NearestNeighborsModel(_KNNParams, _TpuModel):
         raise NotImplementedError("NearestNeighborsModel does not support saving (reference parity)")
 
 
+def rank_counts(ctx, n: int) -> List[int]:
+    """Every rank's count `n`, in rank order."""
+    return [int(c) for c in np.concatenate(ctx.group.allgather_arrays(np.array([n], dtype=np.int64)))]
+
+
+def spmd_search(ctx, Q: torch.Tensor, search, k: int) -> Tuple[np.ndarray, np.ndarray, int]:
+    """A multi-process top-k search: the query blocks gathered in rank
+    order, `search(queries) -> (distances [nq, k], global item ids [nq, k],
+    -1 on a pad slot[, the keys the search ordered on])` over this rank's
+    items, the ranks' candidates gathered and merged (`ops/knn.merge_topk`,
+    the order of one search over the global rows). Returns this rank's
+    queries' rows (distances float64, ids int64) and the offset of its
+    first query."""
+    from ..ops.knn import merge_topk
+
+    group = ctx.group
+    q_blocks = group.allgather_rows(Q)
+    q_offset = sum(int(b.shape[0]) for b in q_blocks[: ctx.rank])
+    found = search(torch.cat(q_blocks))
+    dtypes = (np.float64, np.int64, np.float64)
+    d_all, i_all, *key = (np.concatenate(group.allgather_arrays(np.asarray(a, dtype=t)), axis=1)
+                          for a, t in zip(found, dtypes))
+    dist, ids = merge_topk(d_all, i_all, k, *key)
+    rows = slice(q_offset, q_offset + int(Q.shape[0]))
+    return dist[rows], ids[rows], q_offset
+
+
 # ------------------------------------------------------------------- ANN ----
 
 
@@ -543,10 +553,12 @@ class ApproximateNearestNeighbors(_ANNParams, _TpuEstimator):
         from ..parallel import default_device, host_tensor
         from ..utils import unit_rows
 
-        from ..parallel import refuse_multi_device, refuse_spmd
+        from ..parallel import refuse_multi_device, spmd_context
 
-        refuse_spmd("ApproximateNearestNeighbors (the per-rank index and top-k merge)")
-        refuse_multi_device(self.num_workers, "ApproximateNearestNeighbors")
+        # in a multi-process fit each rank builds its index over its own
+        # items; the search merges the ranks' candidates (kneighbors)
+        if spmd_context() is None:
+            refuse_multi_device(self.num_workers, "ApproximateNearestNeighbors")
         sp = self._solver_params
         pdf = as_pandas(dataset)
         extracted = self._pre_process_data(dataset, for_fit=True)
@@ -636,7 +648,10 @@ class ApproximateNearestNeighborsModel(NearestNeighborsModel):
         """Returns (item_df, query_df, knn_df) as `NearestNeighborsModel`
         does, searched through the index: IVFFlat's probed lists; IVFPQ's
         k·refine_ratio ADC candidates re-ranked exactly in float64
-        (`ops/knn.refine_exact`); CAGRA's greedy graph search."""
+        (`ops/knn.refine_exact`); CAGRA's greedy graph search. Under a
+        multi-process context each rank searches its own index (built at
+        fit over its items) for every rank's queries, and the candidates
+        merge as `NearestNeighborsModel`'s do (`spmd_search`)."""
         import pandas as pd
 
         from ..ops.cagra import cagra_search
@@ -646,9 +661,8 @@ class ApproximateNearestNeighborsModel(NearestNeighborsModel):
 
         if self._index is None or self._item_pdf is None:
             raise ValueError("ApproximateNearestNeighborsModel has no index; fit it first")
-        from ..parallel import refuse_spmd
+        from ..parallel import spmd_context
 
-        refuse_spmd("ApproximateNearestNeighbors search (the per-rank index and top-k merge)")
         sp = self._solver_params
         k = int(sp["n_neighbors"])
         item_ex = self._item_extracted
@@ -668,33 +682,54 @@ class ApproximateNearestNeighborsModel(NearestNeighborsModel):
         q = host_tensor(np.asarray(queries, dtype=np.float32)).to(device)
         n_items = item_ex.n_rows
         batch = int(sp["batch_queries"])
-        if self._algorithm == "ivfpq":
-            k_adc = min(k * max(1, int(sp.get("refine_ratio", 4))), n_items)
-            dist, idx = ivfpq_search(q, self._index, k=k_adc, n_probes=int(sp["n_probes"]), batch_queries=batch)
-            if k_adc > k:
-                q_ref = q if queries.dtype == np.float32 else host_tensor(queries).to(device)
-                dist, idx = refine_exact(self._refine_x, q_ref, torch.from_numpy(idx).to(device), k)
-        elif self._algorithm == "cagra":
-            idx, d2 = cagra_search(
-                q, self._index, k=min(k, n_items), itopk_size=int(sp["itopk_size"]),
-                search_width=int(sp["search_width"]), max_iterations=int(sp["max_iterations"]),
-                min_iterations=int(sp["min_iterations"]), num_random_samplings=int(sp["num_random_samplings"]),
-                batch_queries=batch,
-            )
-            # euclidean, as every path of the package reports (cuVS gives d²)
-            dist = np.sqrt(np.maximum(d2, 0.0))
-            if k > n_items:  # pad as the IVF paths do
-                padw = k - n_items
-                idx = np.concatenate([idx, np.full((len(idx), padw), -1, idx.dtype)], axis=1)
-                dist = np.concatenate([dist, np.full((len(dist), padw), np.inf, dist.dtype)], axis=1)
+
+        def search(q, q_ref=None):
+            """(distances [nq, k] float64 in the metric, item ids [nq, k],
+            -1 at +inf where a query is short) from this model's index;
+            IVFPQ's refine scores `q_ref` (None: the queries at their own
+            dtype)."""
+            if self._algorithm == "ivfpq":
+                k_adc = min(k * max(1, int(sp.get("refine_ratio", 4))), n_items)
+                dist, idx = ivfpq_search(q, self._index, k=k_adc, n_probes=int(sp["n_probes"]), batch_queries=batch)
+                if k_adc > k:
+                    if q_ref is None:
+                        q_ref = q if queries.dtype == np.float32 else host_tensor(queries).to(device)
+                    dist, idx = refine_exact(self._refine_x, q_ref, torch.from_numpy(idx).to(device), k)
+            elif self._algorithm == "cagra":
+                idx, d2 = cagra_search(
+                    q, self._index, k=min(k, n_items), itopk_size=int(sp["itopk_size"]),
+                    search_width=int(sp["search_width"]), max_iterations=int(sp["max_iterations"]),
+                    min_iterations=int(sp["min_iterations"]), num_random_samplings=int(sp["num_random_samplings"]),
+                    batch_queries=batch,
+                )
+                # euclidean, as every path of the package reports (cuVS gives d²)
+                dist = np.sqrt(np.maximum(d2, 0.0))
+                if k > n_items:  # pad as the IVF paths do
+                    padw = k - n_items
+                    idx = np.concatenate([idx, np.full((len(idx), padw), -1, idx.dtype)], axis=1)
+                    dist = np.concatenate([dist, np.full((len(dist), padw), np.inf, dist.dtype)], axis=1)
+            else:
+                dist, idx = ivfflat_search(q, self._index, k=k, n_probes=int(sp["n_probes"]), batch_queries=batch)
+            dist = np.asarray(dist, dtype=np.float64)
+            # the metric's conversion is monotone, so it may precede a merge
+            if metric == "sqeuclidean":
+                dist = dist * dist
+            elif metric == "cosine":
+                dist = (dist * dist) / 2.0  # unit rows: 1 - cos; +inf pads stay +inf
+            return dist, np.where(idx >= 0, item_ids[np.maximum(idx, 0)], -1)
+
+        ctx = spmd_context()
+        if ctx is not None:
+            # each rank searches its own index for every rank's queries; the
+            # queries travel at float32, and IVFPQ's float64 refine scores
+            # them so, as the JAX package's SPMD branch does
+            if item_ex.row_id is None:
+                item_ids = item_ids + sum(rank_counts(ctx, n_items)[: ctx.rank])
+            dist, indices, q_offset = spmd_search(ctx, q, lambda qa: search(qa, qa), k)
+            if query_ex.row_id is None:
+                query_ids = query_ids + q_offset
         else:
-            dist, idx = ivfflat_search(q, self._index, k=k, n_probes=int(sp["n_probes"]), batch_queries=batch)
-        dist = np.asarray(dist, dtype=np.float64)
-        if metric == "sqeuclidean":
-            dist = dist * dist
-        elif metric == "cosine":
-            dist = (dist * dist) / 2.0  # unit rows: 1 - cos; +inf pads stay +inf
-        indices = np.where(idx >= 0, item_ids[np.maximum(idx, 0)], -1)
+            dist, indices = search(q)
         knn_df = pd.DataFrame({"query_id": query_ids, "indices": list(indices), "distances": list(dist)})
         return self._with_ids(self._item_pdf, item_ids), self._with_ids(query_pdf, query_ids), knn_df
 

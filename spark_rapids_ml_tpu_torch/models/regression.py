@@ -18,8 +18,9 @@
 # statistics in the fit stage's store, so a retry solves without another
 # pass (`linear_fit_checkpointed`, `linear_fit_ell_checkpointed`). It fits
 # across processes too (a TpuContext with nranks > 1): the sufficient
-# statistics are summed across ranks and every rank solves the same
-# system; the forests' multi-process fit is a later A10 item. Left
+# statistics, dense or padded-ELL, are summed across ranks and every rank
+# solves the same system; the forests' fit splits its trees between the
+# ranks (models/tree.py). Left
 # out, each raising NotImplementedError naming its ROADMAP item:
 # `evaluate` and `.cpu()` (Spark interop, A16).
 #

@@ -12,11 +12,18 @@
 # (ops/trees.forest_raw_predict), which also serves through the default
 # PredictProgram hook.
 #
+# A multi-process fit (a TpuContext with nranks > 1; the JAX package's SPMD
+# fit) gathers the class set and a bounded sketch sample of every rank, so
+# every rank bins with the same edges; rank r grows trees r·tpd ..
+# r·tpd + tpd − 1 (tpd = ceil(numTrees / nranks)) on its own rows, drawing
+# over the largest rank's block as JAX's padded layout does, and the trees
+# are gathered and laid out round-major, the JAX package's forest order,
+# cut at numTrees (a rank skips the trees the cut drops).
+#
 # Left out, each raising NotImplementedError naming its ROADMAP item:
 # `.cpu()` (the conversion to Spark's forests), `predictLeaf` and
-# `evaluate`, which go through it (A16); the multi-process fit, with its
-# allgathered class set and sketch, and one process driving several cards
-# (A10, both refused by `core._TpuCaller._call_fit_func`). The JAX solver
+# `evaluate`, which go through it (A16); one process driving several cards
+# (A10i, refused by `core._TpuCaller._call_fit_func`). The JAX solver
 # param `node_chunk`
 # (its TPU chunk cap) is not here: the port sizes its node chunks by
 # memory (ops/trees.HIST_BUDGET).
@@ -139,6 +146,8 @@ class _RandomForestEstimator(_RandomForestParams, _TpuEstimatorSupervised):
     """Shared fit orchestration."""
 
     _is_classification: bool = False
+    # the global class set and sketch, each rank's share of the trees
+    _supports_multiprocess = True
 
     def __init__(self, **kwargs: Any) -> None:
         super().__init__()
@@ -200,11 +209,22 @@ class _RandomForestEstimator(_RandomForestParams, _TpuEstimatorSupervised):
             max_bins = int(params["n_bins"])
             max_depth = int(params["max_depth"])
             seed = int(params["random_state"] or 0)
+            n_trees = int(params["n_estimators"])
             classes = np.unique(labels_host).astype(np.float64) if self._is_classification else np.zeros(0)
-            edges_host = quantile_bins(x_host, max_bins, seed=seed)
+            x_sketch, tree_ids, draw_rows = x_host, None, None
+            if inputs.spmd:
+                # the class set and the sketch rows are global (a rank may
+                # hold one class), so every rank derives the same classes and
+                # bit-identical edges; each rank grows its share of the trees
+                # on its own rows, drawing over the largest rank's block
+                classes, x_sketch = _spmd_class_set_and_sketch(inputs, classes, x_host, seed)
+                ctx = inputs.ctx
+                tree_ids = spmd_tree_ids(n_trees, ctx.nranks, ctx.rank)
+                draw_rows = max(inputs.desc.rows_of(r) for r in range(ctx.nranks))
+            edges_host = quantile_bins(x_sketch, max_bins, seed=seed)
+            del x_sketch
             stats = host_tensor(self._row_stats(labels_host, classes)).to(inputs.device)
             Xb = bin_features(inputs.X, host_tensor(edges_host.astype(np.float32)))
-            n_trees = int(params["n_estimators"])
             state = forest_fit(
                 Xb,
                 stats * inputs.w[:, None],
@@ -219,8 +239,12 @@ class _RandomForestEstimator(_RandomForestParams, _TpuEstimatorSupervised):
                 subsample_rate=float(params["max_samples"]),
                 min_instances=float(params["min_samples_leaf"]),
                 min_info_gain=float(params["min_impurity_decrease"]),
+                tree_ids=tree_ids,
+                draw_rows=draw_rows,
             )
             del Xb
+            if inputs.spmd:
+                state = _gather_trees(inputs.ctx, state, n_trees)
             feature = state["feature"]
             threshold = split_bins_to_thresholds(feature, state["split_bin"], edges_host)
             node_stats = _fill_empty_nodes(feature, state["node_stats"].astype(np.float64))
@@ -236,6 +260,49 @@ class _RandomForestEstimator(_RandomForestParams, _TpuEstimatorSupervised):
             }
 
         return _fit
+
+
+def spmd_tree_ids(n_trees: int, nranks: int, rank: int) -> List[int]:
+    """The trees rank `rank` grows in a multi-process fit: with tpd =
+    ceil(n_trees / nranks), tree r·tpd + t of round t, for the rounds t
+    whose place t·nranks + rank in the JAX package's round-major forest
+    (round 0 of every rank, then round 1, ...) falls within n_trees."""
+    tpd = -(-n_trees // nranks)
+    return [rank * tpd + t for t in range(tpd) if t * nranks + rank < n_trees]
+
+
+def _gather_trees(ctx, state: Dict[str, np.ndarray], n_trees: int) -> Dict[str, np.ndarray]:
+    """Every rank's trees (`spmd_tree_ids`), gathered over the process
+    group and laid out round-major as the JAX package's forest is: round t
+    holds the t-th tree of rank 0, 1, ..., cut at n_trees."""
+    out = {}
+    for name, v in state.items():
+        parts = ctx.group.allgather_arrays(v)
+        out[name] = np.stack([parts[r][t] for t in range(-(-n_trees // ctx.nranks)) for r in range(ctx.nranks)
+                              if t * ctx.nranks + r < n_trees])
+    return out
+
+
+def _spmd_class_set_and_sketch(inputs: FitInputs, local_classes: np.ndarray, x_host: np.ndarray, seed: int):
+    """A multi-process forest's (class set, sketch rows): a classifier's
+    union of the ranks' sorted class sets (`allgather_host`), and every
+    rank's sketch sample gathered in rank order as float64. A rank with
+    more than ``100_000 // nranks`` rows sends that many, drawn (sorted)
+    from ``default_rng(seed * 99_991 + rank)``; the others send all of
+    theirs, as the JAX package does."""
+    ctx = inputs.ctx
+    classes = local_classes
+    if local_classes.size:  # a classifier's (a regressor has none)
+        gathered = inputs.allgather_host(json.dumps(local_classes.tolist()))
+        classes = np.unique(np.concatenate([np.asarray(json.loads(g), dtype=np.float64) for g in gathered]))
+    cap = 100_000 // ctx.nranks
+    n_loc = x_host.shape[0]
+    if n_loc > cap:
+        sel = np.sort(np.random.default_rng(seed * 99_991 + ctx.rank).choice(n_loc, cap, replace=False))
+        part = np.asarray(x_host[sel], dtype=np.float64)
+    else:
+        part = np.asarray(x_host, dtype=np.float64)
+    return classes, inputs.allgather_array(part)
 
 
 def _fill_empty_nodes(feature: np.ndarray, node_stats: np.ndarray) -> np.ndarray:

@@ -7,9 +7,12 @@
 # The model saves its arrays as .npy files beside the metadata, the JAX
 # package's layout, so a directory either package saved loads in the other.
 #
-# The JAX package's multi-process fit (every rank's rows gathered) and
-# per-rank transform are ROADMAP item A10. Sparse input is densified, as
-# in the JAX package.
+# Under a multi-process TpuContext (the JAX package's SPMD fit) every rank
+# draws its sampleFraction from default_rng(seed + rank), the sampled
+# blocks (and labels) are gathered in rank order over the process group,
+# and every rank runs the same seeded fit on that union, so the ranks'
+# models are equal bit for bit; transform embeds each rank's own rows.
+# Sparse input is densified, as in the JAX package.
 #
 from __future__ import annotations
 
@@ -29,16 +32,6 @@ from ..params import (
     Param,
     TypeConverters,
 )
-
-
-def _refuse_workers(obj: Any, what: str) -> None:
-    """UMAP runs in one process on one device: its multi-process `what`
-    (under a TpuContext with nranks > 1), like one process driving several
-    cards, is ROADMAP item A10."""
-    from ..parallel import refuse_multi_device, refuse_spmd
-
-    refuse_spmd(f"UMAP's multi-process {what}")
-    refuse_multi_device(obj.num_workers, f"UMAP {what}")
 
 
 class _UMAPParams(HasFeaturesCol, HasFeaturesCols, HasLabelCol, HasOutputCol):
@@ -193,11 +186,13 @@ class UMAP(_UMAPParams, _TpuEstimator):
 
     def _fit_internal(self, dataset: Any, paramMaps, row_mask=None):
         from ..ops.umap import umap_fit
-        from ..parallel import default_device
+        from ..parallel import default_device, refuse_multi_device, spmd_context
 
         if paramMaps:
             raise NotImplementedError("UMAP does not support fitMultiple param maps")
-        _refuse_workers(self, "fit (every rank's rows gathered)")
+        ctx = spmd_context()
+        if ctx is None:
+            refuse_multi_device(self.num_workers, "UMAP fit")
         extracted = self._pre_process_data(dataset, for_fit=True)
         feats = np.asarray(as_dense(extracted.features), dtype=np.float32)
         labels = extracted.label
@@ -205,16 +200,25 @@ class UMAP(_UMAPParams, _TpuEstimator):
         frac = float(self.getSampleFraction())
         if frac < 1.0:
             seed = self.getRandomState()
-            rng = np.random.default_rng(int(seed) if seed is not None else 0)
+            # a rank's own stream; the union is gathered below
+            rng = np.random.default_rng((int(seed) if seed is not None else 0) + (ctx.rank if ctx else 0))
             keep = rng.random(feats.shape[0]) < frac
             feats = feats[keep]
             labels = labels[keep] if labels is not None else None
+        if ctx is not None:
+            # every rank fits the same seeded program on the same union
+            feats = np.concatenate(ctx.group.allgather_arrays(feats), axis=0)
+            if labels is not None:
+                labels = np.concatenate(ctx.group.allgather_arrays(np.asarray(labels)), axis=0)
 
         sp = self._solver_params
         pre_knn = sp.get("precomputed_knn")
-        if pre_knn is not None and frac < 1.0:
-            # the pair indexes the caller's rows; a subsample reorders them
-            raise ValueError("precomputed_knn cannot be combined with sample_fraction < 1")
+        if pre_knn is not None and (frac < 1.0 or ctx is not None):
+            # the pair indexes the caller's rows; a subsample or the
+            # multi-process gather reorders them
+            raise ValueError(
+                "precomputed_knn cannot be combined with sample_fraction < 1 or a multi-process SPMD fit"
+            )
         state = umap_fit(
             feats,
             labels,
@@ -300,9 +304,11 @@ class UMAPModel(_UMAPParams, _TpuModel):
         import pandas as pd
 
         from ..ops.umap import umap_transform
-        from ..parallel import default_device
+        from ..parallel import default_device, refuse_multi_device, spmd_context
 
-        _refuse_workers(self, "transform (each rank's rows embedded on its own devices)")
+        # a multi-process transform embeds each rank's own rows
+        if spmd_context() is None:
+            refuse_multi_device(self.num_workers, "UMAP transform")
         feats = np.asarray(as_dense(self._pre_process_data(dataset, for_fit=False).features), dtype=np.float32)
         sp = self._solver_params
         emb = umap_transform(

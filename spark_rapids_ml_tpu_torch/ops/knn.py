@@ -22,7 +22,8 @@
 # (`sparse.ell_densify`, the tile scipy's `todense` gives) and merged into
 # each query tile's running top-k through `topk_tile`, so every tile's
 # distances come from the d2-block kernel. A multi-process search runs
-# `exact_knn` on each rank's own items and merges the ranks' candidates
+# `exact_knn` (or `exact_knn_sparse`, or an ANN index's search) on each
+# rank's own items and merges the ranks' candidates in `merge_topk`
 # (models/knn.py), which gives the JAX package's global-mesh result without
 # its sharded search (`_exact_knn_sharded`, `tile_topk`).
 #
@@ -44,12 +45,15 @@ def exact_knn(
     *,
     k: int,
     batch_queries: Optional[int] = None,
-) -> Tuple[np.ndarray, np.ndarray]:
+    keys: bool = False,
+):
     """Exact kNN of every query against all items: host arrays (euclidean
     distances [nq, k], item row indices [nq, k] int32), ascending by
     distance, lower index first on ties. `batch_queries` defaults to
     ``config["distance_tile_rows"]``. With fewer than k items the missing
-    columns hold +inf and index 0.
+    columns hold +inf and index 0. `keys` adds a third array, the values
+    the order was taken on (‖x‖² − 2q·x, before ‖q‖² and the square root
+    round distinct values together), for `merge_topk`.
 
     Item norms are computed once; each query tile is a view of `queries`
     and every item block a view of `items`, so no copy of either is made.
@@ -57,27 +61,47 @@ def exact_knn(
     dropped, as the reference does to compile one tile program."""
     nq = queries.shape[0]
     if nq == 0:
-        return (
-            queries.new_zeros((0, k)).cpu().numpy(),
-            np.zeros((0, k), dtype=np.int32),
-        )
+        empty = queries.new_zeros((0, k)).cpu().numpy()
+        return (empty, np.zeros((0, k), dtype=np.int32)) + ((empty,) if keys else ())
     kk = min(k, items.shape[0])
     batch_queries = min(batch_queries or tile_rows(), nq)
     item_sq = row_sq(items)
-    d_parts, i_parts = [], []
+    k_parts, d_parts, i_parts = [], [], []
     for start in range(0, nq, batch_queries):
         s0 = min(start, nq - batch_queries)
         q = queries[s0:s0 + batch_queries]
         d2, idx = topk_tile(q, items, valid, kk, item_sq=item_sq)
         fresh = start - s0
+        k_parts.append(d2[fresh:].cpu().numpy())
         d_parts.append((d2 + row_sq(q)[:, None])[fresh:].cpu().numpy())
         i_parts.append(idx[fresh:].cpu().numpy())
+    key = np.concatenate(k_parts, axis=0)
     d2 = np.concatenate(d_parts, axis=0)
     idx = np.concatenate(i_parts, axis=0)
     if kk < k:
+        key = np.pad(key, ((0, 0), (0, k - kk)), constant_values=np.inf)
         d2 = np.pad(d2, ((0, 0), (0, k - kk)), constant_values=np.inf)
         idx = np.pad(idx, ((0, 0), (0, k - kk)))
-    return np.sqrt(np.maximum(d2, 0.0)), idx
+    return (np.sqrt(np.maximum(d2, 0.0)), idx) + ((key,) if keys else ())
+
+
+def merge_topk(dist: np.ndarray, ids: np.ndarray, k: int, key: Optional[np.ndarray] = None):
+    """The k best of each row of the ranks' candidate lists, laid side by
+    side in rank order (dist [nq, R·k] float, ids [nq, R·k] int64, each
+    rank's list ascending with the lower row first on ties, -1 marking a
+    pad slot of a rank short of candidates): (dist [nq, k], ids [nq, k]).
+
+    The order is one `exact_knn` over the global rows: ascending distance
+    (or `key`, the values the ranks ordered on, from `exact_knn(...,
+    keys=True)`: distances that round together keep their order), the
+    earlier candidate (the lower global row) first on ties, NaN after +inf,
+    and the pad slots after every real candidate, NaN included, so a NaN
+    query row keeps the first k global rows. A stable sort by the key
+    (numpy ranks NaN last), then a stable sort of the pads to the end."""
+    order = np.argsort(dist if key is None else key, axis=1, kind="stable")
+    pad = np.take_along_axis(ids, order, axis=1) < 0
+    order = np.take_along_axis(order, np.argsort(pad, axis=1, kind="stable"), axis=1)[:, :k]
+    return np.take_along_axis(dist, order, axis=1), np.take_along_axis(ids, order, axis=1)
 
 
 def exact_knn_sparse(
@@ -87,11 +111,13 @@ def exact_knn_sparse(
     k: int,
     batch_items: int = 65536,
     batch_queries: Optional[int] = None,
-) -> Tuple[np.ndarray, np.ndarray]:
+    keys: bool = False,
+):
     """Exact kNN of dense queries against a CSR item set, never densified
     whole: host arrays (euclidean distances [nq, k], item row indices [nq,
     k] int32), ascending by distance, lower index first on ties. With
-    fewer than k items the missing columns hold +inf and index -1.
+    fewer than k items the missing columns hold +inf and index -1. `keys`
+    adds the values the order was taken on, as `exact_knn`'s.
 
     Item tiles of `batch_items` rows are densified on the device one at a
     time and merged into every query tile's running best list; the last
@@ -103,7 +129,8 @@ def exact_knn_sparse(
     nq = queries.shape[0]
     np_dtype = np.float32 if queries.dtype == torch.float32 else np.float64
     if nq == 0:
-        return np.zeros((0, k), dtype=np_dtype), np.zeros((0, k), dtype=np.int32)
+        empty = np.zeros((0, k), dtype=np_dtype)
+        return (empty, np.zeros((0, k), dtype=np.int32)) + ((empty,) if keys else ())
     device = queries.device
     kk = min(k, n)
     batch_items = min(batch_items, n)
@@ -127,18 +154,21 @@ def exact_knn_sparse(
             cat_i = torch.cat([best[qi][1], ti + s0], dim=1)
             order = torch.sort(cat_d, dim=1, stable=True).indices[:, :kk]
             best[qi] = (cat_d.gather(1, order), cat_i.gather(1, order))
-    d_parts, i_parts = [], []
+    k_parts, d_parts, i_parts = [], [], []
     for qs, (bd2, bi) in zip(q_starts, best):
         q0 = min(qs, nq - batch_queries)
         fresh_q = qs - q0
+        k_parts.append(bd2[fresh_q:].cpu().numpy())
         d_parts.append((bd2 + row_sq(queries[q0:q0 + batch_queries])[:, None])[fresh_q:].cpu().numpy())
         i_parts.append(bi[fresh_q:].cpu().numpy())
+    key = np.concatenate(k_parts, axis=0)
     dist = np.sqrt(np.maximum(np.concatenate(d_parts, axis=0), 0.0))
     idx = np.concatenate(i_parts, axis=0)
     if kk < k:
+        key = np.pad(key, ((0, 0), (0, k - kk)), constant_values=np.inf)
         dist = np.pad(dist, ((0, 0), (0, k - kk)), constant_values=np.inf)
         idx = np.pad(idx, ((0, 0), (0, k - kk)), constant_values=-1)
-    return dist, idx
+    return (dist, idx) + ((key,) if keys else ())
 
 
 # ---------------------------------------------------------------- IVFFlat --

@@ -94,6 +94,12 @@ def _global_stats(X, y, w, fast: bool = False):
     return allreduce_fixed(*_sufficient_stats(X, y, w, fast))
 
 
+def _global_ell_stats(values, indices, y, w, d: int, tile: int = ELL_TILE_ROWS, fast: bool = False):
+    """`_ell_sufficient_stats` over the rows of every rank (one collective
+    in a multi-process fit), as `_global_stats` for dense rows."""
+    return allreduce_fixed(*_ell_sufficient_stats(values, indices, y, w, d, tile, fast))
+
+
 def _ell_sufficient_stats(values, indices, y, w, d: int, tile: int = ELL_TILE_ROWS, fast: bool = False):
     """`_sufficient_stats` of padded-ELL rows (values, indices [n, k_max]):
     the same tuple, each `tile`-row block densified on the device and
@@ -310,7 +316,7 @@ def linear_fit_ell(
     the statistics from `_ell_sufficient_stats`, then the same d x d
     solve."""
     return _solve_from_stats(
-        _ell_sufficient_stats(values, indices, y, w, d, tile, fast), values.dtype,
+        _global_ell_stats(values, indices, y, w, d, tile, fast), values.dtype,
         alpha=alpha, l1_ratio=l1_ratio, fit_intercept=fit_intercept,
         standardize=standardize, use_cd=use_cd, max_iter=max_iter, tol=tol,
     )
@@ -336,7 +342,7 @@ def linear_fit_ell_batched(
     """`linear_fit_batched` on padded-ELL rows: one statistics pass for the
     whole grid, each point equal to its `linear_fit_ell` bit for bit."""
     return _solve_grid_from_stats(
-        _ell_sufficient_stats(values, indices, y, w, d, tile, fast), values.dtype, alphas, l1_ratios,
+        _global_ell_stats(values, indices, y, w, d, tile, fast), values.dtype, alphas, l1_ratios,
         fit_intercept=fit_intercept, standardize=standardize, use_cd=use_cd,
         max_iter=max_iter, tol=tol,
     )
@@ -432,7 +438,7 @@ def linear_fit_ell_checkpointed(
     """`linear_fit_ell` with the statistics retained: the tiled gram pass
     is the retained one."""
     return _fit_from_retained_stats(
-        lambda: _ell_sufficient_stats(values, indices, y, w, d, tile, fast), values.dtype, values.device,
+        lambda: _global_ell_stats(values, indices, y, w, d, tile, fast), values.dtype, values.device,
         alpha=alpha, l1_ratio=l1_ratio, fit_intercept=fit_intercept, standardize=standardize,
         use_cd=use_cd, max_iter=max_iter, tol=tol,
         ckpt_key=ckpt_key + (":bf16" if fast else ""), placement_key=placement_key,

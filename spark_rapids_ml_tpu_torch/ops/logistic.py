@@ -117,7 +117,8 @@ def _ell_scaling(values, indices, w, d: int, standardize: bool, columns=None):
     """Scale-only standardization of padded-ELL rows: (mu = 0, d_scale [d],
     total_w). The column std comes from `sparse.ell_col_moments` (the
     population variance, unclamped, made unbiased as `_make_scaling`
-    does); the data is never centered."""
+    does); the data is never centered. The moments are those of every
+    rank's rows (the sums reduced across ranks in a multi-process fit)."""
     from .sparse import ell_col_moments
 
     if standardize:
@@ -125,7 +126,7 @@ def _ell_scaling(values, indices, w, d: int, standardize: bool, columns=None):
         sigma = torch.sqrt(var * (total_w / torch.clamp_min(total_w - 1.0, 1.0)))
         d_scale = torch.where(sigma > 0, 1.0 / torch.clamp_min(sigma, 1e-30), torch.zeros_like(sigma))
     else:
-        total_w = torch.sum(w)
+        (total_w,) = allreduce_fixed(torch.sum(w))
         d_scale = values.new_ones((d,))
     return values.new_zeros((d,)), d_scale, total_w
 

@@ -225,12 +225,16 @@ def ell_col_moments(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Weighted per-column moments of ELL X, without densifying: (Σw,
     mean [d], var [d]) with var = E[x²] − mean² (population, unclamped).
-    The implicit zeros count, since the divisor is the whole Σw."""
+    The implicit zeros count, since the divisor is the whole Σw. In a
+    multi-process fit the raw sums are those of every rank's rows
+    (`parallel.context.allreduce_fixed`)."""
+    from ..parallel.context import allreduce_fixed
+
     if columns is None:
         columns = EllColumns(values, indices, d)
-    total_w = torch.sum(w)
-    s1 = columns.col_sums(values, w)
-    s2 = columns.col_sums(values * values, w)
+    total_w, s1, s2 = allreduce_fixed(
+        torch.sum(w), columns.col_sums(values, w), columns.col_sums(values * values, w)
+    )
     mean = s1 / total_w
     var = s2 / total_w - mean * mean
     return total_w, mean, var

@@ -54,7 +54,8 @@
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Tuple
+import os
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -80,16 +81,28 @@ LEVEL_STREAM = 7919
 
 def quantile_bins(x_host: np.ndarray, max_bins: int, sample_cap: int = 100_000, seed: int = 0) -> np.ndarray:
     """Per-feature quantile bin edges from a host sample: [d, max_bins-1],
-    float64 (the JAX package's sample and `np.quantile`, on the host)."""
-    n = x_host.shape[0]
+    float64 (the JAX package's sample and `np.quantile`, on the host).
+
+    Each column's quantiles depend on that column alone, so the columns
+    are taken as a transposed contiguous copy, in runs on the host's
+    cores: the same values as the JAX package's one `np.quantile(sample,
+    qs, axis=0)`, which selects along a strided axis on one core and took
+    most of a forest fit at 1M x 3000 (PERF.md)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    n, d = x_host.shape
     if n > sample_cap:
         idx = np.random.default_rng(seed).choice(n, sample_cap, replace=False)
         sample = np.asarray(x_host[idx], dtype=np.float64)
     else:
         sample = np.asarray(x_host, dtype=np.float64)
     qs = np.linspace(0, 1, max_bins + 1)[1:-1]
-    edges = np.quantile(sample, qs, axis=0).T  # [d, max_bins-1]
-    return np.ascontiguousarray(edges)
+    cols = np.ascontiguousarray(sample.T)  # [d, rows]
+    del sample
+    bounds = np.linspace(0, d, min(d, os.cpu_count() or 1) + 1).astype(int)
+    with ThreadPoolExecutor(len(bounds) - 1) as pool:
+        parts = list(pool.map(lambda a, b: np.quantile(cols[a:b], qs, axis=1), bounds[:-1], bounds[1:]))
+    return np.ascontiguousarray(np.concatenate(parts, axis=1).T)  # [d, max_bins-1]
 
 
 def _bin_dtype(n_edges: int) -> torch.dtype:
@@ -300,17 +313,22 @@ def _tree_final_level(node_id: torch.Tensor, vals: torch.Tensor, scale: torch.Te
 
 
 def tree_weights(key: torch.Tensor, w: torch.Tensor, dtype: torch.dtype, *, bootstrap: bool,
-                 subsample_rate: float) -> torch.Tensor:
+                 subsample_rate: float, draw_rows: Optional[int] = None) -> torch.Tensor:
     """Per-row draw counts [n] of one tree, at `dtype`, from the tree's key.
 
-    bootstrap: n_draws = round(rate·n) draws with replacement, uniform over
-    the V rows of positive weight; a draw of JAX's uniform u (at `dtype`,
-    from the first half of split(key)) takes the ceil(V·(1 − u))-th of
-    them. Without it and rate < 1: the first n_draws of
-    jax.random.permutation(that key, n), once each. Else every row once."""
+    The draws are made over `draw_rows` rows (None: n), the first n of them
+    these rows and the rest rows of no weight: a rank of a multi-process
+    fit draws over the largest rank's block, as the JAX package's padded
+    layout does. bootstrap: n_draws = round(rate·draw_rows) draws with
+    replacement, uniform over the V rows of positive weight; a draw of
+    JAX's uniform u (at `dtype`, from the first half of split(key)) takes
+    the ceil(V·(1 − u))-th of them. Without it and rate < 1: the first
+    n_draws of jax.random.permutation(that key, draw_rows), once each,
+    those past n dropped. Else every row once."""
     n = w.shape[0]
+    n_all = n if draw_rows is None else int(draw_rows)
     k1 = prng.split(key)[0]
-    n_draws = int(max(1, round(subsample_rate * n)))
+    n_draws = int(max(1, round(subsample_rate * n_all)))
     if bootstrap:
         valid = torch.nonzero(w > 0).squeeze(1)
         n_valid = valid.shape[0]
@@ -321,7 +339,8 @@ def tree_weights(key: torch.Tensor, w: torch.Tensor, dtype: torch.dtype, *, boot
         return torch.bincount(valid[rank - 1], minlength=n).to(dtype)
     if subsample_rate < 1.0:
         wb = torch.zeros(n, dtype=dtype, device=w.device)
-        wb[prng.permutation(k1, n)[:n_draws]] = 1
+        picked = prng.permutation(k1, n_all)[:n_draws]
+        wb[picked[picked < n]] = 1
         return wb
     return torch.ones(n, dtype=dtype, device=w.device)
 
@@ -330,14 +349,15 @@ def grow_tree(Xb: torch.Tensor, stats_row: torch.Tensor, w: torch.Tensor, seed: 
               params: Dict[str, Any]) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Tree `tree` of the forest of `seed`: (feature [M], split_bin [M],
     node_stats [M, S]) on the device. Its key is fold_in(PRNGKey(seed),
-    tree); its draw counts come from that key (`tree_weights`), level
+    tree); its draw counts come from that key (`tree_weights`, over
+    params["draw_rows"] rows when set), level
     `depth`'s feature subsets from fold_in(key, 7919 + depth)."""
     max_depth = params["max_depth"]
     M = 2 ** (max_depth + 1) - 1
     dev = Xb.device
     key = prng.fold_in(prng.prng_key(seed, dev), tree)
     wb = tree_weights(key, w, stats_row.dtype, bootstrap=params["bootstrap"],
-                      subsample_rate=params["subsample_rate"])
+                      subsample_rate=params["subsample_rate"], draw_rows=params.get("draw_rows"))
     stw = stats_row * wb[:, None]
     rows = torch.nonzero((stw != 0).any(dim=1)).squeeze(1)
     vals, scale = _fixed_point(stw[rows])
@@ -354,23 +374,33 @@ def grow_tree(Xb: torch.Tensor, stats_row: torch.Tensor, w: torch.Tensor, seed: 
 
 def forest_fit(Xb: torch.Tensor, stats_row: torch.Tensor, w: torch.Tensor, seed: int, *, n_trees: int,
                max_depth: int, max_bins: int, max_features: int, impurity: str, bootstrap: bool = True,
-               subsample_rate: float = 1.0, min_instances: float = 1.0,
-               min_info_gain: float = 0.0) -> Dict[str, np.ndarray]:
+               subsample_rate: float = 1.0, min_instances: float = 1.0, min_info_gain: float = 0.0,
+               tree_ids: Optional[Sequence[int]] = None, draw_rows: Optional[int] = None) -> Dict[str, np.ndarray]:
     """Fit `n_trees` trees on the binned rows Xb [n, d] with per-row
     statistics stats_row [n, S] (already weighted) and weights w [n] (the
     bootstrap's population: rows of positive weight). A host loop over
     trees and levels on Xb's device; each tree lands on the host as it
     finishes. Returns feature [T, M] int32, split_bin [T, M] int32 and
-    node_stats [T, M, S] at the statistics' dtype."""
+    node_stats [T, M, S] at the statistics' dtype.
+
+    `tree_ids` grows those trees of the forest instead (a rank's share in
+    a multi-process fit; T = len(tree_ids), possibly 0), each drawing over
+    `draw_rows` rows (`tree_weights`)."""
     params = {
         "max_depth": max_depth, "max_bins": max_bins, "max_features": max_features, "impurity": impurity,
         "bootstrap": bootstrap, "subsample_rate": subsample_rate, "min_instances": min_instances,
-        "min_info_gain": min_info_gain,
+        "min_info_gain": min_info_gain, "draw_rows": draw_rows,
     }
+    M = 2 ** (max_depth + 1) - 1
     trees = [
         tuple(t.cpu().numpy() for t in grow_tree(Xb, stats_row, w, seed, t_i, params))
-        for t_i in range(n_trees)
+        for t_i in (range(n_trees) if tree_ids is None else tree_ids)
     ]
+    if not trees:
+        return {
+            "feature": np.zeros((0, M), np.int32), "split_bin": np.zeros((0, M), np.int32),
+            "node_stats": np.zeros((0, M, stats_row.shape[1]), torch.empty((), dtype=stats_row.dtype).numpy().dtype),
+        }
     return {
         "feature": np.stack([t[0] for t in trees]).astype(np.int32),
         "split_bin": np.stack([t[1] for t in trees]).astype(np.int32),

@@ -32,7 +32,7 @@ __all__ = [
     "stream_place_blocks", "bucket_size", "bucket_ladder", "bucket_rows", "device_capacity_bytes",
     "device_allocatable_bytes", "PartitionDescriptor", "TpuContext", "Rendezvous", "LocalRendezvous",
     "FileRendezvous", "BarrierRendezvous", "ChaosRendezvous", "allgather_ndarray", "visible_device_count",
-    "refuse_multi_device", "refuse_spmd",
+    "refuse_multi_device", "refuse_spmd", "spmd_context",
 ]
 
 from .chaos import ChaosRendezvous  # noqa: E402
@@ -92,11 +92,17 @@ def refuse_multi_device(num_workers: int, what: str) -> None:
         )
 
 
+def spmd_context() -> Optional[TpuContext]:
+    """The multi-process TpuContext the caller entered (nranks > 1), or
+    None."""
+    ctx = TpuContext.current()
+    return ctx if ctx is not None and ctx.is_spmd else None
+
+
 def refuse_spmd(what: str) -> None:
     """Raise naming A10 when a multi-process TpuContext is active: `what`
     has no multi-process form in the port yet."""
-    ctx = TpuContext.current()
-    if ctx is not None and ctx.is_spmd:
+    if spmd_context() is not None:
         raise NotImplementedError(f"{what} under a multi-process TpuContext is ROADMAP item A10")
 
 

@@ -735,6 +735,18 @@ class ProcessGroup:
             t = torch.cat([t, pad])
         return [p[:c] for p, c in zip(self.allgather(t), counts)]
 
+    def allgather_arrays(self, arr) -> List[Any]:
+        """Every rank's host array `arr` (the same trailing shape and dtype
+        on every rank, the row counts free), in rank order, as host arrays:
+        through host memory under gloo, through the card under NCCL."""
+        import torch
+
+        from . import host_tensor
+
+        dev = torch.device("cpu") if self.backend == "gloo" else self.device
+        parts = self.allgather_rows(host_tensor(arr).to(dev))
+        return [p.cpu().numpy() for p in parts]
+
     def allreduce_fixed(self, *tensors):
         """The cross-rank sum of each tensor (the same shapes and dtypes on
         every rank): one all-gather per dtype of them all, flattened, then

@@ -234,7 +234,44 @@ def test_multiprocess_fit_matches_single_process(nranks, dtype, tmp_path):
     for r in range(nranks):
         for name, msg in info[r]["refusals"].items():
             assert "A10" in msg, f"rank {r} {name}: {msg}"
-        assert "SPMD fits must fit resident" in info[r]["demoted"], info[r]["demoted"]
+        assert sorted(info[r]["refusals"]) == ["cv", "join", "scheduler", "tvs"]
+        for name in ("demoted", "demoted_sparse"):
+            assert "SPMD fits must fit resident" in info[r][name], info[r][name]
+
+
+def test_nan_item_row_on_a_short_rank_merges_as_one_process(tmp_path):
+    # ROADMAP fault C8: rank 1 holds items [60, 64), the all-NaN row 61
+    # among them, and its local top-k takes that row; the merge must rank
+    # NaN after +inf and a short rank's pad slots after NaN, as one
+    # process does over the global rows: query 0 gets [21, 45, 33, 42]
+    # (the JAX package's one-process result), and a NaN query row the first
+    # k global rows
+    from spark_rapids_ml_tpu.models.knn import NearestNeighbors as JaxNearestNeighbors
+
+    out_dir, procs, outputs = _launch("nan", 2, tmp_path)
+    for r, (p, out) in enumerate(zip(procs, outputs)):
+        assert p.returncode == 0, f"rank {r} failed:\n{out}"
+    sys.path.insert(0, HERE)
+    try:
+        from torch_mp_worker import nan_items
+    finally:
+        sys.path.remove(HERE)
+    items, queries = nan_items()
+    queries = np.concatenate([queries, np.full((1, 6), np.nan)])
+    got = [np.load(out_dir / f"rank{r}.npz") for r in range(2)]
+    for k in (4, 5):
+        _, _, want = JaxNearestNeighbors(k=k, float32_inputs=False, num_workers=1).setInputCol("features").fit(
+            pd.DataFrame({"features": list(items)})).kneighbors(pd.DataFrame({"features": list(queries)}))
+        want_idx, want_d = np.stack(want["indices"].to_numpy()), np.stack(want["distances"].to_numpy())
+        idx = np.concatenate([g[f"k{k}_indices"] for g in got])
+        dist = np.concatenate([g[f"k{k}_distances"] for g in got])
+        np.testing.assert_array_equal(np.concatenate([g[f"k{k}_query_ids"] for g in got]), np.arange(7))
+        np.testing.assert_array_equal(idx, want_idx)
+        np.testing.assert_allclose(dist[:6], want_d[:6], rtol=1e-7)
+        assert not np.isnan(dist[:6]).any()
+        np.testing.assert_array_equal(idx[6], np.arange(k))  # the NaN query row: the first k rows
+        assert np.isnan(dist[6]).all()
+    assert list(got[0]["k4_indices"][0]) == [21, 45, 33, 42]
 
 
 @pytest.mark.parametrize("how, error, within", [
@@ -288,10 +325,9 @@ def test_multiprocess_default_is_opt_in():
     from spark_rapids_ml_tpu_torch.core import _TpuCaller
     from spark_rapids_ml_tpu_torch.models.tree import _RandomForestEstimator
 
-    for cls in (KMeans, PCA, LinearRegression, LogisticRegression):
+    for cls in (KMeans, PCA, LinearRegression, LogisticRegression, _RandomForestEstimator):
         assert cls._supports_multiprocess
     assert not _TpuCaller._supports_multiprocess
-    assert not _RandomForestEstimator._supports_multiprocess  # a later A10 item
 
 
 def test_spmd_kmeans_init_union_matches_jax_draws():

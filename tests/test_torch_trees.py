@@ -115,10 +115,13 @@ def test_random_bits_and_permutation_match_jax(seed):
 # ---------------------------------------------------------------- binning ----
 
 
-@pytest.mark.parametrize("n,cap", [(500, 100_000), (3000, 1000)], ids=["all-rows", "sampled"])
-def test_quantile_bins_match_jax(n, cap):
-    x = np.random.default_rng(1).normal(size=(n, 7)).astype(np.float32)
+@pytest.mark.parametrize("n,cap,d", [(500, 100_000, 7), (3000, 1000, 7), (2000, 1500, 61)],
+                         ids=["all-rows", "sampled", "wide"])
+def test_quantile_bins_match_jax(n, cap, d):
+    # the port takes the columns in runs on several cores; JAX's one call
+    x = np.random.default_rng(1).normal(size=(n, d)).astype(np.float32)
     x[::17, 2] = 0.5  # ties
+    x[5, 3] = np.nan
     for max_bins in (2, 16, 64):
         np.testing.assert_array_equal(ttrees.quantile_bins(x, max_bins, sample_cap=cap, seed=3),
                                       jtrees.quantile_bins(x, max_bins, sample_cap=cap, seed=3))

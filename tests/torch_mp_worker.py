@@ -12,6 +12,12 @@
 #           KMeans init, checks that the estimators outside the slice refuse
 #           naming A10 and that an over-budget fit gets the typed refusal,
 #           and writes rank<r>.npz and rank<r>.json;
+#   estimators  the fits after the headline five (`estimators_main`):
+#           forests, DBSCAN, UMAP, the ANN indexes, sparse fits and the
+#           sparse kNN, to rank<r>.npz (argv: dtype);
+#   sketch  a forest over 115,000 rows, both ranks above the sketch's cap;
+#   nan     ROADMAP fault C8: a NaN item row on the rank that holds fewer
+#           rows, and a NaN query row there (`nan_main`);
 #   fail    rank 1 fails inside its LogisticRegression solve (argv: how:
 #           "raise" an exception, "kill" its process with SIGKILL, or
 #           "stall" past the collective deadline); every rank writes
@@ -42,30 +48,21 @@ def _frame(X, y_log, y_lin, lo, hi):
 def _refusals(df):
     """Every path outside the slice refuses under the context, naming A10:
     {name: message}."""
-    import numpy as np
-    import scipy.sparse as sp
-
     from spark_rapids_ml_tpu_torch import (
-        DBSCAN, UMAP, ApproximateNearestNeighbors, CrossValidator, FitScheduler, LinearRegression,
-        NearestNeighbors, ParamGridBuilder, RandomForestClassifier, RegressionEvaluator,
+        CrossValidator, FitScheduler, LinearRegression, NearestNeighbors, ParamGridBuilder, RegressionEvaluator,
+        TrainValidationSplit,
     )
 
-    x = np.stack(df["features"].to_numpy())
-    data = {"features": x, "label": df["label"].to_numpy()}
     lin = LinearRegression().setLabelCol("target")
+    grid = ParamGridBuilder().addGrid(lin.getParam("regParam"), [0.0]).build()
     cases = {
-        "forest": lambda: RandomForestClassifier(numTrees=2, maxDepth=2).fit(data),
-        "dbscan": lambda: DBSCAN(eps=1.0).setFeaturesCol("features").fit(df).transform(df),
-        "umap": lambda: UMAP(n_epochs=2).setFeaturesCol("features").fit(df),
-        "ann": lambda: ApproximateNearestNeighbors(k=2, algoParams={"nlist": 2}).setInputCol("features").fit(df),
         "cv": lambda: CrossValidator(
-            estimator=lin, estimatorParamMaps=ParamGridBuilder().addGrid(lin.getParam("regParam"), [0.0]).build(),
-            evaluator=RegressionEvaluator(labelCol="target"), numFolds=2,
+            estimator=lin, estimatorParamMaps=grid, evaluator=RegressionEvaluator(labelCol="target"), numFolds=2,
+        ).fit(df),
+        "tvs": lambda: TrainValidationSplit(
+            estimator=lin, estimatorParamMaps=grid, evaluator=RegressionEvaluator(labelCol="target"),
         ).fit(df),
         "scheduler": lambda: FitScheduler().submit(lin, df),
-        "sparse_fit": lambda: LinearRegression().fit({"features": sp.csr_matrix(x), "label": data["label"]}),
-        "sparse_knn": lambda: NearestNeighbors(k=2).setInputCol("features").fit(
-            {"features": sp.csr_matrix(x)}).kneighbors({"features": x[:2]}),
         "join": lambda: NearestNeighbors(k=2).setInputCol("features").fit(df).exactNearestNeighborsJoin(df.iloc[:2]),
     }
     out = {}
@@ -82,6 +79,7 @@ def _refusals(df):
 
 def fit_main(rank, nranks, rdv_dir, out_dir, run_id, dtype):
     import numpy as np
+    import scipy.sparse as sp
 
     from mp_worker import make_dataset, split_bounds
     from spark_rapids_ml_tpu_torch import (
@@ -135,14 +133,18 @@ def fit_main(rank, nranks, rdv_dir, out_dir, run_id, dtype):
         info["refusals"] = _refusals(df)
         saved = dict(config)
         config.update(hbm_budget_bytes=3_000)
-        try:
-            KMeans(k=4, maxIter=3, float32_inputs=f32).setFeaturesCol("features").fit(df)
-            info["demoted"] = "no error"
-        except HbmBudgetError as e:
-            info["demoted"] = str(e)
-        finally:
-            config.clear()
-            config.update(saved)
+        sparse = {"features": sp.csr_matrix(X[lo:hi]), "label": y_lin[lo:hi]}
+        for name, fit in (
+            ("demoted", lambda: KMeans(k=4, maxIter=3, float32_inputs=f32).setFeaturesCol("features").fit(df)),
+            ("demoted_sparse", lambda: LinearRegression(float32_inputs=f32).fit(sparse)),
+        ):
+            try:
+                fit()
+                info[name] = "no error"
+            except HbmBudgetError as e:
+                info[name] = str(e)
+        config.clear()
+        config.update(saved)
         info["counters"] = {k: v for k, v in telemetry.registry().snapshot()["counters"].items()
                             if k.startswith(("collective.", "rendezvous.", "fit.device_dataset"))}
     rdv.close()
@@ -163,6 +165,194 @@ def fit_main(rank, nranks, rdv_dir, out_dir, run_id, dtype):
     np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump(info, f)
+
+
+def nan_items():
+    """ROADMAP fault C8's inputs: 64 x 6 float64 items from
+    default_rng(3), row 61 all NaN, and the next 6 x 6 draws as queries."""
+    import numpy as np
+
+    rng = np.random.default_rng(3)
+    items = rng.normal(size=(64, 6))
+    items[61] = np.nan
+    return items, rng.normal(size=(6, 6))
+
+
+def nan_main(rank, nranks, rdv_dir, out_dir, run_id):
+    """Two ranks: rank 0 holds items [0, 60) and queries [0, 3), rank 1
+    items [60, 64) (the NaN row 61 among them) and queries [3, 6) plus an
+    all-NaN query row; NearestNeighbors(k=4) and (k=5, more than rank 1's
+    items), no idCol."""
+    import numpy as np
+    import pandas as pd
+
+    from spark_rapids_ml_tpu_torch import NearestNeighbors, set_devices
+    from spark_rapids_ml_tpu_torch.parallel import FileRendezvous, TpuContext
+
+    set_devices("cpu")
+    items, queries = nan_items()
+    lo, hi = (0, 60) if rank == 0 else (60, 64)
+    q = queries[:3] if rank == 0 else np.concatenate([queries[3:], np.full((1, 6), np.nan)])
+    rdv = FileRendezvous(rank, nranks, rdv_dir, timeout_s=60.0, run_id=run_id, heartbeat_interval_s=0.5)
+    out = {}
+    with TpuContext(rank, nranks, rdv):
+        for k in (4, 5):
+            model = NearestNeighbors(k=k, float32_inputs=False).setInputCol("features").fit(
+                pd.DataFrame({"features": list(items[lo:hi])}))
+            _, _, knn = model.kneighbors(pd.DataFrame({"features": list(q)}))
+            out[f"k{k}_query_ids"] = knn["query_id"].to_numpy()
+            out[f"k{k}_indices"] = np.stack(knn["indices"].to_numpy())
+            out[f"k{k}_distances"] = np.stack(knn["distances"].to_numpy())
+    rdv.close()
+    np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)
+
+
+# the forests of the `estimators` mode: name -> (classifier, params); the
+# regressors fit integer labels (`int_target`), so both packages' node
+# statistics are exact sums
+FORESTS = {
+    "rfc_even": (True, {"numTrees": 6, "featureSubsetStrategy": "sqrt"}),
+    "rfc_odd": (True, {"numTrees": 7, "featureSubsetStrategy": "sqrt", "subsamplingRate": 0.7,
+                       "impurity": "entropy"}),
+    "rfr_one": (False, {"numTrees": 1, "featureSubsetStrategy": "onethird", "subsamplingRate": 0.6}),
+}
+FOREST_COMMON = {"maxDepth": 3, "maxBins": 16, "seed": 7, "bootstrap": False}
+ANN = {
+    "ivfflat_all": ("ivfflat", {"nlist": 4, "nprobe": 4}),
+    "ivfpq": ("ivfpq", {"nlist": 4, "nprobe": 2, "M": 2, "n_bits": 4}),
+    "cagra": ("cagra", {"graph_degree": 8, "intermediate_graph_degree": 12, "cluster_reps": 2,
+                        "fast_score": False}),
+}
+
+
+def int_target(y_lin):
+    import numpy as np
+
+    return np.round(2.0 * y_lin)
+
+
+def sparse_rows(X):
+    """The dataset's rows with the entries below 0.8 in magnitude zeroed:
+    CSR rows of uneven width, so the ranks' widest rows differ."""
+    import numpy as np
+
+    return np.where(np.abs(X) < 0.8, 0.0, X)
+
+
+def _forest_arrays(model):
+    return {"feature": model.feature, "threshold": model.threshold, "node_stats": model.node_stats,
+            "classes": model.classes_}
+
+
+def estimators_main(rank, nranks, rdv_dir, out_dir, run_id, dtype):
+    """The fits of the JAX package's multi-process worker after its
+    headline five (tests/mp_worker.py): the forests, DBSCAN, UMAP, the three
+    ANN indexes, sparse LinearRegression and LogisticRegression, and the
+    sparse kNN, on this rank's ragged block; every model to rank<r>.npz."""
+    import numpy as np
+    import pandas as pd
+    import scipy.sparse as sp
+
+    from mp_worker import make_dataset, split_bounds
+    from spark_rapids_ml_tpu_torch import (
+        DBSCAN, UMAP, ApproximateNearestNeighbors, LinearRegression, LogisticRegression, NearestNeighbors,
+        RandomForestClassifier, RandomForestRegressor, set_devices,
+    )
+    from spark_rapids_ml_tpu_torch.parallel import FileRendezvous, TpuContext
+
+    set_devices("cpu")
+    f32 = dtype == "float32"
+    X, y_log, y_lin = make_dataset()
+    bounds = split_bounds(len(X), nranks)
+    lo, hi = bounds[rank], bounds[rank + 1]
+    df = _frame(X, y_log, y_lin, lo, hi)
+    df["target_int"] = int_target(y_lin[lo:hi])
+    plain = df.drop(columns=["id"])
+    xs = sp.csr_matrix(sparse_rows(X)[lo:hi])
+    out = {}
+    rdv = FileRendezvous(rank, nranks, rdv_dir, timeout_s=60.0, run_id=run_id, heartbeat_interval_s=0.5)
+    with TpuContext(rank, nranks, rdv):
+        for name, (clf, params) in FORESTS.items():
+            cls = RandomForestClassifier if clf else RandomForestRegressor
+            est = cls(float32_inputs=f32, labelCol="label" if clf else "target_int", **FOREST_COMMON, **params)
+            for key, v in _forest_arrays(est.setFeaturesCol("features").fit(df)).items():
+                out[f"{name}_{key}"] = v
+        # the bootstrap: the JAX worker's forest, fitted twice
+        boot = [RandomForestRegressor(numTrees=8, maxDepth=4, seed=1, labelCol="target", float32_inputs=f32)
+                .setFeaturesCol("features").fit(df) for _ in range(2)]
+        out["boot_pred"] = boot[0].transform(df)["prediction"].to_numpy()
+        out["boot_pred_again"] = boot[1].transform(df)["prediction"].to_numpy()
+        out["boot_threshold"] = boot[0].threshold
+        # DBSCAN: the default tile (one) and 64-row tiles (two, split)
+        for name, mb in (("db", None), ("db_tiles", 1e-6)):
+            model = DBSCAN(eps=1.5, min_samples=3, max_mbytes_per_batch=mb).setFeaturesCol("features").fit(df)
+            out[f"{name}_labels"] = model.transform(df)["prediction"].to_numpy()
+            out[f"{name}_core"] = model.core_sample_indices_
+        # UMAP: the JAX worker's fit, a short one, a sampled one
+        for name, kw in (("um", {"n_epochs": 30}), ("um5", {"n_epochs": 5}),
+                         ("um_frac", {"n_epochs": 5, "sample_fraction": 0.7})):
+            um = UMAP(n_components=2, n_neighbors=5.0, random_state=3, init="random", **kw) \
+                .setFeaturesCol("features").fit(df)
+            out[f"{name}_emb"] = um.embedding_
+            out[f"{name}_raw"] = um.raw_data_
+            if name == "um5":  # each rank embeds its own rows
+                out["transform5"] = np.stack(um.transform(df.iloc[:4])["embedding"].to_numpy())
+        # the ANN: each rank's index over its own rows, no idCol
+        for name, (algo, ap) in ANN.items():
+            model = ApproximateNearestNeighbors(k=3, algorithm=algo, algoParams=ap, float32_inputs=f32) \
+                .setInputCol("features").fit(plain)
+            _, q_out, knn = model.kneighbors(plain.iloc[:5])
+            out[f"{name}_indices"] = np.stack(knn["indices"].to_numpy())
+            out[f"{name}_distances"] = np.stack(knn["distances"].to_numpy())
+            out[f"{name}_query_ids"] = knn["query_id"].to_numpy()
+        # sparse: the CSR rows of uneven width
+        sparse = {"features": xs, "label": y_log[lo:hi], "target": y_lin[lo:hi]}
+        lin = LinearRegression(regParam=0.0, float32_inputs=f32, labelCol="target").fit(sparse)
+        lr = LogisticRegression(maxIter=100, regParam=0.1, tol=1e-10, float32_inputs=f32).fit(sparse)
+        out.update(sp_lin_coef=lin.coef_, sp_lin_intercept=np.asarray(lin.intercept_), sp_lr_coef=lr.coef_,
+                   sp_lr_intercept=np.asarray(lr.intercept_), sp_lr_objective=np.asarray(lr.objective_),
+                   sp_lr_classes=lr.classes_)
+        nn = NearestNeighbors(k=3, float32_inputs=f32).setInputCol("features").setIdCol("id").fit(
+            {"features": xs, "id": np.arange(lo, hi, dtype=np.int64)})
+        _, _, knn = nn.kneighbors({"features": sparse_rows(X)[lo:lo + 5], "id": np.arange(lo, lo + 5)})
+        out["sp_knn_indices"] = np.stack(knn["indices"].to_numpy())
+        out["sp_knn_distances"] = np.stack(knn["distances"].to_numpy())
+    rdv.close()
+    np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)
+
+
+# the `sketch` mode's forest: bootstrap off, a subsample drawn over the
+# longer block
+SKETCH_FOREST = {"numTrees": 3, "maxDepth": 3, "maxBins": 16, "seed": 5, "bootstrap": False,
+                 "subsamplingRate": 0.5, "featureSubsetStrategy": "all"}
+
+
+def sketch_data():
+    """115,000 x 3 float32 rows and 0/1 labels, split 60,000 / 55,000: both
+    ranks above the sketch's cap of 100,000 // 2 rows."""
+    import numpy as np
+
+    rng = np.random.default_rng(11)
+    x = rng.normal(size=(115_000, 3)).astype(np.float32)
+    y = (x[:, 0] + 0.5 * x[:, 1] + 0.3 * rng.normal(size=len(x)) > 0).astype(np.float64)
+    return x, y, [0, 60_000, 115_000]
+
+
+def sketch_main(rank, nranks, rdv_dir, out_dir, run_id):
+    """A RandomForestClassifier over `sketch_data`'s block of this rank."""
+    import numpy as np
+
+    from spark_rapids_ml_tpu_torch import RandomForestClassifier, set_devices
+    from spark_rapids_ml_tpu_torch.parallel import FileRendezvous, TpuContext
+
+    set_devices("cpu")
+    x, y, bounds = sketch_data()
+    lo, hi = bounds[rank], bounds[rank + 1]
+    rdv = FileRendezvous(rank, nranks, rdv_dir, timeout_s=60.0, run_id=run_id, heartbeat_interval_s=0.5)
+    with TpuContext(rank, nranks, rdv):
+        model = RandomForestClassifier(**SKETCH_FOREST).fit({"features": x[lo:hi], "label": y[lo:hi]})
+    rdv.close()
+    np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **_forest_arrays(model))
 
 
 def fail_main(rank, nranks, rdv_dir, out_dir, run_id, how):
@@ -239,6 +429,12 @@ def main() -> None:
     rank, nranks = int(rank), int(nranks)
     if mode == "fit":
         fit_main(rank, nranks, rdv_dir, out_dir, run_id, sys.argv[7])
+    elif mode == "estimators":
+        estimators_main(rank, nranks, rdv_dir, out_dir, run_id, sys.argv[7])
+    elif mode == "sketch":
+        sketch_main(rank, nranks, rdv_dir, out_dir, run_id)
+    elif mode == "nan":
+        nan_main(rank, nranks, rdv_dir, out_dir, run_id)
     elif mode == "fail":
         fail_main(rank, nranks, rdv_dir, out_dir, run_id, sys.argv[7])
     elif mode == "rounds":
