@@ -71,7 +71,8 @@
 #      BASELINE.md's three LinearRegression configurations (OLS; CD with
 #      regParam 1e-5, elasticNetParam 0.5, tol 1e-30, maxIter 10, n_iter_
 #      10; ridge with regParam 1e-5) through the public API: fit, transform
-#      of every row (the first 4096 within the float32 bound of X @ W), save
+#      of the first 200,000 rows (cut from every row; the first 4096 within the float32
+#      bound of X @ W), save
 #      and load (bit for bit), bf16 fits of PCA and OLS held to the float32
 #      fits at tests/test_precision.py's bounds, the fit's parts timed on
 #      resident rows (placement, statistics pass, eigh, solves, ms per CD
@@ -92,7 +93,7 @@
 #      multinomial fit (k = 4), the last two at maxIter=50, through the
 #      public API: the four solver branches on a small float64 input
 #      against the CPU, a NaN row raising SolverDivergedError, transform of
-#      every row (the first 4096 probabilities within the float32 bound of
+#      the first 200,000 rows (cut from every row; the first 4096 probabilities within the float32 bound of
 #      float64, the prediction column their threshold / argmax, rows summing
 #      to 1), save and load (bit for bit), the bf16 objective and
 #      coefficients against float32, the elastic net's exact zeros, centered
@@ -118,7 +119,7 @@
 #      argmax([0, X·β + 0.5·ε]) and the regressor {numTrees=15 (of 30),
 #      maxDepth=6, maxBins=128} on
 #      phase 7's labels, each fit (quantile sketch, binning, s per tree),
-#      transform of every row, save and load, a 2-tree refit equal to trees
+#      transform of the first 200,000 rows (cut from every row), save and load, a 2-tree refit equal to trees
 #      0-1 bit for bit (ms per level and per histogram pass by depth), the
 #      first 4096 rows equal to the CPU's descent bit for bit, probabilities
 #      summing to 1 within 1e-6 with the prediction their argmax, training
@@ -171,8 +172,9 @@
 #      at 20000 and 100000 x 64 rows (10 centres, n_neighbors 15, n_epochs
 #      200, random_state 42): fit (kNN graph, smooth kNN, fuzzy set,
 #      spectral init, SGD with its ms an epoch) and the transform of every
-#      row timed, trustworthiness of the first 2000 rows >= 0.90, a second
-#      fit equal bit for bit, d2_block/f32 launched by the fit and the
+#      row timed, trustworthiness of the first 2000 rows >= 0.90, at 20000
+#      rows a second fit equal bit for bit (at 100000 cut for the script's
+#      time), d2_block/f32 launched by the fit and the
 #      transform as the tiles say and no other form, the graph through B3
 #      against the plain route on the same resident rows, and at 20000 rows
 #      the graph, the fuzzy weights and a 5-epoch layout against the CPU;
@@ -188,7 +190,7 @@
 #      and ingest.overlap_fraction > 0 on a pass whose caller works longer
 #      on a chunk than a copy takes; 13b demotion by that budget: KMeans
 #      (k=1000, random init, 2 iterations, cut from 3) in high and fast, PCA(k=3), OLS
-#      and LogisticRegression (regParam 1e-5, 2 iterations, cut from 10) streamed, each
+#      and LogisticRegression (regParam 1e-5, 1 iteration, cut from 10) streamed, each
 #      held to its resident fit (KMeans: the first iteration's assignments
 #      equal, the first update's centers within 1e-5 of the largest
 #      |center| (later ones may part at near-tied rows: reported), final
@@ -211,13 +213,13 @@
 #      conversion, placement and solve timed apart, accuracy on the first
 #      200,000 rows and the cosine to the generating coefficients >= 0.9, a
 #      second fit bit for bit, a 4-point regParam grid equal to its single
-#      fits bit for bit, a 200,000-row slice on the card against the CPU;
+#      fits bit for bit, a 100,000-row slice on the card against the CPU;
 #      14b LinearRegression (OLS, ridge, CD elastic net) with its statistics
 #      pass and solve apart, OLS bit for bit twice, a 500,000-row slice
 #      against the densified dense fit; 14c both streamed under a 1 GiB
 #      budget and held to their resident fits; 14d a 3 x 4 CrossValidator
-#      on 1,000,000 rows converting and placing once; 14e NearestNeighbors
-#      (k=64) over 1,000,000 x 2200 CSR items at density 0.01 for 4096 dense
+#      on 250,000 rows (cut from 1,000,000) converting and placing once; 14e NearestNeighbors
+#      (k=64) over 500,000 x 2200 CSR items (cut from 1,000,000) at density 0.01 for 4096 dense
 #      queries, every item tile through B3 (d2_block/f32), the kernel route
 #      equal to the plain route; 14f a weighted k-means|| seeding twice, bit
 #      for bit;
@@ -300,9 +302,8 @@
 #      every audit record under its job's tenant. The phase fails if the
 #      ledger holds a claim when it starts (naming its owners), or if the
 #      card keeps over 1 GiB more reserved after it than before;
-#  18. multi-process fits (after phases 9-14, the last phase of the float32
-#      rows; the order of the phases run after 17 is 9, 10, 11, 13, 12, 14,
-#      18, 6, 7b, 8b):
+#  18. multi-process fits (after phases 9-14; the order of the phases run
+#      after 17 is 9, 10, 11, 13, 12, 14, 18, 19, 17e, 6, 7b, 8b):
 #      two ranks, each this script started afresh with `--mp-worker`,
 #      share the card over a gloo process group and meet through a
 #      FileRendezvous; each makes only its rows of the protocol data (rank
@@ -325,10 +326,10 @@
 #      rank's rows, the ranks' edges, a draw over the larger block) equal
 #      to the rank's, training accuracy on 100,000 fixed rows >= 0.85; 18d
 #      12a's DBSCAN, rows split 60/40, the labels equal to 12a's; 18e 12b's
-#      UMAP at 100000 rows split 60/40, the embedding equal to 12b's bit for
+#      UMAP at 20000 rows (cut from 100000) split 60/40, the embedding equal to 12b's bit for
 #      bit, each rank's transform to the one-process transform of its rows;
 #      18f phase 11's indexes over each rank's rows (CAGRA over the first
-#      131,072 rows of each, a cut) and phase 4's queries: IVFFlat over
+#      65,536 rows of each, a cut) and phase 4's queries: IVFFlat over
 #      every list gives phase 4's id sets (64th/65th near-ties counted),
 #      IVFFlat and IVFPQ at nprobe 16 within 0.02 of phase 11's recall,
 #      CAGRA's ids valid and its recall printed; 18g phase 14's sparse rows
@@ -336,7 +337,7 @@
 #      OLS within 1e-4 (normwise) of 14b's, the sparse kNN's ids equal to
 #      14e's; 18h 10a's CrossValidator (LogisticRegression, maxIter 30,
 #      regParam logspace(-6, -3, 4), 3 folds, accuracy) over each rank's
-#      first 120,000 / 80,000 rows (200,000 in all, a cut): one ingest and
+#      first 90,000 / 60,000 rows (150,000 in all, a cut): one ingest and
 #      one layout a rank, every rank's metrics, winner and refit equal, and
 #      against the parent's one-process sweep over the same rows in rank
 #      order with the ranks' folds the same winner and every avgMetric within
@@ -354,7 +355,32 @@
 #      bit for bit to the parent's one-process Lloyd run over its rows from
 #      the centers it resumed from. Each rank's placement, collective and
 #      solve seconds and its launches are printed by sub-phase;
-#  19. a {"kernels": [...]} line with all twelve kernel forms, the
+#  19. one process driving two chips (after phase 18, on the float32 rows):
+#      the visible cards when there are two or more, else two chips on card
+#      0 (cuda:0 twice, as phase 18's ranks share it), num_workers=2, the
+#      protocol rows in blocks [0, 500,000) and [500,000, 1M), one thread a
+#      chip over the in-process group, in one device_dataset_scope:
+#      KMeans(k = 1000, random init, maxIter 3) `high` and `fast`, its
+#      transform split over the chips on the first 200,000 rows, exact kNN
+#      of phase 4's queries (k = 64), PCA(k = 3), LogisticRegression at 8a's
+#      row with maxIter 20. Gated on every chip's model equal to rank 0's;
+#      KMeans equal bit for bit to one process summing the two blocks in chip
+#      order from the same init; the split transform equal to one chip's; the
+#      kNN ids equal to phase 4's; PCA within phase 18's bounds of 7a's; the
+#      GLM within 1e-5 (objective) and 1e-3 (coefficients) of the same fit
+#      on one chip; B1/B2 (f32, f32-fast) and B3 f32 launched as the chips'
+#      tiles say. Each chip's placement, collective and solve seconds and a
+#      GLM iteration's ms are printed;
+#      17e. bench_scheduler.py's co-admission lane on phase 19's pool: two
+#      KMeans jobs (k 8, maxIter 12, tol 0, seed 7, random init) each half
+#      the pool wide over the first 262,144 protocol rows, co-admitted by
+#      FitScheduler(chip_placement=True), then time-sliced (max_concurrent
+#      1), and three jobs of which the third queues on chip overlap alone:
+#      peak occupancy 2 chips, the co-admitted occupancy integral at least
+#      1.5x the time-sliced one, every model equal bit for bit across the
+#      schedules and to the job run alone, no admission over budget; the
+#      rows/s of both schedules printed;
+#  20. a {"kernels": [...]} line with all twelve kernel forms, the
 #      nvidia-smi line, and as the last line {"ok": true, "device": {...}}.
 #      The seconds of each phase are printed as it ends.
 #
@@ -630,27 +656,55 @@ def _inputs(n, k, d, dtype, integer, seed, dev, tie_at=None):
     tie_at + 6 repeat one row and the first 64 rows lie on it, so the copies
     straddle the center-tile boundary at tie_at and the first copy,
     tie_at - 9, must win those rows."""
-    import torch
-
-    rng = np.random.default_rng(seed)
+    g, tdt = _device_rng(seed, dev, dtype)
     if integer:  # exact in bf16/f32/f64, duplicated centers force ties
-        X = rng.integers(-4, 5, size=(n, d)).astype(dtype)
-        C = rng.integers(-4, 5, size=(k, d)).astype(dtype)
+        X = _randint(g, -4, 5, (n, d), tdt)
+        C = _randint(g, -4, 5, (k, d), tdt)
         C[k // 2:k // 2 + 3] = C[0]
         C[k - 1] = C[1]
-        w = rng.integers(1, 4, size=n).astype(dtype)
+        w = _randint(g, 1, 4, (n,), tdt)
     else:
-        X = rng.standard_normal(size=(n, d), dtype=np.float64).astype(dtype)
-        C = rng.standard_normal(size=(k, d), dtype=np.float64).astype(dtype)
-        w = rng.uniform(0.5, 2.0, size=n).astype(dtype)
+        X = _randn(g, (n, d), tdt)
+        C = _randn(g, (k, d), tdt)
+        w = _uniform(g, 0.5, 2.0, (n,), tdt)
     if k >= 64:  # a trailing block repeating one row, as k-means|| pads its candidates
         C[k - k // 8:k - 1] = C[k - k // 8 - 1]
     if tie_at is not None:
         C[tie_at - 8:tie_at + 7] = C[tie_at - 9]
         X[:64] = C[tie_at - 9]
         if not integer:
-            X[:64] += 0.01 * rng.standard_normal(size=(64, d)).astype(dtype)
-    return tuple(torch.from_numpy(a).to(dev) for a in (X, C, w))
+            X[:64] += 0.01 * _randn(g, (64, d), tdt)
+    return X, C, w
+
+
+# The kernel checks' inputs are drawn on the device from a seeded generator
+# (Philox on the card): the same values on every run, and no host time (the
+# host's generator took most of phase 2's seconds at these sizes). Normal
+# values are drawn in float64 and rounded, as before.
+def _device_rng(seed, dev, dtype):
+    import torch
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(int(seed))
+    return g, (torch.float32 if np.dtype(dtype) == np.float32 else torch.float64)
+
+
+def _randint(g, lo, hi, shape, tdt):
+    import torch
+
+    return torch.randint(lo, hi, shape, generator=g, device=g.device).to(tdt)
+
+
+def _randn(g, shape, tdt):
+    import torch
+
+    return torch.randn(shape, generator=g, device=g.device, dtype=torch.float64).to(tdt)
+
+
+def _uniform(g, lo, hi, shape, tdt):
+    import torch
+
+    return (lo + (hi - lo) * torch.rand(shape, generator=g, device=g.device, dtype=torch.float64)).to(tdt)
 
 
 def check_kernels(n, k, d, dtype, fast, integer, seed, dev, case="", tie_at=None):
@@ -954,16 +1008,10 @@ def check_batch_independence(dev):
 
 
 def _d2_inputs(B, kt, d, dtype, integer, seed, dev):
-    import torch
-
-    rng = np.random.default_rng(seed)
+    g, tdt = _device_rng(seed, dev, dtype)
     if integer:  # every dot product and norm is exact in f32 and f64
-        q = rng.integers(-4, 5, size=(B, d)).astype(dtype)
-        xt = rng.integers(-4, 5, size=(kt, d)).astype(dtype)
-    else:
-        q = rng.standard_normal(size=(B, d), dtype=np.float64).astype(dtype)
-        xt = rng.standard_normal(size=(kt, d), dtype=np.float64).astype(dtype)
-    return torch.from_numpy(q).to(dev), torch.from_numpy(xt).to(dev)
+        return _randint(g, -4, 5, (B, d), tdt), _randint(g, -4, 5, (kt, d), tdt)
+    return _randn(g, (B, d), tdt), _randn(g, (kt, d), tdt)
 
 
 def check_d2_block(B, kt, d, dtype, fast, integer, seed, dev):
@@ -1592,17 +1640,18 @@ def phase_knn(dev, X, d2_ms):
 # ------------------------------------------------------------ phase 5 ----
 
 
-def _serve_traffic(seed, clients=SERVE_CLIENTS, requests=SERVE_REQUESTS):
-    """Per client thread, its requests as (first row, rows) of X: the sizes
-    cycle through SERVE_SIZES (each thread starting elsewhere in the cycle,
-    so concurrent requests differ in size), the first rows are seeded."""
+def _serve_traffic(seed, clients=SERVE_CLIENTS, requests=SERVE_REQUESTS, n_rows=None):
+    """Per client thread, its requests as (first row, rows) of the first
+    `n_rows` (default N_ROWS) rows of X: the sizes cycle through SERVE_SIZES
+    (each thread starting elsewhere in the cycle, so concurrent requests
+    differ in size), the first rows are seeded."""
     rng = np.random.default_rng(seed)
     out = []
     for t in range(clients):
         reqs = []
         for i in range(requests):
             n = SERVE_SIZES[(t + i) % len(SERVE_SIZES)]
-            reqs.append((int(rng.integers(0, N_ROWS - n)), n))
+            reqs.append((int(rng.integers(0, (n_rows or N_ROWS) - n)), n))
         out.append(reqs)
     return out
 
@@ -2939,8 +2988,10 @@ def phase_pca_linear(dev, X):
     ref_rows = X[:KNN_QUERIES]
     _kernels.reset_launches()
 
+    tdata = {"features": X[:TRANSFORM_ROWS]}
+
     def transform_pca(model):
-        return np.stack(model.transform(data)["pcs"].to_numpy())
+        return np.stack(model.transform(tdata)["pcs"].to_numpy())
 
     # PCA: fit, transform, save / load, bf16
     pca, timings["pca_fit_s"] = _timed(lambda: PCA(k=PCA_K).setInputCol("features").setOutputCol("pcs").fit(data))
@@ -2951,7 +3002,7 @@ def phase_pca_linear(dev, X):
     if gram_err > 1e-5 or (np.diff(ev) > 0).any() or not (0 < pca.explained_variance_ratio_.sum() < 1):
         fail(f"PCA fit: components not orthonormal ({gram_err}) or variances not descending ratios")
     proj, timings["pca_transform_s"] = _timed(lambda: transform_pca(pca))
-    if proj.shape != (N_ROWS, PCA_K) or not np.isfinite(proj).all():
+    if proj.shape != (TRANSFORM_ROWS, PCA_K) or not np.isfinite(proj).all():
         fail("PCA transform: not finite of shape (1000000, 3)")
     exact = ref_rows.astype(np.float64) @ comps.T.astype(np.float64)
     err = np.abs(proj[:KNN_QUERIES] - exact)
@@ -2971,7 +3022,7 @@ def phase_pca_linear(dev, X):
         fail(f"PCA bf16 fit: explained variance off by rtol {ev_err} (bound 2e-3) or |components| by {c_err} "
              "(bound 5e-3)")
     say(f"  PCA fit {timings['pca_fit_s']:.2f} s wall, explained variance {ev.tolist()}, ratio "
-        f"{pca.explained_variance_ratio_.tolist()}; transform of {N_ROWS} rows {timings['pca_transform_s']:.2f} s "
+        f"{pca.explained_variance_ratio_.tolist()}; transform of {TRANSFORM_ROWS} rows {timings['pca_transform_s']:.2f} s "
         f"wall, the first {KNN_QUERIES} within the float32 bound of X @ components.T (max {err.max():.3g}); "
         f"save/load bit for bit; bf16 fit {timings['pca_bf16_fit_s']:.2f} s, explained variance within rtol "
         f"{ev_err:.3g}, |components| within {c_err:.3g}")
@@ -2984,14 +3035,14 @@ def phase_pca_linear(dev, X):
             fail(f"{name} fit: coefficients not finite of shape (3000,)")
         if name == "cd" and m.n_iter_ != params["maxIter"]:
             fail(f"cd fit: n_iter_ {m.n_iter_}, expected {params['maxIter']} sweeps at tol 1e-30")
-        pred, timings[f"{name}_transform_s"] = _timed(lambda: np.asarray(m.transform(data)["prediction"]))
+        pred, timings[f"{name}_transform_s"] = _timed(lambda: np.asarray(m.transform(tdata)["prediction"]))
         exact = ref_rows.astype(np.float64) @ m.coef_.astype(np.float64) + m.intercept_
         bound = _dot_bound(ref_rows, m.coef_[None, :])[:, 0] + 2.0 ** -23 * (np.abs(exact) + abs(m.intercept_))
-        if pred.shape != (N_ROWS,) or (np.abs(pred[:KNN_QUERIES] - exact) > bound).any():
+        if pred.shape != (TRANSFORM_ROWS,) or (np.abs(pred[:KNN_QUERIES] - exact) > bound).any():
             fail(f"{name} transform: beyond the float32 bound from X @ coef + intercept")
         path = ROOT / "build" / f"chip_smoke_linreg_{name}"
         m.write().overwrite().save(str(path))
-        if not np.array_equal(np.asarray(LinearRegressionModel.load(str(path)).transform(data)["prediction"]), pred):
+        if not np.array_equal(np.asarray(LinearRegressionModel.load(str(path)).transform(tdata)["prediction"]), pred):
             fail(f"{name} save/load: the loaded model's transform differs from the fitted model's")
         rmse = float(np.sqrt(np.mean((pred[:KNN_QUERIES] - y[:KNN_QUERIES]) ** 2)))
         coef_err = float(np.abs(m.coef_ - beta).max())
@@ -3068,7 +3119,7 @@ def phase_pca_linear(dev, X):
     loads = (("pca", pca, proj), ("ols", ols, preds["ols"]))
     for name, m, _ in loads:
         _, timings[f"load_{name}_s"] = _timed(lambda: registry.load(name, m))
-    traffic = _serve_traffic(2029, LINREG_SERVE_CLIENTS, LINREG_SERVE_REQUESTS)
+    traffic = _serve_traffic(2029, LINREG_SERVE_CLIENTS, LINREG_SERVE_REQUESTS, TRANSFORM_ROWS)
     telemetry.registry().reset()
     telemetry.enable()
     engine = ScoringEngine(registry).start()
@@ -3348,12 +3399,12 @@ def phase_logreg(dev, X):
             fail(f"LogReg {name}: coefficients not finite of shape ({k_out}, {N_COLS})")
         models[name] = m
         if name in ("baseline", "multinomial"):
-            out, timings[f"{name}_transform_s"] = _timed(lambda: m.transform(data))
+            out, timings[f"{name}_transform_s"] = _timed(lambda: m.transform({"features": X[:TRANSFORM_ROWS]}))
             raw = np.stack(out["rawPrediction"].to_numpy())
             prob = np.stack(out["probability"].to_numpy())
             pred = np.asarray(out["prediction"])
-            if raw.shape != (N_ROWS, k) or prob.shape != (N_ROWS, k) or not np.isfinite(prob).all():
-                fail(f"LogReg {name} transform: not finite of shape ({N_ROWS}, {k})")
+            if raw.shape != (TRANSFORM_ROWS, k) or prob.shape != (TRANSFORM_ROWS, k) or not np.isfinite(prob).all():
+                fail(f"LogReg {name} transform: not finite of shape ({TRANSFORM_ROWS}, {k})")
             # the first rows' probabilities against float64 on the host: the
             # margins within the fixed-order dot's float32 bound, the link
             # moving a probability by at most half the margins' error
@@ -3375,7 +3426,7 @@ def phase_logreg(dev, X):
             row_sums = np.abs(prob.sum(axis=1, dtype=np.float64) - 1.0).max()
             if row_sums > 8 * F32_U:
                 fail(f"LogReg {name}: a row of probabilities sums to 1 ± {row_sums}")
-            acc = float(np.mean(pred == labels[k]))
+            acc = float(np.mean(pred == labels[k][:TRANSFORM_ROWS]))
             outs[name] = (raw, prob)
             say(f"  {name} {params}: fit {timings[f'{name}_fit_s']:.2f} s wall, n_iter_ {m.n_iter_}, objective "
                 f"{m.objective_:.9g}; transform {timings[f'{name}_transform_s']:.2f} s wall, the first {KNN_QUERIES} "
@@ -3475,7 +3526,7 @@ def phase_logreg(dev, X):
     loads = (("logreg_bin", base, outs["baseline"]), ("logreg_multi", multi, outs["multinomial"]))
     for name, m, _ in loads:
         _, timings[f"load_{name}_s"] = _timed(lambda: registry.load(name, m))
-    traffic = _serve_traffic(2031, LOGREG_SERVE_CLIENTS, LOGREG_SERVE_REQUESTS)
+    traffic = _serve_traffic(2031, LOGREG_SERVE_CLIENTS, LOGREG_SERVE_REQUESTS, TRANSFORM_ROWS)
     telemetry.registry().reset()
     telemetry.enable()
     engine = ScoringEngine(registry).start()
@@ -3630,6 +3681,10 @@ RF_CONFIGS = (
 )
 RF_REFIT_TREES = 2
 RF_DESCENT_ROWS, RF_QUALITY_ROWS = 4096, 100_000
+# the transforms of phases 7a, 8a and 9 run over the first TRANSFORM_ROWS rows
+# (cut from all 1M for the script's time; every gate reads rows
+# within them)
+TRANSFORM_ROWS = 200_000
 RF_SMALL, RF_SMALL_FOREST = (20000, 40), {"numTrees": 4, "maxDepth": 6, "maxBins": 32, "seed": 11}
 RF_SERVE_CLIENTS, RF_SERVE_REQUESTS = 2, 4
 # 9a's entropy gate: a node may split elsewhere on the card only where its
@@ -3831,7 +3886,7 @@ def phase_forests(dev, X):
     maxDepth=13, maxBins=128} and RandomForestRegressor {numTrees=30 cut to
     15, maxDepth=6, maxBins=128} through the public API on the protocol rows
     (float32): 9a on a small input against the CPU, then for each forest
-    fit (its parts timed), transform of every row, save/load bit for bit, a
+    fit (its parts timed), transform of the first TRANSFORM_ROWS rows, save/load bit for bit, a
     refit of RF_REFIT_TREES trees repeating the first trees bit for bit
     (levels timed), the first rows against the CPU's descent bit for bit and
     the training-quality gates; 9d, one ModelRegistry serving both,
@@ -3863,15 +3918,15 @@ def phase_forests(dev, X):
         M = 2 ** (depth + 1) - 1
         if m.feature.shape != (T, M) or not np.isfinite(m.node_stats).all() or not (m.feature[:, 0] >= 0).all():
             fail(f"RF {name}: feature {m.feature.shape} (want ({T}, {M})), non-finite statistics or an unsplit root")
-        out, transform_s = _timed(lambda: m.transform(data))
+        out, transform_s = _timed(lambda: m.transform({"features": X[:TRANSFORM_ROWS]}))
         mean = _cpu_descent(m, head).astype(np.float64)
         q = slice(0, RF_QUALITY_ROWS)
         if name == "classifier":
             raw = np.stack(out["rawPrediction"].to_numpy())
             prob = np.stack(out["probability"].to_numpy())
             pred = np.asarray(out["prediction"])
-            if raw.shape != (N_ROWS, 2) or not np.isfinite(prob).all():
-                fail(f"RF {name} transform: not finite of shape ({N_ROWS}, 2)")
+            if raw.shape != (TRANSFORM_ROWS, 2) or not np.isfinite(prob).all():
+                fail(f"RF {name} transform: not finite of shape ({TRANSFORM_ROWS}, 2)")
             if not np.array_equal(raw[:RF_DESCENT_ROWS], mean * T):
                 fail(f"RF {name}: the first {RF_DESCENT_ROWS} rows of the transform differ from the CPU's descent")
             row_sums = float(np.abs(prob.sum(axis=1) - 1.0).max())
@@ -3887,8 +3942,8 @@ def phase_forests(dev, X):
             quality = f"training accuracy {acc:.4f} (majority {majority:.4f}), rows sum to 1 within {row_sums:.3g}"
         else:
             pred = np.asarray(out["prediction"])
-            if pred.shape != (N_ROWS,) or not np.isfinite(pred).all():
-                fail(f"RF {name} transform: not finite of shape ({N_ROWS},)")
+            if pred.shape != (TRANSFORM_ROWS,) or not np.isfinite(pred).all():
+                fail(f"RF {name} transform: not finite of shape ({TRANSFORM_ROWS},)")
             if not np.array_equal(pred[:RF_DESCENT_ROWS].astype(np.float64), mean[:, 0]):
                 fail(f"RF {name}: the first {RF_DESCENT_ROWS} rows of the transform differ from the CPU's descent")
             yq = labels[name][q].astype(np.float64)
@@ -3931,7 +3986,7 @@ def phase_forests(dev, X):
     registry = ModelRegistry()
     for name in models:
         _, timings[f"load_{name}_s"] = _timed(lambda: registry.load(f"rf_{name}", models[name]))
-    traffic = _serve_traffic(2033, RF_SERVE_CLIENTS, RF_SERVE_REQUESTS)
+    traffic = _serve_traffic(2033, RF_SERVE_CLIENTS, RF_SERVE_REQUESTS, TRANSFORM_ROWS)
     telemetry.registry().reset()
     telemetry.enable()
     engine = ScoringEngine(registry).start()
@@ -4577,6 +4632,7 @@ DBSCAN_EPS, DBSCAN_MIN_SAMPLES, DBSCAN_MBYTES = 1.5 * float(np.sqrt(64)), 5, 512
 DBSCAN_ARI_FLOOR = 0.99
 DBSCAN_INT_ROWS = 4000  # the card against the CPU, exactly
 UMAP_ROWS, UMAP_COLS, UMAP_CENTERS = (20_000, 100_000), 64, 10
+MP_UMAP_ROWS = UMAP_ROWS[0]  # phase 18e's rows (see MP_SHARE)
 UMAP_K, UMAP_EPOCHS, UMAP_SEED = 15, 200, 42
 UMAP_TW_ROWS, UMAP_TW_FLOOR = 2000, 0.90  # bench_umap.py's quality: the first 2000 rows
 UMAP_LAYOUT_ATOL = 1e-3  # tests/test_torch_umap.py's layout tolerance (coordinates of scale 10)
@@ -4880,14 +4936,16 @@ def phase_dbscan_umap(dev):
             f"{split['optimize_embedding']:.3f} ({t['sgd_ms_per_epoch']:.2f} ms an epoch x {UMAP_EPOCHS}) + "
             f"host {t['fit_host_s']:.3f}; transform of {n} rows {tr_s:.3f} s ({t['transform_epochs']} epochs); "
             f"trustworthiness of the first {UMAP_TW_ROWS} rows {tw:.5f}")
-        again = est.fit({"features": x})
-        if not np.array_equal(again.embedding_, emb):
-            fail(f"UMAP at {n} rows: a second fit on the card differs from the first "
-                 f"(max {np.abs(again.embedding_ - emb).max()})")
-        say("    a second fit equals the first bit for bit")
-        if n == UMAP_ROWS[-1]:  # phase 18e's reference
+        if n == UMAP_ROWS[0]:  # the repeat at the first size only, for the script's time
+            again = est.fit({"features": x})
+            if not np.array_equal(again.embedding_, emb):
+                fail(f"UMAP at {n} rows: a second fit on the card differs from the first "
+                     f"(max {np.abs(again.embedding_ - emb).max()})")
+            say("    a second fit equals the first bit for bit")
+            del again
+        if n == MP_UMAP_ROWS:  # phase 18e's reference
             refs.update(umap_embedding=emb, umap_transform=emb_t, umap_model=model)
-        del again, model, out
+        del model, out
         # B3 against the plain route on the same resident rows
         Xd = torch.from_numpy(x).to(dev)
         res, secs = _knn_routes(Xd, None, Xd, UMAP_K)
@@ -4927,7 +4985,7 @@ def phase_dbscan_umap(dev):
 OOCORE_BUDGET = 8 << 30
 OOCORE_CAP = 10 << 30
 OOCORE_KMEANS_ITERS = 2  # cut from 3 for the script's time
-OOCORE_LOGREG = {"regParam": 1e-5, "elasticNetParam": 0.0, "maxIter": 2, "tol": 1e-30}  # cut from 10
+OOCORE_LOGREG = {"regParam": 1e-5, "elasticNetParam": 0.0, "maxIter": 1, "tol": 1e-30}  # cut from 10
 OOCORE_NAN_AT = (700_001, 17)
 
 
@@ -5307,14 +5365,17 @@ def phase_oocore(dev, X, linear_ref, y_cls):
 SPARSE_ROWS, SPARSE_COLS, SPARSE_DENSITY = 10_000_000, 2200, 0.001
 SPARSE_LOGREG = {"regParam": 1e-6, "standardization": True, "maxIter": 60, "tol": 1e-12}
 SPARSE_SLICE_ROWS = 200_000
+# 14a's slice fitted on the card and the CPU (cut from 200,000 for the script's time)
+SPARSE_CPU_SLICE_ROWS = 100_000
 SPARSE_GRID = (1e-6, 1e-5, 1e-4, 1e-3)
 SPARSE_LINEAR = (("ols", {"regParam": 0.0}), ("ridge", {"regParam": 1e-5}),
                  ("cd", {"regParam": 1e-5, "elasticNetParam": 0.5, "maxIter": 10, "tol": 1e-30}))
 SPARSE_DENSE_ROWS = 500_000
 SPARSE_STREAM_BUDGET = 1 << 30
-SPARSE_STREAM_LOGREG = dict(SPARSE_LOGREG, maxIter=2)  # cut from 10
-SPARSE_CV_ROWS = 500_000  # cut from 1,000,000 for the script's time
-SPARSE_KNN_ROWS, SPARSE_KNN_DENSITY, SPARSE_KNN_QUERIES, SPARSE_KNN_K = 1_000_000, 0.01, 4096, 64
+SPARSE_STREAM_LOGREG = dict(SPARSE_LOGREG, maxIter=1)  # cut from 10
+SPARSE_CV_ROWS = 250_000  # cut from 1,000,000 for the script's time
+# 14e's items: 500,000 rows (cut from 1,000,000 for the script's time)
+SPARSE_KNN_ROWS, SPARSE_KNN_DENSITY, SPARSE_KNN_QUERIES, SPARSE_KNN_K = 500_000, 0.01, 4096, 64
 SPARSE_KNN_TILE = 65536  # ops/knn.exact_knn_sparse's batch_items
 KMEANSPAR_ROWS, KMEANSPAR_COLS, KMEANSPAR_K = 262_144, 128, 1000
 
@@ -5424,7 +5485,7 @@ def phase_sparse(dev):
     timed apart; accuracy on the first 200,000 rows >= 0.9 and the cosine
     to β >= 0.9 (tests/test_large_sparse.py's bars); a second fit bit for
     bit; a 4-point regParam grid (fitMultiple) against its single fits bit
-    for bit; the same estimator on a 200,000-row slice on the card and the
+    for bit; the same estimator on a 100,000-row slice on the card and the
     CPU, its predictions of the slice equal on 99.9% of rows (the fits
     stop on a stall at float32 noise, at iterations of their own), and
     at 10 iterations, tol 0 (both stop there): float32 objective rtol
@@ -5436,12 +5497,12 @@ def phase_sparse(dev):
     (maxIter 10), the statistics pass and the solve timed apart, OLS
     repeated bit for bit, and a 500,000-row slice's ELL OLS within 1e-4
     (normwise) of the densified slice's dense fit. 14c under a 1 GiB budget:
-    LogisticRegression (maxIter 2, cut from 10) and OLS stream (verdict stream), held
+    LogisticRegression (maxIter 1, cut from 10) and OLS stream (verdict stream), held
     to their resident fits (logistic: n_iter_ equal, objective rtol 1e-5,
     coefficients 1e-3 normwise; OLS: 1e-4 normwise). 14d a 3-fold x 4-map
     CrossValidator over LogisticRegression (maxIter 20) on the first
-    500,000 rows (cut from 1,000,000): one conversion, one ingest, one placement. 14e
-    NearestNeighbors(k=64) over 1,000,000 x 2200 CSR items at density 0.01
+    250,000 rows (cut from 1,000,000): one conversion, one ingest, one placement. 14e
+    NearestNeighbors(k=64) over 500,000 x 2200 CSR items at density 0.01
     (normal values) for 4096 dense normal queries: every item tile's
     distances through B3 (d2_block/f32, 4 blocks a tile), the kernel route
     equal to the plain route (ids exactly, distances rtol 1e-5). 14f a
@@ -5562,7 +5623,8 @@ def phase_sparse(dev):
             f"{singles_s:.2f} s, one placement)")
         del m2, grid, singles
         # the card against the CPU on a slice
-        xs, ys = x[:n_h], y[:n_h]
+        n_c = SPARSE_CPU_SLICE_ROWS
+        xs, ys = x[:n_c], y[:n_c]
         slice_data = {"features": xs, "label": ys}
         res = {}
         ten = dict(SPARSE_LOGREG, maxIter=10, tol=0.0)  # tol 0: both stop after exactly 10 iterations
@@ -5586,7 +5648,7 @@ def phase_sparse(dev):
         timings["logreg_card_vs_cpu"] = dict(full_n_iter=[g_full.n_iter_, c_full.n_iter_], full_objective_rel=f_full,
                                              prediction_agreement=agree, f32_objective_rel=f32_err,
                                              f32_coef_rel=c32_err, f64_coef_err=c64_err, f64_objective_rel=f64_err)
-        say(f"  14a on {n_h} rows, card against CPU: the fit as above stops after {g_full.n_iter_}/{c_full.n_iter_} "
+        say(f"  14a on {n_c} rows, card against CPU: the fit as above stops after {g_full.n_iter_}/{c_full.n_iter_} "
             f"iterations (a stall at float32 noise), objectives {f_full:.3g} apart, predictions agree on {agree:.5f}; "
             f"10 iterations (tol 0): float32 objective within {f32_err:.3g}, coefficients {c32_err:.3g} (normwise); "
             f"float64 coefficients within {c64_err:.3g} (largest {scale:.4g}), objective within {f64_err:.3g}")
@@ -6441,12 +6503,14 @@ MP_FOREST = dict(RF_CONFIGS[0][1], numTrees=8)
 MP_FOREST_SAMPLE, MP_FOREST_SAMPLE_SEED, MP_FOREST_ACC_FLOOR = 100_000, 18, 0.85
 # 18d, 18e, 18g: the first 60% of phase 12's and 14's rows on rank 0
 MP_SHARE = 0.6
+# 18e: phase 12b's UMAP at its first row count (20,000; cut from 100,000 for
+# the script's time)
 # 18f: phase 11's indexes over each rank's rows and phase 4's queries; IVFFlat
 # and IVFPQ at phase 11's nprobe held to its one-process recall@64 less this
 # margin (set before the first run); CAGRA over the first MP_CAGRA_ROWS rows
-# of each rank (262,144 in all; cut from 1M for the script's time)
+# of each rank (131,072 in all; cut from 1M for the script's time)
 MP_ANN_RECALL_MARGIN = 0.02
-MP_CAGRA_ROWS = 131_072
+MP_CAGRA_ROWS = 65_536
 # the ranks' ANN query tile (the estimator's default 1024: an IVFPQ search
 # tile of 1024 queries holds ~20 GB of ADC candidates at a rank's list
 # lengths, and both ranks search every query on the one card)
@@ -6466,12 +6530,12 @@ MP_SUBPHASES = {
     "18h": ("sweep",),
 }
 # 18h: 10a's CrossValidator over each rank's first MP_SWEEP_ROWS[r] rows
-# (200,000 in all, cut from 1M for the script's time); the parent's
+# (150,000 in all, cut from 1M for the script's time); the parent's
 # one-process sweep over the same rows in rank order, given the ranks' folds
 # (each rank draws its own over its rows) as a fold column, is held to the
 # same winner and every avgMetric within MP_SWEEP_METRIC_ATOL, set before the
 # first run
-MP_SWEEP_ROWS = (120_000, 80_000)
+MP_SWEEP_ROWS = (90_000, 60_000)
 MP_SWEEP_METRIC_ATOL = 0.01
 # 18i: a recovery epoch. KMeans `high` over each rank's rows, checkpointed
 # every MP_RECOVER_EVERY iterations, one rank loss allowed; rank 0 writes
@@ -6786,9 +6850,9 @@ def _mp_worker_rest(rank, tmp, X, Q, y_cls, timed, sub_launches):
     out["db_labels"] = timed("dbscan", lambda: db.transform({"features": xb[a:b]})["prediction"].to_numpy())
     out["db_core"] = db.core_sample_indices_
     done("18d")
-    # 18e: phase 12b's UMAP at 100000 rows, rows split MP_SHARE / the rest
-    xu, _ = make_blobs(UMAP_ROWS[1], UMAP_COLS, UMAP_CENTERS, 0)
-    a, b = _mp_share(UMAP_ROWS[1], rank)
+    # 18e: phase 12b's UMAP at MP_UMAP_ROWS rows, rows split MP_SHARE / the rest
+    xu, _ = make_blobs(MP_UMAP_ROWS, UMAP_COLS, UMAP_CENTERS, 0)
+    a, b = _mp_share(MP_UMAP_ROWS, rank)
     um = timed("umap", lambda: UMAP(n_neighbors=UMAP_K, n_epochs=UMAP_EPOCHS, random_state=UMAP_SEED)
                .setFeaturesCol("features").fit({"features": xu[a:b]}))
     out["um_emb"] = um.embedding_
@@ -7080,6 +7144,297 @@ def phase_multiprocess(dev, X, linear_ref, logreg_ref, exact_ids, exact_dist, an
     return counts, timings
 
 
+MD_CHIPS = 2
+MD_KMEANS = {"k": K, "maxIter": 3, "tol": 1e-20, "initMode": "random", "seed": 1}
+MD_LOGREG = dict(LOGREG_ROW, maxIter=20)  # 8a's row, maxIter cut from 200
+MD_TRANSFORM_ROWS = 200_000  # the split transform held to one chip's on these rows (cut from 1M)
+COADMIT_ROWS = 262_144  # 17e: the first protocol rows (the lane's own 40,000 x 32, widened and deepened)
+# the lane's job, its default k-means|| seeding replaced by the random init:
+# at k = 8 over 262,144 x 3000 rows the port's k-means|| seeding takes ~48 s
+# on the host (0.6 s of it on the card), the Lloyd loop 0.15 s (PERF.md)
+COADMIT_KMEANS = {"k": 8, "maxIter": 12, "tol": 0.0, "seed": 7, "initMode": "random"}
+COADMIT_RATIO = 1.5
+
+
+def _md_pool():
+    """Phase 19's pool: the visible cards when there are two or more, else
+    two chips on card 0 (as phase 18's ranks share it)."""
+    import torch
+
+    n = torch.cuda.device_count()
+    if n >= MD_CHIPS:
+        return [f"cuda:{i}" for i in range(MD_CHIPS)], f"{MD_CHIPS} cards"
+    return ["cuda:0"] * MD_CHIPS, f"{MD_CHIPS} chips on one card (cuda:0 twice)"
+
+
+def phase_multidevice(dev, X, linear_ref, logreg_ref, exact_ids):
+    """Phase 19: one process driving two chips (core.py's fan-out, one thread
+    a chip over the in-process group) at num_workers=2 over the protocol
+    rows, blocks [0, 500,000) and [500,000, 1M), inside one
+    device_dataset_scope: KMeans high and fast (B1, B2), the split transform
+    (B1), exact kNN of phase 4's queries (B3), PCA and LogisticRegression
+    (8a's row, maxIter 20). Gates: every chip's model equal to rank 0's; the
+    KMeans centers equal bit for bit to one process summing the two blocks in
+    chip order from the same init; the split transform equal to one chip's;
+    the kNN ids equal to phase 4's; PCA within phase 18's bounds of 7a's,
+    the GLM within 1e-5 (objective) and 1e-3 (coefficients) of the same fit
+    on one chip; the launches as the tiles say. Returns (launches, timings)."""
+    import torch
+
+    from spark_rapids_ml_tpu_torch import PCA, KMeans, LogisticRegression, NearestNeighbors, parallel, telemetry
+    from spark_rapids_ml_tpu_torch.core import device_dataset_scope
+    from spark_rapids_ml_tpu_torch.ops import _kernels
+    from spark_rapids_ml_tpu_torch.ops import kmeans as km_ops
+    from spark_rapids_ml_tpu_torch.ops.distance import tile_assign_accumulate
+    from spark_rapids_ml_tpu_torch.ops.kmeans import _finish_centers, lloyd_loop
+
+    pool, what = _md_pool()
+    say(f"phase 19: one process driving {what}, num_workers={MD_CHIPS}, over the {N_ROWS} x {N_COLS} float32 rows")
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    was_on = telemetry.enabled()
+    telemetry.enable()
+    inits, timings, counts = [], {"pool": what}, {}
+    real_fit = km_ops.kmeans_fit
+
+    def recording_fit(X_, w_, init_centers, **kw):
+        inits.append(np.array(init_centers))
+        return real_fit(X_, w_, init_centers, **kw)
+
+    def fanned(name, fn):
+        _kernels.reset_launches()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize(dev)
+        timings[name] = {"s": time.perf_counter() - t0}
+        counts[name] = {k_: n for k_, n in _kernels.launches.items() if n}
+        md = getattr(out, "_fit_metrics", {}).get("multidevice")
+        if md is not None:
+            if not md["models_equal"]:
+                fail(f"19 {name}: a chip's model differs from rank 0's")
+            timings[name]["chips"] = [
+                {k_: st[k_] for k_ in ("chip_id", "device", "wall_s", "placement_s", "collective_s",
+                                        "collective_calls")} for st in md["per_chip"]]
+            for st in timings[name]["chips"]:
+                st["solve_s"] = st["wall_s"] - st["placement_s"] - st["collective_s"]
+        say(f"  19 {name}: {timings[name]['s']:.2f} s; " + "; ".join(
+            f"chip {st['chip_id']} ({st['device']}): placement {st['placement_s']:.2f} s, collectives "
+            f"{st['collective_s']:.2f} s ({st['collective_calls']}), solve {st['solve_s']:.2f} s"
+            for st in timings[name].get("chips", [])) + "; launches " + (
+            ", ".join(f"{k_}={n}" for k_, n in counts[name].items()) or "none"))
+        return out
+
+    data = {"features": X}
+    parallel.set_devices(pool)
+    km_ops.kmeans_fit = recording_fit
+    try:
+        with device_dataset_scope():  # one placement a chip for both KMeans fits and PCA
+            km_high = fanned("kmeans_high", lambda: KMeans(**MD_KMEANS, distance_precision="high",
+                                                           num_workers=MD_CHIPS).fit(data))
+            km_fast = fanned("kmeans_fast", lambda: KMeans(**MD_KMEANS, num_workers=MD_CHIPS).fit(data))
+            km_ops.kmeans_fit = real_fit
+            pca = fanned("pca", lambda: PCA(k=PCA_K, num_workers=MD_CHIPS).setInputCol("features").fit(data))
+        lr = fanned("logreg", lambda: LogisticRegression(**MD_LOGREG, num_workers=MD_CHIPS).fit(
+            {"features": X, "label": logreg_ref["y"]}))
+        nn = NearestNeighbors(k=KNN_K, num_workers=MD_CHIPS).setInputCol("features").fit(data)
+        _, _, knn = fanned("knn", lambda: nn.kneighbors({"features": X[:KNN_QUERIES]}))
+        del nn
+        rows = {"features": X[:MD_TRANSFORM_ROWS]}
+        split = fanned("transform", lambda: km_high.transform(rows))
+    finally:
+        km_ops.kmeans_fit = real_fit
+        parallel.set_devices(None)
+    km_high.num_workers = 1
+    _kernels.reset_launches()
+    one = km_high.transform(rows)
+    if not np.array_equal(split["prediction"].to_numpy(), one["prediction"].to_numpy()):
+        fail("19 transform: the split transform's predictions differ from one chip's")
+    if not counts["transform"].get("assign_argmin/f32") or set(counts["transform"]) != {"assign_argmin/f32"}:
+        fail(f"19 transform: launches {counts['transform']} over two chips (B1 f32 alone expected)")
+    say(f"  19 transform of {MD_TRANSFORM_ROWS} rows over two chips equals one chip's; B1 f32 launches "
+        f"{counts['transform']['assign_argmin/f32']} over two chips (each block padded up the bucket ladder), "
+        f"{_kernels.launches['assign_argmin/f32']} on one")
+    # the launches the tiles imply: each chip's Lloyd pass runs its block's
+    # tiles, kNN one d2_block per item block a chip
+    tiles = sum(-(-(hi - lo) // TILE_ROWS) for lo, hi in parallel.shard_row_ranges(N_ROWS, MD_CHIPS))
+    blocks = sum(-(-(hi - lo) // 16384) for lo, hi in parallel.shard_row_ranges(N_ROWS, MD_CHIPS))
+    for name, form in (("kmeans_high", "f32"), ("kmeans_fast", "f32-fast")):
+        got = counts[name].get(f"assign_accumulate/{form}", 0)
+        if got == 0 or got % tiles or not counts[name].get(f"assign_argmin/{form}"):
+            fail(f"19 {name}: launches {counts[name]} (B2 {form} a multiple of the chips' {tiles} tiles expected)")
+    if counts["knn"] != {"d2_block/f32": blocks}:
+        fail(f"19 knn: launches {counts['knn']}, expected d2_block/f32={blocks}")
+    if counts["pca"] or counts["logreg"]:
+        fail(f"19: PCA or LogisticRegression launched a kernel: {counts['pca']} {counts['logreg']}")
+    # KMeans against one process summing the two blocks in chip order
+    if len(inits) != 2 * MD_CHIPS or any(not np.array_equal(i, inits[0]) for i in inits[:MD_CHIPS]) or \
+            any(not np.array_equal(i, inits[MD_CHIPS]) for i in inits[MD_CHIPS:]):
+        fail(f"19 kmeans: {len(inits)} inits recorded, or the chips' inits differ")
+    from spark_rapids_ml_tpu_torch.parallel import place_rows
+
+    Xd, wd = place_rows(X, device=dev)
+    ranges = parallel.shard_row_ranges(N_ROWS, MD_CHIPS)
+
+    def ranked_step(c, fast):
+        acc = None
+        for a, b in ranges:
+            part = tile_assign_accumulate(Xd[a:b], wd[a:b], c, TILE_ROWS, fast)
+            acc = part if acc is None else tuple(x + y for x, y in zip(acc, part))
+        return _finish_centers(*acc, c)
+
+    for mode, model, init in (("high", km_high, inits[0]), ("fast", km_fast, inits[MD_CHIPS])):
+        ranked = lloyd_loop(ranked_step, torch.from_numpy(init).to(dev), fast=mode == "fast", init_centers=init,
+                            max_iter=MD_KMEANS["maxIter"], tol=MD_KMEANS["tol"])
+        if not (np.array_equal(np.asarray(model.cluster_centers_), ranked["cluster_centers_"].cpu().numpy())
+                and float(model.inertia_) == float(ranked["inertia_"])
+                and int(model.n_iter_) == int(ranked["n_iter_"])):
+            fail(f"19 kmeans {mode}: the two-chip fit differs from one process summing the same blocks in order")
+    del Xd, wd
+    torch.cuda.empty_cache()
+    say("  19 kmeans high and fast: every chip's model equals rank 0's, and one process summing the two blocks "
+        "in chip order from the same init gives the same centers, inertia and n_iter_ bit for bit")
+    # kNN against phase 4
+    ids = np.stack(knn["indices"].to_numpy())
+    if not np.array_equal(ids, exact_ids) or not np.array_equal(knn["query_id"].to_numpy(), np.arange(KNN_QUERIES)):
+        fail(f"19 knn: {int((ids != exact_ids).any(axis=1).sum())} query rows' ids differ from phase 4's")
+    # PCA against 7a (phase 18's bounds)
+    pca_res, spectrum = linear_ref["pca"], linear_ref["spectrum"]
+    pert = 2 * F32_EIGH_REL * float(pca_res.explained_variance_[0])
+    ev_err = float(np.abs(np.asarray(pca.explained_variance_) - pca_res.explained_variance_).max())
+    if ev_err > pert:
+        fail(f"19 pca: explained variance within {ev_err} of phase 7a's (Weyl bound {pert})")
+    for i in range(PCA_K):
+        gap = min(abs(spectrum[i] - spectrum[j]) for j in range(PCA_K + 1) if j != i) - 2 * pert
+        cos = abs(float(np.asarray(pca.components_[i], dtype=np.float64) @ pca_res.components_[i]))
+        if gap > 0 and pert / gap < 1 and cos < np.sqrt(1 - (pert / gap) ** 2):
+            fail(f"19 pca: component {i}: |cos| {cos} below the Davis-Kahan bound")
+    # the GLM against the same fit on one chip
+    t0 = time.perf_counter()
+    lr1 = LogisticRegression(**MD_LOGREG, num_workers=1).fit({"features": X, "label": logreg_ref["y"]})
+    timings["logreg_one_chip_s"] = time.perf_counter() - t0
+    f_err = abs(float(lr.objective_) - float(lr1.objective_)) / abs(float(lr1.objective_))
+    lc_err = float(np.linalg.norm(np.asarray(lr.coef_) - np.asarray(lr1.coef_)) / np.linalg.norm(np.asarray(lr1.coef_)))
+    if f_err > 1e-5 or lc_err > 1e-3:
+        fail(f"19 logreg: objective within {f_err} (tol 1e-5), coefficients within {lc_err} (tol 1e-3) of one chip's")
+    chips = timings["logreg"]["chips"]
+    iter_ms = 1e3 * max(st["wall_s"] - st["placement_s"] for st in chips) / max(1, int(lr.n_iter_))
+    timings["glm_iteration_ms"] = iter_ms
+    say(f"  19 pca: explained variance within {ev_err:.3g} of 7a's (bound {pert:.3g}); logreg {MD_LOGREG}: "
+        f"n_iter_ {int(lr.n_iter_)} ({int(lr1.n_iter_)} on one chip), objective within {f_err:.3g}, coefficients "
+        f"within {lc_err:.3g}; a GLM iteration {iter_ms:.2f} ms over two chips (phase 8 12.05 ms on one, "
+        "phase 18 35 ms on two gloo ranks); kNN ids equal to phase 4's")
+    if not was_on:
+        telemetry.disable()
+    total = {}
+    for c in counts.values():
+        for k_, n in c.items():
+            total[k_] = total.get(k_, 0) + n
+    say("  launches in phase 19: " + ", ".join(f"{k_}={v}" for k_, v in total.items()))
+    return total, timings
+
+
+def phase_sched_coadmit(dev, X):
+    """Phase 17e: benchmark/bench_scheduler.py's co-admission lane on phase
+    19's pool, over the first COADMIT_ROWS protocol rows at full width: two
+    KMeans jobs (COADMIT_KMEANS, each half the pool wide) co-admitted onto
+    disjoint chips, then time-sliced (max_concurrent 1), and three jobs of
+    which the third queues on chip overlap alone. Gates: peak occupancy 2
+    chips, the co-admitted occupancy integral at least COADMIT_RATIO times the
+    time-sliced one, every model equal bit for bit across schedules and to the
+    job run alone, no admission over budget. Returns (launches, timings)."""
+    import threading
+
+    import torch
+
+    from spark_rapids_ml_tpu_torch import FitScheduler, KMeans, parallel, telemetry
+    from spark_rapids_ml_tpu_torch.ops import _kernels
+    from spark_rapids_ml_tpu_torch.scheduler import global_ledger
+
+    pool, what = _md_pool()
+    width = max(1, MD_CHIPS // 2)
+    say(f"phase 17e: sched_coadmit on {what}, two KMeans jobs {COADMIT_KMEANS} of width {width} over "
+        f"{COADMIT_ROWS} x {N_COLS} float32 rows")
+    data = {"features": X[:COADMIT_ROWS]}
+    ledger = global_ledger()
+    if ledger.reserved_bytes():
+        fail("17e: the ledger holds claims before the phase")
+    over = [0]
+
+    def conformance(reserved, budget):
+        if budget is not None and reserved > budget:
+            over[0] += 1
+
+    def mk():
+        est = KMeans(**COADMIT_KMEANS)
+        est.num_workers = width
+        return est
+
+    def schedule(max_concurrent, n_jobs=2):
+        sched = FitScheduler(chip_placement=True, max_concurrent=max_concurrent)
+        samples, stop = [], threading.Event()
+
+        def poll():
+            while not stop.is_set():
+                samples.append((time.perf_counter(), len(ledger.occupied_chips())))
+                stop.wait(0.002)
+
+        sampler = threading.Thread(target=poll, daemon=True)
+        t0 = time.perf_counter()
+        sampler.start()
+        try:
+            jobs = [sched.submit(mk(), data, tenant=f"t{i}") for i in range(n_jobs)]
+            st = sched.stats()
+            models = [j.result(SCHED_TIMEOUT) for j in jobs]
+        finally:
+            stop.set()
+            sampler.join(5.0)
+            sched.shutdown(wait=True, timeout=60)
+        wall = time.perf_counter() - t0
+        closed = samples + [(t0 + wall, samples[-1][1] if samples else 0)]
+        area = sum(v * max(0.0, t1 - ta) for (ta, v), (t1, _) in zip(closed, closed[1:]))
+        peak = max((v for _, v in samples), default=0)
+        return models, {"wall_s": wall, "avg_chips": area / max(1e-9, wall), "peak_chips": peak,
+                        "rows_per_s": n_jobs * COADMIT_ROWS / wall}, st
+
+    parallel.set_devices(pool)
+    ledger.admission_hooks.append(conformance)
+    was_on = telemetry.enabled()
+    telemetry.enable()
+    _kernels.reset_launches()
+    try:
+        t0 = time.perf_counter()
+        alone = mk().fit(data)
+        alone_s = time.perf_counter() - t0
+        three, _, st3 = schedule(max_concurrent=4, n_jobs=3)
+        if not (st3["running"] == MD_CHIPS // width and st3["queued"] == 3 - MD_CHIPS // width):
+            fail(f"17e: three jobs: {st3['running']} running, {st3['queued']} queued (the third queues on chips)")
+        conc, c_stats, _ = schedule(max_concurrent=MD_CHIPS)
+        sliced, s_stats, _ = schedule(max_concurrent=1)
+    finally:
+        ledger.admission_hooks.remove(conformance)
+        parallel.set_devices(None)
+        if not was_on:
+            telemetry.disable()
+    counts = {k_: n for k_, n in _kernels.launches.items() if n}
+    for m in three + conc + sliced:
+        if not np.array_equal(np.asarray(m.cluster_centers_), np.asarray(alone.cluster_centers_)):
+            fail("17e: a scheduled model differs from the job run alone")
+    chips = sorted(tuple(m._fit_metrics["scheduler"]["chip_ids"]) for m in conc)
+    if chips != [tuple(range(i * width, (i + 1) * width)) for i in range(MD_CHIPS // width)]:
+        fail(f"17e: the co-admitted jobs held chips {chips}, not disjoint halves")
+    ratio = c_stats["avg_chips"] / max(1e-9, s_stats["avg_chips"])
+    if c_stats["peak_chips"] != MD_CHIPS or ratio < COADMIT_RATIO or over[0]:
+        fail(f"17e: peak {c_stats['peak_chips']} chips, occupancy ratio {ratio:.3f} (at least {COADMIT_RATIO}), "
+             f"{over[0]} admissions over budget")
+    torch.cuda.synchronize(dev)
+    say(f"  17e: co-admitted {c_stats['wall_s']:.2f} s ({c_stats['rows_per_s']:.0f} rows/s, {c_stats['avg_chips']:.2f}"
+        f" chips on average, peak {c_stats['peak_chips']}) against time-sliced {s_stats['wall_s']:.2f} s "
+        f"({s_stats['rows_per_s']:.0f} rows/s, {s_stats['avg_chips']:.2f} chips): occupancy ratio {ratio:.3f}, rows/s "
+        f"ratio {c_stats['rows_per_s'] / s_stats['rows_per_s']:.3f}; the job alone {alone_s:.2f} s; every model "
+        "equal bit for bit; no admission over budget; launches " + ", ".join(f"{k_}={n}" for k_, n in counts.items()))
+    return counts, {"concurrent": c_stats, "sliced": s_stats, "occupancy_ratio": ratio, "alone_s": alone_s}
+
+
 def _mp_check_sweep(dev, X, got, info, y_cls):
     """18h's gates: on each rank one ingest and one layout for the whole
     sweep (the ranks' arrays were held equal with MP_MODEL_KEYS), then the
@@ -7234,9 +7589,9 @@ def _mp_checks_rest(dev, X, Xd, got, edges, y_cls, exact_ids, exact_dist, ann_re
     # transform is 12b's rows: the transform's negative draws are positional)
     if not np.array_equal(g["um_emb"], du_ref["umap_embedding"]):
         fail(f"18e: the ranks' UMAP embedding differs from 12b's (max {np.abs(g['um_emb'] - du_ref['umap_embedding']).max()})")
-    xu, _ = make_blobs(UMAP_ROWS[1], UMAP_COLS, UMAP_CENTERS, 0)
+    xu, _ = make_blobs(MP_UMAP_ROWS, UMAP_COLS, UMAP_CENTERS, 0)
     for r, gr in enumerate(got):
-        a, b = _mp_share(UMAP_ROWS[1], r)
+        a, b = _mp_share(MP_UMAP_ROWS, r)
         want = du_ref["umap_transform"][a:b] if r == 0 else np.stack(
             du_ref["umap_model"].transform({"features": xu[a:b]})["embedding"].to_list())
         if not np.array_equal(gr["um_transform"], want):
@@ -7360,6 +7715,8 @@ def main():
     mp_counts, mp_timings = run("18 multiprocess", phase_multiprocess, dev, X, linear_ref, logreg_ref,
                                 exact_ids, exact_dist, ann_timings, du_refs, sparse_refs)
     del du_refs, sparse_refs
+    md_counts, md_timings = run("19 multidevice", phase_multidevice, dev, X, linear_ref, logreg_ref, exact_ids)
+    coadmit_counts, coadmit_timings = run("17e sched_coadmit", phase_sched_coadmit, dev, X)
     X = run("6 data f64", _f64_rows, X)  # the float32 rows are dropped here
     say(f"data as float64 {X.shape}")
     f64_counts, f64_timings = run("6 f64", phase_f64, dev, X)
@@ -7400,6 +7757,8 @@ def main():
         e["launches_by_run"]["recovery"] = recovery_counts.get(e["name"], 0)  # phase 16
         e["launches_by_run"]["scheduler"] = sched_counts.get(e["name"], 0)  # phase 17
         e["launches_by_run"]["multiprocess"] = mp_counts.get(e["name"], 0)  # phase 18, both ranks
+        e["launches_by_run"]["multidevice"] = md_counts.get(e["name"], 0)  # phase 19, both chips
+        e["launches_by_run"]["sched_coadmit"] = coadmit_counts.get(e["name"], 0)  # phase 17e
     for name in ("assign_argmin/f64", "assign_accumulate/f64", "d2_block/f64", "assign_argmin/f64-fast"):
         if not f64_counts["route"][name]:
             fail(f"the float64 route never launched {name}")
@@ -7411,6 +7770,13 @@ def main():
             fail(f"the recovery path (phase 16) never launched {name}")
         if not sched_counts.get(name):
             fail(f"the scheduler path (phase 17) never launched {name}")
+        if not md_counts.get(name):
+            fail(f"the multi-device path (phase 19) never launched {name}")
+    for name in ("assign_argmin/f32-fast", "assign_accumulate/f32-fast"):
+        if not coadmit_counts.get(name):
+            fail(f"the co-admission path (phase 17e) never launched {name}")
+    if not md_counts.get("d2_block/f32"):
+        fail("the multi-device path (phase 19) never launched d2_block/f32")
     say("KMeans path timings: " + json.dumps(timings))
     say("kNN path timings: " + json.dumps(knn_timings))
     say("serving timings: " + json.dumps(serve_timings))
@@ -7429,6 +7795,8 @@ def main():
     say("recovery timings: " + json.dumps(recovery_timings))
     say("scheduler timings: " + json.dumps(sched_timings))
     say("multi-process timings: " + json.dumps(mp_timings))
+    say("multi-device timings: " + json.dumps(md_timings))
+    say("co-admission timings: " + json.dumps(coadmit_timings))
     say("seconds by phase: " + json.dumps(phase_s))
     kernels_line = json.dumps({"kernels": entries})
     say(f"total {time.perf_counter() - t_start:.1f} s")

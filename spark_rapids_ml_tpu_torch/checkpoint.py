@@ -82,7 +82,16 @@ class CheckpointStore:
 
     def __init__(self) -> None:
         self._entries: Dict[str, SolverCheckpoint] = {}  # guarded-by: _lock
+        # the stores of the chips of a fit fanned out over the device pool
+        # (core.py), by rank: each chip's solver checkpoints its own state
+        # between the same collectives, and they outlive the fit's attempts
+        self._chips: Dict[int, "CheckpointStore"] = {}  # guarded-by: _lock
         self._lock = lockcheck.make_lock("checkpoint.CheckpointStore._lock")
+
+    def chip_store(self, rank: int) -> "CheckpointStore":
+        """The store of chip `rank` of a fanned-out fit of this stage."""
+        with self._lock:
+            return self._chips.setdefault(int(rank), CheckpointStore())
 
     def save(self, key: str, ckpt: SolverCheckpoint) -> None:
         from . import telemetry
@@ -129,6 +138,9 @@ class CheckpointStore:
     def clear(self) -> None:
         with self._lock:
             self._entries.clear()
+            chips, self._chips = list(self._chips.values()), {}
+        for c in chips:
+            c.clear()
 
     def __len__(self) -> int:
         with self._lock:

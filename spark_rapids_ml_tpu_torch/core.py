@@ -78,7 +78,26 @@
 # their own code. Every other estimator refuses, naming A10. A
 # multi-process fit must fit resident (memory.py) and outside the fit
 # scheduler (A10f); CrossValidator and TrainValidationSplit run over it
-# (tuning.py).
+# (tuning.py). Each rank drives one card: num_workers past one over a pool
+# of several chips is A10i's second half, refused.
+#
+# One process driving several chips (parallel/mesh.py's pool; JAX's
+# single-controller mesh): a fit with ``n = min(num_workers, chips in the
+# pool) > 1`` outside a multi-process context FANS OUT
+# (`_call_fit_func_fanned`): the host rows are extracted once and cut into
+# `parallel.shard_row_ranges` blocks (views, no padding rows), one
+# admission covers the n chips, and each chip runs the multi-process fit
+# above on its block in its own thread (`parallel.run_on_chips`: the
+# caller's context copied, the chip pinned, a `TpuContext` over the
+# in-process `LocalGroup`), with its own checkpoint store and placement
+# scope. Every chip's model is the same; rank 0's is returned. The fit's
+# retries wrap the whole fan-out (an in-process group is not reformed).
+# Transforms of at least ``config["distributed_transform_min_rows"]`` rows
+# split their rows over the chips the same way (`_transform_arrays`); the
+# kNN and ANN searches and DBSCAN fan out in their own code, and UMAP fits
+# once on the first chip (models/umap.py). A chip's allocation failure takes
+# the OOM ladder's one streamed retry on the first chip
+# (`_fanned_oom_retry`).
 #
 # Persistence keeps the JAX package's on-disk layout exactly:
 # metadata.json + arrays.npz + attributes.json, so a directory saved by
@@ -124,6 +143,11 @@ def _env_float(name: str, default: float) -> float:
 config: Dict[str, Any] = {
     # rows per transform batch copied to the device at once
     "max_records_per_batch": 1 << 16,
+    # a transform of at least this many rows is split over the chips of the
+    # device pool (`parallel.shard_row_slices`, one block a chip, the outputs
+    # back in row order) when the model's num_workers spans more than one;
+    # smaller ones run on one chip
+    "distributed_transform_min_rows": 1 << 15,
     # rows per tile of the predict-side argmin scan (ops/distance.py)
     "distance_tile_rows": 4096,
     # default precision of the solvers' hot products: "f32" keeps the input
@@ -270,6 +294,10 @@ config: Dict[str, Any] = {
     # when it is built, and a bound on the per-job pressure on the card (a
     # fairness and safety knob)
     "sched_max_concurrent": 4,
+    # the 2-D book: scheduler claims name WHICH chips of the pool a job
+    # holds (contiguous first-fit runs of its width) and each job runs
+    # pinned to them (`parallel.chip_scope`); off, claims are bytes only
+    "sched_chip_placement": False,
 }
 
 
@@ -603,12 +631,18 @@ class DeviceDatasetScope:
     placement most recently built or reused: the tuning layer scores
     held-out rows from it."""
 
-    __slots__ = ("cache", "lock", "last")
+    __slots__ = ("cache", "lock", "last", "fanout", "chip_scopes")
 
     def __init__(self) -> None:
         self.cache: "OrderedDict[tuple, DeviceDataset]" = OrderedDict()  # guarded-by: lock
         self.lock = threading.Lock()
         self.last: Optional[DeviceDataset] = None
+        # a fit fanned out over the device pool: the extracted host rows and
+        # their per-chip blocks by (dataset identity, chip ids), least
+        # recently used first, and each chip's own scope (its placement of
+        # its block) by (that key, rank), dropped with its layout
+        self.fanout: "OrderedDict[tuple, FanOutLayout]" = OrderedDict()  # guarded-by: lock
+        self.chip_scopes: Dict[tuple, "DeviceDatasetScope"] = {}  # guarded-by: lock
 
 
 # Context-local, not process-global: scopes on different threads neither
@@ -641,6 +675,82 @@ def device_dataset_scope() -> Iterator[DeviceDatasetScope]:
         if outer is None:
             with scope.lock:
                 scope.cache.clear()
+                scope.fanout.clear()
+                chips, scope.chip_scopes = list(scope.chip_scopes.values()), {}
+            for c in chips:
+                with c.lock:
+                    c.cache.clear()
+
+
+def _drop_chip_scopes(scope: DeviceDatasetScope, key: tuple) -> None:
+    """Drop the per-chip scopes of the fan-out layout `key` (the caller
+    holds ``scope.lock``), their placements with them; other datasets'
+    placements on the same chips stay."""
+    for ck in [ck for ck in scope.chip_scopes if ck[0] == key]:
+        dropped = scope.chip_scopes.pop(ck)
+        with dropped.lock:
+            dropped.cache.clear()
+            dropped.last = None
+
+
+@dataclass
+class FanOutLayout:
+    """A dataset laid out over the chips of one fan-out: the extracted host
+    rows (once), their blocks (`parallel.shard_row_ranges`, views; empty
+    blocks dropped) and the row range of each, and `source`, the dataset
+    object whose id() keys the entry."""
+
+    extracted: ExtractedData
+    blocks: List[ExtractedData]
+    ranges: List[Tuple[int, int]]
+    source: Any = None
+
+
+@dataclass
+class _FanOutChip:
+    """What a chip's thread of a fanned-out fit reads from its caller: the
+    fit stage's attempt (the chaos hooks' index) and the one admission the
+    caller made for every chip (no ledger claim of its own)."""
+
+    attempt: int
+    admission: Any
+    # host seconds this chip spent laying out its block (`_layout`)
+    layout_s: float = 0.0
+
+
+# set in each chip's thread of a fanned-out fit, for the extent of its fit
+_FANOUT_CHIP: "contextvars.ContextVar[Optional[_FanOutChip]]" = contextvars.ContextVar(
+    "srml_torch_fanout_chip", default=None
+)
+
+
+def _attrs_digest(rows: List[Dict[str, Any]]) -> str:
+    """A digest of fitted model attributes (every array's dtype, shape and
+    bytes, every other value's repr): equal digests for models equal bit
+    for bit."""
+    import hashlib
+
+    h = hashlib.sha256()
+
+    def feed(v: Any) -> None:
+        if isinstance(v, torch.Tensor):
+            v = v.detach().cpu().numpy()
+        if isinstance(v, np.ndarray):
+            h.update(f"{v.dtype}{v.shape}".encode())
+            h.update(np.ascontiguousarray(v).tobytes())
+        elif isinstance(v, dict):
+            for k in sorted(v, key=str):
+                h.update(str(k).encode())
+                feed(v[k])
+        elif isinstance(v, (list, tuple)):
+            h.update(f"{type(v).__name__}{len(v)}".encode())
+            for x in v:
+                feed(x)
+        else:
+            h.update(repr(v).encode())
+
+    feed(list(rows))
+    return h.hexdigest()
 
 
 FitFunc = Callable[[FitInputs, Dict[str, Any]], Dict[str, Any]]
@@ -816,6 +926,8 @@ class _TpuCaller(_TpuCommon):
         to `_admit_and_layout`."""
         from . import telemetry
 
+        if isinstance(dataset, ExtractedData):
+            return dataset  # a chip's block: its caller ingested (and counted) it
         with telemetry.host_section("ingest"):
             extracted = self._pre_process_data(dataset, defer_validation=True)
         reg = telemetry.registry()
@@ -826,10 +938,17 @@ class _TpuCaller(_TpuCommon):
     def _layout(self, extracted: ExtractedData, device: torch.device, ctx: Any = None) -> FitInputs:
         """The placement of the host blocks on `device`, timed as
         device_wait.layout_s."""
+        import time
+
         from . import telemetry
 
+        t0 = time.perf_counter()
         with telemetry.device_wait("layout", device):
-            return self._build_fit_inputs(extracted, device, ctx)
+            out = self._build_fit_inputs(extracted, device, ctx)
+        fan = _FANOUT_CHIP.get()
+        if fan is not None:
+            fan.layout_s += time.perf_counter() - t0
+        return out
 
     def _device_dataset_key(self, dataset: Any, device: torch.device, ctx: Any = None) -> tuple:
         """(dataset identity fingerprint, columns, (dtype, sparse mode),
@@ -882,15 +1001,24 @@ class _TpuCaller(_TpuCommon):
         from .data import run_deferred_validation
         from .parallel import chaos
 
-        # hand back this fit's previous claim before re-admitting: the OOM
-        # retry must not count the failed attempt's bytes against itself
-        self._adopt_reservation(None)
-        adm = _memory.admit_fit(self, extracted, device, force_stream=force_stream)
-        self._last_admission = adm
-        # the claim belongs to this fit call (released in _call_fit_func's
-        # finally); the decision may be cached and must carry none
-        self._adopt_reservation(adm.reservation)
-        adm.reservation = None
+        fan = _FANOUT_CHIP.get()
+        if fan is not None:
+            # a chip of a fanned-out fit: its caller admitted every chip's
+            # block at once, and holds the claim
+            adm = fan.admission
+            self._last_admission = adm
+        else:
+            # hand back this fit's previous claim before re-admitting: the
+            # OOM retry must not count the failed attempt's bytes against
+            # itself
+            self._adopt_reservation(None)
+            adm = _memory.admit_fit(self, extracted, device, force_stream=force_stream)
+            self._last_admission = adm
+            # the claim belongs to this fit call (released in
+            # _call_fit_func's finally); the decision may be cached and must
+            # carry none
+            self._adopt_reservation(adm.reservation)
+            adm.reservation = None
         reg = telemetry.registry()
         if adm.verdict == _memory.STREAM:
             reg.inc("memory.admission_stream")
@@ -975,10 +1103,15 @@ class _TpuCaller(_TpuCommon):
             if dds is not None:
                 scope.cache.move_to_end(key)
                 reg.inc("fit.device_dataset_reuses")
-                if dds.admission is not None:
+                if ctx is not None and dds.inputs.ctx is not ctx:
+                    # the same layout under this fit's context (a chip of a
+                    # fan-out enters a new one each fit)
+                    dds.inputs = dataclasses.replace(dds.inputs, ctx=ctx)
+                if dds.admission is not None and _FANOUT_CHIP.get() is None:
                     # a hit skips the admission: re-stamp the verdict that
                     # admitted the placement, and re-reserve its bytes (they
-                    # are held, and other tenants must see them)
+                    # are held, and other tenants must see them); a chip of a
+                    # fanned-out fit holds none, its caller does
                     self._last_admission = dds.admission
                     self._adopt_reservation(_memory.rereserve_admission(dds.admission))
             else:
@@ -1031,7 +1164,7 @@ class _TpuCaller(_TpuCommon):
         ``_last_fit_metrics["spmd"]``; an estimator that does not support it
         refuses."""
         from . import telemetry
-        from .parallel import default_device, refuse_multi_device, spmd_context
+        from .parallel import default_device, fan_out_width, refuse_devices_per_rank, spmd_context
         from .parallel.context import fit_group_scope
 
         ctx = spmd_context()
@@ -1042,11 +1175,14 @@ class _TpuCaller(_TpuCommon):
                     "run it single-controller (one process driving all devices); its "
                     "multi-process fit is ROADMAP item A10"
                 )
+            refuse_devices_per_rank(self.num_workers, f"{type(self).__name__} fit")
         else:
-            # as the JAX package clamps num_workers to the visible devices
-            refuse_multi_device(self.num_workers, f"{type(self).__name__} fit")
+            n = fan_out_width(self.num_workers)
+            if n > 1:
+                return self._call_fit_func_fanned(dataset, param_maps, row_mask, n)
         device = default_device()
         self._last_admission = None
+        fan = _FANOUT_CHIP.get()
         try:
             # the whole fit (ingest, admission, placement, solve) is ONE
             # recoverable stage: a transient retry re-derives its state from
@@ -1059,7 +1195,12 @@ class _TpuCaller(_TpuCommon):
                 with fit_group_scope(None if ctx is None else ctx.group):
                     return self._call_fit_func_oom_ladder(dataset, param_maps, row_mask, device, attempt, ctx=ctx)
 
-            rows = recoverable_stage(attempt_fit, stage="fit", ctx=ctx)
+            if fan is not None:
+                # a chip of a fanned-out fit: its caller's stage retries the
+                # fit over every chip (an in-process group is not reformed)
+                rows = attempt_fit(fan.attempt)
+            else:
+                rows = recoverable_stage(attempt_fit, stage="fit", ctx=ctx)
         finally:
             # the fit's ledger claim ends with the fit, whatever its outcome
             self._adopt_reservation(None)
@@ -1072,6 +1213,206 @@ class _TpuCaller(_TpuCommon):
         if ctx is not None:
             self._last_fit_metrics["spmd"] = {"rank": ctx.rank, "nranks": ctx.nranks, "backend": ctx.backend}
         return rows
+
+    def _fanout_layout(
+        self, dataset: Any, device: torch.device, chip_ids: Tuple[int, ...], scope: Optional[DeviceDatasetScope],
+    ) -> Tuple[FanOutLayout, List[Optional[DeviceDatasetScope]]]:
+        """The dataset's layout over the chips `chip_ids` (extracted once,
+        cut into row blocks) and each chip's device-dataset scope. Inside a
+        `device_dataset_scope` both are kept: a later fit of the same
+        dataset over the same chips reuses every chip's placement, and one
+        over another chip set (a narrower num_workers, a carved pin) reuses
+        the host rows and lays them out again (`recovery.replacements`),
+        the old chips' placements dropped first."""
+        from . import telemetry
+        from .data import same_ingest_identity
+        from .parallel import shard_row_ranges
+
+        def build(extracted: ExtractedData, source: Any) -> FanOutLayout:
+            ranges = [(lo, hi) for lo, hi in shard_row_ranges(extracted.n_rows, len(chip_ids)) if hi > lo]
+            return FanOutLayout(extracted, [extracted.row_block(lo, hi) for lo, hi in ranges], ranges, source)
+
+        if scope is None:
+            lay = build(self._ingest(dataset), dataset)
+            return lay, [None] * len(lay.blocks)
+        key = self._device_dataset_key(dataset, device)[:3] + (("chips",) + tuple(chip_ids),)
+        reg = telemetry.registry()
+        with scope.lock:
+            lay = scope.fanout.get(key)
+            if lay is not None:
+                scope.fanout.move_to_end(key)
+            else:
+                stale = next((k for k in scope.fanout if same_ingest_identity(k, key)), None)
+                if stale is not None:
+                    old = scope.fanout.pop(stale)
+                    _drop_chip_scopes(scope, stale)
+                    reg.inc("recovery.replacements")
+                    reg.inc("recovery.rows_replaced", int(old.extracted.n_rows))
+                    lay = build(old.extracted, old.source)
+                    del old
+                else:
+                    lay = build(self._ingest(dataset), dataset)
+                scope.fanout[key] = lay
+                cap = max(1, int(config.get("device_dataset_cache_entries", 2)))
+                while len(scope.fanout) > cap:
+                    gone, _ = scope.fanout.popitem(last=False)
+                    _drop_chip_scopes(scope, gone)
+                    reg.inc("fit.device_dataset_evictions")
+            chips = [scope.chip_scopes.setdefault((key, r), DeviceDatasetScope()) for r in range(len(lay.blocks))]
+        return lay, chips
+
+    def _call_fit_func_fanned(
+        self,
+        dataset: Any,
+        param_maps: Optional[List[Dict[Any, Any]]],
+        row_mask: Optional[np.ndarray],
+        n: int,
+    ) -> List[Dict[str, Any]]:
+        """The fit over the first `n` chips of the device pool, one process
+        driving them: the host rows are extracted once and cut into
+        `parallel.shard_row_ranges` blocks (views), one admission covers
+        every chip (`memory.admit_fit` with ``n_devices``, the claim's chips
+        n), and each chip runs the rank-sharded fit of the multi-process
+        path on its block in its own thread (`parallel.run_on_chips`: an
+        in-process group, its own checkpoint store and device-dataset
+        scope). Every chip's model is the same; rank 0's is returned, and
+        ``_fit_metrics["multidevice"]`` says whether the others' digests
+        equal it. The fit's transient retries wrap the whole fan-out. A fit
+        the admission demotes to streaming streams on the first chip, and so
+        does one whose chip failed to allocate (`_fanned_oom_retry`, the
+        ladder's one retry)."""
+        from . import checkpoint as _ckpt
+        from . import memory as _memory
+        from . import telemetry
+        from .errors import HbmBudgetError
+        from .parallel import chip_scope, current_chip_ids, default_devices, run_on_chips
+
+        devices = default_devices()[:n]
+        ids = tuple(current_chip_ids()[:n])
+        outer = _DDS_SCOPE.get()
+        self._last_admission = None
+        meta: Dict[str, Any] = {}
+
+        def attempt_fit(attempt: int):
+            lay, chip_scopes = self._fanout_layout(dataset, devices[0], ids, outer)
+            m = len(lay.blocks)
+            self._adopt_reservation(None)
+            adm = _memory.admit_fit(self, lay.extracted, devices[0], n_devices=m)
+            self._last_admission = adm
+            self._adopt_reservation(adm.reservation)
+            adm.reservation = None
+            if adm.verdict == _memory.STREAM or m < 2:
+                self._adopt_reservation(None)
+                with chip_scope(devices[:1], chip_ids=ids[:1]):
+                    return self._call_fit_func_oom_ladder(dataset, param_maps, row_mask, devices[0], attempt)
+            masks = None if row_mask is None else [np.asarray(row_mask)[lo:hi] for lo, hi in lay.ranges]
+            store = _ckpt.active_store()
+            chip_adm = dataclasses.replace(adm, reservation=None)
+
+            def chip(r: int):
+                est = self.copy()  # the chips' fits share no state (the copy carries the warm start)
+                est._fit_reservation = None
+                est._last_admission = None
+                fan = _FanOutChip(attempt=attempt, admission=chip_adm)
+                t_fan = _FANOUT_CHIP.set(fan)
+                t_dds = _DDS_SCOPE.set(chip_scopes[r])
+                try:
+                    with _ckpt.checkpoint_scope(store=store.chip_store(r)):
+                        rows = est._call_fit_func(lay.blocks[r], param_maps, None if masks is None else masks[r])
+                finally:
+                    _DDS_SCOPE.reset(t_dds)
+                    _FANOUT_CHIP.reset(t_fan)
+                return rows, getattr(est, "_last_fit_metrics", {}), _attrs_digest(rows), fan.layout_s
+
+            oom = None
+            try:
+                results, stats = run_on_chips(m, chip)
+            except HbmBudgetError as e:
+                # a chip's allocation failed (its ladder converts, as a rank's
+                # does); the fit retries ONCE streamed on the first chip, as
+                # the one-chip ladder does
+                if not (self._supports_streaming_fit and _memory.is_oom_error(e.__cause__)):
+                    raise
+                oom = str(e)
+            if oom is not None:
+                # outside the handler: its traceback would pin the failed
+                # chips' placements
+                return self._fanned_oom_retry(oom, dataset, param_maps, row_mask, devices, ids, chip_scopes, attempt)
+            for st, res in zip(stats, results):
+                st["placement_s"] = res[3]
+            digests = [res[2] for res in results]
+            meta["multidevice"] = {
+                "chips": m, "chip_ids": list(ids[:m]), "rows": [hi - lo for lo, hi in lay.ranges],
+                "models_equal": all(d == digests[0] for d in digests), "per_chip": stats,
+            }
+            meta["rank0"] = results[0][1]
+            if outer is not None:
+                # the tuning layer scores held-out rows from here: the host
+                # rows, placed on the first chip batch by batch
+                dtype = np.float32 if self._float32_inputs else np.float64
+                outer.last = DeviceDataset(None, lay.extracted, FitInputs(
+                    X=None, w=None, n_valid=lay.extracted.n_rows, n_cols=lay.extracted.n_cols,
+                    dtype=dtype, device=devices[0],
+                ))
+            return results[0][0]
+
+        try:
+            rows = recoverable_stage(attempt_fit, stage="fit")
+        finally:
+            self._adopt_reservation(None)
+        adm = self._last_admission
+        metrics = dict(meta.get("rank0") or {})
+        metrics.pop("spmd", None)
+        if adm is not None and (telemetry.enabled() or adm.demoted):
+            metrics["admission"] = adm.stamp()
+        if "multidevice" in meta:
+            metrics["multidevice"] = meta["multidevice"]
+        self._last_fit_metrics = metrics
+        return rows
+
+    def _fanned_oom_retry(
+        self,
+        why: str,
+        dataset: Any,
+        param_maps: Optional[List[Dict[Any, Any]]],
+        row_mask: Optional[np.ndarray],
+        devices: List[torch.device],
+        ids: Tuple[int, ...],
+        chip_scopes: List[Optional[DeviceDatasetScope]],
+        attempt: int,
+    ) -> List[Dict[str, Any]]:
+        """The fan-out's rung of the OOM ladder: the chips' claim and
+        placements go, and the fit runs once on the streaming path on the
+        first chip; a second allocation failure raises `HbmBudgetError`."""
+        from . import memory as _memory
+        from . import telemetry
+        from .parallel import chip_scope
+
+        _LOG.warning(
+            "%s: out of memory on a chip of a fanned-out fit (%s); retrying ONCE on the out-of-core "
+            "streaming path on the first chip", type(self).__name__, why,
+        )
+        self._adopt_reservation(None)
+        n_evicted = 0
+        for c in chip_scopes:
+            if c is not None:
+                with c.lock:
+                    n_evicted += len(c.cache)
+                    c.cache.clear()
+                    c.last = None
+        if n_evicted:
+            telemetry.registry().inc("fit.device_dataset_evictions", n_evicted)
+        if devices[0].type == "cuda":
+            torch.cuda.empty_cache()
+        with chip_scope(devices[:1], chip_ids=ids[:1]):
+            try:
+                return self._call_fit_func_attempt(
+                    dataset, param_maps, row_mask, devices[0], force_stream=True, attempt=attempt
+                )
+            except Exception as e2:
+                if _memory.is_oom_error(e2):
+                    raise _memory.as_hbm_budget_error(e2, self._last_admission) from e2
+                raise
 
     def _call_fit_func_oom_ladder(
         self,
@@ -1600,8 +1941,26 @@ class _TpuModelWithColumns(_TpuModel):
         outputs of the batches are concatenated (per output, for a tuple). A
         CSR block is densified one batch at a time. A zero-row block still
         runs one batch, so the output keeps the type
-        and arity `predict` gives it."""
+        and arity `predict` gives it.
+
+        At ``config["distributed_transform_min_rows"]`` rows and up, with a
+        num_workers spanning more than one chip of the pool, the block is
+        split by `parallel.shard_row_slices` and each chip transforms its
+        rows in its own thread (`parallel.run_on_chips`); the outputs come
+        back in row order. `predict` is row-parallel, so every row gets the
+        bits one chip gives it."""
+        from .parallel import fan_out_width, run_on_chips, shard_row_slices
+
         n = features.shape[0]
+        if n >= int(config["distributed_transform_min_rows"]):
+            width = fan_out_width(self.num_workers)
+            pieces = [p for p in shard_row_slices(features, width)[0] if p.shape[0]]
+            if len(pieces) > 1:
+                outs, _ = run_on_chips(len(pieces), lambda r: self._transform_arrays(pieces[r]),
+                                       name="srml-transform")
+                if isinstance(outs[0], tuple):
+                    return tuple(np.concatenate(parts, axis=0) for parts in zip(*outs))
+                return np.concatenate(outs, axis=0)
         batch = int(config["max_records_per_batch"])
         program = PredictProgram(self, cap=batch)
         outs = []

@@ -68,6 +68,19 @@ class ExtractedData:
     def is_sparse(self) -> bool:
         return _is_scipy_sparse(self.features)
 
+    def row_block(self, lo: int, hi: int) -> "ExtractedData":
+        """Rows [lo, hi) of every column, as views (a CSR row slice for
+        sparse features)."""
+
+        def cut(a):
+            return None if a is None else a[lo:hi]
+
+        return ExtractedData(
+            self.features[lo:hi], label=cut(self.label), weight=cut(self.weight), row_id=cut(self.row_id),
+            feature_kind=self.feature_kind, feature_names=list(self.feature_names),
+            label_name=self.label_name, weight_name=self.weight_name,
+        )
+
 
 def _is_scipy_sparse(v: Any) -> bool:
     return _sp is not None and _sp.issparse(v)
@@ -344,6 +357,10 @@ def extract_dataset(
     requires it (dense input raises ValueError); False densifies it.
     ``validate=False`` defers the opt-in NaN/Inf scan to the caller
     (`run_deferred_validation`)."""
+    if isinstance(dataset, ExtractedData):
+        # a chip's block of a fit fanned out over the device pool
+        # (core.py): extracted once by the caller, sliced into views
+        return dataset
     dtype = np.float32 if float32_inputs else np.float64
 
     def _scalar(columns, colname: Optional[str], dt) -> Optional[np.ndarray]:

@@ -25,7 +25,7 @@ from typing import Any, Dict, Optional, Sequence
 
 __all__ = [
     "SrmlError", "RendezvousTimeoutError", "RankFailedError", "SolverDivergedError", "IngestValidationError",
-    "HbmBudgetError", "RequestTimeoutError", "ServeOverloadError", "ServingStoppedError", "NumericsError",
+    "HbmBudgetError", "MeshTopologyError", "RequestTimeoutError", "ServeOverloadError", "ServingStoppedError", "NumericsError",
     "PreemptedError", "SchedulerSaturatedError", "is_transient",
 ]
 
@@ -126,6 +126,32 @@ class IngestValidationError(SrmlError, ValueError):
             f"input column {column!r} contains {kind} values{at}; "
             "clean the data or disable config['validate_ingest']"
         )
+
+
+class MeshTopologyError(SrmlError, ValueError):
+    """A requested device layout cannot be built over the device pool: the
+    worker count is not positive, exceeds the pool or does not divide it, a
+    topology's axis product disagrees with the pool size, or a carve asks
+    for chips the parent layout does not hold. Permanent: a configuration
+    error. Carries both sides of the mismatch."""
+
+    def __init__(
+        self,
+        message: str,
+        *,
+        requested: Optional[int] = None,
+        available: Optional[int] = None,
+        topology: Optional[Dict[str, int]] = None,
+    ):
+        self.requested = None if requested is None else int(requested)
+        self.available = None if available is None else int(available)
+        self.topology: Dict[str, int] = dict(topology) if topology else {}
+        parts = [message]
+        if requested is not None and available is not None:
+            parts.append(f"(requested {self.requested} against {self.available} visible devices)")
+        if self.topology:
+            parts.append("[topology: " + " x ".join(f"{k}={v}" for k, v in self.topology.items()) + "]")
+        super().__init__(" ".join(parts))
 
 
 class HbmBudgetError(SrmlError, MemoryError):

@@ -48,7 +48,14 @@
 # its own), a job the scheduler demoted after repeated preemption is
 # force-streamed (reason naming config['sched_max_preemptions'], one
 # `demotion` record), and a cache hit resizes it too
-# (`rereserve_admission`). The chip-scoped claims of the 2-D book are A10.
+# (`rereserve_admission`). A fit fanned out over n chips of the pool is
+# admitted once, at n devices (its per-chip block), its claim charging n
+# chips. The 2-D book: a fit inside a scheduler job placed on chips, or
+# inside a `parallel.chip_scope` pin, budgets against the bytes held on
+# ITS chips (`_claimed_chips`; a claim that names no chips counts on every
+# chip) and claims them; a model load does the same under a pin. Chips
+# that share one card (a pool naming a card twice) share its budget: the
+# fit's blocks on that card and the card's other claims are summed.
 # A multi-process fit (a TpuContext with nranks > 1) budgets each rank's
 # own block and never streams: over budget it is refused with the typed
 # HbmBudgetError, as in the JAX package.
@@ -121,6 +128,8 @@ class AdmissionDecision:
     chunk_rows: int = 0
     reason: str = ""
     demoted: bool = False
+    # the devices the fit spans (the claim's chip-seconds multiplier)
+    chips: int = 1
     reservation: Any = None
 
     def stamp(self) -> Dict[str, Any]:
@@ -302,8 +311,33 @@ def _job_claim() -> Tuple[Any, Any]:
     return job, getattr(job, "reservation", None)
 
 
+def _claimed_chips(job_res: Any = None) -> Optional[Tuple[int, ...]]:
+    """The chip set this admission is scoped to, if any: the enclosing
+    scheduler job's PLACED claim (the 2-D book), else the ambient
+    `parallel.chip_scope` pin's chip ids. None: the whole pool (a claim
+    that names no chips)."""
+    if job_res is not None and getattr(job_res, "chip_ids", None) is not None:
+        return tuple(job_res.chip_ids)
+    from .parallel.mesh import current_chip_ids, current_chip_scope
+
+    if current_chip_scope() is None:
+        return None
+    return tuple(current_chip_ids())
+
+
+def _blocks_per_card(my_chips: Optional[Tuple[int, ...]], n_devices: int) -> int:
+    """The blocks a fit over `n_devices` chips puts on one card: its chip
+    set (`my_chips`, else the first `n_devices` of the pool, as the fan-out
+    takes them) counted on the card most of them share."""
+    if my_chips is None and n_devices <= 1:
+        return 1
+    from .parallel.mesh import chips_per_card, current_chip_ids
+
+    return chips_per_card(my_chips if my_chips else current_chip_ids()[:n_devices])
+
+
 def admit_fit(
-    estimator: Any, extracted: Any, device: Any = None, *, force_stream: bool = False
+    estimator: Any, extracted: Any, device: Any = None, *, force_stream: bool = False, n_devices: int = 1
 ) -> AdmissionDecision:
     """The admission verdict of one fit on `device` (see the module note),
     its estimate reserved in the shared ledger under the ledger's admission
@@ -324,13 +358,21 @@ def admit_fit(
     Inside a scheduler job the job's claim is excluded from what is held
     and resized to the admitted estimate (the decision's `reservation` is
     None: the scheduler releases the job's claim), and a job the scheduler
-    demoted streams as if `force_stream` were set."""
+    demoted streams as if `force_stream` were set.
+
+    `n_devices` is the number of chips the fit spans (a fan-out over the
+    pool): the estimate is one chip's block, and the claim charges
+    `n_devices` chips. A fit scoped to chips (`_claimed_chips`) budgets
+    against the most any of its chips holds and claims them. Chips that
+    share a card share its budget: the resident check holds the blocks the
+    fit puts on one card (`parallel.chips_per_card`) against what the
+    card's other claims leave."""
     from . import telemetry
     from .ops_plane import audit as _audit
     from .parallel import device_allocatable_bytes, device_capacity_bytes
     from .scheduler.ledger import global_ledger
 
-    n_devices = 1
+    n_devices = max(1, int(n_devices))
     capacity = device_capacity_bytes(device)
     budget = None if capacity is None else int(capacity * (1.0 - headroom_fraction()))
     reg = telemetry.registry()
@@ -341,13 +383,25 @@ def admit_fit(
     sched_demoted = job is not None and getattr(job, "demote_to_stream", False)
     oom_retry = force_stream
     force_stream = force_stream or sched_demoted
+    my_chips = _claimed_chips(job_res)
+    # chips of this fit that share one card put that many blocks on it
+    share = _blocks_per_card(my_chips, n_devices)
     with led.admission():
-        held = 0 if budget is None else led.reserved_bytes(exclude=job_res)
+        if budget is None:
+            held = 0
+        elif my_chips:
+            # bytes held on other chips do not shrink this fit's budget;
+            # claims that name no chips count on every chip
+            held = max(led.reserved_bytes_on(c, exclude=job_res) for c in my_chips)
+        else:
+            held = led.reserved_bytes_per_card(exclude=job_res)
         avail = None if budget is None else max(0, budget - held)
         held_note = (
-            f" ({held} bytes/device already reserved in the shared ledger by other fits/serving models)"
+            f" ({held} bytes/device already reserved in the shared ledger by other fits/serving models"
+            + (" on this fit's chip set" if my_chips else "") + ")"
             if held else ""
         )
+        share_note = f" ({share} of its chips share one card: {share} blocks there)" if share > 1 else ""
 
         def _grant(est_obj, verdict, chunk_rows=0, reason="", demoted=False):
             # a job's claim is resized; a standalone fit reserves its own
@@ -355,7 +409,9 @@ def admit_fit(
                 led.resize(job_res, est_obj.total())
                 reservation = None
             else:
-                reservation = led.reserve(f"fit:{type(estimator).__name__}", "fit", est_obj.total())
+                reservation = led.reserve(
+                    f"fit:{type(estimator).__name__}", "fit", est_obj.total(), chips=n_devices, chip_ids=my_chips,
+                )
             led.note_admission(budget)
             # one decision record per verdict: the queryable side of the
             # _fit_metrics["admission"] stamp
@@ -372,6 +428,7 @@ def admit_fit(
                 chunk_rows=int(chunk_rows),
                 reason=reason,
                 demoted=demoted,
+                chips=n_devices,
                 reservation=reservation,
             )
 
@@ -386,9 +443,12 @@ def admit_fit(
         res = resident_estimate(estimator, extracted, n_devices)
         if not force_stream:
             reg.gauge("memory.estimate_bytes", res.total())
-            if avail is None or res.total() <= avail:
+            if avail is None or res.total() * share <= avail:
                 return _grant(res, RESIDENT, reason="fits" if budget is not None else "no capacity information")
-            reason = f"resident working set {res.total()} bytes/device exceeds the {budget}-byte budget{held_note}"
+            reason = (
+                f"resident working set {res.total()} bytes/device{share_note} exceeds the {budget}-byte "
+                f"budget{held_note}"
+            )
         elif sched_demoted:
             reason = (
                 f"scheduler demotion: preempted {getattr(job, 'preemptions', 0)} time(s) "
@@ -496,7 +556,7 @@ def rereserve_admission(adm: AdmissionDecision, owner: str = "fit:cache-hit"):
     if job_res is not None:
         led.resize(job_res, adm.estimate.total())
         return None
-    return led.reserve(owner, "fit", adm.estimate.total())
+    return led.reserve(owner, "fit", adm.estimate.total(), chips=adm.chips, chip_ids=_claimed_chips())
 
 
 # ------------------------------------------------------- serving plane ------
@@ -531,12 +591,16 @@ def admit_model_load(
     device: Any = None,
     serve_dtype: Optional[str] = None,
     tenant: Optional[str] = None,
+    chip_ids: Any = None,
 ) -> AdmissionDecision:
     """Admission verdict for loading a fitted model onto `device` (a torch
     device) in the serving plane: RESIDENT, with its estimate reserved in
     the shared ledger, or a raised `HbmBudgetError` naming the largest
     term. `tenant` names the load in the decision log (the registry passes
-    "serving:<name>"; default "serving:<model class>")."""
+    "serving:<name>"; default "serving:<model class>"). `chip_ids` places
+    the model on those chips of the 2-D book (default: the ambient
+    `parallel.chip_scope` pin's, else a claim that names none): the bytes
+    are checked against those chips' book, and the claim holds them."""
     from .core import config
     from .ops_plane import audit as _audit
     from .parallel import device_capacity_bytes
@@ -549,8 +613,14 @@ def admit_model_load(
     capacity = device_capacity_bytes(device)
     budget = None if capacity is None else int(capacity * (1.0 - headroom_fraction()))
     led = global_ledger()
+    chip_ids = _claimed_chips() if chip_ids is None else tuple(int(c) for c in chip_ids)
     with led.admission():
-        held = 0 if budget is None else led.reserved_bytes()
+        if budget is None:
+            held = 0
+        elif chip_ids:
+            held = max(led.reserved_bytes_on(c) for c in chip_ids)
+        else:
+            held = led.reserved_bytes_per_card()
         est = model_serve_estimate(model, bucket_rows_count, serve_dtype)
         if budget is None or est.total() + held <= budget:
             _audit.record_decision(
@@ -565,7 +635,9 @@ def admit_model_load(
                 reason="fits" if budget is not None else "no capacity information",
                 # serving residents are shared infrastructure: accounted to
                 # their "serving:<name>" tenant, not to the loading thread's
-                reservation=led.reserve(f"serve:{type(model).__name__}", "serve", est.total(), tenant=tenant),
+                reservation=led.reserve(
+                    f"serve:{type(model).__name__}", "serve", est.total(), tenant=tenant, chip_ids=chip_ids,
+                ),
             )
         name, nbytes = est.largest()
         _audit.record_decision(
@@ -599,8 +671,12 @@ def is_oom_error(exc: BaseException) -> bool:
     """Whether `exc` is a backend out-of-memory failure: torch's
     `torch.OutOfMemoryError` (a RuntimeError), a RuntimeError naming out of
     memory, or MemoryError. An already-typed `HbmBudgetError` is NOT
-    matched: it must propagate as it is."""
-    if isinstance(exc, HbmBudgetError):
+    matched: it must propagate as it is; nor is a peer's failure relayed
+    (`RankFailedError`, whose text may quote the peer's OOM): this rank
+    allocated nothing that failed."""
+    from .errors import RankFailedError
+
+    if isinstance(exc, (HbmBudgetError, RankFailedError)):
         return False
     if not isinstance(exc, (RuntimeError, MemoryError)):
         return False

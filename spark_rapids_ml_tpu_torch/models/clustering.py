@@ -644,18 +644,42 @@ class DBSCANModel(_DBSCANParams, _TpuModel):
 
     def transform(self, dataset: Any):
         from ..data import as_pandas
-        from ..ops.dbscan import dbscan_fit
-        from ..parallel import default_device, refuse_multi_device, spmd_context
+        from ..parallel import fan_out_width, refuse_devices_per_rank, run_on_chips, shard_row_ranges
 
-        ctx = spmd_context()
-        if ctx is None:
-            refuse_multi_device(self.num_workers, "DBSCAN")
+        refuse_devices_per_rank(self.num_workers, "DBSCAN")
         pdf = as_pandas(dataset)
         feats = np.asarray(as_dense(self._pre_process_data(dataset, for_fit=False).features), dtype=np.float32)
+        width = fan_out_width(self.num_workers)
+        if width > 1:
+            # over several chips of one process: chip r holds row block r
+            # and runs the multi-process transform, as a rank would; its
+            # rows' labels come back in order
+            ranges = shard_row_ranges(feats.shape[0], width)
+            parts, _ = run_on_chips(width, lambda r: self._cluster(feats[ranges[r][0]:ranges[r][1]]),
+                                    name="srml-dbscan")
+            labels, core_idx = np.concatenate([p[0] for p in parts]), parts[0][1]
+        else:
+            labels, core_idx = self._cluster(feats)
+        if len(labels) != len(pdf):
+            raise RuntimeError(f"row count mismatch: {len(labels)} labels vs {len(pdf)} input rows")
+        # the latest transform's state, as cuML's fit_predict keeps it;
+        # concurrent transforms of one model should each use a copy()
+        self.core_sample_indices_ = core_idx
+        out = pdf.copy(deep=False)
+        out[self.getOrDefault("predictionCol")] = labels.astype(np.int64)
+        return out
+
+    def _cluster(self, feats: np.ndarray):
+        """(this process's rows' labels, the global core sample indices):
+        under a multi-process context every rank's rows are gathered in rank
+        order over the process group and the passes split their row tiles
+        between the ranks."""
+        from ..ops.dbscan import dbscan_fit
+        from ..parallel import default_device, spmd_context
+
+        ctx = spmd_context()
         row_offset, n_local = 0, feats.shape[0]
         if ctx is not None:
-            # every rank's rows, gathered in rank order over the process
-            # group; the passes split their row tiles between the ranks
             blocks = ctx.group.allgather_arrays(feats)
             row_offset = sum(b.shape[0] for b in blocks[: ctx.rank])
             feats = np.concatenate(blocks, axis=0)
@@ -671,12 +695,4 @@ class DBSCANModel(_DBSCANParams, _TpuModel):
         )
         # a multi-process transform keeps its own rows' labels;
         # core_sample_indices_ stay global row positions
-        labels = labels[row_offset:row_offset + n_local]
-        if len(labels) != len(pdf):
-            raise RuntimeError(f"row count mismatch: {len(labels)} labels vs {len(pdf)} input rows")
-        # the latest transform's state, as cuML's fit_predict keeps it;
-        # concurrent transforms of one model should each use a copy()
-        self.core_sample_indices_ = core_idx
-        out = pdf.copy(deep=False)
-        out[self.getOrDefault("predictionCol")] = labels.astype(np.int64)
-        return out
+        return labels[row_offset:row_offset + n_local], core_idx

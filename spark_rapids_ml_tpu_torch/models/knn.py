@@ -34,8 +34,14 @@
 # and merged into the global top-k (`ops/knn.merge_topk`, the order of one
 # `exact_knn` over the global rows), and each rank returns its own queries'
 # rows. The joins are refused under a multi-process context (the item
-# table lives on every rank, as in the JAX package). One process driving
-# several cards is refused when more than one is visible (A10i).
+# table lives on every rank, as in the JAX package).
+#
+# One process driving several chips (num_workers past one over a device
+# pool of several; `parallel.fan_out_width`) runs that same search, one
+# thread a chip (`parallel.run_on_chips`): chip r holds block r of the
+# items (`parallel.shard_row_ranges`) and of the queries, the ANN its own
+# index built at fit over its block on its chip, and the chips' query rows
+# come back in order.
 #
 from __future__ import annotations
 
@@ -105,11 +111,10 @@ class NearestNeighbors(_KNNParams, _TpuEstimator):
     def _fit_internal(self, dataset: Any, paramMaps=None, row_mask=None) -> List["NearestNeighborsModel"]:
         # kNN fits no parameters: the model is the item set, bound here (in
         # a multi-process fit, this rank's items); the search runs in
-        # kneighbors
-        from ..parallel import refuse_multi_device, spmd_context
+        # kneighbors, over the chips of the pool when num_workers spans them
+        from ..parallel import refuse_devices_per_rank
 
-        if spmd_context() is None:
-            refuse_multi_device(self.num_workers, "NearestNeighbors")
+        refuse_devices_per_rank(self.num_workers, "NearestNeighbors")
         pdf = as_pandas(dataset)
         extracted = self._pre_process_data(dataset, for_fit=True)
         model = NearestNeighborsModel(
@@ -189,13 +194,19 @@ class NearestNeighborsModel(_KNNParams, _TpuModel):
         Q = host_tensor(np.asarray(as_dense(query_ex.features), dtype=np_dtype)).to(device)
         # 0 -> None: resolves config["distance_tile_rows"]
         batch_queries = int(self._solver_params["batch_queries"]) or None
-        from ..parallel import spmd_context
+        from ..parallel import fan_out_width, spmd_context
 
         ctx = spmd_context()
-        if ctx is not None:
-            dist, indices, item_ids, query_ids = self._kneighbors_spmd(
-                ctx, item_ex, item_ids, Q, query_ex, query_ids, k, batch_queries, np_dtype,
-            )
+        width = fan_out_width(self.num_workers)
+        if ctx is not None or width > 1:
+            if ctx is not None:
+                dist, indices, item_ids, query_ids = self._kneighbors_spmd(
+                    ctx, item_ex, item_ids, Q, query_ex, query_ids, k, batch_queries, np_dtype,
+                )
+            else:
+                dist, indices, item_ids, query_ids = self._kneighbors_fanned(
+                    width, item_ex, query_ex, k, batch_queries, np_dtype,
+                )
             knn_df = pd.DataFrame({"query_id": query_ids, "indices": list(indices), "distances": list(dist)})
             return self._with_ids(self._item_pdf, item_ids), self._with_ids(query_pdf, query_ids), knn_df
         if k > item_ex.n_rows:
@@ -253,6 +264,29 @@ class NearestNeighborsModel(_KNNParams, _TpuModel):
         if query_ex.row_id is None:
             query_ids = query_ids + q_offset
         return dist, indices, item_ids, query_ids
+
+    def _kneighbors_fanned(self, width, item_ex, query_ex, k, batch_queries, np_dtype):
+        """The search over `width` chips of the pool: chip r runs
+        `_kneighbors_spmd` on item block r and query block r; the results
+        (this search's four arrays) come back in chip order."""
+        from ..parallel import default_device, host_tensor, run_on_chips, shard_row_ranges
+
+        i_ranges = shard_row_ranges(item_ex.n_rows, width)
+        q_ranges = shard_row_ranges(query_ex.n_rows, width)
+
+        def chip(r: int):
+            from ..parallel import TpuContext
+
+            items = item_ex.row_block(*i_ranges[r])
+            queries = query_ex.row_block(*q_ranges[r])
+            Q = host_tensor(np.asarray(as_dense(queries.features), dtype=np_dtype)).to(default_device())
+            return self._kneighbors_spmd(
+                TpuContext.current(), items, self._ensure_id(range(items.n_rows), items), Q, queries,
+                self._ensure_id(range(queries.n_rows), queries), k, batch_queries, np_dtype,
+            )
+
+        parts, _ = run_on_chips(width, chip, name="srml-knn")
+        return tuple(np.concatenate([p[i] for p in parts], axis=0) for i in range(4))
 
     def exactNearestNeighborsJoin(self, query_df: Any, distCol: str = "distCol") -> Any:
         """Exploded (item, query, distance) join: one row per (query,
@@ -548,26 +582,16 @@ class ApproximateNearestNeighbors(_ANNParams, _TpuEstimator):
         return str(self._solver_params["metric"])
 
     def _fit_internal(self, dataset: Any, paramMaps=None, row_mask=None) -> List["ApproximateNearestNeighborsModel"]:
-        from ..ops.cagra import build_cagra
-        from ..ops.knn import build_ivfflat, build_ivfpq
-        from ..parallel import default_device, host_tensor
-        from ..utils import unit_rows
-
-        from ..parallel import refuse_multi_device, spmd_context
+        from ..parallel import fan_out_width, refuse_devices_per_rank, run_on_chips, shard_row_ranges
 
         # in a multi-process fit each rank builds its index over its own
-        # items; the search merges the ranks' candidates (kneighbors)
-        if spmd_context() is None:
-            refuse_multi_device(self.num_workers, "ApproximateNearestNeighbors")
+        # items; the search merges the ranks' candidates (kneighbors). Over
+        # several chips of one process, each chip builds its block's
+        # index in its own thread, as a rank would
+        refuse_devices_per_rank(self.num_workers, "ApproximateNearestNeighbors")
         sp = self._solver_params
         pdf = as_pandas(dataset)
         extracted = self._pre_process_data(dataset, for_fit=True)
-        feats = as_dense(extracted.features)
-        cosine = str(sp["metric"]) == "cosine"
-        if cosine:
-            # cosine rides the euclidean index on unit vectors (the same
-            # ranking); queries are normalized the same way in kneighbors
-            feats = unit_rows(feats)
         algo = self.getOrDefault("algorithm")
         if algo == "cagra":
             # cuVS checks itopk_size >= k at first use; fail at fit, as the
@@ -578,6 +602,43 @@ class ApproximateNearestNeighbors(_ANNParams, _TpuEstimator):
                     f"cagra rounds itopk_size up to a multiple of 32 ({internal}) and requires it"
                     f" >= k ({int(sp['n_neighbors'])})"
                 )
+        width = fan_out_width(self.num_workers)
+        chips = None
+        if width > 1:
+            ranges = shard_row_ranges(extracted.n_rows, width)
+            built, _ = run_on_chips(width, lambda r: self._build_index(extracted.row_block(*ranges[r])), name="srml-ann")
+            chips = [(index, refine_x, lo, hi) for (index, refine_x), (lo, hi) in zip(built, ranges)]
+            index, refine_x = built[0]
+        else:
+            index, refine_x = self._build_index(extracted)
+        model = ApproximateNearestNeighborsModel(
+            n_cols=extracted.n_cols, dtype="float32" if self._float32_inputs else "float64"
+        )
+        self._copyValues(model)
+        self._copy_solver_params(model)
+        model._item_pdf = pdf
+        model._item_extracted = extracted
+        model._index = index
+        model._algorithm = algo
+        model._refine_x = refine_x
+        model._chip_indexes = chips
+        return [model]
+
+    def _build_index(self, extracted: ExtractedData):
+        """(the index over `extracted`'s rows on `default_device()`, the
+        rows IVFPQ's refine scores or None)."""
+        from ..ops.cagra import build_cagra
+        from ..ops.knn import build_ivfflat, build_ivfpq
+        from ..parallel import default_device, host_tensor
+        from ..utils import unit_rows
+
+        sp = self._solver_params
+        feats = as_dense(extracted.features)
+        if str(sp["metric"]) == "cosine":
+            # cosine rides the euclidean index on unit vectors (the same
+            # ranking); queries are normalized the same way in kneighbors
+            feats = unit_rows(feats)
+        algo = self.getOrDefault("algorithm")
         device = default_device()
         xd = host_tensor(np.asarray(feats, dtype=np.float32)).to(device)  # the rows, placed once
         refine_x = None
@@ -600,17 +661,7 @@ class ApproximateNearestNeighbors(_ANNParams, _TpuEstimator):
             )
         else:
             index = build_ivfflat(xd, int(sp["n_lists"]), seed=0)
-        model = ApproximateNearestNeighborsModel(
-            n_cols=extracted.n_cols, dtype="float32" if self._float32_inputs else "float64"
-        )
-        self._copyValues(model)
-        self._copy_solver_params(model)
-        model._item_pdf = pdf
-        model._item_extracted = extracted
-        model._index = index
-        model._algorithm = algo
-        model._refine_x = refine_x
-        return [model]
+        return index, refine_x
 
     # _TpuCaller's solver hooks: never reached, _fit_internal builds the index
     def _get_tpu_fit_func(self, extracted: ExtractedData):
@@ -634,6 +685,9 @@ class ApproximateNearestNeighborsModel(NearestNeighborsModel):
         self._index: Optional[Dict[str, Any]] = None
         self._algorithm = "ivfflat"
         self._refine_x = None  # ivfpq: the rows the refine scores, on the device
+        # a fit over several chips of the pool: per chip (index, refine
+        # rows, first item row, end row), each on its chip
+        self._chip_indexes: Optional[List[Tuple[Any, Any, int, int]]] = None
 
     def _get_solver_params_default(self) -> Dict[str, Any]:
         return _ANNParams._get_solver_params_default(self)
@@ -679,25 +733,24 @@ class ApproximateNearestNeighborsModel(NearestNeighborsModel):
         if metric == "cosine":
             queries = unit_rows(queries)
         device = default_device()
-        q = host_tensor(np.asarray(queries, dtype=np.float32)).to(device)
-        n_items = item_ex.n_rows
         batch = int(sp["batch_queries"])
 
-        def search(q, q_ref=None):
+        def search(q, q_ref=None, index=self._index, refine_x=self._refine_x, n_items=item_ex.n_rows,
+                   item_ids=item_ids):
             """(distances [nq, k] float64 in the metric, item ids [nq, k],
-            -1 at +inf where a query is short) from this model's index;
-            IVFPQ's refine scores `q_ref` (None: the queries at their own
-            dtype)."""
+            -1 at +inf where a query is short) from `index` over `n_items`
+            items; IVFPQ's refine scores `q_ref` (None: the queries at
+            their own dtype)."""
             if self._algorithm == "ivfpq":
                 k_adc = min(k * max(1, int(sp.get("refine_ratio", 4))), n_items)
-                dist, idx = ivfpq_search(q, self._index, k=k_adc, n_probes=int(sp["n_probes"]), batch_queries=batch)
+                dist, idx = ivfpq_search(q, index, k=k_adc, n_probes=int(sp["n_probes"]), batch_queries=batch)
                 if k_adc > k:
                     if q_ref is None:
-                        q_ref = q if queries.dtype == np.float32 else host_tensor(queries).to(device)
-                    dist, idx = refine_exact(self._refine_x, q_ref, torch.from_numpy(idx).to(device), k)
+                        q_ref = q if queries.dtype == np.float32 else host_tensor(queries).to(q.device)
+                    dist, idx = refine_exact(refine_x, q_ref, torch.from_numpy(idx).to(q.device), k)
             elif self._algorithm == "cagra":
                 idx, d2 = cagra_search(
-                    q, self._index, k=min(k, n_items), itopk_size=int(sp["itopk_size"]),
+                    q, index, k=min(k, n_items), itopk_size=int(sp["itopk_size"]),
                     search_width=int(sp["search_width"]), max_iterations=int(sp["max_iterations"]),
                     min_iterations=int(sp["min_iterations"]), num_random_samplings=int(sp["num_random_samplings"]),
                     batch_queries=batch,
@@ -709,7 +762,7 @@ class ApproximateNearestNeighborsModel(NearestNeighborsModel):
                     idx = np.concatenate([idx, np.full((len(idx), padw), -1, idx.dtype)], axis=1)
                     dist = np.concatenate([dist, np.full((len(dist), padw), np.inf, dist.dtype)], axis=1)
             else:
-                dist, idx = ivfflat_search(q, self._index, k=k, n_probes=int(sp["n_probes"]), batch_queries=batch)
+                dist, idx = ivfflat_search(q, index, k=k, n_probes=int(sp["n_probes"]), batch_queries=batch)
             dist = np.asarray(dist, dtype=np.float64)
             # the metric's conversion is monotone, so it may precede a merge
             if metric == "sqeuclidean":
@@ -724,11 +777,38 @@ class ApproximateNearestNeighborsModel(NearestNeighborsModel):
             # queries travel at float32, and IVFPQ's float64 refine scores
             # them so, as the JAX package's SPMD branch does
             if item_ex.row_id is None:
-                item_ids = item_ids + sum(rank_counts(ctx, n_items)[: ctx.rank])
-            dist, indices, q_offset = spmd_search(ctx, q, lambda qa: search(qa, qa), k)
+                item_ids = item_ids + sum(rank_counts(ctx, item_ex.n_rows)[: ctx.rank])
+            q = host_tensor(np.asarray(queries, dtype=np.float32)).to(device)
+            dist, indices, q_offset = spmd_search(
+                ctx, q, lambda qa: search(qa, qa, item_ids=item_ids), k,
+            )
             if query_ex.row_id is None:
                 query_ids = query_ids + q_offset
+        elif self._chip_indexes is not None:
+            # chip r searches its own index (its items [lo, hi)) for every
+            # chip's queries, as a rank does; the queries come back in order
+            from ..parallel import run_on_chips, shard_row_ranges
+
+            chips = self._chip_indexes
+            q_ranges = shard_row_ranges(len(queries), len(chips))
+
+            def chip(r: int):
+                index, refine_x, lo, hi = chips[r]
+                qr = host_tensor(np.asarray(queries[q_ranges[r][0]:q_ranges[r][1]], dtype=np.float32)).to(
+                    default_device())
+                return spmd_search(
+                    TpuContext.current(), qr,
+                    lambda qa: search(qa, qa, index=index, refine_x=refine_x, n_items=hi - lo,
+                                      item_ids=item_ids[lo:hi]), k,
+                )[:2]
+
+            from ..parallel import TpuContext
+
+            parts, _ = run_on_chips(len(chips), chip, name="srml-ann")
+            dist = np.concatenate([p[0] for p in parts], axis=0)
+            indices = np.concatenate([p[1] for p in parts], axis=0)
         else:
+            q = host_tensor(np.asarray(queries, dtype=np.float32)).to(device)
             dist, indices = search(q)
         knn_df = pd.DataFrame({"query_id": query_ids, "indices": list(indices), "distances": list(dist)})
         return self._with_ids(self._item_pdf, item_ids), self._with_ids(query_pdf, query_ids), knn_df

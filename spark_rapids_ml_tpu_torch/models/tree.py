@@ -22,9 +22,9 @@
 #
 # Left out, each raising NotImplementedError naming its ROADMAP item:
 # `.cpu()` (the conversion to Spark's forests), `predictLeaf` and
-# `evaluate`, which go through it (A16); one process driving several cards
-# (A10i, refused by `core._TpuCaller._call_fit_func`). The JAX solver
-# param `node_chunk`
+# `evaluate`, which go through it (A16). One process driving several chips
+# runs the multi-process fit, one thread a chip (`core._TpuCaller.
+# _call_fit_func_fanned`). The JAX solver param `node_chunk`
 # (its TPU chunk cap) is not here: the port sizes its node chunks by
 # memory (ops/trees.HIST_BUDGET).
 #

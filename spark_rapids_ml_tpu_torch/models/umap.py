@@ -12,7 +12,10 @@
 # blocks (and labels) are gathered in rank order over the process group,
 # and every rank runs the same seeded fit on that union, so the ranks'
 # models are equal bit for bit; transform embeds each rank's own rows.
-# Sparse input is densified, as in the JAX package.
+# One process over several chips of its pool fits once, on its first chip,
+# over every row (the JAX package's single-controller fit); its transform
+# runs on the first chip too. Sparse input is densified, as in the JAX
+# package.
 #
 from __future__ import annotations
 
@@ -186,14 +189,18 @@ class UMAP(_UMAPParams, _TpuEstimator):
 
     def _fit_internal(self, dataset: Any, paramMaps, row_mask=None):
         from ..ops.umap import umap_fit
-        from ..parallel import default_device, refuse_multi_device, spmd_context
+        from ..parallel import default_device, fan_out_width, refuse_devices_per_rank, spmd_context
 
         if paramMaps:
             raise NotImplementedError("UMAP does not support fitMultiple param maps")
+        refuse_devices_per_rank(self.num_workers, "UMAP fit")
         ctx = spmd_context()
-        if ctx is None:
-            refuse_multi_device(self.num_workers, "UMAP fit")
         extracted = self._pre_process_data(dataset, for_fit=True)
+        # one process over several chips fits once, on its first chip, over
+        # every row, as the JAX package's single-controller fit does (its
+        # sampleFraction draw and precomputed_knn included); the width is
+        # still checked against the pool
+        fan_out_width(self.num_workers)
         feats = np.asarray(as_dense(extracted.features), dtype=np.float32)
         labels = extracted.label
 
@@ -304,11 +311,12 @@ class UMAPModel(_UMAPParams, _TpuModel):
         import pandas as pd
 
         from ..ops.umap import umap_transform
-        from ..parallel import default_device, refuse_multi_device, spmd_context
+        from ..parallel import default_device, refuse_devices_per_rank
 
-        # a multi-process transform embeds each rank's own rows
-        if spmd_context() is None:
-            refuse_multi_device(self.num_workers, "UMAP transform")
+        # a multi-process transform embeds each rank's own rows; one process
+        # embeds its rows on its first chip (the negative draws are
+        # positional, so a split would change a row's embedding)
+        refuse_devices_per_rank(self.num_workers, "UMAP transform")
         feats = np.asarray(as_dense(self._pre_process_data(dataset, for_fit=False).features), dtype=np.float32)
         sp = self._solver_params
         emb = umap_transform(

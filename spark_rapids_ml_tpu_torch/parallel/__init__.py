@@ -1,28 +1,32 @@
 #
-# The one-device layer: which device the package runs on, and the placement
-# of host rows on it.
+# The device layer: which devices the package runs on, and the placement of
+# host rows on them.
 #
-# Counterparts in the JAX package: `set_devices` / `default_devices`
-# (spark_rapids_ml_tpu/parallel/mesh.py:52), `make_global_rows`
+# Counterparts in the JAX package: the device pool and its row layouts
+# (`set_devices`, `default_devices`, `chip_scope`, `get_mesh`,
+# `build_mesh`, `submesh`, `survivor_mesh`, `shard_row_slices`;
+# spark_rapids_ml_tpu/parallel/mesh.py, here in mesh.py), `make_global_rows`
 # (parallel/mesh.py:683), the out-of-core fits' double-buffered pipeline
 # (`stream_place_blocks`, parallel/mesh.py:618), the single-controller part
 # of `TpuContext` (parallel/context.py:1073), the serving bucket ladder
 # (`bucket_size`, `bucket_ladder`, `bucket_rows`, parallel/mesh.py:466-528)
 # and the device capacity the admission budgeter reads (memory.py
-# `device_capacity_bytes`). The multi-process control plane and process
-# group (`TpuContext`, the rendezvous substrates, `PartitionDescriptor`) are
-# in context.py and partition.py; one process driving several cards is a
-# later ROADMAP A10 item.
+# `device_capacity_bytes`). The multi-process control plane, the process
+# group and the in-process group one process drives several chips with
+# (`TpuContext`, the rendezvous substrates, `LocalGroup`,
+# `PartitionDescriptor`) are in context.py and partition.py; the fan-out of
+# a fit or transform over the chips is core.py's.
 #
 # Entry points run on the CUDA card. The CPU runs only when the caller asks
-# for it with `set_devices("cpu")` (the tests do): with no card and no such
-# call, `default_device()` raises instead of carrying on quietly on the CPU.
+# for it with `set_devices("cpu")` (or a pool of CPU entries, the tests'
+# `set_devices(["cpu"] * 8)`): with no card and no such call,
+# `default_device()` raises instead of carrying on quietly on the CPU.
 #
 from __future__ import annotations
 
 import warnings
 from concurrent.futures import ThreadPoolExecutor
-from typing import Any, Dict, Iterable, Iterator, List, Optional, Tuple, Union
+from typing import Any, Dict, Iterable, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -32,64 +36,156 @@ __all__ = [
     "stream_place_blocks", "bucket_size", "bucket_ladder", "bucket_rows", "device_capacity_bytes",
     "device_allocatable_bytes", "PartitionDescriptor", "TpuContext", "Rendezvous", "LocalRendezvous",
     "FileRendezvous", "BarrierRendezvous", "ChaosRendezvous", "allgather_ndarray", "visible_device_count",
-    "refuse_multi_device", "refuse_spmd", "spmd_context",
+    "refuse_devices_per_rank", "refuse_spmd", "spmd_context", "LocalGroup", "Mesh", "default_devices",
+    "default_local_device", "chip_scope", "current_chip_scope", "current_chip_ids", "get_mesh", "build_mesh",
+    "submesh", "survivor_mesh", "shard_row_ranges", "shard_row_slices", "fan_out_width", "run_on_chips",
+    "InProcessRendezvous", "card_groups",
 ]
 
 from .chaos import ChaosRendezvous  # noqa: E402
 from .context import (  # noqa: E402
     BarrierRendezvous,
     FileRendezvous,
+    InProcessRendezvous,
+    LocalGroup,
     LocalRendezvous,
     Rendezvous,
     TpuContext,
     allgather_ndarray,
 )
+from .mesh import (  # noqa: E402
+    Mesh,
+    build_mesh,
+    card_groups,
+    chip_scope,
+    current_chip_ids,
+    current_chip_scope,
+    default_devices,
+    default_local_device,
+    get_mesh,
+    set_devices,
+    shard_row_ranges,
+    shard_row_slices,
+    submesh,
+    survivor_mesh,
+)
 from .partition import PartitionDescriptor  # noqa: E402
 
-_DEVICE_OVERRIDE: Optional[torch.device] = None
-
-
-def set_devices(device: Union[str, torch.device, None]) -> None:
-    """Pin the device every entry point runs on: "cpu", "cuda", "cuda:1", a
-    `torch.device`, or None to go back to the default (the first CUDA
-    card)."""
-    global _DEVICE_OVERRIDE
-    _DEVICE_OVERRIDE = None if device is None else torch.device(device)
-
-
 def default_device() -> torch.device:
-    """The device a fit or transform runs on: the `set_devices` pin, else the
-    first CUDA card. Raises RuntimeError when neither exists."""
-    if _DEVICE_OVERRIDE is not None:
-        return _DEVICE_OVERRIDE
+    """The device a fit or transform runs on: the first chip of the
+    `chip_scope` pin or the `set_devices` pool, else the current CUDA card.
+    Raises RuntimeError when none exists."""
+    from . import mesh
+
+    if mesh.current_chip_scope() is not None or mesh._POOL is not None:
+        return mesh.default_local_device()
     if torch.cuda.is_available():
         return torch.device("cuda", torch.cuda.current_device())
-    raise RuntimeError(
-        "no CUDA device is visible, and spark_rapids_ml_tpu_torch runs on "
-        "the card unless asked otherwise; call "
-        'spark_rapids_ml_tpu_torch.parallel.set_devices("cpu") to run on the CPU'
-    )
+    raise mesh._no_device()
 
 
 def visible_device_count() -> int:
-    """Devices one process could drive: 1 under a `set_devices` pin (or
-    with no card), else the CUDA cards torch sees."""
-    if _DEVICE_OVERRIDE is not None or not torch.cuda.is_available():
+    """The chips one process could drive: the pin's, else the pool's, else
+    the visible CUDA cards' (1 with none of them)."""
+    try:
+        return len(default_devices())
+    except RuntimeError:
         return 1
-    return torch.cuda.device_count()
 
 
-def refuse_multi_device(num_workers: int, what: str) -> None:
-    """`num_workers` is clamped to the visible devices, as the JAX package
-    clamps it (``min(num_workers, len(default_devices()))``): on one device
-    any count fits there. One process driving more than one card is ROADMAP
-    item A10i, refused when more than one is visible."""
+def fan_out_width(num_workers: int) -> int:
+    """The chips a fit or transform with `num_workers` fans out over in
+    this process, as the JAX package sizes its mesh
+    (``min(num_workers, len(default_devices()))``, core.py:1442): 1 under a
+    multi-process TpuContext (each rank drives its own card) and inside a
+    chip's own thread (its pin holds one chip). The count must divide the
+    pool (`get_mesh`'s typed refusal)."""
+    if spmd_context() is not None:
+        return 1
+    n = min(int(num_workers), visible_device_count())
+    if n > 1:
+        get_mesh(n)  # refuses a count that does not divide the pool
+    return max(1, n)
+
+
+def refuse_devices_per_rank(num_workers: int, what: str) -> None:
+    """Under a multi-process TpuContext each rank drives one card:
+    `num_workers` past one, with more than one chip in this process's pool,
+    is ROADMAP item A10i, second half. Outside such a context (and inside a
+    chip's thread of a fan-out, whose pin holds one chip) nothing is
+    refused."""
+    ctx = spmd_context()
+    if ctx is None or getattr(ctx, "backend", None) == "local":
+        return
     n = min(int(num_workers), visible_device_count())
     if n > 1:
         raise NotImplementedError(
-            f"{what}: num_workers={num_workers} would drive {n} devices from one process, "
-            "which is ROADMAP item A10i; run one process per card under a TpuContext"
+            f"{what}: num_workers={num_workers} would drive {n} devices from each rank of a multi-process "
+            "TpuContext, which is ROADMAP item A10i, second half; run one process per card"
         )
+
+
+def run_on_chips(n: int, fn, *, name: str = "srml-chip") -> Tuple[List[Any], List[Dict[str, Any]]]:
+    """Run ``fn(rank)`` for ranks 0..n-1 of the first `n` chips of
+    `default_devices()`, one thread a chip, and return (the results in rank
+    order, each chip's stats). Each thread runs in a copy of the caller's
+    context (so its job, checkpoint, device-dataset and telemetry scopes
+    carry over), pinned to its chip (`chip_scope`, its card current), inside
+    a `TpuContext(rank, n)` over an in-process rendezvous and `LocalGroup`:
+    the rank-sharded code of the multi-process fits runs unchanged. A thread
+    that fails publishes its failure, so its peers unwind with
+    RankFailedError; the first failure that is not such a relay is raised
+    here once every thread has ended. Stats per chip: chip id, device,
+    wall seconds, the group's collective seconds and calls."""
+    import contextlib
+    import contextvars
+    import threading
+    import time
+
+    from ..errors import RankFailedError
+
+    devices = default_devices()[:n]
+    ids = current_chip_ids()[:n]
+    if len(devices) < n:
+        from ..errors import MeshTopologyError
+
+        raise MeshTopologyError(f"{n} chips asked of a {len(devices)}-chip pool", requested=n, available=len(devices))
+    rdvs = InProcessRendezvous.create(n)
+    results: List[Any] = [None] * n
+    errors: List[Optional[BaseException]] = [None] * n
+    stats: List[Dict[str, Any]] = [{} for _ in range(n)]
+
+    def body(r: int) -> None:
+        dev = devices[r]
+        group = LocalGroup(r, n, dev, rdvs[r])
+        t0 = time.perf_counter()
+        try:
+            with contextlib.ExitStack() as stack:
+                if dev.type == "cuda":
+                    stack.enter_context(torch.cuda.device(dev))
+                stack.enter_context(chip_scope((dev,), chip_ids=(ids[r],)))
+                stack.enter_context(TpuContext(r, n, rdvs[r], group=group))
+                results[r] = fn(r)
+        except BaseException as e:  # noqa: BLE001 - raised below, after every chip ended
+            errors[r] = e
+        finally:
+            stats[r] = {
+                "chip_id": int(ids[r]), "device": str(dev), "wall_s": time.perf_counter() - t0,
+                "collective_s": group.collective_s, "collective_calls": group.calls,
+            }
+
+    threads = [
+        threading.Thread(target=contextvars.copy_context().run, args=(body, r), name=f"{name}-{ids[r]}", daemon=True)
+        for r in range(n)
+    ]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    failed = [e for e in errors if e is not None]
+    if failed:
+        raise next((e for e in failed if not isinstance(e, RankFailedError)), failed[0])
+    return results, stats
 
 
 def spmd_context() -> Optional[TpuContext]:

@@ -39,6 +39,17 @@
 # and a new one is opened over the reformed rendezvous, the new rank 0
 # advertising a new address.
 #
+# One process driving several chips (core.py's fan-out) runs the same
+# rank-sharded code, one thread per chip, over `LocalGroup`: the group's
+# interface without torch.distributed (backend "local"). Its collectives
+# meet at the threads' `LocalRendezvous` barrier, bounded by the round
+# deadline; every caller gets fresh tensors on its own device, and a thread
+# that fails publishes its failure so its peers unwind with RankFailedError
+# naming it. An in-process group is not reformed (`InProcessRendezvous`
+# cannot): the fit's own retry and the sweep ledger's resume apply, as on
+# one device. The active `TpuContext` is context-local, so each chip's
+# thread sees its own.
+#
 from __future__ import annotations
 
 import contextlib
@@ -59,8 +70,8 @@ from ..utils import lockcheck
 _LOG = logging.getLogger(__name__)
 
 __all__ = [
-    "Rendezvous", "LocalRendezvous", "FileRendezvous", "BarrierRendezvous", "TpuContext", "ProcessGroup",
-    "allgather_ndarray", "allgather_concat", "allreduce_fixed", "fit_group_scope", "ABORT_PREFIX",
+    "Rendezvous", "LocalRendezvous", "InProcessRendezvous", "FileRendezvous", "BarrierRendezvous", "TpuContext",
+    "ProcessGroup", "LocalGroup", "allgather_ndarray", "allgather_concat", "allreduce_fixed", "fit_group_scope", "ABORT_PREFIX",
 ]
 
 # --------------------------------------------------------------------------
@@ -436,6 +447,19 @@ class LocalRendezvous(Rendezvous):
                 )
             out.append(item[2])
         return out
+
+
+class InProcessRendezvous(LocalRendezvous):
+    """The rendezvous of one process's chips (core.py's fan-out): a
+    `LocalRendezvous` that does not reform. A lost chip thread fails the
+    fit, and the fit's own retry runs it again over every chip."""
+
+    can_reform = False
+
+    @classmethod
+    def create(cls, nranks: int, timeout_s: Optional[float] = None) -> List["InProcessRendezvous"]:
+        shared = LocalRendezvous._Shared(nranks)
+        return [cls(r, shared, timeout_s) for r in range(nranks)]
 
 
 class BarrierRendezvous(Rendezvous):
@@ -1051,23 +1075,7 @@ class ProcessGroup:
         every rank): one all-gather per dtype of them all, flattened, then
         the partials added in rank order on this rank's device, so every
         rank gets the same bits. Returns the sums in the order given."""
-        import torch
-
-        out: List[Any] = [None] * len(tensors)
-        by_dtype: dict = {}
-        for i, x in enumerate(tensors):
-            by_dtype.setdefault(x.dtype, []).append(i)
-        for idxs in by_dtype.values():
-            parts = self.allgather(torch.cat([tensors[i].reshape(-1) for i in idxs]))
-            acc = parts[0]
-            for p in parts[1:]:
-                acc = acc + p
-            lo = 0
-            for i in idxs:
-                n = tensors[i].numel()
-                out[i] = acc[lo:lo + n].reshape(tensors[i].shape)
-                lo += n
-        return tuple(out)
+        return _allreduce_in_rank_order(self, tensors)
 
     def close(self) -> None:
         import torch.distributed as dist
@@ -1117,6 +1125,113 @@ class ProcessGroup:
             raise RankFailedError(-1, f"the {self.backend} process group could not be torn down: {failure[0]}")
 
 
+class LocalGroup:
+    """The in-process group of one process driving several chips: the
+    interface of `ProcessGroup` (`allgather`, `allgather_rows`,
+    `allgather_arrays`, `allreduce_fixed` in rank order, `collective_s`,
+    `calls`, `close`, `teardown`), backend "local", over the threads'
+    `InProcessRendezvous`. It never touches torch.distributed.
+
+    Each rank publishes a private copy of its tensor in one rendezvous
+    round (the round's barrier bounds the wait by the round deadline; a
+    peer's published failure ends it with RankFailedError), then copies
+    every rank's onto its own device: a copy across cards, a clone on the
+    same card, so the solvers may write into what they get."""
+
+    backend = "local"
+
+    def __init__(self, rank: int, nranks: int, device, rendezvous: LocalRendezvous):
+        self.rank = rank
+        self.nranks = nranks
+        self.device = device
+        self.rendezvous = rendezvous
+        self.timeout_s = rendezvous._round_timeout_s()
+        self.collective_s = 0.0
+        self.calls = 0
+        self.reform_s: Optional[dict] = None
+        self._open = True
+
+    def _exchange(self, obj) -> List[Any]:
+        """Every rank's `obj` in rank order, through one rendezvous round
+        (not counted as a control-plane round)."""
+        if not self._open:
+            raise RuntimeError("the in-process group is closed")
+        return self.rendezvous._allgather_impl(obj)
+
+    def _count(self, t0: float, nbytes: int) -> None:
+        from .. import telemetry
+
+        dt = time.perf_counter() - t0
+        self.collective_s += dt
+        self.calls += 1
+        if telemetry.enabled():
+            reg = telemetry.registry()
+            reg.inc("collective.allgathers")
+            reg.inc("collective.bytes", nbytes)
+            reg.observe("collective.allgather_s", dt)
+
+    def allgather(self, t):
+        """Every rank's tensor `t`, in rank order, as fresh tensors on this
+        rank's device."""
+        t0 = time.perf_counter()
+        parts = self._exchange(t.contiguous().clone())
+        dev = t.device
+        out = [p.clone() if p.device == dev else p.to(dev) for p in parts]
+        self._count(t0, t.numel() * t.element_size())
+        return out
+
+    def allgather_rows(self, t):
+        """Every rank's row block [n_r, ...] (row counts may differ: threads
+        exchange tensors of any shape), in rank order, on this rank's
+        device."""
+        return self.allgather(t)
+
+    def allgather_arrays(self, arr) -> List[Any]:
+        """Every rank's host array `arr`, in rank order, as fresh host
+        arrays."""
+        import numpy as np
+
+        t0 = time.perf_counter()
+        parts = self._exchange(np.array(arr, copy=True))
+        out = [np.array(p, copy=True) for p in parts]
+        self._count(t0, int(getattr(arr, "nbytes", 0)))
+        return out
+
+    def allreduce_fixed(self, *tensors):
+        """The cross-rank sum of each tensor: one exchange per dtype, the
+        partials added in rank order on this rank's device, so every rank
+        gets the same bits (`ProcessGroup.allreduce_fixed`'s arithmetic)."""
+        return _allreduce_in_rank_order(self, tensors)
+
+    def close(self) -> None:
+        self._open = False
+
+    def teardown(self, timeout_s: float) -> None:
+        self._open = False
+
+
+def _allreduce_in_rank_order(group, tensors):
+    """Sum each of `tensors` across `group`'s ranks: one all-gather per
+    dtype of them all, flattened, then the partials added in rank order."""
+    import torch
+
+    out: List[Any] = [None] * len(tensors)
+    by_dtype: dict = {}
+    for i, x in enumerate(tensors):
+        by_dtype.setdefault(x.dtype, []).append(i)
+    for idxs in by_dtype.values():
+        parts = group.allgather(torch.cat([tensors[i].reshape(-1) for i in idxs]))
+        acc = parts[0]
+        for p in parts[1:]:
+            acc = acc + p
+        lo = 0
+        for i in idxs:
+            n = tensors[i].numel()
+            out[i] = acc[lo:lo + n].reshape(tensors[i].shape)
+            lo += n
+    return tuple(out)
+
+
 # The process group a multi-process fit's solvers reduce over: set by the
 # fit path (core.py) for the extent of an SPMD fit of an estimator that
 # supports it, nowhere else. Context-local, so a thread of another fit does
@@ -1147,7 +1262,10 @@ def allreduce_fixed(*tensors):
 
 # The context entered by the caller, if any: `with TpuContext(...):
 # est.fit(local_df)` routes the fit through that process group.
-_ACTIVE_CONTEXT: Optional["TpuContext"] = None
+# Context-local: each chip's thread of a fan-out enters its own.
+_ACTIVE_CONTEXT: "contextvars.ContextVar[Optional[TpuContext]]" = contextvars.ContextVar(
+    "srml_torch_active_context", default=None
+)
 
 
 class TpuContext:
@@ -1174,22 +1292,26 @@ class TpuContext:
         rendezvous: Optional[Rendezvous] = None,
         *,
         require_distributed: bool = False,
+        group: Optional["LocalGroup"] = None,
     ):
         self.rank = rank
         self.nranks = nranks
         self.rendezvous = rendezvous
         self.require_distributed = require_distributed
-        self.group: Optional[ProcessGroup] = None
+        # a given group (the in-process `LocalGroup` of a fan-out) is used
+        # as it is; otherwise one is opened on enter when nranks > 1
+        self._given_group = group
+        self.group: Any = None
         self.recovery_generation = 0
         # the reformed rendezvous this context adopted (closed on exit; the
         # caller's own is the caller's to close)
         self._adopted: List[Rendezvous] = []
-        self._prev_active: Optional["TpuContext"] = None
+        self._token: Any = None
 
     @classmethod
     def current(cls) -> Optional["TpuContext"]:
         """The context the caller entered, if any (the estimators read it)."""
-        return _ACTIVE_CONTEXT
+        return _ACTIVE_CONTEXT.get()
 
     def live_ranks_hint(self) -> List[int]:
         """The original rank ids of the current membership (the identity
@@ -1247,8 +1369,9 @@ class TpuContext:
         return None if self.group is None else self.group.backend
 
     def __enter__(self) -> "TpuContext":
-        global _ACTIVE_CONTEXT
-        if self.nranks > 1 or self.require_distributed:
+        if self._given_group is not None:
+            self.group = self._given_group
+        elif self.nranks > 1 or self.require_distributed:
             # nranks > 1 always means a multi-process fit: without a live
             # group and a rendezvous, ranks would quietly fit their local
             # block as if it were global
@@ -1262,13 +1385,13 @@ class TpuContext:
                 "process group open: rank %d/%d, backend %s, device %s",
                 self.rank, self.nranks, self.group.backend, self.group.device,
             )
-        self._prev_active = _ACTIVE_CONTEXT
-        _ACTIVE_CONTEXT = self
+        self._token = _ACTIVE_CONTEXT.set(self)
         return self
 
     def __exit__(self, exc_type, exc_val, exc_tb) -> bool:
-        global _ACTIVE_CONTEXT
-        _ACTIVE_CONTEXT = self._prev_active
+        if self._token is not None:
+            _ACTIVE_CONTEXT.reset(self._token)
+            self._token = None
         if (
             self.rendezvous is not None
             and exc_type is not None

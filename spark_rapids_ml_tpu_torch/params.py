@@ -387,9 +387,12 @@ class _TpuParams(_TpuClass, Params):
         self._num_workers = value
 
     def _infer_num_workers(self) -> int:
-        """One worker: this package runs a fit on one device (multi-GPU is a
-        later ROADMAP item)."""
-        return 1
+        """One worker per chip of the device pool (`parallel.default_devices`),
+        as the JAX package infers it; one under a multi-process TpuContext,
+        where each rank drives its own card."""
+        from .parallel import spmd_context, visible_device_count
+
+        return 1 if spmd_context() is not None else max(1, visible_device_count())
 
     @property
     def float32_inputs(self) -> bool:

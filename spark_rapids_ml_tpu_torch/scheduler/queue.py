@@ -1,6 +1,6 @@
 #
 # FitScheduler: the multi-tenant fit queue. The port's copy of
-# spark_rapids_ml_tpu/scheduler/queue.py, on the 1-D ledger (one card).
+# spark_rapids_ml_tpu/scheduler/queue.py, with its 2-D book.
 #
 # Many tenants share one card's memory. The scheduler composes three things
 # earlier layers built:
@@ -48,8 +48,23 @@
 # two co-admitted jobs never share a placement, a page-locked staging
 # buffer or a scope's cache entry).
 #
-# Left out: 2-D placement (claims naming which cards, each job pinned to its
-# set), ROADMAP A10.
+# A job is as wide as its fit: ``min(num_workers, chips in the pool)``
+# (`parallel.default_devices`). With chip placement on
+# (`FitScheduler(chip_placement=True)`, default
+# ``config["sched_chip_placement"]``) claims name WHICH chips they hold: a
+# pass first-fits each job onto a CONTIGUOUS run of free chips of its
+# width (`_place_job_locked`; the ledger refuses an overlap whatever the
+# bytes), and the job's fit runs pinned to its run (`parallel.chip_scope`),
+# so jobs of half the pool's width co-admit onto disjoint halves. A
+# preemption is requested only when evicting the lower-priority jobs frees
+# both the bytes and a run of the width (`_chips_freeable_locked`). A
+# claim's chips return to the pool when the job ends or yields; a resumed
+# job places first-fit again, possibly on another run (its checkpoints are
+# the chips' host-side state). Off, claims are bytes only and name no
+# chips.
+#
+# Under a multi-process TpuContext the scheduler refuses (A10i, second
+# half: each rank driving several chips).
 #
 from __future__ import annotations
 
@@ -144,6 +159,10 @@ class FitJob:
         self.resident_estimate: Any = None
         self.stream_floor_estimate: Any = None
         self.chips = 1
+        # 2-D placement: the chip ids the job's claim holds and their
+        # devices, while admitted (None without chip placement)
+        self.chip_ids: Any = None
+        self.placed_devices: Any = None
         self._preempt = threading.Event()
         self._preempt_reason = ""
         self._done = threading.Event()
@@ -195,6 +214,7 @@ class FitJob:
             "admitted_bytes": self.admitted_bytes,
             "hbm_share": self.hbm_share,
             "chips": self.chips,
+            "chip_ids": list(self.chip_ids) if self.chip_ids is not None else None,
         }
 
     def _finish(self, model: Any) -> None:
@@ -215,16 +235,22 @@ class FitScheduler:
     ``submit(estimator, dataset, tenant=, priority=)`` returns a `FitJob`
     future. Higher `priority` runs first; ties are FIFO. Admitted jobs run
     on the scheduler's worker threads (`config["sched_max_concurrent"]` of
-    them, started here), so co-admitted fits overlap on the card. The
-    ledger is the process-global one, and `config["sched_max_preemptions"]`
-    is read here too. `shutdown()` (or leaving a ``with`` block) stops the
-    workers."""
+    them, started here, or `max_concurrent`), so co-admitted fits overlap
+    on the card. `chip_placement` turns the 2-D book on (default
+    ``config["sched_chip_placement"]``). The ledger is the process-global
+    one, and `config["sched_max_preemptions"]` is read here too.
+    `shutdown()` (or leaving a ``with`` block) stops the workers."""
 
-    def __init__(self) -> None:
+    def __init__(self, *, chip_placement: Optional[bool] = None, max_concurrent: Optional[int] = None) -> None:
         from ..core import config
 
         self._ledger = global_ledger()
-        self._max_concurrent = max(1, int(config.get("sched_max_concurrent", 4)))
+        self._chip_placement = bool(
+            chip_placement if chip_placement is not None else config.get("sched_chip_placement", False)
+        )
+        self._max_concurrent = max(1, int(
+            max_concurrent if max_concurrent is not None else config.get("sched_max_concurrent", 4)
+        ))
         self._max_preemptions = int(config.get("sched_max_preemptions", 2))
         self._lock = lockcheck.make_lock("scheduler.queue.FitScheduler._lock", "rlock")
         self._queue: List[FitJob] = []  # guarded-by: _lock
@@ -272,7 +298,7 @@ class FitScheduler:
         from .. import telemetry
         from ..parallel import refuse_spmd
 
-        refuse_spmd("FitScheduler (the 2-D chip book and sched_coadmit)", "A10f")
+        refuse_spmd("FitScheduler (each rank driving several chips)", "A10i, second half")
         with self._lock:
             if self._closed:
                 raise RuntimeError("FitScheduler is shut down")
@@ -298,10 +324,11 @@ class FitScheduler:
         estimating (the fit extracts again), so a queued job holds no second
         copy of its rows."""
         from .. import memory, telemetry
+        from ..parallel import default_devices
 
         est = job.estimator
         extracted = est._pre_process_data(job.dataset, for_fit=True, defer_validation=True)
-        job.chips = 1  # one card per process (one process driving several is A10)
+        job.chips = max(1, min(int(est.num_workers), len(default_devices())))
         job.resident_estimate = memory.resident_estimate(est, extracted, job.chips)
         if getattr(est, "_supports_streaming_fit", False):
             floor = min(memory.MIN_STREAM_CHUNK_ROWS, max(1, int(extracted.n_rows)))
@@ -355,10 +382,37 @@ class FitScheduler:
             return int(job.stream_floor_estimate.total())
         return int(resident)
 
+    def _chip_pool(self) -> List[Any]:
+        """(device, chip id) of every chip of the pool, in pool order."""
+        from ..parallel import current_chip_ids, default_devices
+
+        return list(zip(default_devices(), current_chip_ids()))
+
+    def _place_job_locked(self, job: FitJob, need: int, budget: Optional[int], pool: List[Any]) -> Any:
+        """2-D admission of one job (the caller holds the ledger's admission
+        lock): first-fit over CONTIGUOUS runs of the job's width in pool
+        order; the ledger's `try_reserve(chip_ids=...)` checks occupancy and
+        each chip's bytes, so a run that fails either slides right. Returns
+        the claim (the chips recorded on the job) or None."""
+        width = max(1, min(int(job.chips), len(pool)))
+        for start in range(0, len(pool) - width + 1):
+            window = pool[start:start + width]
+            chip_ids = [c for _, c in window]
+            r = self._ledger.try_reserve(
+                f"job:{job.job_id}:{job.tenant}", "job", need, budget=budget, tenant=job.tenant, chip_ids=chip_ids,
+            )
+            if r is not None:
+                job.chip_ids = tuple(chip_ids)
+                job.placed_devices = [d for d, _ in window]
+                return r
+        return None
+
     def _schedule_locked(self) -> None:
         """One co-admission pass (the caller holds `self._lock`): first-fit
         over the priority-ordered queue under the ledger's admission lock,
-        preemption for a blocked higher-priority job, backfill otherwise."""
+        preemption for a blocked higher-priority job, backfill otherwise.
+        With chip placement the first-fit is over contiguous chip runs as
+        well as bytes."""
         from .. import telemetry
 
         if self._closed:
@@ -367,15 +421,20 @@ class FitScheduler:
         self._queue.sort(key=lambda j: (-j.priority, j.job_id))  # FIFO among equals
         reg = telemetry.registry()
         to_start: List[FitJob] = []
+        pool = self._chip_pool() if self._chip_placement else []
+        self._ledger.note_chip_pool(len(pool) if self._chip_placement else None)
         with self._ledger.admission():
             for job in list(self._queue):
                 if len(self._running) + len(to_start) >= self._max_concurrent:
                     break
                 need = self._need_bytes(job, budget)
-                r = self._ledger.try_reserve(
-                    f"job:{job.job_id}:{job.tenant}", "job", need, budget=budget, tenant=job.tenant,
-                    chips=job.chips,
-                )
+                if self._chip_placement:
+                    r = self._place_job_locked(job, need, budget, pool)
+                else:
+                    r = self._ledger.try_reserve(
+                        f"job:{job.job_id}:{job.tenant}", "job", need, budget=budget, tenant=job.tenant,
+                        chips=job.chips,
+                    )
                 self._ledger.note_admission(budget)
                 if r is not None:
                     job.reservation = r
@@ -435,6 +494,8 @@ class FitScheduler:
         freeable = sum(v.reservation.nbytes for v in victims if v.reservation is not None)
         if self._ledger.reserved_bytes() - freeable + need > budget:
             return False  # even evicting every lower-priority fit cannot make room
+        if self._chip_placement and not self._chips_freeable_locked(job, victims):
+            return False  # room in bytes but not in chips: other claims pin every run of the width
         if any(v.preempt_requested() for v in victims):
             return True  # already waiting on a boundary
         victim = min(victims, key=lambda v: (v.priority, -v.job_id))
@@ -449,6 +510,23 @@ class FitScheduler:
             for_tenant=job.tenant, for_priority=job.priority,
         )
         return True
+
+    def _chips_freeable_locked(self, job: FitJob, victims: List[FitJob]) -> bool:
+        """Whether evicting every lower-priority victim opens a contiguous
+        run of the job's width; chips held by other claims stay held."""
+        victim_chips: set = set()
+        for v in victims:
+            if v.reservation is not None and v.reservation.chip_ids is not None:
+                victim_chips.update(v.reservation.chip_ids)
+        pinned = self._ledger.occupied_chips() - victim_chips
+        pool = self._chip_pool()
+        width = max(1, min(int(job.chips), len(pool)))
+        run = 0
+        for _, chip in pool:
+            run = 0 if chip in pinned else run + 1
+            if run >= width:
+                return True
+        return False
 
     # ----------------------------------------------------------- running --
     def _worker(self, ready: threading.Event, failed: List[BaseException]) -> None:
@@ -471,14 +549,23 @@ class FitScheduler:
         """One admitted job on a worker: the whole fit inside `job_scope` (so
         `memory.admit_fit` trues up the job's claim and the solvers see the
         preemption flag) and the job-owned checkpoint store (so a preempted
-        attempt's checkpoints survive into the resume)."""
+        attempt's checkpoints survive into the resume); with chip placement,
+        pinned to the job's chips, so every placement and fan-out of its fit
+        lands on them."""
+        import contextlib
+
         from .. import checkpoint as _ckpt
         from .. import telemetry
+        from ..parallel import chip_scope
 
         reg = telemetry.registry()
         requeue = False
+        pin = (
+            chip_scope(job.placed_devices, chip_ids=job.chip_ids)
+            if job.placed_devices else contextlib.nullcontext()
+        )
         try:
-            with job_scope(job), _ckpt.checkpoint_scope(store=job.store):
+            with pin, job_scope(job), _ckpt.checkpoint_scope(store=job.store):
                 if job.warm_start_from is not None:
                     model = job.estimator.fit(job.dataset, warm_start_from=job.warm_start_from)
                 else:
@@ -506,6 +593,10 @@ class FitScheduler:
                     job._run_since = None
                 self._ledger.release(job.reservation)
                 job.reservation = None
+                # the chips return to the pool with the bytes; a resumed job
+                # places first-fit again, possibly on another run
+                job.chip_ids = None
+                job.placed_devices = None
                 if requeue and not self._closed:
                     job.preemptions += 1
                     job._preempt.clear()
@@ -578,6 +669,8 @@ class FitScheduler:
             "ledger_reserved_bytes": self._ledger.reserved_bytes(),
             "ledger_high_watermark": self._ledger.high_watermark,
             "ledger_utilization": self._ledger.utilization(),
+            "ledger_occupied_chips": sorted(self._ledger.occupied_chips()),
+            "chip_placement": self._chip_placement,
             "tenant_usage": self._ledger.tenant_usage(),
         }
 

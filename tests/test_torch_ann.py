@@ -17,6 +17,7 @@
 #
 # CAGRA has its own file, tests/test_torch_cagra.py.
 #
+import types
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -516,8 +517,9 @@ def test_refusals():
         est.fit(df).write()
     from spark_rapids_ml_tpu_torch import parallel
 
-    with pytest.MonkeyPatch.context() as mp:  # more than one card visible: A10
+    with pytest.MonkeyPatch.context() as mp:  # two cards for a rank of a multi-process context: A10i
         mp.setattr(parallel, "visible_device_count", lambda: 2)
+        mp.setattr(parallel, "spmd_context", lambda: types.SimpleNamespace(backend="gloo", is_spmd=True, rank=0, nranks=2))
         with pytest.raises(NotImplementedError, match="A10"):
             ApproximateNearestNeighbors(k=2, num_workers=2).setInputCol("features").fit(df)
     # sparse items are densified, as in the JAX package: the same index as

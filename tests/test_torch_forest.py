@@ -29,6 +29,7 @@
 #   * save/load, convert.py and serving: bit for bit (a coalesced response
 #     equals the same request served alone and the transform).
 #
+import types
 import os
 import subprocess
 import sys
@@ -233,8 +234,9 @@ def test_params_mirror_the_jax_estimator():
         RandomForestClassifier(node_chunk=64)
     from spark_rapids_ml_tpu_torch import parallel
 
-    with pytest.MonkeyPatch.context() as mp:  # more than one card visible: A10
+    with pytest.MonkeyPatch.context() as mp:  # two cards for a rank of a multi-process context: A10i
         mp.setattr(parallel, "visible_device_count", lambda: 2)
+        mp.setattr(parallel, "spmd_context", lambda: types.SimpleNamespace(backend="gloo", is_spmd=True, rank=0, nranks=2))
         with pytest.raises(NotImplementedError, match="A10"):
             RandomForestClassifier(num_workers=2, **FOREST).fit({"features": X, "label": Y3})
 

@@ -13,6 +13,7 @@
 #
 import numpy as np
 import pandas as pd
+import types
 import pytest
 import torch
 
@@ -275,11 +276,14 @@ def test_kneighbors_raises_without_a_card_or_set_devices(monkeypatch):
 
 
 def test_more_than_one_worker_is_refused(monkeypatch):
-    # one process driving more than one card is A10; on one device
-    # num_workers is clamped to it (tests/test_torch_port.py)
+    # a rank of a multi-process context driving more than one card is
+    # A10i's second half; on one device num_workers is clamped to it
+    # (tests/test_torch_port.py), and one process over a pool of several
+    # chips fans out (tests/test_torch_multidevice.py)
     from spark_rapids_ml_tpu_torch import parallel
 
     monkeypatch.setattr(parallel, "visible_device_count", lambda: 2)
+    monkeypatch.setattr(parallel, "spmd_context", lambda: types.SimpleNamespace(backend="gloo", is_spmd=True, rank=0, nranks=2))
     with pytest.raises(NotImplementedError, match="A10"):
         NearestNeighbors(k=2, num_workers=2).setInputCol("features").fit({"features": _rows(10, 3, seed=19)})
 

@@ -4,6 +4,7 @@
 # writes the JAX package's saved-model layout, and its API surface (params,
 # feature column kinds) behaves as the JAX package's does.
 #
+import types
 import ast
 import os
 import subprocess
@@ -207,7 +208,8 @@ def test_entry_points_raise_without_a_card_or_set_devices(monkeypatch):
 def test_more_than_one_worker_is_refused(monkeypatch):
     # num_workers is clamped to the visible devices, as the JAX package
     # clamps it: on one device num_workers=2 fits there, equal to
-    # num_workers=1; one process driving more than one card (A10) is refused
+    # num_workers=1; a rank of a multi-process context driving more than
+    # one card (A10i, second half) is refused
     x = _x()
     two = KMeans(k=2, seed=1, num_workers=2).fit({"features": x})
     one = KMeans(k=2, seed=1).fit({"features": x})
@@ -215,6 +217,7 @@ def test_more_than_one_worker_is_refused(monkeypatch):
     from spark_rapids_ml_tpu_torch import parallel
 
     monkeypatch.setattr(parallel, "visible_device_count", lambda: 2)
+    monkeypatch.setattr(parallel, "spmd_context", lambda: types.SimpleNamespace(backend="gloo", is_spmd=True, rank=0, nranks=2))
     with pytest.raises(NotImplementedError, match="A10"):
         KMeans(k=2, num_workers=2).fit({"features": x})
 

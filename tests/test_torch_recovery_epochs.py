@@ -438,8 +438,8 @@ def test_adopt_reform_without_a_group_renumbers():
 
 
 def test_what_stays_refused_names_its_item(monkeypatch):
-    # the scheduler under SPMD (A10f), a program over several devices
-    # (A10h), one process driving several cards (A10i)
+    # a program over several devices (A10h); under SPMD, a rank driving
+    # several cards and the scheduler (A10i, second half)
     from spark_rapids_ml_tpu_torch import FitScheduler, KMeans, parallel
     from spark_rapids_ml_tpu_torch.core import PredictProgram
 
@@ -447,11 +447,11 @@ def test_what_stays_refused_names_its_item(monkeypatch):
     with pytest.raises(NotImplementedError, match="A10h"):
         PredictProgram(model, mesh=object())
     monkeypatch.setattr(parallel, "visible_device_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match="A10i"):
-        parallel.refuse_multi_device(2, "KMeans fit")
     with FitScheduler() as sched:
         monkeypatch.setattr(TpuContext, "current", classmethod(lambda cls: SimpleNamespace(is_spmd=True)))
-        with pytest.raises(NotImplementedError, match="A10f"):
+        with pytest.raises(NotImplementedError, match="A10i, second half"):
+            parallel.refuse_devices_per_rank(2, "KMeans fit")
+        with pytest.raises(NotImplementedError, match="A10i, second half"):
             sched.submit(KMeans(k=2), {"features": np.arange(12.0).reshape(6, 2)})
 
 

@@ -4,8 +4,8 @@
 # FitScheduler/FitJob; memory.admit_fit's job branch; the solvers'
 # preemption points) on the CPU, case for case with the one-dimensional
 # tests of tests/test_scheduler.py, against the JAX package's scheduler on
-# the same seeded numpy inputs. (Its six tests of the 2-D chip book wait
-# for ROADMAP A10.)
+# the same seeded numpy inputs. (Its six tests of the 2-D chip book have
+# their counterparts in tests/test_torch_scheduler_2d.py.)
 #
 # Every scenario is ordered by events, never by sleeps: a job's fit can be
 # held at its start (`_gated`) or right after its first checkpoint save
@@ -78,9 +78,9 @@ SIDES = {
                 audit=jaudit, ctx=jcontext, ledger=jledger, queue=jqueue),
 }
 
-# the JAX package's keys of the 2-D chip book, which waits for ROADMAP A10:
-# a job's card set in `job.stats()`, and the occupied cards and the
-# placement switch in `FitScheduler.stats()`
+# the JAX package's keys of the 2-D chip book: a job's chip set in
+# `job.stats()`, and the occupied chips and the placement switch in
+# `FitScheduler.stats()` (the port has them too)
 _A10_JOB_KEYS = {"chip_ids"}
 _A10_STATS_KEYS = {"ledger_occupied_chips", "chip_placement"}
 
@@ -325,7 +325,8 @@ def test_single_job_completes_and_drains_ledger():
         assert S["ledger"].global_ledger().reserved_bytes() == 0
     assert out["torch"][:3] == out["jax"][:3]
     assert "chip_ids" in out["jax"][3]._fit_metrics["scheduler"]
-    assert not _A10_JOB_KEYS & set(out["torch"][3]._fit_metrics["scheduler"])
+    assert _A10_JOB_KEYS <= set(out["torch"][3]._fit_metrics["scheduler"])
+    assert out["torch"][3]._fit_metrics["scheduler"]["chip_ids"] == out["jax"][3]._fit_metrics["scheduler"]["chip_ids"]
     assert out["torch"][1] == [1, 1, 1]
     assert out["torch"][2] == [("admission", "scheduler", "admitted", "a"), ("admission", "fit", "resident", "a")]
     # scheduled = run alone, bit for bit
@@ -449,10 +450,8 @@ def test_package_level_fitscheduler_is_the_real_class():
 
 
 def test_scheduler_config_defaults_are_the_jax_packages():
-    for key in ("sched_max_preemptions", "sched_max_concurrent"):
+    for key in ("sched_max_preemptions", "sched_max_concurrent", "sched_chip_placement"):
         assert tcore.config[key] == jcore.config[key]
-    # the 2-D placement switch is the chip book's (A10): not in the port yet
-    assert "sched_chip_placement" in jcore.config and "sched_chip_placement" not in tcore.config
 
 
 def _worker_pool(x, n_jobs=5):
@@ -868,7 +867,9 @@ def test_ledger_gauges_flow_through_registry():
     # the port's pool is its one card, so it also publishes the idle cards
     assert gauges["torch"] == gauges["jax"] | {"scheduler.chips_idle"}
     assert {"scheduler.ledger_reserved_bytes", "scheduler.ledger_utilization"} <= gauges["torch"]
-    assert sorted(stats["torch"]) == sorted(set(stats["jax"]) - _A10_STATS_KEYS)
+    assert sorted(stats["torch"]) == sorted(stats["jax"])
+    assert _A10_STATS_KEYS <= set(stats["torch"])
+    assert {k: stats["torch"][k] for k in _A10_STATS_KEYS} == {k: stats["jax"][k] for k in _A10_STATS_KEYS}
 
 
 def _one_at_a_time(side, x, x_wide):

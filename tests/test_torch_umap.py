@@ -24,6 +24,7 @@
 #
 import numpy as np
 import pandas as pd
+import types
 import pytest
 import torch
 
@@ -536,8 +537,9 @@ def test_refusals():
     m.num_workers = 2
     from spark_rapids_ml_tpu_torch import parallel
 
-    with pytest.MonkeyPatch.context() as mp:  # more than one card visible: A10
+    with pytest.MonkeyPatch.context() as mp:  # two cards for a rank of a multi-process context: A10i
         mp.setattr(parallel, "visible_device_count", lambda: 2)
+        mp.setattr(parallel, "spmd_context", lambda: types.SimpleNamespace(backend="gloo", is_spmd=True, rank=0, nranks=2))
         with pytest.raises(NotImplementedError, match="A10"):
             m.transform(_df(x))
         est.num_workers = 2

@@ -33,6 +33,10 @@
 #           (the fused per-fold path), a forest CrossValidator (the
 #           per-model path) and the held-out gather on known blocks
 #           (`sweep_main`), to rank<r>.npz and rank<r>.json;
+#   even    the `fit` mode's dataset over the even ceil-div blocks of
+#           `parallel.shard_row_ranges` (the blocks one process driving
+#           nranks chips gives them): KMeans and LogisticRegression, float64,
+#           to rank<r>.npz (`even_main`);
 #   recover a real KMeans fit, checkpointed every 2 iterations inside a
 #           device_dataset_scope, whose rank `victim` (argv) SIGKILLs itself
 #           once its iteration-2 checkpoint has landed; the survivors reform,
@@ -582,6 +586,26 @@ def recover_main(rank, nranks, rdv_dir, out_dir, run_id, victim):
         json.dump(res, f)
 
 
+def even_main(rank, nranks, rdv_dir, out_dir, run_id):
+    import numpy as np
+
+    from mp_worker import make_dataset
+    from spark_rapids_ml_tpu_torch import KMeans, LogisticRegression, set_devices
+    from spark_rapids_ml_tpu_torch.parallel import FileRendezvous, TpuContext, shard_row_ranges
+
+    set_devices("cpu")
+    X, y_log, _ = make_dataset()
+    lo, hi = shard_row_ranges(len(X), nranks)[rank]
+    data = {"features": X[lo:hi], "label": y_log[lo:hi]}
+    rdv = FileRendezvous(rank, nranks, rdv_dir, timeout_s=60.0, run_id=run_id, heartbeat_interval_s=0.5)
+    with TpuContext(rank, nranks, rdv):
+        km = KMeans(k=4, maxIter=15, seed=3, float32_inputs=False).fit({"features": data["features"]})
+        lr = LogisticRegression(maxIter=100, regParam=0.1, tol=1e-10, float32_inputs=False).fit(data)
+    rdv.close()
+    np.savez(os.path.join(out_dir, f"rank{rank}.npz"), km_centers=km.cluster_centers_,
+             lr_coef=lr.coef_, lr_intercept=np.asarray(lr.intercept_), lr_iter=np.asarray(lr.n_iter_))
+
+
 def main() -> None:
     mode, rank, nranks, rdv_dir, out_dir, run_id = sys.argv[1:7]
     rank, nranks = int(rank), int(nranks)
@@ -597,6 +621,8 @@ def main() -> None:
         fail_main(rank, nranks, rdv_dir, out_dir, run_id, sys.argv[7])
     elif mode == "sweep":
         sweep_main(rank, nranks, rdv_dir, out_dir, run_id)
+    elif mode == "even":
+        even_main(rank, nranks, rdv_dir, out_dir, run_id)
     elif mode == "recover":
         recover_main(rank, nranks, rdv_dir, out_dir, run_id, int(sys.argv[7]))
     elif mode == "rounds":
