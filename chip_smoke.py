@@ -353,8 +353,20 @@
 #      with fit.recoveries, recovery.epochs, recovery.rank_losses and
 #      rendezvous.reforms at 1 and a checkpoint restored, its centers equal
 #      bit for bit to the parent's one-process Lloyd run over its rows from
-#      the centers it resumed from. Each rank's placement, collective and
-#      solve seconds and its launches are printed by sub-phase;
+#      the centers it resumed from. 18j, the fleet plane over the two ranks
+#      (telemetry on, `fleet_ops_round_seconds` 0, so every top-level fit
+#      and sweep from 18 to 18h runs an ops round on its trace round): after
+#      18h each rank saves its last cluster view and its ops snapshot; both
+#      views name ranks 0 and 1 and miss none, are healthy, and have equal
+#      counters, each merging at least two rendezvous rounds an ops round;
+#      each rank ran an ops round on every top-level fit and sweep, none
+#      failed; the parent's offline merge of the snapshots
+#      (`fleet.read_rank_snapshots`) names both ranks, none stale; the
+#      seconds the trace and ops rounds add to each rank
+#      (rendezvous.allgather_s) are printed, and the survivor's failed ops
+#      rounds and trace exchanges after 18i's kill. Each rank's placement,
+#      collective and solve seconds and its launches are printed by
+#      sub-phase;
 #  19. one process driving two chips (after phase 18, on the float32 rows):
 #      the visible cards when there are two or more, else two chips on card
 #      0 (cuda:0 twice, as phase 18's ranks share it), num_workers=2, the
@@ -369,8 +381,10 @@
 #      kNN ids equal to phase 4's; PCA within phase 18's bounds of 7a's; the
 #      GLM within 1e-5 (objective) and 1e-3 (coefficients) of the same fit
 #      on one chip; B1/B2 (f32, f32-fast) and B3 f32 launched as the chips'
-#      tiles say. Each chip's placement, collective and solve seconds and a
-#      GLM iteration's ms are printed;
+#      tiles say; with an ops round due on every trace round, the fanned
+#      fits run none and leave no round stamps in the fleet plane. Each
+#      chip's placement, collective and solve seconds and a GLM iteration's
+#      ms are printed;
 #      17e. bench_scheduler.py's co-admission lane on phase 19's pool: two
 #      KMeans jobs (k 8, maxIter 12, tol 0, seed 7, random init) each half
 #      the pool wide over the first 262,144 protocol rows, co-admitted by
@@ -6546,6 +6560,75 @@ MP_RECOVER_KMEANS = {"k": K, "maxIter": 6, "tol": 0.0, "initMode": "random", "se
                      "distance_precision": "high"}
 MP_RECOVER_EVERY, MP_RECOVER_KILL_AT, MP_RECOVER_HEARTBEAT_S = 2, 2, 2.0
 MP_KILL_MARK = "kill_rank0.json"
+# 18j: the fleet plane over the two ranks. Each rank runs an ops round on
+# every top-level trace round (`fleet_ops_round_seconds` 0), saves its last
+# cluster view and its ops snapshot (under MP_OPS_DIR) after 18h, and 18i
+# runs with the fleet still on
+MP_OPS_DIR = "ops"
+
+
+def _mp_fleet_on(reg, tmp):
+    """18j's set-up in one rank: the fleet plane loaded, an ops round due on
+    every trace round, the ops snapshots under tmp/MP_OPS_DIR, and
+    `diagnostics.trace_scope` and `fleet.ops_round` wrapped to count each
+    top-level scope the multi-process context opens (a fit's or a sweep's: a
+    sweep's inner fits adopt its trace and open none) and the
+    `rendezvous.allgather_s` rounds and seconds of its trace and ops rounds
+    (the histogram's change across the scope's entry), and the ops rounds'
+    wall seconds (payload and merge included). Returns the counts, filled
+    as the fits run."""
+    import contextlib
+
+    from spark_rapids_ml_tpu_torch import diagnostics
+    from spark_rapids_ml_tpu_torch.core import config
+    from spark_rapids_ml_tpu_torch.ops_plane import fleet
+
+    config.update(fleet_ops_round_seconds=0, ops_snapshot_dir=str(tmp / MP_OPS_DIR))
+    stats = {"scopes": 0, "rounds": 0, "rounds_s": 0.0, "ops_calls": 0, "ops_s": 0.0, "ops_wall_s": 0.0}
+    real_scope, real_round = diagnostics.trace_scope, fleet.ops_round
+
+    def allgather_s():
+        h = reg.snapshot()["histograms"].get("rendezvous.allgather_s") or {}
+        return h.get("count", 0.0), h.get("sum", 0.0)
+
+    @contextlib.contextmanager
+    def scope(label, ctx=None):
+        top = diagnostics.current_trace() is None and getattr(ctx, "is_spmd", False)
+        n0, s0 = allgather_s()
+        with real_scope(label, ctx) as tags:
+            if top:
+                n1, s1 = allgather_s()
+                stats["scopes"] += 1
+                stats["rounds"] += int(n1 - n0)
+                stats["rounds_s"] += s1 - s0
+            yield tags
+
+    def ops_round(rendezvous, **kw):
+        s0, t0 = allgather_s()[1], time.perf_counter()
+        out = real_round(rendezvous, **kw)
+        stats["ops_calls"] += 1
+        stats["ops_wall_s"] += time.perf_counter() - t0
+        stats["ops_s"] += allgather_s()[1] - s0
+        return out
+
+    diagnostics.trace_scope, fleet.ops_round = scope, ops_round
+    return stats
+
+
+def _mp_fleet_save(rank, tmp, reg, stats):
+    """18j's live view in one rank, after 18h and before 18i: its last
+    cluster view to tmp/fleet_view_rank<r>.json and its ops snapshot
+    (`ops_plane.write_snapshot`: ops_snapshot.json for rank 0,
+    ops_snapshot_rank_<r>.json for the others). Returns the fleet counters
+    with `stats`, for the parent's gates."""
+    from spark_rapids_ml_tpu_torch import ops_plane
+    from spark_rapids_ml_tpu_torch.ops_plane import fleet
+
+    (tmp / f"fleet_view_rank{rank}.json").write_text(json.dumps(fleet.cluster_view(), default=str))
+    path = ops_plane.write_snapshot()
+    c = reg.snapshot()["counters"]
+    return {"ops_rounds": c.get("fleet.ops_rounds", 0), "ops_rounds_failed": c.get("fleet.ops_rounds_failed", 0),
+            "snapshot": os.path.basename(path) if path else None, **stats}
 
 
 def _mp_bounds(rank):
@@ -6595,6 +6678,7 @@ def mp_worker(rank, nranks, tmp):
 
     km_ops.kmeans_fit = recording_fit
     reg = telemetry.registry()
+    fleet_stats = _mp_fleet_on(reg, tmp)
     rdv = FileRendezvous(rank, nranks, str(tmp / "rdv"), timeout_s=MP_TIMEOUT_S, heartbeat_interval_s=5.0)
     with TpuContext(rank, nranks, rdv) as ctx:
         group = ctx.group
@@ -6634,6 +6718,7 @@ def mp_worker(rank, nranks, tmp):
         more = _mp_worker_rest(rank, tmp, X, Q, y_cls, timed, sub_launches)
         more.update(_mp_sweep(rank, X, y_cls, timed, info))
         sub_launches["18h"] = dict(_kernels.launches)
+        info["fleet"] = _mp_fleet_save(rank, tmp, reg, fleet_stats)
         info["launches"] = {k_: n for k_, n in _kernels.launches.items() if n}
         info["sub_launches"] = {
             name: {k_: n - prev.get(k_, 0) for k_, n in now.items() if n - prev.get(k_, 0)}
@@ -6742,7 +6827,7 @@ def _mp_recover(rank, nranks, tmp, X):
     recovery's seconds."""
     import torch
 
-    from spark_rapids_ml_tpu_torch import KMeans, core, telemetry
+    from spark_rapids_ml_tpu_torch import KMeans, core, diagnostics, telemetry
     from spark_rapids_ml_tpu_torch import checkpoint as ckpt
     from spark_rapids_ml_tpu_torch.core import config, device_dataset_scope
     from spark_rapids_ml_tpu_torch.ops import _kernels
@@ -6791,14 +6876,20 @@ def _mp_recover(rank, nranks, tmp, X):
     with TpuContext(rank, nranks, rdv) as ctx, device_dataset_scope():
         km = KMeans(**MP_RECOVER_KMEANS).fit({"features": X})
         torch.cuda.synchronize()
+        counters = reg.delta(mark)["counters"]
         res = {"rank": rank, "fit_s": time.perf_counter() - t0, "nranks": ctx.nranks, "rank_now": ctx.rank,
                "generation": ctx.recovery_generation, "live": ctx.live_ranks_hint(), "backend": ctx.backend,
                "group_reform_s": ctx.group.reform_s, "layouts_s": layouts, "reforms": reforms,
                "n_iter": int(km.n_iter_), "inertia": float(km.inertia_),
                "resumed_iteration": [it for it, _ in resumed],
-               "counters": {k_: v for k_, v in reg.delta(mark)["counters"].items()
+               "counters": {k_: v for k_, v in counters.items()
                             if k_.startswith(("fit.", "recovery.", "rendezvous.reforms", "checkpoint."))},
-               "launches": {k_: n for k_, n in _kernels.launches.items() if n}}
+               "launches": {k_: n for k_, n in _kernels.launches.items() if n},
+               # 18j: how the fleet plane met the dead rank (printed, not gated)
+               "fleet": {"ops_rounds": counters.get("fleet.ops_rounds", 0),
+                         "ops_rounds_failed": counters.get("fleet.ops_rounds_failed", 0),
+                         "trace_exchange_failed": sum(e["kind"] == "trace_exchange_failed"
+                                                      for e in diagnostics.flight_recorder().events())}}
     rdv.close()
     np.savez(tmp / f"recover_rank{rank}.npz", centers=km.cluster_centers_,
              resumed=resumed[0][1] if resumed else np.zeros(0))
@@ -6979,6 +7070,7 @@ def phase_multiprocess(dev, X, linear_ref, logreg_ref, exact_ids, exact_dist, an
 
     from spark_rapids_ml_tpu_torch.ops.distance import tile_assign_accumulate
     from spark_rapids_ml_tpu_torch.ops.kmeans import _finish_centers, kmeans_fit, kmeans_predict, lloyd_loop
+    from spark_rapids_ml_tpu_torch.ops_plane import fleet
     from spark_rapids_ml_tpu_torch.parallel import place_rows
 
     say(f"phase 18: multi-process fits, {MP_NRANKS} ranks sharing {torch.cuda.get_device_name(dev)} over gloo, "
@@ -7003,6 +7095,9 @@ def phase_multiprocess(dev, X, linear_ref, logreg_ref, exact_ids, exact_dist, an
         kill_mark = json.loads((tmp / MP_KILL_MARK).read_text())
         survivor = json.loads((tmp / "recover_rank1.json").read_text())
         survivor.update({k_: v for k_, v in np.load(tmp / "recover_rank1.npz").items()})
+        # 18j: the ranks' live views, and the offline merge of their snapshots
+        views = [json.loads((tmp / f"fleet_view_rank{r}.json").read_text()) for r in range(MP_NRANKS)]
+        snapshots = fleet.read_rank_snapshots(str(tmp / MP_OPS_DIR), nranks=MP_NRANKS)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     for r in range(MP_NRANKS):
@@ -7135,6 +7230,7 @@ def phase_multiprocess(dev, X, linear_ref, logreg_ref, exact_ids, exact_dist, an
         f"{nccl.get('open_s', float('nan')):.3f} s); its all-gather of 4 MB on {nccl['device']} equals the input")
     timings["18h"] = _mp_check_sweep(dev, X, got, info, logreg_ref["y"])
     timings["18i"] = _mp_check_recover(dev, X, kill_mark, killed_at, survivor)
+    timings["18j"] = _mp_check_fleet(info, views, snapshots, survivor)
     counts = {}
     for launches in [info[r]["launches"] for r in range(MP_NRANKS)] + [kill_mark["launches"], survivor["launches"]]:
         for k_, n in launches.items():
@@ -7182,11 +7278,12 @@ def phase_multidevice(dev, X, linear_ref, logreg_ref, exact_ids):
     import torch
 
     from spark_rapids_ml_tpu_torch import PCA, KMeans, LogisticRegression, NearestNeighbors, parallel, telemetry
-    from spark_rapids_ml_tpu_torch.core import device_dataset_scope
+    from spark_rapids_ml_tpu_torch.core import config, device_dataset_scope
     from spark_rapids_ml_tpu_torch.ops import _kernels
     from spark_rapids_ml_tpu_torch.ops import kmeans as km_ops
     from spark_rapids_ml_tpu_torch.ops.distance import tile_assign_accumulate
     from spark_rapids_ml_tpu_torch.ops.kmeans import _finish_centers, lloyd_loop
+    from spark_rapids_ml_tpu_torch.ops_plane import fleet
 
     pool, what = _md_pool()
     say(f"phase 19: one process driving {what}, num_workers={MD_CHIPS}, over the {N_ROWS} x {N_COLS} float32 rows")
@@ -7194,6 +7291,12 @@ def phase_multidevice(dev, X, linear_ref, logreg_ref, exact_ids):
     torch.cuda.empty_cache()
     was_on = telemetry.enabled()
     telemetry.enable()
+    # the fleet plane on, an ops round due on every trace round: a fanned
+    # fit's chips are no ranks of it, so none may run or leave a stamp
+    fleet.reset()
+    saved_interval = config["fleet_ops_round_seconds"]
+    config["fleet_ops_round_seconds"] = 0
+    counters0 = telemetry.registry().snapshot()["counters"]
     inits, timings, counts = [], {"pool": what}, {}
     real_fit = km_ops.kmeans_fit
 
@@ -7244,6 +7347,15 @@ def phase_multidevice(dev, X, linear_ref, logreg_ref, exact_ids):
     finally:
         km_ops.kmeans_fit = real_fit
         parallel.set_devices(None)
+        config["fleet_ops_round_seconds"] = saved_interval
+    counters = telemetry.registry().snapshot()["counters"]
+    chip_rounds = counters.get("rendezvous.rounds", 0) - counters0.get("rendezvous.rounds", 0)
+    ops = counters.get("fleet.ops_rounds", 0) - counters0.get("fleet.ops_rounds", 0)
+    exits = {r: len(fleet.local_payload(r)["round_exits"]) for r in range(MD_CHIPS)}
+    if not chip_rounds or ops or fleet.cluster_view() is not None or any(exits.values()):
+        fail(f"19: the fanned fits ran {ops} ops rounds over {chip_rounds} chip rounds and left round exits {exits}")
+    say(f"  19: the fanned fits ran {chip_rounds:g} rounds over the in-process rendezvous, no ops round, and left no "
+        "round exits in the fleet plane")
     km_high.num_workers = 1
     _kernels.reset_launches()
     one = km_high.transform(rows)
@@ -7521,6 +7633,54 @@ def _mp_check_recover(dev, X, kill_mark, killed_at, survivor):
              "resumed from")
     say(f"  18i: the survivor's centers equal one process's {MP_RECOVER_KMEANS['maxIter'] - MP_RECOVER_KILL_AT} "
         f"Lloyd iterations over rows [{a}, {b}) from the resumed centers bit for bit ({ref_s:.2f} s)")
+    return out
+
+
+def _mp_check_fleet(info, views, snapshots, survivor):
+    """18j's gates on the ranks' fleet plane: each rank's last live view
+    names every rank and misses none, is healthy, and merges at least two
+    rendezvous rounds (one a rank) for each ops round; each rank ran an ops
+    round on every top-level fit and sweep with none failed; both ranks'
+    views of the last round have equal counters (one merge of the same
+    payloads); the offline merge of the snapshots (`read_rank_snapshots`)
+    names both ranks, none stale, missing or unreadable. 18i's survivor's
+    failed ops rounds and trace exchanges are printed, not gated (the kill
+    may fall between rounds). Returns timings."""
+    out = {}
+    names = [str(r) for r in range(MP_NRANKS)]
+    for r in range(MP_NRANKS):
+        f, v = info[r]["fleet"], views[r]
+        if v is None or sorted(v["ranks"]) != names or v["missing"] != []:
+            fail(f"18j: rank {r}'s cluster view names ranks {None if v is None else sorted(v['ranks'])}, "
+                 f"missing {None if v is None else v['missing']}")
+        if f["ops_rounds"] < f["scopes"] or f["ops_rounds_failed"]:
+            fail(f"18j: rank {r} ran {f['ops_rounds']} ops rounds ({f['ops_rounds_failed']} failed) over "
+                 f"{f['scopes']} top-level fits and sweeps")
+        if not (v.get("health") or {}).get("healthy"):
+            fail(f"18j: rank {r}'s cluster view is unhealthy: {v.get('health')}")
+        merged_rounds = v["counters"].get("rendezvous.rounds", 0)
+        if merged_rounds < MP_NRANKS * f["ops_rounds"]:
+            fail(f"18j: rank {r}'s view merges {merged_rounds} rendezvous rounds for {f['ops_rounds']} ops rounds")
+        out[f"rank{r}"] = {k_: f[k_] for k_ in ("ops_rounds", "scopes", "rounds", "rounds_s", "ops_s", "ops_wall_s")}
+        say(f"  18j rank {r}: {f['ops_rounds']:g} ops rounds over {f['scopes']} top-level fits and sweeps, none "
+            f"failed; their trace and ops rounds ({f['rounds']} rendezvous rounds) took {f['rounds_s']:.3f} s of "
+            f"rendezvous.allgather_s, the ops rounds' allgathers {f['ops_s']:.3f} s and the ops rounds "
+            f"{f['ops_wall_s']:.3f} s with their payloads and merges; its last view: ranks {sorted(v['ranks'])}, "
+            f"missing {v['missing']}, healthy, {merged_rounds:g} rendezvous rounds merged; snapshot {f['snapshot']}")
+    if views[0]["counters"] != views[1]["counters"]:
+        diff = sorted(k_ for k_ in set(views[0]["counters"]) | set(views[1]["counters"])
+                      if views[0]["counters"].get(k_) != views[1]["counters"].get(k_))
+        fail(f"18j: the ranks' views of the last round differ in counters {diff[:10]}")
+    reports, problems = snapshots
+    ranks = sorted(int((rep.get("meta") or {}).get("rank", -1)) for rep in reports)
+    if ranks != list(range(MP_NRANKS)) or problems["missing"] or problems["stale"] or problems["unreadable"]:
+        fail(f"18j: the offline merge read ranks {ranks}, problems {problems}")
+    sf = survivor.get("fleet") or {}
+    out["18i"] = sf
+    say(f"  18j: both views of the last round have equal counters ({len(views[0]['counters'])}); the offline merge "
+        f"of the snapshots reads ranks {ranks}, none stale or missing; after 18i's kill the survivor ran "
+        f"{sf.get('ops_rounds')} ops rounds, {sf.get('ops_rounds_failed')} failed, and recorded "
+        f"{sf.get('trace_exchange_failed')} failed trace exchanges")
     return out
 
 

@@ -11,7 +11,9 @@
 # Call stack (the JAX package's, without the per-fit telemetry scope and
 # the mesh):
 # fit(dataset[, maps]) / fitMultiple -> _fit_internal -> _call_fit_func
-# [recoverable_stage(stage="fit"): bounded transient retries over one
+# [diagnostics.trace_scope: the fit's trace id, and under a multi-process
+# context its trace round and the fleet plane's ops round] ->
+# _call_fit_func_traced [recoverable_stage(stage="fit"): bounded transient retries over one
 # checkpoint store] -> [the OOM ladder] -> _call_fit_func_attempt ->
 # [_device_dataset: extract
 # columns (data.py), then the memory admission (memory.admit_fit) and,
@@ -233,6 +235,20 @@ config: Dict[str, Any] = {
     # bounded .1/.2/... generations, ops_plane/export.write_snapshot);
     # seeded from SRML_OPS_SNAPSHOT_DIR. None: no files
     "ops_snapshot_dir": os.environ.get("SRML_OPS_SNAPSHOT_DIR") or None,
+    # --- the fleet plane (ops_plane/fleet.py) -------------------------------
+    # least seconds between two live ops rounds (the window exchange rank 0
+    # schedules on a fit's trace round). None: one metrics bucket width
+    "fleet_ops_round_seconds": None,
+    # ops rounds in a row a rank must be the slowest to enter a round (by at
+    # least fleet_straggler_min_lag_s) before a flight-recorder event and an
+    # audit entry name it a straggler
+    "fleet_straggler_windows": 3,
+    # the lag (seconds behind the first rank into a round) under which a
+    # rank never counts as straggling
+    "fleet_straggler_min_lag_s": 0.05,
+    # per-rank ops snapshots older than this (by their meta.t) are dropped
+    # from the offline cluster merge and named stale
+    "fleet_stale_snapshot_s": 600.0,
     # hold (ms) above which the SRML_LOCKCHECK=1 sanitizer
     # (utils/lockcheck.py) records a `lockcheck.long_hold` violation; seeded
     # from SRML_LOCKCHECK_LONG_HOLD_MS (a malformed value keeps 500)
@@ -1149,6 +1165,28 @@ class _TpuCaller(_TpuCommon):
         return dds
 
     def _call_fit_func(
+        self,
+        dataset: Any,
+        param_maps: Optional[List[Dict[Any, Any]]] = None,
+        row_mask: Optional[np.ndarray] = None,
+    ) -> List[Dict[str, Any]]:
+        """The fit (`_call_fit_func_traced`) inside its trace scope, opened
+        outermost: every record of the fit carries one trace id and fit id,
+        and under a multi-process context rank 0's id reaches every rank
+        through one rendezvous round, which may carry the fleet plane's ops
+        round (diagnostics.trace_scope). A nested fit (a sweep's, the
+        multi-fit engine's) adopts the outer trace id and runs no round. A
+        chip of a fanned-out fit opens no scope of its own: the fit over n
+        chips is one scope and no round."""
+        from . import diagnostics
+        from .parallel.context import TpuContext
+
+        if _FANOUT_CHIP.get() is not None:
+            return self._call_fit_func_traced(dataset, param_maps, row_mask)
+        with diagnostics.trace_scope(type(self).__name__, TpuContext.current()):
+            return self._call_fit_func_traced(dataset, param_maps, row_mask)
+
+    def _call_fit_func_traced(
         self,
         dataset: Any,
         param_maps: Optional[List[Dict[Any, Any]]] = None,

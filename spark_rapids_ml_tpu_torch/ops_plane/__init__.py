@@ -17,14 +17,17 @@
 #                      step and scheduler admission, preemption and
 #                      demotion);
 #   * drift            per-column ingest feature statistics and PSI against
-#                      a registered baseline.
+#                      a registered baseline;
+#   * fleet            the cluster's view over the ranks: the live ops round
+#                      on the fits' trace rounds and the offline merge of
+#                      the ranks' snapshots, cluster SLO verdicts and
+#                      stragglers.
 #
 # `report()` is the one-call roll-up: live (`ops_plane.report()`), scraped
 # (`GET /snapshot`) or archived (`export.write_snapshot()`).
 #
 # Not here, each named in ROADMAP: the efficiency plane
-# (`ops_plane/efficiency.py`, A15) and the fleet plane (`ops_plane/fleet.py`,
-# the cross-rank merge, A10).
+# (`ops_plane/efficiency.py`, A15) and the autotune table's section (A18).
 #
 from __future__ import annotations
 
@@ -33,13 +36,14 @@ import socket
 import time
 from typing import Any, Dict, Optional
 
-from . import audit, drift, export, slo
+from . import audit, drift, export, fleet, slo
 from .export import ensure_server, start_server, stop_server, write_snapshot
 
 __all__ = [
     "audit",
     "drift",
     "export",
+    "fleet",
     "slo",
     "report",
     "ensure_server",
@@ -66,20 +70,24 @@ def report(
     tenant: Optional[str] = None,
     trace_id: Optional[str] = None,
     decision_limit: int = 256,
+    cluster: bool = False,
 ) -> Dict[str, Any]:
     """The ops-plane state as one JSON-able dict: health and SLO verdicts
     (evaluated fresh), rolling-window rates and quantiles, the decision log
     (optionally filtered to one tenant or trace), the shared ledger's
-    per-tenant usage (`tenants`), drift statistics, the
-    serving ladder, and the registry snapshot, under a `meta` header (rank,
-    host, pid, time, trace id)."""
+    per-tenant usage (`tenants`), drift statistics, the serving ladder, and
+    the registry snapshot, under a `meta` header (rank, host, pid, time,
+    trace id). The header and `windows_detail` (the windows by bucket age)
+    are what the fleet plane's offline merge reads: staleness, missing
+    ranks, the windows' alignment. `cluster=True` adds the last merged live
+    cluster view (`fleet.cluster_report()`)."""
     from .. import diagnostics, telemetry
     from ..scheduler.ledger import global_ledger
 
     reg = telemetry.registry()
     health = slo.health(fresh=True)
     now = time.time()
-    return {
+    rep = {
         "t": now,
         "meta": {
             "rank": diagnostics._rank(),
@@ -91,13 +99,16 @@ def report(
         "health": {k: health[k] for k in ("healthy", "failing", "specs")},
         "slo": health["verdicts"],
         "windows": reg.windows_snapshot(),
+        "windows_detail": reg.windows_export(),
         "decisions": audit.decisions(tenant=tenant, trace_id=trace_id, limit=decision_limit),
         "decision_log": audit.stats(),
         # the shared ledger's per-tenant byte- and chip-seconds; the
-        # efficiency section comes with A15, the fleet's merged windows and
-        # cluster view with A10
+        # efficiency section comes with A15, the autotune table's with A18
         "tenants": global_ledger().tenant_usage(),
         "drift": drift.last_stats(),
         "serving": _serving_section(),
         "telemetry": reg.snapshot(),
     }
+    if cluster:
+        rep["cluster"] = fleet.cluster_report()
+    return rep

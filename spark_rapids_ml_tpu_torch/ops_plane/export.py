@@ -8,24 +8,27 @@
 #     `/metrics`): every cumulative counter and gauge plus a summary per
 #     histogram (count/sum and windowed p50/p99 as `quantile` labels).
 #     Names are sanitized `srml_<subsystem>_<name>` and every sample carries
-#     a `rank` label;
+#     a `rank` label; after an ops round, the fleet's merged view follows as
+#     `rank="cluster"` samples (counters summed, gauges as `agg`-labelled
+#     min/max/sum, the cluster's health and ranks reporting);
 #   * JSON snapshot (`/snapshot`): the full `ops_plane.report()` dict;
 #   * `/healthz`: the SLO health verdict, HTTP 200 while healthy and 503
-#     while any configured SLO is failing, evaluated fresh per scrape.
+#     while any configured SLO is failing, evaluated fresh per scrape; with
+#     a merged fleet view, the cluster's verdict too (in the body's
+#     `cluster`), and a failing cluster answers 503.
 #
 # The HTTP thread is OPT-IN (`SRML_METRICS_PORT`, or an explicit
 # `start_server(port)`): a stdlib `http.server.ThreadingHTTPServer` daemon
 # thread, bound to 127.0.0.1 unless `SRML_METRICS_HOST` says otherwise.
-# Port 0 binds an ephemeral port (`server_address()` reads it back).
+# Port 0 binds an ephemeral port (`server_address()` reads it back). Of
+# several ranks, only rank 0 binds, unless `SRML_METRICS_ALL_RANKS=1` puts
+# rank r at `port + r`.
 #
 # Headless runs write ROTATING on-disk snapshots instead: `write_snapshot()`
 # renames the previous `ops_snapshot.json` down a bounded `.1`/`.2`/...
 # chain under `config["ops_snapshot_dir"]` (seeded from
 # SRML_OPS_SNAPSHOT_DIR), so a wedged process's last report survives
 # without unbounded disk growth.
-#
-# Not here: the `rank="cluster"` samples and the cluster verdict of
-# /healthz, read from a fleet's merged view (ROADMAP A10).
 #
 from __future__ import annotations
 
@@ -85,7 +88,42 @@ def render_prometheus() -> str:
         sample(pname, reg.window_quantile(name, 0.99), ',quantile="0.99"')
         sample(f"{pname}_count", h.get("count"))
         sample(f"{pname}_sum", h.get("sum"))
+    lines.extend(_cluster_lines())
     return "\n".join(lines) + "\n"
+
+
+def _cluster_lines() -> List[str]:
+    """The `rank="cluster"` samples of the last merged fleet view (none
+    before an ops round): counters are the cluster's sums; a gauge gives its
+    ranks' min, max and sum as `agg`-labelled samples (a watermark's sum is
+    no rank's value)."""
+    from . import fleet as _fleet
+
+    view = _fleet.cluster_view()
+    if not view:
+        return []
+    lines: List[str] = []
+
+    def sample(name: str, value: Any, extra_labels: str = "") -> None:
+        if value is None:
+            return
+        lines.append(f'{name}{{rank="cluster"{extra_labels}}} {float(value):g}')
+
+    for name, v in sorted((view.get("counters") or {}).items()):
+        sample(_prom_name(name), v)
+    for name, g in sorted((view.get("gauges") or {}).items()):
+        pname = _prom_name(name)
+        for agg in ("min", "max", "sum"):
+            sample(pname, g.get(agg), f',agg="{agg}"')
+    for name, h in sorted((view.get("histograms") or {}).items()):
+        pname = _prom_name(name)
+        sample(f"{pname}_count", h.get("count"))
+        sample(f"{pname}_sum", h.get("sum"))
+    health = view.get("health") or {}
+    if "healthy" in health:
+        sample("srml_cluster_healthy", 1.0 if health["healthy"] else 0.0)
+    sample("srml_cluster_ranks_reporting", view.get("ranks_reporting"))
+    return lines
 
 
 # ------------------------------------------------------------- HTTP server --
@@ -115,9 +153,25 @@ def _make_handler():
                 if path == "/metrics":
                     self._send(200, render_prometheus().encode(), "text/plain; version=0.0.4")
                 elif path == "/healthz":
+                    from . import fleet as _fleet
+
                     verdict = _slo.health(fresh=True)
+                    # the last merged fleet view answers for the cluster: its
+                    # verdict rides the body, and a failing cluster answers
+                    # 503 while this rank's own windows look healthy
+                    cview = _fleet.cluster_view()
+                    healthy = bool(verdict["healthy"])
+                    if cview is not None:
+                        chealth = cview.get("health") or {}
+                        verdict["cluster"] = {
+                            "healthy": chealth.get("healthy", True),
+                            "failing": chealth.get("failing", []),
+                            "ranks_reporting": cview.get("ranks_reporting"),
+                            "missing": cview.get("missing", []),
+                        }
+                        healthy = healthy and bool(chealth.get("healthy", True))
                     body = json.dumps(verdict, default=str).encode()
-                    self._send(200 if verdict["healthy"] else 503, body, "application/json")
+                    self._send(200 if healthy else 503, body, "application/json")
                 elif path in ("/snapshot", "/snapshot.json"):
                     body = json.dumps(_ops.report(), default=str).encode()
                     self._send(200, body, "application/json")
@@ -178,17 +232,21 @@ def ensure_server() -> Optional[Tuple[str, int]]:
     """Start the exporter iff `SRML_METRICS_PORT` is set and no server runs
     yet: the opt-in entry the serving engine and `telemetry.enable()` call.
     Best-effort: a busy port returns None (the exporter must never fail the
-    plane it observes). Only RANK 0 binds: binding other ranks belongs to
-    the cross-rank plane (ROADMAP A10). Returns the bound (host, port), or
-    the running server's, or None."""
+    plane it observes). Only rank 0 binds by default, so ranks sharing a
+    host do not race for one port; `SRML_METRICS_ALL_RANKS=1` binds rank r
+    at `port + r`. Returns the bound (host, port), or the running server's,
+    or None."""
     from .. import diagnostics
 
     port = os.environ.get("SRML_METRICS_PORT")
     if not port:
         return server_address()
-    if diagnostics._rank():
-        return server_address()
     try:
+        rank = diagnostics._rank()
+        if rank:
+            if os.environ.get("SRML_METRICS_ALL_RANKS", "") not in ("1", "true", "on"):
+                return server_address()
+            return start_server(int(port) + rank)
         return start_server(int(port))
     except (OSError, ValueError):
         return None

@@ -31,9 +31,11 @@
 # scrape is always fresh. The serving backpressure ladder reads
 # `serving_latency_spec()`, `burn_rate()` and `last_verdicts()`.
 #
-# Not here: the flight-recorder events of each trip and clear (ROADMAP A15),
-# and the evaluation of a fleet's merged windows (`evaluate_reader`,
-# `cluster_health`; A10).
+# `evaluate_reader` and `cluster_health` run the same specs, statelessly,
+# over any windowed reader: the fleet plane's merged cluster window
+# (telemetry.MergedWindows), where a `min_count` floor lets the fleet's
+# burn trip while each rank's thin slice stays healthy. Not here: the
+# flight-recorder events of each trip and clear (ROADMAP A15).
 #
 from __future__ import annotations
 
@@ -198,21 +200,40 @@ def evaluate(force: bool = True) -> List[Dict[str, Any]]:
     return verdicts
 
 
-def evaluate_reader(reader: Any, specs: Optional[List[Dict[str, Any]]] = None, horizon: Optional[float] = None):
-    """Evaluation against a fleet's merged windows: not in the port."""
-    raise NotImplementedError(
-        "SLO evaluation over merged cross-rank windows (telemetry.MergedWindows) is not in "
-        "the PyTorch port yet (ROADMAP item A10)"
-    )
+def evaluate_reader(
+    reader: Any,
+    specs: Optional[List[Dict[str, Any]]] = None,
+    horizon: Optional[float] = None,
+) -> List[Dict[str, Any]]:
+    """Evaluate SLO specs (default: the configured ones) against any
+    windowed reader with `window_fraction_over`, `rate`, `window_quantile`
+    and `snapshot()["gauges"]`: the live registry or a fleet's
+    `telemetry.MergedWindows`. Stateless: no trip or clear state is touched
+    (a cluster verdict is a view; each process's monitors stay the source
+    of its transitions)."""
+    specs = _specs() if specs is None else [s for s in specs if isinstance(s, dict)]
+    if not specs:
+        return []
+    if horizon is None:
+        try:
+            horizon = float(reader.window_horizon_s())
+        except Exception:
+            horizon = DEFAULT_SLOW_WINDOW_S
+    return [_eval_one(s, reader, horizon) for s in specs]
 
 
-def cluster_health(reader: Any, specs: Optional[List[Dict[str, Any]]] = None):
-    """The cluster-wide health verdict over a fleet's merged windows: not in
-    the port."""
-    raise NotImplementedError(
-        "cluster health over merged cross-rank windows is not in the PyTorch port yet "
-        "(ROADMAP item A10)"
-    )
+def cluster_health(reader: Any, specs: Optional[List[Dict[str, Any]]] = None) -> Dict[str, Any]:
+    """The health verdict over a fleet's merged window, in `health()`'s
+    shape, through `evaluate_reader`."""
+    verdicts = evaluate_reader(reader, specs)
+    failing = [v["name"] for v in verdicts if v["failing"]]
+    return {
+        "healthy": not failing,
+        "failing": failing,
+        "specs": len(verdicts),
+        "verdicts": verdicts,
+        "t": time.time(),
+    }
 
 
 def maybe_evaluate() -> None:

@@ -60,6 +60,7 @@ import logging
 import os
 import re
 import socket
+import sys
 import threading
 import time
 from typing import Any, Iterator, List, Optional, Sequence, Tuple
@@ -170,7 +171,10 @@ class Rendezvous:
 
     In-tree substrates implement `_allgather_impl`; `allgather` wraps it
     with the `rendezvous.rounds` and `rendezvous.payload_bytes` counters
-    and the `rendezvous.allgather_s` histogram (telemetry on). Every round
+    and the `rendezvous.allgather_s` histogram (telemetry on), the
+    flight-recorder events `rdv_enter`, `rdv_exit` and `rdv_fail`, and the
+    fleet plane's straggler stamps (`fleet.note_round_exit`, telemetry on,
+    the fleet plane loaded, not a fan-out's chip). Every round
     is bounded by a deadline (the instance's `timeout_s`, else
     ``config["rendezvous_timeout_s"]``) and raises RendezvousTimeoutError
     when it elapses; a failing rank calls `abort(reason)` so its peers raise
@@ -188,6 +192,10 @@ class Rendezvous:
     # ranks across recovery epochs
     _live_ranks: Optional[List[int]] = None
     reform_generation: int = 0
+    # whether a rank of this rendezvous is a rank of the fleet plane (its
+    # rounds stamped for the straggler attribution); the chips of one
+    # process's fan-out are not
+    fleet_rank: bool = True
 
     @property
     def live_ranks(self) -> List[int]:
@@ -209,18 +217,34 @@ class Rendezvous:
         )
 
     def allgather(self, payload: str) -> List[str]:
-        from .. import telemetry
+        from .. import diagnostics, telemetry
 
-        # the flight-recorder events of a round (`rdv_enter`/`rdv_exit`)
-        # arrive with A15
-        if not telemetry.enabled():
-            return self._allgather_impl(payload)
-        t0 = time.perf_counter()
-        out = self._allgather_impl(payload)
-        reg = telemetry.registry()
-        reg.inc("rendezvous.rounds")
-        reg.inc("rendezvous.payload_bytes", len(payload))
-        reg.observe("rendezvous.allgather_s", time.perf_counter() - t0)
+        # (epoch, round) names a round uniquely: `begin_epoch` restarts the
+        # round count, so a retried attempt's rounds repeat the indices
+        round_index = getattr(self, "_round", None)
+        epoch = getattr(self, "_epoch", None)
+        diagnostics.record_event("rdv_enter", round=round_index, epoch=epoch, nranks=self.nranks)
+        try:
+            if not telemetry.enabled():
+                out = self._allgather_impl(payload)
+            else:
+                t_enter = time.time()
+                t0 = time.perf_counter()
+                out = self._allgather_impl(payload)
+                reg = telemetry.registry()
+                reg.inc("rendezvous.rounds")
+                reg.inc("rendezvous.payload_bytes", len(payload))
+                reg.observe("rendezvous.allgather_s", time.perf_counter() - t0)
+                # the fleet plane's straggler stamps, through a sys.modules
+                # probe: the control plane never imports the ops plane, and
+                # a process without the fleet plane records none
+                fleet = sys.modules.get(__package__.rsplit(".", 1)[0] + ".ops_plane.fleet")
+                if fleet is not None and self.fleet_rank:
+                    fleet.note_round_exit(self.rank, round_index, epoch, t_enter, time.time())
+        except BaseException as e:
+            diagnostics.record_event("rdv_fail", round=round_index, epoch=epoch, error=type(e).__name__)
+            raise
+        diagnostics.record_event("rdv_exit", round=round_index, epoch=epoch)
         return out
 
     def _allgather_impl(self, payload: str) -> List[str]:
@@ -452,9 +476,11 @@ class LocalRendezvous(Rendezvous):
 class InProcessRendezvous(LocalRendezvous):
     """The rendezvous of one process's chips (core.py's fan-out): a
     `LocalRendezvous` that does not reform. A lost chip thread fails the
-    fit, and the fit's own retry runs it again over every chip."""
+    fit, and the fit's own retry runs it again over every chip. Its chips
+    are not ranks of the fleet plane: their rounds are not stamped."""
 
     can_reform = False
+    fleet_rank = False
 
     @classmethod
     def create(cls, nranks: int, timeout_s: Optional[float] = None) -> List["InProcessRendezvous"]:

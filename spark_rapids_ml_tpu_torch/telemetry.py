@@ -49,11 +49,16 @@
 #
 # `device_wait(stage, device)` closes on `torch.cuda.synchronize(device)`
 # for a CUDA device, so the time it records is the wait for the card's
-# queued work; `host_section(stage)` times host work. Left out of this copy
-# (ROADMAP A15): the JSONL sinks, spans, the efficiency attribution plane,
-# and the solvers' diagnostics events and convergence ring; the fleet
-# merge of the windows across ranks (`MergedWindows`, `windows_export`)
-# waits for A10.
+# queued work; `host_section(stage)` times host work.
+#
+# The fleet plane (ops_plane/fleet.py) merges the ranks' views through the
+# one set of merge definitions here: `windows_export()` gives the rolling
+# windows indexed by bucket age, `merge_counters` / `merge_gauges` /
+# `merge_histograms` / `merge_windows` combine the ranks', and
+# `MergedWindows` reads a merged window as the SLO evaluator reads the
+# registry. Left out of this copy (ROADMAP A15): the JSONL sinks, spans, the
+# efficiency attribution plane, and the solvers' diagnostics events and
+# convergence ring.
 #
 from __future__ import annotations
 
@@ -79,6 +84,11 @@ __all__ = [
     "host_section",
     "record_device_memory",
     "record_solver_result",
+    "merge_counters",
+    "merge_gauges",
+    "merge_histograms",
+    "merge_windows",
+    "MergedWindows",
 ]
 
 # Most-recent observations retained per histogram for quantile() (serving
@@ -185,6 +195,162 @@ def quantile_of(values: List[float], q: float) -> Optional[float]:
     q = min(max(float(q), 0.0), 1.0)
     idx = min(len(ordered) - 1, max(0, int(round(q * (len(ordered) - 1)))))
     return float(ordered[idx])
+
+
+# ---------------------------------------------------------------- merges --
+#
+# The cross-rank merge definitions, which both of the fleet plane's
+# transports (the live ops round and the offline snapshot merge) use:
+# counters sum; gauges keep every rank's value with min/max/sum (an average
+# of a watermark would lie); window histograms merge per bucket age with
+# exact counts and sums and the sample lists concatenated and sorted. A
+# merge is associative and independent of rank order, and merging one rank
+# is the identity.
+
+
+def merge_counters(per_rank: List[Dict[str, float]]) -> Dict[str, float]:
+    """Sum counter dicts across ranks (a missing name contributes 0)."""
+    out: Dict[str, float] = {}
+    for counters in per_rank:
+        for name, v in (counters or {}).items():
+            out[name] = out.get(name, 0.0) + float(v)
+    return out
+
+
+def merge_gauges(per_rank: Dict[Any, Dict[str, float]]) -> Dict[str, Dict[str, Any]]:
+    """Merge gauge dicts keyed by rank: each name keeps the per-rank map
+    (`by_rank`, keyed by int rank; JSON's string keys are accepted) and
+    its min/max/sum."""
+    out: Dict[str, Dict[str, Any]] = {}
+    for rank in sorted(per_rank, key=lambda r: int(r)):
+        for name, v in (per_rank[rank] or {}).items():
+            e = out.setdefault(name, {"by_rank": {}, "min": float("inf"), "max": float("-inf"), "sum": 0.0})
+            v = float(v)
+            e["by_rank"][int(rank)] = v
+            e["min"] = min(e["min"], v)
+            e["max"] = max(e["max"], v)
+            e["sum"] += v
+    return out
+
+
+def merge_histograms(per_rank: List[Dict[str, Dict[str, float]]]) -> Dict[str, Dict[str, float]]:
+    """Merge cumulative histogram summaries: counts and sums add, min and
+    max fold."""
+    out: Dict[str, Dict[str, float]] = {}
+    for hists in per_rank:
+        for name, h in (hists or {}).items():
+            e = out.setdefault(name, {"count": 0.0, "sum": 0.0, "min": float("inf"), "max": float("-inf")})
+            e["count"] += float(h.get("count", 0.0))
+            e["sum"] += float(h.get("sum", 0.0))
+            e["min"] = min(e["min"], float(h.get("min", float("inf"))))
+            e["max"] = max(e["max"], float(h.get("max", float("-inf"))))
+    return out
+
+
+def merge_windows(exports: List[Dict[str, Any]]) -> Dict[str, Any]:
+    """Merge several ranks' `windows_export()`s, aligned by bucket age
+    (newest first). The exports must share one bucket width: ranks with
+    different widths have no common window, and ValueError is raised
+    (buckets of different widths are never averaged). Per-bucket counts and
+    sums stay exact; the merged sample lists are the sorted
+    concatenation."""
+    exports = [e for e in exports if e]
+    if not exports:
+        return {"bucket_seconds": None, "bucket_count": 0, "counters": {}, "hists": {}, "ranks": 0}
+    bucket_s = float(exports[0]["bucket_seconds"])
+    for e in exports[1:]:
+        if abs(float(e["bucket_seconds"]) - bucket_s) > 1e-9:
+            raise ValueError(
+                "merge_windows: mismatched bucket_seconds "
+                f"({e['bucket_seconds']} vs {bucket_s}) — ranks must share "
+                "metrics_bucket_seconds for their windows to align"
+            )
+    n = max(int(e["bucket_count"]) for e in exports)
+    counters: Dict[str, List[float]] = {}
+    hists: Dict[str, Dict[str, List[Any]]] = {}
+    for e in exports:
+        for name, vals in (e.get("counters") or {}).items():
+            acc = counters.setdefault(name, [0.0] * n)
+            for i, v in enumerate(vals[:n]):
+                acc[i] += float(v)
+        for name, h in (e.get("hists") or {}).items():
+            hacc = hists.setdefault(name, {"counts": [0.0] * n, "sums": [0.0] * n, "samples": [[] for _ in range(n)]})
+            for i in range(min(n, len(h["counts"]))):
+                hacc["counts"][i] += float(h["counts"][i])
+                hacc["sums"][i] += float(h["sums"][i])
+                hacc["samples"][i].extend(h["samples"][i])
+    for h in hists.values():
+        h["samples"] = [sorted(s) for s in h["samples"]]
+    return {"bucket_seconds": bucket_s, "bucket_count": n, "counters": counters, "hists": hists,
+            "ranks": len(exports)}
+
+
+class MergedWindows:
+    """A reader over a `merge_windows()` result with the registry's windowed
+    reads (`rate`, `window_count`, `window_quantile`,
+    `window_fraction_over`, `snapshot()["gauges"]`), so the SLO evaluator
+    runs unchanged over a cluster's window (`ops_plane.slo.evaluate_reader`).
+    The merged export is a snapshot: "now" is its newest bucket, and a
+    `window_s` reads the newest ``round(window_s / bucket)`` buckets.
+    `gauges` is the value each gauge ceiling judges (the fleet plane passes
+    the ranks' max: a ceiling breached anywhere is breached)."""
+
+    def __init__(self, merged: Optional[Dict[str, Any]], gauges: Optional[Dict[str, float]] = None) -> None:
+        self._m = merged or {"bucket_seconds": None, "bucket_count": 0, "counters": {}, "hists": {}}
+        self._gauges = dict(gauges or {})
+
+    def _k(self, window_s: Optional[float]) -> int:
+        bucket_s = self._m.get("bucket_seconds") or 0.0
+        n = int(self._m.get("bucket_count") or 0)
+        if not bucket_s or not n:
+            return 0
+        horizon = bucket_s * n
+        span = horizon if window_s is None else min(max(float(window_s), bucket_s), horizon)
+        return max(1, min(n, int(round(span / bucket_s))))
+
+    def bucket_seconds(self) -> float:
+        return float(self._m.get("bucket_seconds") or 0.0)
+
+    def window_horizon_s(self) -> float:
+        return self.bucket_seconds() * int(self._m.get("bucket_count") or 0)
+
+    def rate(self, name: str, window_s: Optional[float] = None) -> Optional[float]:
+        vals = (self._m.get("counters") or {}).get(name)
+        k = self._k(window_s)
+        if vals is None or not k:
+            return None
+        span = k * float(self._m["bucket_seconds"])
+        return sum(vals[:k]) / span if span > 0 else None
+
+    def window_samples(self, name: str, window_s: Optional[float] = None) -> List[float]:
+        h = (self._m.get("hists") or {}).get(name)
+        if h is None:
+            return []
+        out: List[float] = []
+        for i in range(min(self._k(window_s), len(h["samples"]))):
+            out.extend(h["samples"][i])
+        return out
+
+    def window_count(self, name: str, window_s: Optional[float] = None) -> float:
+        h = (self._m.get("hists") or {}).get(name)
+        if h is None:
+            return 0.0
+        return float(sum(h["counts"][: self._k(window_s)]))
+
+    def window_quantile(self, name: str, q: float, window_s: Optional[float] = None) -> Optional[float]:
+        return quantile_of(self.window_samples(name, window_s), q)
+
+    def window_fraction_over(
+        self, name: str, threshold: float, window_s: Optional[float] = None
+    ) -> Optional[Tuple[float, int]]:
+        samples = self.window_samples(name, window_s)
+        if not samples:
+            return None
+        bad = sum(1 for s in samples if s > threshold)
+        return bad / len(samples), len(samples)
+
+    def snapshot(self) -> Dict[str, Any]:
+        return {"gauges": dict(self._gauges)}
 
 
 class MetricsRegistry:
@@ -349,6 +515,33 @@ class MetricsRegistry:
             "rates": rates,
             "quantiles": quantiles,
         }
+
+    def windows_export(self) -> Dict[str, Any]:
+        """The rolling windows in the form the fleet plane merges: each
+        counter's per-bucket increment sums and each histogram's per-bucket
+        counts, sums and sorted samples, indexed by bucket age (newest
+        first). A ring's head is a bucket of this process's
+        `time.monotonic()`, which means nothing in another process, so age
+        is the only alignment across ranks (their skew is at most one bucket
+        width). Sorted samples make the merge canonical. Taken under one
+        lock hold at one clock reading, as `windows_snapshot`."""
+        now = time.monotonic()
+        with self._lock:
+            bucket_s, n = self._win()
+            counters: Dict[str, List[float]] = {}
+            for name, ring in self._win_counters.items():
+                ring._advance(now)
+                counters[name] = [float(ring.sums[(ring.head - i) % ring.n]) for i in range(ring.n)]
+            hists: Dict[str, Dict[str, List[Any]]] = {}
+            for name, ring in self._win_hists.items():
+                ring._advance(now)
+                idx = [(ring.head - i) % ring.n for i in range(ring.n)]
+                hists[name] = {
+                    "counts": [float(ring.counts[i]) for i in idx],
+                    "sums": [float(ring.sums[i]) for i in idx],
+                    "samples": [sorted(ring.samples[i]) for i in idx],
+                }
+        return {"bucket_seconds": bucket_s, "bucket_count": n, "counters": counters, "hists": hists}
 
     def snapshot(self) -> Dict[str, Any]:
         """Counters, gauges and histogram summaries (JSON-able)."""

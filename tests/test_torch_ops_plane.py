@@ -303,11 +303,25 @@ def test_slo_trips_and_clears_and_the_serving_spec_like_jax():
     assert out["port"][3] == spec
 
 
-def test_slo_fleet_reads_name_their_roadmap_item():
-    with pytest.raises(NotImplementedError, match="A10"):
-        tslo.evaluate_reader(object())
-    with pytest.raises(NotImplementedError, match="A10"):
-        tslo.cluster_health(object())
+def test_slo_evaluate_reader_and_cluster_health_equal_jax():
+    # the stateless evaluation over a merged window and over the live
+    # registry: the same verdicts, and no trip recorded
+    spec = {"name": "p99", "kind": "latency", "histogram": "serve.e2e_s", "threshold_s": 0.1, "fast_burn": 1.0}
+    errs = {"name": "err", "kind": "error_rate", "errors": "serve.errors", "total": "serve.requests"}
+    export = {"bucket_seconds": 0.5, "bucket_count": 4, "counters": {"serve.requests": [4.0, 0, 0, 0],
+                                                                     "serve.errors": [1.0, 0, 0, 0]},
+              "hists": {"serve.e2e_s": {"counts": [3.0, 0, 0, 0], "sums": [1.2, 0, 0, 0],
+                                        "samples": [[0.05, 0.5, 0.65], [], [], []]}}}
+    out = {}
+    for name, side in SIDES.items():
+        (config if name == "port" else jcore.config)["slo"] = [spec, errs]
+        reader = side["tel"].MergedWindows(side["tel"].merge_windows([export]))
+        health = side["slo"].cluster_health(reader)
+        live = side["slo"].evaluate_reader(side["tel"].registry(), [spec])
+        assert "slo.trips" not in side["tel"].registry().snapshot()["counters"]
+        out[name] = ({k: v for k, v in health.items() if k != "t"}, live, side["slo"].evaluate_reader(reader, []))
+    assert out["port"] == out["jax"]
+    assert out["port"][0]["failing"] == ["p99", "err"] and out["port"][2] == []
 
 
 # ------------------------------------------------------------ exporters ------
@@ -396,8 +410,10 @@ def test_report_sections():
     taudit.record_decision("eviction", "serving", "evicted", subject="B", tenant="serving")
     rep = tops.report(tenant="t1")
     jrep = jops.report(tenant="t1")
-    # the efficiency plane is A15; the fleet's windows_detail is A10
-    assert set(rep) == set(jrep) - {"windows_detail", "efficiency", "autotune"}
+    # the efficiency plane is A15, the autotune table A18
+    assert set(rep) == set(jrep) - {"efficiency", "autotune"}
+    assert rep["windows_detail"].keys() == jrep["windows_detail"].keys()
+    assert set(tops.report(cluster=True)) == set(jops.report(cluster=True)) - {"efficiency", "autotune"}
     assert set(rep["meta"]) == set(jrep["meta"])
     assert [d["tenant"] for d in rep["decisions"]] == ["t1"]
     assert rep["decision_log"] == {"capacity": rep["decision_log"]["capacity"], "recorded": 2, "retained": 2,

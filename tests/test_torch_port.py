@@ -147,6 +147,15 @@ except PreemptedError as e:
     assert (e.solver, e.iteration) == ("glm_qn", 2)
 config.update(checkpoint_every_iters=0)
 assert {"a", "b", "_pool"} <= set(ops_plane.report()["tenants"])
+import threading  # the fleet plane: one ops round of three thread ranks
+from spark_rapids_ml_tpu_torch.ops_plane import fleet
+from spark_rapids_ml_tpu_torch.parallel import LocalRendezvous
+rdvs = LocalRendezvous.create(3, timeout_s=30.0)
+ts = [threading.Thread(target=fleet.ops_round, args=(rdvs[r],), kwargs={"force": True}) for r in range(3)]
+[t.start() for t in ts]
+[t.join(60) for t in ts]
+view = ops_plane.report(cluster=True)["cluster"]
+assert view["ranks_reporting"] == 3 and view["missing"] == [] and view["health"]["healthy"], view
 bad = sorted(n for n in sys.modules
              if n == "spark_rapids_ml_tpu" or n.startswith("spark_rapids_ml_tpu."))
 assert not bad, bad

@@ -37,6 +37,11 @@
 #           `parallel.shard_row_ranges` (the blocks one process driving
 #           nranks chips gives them): KMeans and LogisticRegression, float64,
 #           to rank<r>.npz (`even_main`);
+#   fleet   two KMeans fits and a CrossValidator over LinearRegression with
+#           telemetry on and `fleet_ops_round_seconds` 0, so every
+#           top-level fit's trace round carries an ops round
+#           (`fleet_main`); the last cluster view, the fleet counters and
+#           the top-level trace ids to result_rank<r>.json;
 #   recover a real KMeans fit, checkpointed every 2 iterations inside a
 #           device_dataset_scope, whose rank `victim` (argv) SIGKILLs itself
 #           once its iteration-2 checkpoint has landed; the survivors reform,
@@ -606,6 +611,58 @@ def even_main(rank, nranks, rdv_dir, out_dir, run_id):
              lr_coef=lr.coef_, lr_intercept=np.asarray(lr.intercept_), lr_iter=np.asarray(lr.n_iter_))
 
 
+def fleet_main(rank, nranks, rdv_dir, out_dir, run_id):
+    """The fleet plane over real processes: each top-level trace scope is
+    counted as it opens (a sweep's inner fits adopt its trace and are not),
+    and after the fits the rank's cluster view is written out."""
+    import contextlib
+
+    from mp_worker import make_dataset, split_bounds
+    from spark_rapids_ml_tpu_torch import (
+        CrossValidator, KMeans, LinearRegression, ParamGridBuilder, RegressionEvaluator, diagnostics, set_devices,
+        telemetry,
+    )
+    from spark_rapids_ml_tpu_torch.core import config
+    from spark_rapids_ml_tpu_torch.ops_plane import fleet
+    from spark_rapids_ml_tpu_torch.parallel import FileRendezvous, TpuContext
+
+    set_devices("cpu")
+    telemetry.enable()
+    config["fleet_ops_round_seconds"] = 0
+    X, _, y_lin = make_dataset()
+    bounds = split_bounds(len(X), nranks)
+    lo, hi = bounds[rank], bounds[rank + 1]
+    data = {"features": X[lo:hi], "label": y_lin[lo:hi]}
+    trace_ids = []
+    real_scope = diagnostics.trace_scope
+
+    @contextlib.contextmanager
+    def counting_scope(label, ctx=None):
+        top = diagnostics.current_trace() is None
+        with real_scope(label, ctx) as tags:
+            if top:
+                trace_ids.append(tags["trace_id"])
+            yield tags
+
+    diagnostics.trace_scope = counting_scope
+    rdv = FileRendezvous(rank, nranks, rdv_dir, timeout_s=60.0, run_id=run_id, heartbeat_interval_s=0.5)
+    with TpuContext(rank, nranks, rdv):
+        KMeans(k=4, maxIter=5, seed=3, float32_inputs=False).fit({"features": data["features"]})
+        KMeans(k=3, maxIter=5, seed=1, float32_inputs=False).fit({"features": data["features"]})
+        lr = LinearRegression(float32_inputs=False)
+        grid = ParamGridBuilder().addGrid(lr.getParam("regParam"), [0.0, 0.1]).build()
+        CrossValidator(estimator=lr, estimatorParamMaps=grid, evaluator=RegressionEvaluator(), numFolds=2,
+                       seed=1).fit(data)
+        view = fleet.cluster_view()
+    rdv.close()
+    counters = telemetry.registry().snapshot()["counters"]
+    res = {"view": view, "trace_ids": trace_ids, "top_level_scopes": len(trace_ids),
+           "ops_rounds": counters.get("fleet.ops_rounds", 0),
+           "ops_rounds_failed": counters.get("fleet.ops_rounds_failed", 0)}
+    with open(os.path.join(out_dir, f"result_rank{rank}.json"), "w") as f:
+        json.dump(res, f, default=str)
+
+
 def main() -> None:
     mode, rank, nranks, rdv_dir, out_dir, run_id = sys.argv[1:7]
     rank, nranks = int(rank), int(nranks)
@@ -623,6 +680,8 @@ def main() -> None:
         sweep_main(rank, nranks, rdv_dir, out_dir, run_id)
     elif mode == "even":
         even_main(rank, nranks, rdv_dir, out_dir, run_id)
+    elif mode == "fleet":
+        fleet_main(rank, nranks, rdv_dir, out_dir, run_id)
     elif mode == "recover":
         recover_main(rank, nranks, rdv_dir, out_dir, run_id, int(sys.argv[7]))
     elif mode == "rounds":
